@@ -6,29 +6,37 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from tidb_tpu_torch/ops/csrc with
-nvcc (sm_90a), then runs three phases; any failure exits non-zero.
+nvcc (sm_90a, one nvcc per source, all started together), then runs three
+phases; any failure exits non-zero.
 
-1. Kernels against their plain PyTorch versions on the card, at Q1's chunk
-   shape (R = 65,536) with G in {1, 12, 8192}, a G above the shared-memory
-   budget, ragged R, ids >= G and int64 extremes. Counts and int64 sums
-   must be bit-equal; f32 sums agree within 1e-5 of each group's absolute
-   mass (atomics add in a different order on every run).
-2. TPC-H Q1 and Q6 at SF1 (about 6M lineitem rows) through
+1. Kernels against their plain PyTorch versions on the card.
+   Segment sums (B1, B2) at Q1's chunk shape (R = 65,536) with G in
+   {1, 12, 8192}, a G above the shared-memory budget, ragged R, ids >= G
+   and int64 extremes: counts and int64 sums bit-equal, f32 sums within
+   1e-5 of each group's absolute mass (atomics add in a different order on
+   every run). The hash probe (B3) on Q18's shape, random keys with
+   duplicates, a same-home cluster, full-int64 keys, a build over capacity,
+   the largest eligible build, ragged R, all misses and keys whose mix hits
+   the EMPTY sentinel: (lo, hi) bit-equal to the plain window scan, and
+   hi - lo equal to searchsorted's count (lo equal on every hit).
+2. TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
    tidb_tpu_torch.session.Session on cuda, each compared with a numpy
    evaluation of the same query over the same generated arrays (decimals
-   exact). Each query runs with the kernels' launch counters set to 0 just
-   before it and read just after; both kernels must have launched.
-3. Times: warm Q1 and Q6 wall time (median of 3) and rows/s; one more
+   exact). Each query runs with the kernels' launch counters and the join's
+   probe-route counter set to 0 just before it and read just after; Q1 and
+   Q6 must launch both segment kernels, Q18 the hash probe through the
+   table route.
+3. Times: warm wall time (median of 3) and rows/s of each query; one more
    warm run of each under torch.profiler (device busy time, idle share,
-   top operators by device time); each kernel's time at Q1's shape beside
-   its byte bound at 3.35 TB/s, its plain version's time and `index_add_`
-   as the library yardstick. The full report goes to
-   chiprun_out/chip_smoke.json.
+   top operators by device time); each kernel's time at its main-path
+   shape beside its bound, its plain version's time and a library call as
+   the yardstick (`index_add_` for B1/B2, searchsorted left + right for
+   B3). The full report goes to chiprun_out/chip_smoke.json.
 
-The line before the last is one JSON object {"kernels": [...]}, the last
-{"ok": true, "device": {...}}. Without a CUDA card, or without the
-repository beside it, it prints no result and exits non-zero.
-"""
+The card's name and power limit are printed first; the line before the
+last is one JSON object {"kernels": [...]}, the last {"ok": true,
+"device": {...}}. Without a CUDA card, or without the repository beside
+it, it prints no result and exits non-zero."""
 
 import json
 import os
@@ -42,6 +50,13 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor FP32 peak, used for adds
 Q1_ROWS = 65536             # Q1's chunk capacity at SF1 (tidb_max_chunk_size)
 Q1_GROUPS = 12              # (3 returnflags + NULL) x (2 linestatuses + NULL)
 OUT_DIR = "chiprun_out"
+I64_MAX = (1 << 63) - 1
+M64 = (1 << 64) - 1
+FP_SALT = 0x9E3779B97F4A7C15  # the hash probe's fingerprint salt
+# operations per probe in B3: two splitmix64 tails (xor, shift, multiply
+# twice each, then the final xor-shift and the EMPTY remap: 9 each) and,
+# per slot read, a slot index, a compare against EMPTY and the fingerprint
+MIX_OPS, SLOT_OPS = 18, 3
 
 
 def log(*a):
@@ -142,8 +157,107 @@ def phase_kernels(torch, np, seg_mod):
     return err
 
 
+def _unshift(y: int, s: int) -> int:
+    """Inverse of x ^ (x >> s) on 64 bits."""
+    x, t = y, y >> s
+    while t:
+        x ^= t
+        t >>= s
+    return x
+
+
+def empty_preimage(salt: int) -> int:
+    """The int64 key whose splitmix64 tail (with `salt`) has low 32 bits
+    0x7FFFFFFF, the probe table's EMPTY sentinel (the tail is invertible)."""
+    h = _unshift(0x7FFFFFFF, 31)
+    h = (h * pow(0x94D049BB133111EB, -1, 1 << 64)) & M64
+    h = _unshift(h, 27)
+    h = (h * pow(0xBF58476D1CE4E5B9, -1, 1 << 64)) & M64
+    h = _unshift(h, 30) ^ salt
+    return h - (1 << 64) if h >= (1 << 63) else h
+
+
+def probe_cases(np):
+    """name -> (sorted int64 build keys, int64 probe keys) for B3."""
+    rng = np.random.default_rng(2027)
+    R = Q1_ROWS
+    info = np.iinfo(np.int64)
+    ext = np.array([info.min, info.min + 1, -1, 0, 1, info.max - 1, info.max, info.max])
+    q18 = np.sort(rng.choice(np.arange(1, 1_500_001), 57, replace=False))
+    q18_probes = rng.integers(1, 1_500_001, R)
+    q18_probes[rng.integers(0, R, 399)] = rng.choice(q18, 399)  # ~7 lines per key
+    pre = [empty_preimage(0), empty_preimage(FP_SALT)]
+    dups = np.repeat(rng.integers(0, 1 << 40, 1 << 17), 2)
+    cases = {
+        # Q18's semi join: ~60 runs padded to the build's shape bucket
+        "q18_shape": (np.concatenate([q18, np.full(64 - len(q18), I64_MAX)]), q18_probes),
+        "random_dups": (rng.integers(-500, 500, 4000) * 7919,
+                        rng.integers(-800, 800, R) * 7919),
+        "same_home_cluster": (np.arange(64) << 40, np.resize(np.arange(-8, 72) << 40, R)),
+        "full_int64": (ext, np.resize(np.array([info.min, info.min + 2, -1, 0, 2, info.max,
+                                                 info.max - 1, 7]), R)),
+        "over_capacity": (rng.integers(0, 1 << 40, 1 << 19), rng.integers(0, 1 << 40, R)),
+        # bucket 2^18, capacity 2^19: the largest build the table takes
+        "largest_eligible": (dups, np.concatenate([rng.choice(dups, R // 2),
+                                                   rng.integers(0, 1 << 40, R // 2)])),
+        "ragged_r": (rng.integers(-500, 500, 4000) * 7919,
+                     rng.integers(-800, 800, R + 37) * 7919),
+        "all_miss": (np.arange(0, 4000, 2) << 20, np.resize(np.arange(1, 4001, 2) << 20, R)),
+        "empty_sentinel": (np.array(pre + [5, 0x7FFFFFFF]),
+                           np.resize(np.array(pre + [5, 6, 0x7FFFFFFF]), R)),
+    }
+    return {k: (np.sort(np.asarray(b, dtype=np.int64)), np.asarray(p, dtype=np.int64))
+            for k, (b, p) in cases.items()}
+
+
+def check_probe_case(torch, hp, sk, pr) -> dict:
+    """B3 against its plain version and searchsorted on one case; raises
+    on any difference. Returns what the case exercised."""
+    ss_lo, ss_hi = hp.sorted_probe_ranges(sk, pr)
+    ss_cnt = ss_hi - ss_lo
+    cap = hp.table_capacity(sk.shape[0])
+    if cap is None:
+        # over capacity: the join keeps searchsorted and launches nothing
+        n0 = hp.LAUNCHES["hash_probe"]
+        lo, hi = hp.probe_ranges(sk, pr)
+        if hp.LAUNCHES["hash_probe"] != n0 or not (
+                torch.equal(lo, ss_lo) and torch.equal(hi, ss_hi)):
+            raise AssertionError("an over-capacity build did not keep searchsorted")
+        return {"cap": None, "placed": None, "hits": int((ss_cnt > 0).sum())}
+    tkeys, tlos, this, placed = hp.build_table(sk, cap)
+    lo, hi = hp.probe_table(tkeys, tlos, this, sk, pr)
+    p_lo, p_hi = hp.plain_probe_table(tkeys, tlos, this, sk, pr)
+    if not (torch.equal(lo, p_lo) and torch.equal(hi, p_hi)):
+        bad = int(((lo != p_lo) | (hi != p_hi)).sum())
+        raise AssertionError(f"hash_probe differs from its plain version on {bad} keys")
+    placed = bool(placed)
+    if placed:
+        cnt = hi - lo
+        hit = ss_cnt > 0
+        if not (torch.equal(cnt, ss_cnt) and torch.equal(lo[hit], ss_lo[hit])):
+            raise AssertionError("hash_probe ranges differ from searchsorted")
+    else:  # the join falls back to searchsorted for such a build
+        f_lo, f_hi = hp.probe_ranges(sk, pr)
+        if not (torch.equal(f_lo, ss_lo) and torch.equal(f_hi, ss_hi)):
+            raise AssertionError("an unplaced build did not fall back to searchsorted")
+    return {"cap": cap, "placed": placed, "hits": int((ss_cnt > 0).sum())}
+
+
+def phase_probe(torch, np, hp) -> dict:
+    """Phase 1 for B3: every case of probe_cases on the card."""
+    out = {}
+    for name, (b, p) in probe_cases(np).items():
+        sk = torch.from_numpy(b).cuda()
+        pr = torch.from_numpy(p).cuda()
+        out[name] = check_probe_case(torch, hp, sk, pr)
+        torch.cuda.synchronize()
+        log(f"hash_probe check {name}: R={len(p)} build={len(b)} {out[name]}: "
+            f"bit-equal to the plain scan, counts equal searchsorted")
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phase 2: Q1 and Q6 at SF1 through the port's Session
+# phase 2: Q1, Q6, Q3, Q5 and Q18 at SF1 through the port's Session
 # ---------------------------------------------------------------------------
 
 
@@ -205,6 +319,115 @@ def check_q1(np, got, want):
                 raise AssertionError(f"Q1 averages differ: {g} vs {w}")
 
 
+def _cols(t, *names):
+    return [t.data[c][:t.n] for c in names]
+
+
+def _iso(np, days: int) -> str:
+    return str(np.datetime64("1970-01-01") + np.timedelta64(int(days), "D"))
+
+
+def _lookup(np, keys, n_max):
+    """key -> row position (-1 where absent) over keys in [0, n_max]."""
+    pos = np.full(n_max + 1, -1, dtype=np.int64)
+    pos[keys] = np.arange(len(keys))
+    return pos
+
+
+def _group_sum(np, keys, vals):
+    """(sorted distinct keys, exact int64 sum of vals per key)."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq), dtype=np.int64)
+    np.add.at(sums, inv, vals.astype(np.int64))
+    return uniq, sums
+
+
+def numpy_q3(np, cat):
+    c, o, li = (cat.table("test", n) for n in ("customer", "orders", "lineitem"))
+    d0 = _days(np, "1995-03-15")
+    ckey, cseg = _cols(c, "c_custkey", "c_mktsegment")
+    building = np.zeros(int(ckey.max()) + 1, dtype=bool)
+    building[ckey[cseg == c.dicts["c_mktsegment"].values.index("BUILDING")]] = True
+    okey, ocust, odate, oprio = _cols(o, "o_orderkey", "o_custkey", "o_orderdate",
+                                      "o_shippriority")
+    keep_o = (odate < d0) & building[ocust]
+    opos = _lookup(np, okey, int(okey.max()))
+    lkey, ship, ext, disc = _cols(li, "l_orderkey", "l_shipdate", "l_extendedprice",
+                                  "l_discount")
+    row = opos[lkey]
+    m = (ship > d0) & (row >= 0) & keep_o[np.maximum(row, 0)]
+    uniq, rev = _group_sum(np, lkey[m], ext[m] * (100 - disc[m]))  # scale 4
+    od = odate[opos[uniq]]
+    top = np.lexsort((od, -rev))[:10]
+    return [(int(uniq[i]), int(rev[i]), _iso(np, od[i]), int(oprio[opos[uniq[i]]]))
+            for i in top]
+
+
+def numpy_q5(np, cat):
+    c, o, li, su, na, re = (cat.table("test", n) for n in (
+        "customer", "orders", "lineitem", "supplier", "nation", "region"))
+    rkey, rname = _cols(re, "r_regionkey", "r_name")
+    asia = rkey[rname == re.dicts["r_name"].values.index("ASIA")]
+    nkey, nname, nreg = _cols(na, "n_nationkey", "n_name", "n_regionkey")
+    in_asia = np.zeros(int(nkey.max()) + 1, dtype=bool)
+    in_asia[nkey[np.isin(nreg, asia)]] = True
+    ckey, cnat = _cols(c, "c_custkey", "c_nationkey")
+    cnat_of = np.full(int(ckey.max()) + 1, -1)
+    cnat_of[ckey] = cnat
+    skey, snat = _cols(su, "s_suppkey", "s_nationkey")
+    snat_of = np.full(int(skey.max()) + 1, -2)
+    snat_of[skey] = snat
+    okey, ocust, odate = _cols(o, "o_orderkey", "o_custkey", "o_orderdate")
+    in_year = (odate >= _days(np, "1994-01-01")) & (odate < _days(np, "1995-01-01"))
+    opos = _lookup(np, okey, int(okey.max()))
+    lkey, lsupp, ext, disc = _cols(li, "l_orderkey", "l_suppkey", "l_extendedprice",
+                                   "l_discount")
+    row = np.maximum(opos[lkey], 0)
+    sn = snat_of[lsupp]
+    m = ((opos[lkey] >= 0) & in_year[row] & (cnat_of[ocust[row]] == sn)
+         & in_asia[np.maximum(sn, 0)])
+    nat, rev = _group_sum(np, sn[m], ext[m] * (100 - disc[m]))
+    names = na.dicts["n_name"].values
+    name_of = {int(k): names[int(n)] for k, n in zip(nkey, nname)}
+    return sorted(((name_of[int(k)], int(v)) for k, v in zip(nat, rev)),
+                  key=lambda r: -r[1])
+
+
+def numpy_q18(np, cat, threshold=30000):
+    """Q18's rows, and its semi join's sorted build keys (the orders whose
+    quantity sum, at scale 2, exceeds the threshold)."""
+    c, o, li = (cat.table("test", n) for n in ("customer", "orders", "lineitem"))
+    lkey, qty = _cols(li, "l_orderkey", "l_quantity")
+    uniq, tot = _group_sum(np, lkey, qty)
+    big = uniq[tot > threshold]
+    okey, ocust, odate, oprice = _cols(o, "o_orderkey", "o_custkey", "o_orderdate",
+                                       "o_totalprice")
+    opos = _lookup(np, okey, int(okey.max()))
+    ckey, cname = _cols(c, "c_custkey", "c_name")
+    cpos = _lookup(np, ckey, int(ckey.max()))
+    names = c.dicts["c_name"].values
+    rows = []
+    for k, q in zip(big, tot[tot > threshold]):
+        r = opos[k]
+        if r < 0 or cpos[ocust[r]] < 0:
+            continue
+        rows.append((names[int(cname[cpos[ocust[r]]])], int(ocust[r]), int(k),
+                     int(odate[r]), int(oprice[r]), int(q)))
+    rows.sort(key=lambda r: (-r[4], r[3]))
+    rows = [(a, b, k, _iso(np, d), p, q) for a, b, k, d, p, q in rows[:100]]
+    return rows, np.sort(big.astype(np.int64))
+
+
+def check_join_rows(qname, got, want, decimal_cols):
+    """Port rows (decimal strings) against numpy rows (scaled ints)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{qname}: {len(got)} rows, numpy has {len(want)}")
+    for g, w in zip(got, want):
+        g = tuple(_scaled(v) if i in decimal_cols else v for i, v in enumerate(g))
+        if g != tuple(w):
+            raise AssertionError(f"{qname} differs: {g} vs {w}")
+
+
 def profile_query(torch, session, sql: str) -> dict:
     """One warm run under torch.profiler: wall time, device busy time (the
     sum over the kernels and copies on the card, which run on one stream),
@@ -238,14 +461,35 @@ def profile_query(torch, session, sql: str) -> dict:
                 host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
 
 
-def run_query(session, seg_mod, sql: str):
-    """One run with the launch counters zeroed just before and read just
-    after; returns (rows, launches, seconds)."""
+def run_query(session, mods, sql: str):
+    """One run with the kernels' launch counters and the join's probe-route
+    counter zeroed just before and read just after; returns (rows,
+    launches, routes, seconds)."""
+    seg_mod, hp, jk = mods
     seg_mod.reset_launches()
+    hp.reset_launches()
+    jk.reset_routes()
     t0 = time.perf_counter()
     rows = session.query(sql)
     dt = time.perf_counter() - t0
-    return rows, dict(seg_mod.LAUNCHES), dt
+    return rows, {**seg_mod.LAUNCHES, **hp.LAUNCHES}, dict(jk.PROBE_ROUTES), dt
+
+
+def probe_slot_reads(torch, hp, tkeys, tlos, sk, probes) -> int:
+    """Slots B3 reads for these probes: up to and including the first hit
+    or EMPTY slot, at most MAX_PROBES (the work its early stop leaves)."""
+    cap = tkeys.shape[0]
+    home = hp._mix32(probes) & (cap - 1)
+    fp = hp._mix32(probes, FP_SALT)
+    done = torch.zeros(probes.shape, dtype=torch.bool, device=probes.device)
+    reads = torch.zeros((), dtype=torch.int64, device=probes.device)
+    for r in range(hp.MAX_PROBES):
+        pos = (home + r) & (cap - 1)
+        reads += (~done).sum()
+        k = tkeys[pos].long()
+        cand = tlos[pos].long().clamp(0, sk.shape[0] - 1)
+        done |= (k == 0x7FFFFFFF) | ((k == fp) & (sk[cand] == probes))
+    return int(reads)
 
 
 def main() -> int:
@@ -257,7 +501,12 @@ def main() -> int:
     try:
         import numpy as np
 
+        from tidb_tpu_torch.ops import hash_probe as hp
+        from tidb_tpu_torch.ops import join_kernels as jk
+        from tidb_tpu_torch.ops import nvcc_build
         from tidb_tpu_torch.ops import segment_sum as seg_mod
+        from tidb_tpu_torch.parser import parse
+        from tidb_tpu_torch.planner.physical import explain_text
         from tidb_tpu_torch.session import Session
         from tidb_tpu_torch.storage.tpch_queries import Q
     except ImportError as e:
@@ -266,16 +515,22 @@ def main() -> int:
         return 2
 
     card = card_line()
+    print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
     os.makedirs(OUT_DIR, exist_ok=True)
+    mods = (seg_mod, hp, jk)
 
     t0 = time.perf_counter()
+    nvcc_build.build_libraries([os.path.join(nvcc_build.CSRC, m.SOURCE)
+                                for m in (seg_mod, hp)])
     seg_mod.load_kernels()
+    hp.load_kernels()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 1 ------------------------------------------------------------
     errs = phase_kernels(torch, np, seg_mod)
+    probe_checks = phase_probe(torch, np, hp)
 
     # -- phase 2 ------------------------------------------------------------
     s = Session()  # device=None: the card
@@ -285,24 +540,45 @@ def main() -> int:
     li = s.catalog.table("test", "lineitem")
     n_rows = li.live_rows
 
-    launches = {"segsum_count": 0, "segsum_i64": 0}
-    q1_rows, q1_l, q1_cold = run_query(s, seg_mod, Q["q1"][0])
-    q6_rows, q6_l, q6_cold = run_query(s, seg_mod, Q["q6"][0])
-    for qname, lc in (("q1", q1_l), ("q6", q6_l)):
-        log(f"{qname} launches: {lc}")
+    queries = ("q1", "q6", "q3", "q5", "q18")
+    launches = {"segsum_count": 0, "segsum_i64": 0, "hash_probe": 0}
+    results, per_query, cold = {}, {}, {}
+    for qname in queries:
+        rows, lc, routes, dt = run_query(s, mods, Q[qname][0])
+        results[qname], cold[qname] = rows, dt
+        per_query[qname] = {"launches": lc, "routes": routes}
+        log(f"{qname} launches: {lc}; probe routes: {routes}; cold run {dt:.3f} s")
         for k in launches:
-            if lc[k] <= 0:
-                raise AssertionError(f"{qname} never launched {k}")
             launches[k] += lc[k]
-    check_q1(np, q1_rows, numpy_q1(np, li))
+    for qname in ("q1", "q6"):
+        for k in ("segsum_count", "segsum_i64"):
+            if per_query[qname]["launches"][k] <= 0:
+                raise AssertionError(f"{qname} never launched {k}")
+    if per_query["q18"]["launches"]["hash_probe"] <= 0:
+        raise AssertionError("q18 never launched hash_probe")
+    if per_query["q18"]["routes"]["table"] <= 0:
+        raise AssertionError("q18 never probed through the table route")
+    check_q1(np, results["q1"], numpy_q1(np, li))
+    q6_rows = results["q6"]
     if len(q6_rows) != 1 or _scaled(q6_rows[0][0]) != numpy_q6(np, li):
         raise AssertionError(f"Q6 {q6_rows} vs numpy {numpy_q6(np, li)}")
-    log(f"Q1 ({len(q1_rows)} groups) and Q6 equal the numpy evaluation; "
-        f"cold runs {q1_cold:.3f} s and {q6_cold:.3f} s")
+    q18_want, q18_build = numpy_q18(np, s.catalog)
+    check_join_rows("q3", results["q3"], numpy_q3(np, s.catalog), {1})
+    check_join_rows("q5", results["q5"], numpy_q5(np, s.catalog), {1})
+    check_join_rows("q18", results["q18"], q18_want, {4, 5})
+    if not results["q3"] or not results["q5"] or not results["q18"]:
+        raise AssertionError("a join query returned no rows")
+    log(f"Q1 ({len(results['q1'])} groups), Q6, Q3 ({len(results['q3'])} rows), "
+        f"Q5 ({len(results['q5'])}) and Q18 ({len(results['q18'])}) equal the numpy "
+        f"evaluation")
+    plans = {}
+    for qname in ("q3", "q5", "q18"):
+        plans[qname] = explain_text(s._plan_select(parse(Q[qname][0])[0]))
+        log(f"{qname} plan at SF1:\n{plans[qname]}")
 
     # -- phase 3 ------------------------------------------------------------
     times = {}
-    for qname in ("q1", "q6"):
+    for qname in queries:
         runs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -313,13 +589,21 @@ def main() -> int:
         log(f"{qname} warm wall median of 3: {med * 1e3:.3f} ms "
             f"({n_rows / med:,.0f} rows/s over {n_rows} lineitem rows); runs {runs}")
 
+    # Q18's IN subquery alone (a generic aggregation of lineitem by order
+    # key): how much of Q18 is not the join
+    sub = Q["q18"][0].split("in (", 1)[1].split(")\n", 1)[0]
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s.query(sub)
+        runs.append(time.perf_counter() - t0)
+    times["q18_subquery"] = statistics.median(runs)
+    log(f"q18's IN subquery alone, warm wall median of 3: "
+        f"{times['q18_subquery'] * 1e3:.3f} ms; runs {runs}")
+
     profiles = {}
-    for qname in ("q1", "q6"):
-        try:
-            prof = profile_query(torch, s, Q[qname][0])
-        except (RuntimeError, AttributeError) as e:  # the profiler is optional here
-            log(f"{qname} profile unavailable: {e}")
-            continue
+    for qname in queries:
+        prof = profile_query(torch, s, Q[qname][0])
         profiles[qname] = prof
         log(f"{qname} profiled: wall {prof['wall_us'] / 1e3:.3f} ms, device busy "
             f"{prof['device_busy_us'] / 1e3:.3f} ms, idle share {prof['idle_share']:.3f}")
@@ -330,6 +614,7 @@ def main() -> int:
     # Q1's chunk as the kernels see it: packed ids (returnflag code +
     # 4 x linestatus code) over the groups Q1 found, in the proportions of
     # their counts, and the share of rows its shipdate filter keeps
+    q1_rows = results["q1"]
     rng = np.random.default_rng(7)
     R, G = Q1_ROWS, Q1_GROUPS
     rf_vals = li.dicts["l_returnflag"].values
@@ -374,17 +659,54 @@ def main() -> int:
             f"{max(bytes_ms, ops_ms) * 1e3:.3f} us ({nbytes} B), plain "
             f"{plain_ms * 1e3:.2f} us, index_add_ {library_ms * 1e3:.2f} us")
 
+    # Q18's semi-join probe as B3 sees it: the build is the orders whose
+    # quantity passes the HAVING, padded to the join's shape bucket with
+    # INT64_MAX; a chunk is R lineitem order keys in the probe's order
+    nb = jk.shape_bucket(len(q18_build))
+    sk = torch.from_numpy(np.concatenate(
+        [q18_build, np.full(nb - len(q18_build), I64_MAX)])).cuda()
+    pr = torch.from_numpy(np.ascontiguousarray(li.data["l_orderkey"][:R])).cuda()
+    cap = hp.table_capacity(nb)
+    tkeys, tlos, this, placed = hp.build_table(sk, cap)
+    if not bool(placed):
+        raise AssertionError("Q18's build left a run unplaced")
+    check_probe_case(torch, hp, sk, pr)
+    reads = probe_slot_reads(torch, hp, tkeys, tlos, sk, pr)
+    ms = device_ms(torch, lambda: hp.probe_table(tkeys, tlos, this, sk, pr), graph=True)
+    plain_ms = device_ms(torch, lambda: hp.plain_probe_table(tkeys, tlos, this, sk, pr),
+                         graph=False)
+    library_ms = device_ms(torch, lambda: (torch.searchsorted(sk, pr),
+                                           torch.searchsorted(sk, pr, right=True)),
+                           graph=True)
+    # keys in, (lo, hi) out, the table and the sorted keys read once
+    nbytes = R * (8 + 16) + cap * 12 + nb * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (R * MIX_OPS + reads * SLOT_OPS) / SCALAR_OPS_PER_S * 1e3
+    rows.append({
+        "name": "hash_probe", "route": "cuda",
+        "source": "tidb_tpu_torch/ops/csrc/hash_probe.cu",
+        "replaces": "tidb_tpu/ops/hash_probe.py:244", "launches": launches["hash_probe"],
+        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    })
+    log(f"hash_probe at R={R} cap={cap} runs={len(q18_build)} (slot reads {reads}): "
+        f"{ms * 1e3:.2f} us/call, bound {max(bytes_ms, ops_ms) * 1e3:.3f} us "
+        f"({nbytes} B), plain {plain_ms * 1e3:.2f} us, searchsorted x2 "
+        f"{library_ms * 1e3:.2f} us")
+
     report = {"card": card, "device": name, "lineitem_rows": n_rows,
-              "q1_warm_s": times["q1"], "q6_warm_s": times["q6"],
-              "q1_cold_s": q1_cold, "q6_cold_s": q6_cold,
-              "launches": {"q1": q1_l, "q6": q6_l},
+              "warm_s": times, "cold_s": cold, "per_query": per_query,
+              "plans": plans, "probe_checks": probe_checks,
+              "q18_probe": {"R": R, "cap": cap, "runs": len(q18_build),
+                            "slot_reads": reads},
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
               "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     print(json.dumps({"kernels": rows}))
-    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

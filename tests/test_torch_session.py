@@ -54,7 +54,7 @@ def tpch_pair():
     js = JaxSession()
     jax_load_tpch(js.catalog, sf=0.01)
     ps = Session(device="cpu")
-    for name in ("lineitem", "orders", "customer"):
+    for name in ("lineitem", "orders", "customer", "supplier", "nation", "region"):
         _export_into(ps, js.catalog.table("test", name), name)
     return js, ps
 

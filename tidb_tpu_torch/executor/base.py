@@ -20,6 +20,16 @@ class ExecContext:
     device: torch.device = torch.device("cpu")
     # GROUP_CONCAT result truncation (group_concat_max_len sysvar)
     group_concat_max_len: int = 1024
+    # hash-join build packs and sorts on the device; False sorts on the
+    # host and stages the sorted keys (tidb_tpu_join_device_build sysvar)
+    join_device_build: bool = True
+    # output tiles one join expand call may emit; bounds the [T, C] buffer
+    # of a many-to-many join (tidb_tpu_join_tiles_per_dispatch sysvar)
+    join_tiles: int = 8
+    # probe route of the hash join: off = searchsorted, auto = the
+    # open-addressing table on the card and searchsorted on the CPU,
+    # xla/pallas = the table (tidb_tpu_join_probe_mode sysvar)
+    join_probe_mode: str = "auto"
 
 
 class Executor:

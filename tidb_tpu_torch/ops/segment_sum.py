@@ -25,32 +25,21 @@ Semantics shared by the kernels and the plain versions:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from tidb_tpu_torch.errors import ExecutionError
+from tidb_tpu_torch.ops.nvcc_build import load_library
 
 __all__ = ["segment_count", "segment_sum_f32", "segment_sum_i64",
            "plain_segment_count", "plain_segment_sum_f32",
            "plain_segment_sum_i64", "LAUNCHES", "reset_launches",
-           "load_kernels"]
+           "load_kernels", "SOURCE"]
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "csrc", "segment_sum.cu")
-_BUILD_DIR = os.path.join(_HERE, "..", "..", "build", "tidb_tpu_torch")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = "segment_sum.cu"
 
 # launches per wrapper on CUDA tensors (the plain CPU path counts nothing)
 LAUNCHES = {"segsum_count": 0, "segsum_f32": 0, "segsum_i64": 0}
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -58,49 +47,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise ExecutionError("nvcc not found: the segment kernels build from "
-                         "source on first use and need the CUDA toolkit")
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p]
 
 
 def load_kernels() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library.
-
-    The shared object is named by a hash of the source, so an edited
-    kernel never loads a stale build; it is built into a temporary name
-    and renamed into place, so a cut build leaves nothing half-written."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-        build_dir = os.path.abspath(_BUILD_DIR)
-        os.makedirs(build_dir, exist_ok=True)
-        so = os.path.join(build_dir, f"libsegment_sum-{tag}.so")
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise ExecutionError(
-                    f"nvcc failed ({r.returncode}) building {_SRC}:\n"
-                    f"{r.stdout}\n{r.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        for fn in ("tidb_segsum_count", "tidb_segsum_f32", "tidb_segsum_i64"):
-            f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            f.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    """Build (once per source version, ops/nvcc_build.py) and load the
+    kernel library."""
+    return load_library(SOURCE, {fn: _ARGS for fn in (
+        "tidb_segsum_count", "tidb_segsum_f32", "tidb_segsum_i64")})
 
 
 def _launch(fn_name: str, counter: str, vals: torch.Tensor, seg: torch.Tensor,

@@ -98,6 +98,9 @@ class Session:
             chunk_capacity=self._plan_capacity(plan),
             device=self.device,
             group_concat_max_len=int(self.sysvars.get("group_concat_max_len")),
+            join_device_build=bool(self.sysvars.get("tidb_tpu_join_device_build")),
+            join_tiles=int(self.sysvars.get("tidb_tpu_join_tiles_per_dispatch")),
+            join_probe_mode=str(self.sysvars.get("tidb_tpu_join_probe_mode")),
         )
 
     def _execute_subplan(self, logical) -> List[tuple]:
