@@ -10,34 +10,47 @@ nvcc (sm_90a, one nvcc per source, all started together), then runs three
 phases; any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card.
-   Segment sums (B1, B2) at Q1's chunk shape (R = 65,536) with G in
-   {1, 12, 8192}, a G above the shared-memory budget, ragged R, ids >= G
-   and int64 extremes: counts and int64 sums bit-equal, f32 sums within
-   1e-5 of each group's absolute mass (atomics add in a different order on
-   every run). The hash probe (B3) on Q18's shape, random keys with
-   duplicates, a same-home cluster, full-int64 keys, a build over capacity,
-   the largest eligible build, ragged R, all misses and keys whose mix hits
-   the EMPTY sentinel: (lo, hi) bit-equal to the plain window scan, and
-   hi - lo equal to searchsorted's count (lo equal on every hit).
+   The fused segment update (tidb_segagg, which replaces B1 and B2) on
+   fourteen cases: Q1's 16 accumulators (23 outputs) at its chunk shape,
+   G in {1, 12, 26, 33, 300, 8192} and 2^16 (global atomics), ragged R,
+   no sel, sel all false, a NULL column, operands 8 bytes off a 16-byte
+   boundary and 40 accumulators (two launches); ids >= G and < 0 and
+   int64 extremes throughout, each output bit-equal to
+   plain_segment_accumulate. Its one-accumulator entry points (B1, B2) at
+   Q1's chunk shape (R = 65,536) with G in {1, 12, 8192}, a G above the
+   shared-memory budget, ragged R, ids >= G and int64 extremes: counts and
+   int64 sums bit-equal, f32 sums within 1e-5 of each group's absolute
+   mass (atomics add in a different order on every run). The hash probe
+   (B3) on Q18's shape, random keys with duplicates, a same-home cluster,
+   full-int64 keys, a build over capacity, the largest eligible build,
+   ragged R, all misses and keys whose mix hits the EMPTY sentinel: (lo,
+   hi) bit-equal to the plain window scan, and hi - lo equal to
+   searchsorted's count (lo equal on every hit). The built library's
+   atomic opcodes are read with cuobjdump -sass.
 2. TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
    tidb_tpu_torch.session.Session on cuda, each compared with a numpy
    evaluation of the same query over the same generated arrays (decimals
    exact). Each query runs with the kernels' launch counters and the join's
-   probe-route counter set to 0 just before it and read just after; Q1 and
-   Q6 must launch both segment kernels, Q18 the hash probe through the
-   table route.
+   probe-route counter set to 0 just before it and read just after; Q1, Q6
+   and Q5 must launch tidb_segagg exactly once per chunk their segment
+   aggregation updates and the one-accumulator entry points never, Q18 the
+   hash probe through the table route.
 3. Times: warm wall time (median of 3) and rows/s of each query; one more
    warm run of each under torch.profiler (device busy time, idle share,
    top operators by device time); each kernel's time at its main-path
    shape beside its bound, its plain version's time and a library call as
-   the yardstick (`index_add_` for B1/B2, searchsorted left + right for
-   B3). The full report goes to chiprun_out/chip_smoke.json.
+   the yardstick (`index_add_` for B1/B2 with one accumulator, and for the
+   fused update one `index_add_` of the [R, 23] stacked contributions;
+   searchsorted left + right for B3), and the time of the single-column
+   calls the fused update replaces. The full report goes to
+   chiprun_out/chip_smoke.json.
 
 The card's name and power limit are printed first; the line before the
 last is one JSON object {"kernels": [...]}, the last {"ok": true,
 "device": {...}}. Without a CUDA card, or without the repository beside
 it, it prints no result and exits non-zero."""
 
+import copy
 import json
 import os
 import statistics
@@ -155,6 +168,159 @@ def phase_kernels(torch, np, seg_mod):
         log(f"kernel check R={R} G={G}: count, i64 (decimal, extremes) bit-equal; "
             f"f32 max |diff| {float(diff.max()):.3e}")
     return err
+
+
+Q1_DECIMALS = 7  # Q1's decimal SUMs and AVGs: two limbs and a count each
+
+
+def q1_accs(torch, seg_mod, vals, masks, G, dev):
+    """Q1's 16 accumulators (23 [G] outputs) over `vals`/`masks` (one per
+    decimal aggregate): occ, count(*), then a two-limb sum and a count per
+    decimal SUM/AVG, as executor/aggregate.py's update builds them."""
+    def z():
+        return torch.zeros(G, dtype=torch.int64, device=dev)
+
+    accs = [seg_mod.SegAcc("count", z()), seg_mod.SegAcc("count", z())]
+    for v, m in zip(vals, masks):
+        accs.append(seg_mod.SegAcc("limbs", z(), vals=v, mask=m, out_hi=z()))
+        accs.append(seg_mod.SegAcc("count", z(), mask=m))
+    return accs
+
+
+def segagg_cases():
+    """name -> (R, G, options) of the fused kernel's phase-1 cases."""
+    cases = {f"mixed_G{G}": (Q1_ROWS, G, {}) for G in (1, 12, 26, 33, 300, 8192)}
+    cases.update({
+        "q1_shape": (Q1_ROWS, Q1_GROUPS, {"q1": True}),
+        "global_atomics": (Q1_ROWS, 1 << 16, {}),  # 2 x 512 KiB > the 96 KiB budget
+        "ragged_r": (Q1_ROWS + 37, Q1_GROUPS, {}),
+        "ragged_hist": (1000, 300, {}),
+        "no_sel": (Q1_ROWS, 26, {"no_sel": True}),
+        "all_false": (Q1_ROWS, Q1_GROUPS, {"all_false": True}),
+        "misaligned": (Q1_ROWS + 3, Q1_GROUPS, {"misaligned": True}),
+        "forty_accs": (Q1_ROWS, Q1_GROUPS, {"many": 40}),
+    })
+    return cases
+
+
+def make_segagg_case(torch, np, seg_mod, R, G, opts, seed, dev):
+    """(seg, sel, accs) on the card: ids with a tenth at or above G and a
+    twentieth below 0, outputs holding random state, int64 extremes and
+    decimals, masks with NULLs; `misaligned` offsets every row operand by
+    one element from a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    off = 1 if opts.get("misaligned") else 0
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return t[off:] if off else t
+
+    n = R + off
+    seg = rng.integers(0, G, n)
+    bad = rng.random(n)
+    seg[bad < 0.1] = G + rng.integers(0, 7, int((bad < 0.1).sum()))
+    seg[bad > 0.95] = -rng.integers(1, 4, int((bad > 0.95).sum()))
+    sel = rng.random(n) < 0.7
+    if opts.get("all_false"):
+        sel[:] = False
+    info = np.iinfo(np.int64)
+    pool = np.array([info.max, info.min, info.max - 1, info.min + 1, -1, 1, 0], np.int64)
+
+    def vals(i):
+        if i % 2:
+            return put(pool[rng.integers(0, len(pool), n)])
+        return put(rng.integers(-10**13, 10**13, n, dtype=np.int64))
+
+    def mask():
+        return put(rng.random(n) < 0.8)
+
+    def state():
+        return torch.from_numpy(rng.integers(-10**6, 10**6, G, dtype=np.int64)).to(dev)
+
+    if opts.get("q1"):
+        accs = q1_accs(torch, seg_mod, [vals(i) for i in range(Q1_DECIMALS)],
+                       [mask() for _ in range(Q1_DECIMALS)], G, dev)
+        for a in accs:
+            a.out.copy_(state())
+            if a.out_hi is not None:
+                a.out_hi.copy_(state())
+    elif opts.get("many"):
+        accs = [seg_mod.SegAcc("sum", state(), vals=vals(i), mask=mask())
+                for i in range(opts["many"])]
+    else:
+        null = mask()
+        null.zero_()  # a column that is NULL on every row
+        accs = [seg_mod.SegAcc("count", state()),
+                seg_mod.SegAcc("count", state(), mask=mask()),
+                seg_mod.SegAcc("count", state(), mask=null),
+                seg_mod.SegAcc("sum", state(), vals=vals(0), mask=mask()),
+                seg_mod.SegAcc("sum", state(), vals=vals(1)),
+                seg_mod.SegAcc("limbs", state(), vals=vals(2), mask=mask(), out_hi=state()),
+                seg_mod.SegAcc("limbs", state(), vals=vals(3), mask=null, out_hi=state()),
+                seg_mod.SegAcc("limbs", state(), vals=vals(5), out_hi=state())]
+    return put(seg), None if opts.get("no_sel") else put(sel), accs
+
+
+def check_segagg_case(torch, seg_mod, seg, G, sel, accs) -> int:
+    """tidb_segagg against plain_segment_accumulate on the same state;
+    raises unless every output is bit-equal. Returns the launches made."""
+    plain = []
+    for a in accs:
+        b = copy.copy(a)
+        b.out = a.out.clone()
+        b.out_hi = None if a.out_hi is None else a.out_hi.clone()
+        plain.append(b)
+    n0 = seg_mod.LAUNCHES["segagg"]
+    seg_mod.segment_accumulate(seg, G, sel, accs)
+    seg_mod.plain_segment_accumulate(seg, G, sel, plain)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(accs, plain)):
+        if not torch.equal(a.out, b.out) or (
+                a.out_hi is not None and not torch.equal(a.out_hi, b.out_hi)):
+            raise AssertionError(f"segagg accumulator {k} ({a.kind}) differs from plain")
+    return seg_mod.LAUNCHES["segagg"] - n0
+
+
+def phase_segagg(torch, np, seg_mod) -> dict:
+    """Phase 1 for the fused kernel: every case of segagg_cases on the card,
+    each bit-equal to plain_segment_accumulate."""
+    out = {}
+    for i, (name, (R, G, opts)) in enumerate(segagg_cases().items()):
+        seg, sel, accs = make_segagg_case(torch, np, seg_mod, R, G, opts, 3000 + i, "cuda")
+        launches = check_segagg_case(torch, seg_mod, seg, G, sel, accs)
+        want = -(-len(accs) // seg_mod.MAX_ACCS)
+        if launches != want:
+            raise AssertionError(f"segagg {name}: {launches} launches, expected {want}")
+        outs = sum(2 if a.kind == "limbs" else 1 for a in accs)
+        out[name] = {"R": R, "G": G, "accumulators": len(accs), "outputs": outs,
+                     "launches": launches}
+        log(f"segagg check {name}: R={R} G={G} {len(accs)} accumulators ({outs} "
+            f"outputs), {launches} launch(es): bit-equal to plain")
+    return out
+
+
+def sass_atomics(path: str, nvcc: str) -> dict:
+    """Atomic opcodes per kernel in a built library (cuobjdump -sass, from
+    nvcc's directory): whether 64-bit shared-memory adds are one
+    ATOMS.ADD.64 or a CAS loop."""
+    import re  # local: numpy_q5 names its region table `re`
+
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    try:
+        r = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                           timeout=120)
+    except (OSError, subprocess.SubprocessError) as e:
+        return {"error": str(e)}
+    found, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)(?:\.[A-Z0-9_]+)+)", line):
+            found.setdefault(fn, {})
+            found[fn][op] = found[fn].get(op, 0) + 1
+    return found or {"error": (r.stderr or "no atomics found")[-500:]}
 
 
 def _unshift(y: int, s: int) -> int:
@@ -461,6 +627,27 @@ def profile_query(torch, session, sql: str) -> dict:
                 host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
 
 
+def count_segment_chunks() -> list:
+    """Count the chunks the segment aggregation updates, by wrapping the
+    executor's make_segment_kernel; returns the one-element counter."""
+    from tidb_tpu_torch.executor import aggregate as agg_mod
+
+    counter = [0]
+    real = agg_mod.make_segment_kernel
+
+    def counting(*args, **kw):
+        init_state, update, G = real(*args, **kw)
+
+        def counted(state, chunk):
+            counter[0] += 1
+            return update(state, chunk)
+
+        return init_state, counted, G
+
+    agg_mod.make_segment_kernel = counting
+    return counter
+
+
 def run_query(session, mods, sql: str):
     """One run with the kernels' launch counters and the join's probe-route
     counter zeroed just before and read just after; returns (rows,
@@ -527,9 +714,14 @@ def main() -> int:
     seg_mod.load_kernels()
     hp.load_kernels()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    sass = sass_atomics(nvcc_build._so_path(os.path.join(nvcc_build.CSRC, seg_mod.SOURCE)),
+                        nvcc_build.nvcc_path())
+    for fn, ops in sass.items():
+        log(f"SASS atomics {str(fn)[:70]}: {ops}")
 
     # -- phase 1 ------------------------------------------------------------
     errs = phase_kernels(torch, np, seg_mod)
+    segagg_checks = phase_segagg(torch, np, seg_mod)
     probe_checks = phase_probe(torch, np, hp)
 
     # -- phase 2 ------------------------------------------------------------
@@ -541,19 +733,26 @@ def main() -> int:
     n_rows = li.live_rows
 
     queries = ("q1", "q6", "q3", "q5", "q18")
-    launches = {"segsum_count": 0, "segsum_i64": 0, "hash_probe": 0}
+    launches = {"segagg": 0, "segsum_count": 0, "segsum_i64": 0, "hash_probe": 0}
     results, per_query, cold = {}, {}, {}
+    agg_chunks = count_segment_chunks()
     for qname in queries:
+        agg_chunks[0] = 0
         rows, lc, routes, dt = run_query(s, mods, Q[qname][0])
         results[qname], cold[qname] = rows, dt
-        per_query[qname] = {"launches": lc, "routes": routes}
-        log(f"{qname} launches: {lc}; probe routes: {routes}; cold run {dt:.3f} s")
+        per_query[qname] = {"launches": lc, "routes": routes,
+                            "aggregated_chunks": agg_chunks[0]}
+        log(f"{qname} launches: {lc}; probe routes: {routes}; segment-aggregated "
+            f"chunks {agg_chunks[0]}; cold run {dt:.3f} s")
         for k in launches:
             launches[k] += lc[k]
-    for qname in ("q1", "q6"):
-        for k in ("segsum_count", "segsum_i64"):
-            if per_query[qname]["launches"][k] <= 0:
-                raise AssertionError(f"{qname} never launched {k}")
+    for qname in ("q1", "q6", "q5"):
+        lc, n_chunks = per_query[qname]["launches"], per_query[qname]["aggregated_chunks"]
+        if n_chunks <= 0 or lc["segagg"] != n_chunks:
+            raise AssertionError(f"{qname} launched segagg {lc['segagg']} times over "
+                                 f"{n_chunks} aggregated chunks, not once per chunk")
+        if lc["segsum_count"] or lc["segsum_i64"]:
+            raise AssertionError(f"{qname} launched a single-column kernel: {lc}")
     if per_query["q18"]["launches"]["hash_probe"] <= 0:
         raise AssertionError("q18 never launched hash_probe")
     if per_query["q18"]["routes"]["table"] <= 0:
@@ -659,6 +858,54 @@ def main() -> int:
             f"{max(bytes_ms, ops_ms) * 1e3:.3f} us ({nbytes} B), plain "
             f"{plain_ms * 1e3:.2f} us, index_add_ {library_ms * 1e3:.2f} us")
 
+    # the fused update at Q1's chunk shape: the same ids and live rows, 7
+    # decimal columns drawn like `vals` with their (all-true) validity,
+    # into Q1's 16 accumulators and 23 outputs
+    dvals = [torch.from_numpy(rng.integers(0, 1 << 32, R).astype(np.int64)).cuda()
+             for _ in range(Q1_DECIMALS)]
+    dmasks = [torch.ones(R, dtype=torch.bool, device="cuda") for _ in range(Q1_DECIMALS)]
+    accs = q1_accs(torch, seg_mod, dvals, dmasks, G, "cuda")
+    check_segagg_case(torch, seg_mod, seg, G, mask, accs)
+    n_out = sum(2 if a.kind == "limbs" else 1 for a in accs)
+    # the library yardstick's operand: each output's per-row contribution
+    cols = []
+    for a in accs:
+        live = mask if a.mask is None else mask & a.mask
+        if a.kind == "count":
+            cols.append(live.to(torch.int64))
+        else:
+            v = torch.where(live, a.vals, 0)
+            cols += [v & 0xFFFFFFFF, v >> 32]
+    stacked = torch.stack(cols, 1).contiguous()
+    lib23 = torch.zeros(G, n_out, dtype=torch.int64, device="cuda")
+    ms = device_ms(torch, lambda: seg_mod.segment_accumulate(seg, G, mask, accs), graph=True)
+    plain_ms = device_ms(torch, lambda: seg_mod.plain_segment_accumulate(seg, G, mask, accs),
+                         graph=False)
+    library_ms = device_ms(torch, lambda: lib23.index_add_(0, seg, stacked), graph=True)
+    nbytes = R * (8 + 1 + Q1_DECIMALS * (8 + 1)) + n_out * G * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = R * n_out / SCALAR_OPS_PER_S * 1e3  # one add per row and output
+    n_counts = sum(1 for a in accs if a.kind == "count")
+    replaced_ms = n_counts * rows[0]["ms"] + (n_out - n_counts) * rows[1]["ms"]
+    rows.append({
+        "name": "segagg", "route": "cuda",
+        "source": "tidb_tpu_torch/ops/csrc/segment_sum.cu",
+        "replaces": "tidb_tpu/ops/segment_sum.py:176",
+        "also_replaces": "tidb_tpu/ops/segment_sum.py:111",
+        "launches": launches["segagg"], "max_abs_err": 0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    })
+    segagg_q1 = {"R": R, "G": G, "accumulators": len(accs), "outputs": n_out,
+                 "bytes": nbytes, "replaced_calls": f"{n_counts} x segsum_count + "
+                 f"{n_out - n_counts} x segsum_i64", "replaced_calls_ms": replaced_ms}
+    log(f"segagg at R={R} G={G}, {len(accs)} accumulators ({n_out} outputs): "
+        f"{ms * 1e3:.2f} us/call, bound {max(bytes_ms, ops_ms) * 1e3:.3f} us "
+        f"({nbytes} B), plain {plain_ms * 1e3:.2f} us, index_add_ [R, {n_out}] "
+        f"{library_ms * 1e3:.2f} us; the {segagg_q1['replaced_calls']} calls it "
+        f"replaces take {replaced_ms * 1e3:.2f} us")
+
     # Q18's semi-join probe as B3 sees it: the build is the orders whose
     # quantity passes the HAVING, padded to the join's shape bucket with
     # INT64_MAX; a chunk is R lineitem order keys in the probe's order
@@ -699,6 +946,8 @@ def main() -> int:
     report = {"card": card, "device": name, "lineitem_rows": n_rows,
               "warm_s": times, "cold_s": cold, "per_query": per_query,
               "plans": plans, "probe_checks": probe_checks,
+              "segagg_checks": segagg_checks, "segagg_q1": segagg_q1,
+              "sass_atomics": sass,
               "q18_probe": {"R": R, "cap": cap, "runs": len(q18_build),
                             "slot_reads": reads},
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,

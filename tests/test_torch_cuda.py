@@ -9,7 +9,8 @@ up jax):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: counts and int64 sums bit-equal; f32 sums within 1e-5 of each
+Tolerances: counts and int64 sums bit-equal (the fused update's every
+output too); f32 sums within 1e-5 of each
 group's absolute mass (atomics add in a different order on every run); the
 hash probe's (lo, hi) bit-equal to its plain window scan; query rows
 exactly equal (decimals are exact, and float AVGs are computed on the host
@@ -54,7 +55,36 @@ def test_kernels_match_plain(card, R, G):
     want = port.plain_segment_sum_f32(f, seg, G).double()
     mass = port.plain_segment_sum_f32(f.abs(), seg, G).double()
     assert bool(((got - want).abs() <= 1e-5 * mass + 1e-6).all())
-    assert port.LAUNCHES == {"segsum_count": 1, "segsum_f32": 1, "segsum_i64": 1}
+    assert port.LAUNCHES == {"segagg": 0, "segsum_count": 1, "segsum_f32": 1,
+                             "segsum_i64": 1}
+
+
+@pytest.mark.parametrize("name", ["q1_shape", "mixed_G1", "mixed_G12", "mixed_G26",
+                                  "mixed_G33", "mixed_G300", "mixed_G8192",
+                                  "global_atomics", "ragged_r", "ragged_hist", "no_sel",
+                                  "all_false", "misaligned", "forty_accs"])
+def test_segagg_matches_plain(card, name):
+    """tidb_segagg on chip_smoke.py's phase-1 cases (Q1's 23-output shape,
+    the G cases, ragged R, no sel, all-false sel, a NULL column, unaligned
+    operands, 40 accumulators): every output bit-equal to
+    plain_segment_accumulate, one launch per 32 accumulators."""
+    import chip_smoke
+
+    R, G, opts = chip_smoke.segagg_cases()[name]
+    seg, sel, accs = chip_smoke.make_segagg_case(torch, np, port, R, G, opts, 11, card)
+    port.reset_launches()
+    launches = chip_smoke.check_segagg_case(torch, port, seg, G, sel, accs)
+    assert launches == -(-len(accs) // port.MAX_ACCS)
+    assert port.LAUNCHES["segsum_count"] == port.LAUNCHES["segsum_i64"] == 0
+
+
+def test_segagg_raises_without_a_card_operand(card):
+    from tidb_tpu_torch.errors import ExecutionError
+
+    seg = torch.zeros(64, dtype=torch.int64, device=card)
+    out = torch.zeros(4, dtype=torch.int64)  # on the host
+    with pytest.raises(ExecutionError):
+        port.segment_accumulate(seg, 4, None, [port.SegAcc("count", out)])
 
 
 def test_hash_probe_matches_plain(card):
@@ -120,5 +150,7 @@ def test_q1_q6_on_card_equal_cpu(card):
     for q in ("q1", "q6"):
         port.reset_launches()
         got = on_card.query(Q[q][0])
-        assert port.LAUNCHES["segsum_count"] > 0 and port.LAUNCHES["segsum_i64"] > 0
+        # SF0.01 is one chunk: one fused launch, no single-column one
+        assert port.LAUNCHES["segagg"] == 1
+        assert port.LAUNCHES["segsum_count"] == port.LAUNCHES["segsum_i64"] == 0
         assert got == on_cpu.query(Q[q][0])

@@ -168,28 +168,26 @@ def test_session_defaults_to_cuda():
 
 
 def test_q1_goes_through_the_segment_functions(tpch_pair, monkeypatch):
-    """Q1's segment aggregation calls segment_count 9 times and
-    segment_sum_i64 14 times per chunk (occ + 8 cnt; 4 decimal SUMs and
-    3 decimal AVGs, two limbs each) — on the card these are the kernels'
-    launches. SF0.01 is one chunk."""
+    """Q1's segment aggregation makes one segment_accumulate call per chunk
+    with 16 accumulators and 23 outputs: 9 counts (occ + 8 cnt) and 7
+    two-limb sums (4 decimal SUMs and 3 decimal AVGs). On the card that
+    call is one tidb_segagg launch. SF0.01 is one chunk."""
     from tidb_tpu_torch import ops
 
-    calls = {"count": 0, "i64": 0}
-    real_count, real_i64 = ops.segment_count, ops.segment_sum_i64
+    calls = []
+    real = ops.segment_accumulate
 
-    def count(*a):
-        calls["count"] += 1
-        return real_count(*a)
+    def accumulate(seg, G, sel, accs):
+        calls.append([a.kind for a in accs])
+        return real(seg, G, sel, accs)
 
-    def i64(*a):
-        calls["i64"] += 1
-        return real_i64(*a)
-
-    monkeypatch.setattr(ops, "segment_count", count)
-    monkeypatch.setattr(ops, "segment_sum_i64", i64)
+    monkeypatch.setattr(ops, "segment_accumulate", accumulate)
     _js, ps = tpch_pair
     ps.query(Q["q1"][0])
-    assert calls == {"count": 9, "i64": 14}
+    assert len(calls) == 1
+    kinds = calls[0]
+    assert {k: kinds.count(k) for k in set(kinds)} == {"count": 9, "limbs": 7}
+    assert len(kinds) + kinds.count("limbs") == 23
 
 
 # Expression parity: every scalar function family the compiler ports, over

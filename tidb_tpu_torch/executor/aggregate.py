@@ -6,9 +6,10 @@ Two strategies, chosen by the planner:
   segment  -- every group key has a small known domain (dictionary codes,
               bools). Keys pack into one dense code; aggregation is
               per-chunk segment sums into [G]-shaped accumulators on the
-              device. Every count and every exact int64/decimal sum goes
-              through the hand-written CUDA kernels of ops/segment_sum.py;
-              float sums and min/max use index_add_ / scatter_reduce_.
+              device. A chunk's counts and exact int64/decimal sums go
+              through one call of ops/segment_sum.py's segment_accumulate
+              (one hand-written CUDA launch); float sums and min/max use
+              index_add_ / scatter_reduce_.
               NULL gets its own slot per key (domain+1) so SQL NULL-group
               semantics hold.
 
@@ -182,7 +183,8 @@ def make_segment_kernel(group_exprs, aggs: List[AggSpec], domains: List[int]):
 
     `update(state, chunk) -> state` works on [G]-shaped accumulators on
     the chunk's device. It updates the accumulators in place (each belongs
-    to one aggregation run) and returns the same dict."""
+    to one aggregation run) and returns the same dict: the same entries,
+    names and values as the reference's pure update."""
     G = 1
     for d in domains:
         G *= d
@@ -217,7 +219,7 @@ def make_segment_kernel(group_exprs, aggs: List[AggSpec], domains: List[int]):
         return st
 
     def update(state, chunk: Chunk):
-        from tidb_tpu_torch.ops import segment_count, segment_sum_i64
+        from tidb_tpu_torch.ops import SegAcc, segment_accumulate
 
         packed = torch.zeros(chunk.capacity, dtype=torch.int64, device=chunk.device)
         stride = 1
@@ -227,40 +229,40 @@ def make_segment_kernel(group_exprs, aggs: List[AggSpec], domains: List[int]):
             packed = packed + idx * stride
             stride *= dom
         sel = chunk.sel
-        # count-shaped accumulators run the CUDA count kernel on the card
-        state["occ"] += segment_count(sel, packed, G)
+        # every count and exact int64 sum of the chunk is one accumulator of
+        # one segment_accumulate call (one tidb_segagg launch on the card),
+        # which applies sel and each argument's validity itself
+        accs = [SegAcc("count", state["occ"])]
         for a in aggs:
             if a.arg is not None:
                 d, v = eval_expr(a.arg, chunk)
-                ok = sel & v
             if a.func in ("sum", "avg"):
                 acc = state[f"{a.uid}.sum"]
-                contrib = torch.where(ok, d.to(acc.dtype), 0)
                 if f"{a.uid}.sumhi" in state:
-                    # two-limb exact decimal path: scatter each limb via
-                    # the int64 kernel, then carry-normalize so the lo
-                    # accumulator never approaches int64 range no matter
-                    # how many chunks stream through
-                    clo, chi = split_limbs(contrib)
-                    lo = acc + segment_sum_i64(clo, packed, G)
-                    hi = state[f"{a.uid}.sumhi"] + segment_sum_i64(chi, packed, G)
-                    state[f"{a.uid}.sum"], state[f"{a.uid}.sumhi"] = normalize_limbs(lo, hi)
+                    # two-limb exact decimal path: the kernel splits each
+                    # value as split_limbs does, sums both limbs and
+                    # carry-normalizes the pair (normalize_limbs), so the lo
+                    # accumulator never approaches int64 range however many
+                    # chunks stream through
+                    accs.append(SegAcc("limbs", acc, vals=d, mask=v,
+                                       out_hi=state[f"{a.uid}.sumhi"]))
                 elif acc.dtype == torch.int64:
-                    acc += segment_sum_i64(contrib, packed, G)
+                    accs.append(SegAcc("sum", acc, vals=d, mask=v))
                 else:
-                    acc.index_add_(0, packed, contrib)
-                state[f"{a.uid}.cnt"] += segment_count(ok, packed, G)
+                    acc.index_add_(0, packed, torch.where(sel & v, d.to(acc.dtype), 0))
+                accs.append(SegAcc("count", state[f"{a.uid}.cnt"], mask=v))
             elif a.func == "count":
-                cm = sel if a.arg is None else ok
-                state[f"{a.uid}.cnt"] += segment_count(cm, packed, G)
+                accs.append(SegAcc("count", state[f"{a.uid}.cnt"],
+                                   mask=None if a.arg is None else v))
             elif a.func in ("min", "max"):
                 acc = state[f"{a.uid}.{a.func}"]
                 ident = (_min_identity if a.func == "min" else _max_identity)(
                     np.dtype(a.arg.type_.np_dtype))
-                contrib = torch.where(ok, d.to(acc.dtype), ident)
+                contrib = torch.where(sel & v, d.to(acc.dtype), ident)
                 acc.scatter_reduce_(0, packed, contrib,
                                     reduce="amin" if a.func == "min" else "amax")
-                state[f"{a.uid}.cnt"] += segment_count(ok, packed, G)
+                accs.append(SegAcc("count", state[f"{a.uid}.cnt"], mask=v))
+        segment_accumulate(packed, G, sel, accs)
         return state
 
     return init_state, update, G
