@@ -25,25 +25,39 @@ phases; any failure exits non-zero.
    full-int64 keys, a build over capacity, the largest eligible build,
    ragged R, all misses and keys whose mix hits the EMPTY sentinel: (lo,
    hi) bit-equal to the plain window scan, and hi - lo equal to
-   searchsorted's count (lo equal on every hit). The built library's
-   atomic opcodes are read with cuobjdump -sass.
+   searchsorted's count (lo equal on every hit); B3 is now
+   tidb_probe_count's lookup-only mode. The join's probe program
+   (tidb_probe_count, which replaces B3 and the eager chain around it) on
+   twenty-one cases (probe_count_cases): each route (direct, table,
+   sorted) plain, with the LEFT pad, flags-only and at a ragged row count,
+   a table above the shared-memory limit (cap 2^18) in both modes, a build
+   holding the EMPTY-preimage keys, two-key range packing, hash packing
+   and a chunk below one tile; NULL keys, sel holes, absent keys and
+   INT64 extremes throughout: all seven outputs bit-equal to
+   plain_probe_chunk. The built library's atomic opcodes are read with
+   cuobjdump -sass.
 2. TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
    tidb_tpu_torch.session.Session on cuda, each compared with a numpy
    evaluation of the same query over the same generated arrays (decimals
    exact). Each query runs with the kernels' launch counters and the join's
    probe-route counter set to 0 just before it and read just after; Q1, Q6
    and Q5 must launch tidb_segagg exactly once per chunk their segment
-   aggregation updates and the one-accumulator entry points never, Q18 the
-   hash probe through the table route.
+   aggregation updates and the one-accumulator entry points never; Q3, Q5
+   and Q18 must launch tidb_probe_count exactly once per probe chunk, on
+   every route, and the lookup-only B3 entry never; Q18 must probe through
+   the table route. The probe chunks' arguments are recorded for phase 3.
 3. Times: warm wall time (median of 3) and rows/s of each query; one more
    warm run of each under torch.profiler (device busy time, idle share,
-   top operators by device time); each kernel's time at its main-path
-   shape beside its bound, its plain version's time and a library call as
-   the yardstick (`index_add_` for B1/B2 with one accumulator, and for the
-   fused update one `index_add_` of the [R, 23] stacked contributions;
-   searchsorted left + right for B3), and the time of the single-column
-   calls the fused update replaces. The full report goes to
-   chiprun_out/chip_smoke.json.
+   host launches, top operators by device time); each kernel's time at its
+   main-path shape beside its bound, its plain version's time and a
+   library call as the yardstick (`index_add_` for B1/B2 with one
+   accumulator, and for the fused update one `index_add_` of the [R, 23]
+   stacked contributions; searchsorted left + right for B3 and
+   tidb_probe_count), and the time of what each fused kernel replaces
+   (the single-column calls; the eager probe chain). tidb_probe_count is
+   timed on the recorded arguments of Q18's table route (flags-only and
+   full), Q3's direct route and Q5's sorted route, and on a cap-2^18
+   table. The full report goes to chiprun_out/chip_smoke.json.
 
 The card's name and power limit are printed first; the line before the
 last is one JSON object {"kernels": [...]}, the last {"ok": true,
@@ -422,6 +436,158 @@ def phase_probe(torch, np, hp) -> dict:
     return out
 
 
+CHUNK_OUTPUTS = ("start", "count", "real_count", "cum", "total", "ok", "matched")
+
+
+def probe_count_cases():
+    """name -> (R, build length, options) of tidb_probe_count's phase-1
+    cases: each route with and without the LEFT pad and in the flags-only
+    mode, at Q1_ROWS rows and at a row count that is not a multiple of the
+    kernel's 512-row tile; a table above the shared-memory limit (2^17
+    build rows, capacity 2^18), a build holding the EMPTY-preimage keys,
+    two-key range packing (with keys out of range), hash packing and a
+    chunk smaller than one tile."""
+    R = Q1_ROWS
+    cases = {}
+    for route in ("direct", "table", "sorted"):
+        cases[route] = (R, 4096, {"route": route})
+        cases[f"{route}_left"] = (R, 4096, {"route": route, "left_pad": True})
+        cases[f"{route}_flags"] = (R, 4096, {"route": route, "flags_only": True})
+        cases[f"{route}_ragged"] = (R + 37, 4096, {"route": route, "left_pad": True})
+    cases.update({
+        "table_cap_2e18": (R, 1 << 17, {"route": "table"}),
+        "table_cap_2e18_flags": (R + 37, 1 << 17, {"route": "table", "flags_only": True}),
+        "table_empty_preimage": (R, 64, {"route": "table", "preimage": True}),
+        "two_key_direct": (R, 4096, {"route": "direct", "keys": 2}),
+        "two_key_sorted": (R, 4096, {"route": "sorted", "keys": 2, "left_pad": True}),
+        "two_key_table": (R, 4096, {"route": "table", "keys": 2}),
+        "hash_table": (R, 4096, {"route": "table", "hash": True}),
+        "hash_sorted": (R, 4096, {"route": "sorted", "hash": True, "left_pad": True}),
+        "one_partial_tile": (100, 64, {"route": "table", "left_pad": True}),
+    })
+    return cases
+
+
+def make_probe_count_case(torch, np, jk, hp, R, B, opts, seed, dev) -> dict:
+    """The arguments of join_kernels.probe_count for one case, built on the
+    CPU and moved to `dev`: a build of B sorted packed keys (an eighth of
+    them dead INT64_MAX padding; two live INT64_MAX keys on the table and
+    sorted routes) with its direct index or table, and R probe rows with
+    NULL keys (5%), sel holes (15%), absent keys and INT64 extremes."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(np.int64)
+    route, n_keys, hashed = opts["route"], opts.get("keys", 1), opts.get("hash", False)
+    n = B - B // 8
+    if hashed:
+        build_cols = [rng.integers(-50, 50, n) * (1 << 40), rng.integers(0, 9, n) / 4.0]
+        probe_cols = [rng.integers(-60, 60, R) * (1 << 40), rng.integers(0, 11, R) / 4.0]
+    elif n_keys == 2:
+        build_cols = [rng.integers(-20, 40, n), rng.integers(1000, 1100, n)]
+        probe_cols = [rng.integers(-30, 50, R), rng.integers(990, 1110, R)]
+    elif route == "direct":
+        build_cols = [rng.integers(-1000, 2000, n)]
+        probe_cols = [rng.integers(-1100, 2100, R)]
+    else:
+        build_cols = [np.resize(rng.integers(-(1 << 20), 1 << 20, (n + 1) // 2).repeat(2), n)
+                      * 7919]
+        build_cols[0][:2] = info.max  # legitimate INT64_MAX keys before the dead tail
+        probe_cols = [rng.integers(-(1 << 20), 1 << 20, R) * 7919]
+        hits = rng.random(R) < 0.4
+        probe_cols[0][hits] = rng.choice(build_cols[0], int(hits.sum()))
+    if opts.get("preimage"):
+        pre = [empty_preimage(0), empty_preimage(FP_SALT)]
+        build_cols[0][2:4] = pre
+        probe_cols[0][rng.integers(0, R, R // 8)] = rng.choice(pre, R // 8)
+    if n_keys == 1 and not hashed:
+        ext = np.array([info.min, info.min + 1, -1, 0, info.max - 1, info.max])
+        probe_cols[0][rng.integers(0, R, R // 50)] = rng.choice(ext, R // 50)
+    modes = tuple("bits" if c.dtype.kind == "f" else "int" for c in build_cols)
+    bk = [torch.from_numpy(np.ascontiguousarray(c)) for c in build_cols]
+    if hashed:
+        los = strides = rngs = [0] * n_keys
+        packed = jk.hash_combine_device([jk.as_int64_key(k, m) for k, m in zip(bk, modes)])
+    else:
+        lo_hi = [(int(c.min()), int(c.max())) for c in build_cols]
+        los = [lo for lo, _ in lo_hi]
+        # as the join's pack info: a single key spanning (almost) all of
+        # int64 gets range 0, "unknown" (its probe packer ignores ranges)
+        rngs = [hi - lo + 1 if hi - lo + 1 < (1 << 63) else 0 for lo, hi in lo_hi]
+        strides = [1] + [int(np.prod(rngs[:i])) for i in range(1, n_keys)]
+        ones = torch.ones(n, dtype=torch.bool)
+        packed, _, _ = jk.pack_keys(bk, (ones,) * n_keys, los, strides, rngs, ones, modes,
+                                    False)
+    sk = torch.cat([packed.sort().values, torch.full((B - n,), I64_MAX, dtype=torch.int64)])
+    n_build = torch.tensor(n, dtype=torch.int64)
+    firsts, lo_packed, rng_packed, table = torch.zeros(2, dtype=torch.int64), 0, 0, None
+    if route == "direct":
+        lo_packed = los[0] if n_keys == 1 else 0
+        rng_packed = rngs[0] if n_keys == 1 else strides[-1] * rngs[-1]
+        firsts = jk.build_direct_index(sk, n_build, lo_packed, jk.shape_bucket(rng_packed))
+    elif route == "table":
+        table = hp.placed_table(sk)
+        if table is None:
+            raise AssertionError("a phase-1 table left a run unplaced")
+    kd = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in probe_cols)
+    return {"sorted_keys": sk.to(dev), "n_build": n_build.to(dev), "key_datas": kd,
+            "key_valids": tuple(torch.from_numpy(rng.random(R) < 0.95).to(dev) for _ in kd),
+            "sel": torch.from_numpy(rng.random(R) < 0.85).to(dev), "los": los,
+            "strides": strides, "rngs": rngs, "firsts": firsts.to(dev),
+            "lo_packed": lo_packed, "rng_packed": rng_packed, "modes": modes,
+            "hash_mode": hashed, "left_pad": opts.get("left_pad", False),
+            "direct": route == "direct",
+            "table": None if table is None else tuple(t.to(dev) for t in table),
+            "flags_only": opts.get("flags_only", False)}
+
+
+def chunk_args(jk, case: dict):
+    """(positional, keyword) arguments of hash_probe.probe_chunk for a
+    probe_count case: its keys packed as join_kernels.probe_count packs
+    them."""
+    packed, kvalid, in_range = jk._pack(
+        case["key_datas"], case["key_valids"], case["los"], case["strides"], case["rngs"],
+        case["sel"], case["modes"], case["hash_mode"])
+    route = "direct" if case["direct"] else ("table" if case["table"] is not None else "sorted")
+    kw = {"route": route, "firsts": case["firsts"], "lo_packed": case["lo_packed"],
+          "rng_packed": case["rng_packed"], "table": case["table"],
+          "left_pad": case["left_pad"], "flags_only": case["flags_only"]}
+    return (packed, kvalid, in_range, case["sel"], case["n_build"], case["sorted_keys"]), kw
+
+
+def check_chunk(torch, hp, args, kw) -> dict:
+    """tidb_probe_count against plain_probe_chunk on the same card inputs;
+    raises unless all seven outputs are bit-equal (the five scan outputs
+    are None on both sides in the flags-only mode). Returns the launches
+    made, the matched rows and the total."""
+    n0 = hp.LAUNCHES["probe_count"]
+    got = hp.probe_chunk(*args, **kw)
+    launches = hp.LAUNCHES["probe_count"] - n0
+    want = hp.plain_probe_chunk(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(CHUNK_OUTPUTS, got, want):
+        if (g is None) != (w is None) or (w is not None and not torch.equal(g, w)):
+            bad = "one is None" if g is None or w is None else int((g != w).sum())
+            raise AssertionError(f"probe_count {name} differs from plain ({bad})")
+    return {"launches": launches, "matched": int(got[6].sum()),
+            "total": None if got[4] is None else int(got[4])}
+
+
+def phase_probe_count(torch, np, jk, hp) -> dict:
+    """Phase 1 for tidb_probe_count: every case of probe_count_cases on the
+    card, all seven outputs bit-equal to plain_probe_chunk, one launch
+    each."""
+    out = {}
+    for i, (name, (R, B, opts)) in enumerate(probe_count_cases().items()):
+        case = make_probe_count_case(torch, np, jk, hp, R, B, opts, 4000 + i, "cuda")
+        args, kw = chunk_args(jk, case)
+        out[name] = check_chunk(torch, hp, args, kw)
+        if out[name]["launches"] != 1:
+            raise AssertionError(f"probe_count {name}: {out[name]['launches']} launches")
+        log(f"probe_count check {name}: R={R} build={B} {kw['route']} "
+            f"left_pad={kw['left_pad']} flags_only={kw['flags_only']} {out[name]}: "
+            f"bit-equal to plain")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: Q1, Q6, Q3, Q5 and Q18 at SF1 through the port's Session
 # ---------------------------------------------------------------------------
@@ -620,8 +786,11 @@ def profile_query(torch, session, sql: str) -> dict:
         return {"name": e.key, "count": e.count, "device_us": dev_us(e),
                 "cpu_us": e.self_cpu_time_total}
 
+    launch_apis = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                   "cuLaunchKernelEx")
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "idle_share": 1.0 - busy_us / wall_us,
+            "host_launches": {e.key: e.count for e in host if e.key in launch_apis},
             "top_device": [row(e) for e in sorted(on_card, key=dev_us, reverse=True)[:8]],
             "top_host": [row(e) for e in sorted(
                 host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
@@ -662,21 +831,125 @@ def run_query(session, mods, sql: str):
     return rows, {**seg_mod.LAUNCHES, **hp.LAUNCHES}, dict(jk.PROBE_ROUTES), dt
 
 
-def probe_slot_reads(torch, hp, tkeys, tlos, sk, probes) -> int:
-    """Slots B3 reads for these probes: up to and including the first hit
-    or EMPTY slot, at most MAX_PROBES (the work its early stop leaves)."""
+def probe_slot_reads(torch, hp, tkeys, tlos, sk, probes):
+    """(slots read, distinct bytes read) of B3's scan for these probes: up
+    to and including the first hit or EMPTY slot, at most MAX_PROBES (the
+    work its early stop leaves); the bytes are the distinct 12-byte slots
+    and 8-byte sorted keys verified, each counted once."""
     cap = tkeys.shape[0]
     home = hp._mix32(probes) & (cap - 1)
     fp = hp._mix32(probes, FP_SALT)
     done = torch.zeros(probes.shape, dtype=torch.bool, device=probes.device)
-    reads = torch.zeros((), dtype=torch.int64, device=probes.device)
+    slots, verified, reads = [], [], 0
     for r in range(hp.MAX_PROBES):
         pos = (home + r) & (cap - 1)
-        reads += (~done).sum()
+        act = ~done
+        reads += int(act.sum())
+        slots.append(pos[act])
         k = tkeys[pos].long()
         cand = tlos[pos].long().clamp(0, sk.shape[0] - 1)
-        done |= (k == 0x7FFFFFFF) | ((k == fp) & (sk[cand] == probes))
-    return int(reads)
+        fpm = act & (k == fp)
+        verified.append(cand[fpm])
+        done |= (k == 0x7FFFFFFF) | (fpm & (sk[cand] == probes))
+    return reads, (torch.unique(torch.cat(slots)).numel() * 12
+                   + torch.unique(torch.cat(verified)).numel() * 8)
+
+
+def record_probe_chunks(hp) -> dict:
+    """Wrap hash_probe.probe_chunk for the main path's run: per (query,
+    route, mode, build) the kernel calls made and the first one's
+    arguments. The caller sets rec["query"] before each query and puts
+    rec["real"] back when the run is over."""
+    rec = {"query": None, "calls": {}, "args": {}, "real": hp.probe_chunk}
+
+    def recording(*args, **kw):
+        key = (rec["query"], kw["route"], "flags" if kw.get("flags_only") else "full",
+               args[5].data_ptr())
+        rec["calls"][key] = rec["calls"].get(key, 0) + 1
+        rec["args"].setdefault(key, (args, kw))
+        return rec["real"](*args, **kw)
+
+    hp.probe_chunk = recording
+    return rec
+
+
+def main_path_args(rec, query: str, route: str, mode: str):
+    """The recorded arguments of the build `query` probed most often along
+    `route` in `mode` ('full' or 'flags')."""
+    keys = [k for k in rec["calls"] if k[:3] == (query, route, mode)]
+    if not keys:
+        raise AssertionError(f"{query} made no {route} probe in {mode} mode")
+    return rec["args"][max(keys, key=rec["calls"].get)]
+
+
+def chunk_lookup_work(torch, hp, args, kw):
+    """(distinct bytes of the lookup structure read, operations) of one
+    probe_chunk call on these inputs: the direct index's entries, the
+    table's slots and verified sorted keys, or the sorted keys a search
+    visits, each counted once; operations per row for the lookup and the
+    count, pad and scan (about 6)."""
+    packed, _kvalid, _in_range, _sel, _n_build, sk = args
+    R = packed.shape[0]
+    if kw["route"] == "direct":
+        idxc = (packed - kw["lo_packed"]).clamp(0, kw["firsts"].shape[0] - 2)
+        read = torch.unique(torch.cat([idxc, idxc + 1])).numel() * 8
+        return read, R * (8 + 6)
+    if kw["route"] == "table":
+        reads, read = probe_slot_reads(torch, hp, kw["table"][0], kw["table"][1], sk, packed)
+        return read, R * (MIX_OPS + 6) + reads * SLOT_OPS
+    n = sk.shape[0]
+    bl = torch.zeros(R, dtype=torch.int64, device=packed.device)
+    bu = torch.zeros_like(bl)
+    visited, levels = [], 0
+    while n > 1:
+        half = n >> 1
+        visited += [bl + half, bu + half]
+        bl = torch.where(sk[bl + half] < packed, bl + half, bl)
+        bu = torch.where(sk[bu + half] <= packed, bu + half, bu)
+        n -= half
+        levels += 1
+    visited += [bl, bu]
+    return torch.unique(torch.cat(visited)).numel() * 8, R * (2 * (levels + 1) * 3 + 6)
+
+
+def probe_chunk_row(torch, hp, name: str, args, kw, launches: int) -> dict:
+    """The kernels-line row of tidb_probe_count on one shape: checked
+    bit-equal first, then its graph-replayed time beside the eager chain
+    it replaces (the earlier eager composition: the all-true in-range mask, B3's
+    lookup on the table route, count, pad and cumsum, always in full),
+    the plain version (a loop), searchsorted x2 and its bound."""
+    packed, kvalid, in_range, sel, n_build, sk = args
+    check_chunk(torch, hp, args, kw)
+    R = packed.shape[0]
+    ms = device_ms(torch, lambda: hp.probe_chunk(*args, **kw), graph=True)
+    chain_kw = dict(kw, flags_only=False, lookup=hp.probe_table)
+    chain_ms = device_ms(torch, lambda: hp.plain_probe_chunk(
+        packed, kvalid, torch.ones_like(sel) if in_range is None else in_range, sel,
+        n_build, sk, **chain_kw), graph=True)
+    plain_ms = device_ms(torch, lambda: hp.plain_probe_chunk(*args, **kw), graph=False)
+    library_ms = device_ms(torch, lambda: (torch.searchsorted(sk, packed),
+                                           torch.searchsorted(sk, packed, right=True)),
+                           graph=True)
+    read, ops = chunk_lookup_work(torch, hp, args, kw)
+    # keys, key validity, sel (and in-range) in; ok and matched out, and in
+    # full mode start, count, real_count and cum and the total
+    row_bytes = 10 + (in_range is not None) + (2 if kw["flags_only"] else 34)
+    nbytes = R * row_bytes + read + (0 if kw["flags_only"] else 8)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    row = {"name": name, "route": "cuda", "source": "tidb_tpu_torch/ops/csrc/hash_probe.cu",
+           "replaces": "tidb_tpu/ops/hash_probe.py:244",
+           "also_replaces": "tidb_tpu/ops/join_kernels.py:311",
+           "launches": launches, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms, "replaced_chain_ms": chain_ms}
+    log(f"{name} at R={R} build={sk.shape[0]} ({kw['route']}, flags_only="
+        f"{kw['flags_only']}, left_pad={kw['left_pad']}): {ms * 1e3:.2f} us/call, bound "
+        f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} B, {row_bytes} B/row), the eager chain "
+        f"it replaces {chain_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+        f"searchsorted x2 {library_ms * 1e3:.2f} us; {launches} main-path launches")
+    return row
 
 
 def main() -> int:
@@ -714,15 +987,17 @@ def main() -> int:
     seg_mod.load_kernels()
     hp.load_kernels()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    sass = sass_atomics(nvcc_build._so_path(os.path.join(nvcc_build.CSRC, seg_mod.SOURCE)),
-                        nvcc_build.nvcc_path())
-    for fn, ops in sass.items():
-        log(f"SASS atomics {str(fn)[:70]}: {ops}")
+    sass = {m.SOURCE: sass_atomics(nvcc_build._so_path(os.path.join(nvcc_build.CSRC, m.SOURCE)),
+                                   nvcc_build.nvcc_path()) for m in (seg_mod, hp)}
+    for src, found in sass.items():
+        for fn, ops in found.items():
+            log(f"SASS atomics {src} {str(fn)[:70]}: {ops}")
 
     # -- phase 1 ------------------------------------------------------------
     errs = phase_kernels(torch, np, seg_mod)
     segagg_checks = phase_segagg(torch, np, seg_mod)
     probe_checks = phase_probe(torch, np, hp)
+    probe_count_checks = phase_probe_count(torch, np, jk, hp)
 
     # -- phase 2 ------------------------------------------------------------
     s = Session()  # device=None: the card
@@ -733,11 +1008,14 @@ def main() -> int:
     n_rows = li.live_rows
 
     queries = ("q1", "q6", "q3", "q5", "q18")
-    launches = {"segagg": 0, "segsum_count": 0, "segsum_i64": 0, "hash_probe": 0}
+    launches = {"segagg": 0, "segsum_count": 0, "segsum_i64": 0, "hash_probe": 0,
+                "probe_count": 0}
     results, per_query, cold = {}, {}, {}
     agg_chunks = count_segment_chunks()
+    probes = record_probe_chunks(hp)
     for qname in queries:
         agg_chunks[0] = 0
+        probes["query"] = qname
         rows, lc, routes, dt = run_query(s, mods, Q[qname][0])
         results[qname], cold[qname] = rows, dt
         per_query[qname] = {"launches": lc, "routes": routes,
@@ -753,10 +1031,20 @@ def main() -> int:
                                  f"{n_chunks} aggregated chunks, not once per chunk")
         if lc["segsum_count"] or lc["segsum_i64"]:
             raise AssertionError(f"{qname} launched a single-column kernel: {lc}")
-    if per_query["q18"]["launches"]["hash_probe"] <= 0:
-        raise AssertionError("q18 never launched hash_probe")
+    hp.probe_chunk = probes["real"]
+    for qname in ("q3", "q5", "q18"):
+        lc, routes = per_query[qname]["launches"], per_query[qname]["routes"]
+        if lc["probe_count"] <= 0 or lc["probe_count"] != sum(routes.values()):
+            raise AssertionError(f"{qname} launched probe_count {lc['probe_count']} times "
+                                 f"over {routes} probe chunks, not once per chunk")
+    if any(per_query[q]["launches"]["hash_probe"] for q in queries):
+        raise AssertionError("the lookup-only hash_probe ran on the main path")
     if per_query["q18"]["routes"]["table"] <= 0:
         raise AssertionError("q18 never probed through the table route")
+    probe_modes = {}  # (route, mode) -> kernel launches over the five queries
+    for (_q, route, mode, _b), n in probes["calls"].items():
+        probe_modes[f"{route}/{mode}"] = probe_modes.get(f"{route}/{mode}", 0) + n
+    log(f"probe_count launches by route and mode: {probe_modes}")
     check_q1(np, results["q1"], numpy_q1(np, li))
     q6_rows = results["q6"]
     if len(q6_rows) != 1 or _scaled(q6_rows[0][0]) != numpy_q6(np, li):
@@ -918,7 +1206,7 @@ def main() -> int:
     if not bool(placed):
         raise AssertionError("Q18's build left a run unplaced")
     check_probe_case(torch, hp, sk, pr)
-    reads = probe_slot_reads(torch, hp, tkeys, tlos, sk, pr)
+    reads, _ = probe_slot_reads(torch, hp, tkeys, tlos, sk, pr)
     ms = device_ms(torch, lambda: hp.probe_table(tkeys, tlos, this, sk, pr), graph=True)
     plain_ms = device_ms(torch, lambda: hp.plain_probe_table(tkeys, tlos, this, sk, pr),
                          graph=False)
@@ -943,10 +1231,31 @@ def main() -> int:
         f"({nbytes} B), plain {plain_ms * 1e3:.2f} us, searchsorted x2 "
         f"{library_ms * 1e3:.2f} us")
 
+    # tidb_probe_count at the main path's shapes, on the arguments the
+    # run above gave it: Q18's semi join (the table route, flags only; also
+    # timed in full), Q3's top join (direct) and Q5's two-key join (sorted);
+    # and a table above the shared-memory limit (2^17 build rows, cap 2^18)
+    q18_args, q18_kw = main_path_args(probes, "q18", "table", "flags")
+    shapes = [
+        ("probe_count.table_flags", q18_args, q18_kw, probe_modes.get("table/flags", 0)),
+        ("probe_count.table_full", q18_args, dict(q18_kw, flags_only=False),
+         probe_modes.get("table/full", 0)),
+        ("probe_count.direct", *main_path_args(probes, "q3", "direct", "full"),
+         probe_modes.get("direct/full", 0)),
+        ("probe_count.sorted", *main_path_args(probes, "q5", "sorted", "full"),
+         probe_modes.get("sorted/full", 0)),
+    ]
+    big = make_probe_count_case(torch, np, jk, hp, R, 1 << 17, {"route": "table"}, 4999,
+                                "cuda")
+    shapes.append(("probe_count.table_cap_2e18", *chunk_args(jk, big), 0))
+    for kname, args, kw, n_launch in shapes:
+        rows.append(probe_chunk_row(torch, hp, kname, args, kw, n_launch))
+
     report = {"card": card, "device": name, "lineitem_rows": n_rows,
               "warm_s": times, "cold_s": cold, "per_query": per_query,
               "plans": plans, "probe_checks": probe_checks,
               "segagg_checks": segagg_checks, "segagg_q1": segagg_q1,
+              "probe_count_checks": probe_count_checks, "probe_modes": probe_modes,
               "sass_atomics": sass,
               "q18_probe": {"R": R, "cap": cap, "runs": len(q18_build),
                             "slot_reads": reads},

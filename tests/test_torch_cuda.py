@@ -14,8 +14,9 @@ output too); f32 sums within 1e-5 of each
 group's absolute mass (atomics add in a different order on every run); the
 hash probe's (lo, hi) bit-equal to its plain window scan; query rows
 exactly equal (decimals are exact, and float AVGs are computed on the host
-from exact sums). The hash-probe cases are chip_smoke.py's phase-1 cases,
-imported from the repository root (run from there)."""
+from exact sums); the probe program's seven outputs bit-equal to its plain
+version. The hash-probe and probe-program cases are chip_smoke.py's
+phase-1 cases, imported from the repository root (run from there)."""
 
 import numpy as np
 import pytest
@@ -114,9 +115,48 @@ def test_hash_probe_raises_without_a_card_operand(card):
         hp.probe_table(t[0].cpu(), t[1], t[2], sk, sk)
 
 
+PROBE_COUNT_CASES = [
+    "direct", "direct_left", "direct_flags", "direct_ragged", "table", "table_left",
+    "table_flags", "table_ragged", "sorted", "sorted_left", "sorted_flags", "sorted_ragged",
+    "table_cap_2e18", "table_cap_2e18_flags", "table_empty_preimage", "two_key_direct",
+    "two_key_sorted", "two_key_table", "hash_table", "hash_sorted", "one_partial_tile"]
+
+
+@pytest.mark.parametrize("name", PROBE_COUNT_CASES)
+def test_probe_count_matches_plain(card, name):
+    """tidb_probe_count on chip_smoke.py's phase-1 cases (each route plain,
+    LEFT-padded, flags-only and ragged; a cap-2^18 table; EMPTY-preimage
+    keys; two-key and hash packing; a chunk below one tile): all seven
+    outputs bit-equal to plain_probe_chunk, one launch."""
+    import chip_smoke
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.ops import join_kernels as jk
+
+    R, B, opts = chip_smoke.probe_count_cases()[name]
+    case = chip_smoke.make_probe_count_case(torch, np, jk, hp, R, B, opts, 17, card)
+    args, kw = chip_smoke.chunk_args(jk, case)
+    hp.reset_launches()
+    assert chip_smoke.check_chunk(torch, hp, args, kw)["launches"] == 1
+    assert hp.LAUNCHES == {"probe_count": 1, "hash_probe": 0}
+
+
+def test_probe_count_raises_without_a_card_operand(card):
+    import chip_smoke
+    from tidb_tpu_torch.errors import ExecutionError
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.ops import join_kernels as jk
+
+    case = chip_smoke.make_probe_count_case(torch, np, jk, hp, 512, 64, {"route": "sorted"},
+                                            3, card)
+    (packed, kvalid, in_range, sel, n_build, sk), kw = chip_smoke.chunk_args(jk, case)
+    with pytest.raises(ExecutionError):
+        hp.probe_chunk(packed, kvalid, in_range, sel.cpu(), n_build, sk, **kw)
+
+
 def test_joins_on_card_equal_cpu(card):
-    """Q3, Q5 and Q18 at SF0.01 on cuda equal the port on the CPU; Q18's
-    semi join goes through the table route and launches B3."""
+    """Q3, Q5 and Q18 at SF0.01 on cuda equal the port on the CPU; each
+    probe chunk is one tidb_probe_count launch, and Q18's semi join goes
+    through the table route."""
     from tidb_tpu_torch.ops import hash_probe as hp
     from tidb_tpu_torch.ops import join_kernels as jk
     from tidb_tpu_torch.session import Session
@@ -131,8 +171,11 @@ def test_joins_on_card_equal_cpu(card):
         hp.reset_launches()
         jk.reset_routes()
         got = on_card.query(Q[q][0])
+        # one tidb_probe_count launch per probe chunk, on every route
+        assert hp.LAUNCHES["probe_count"] == sum(jk.PROBE_ROUTES.values()) > 0
+        assert hp.LAUNCHES["hash_probe"] == 0
         if q == "q18":
-            assert hp.LAUNCHES["hash_probe"] > 0 and jk.PROBE_ROUTES["table"] > 0
+            assert jk.PROBE_ROUTES["table"] > 0
         assert got == on_cpu.query(Q[q][0]), q
     low = Q["q18"][0].replace("> 300", "> 200")
     assert on_card.query(low) == on_cpu.query(low)

@@ -170,4 +170,4 @@ def test_cpu_probe_counts_no_launch():
     hp.reset_launches()
     sh, pr = GRIDS["random_dups"]
     hp.probe_ranges(torch.from_numpy(sh), torch.from_numpy(pr))
-    assert hp.LAUNCHES == {"hash_probe": 0}
+    assert hp.LAUNCHES == {"probe_count": 0, "hash_probe": 0}

@@ -5,12 +5,13 @@ side becomes a sorted key tensor plus its payload on ctx.device, and each
 probe chunk runs through ops/join_kernels.py:
 
     probe_count:  key pack -> range lookup -> match count -> prefix sum
+                  (on the card one tidb_probe_count launch after the pack)
     expand_tiles: [T, C] fixed-capacity output tiles per call
 
 The range lookup takes, in order of preference: the direct-address index
 when the packed build keys form a dense domain; the open-addressing table
-(ops/hash_probe.py, the B3 kernel on the card) when
-tidb_tpu_join_probe_mode resolves to it; else searchsorted.
+(ops/hash_probe.py) when tidb_tpu_join_probe_mode resolves to it; else
+searchsorted.
 
 The build drains its child on the device, packs and sorts there
 (`_stage_device_build`), or, with tidb_tpu_join_device_build = 0, sorts
@@ -349,14 +350,17 @@ class HashJoinExec(Executor):
             key_valids = tuple(_pad(v, Rp, False) for v in key_valids)
             sel = _pad(sel, Rp, False)
         left_pad = self.kind == "left" and not has_filter
+        # an unfiltered semi/anti join reads only ok and matched
+        flags_only = self.kind in ("semi", "anti") and not has_filter
         start, count, real_count, cum, total_dev, ok, matched = jk.probe_count(
             self._sorted_keys, self._n_build_dev, key_datas, key_valids,
             sel, self._los, self._strides, self._rngs,
             self._firsts, self._direct_lo, self._direct_rng,
             modes=self._modes, hash_mode=self._hash_mode,
-            left_pad=left_pad, direct=self._direct, table=self._probe_table)
+            left_pad=left_pad, direct=self._direct, table=self._probe_table,
+            flags_only=flags_only)
 
-        if self.kind in ("semi", "anti") and not has_filter:
+        if flags_only:
             okc, matched = ok[:cap], matched[:cap]
             if self.kind == "semi":
                 self._pending.append(chunk.with_sel(okc & matched))

@@ -1,4 +1,4 @@
-"""Open-addressing hash probe for the device join.
+"""Open-addressing hash probe and the join's per-chunk probe program.
 
 Counterpart of tidb_tpu/ops/hash_probe.py. The join sorts its build side;
 a probe needs, per key, the (lo, hi) range of equal sorted build keys.
@@ -13,11 +13,20 @@ here resolves a key in O(1) expected slot reads:
     for bit the reference's `_build_table`. `all_placed` is False when
     some run needed more than MAX_PROBES slots; the caller then stays on
     searchsorted.
-  * PROBE (`probe_table`): on a CUDA tensor the hand-written kernel of
-    csrc/hash_probe.cu (B3, the reference's `_probe_pallas`), one thread
-    per key, stopping at the first hit or EMPTY slot; on a CPU tensor its
-    plain version, the reference's 32-round window scan (`_probe_xla`).
-    There is no fallback from the card to the plain version.
+  * PROBE CHUNK (`probe_chunk`): the program the reference compiles once
+    per probe chunk (join_kernels `_probe_count`): the range lookup by
+    the direct index, the table or searchsorted, the per-row match count,
+    the LEFT pad and the prefix sum. On a CUDA tensor it is one launch of
+    the hand-written kernel of csrc/hash_probe.cu (`tidb_probe_count`,
+    which replaces B3, the reference's `_probe_pallas`, and the eager
+    chain around it); on a CPU tensor its plain version,
+    `plain_probe_chunk`, whose table lookup is the reference's 32-round
+    window scan (`_probe_xla`).
+  * PROBE (`probe_table`, the table lookup alone): the same kernel in its
+    lookup-only mode on a CUDA tensor, the window scan on a CPU tensor.
+    The join's main path does not call it.
+There is no fallback from the card to a plain version: a kernel that
+cannot build or launch raises ExecutionError.
 
 `resolve_mode` maps tidb_tpu_join_probe_mode to a route. The port has no
 XLA and an eager window scan is 32 rounds of launches, so on the card
@@ -42,8 +51,8 @@ from tidb_tpu_torch.ops.nvcc_build import load_library
 __all__ = ["MAX_PROBES", "MAX_CAPACITY", "LAUNCHES", "reset_launches",
            "resolve_mode", "table_capacity", "build_table", "probe_table",
            "plain_probe_table", "placed_table", "probe_ranges",
-           "sorted_probe_ranges", "srl", "i64_bits",
-           "load_kernels", "SOURCE"]
+           "sorted_probe_ranges", "probe_chunk", "plain_probe_chunk",
+           "ROUTES", "srl", "i64_bits", "load_kernels", "SOURCE"]
 
 SOURCE = "hash_probe.cu"
 
@@ -65,8 +74,9 @@ def i64_bits(x: int) -> int:
 _M1 = i64_bits(0xBF58476D1CE4E5B9)
 _M2 = i64_bits(0x94D049BB133111EB)
 
-# launches on CUDA tensors (the plain CPU path counts nothing)
-LAUNCHES = {"hash_probe": 0}
+# launches on CUDA tensors (the plain CPU path counts nothing): the probe
+# program of a chunk, and the table lookup alone
+LAUNCHES = {"probe_count": 0, "hash_probe": 0}
 
 
 def reset_launches() -> None:
@@ -169,7 +179,7 @@ def build_table(sh: torch.Tensor, cap: int):
 
 
 # ---------------------------------------------------------------------------
-# the probe: the plain window scan and the kernel
+# plain versions: the window scan, searchsorted and the chunk's program
 # ---------------------------------------------------------------------------
 
 
@@ -199,44 +209,145 @@ def plain_probe_table(tkeys, tlos, this, sorted_keys, probes):
     return torch.where(found, lo, zero), torch.where(found, hi, zero)
 
 
+def sorted_probe_ranges(sorted_keys: torch.Tensor, probes: torch.Tensor):
+    """(lo, hi) = searchsorted left/right: the route without a table."""
+    probes = probes.to(torch.int64)
+    return (torch.searchsorted(sorted_keys, probes),
+            torch.searchsorted(sorted_keys, probes, right=True))
+
+
+def plain_probe_chunk(packed, kvalid, in_range, sel, n_build, sorted_keys, *,
+                      route: str, firsts=None, lo_packed: int = 0, rng_packed: int = 0,
+                      table=None, left_pad: bool = False, flags_only: bool = False,
+                      lookup=plain_probe_table):
+    """The plain version of tidb_probe_count, the eager composition the
+    reference's `_probe_count` spells out: the CPU path, and the version
+    the kernel is held to. See probe_chunk; `lookup` is the table route's
+    (lo, hi) lookup."""
+    ok = kvalid & sel
+    if route == "direct":
+        idx = packed - lo_packed
+        rin = (idx >= 0) & (idx < rng_packed)
+        idxc = idx.clamp(0, firsts.shape[0] - 2)
+        start, end = firsts[idxc], firsts[idxc + 1]
+        in_range = rin if in_range is None else in_range & rin
+    else:
+        if route == "table":
+            start, end = lookup(*table, sorted_keys, packed)
+        else:
+            start, end = sorted_probe_ranges(sorted_keys, packed)
+        # the sentinel tail past n_build never matches
+        start, end = torch.minimum(start, n_build), torch.minimum(end, n_build)
+    live = ok if in_range is None else ok & in_range
+    count = torch.where(live, end - start, torch.zeros_like(start))
+    matched = count > 0
+    if flags_only:
+        return None, None, None, None, None, ok, matched
+    real_count = count
+    if left_pad:
+        # unfiltered LEFT JOIN: every live probe row emits >= 1 slot; the
+        # slot beyond real_count carries NULL build payload
+        count = torch.where(sel, count.clamp(min=1), torch.zeros_like(count))
+    cum = torch.cumsum(count, 0)
+    return start, count, real_count, cum, cum[-1], ok, matched
+
+
+# ---------------------------------------------------------------------------
+# the kernel: tidb_probe_count (a chunk), tidb_hash_probe (a lookup)
+# ---------------------------------------------------------------------------
+
+ROUTES = ("direct", "table", "sorted")
+_MODE_FULL, _MODE_FLAGS = 0, 1
+_TILE = 512  # rows per block of tidb_probe_count
+
+
+class _ProbeParams(ctypes.Structure):
+    """tidb_probe_count's ProbeParams (csrc/hash_probe.cu), field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "packed", "kvalid", "in_range", "sel", "n_build", "sorted_keys", "firsts",
+        "tkeys", "tlos", "this")]
+        + [(n, ctypes.c_longlong) for n in (
+            "R", "n_sorted", "n_firsts", "lo_packed", "rng_packed")]
+        + [(n, ctypes.c_int) for n in ("cap", "route", "mode", "left_pad")]
+        + [(n, ctypes.c_void_p) for n in (
+            "start", "end", "count", "real_count", "cum", "total", "ok", "matched",
+            "ticket", "status")])
+
+
+# per card, the chained scan's int64 scratch: the tile ticket (with the
+# launch epoch above its 24 low bits), a word of padding, then per tile a
+# 16-byte status word (tag, value). Zeros read as "not ready" at every
+# epoch, so it is zeroed once, when it is made or grown.
+_SCANS = {}
+
+
+def _scan_scratch(device: torch.device, tiles: int):
+    """(ticket, status) device addresses for `tiles` tiles."""
+    buf = _SCANS.get(device)
+    if buf is None or buf.shape[0] < 2 + 2 * tiles:
+        buf = _SCANS[device] = torch.zeros(2 + 2 * max(tiles, 1024), dtype=torch.int64,
+                                           device=device)
+    base = buf.data_ptr()  # the allocator aligns it to 16 bytes and more
+    return base, base + 16
+
+
 def load_kernels() -> ctypes.CDLL:
-    """Build (once per source version, ops/nvcc_build.py) and load B3."""
-    return load_library(SOURCE, {"tidb_hash_probe": [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]})
+    """Build (once per source version, ops/nvcc_build.py) and load the probe
+    kernel's library."""
+    return load_library(SOURCE, {
+        "tidb_probe_count": [ctypes.c_void_p, ctypes.c_void_p],
+        "tidb_hash_probe": [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]})
+
+
+def _operand(fn: str, t: torch.Tensor, dev: torch.device, dtype, n=None) -> torch.Tensor:
+    """A contiguous vector of `dtype` (and `n` rows) on the card `dev`."""
+    if not t.is_cuda or t.device != dev:
+        raise ExecutionError(f"{fn}: every operand must be on the probe's card ({dev}), "
+                             f"got {t.device}")
+    t = t.to(dtype).contiguous()
+    if t.dim() != 1 or t.shape[0] == 0 or (n is not None and t.shape[0] != n):
+        raise ExecutionError(f"{fn}: expected a non-empty vector"
+                             f"{'' if n is None else f' of {n} rows'}, got {tuple(t.shape)}")
+    return t
+
+
+def _table_operands(fn: str, table, dev: torch.device):
+    """The table's three int32 arrays, checked, and its capacity."""
+    tkeys, tlos, this = table
+    cap = tkeys.shape[0]
+    if cap <= 0 or cap & (cap - 1) or cap > MAX_CAPACITY:
+        raise ExecutionError(f"{fn}: capacity {cap} is not a power of two <= 2^19")
+    if not (tlos.shape == tkeys.shape and this.shape == tkeys.shape):
+        raise ExecutionError(f"{fn}: table arrays differ in shape")
+    if any(t.dtype != torch.int32 for t in table):
+        raise ExecutionError(f"{fn}: table arrays must be int32")
+    return tuple(_operand(fn, t, dev, torch.int32, cap) for t in table) + (cap,)
 
 
 def probe_table(tkeys: torch.Tensor, tlos: torch.Tensor, this: torch.Tensor,
                 sorted_keys: torch.Tensor,
                 probes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(lo, hi) int64 per probe key through the table: the B3 kernel on a
-    CUDA tensor (or an error), the plain window scan on a CPU tensor."""
+    """(lo, hi) int64 per probe key through the table: tidb_probe_count's
+    lookup alone on a CUDA tensor (or an error), the plain window scan on
+    a CPU tensor."""
     if not probes.is_cuda:
         return plain_probe_table(tkeys, tlos, this, sorted_keys, probes)
-    ops = (tkeys, tlos, this, sorted_keys)
-    if not all(t.is_cuda and t.device == probes.device for t in ops):
-        raise ExecutionError("hash_probe: every operand must be on the probe's card")
-    cap = tkeys.shape[0]
-    if cap <= 0 or cap & (cap - 1) or cap > MAX_CAPACITY:
-        raise ExecutionError(f"hash_probe: capacity {cap} is not a power of two <= 2^19")
-    if not (tlos.shape == tkeys.shape and this.shape == tkeys.shape):
-        raise ExecutionError("hash_probe: table arrays differ in shape")
-    if any(t.dtype != torch.int32 for t in (tkeys, tlos, this)):
-        raise ExecutionError("hash_probe: table arrays must be int32")
-    if sorted_keys.dim() != 1 or sorted_keys.shape[0] == 0:
-        raise ExecutionError("hash_probe: sorted keys must be a non-empty vector")
+    fn = "hash_probe"
+    dev = probes.device
+    tkeys, tlos, this, cap = _table_operands(fn, (tkeys, tlos, this), dev)
+    sorted_keys = _operand(fn, sorted_keys, dev, torch.int64)
     if probes.dim() != 1:
-        raise ExecutionError("hash_probe: probes must be a vector")
+        raise ExecutionError(f"{fn}: probes must be a vector")
     probes = probes.to(torch.int64).contiguous()
-    sorted_keys = sorted_keys.to(torch.int64).contiguous()
-    tkeys, tlos, this = tkeys.contiguous(), tlos.contiguous(), this.contiguous()
     n = probes.shape[0]
-    lo = torch.empty(n, dtype=torch.int64, device=probes.device)
-    hi = torch.empty(n, dtype=torch.int64, device=probes.device)
+    lo = torch.empty(n, dtype=torch.int64, device=dev)
+    hi = torch.empty(n, dtype=torch.int64, device=dev)
     lib = load_kernels()
-    stream = torch.cuda.current_stream(probes.device).cuda_stream
-    with torch.cuda.device(probes.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.tidb_hash_probe(probes.data_ptr(), n, tkeys.data_ptr(),
                                   tlos.data_ptr(), this.data_ptr(), cap,
                                   sorted_keys.data_ptr(), sorted_keys.shape[0],
@@ -247,11 +358,70 @@ def probe_table(tkeys: torch.Tensor, tlos: torch.Tensor, this: torch.Tensor,
     return lo, hi
 
 
-def sorted_probe_ranges(sorted_keys: torch.Tensor, probes: torch.Tensor):
-    """(lo, hi) = searchsorted left/right: the route without a table."""
-    probes = probes.to(torch.int64)
-    return (torch.searchsorted(sorted_keys, probes),
-            torch.searchsorted(sorted_keys, probes, right=True))
+def probe_chunk(packed: torch.Tensor, kvalid: torch.Tensor, in_range: Optional[torch.Tensor],
+                sel: torch.Tensor, n_build: torch.Tensor, sorted_keys: torch.Tensor, *,
+                route: str, firsts: Optional[torch.Tensor] = None, lo_packed: int = 0,
+                rng_packed: int = 0, table=None, left_pad: bool = False,
+                flags_only: bool = False):
+    """Probe one chunk of packed int64 keys [R]: (start, count, real_count,
+    cum, total, ok, matched), the outputs of the reference's `_probe_count`.
+    `kvalid`, `sel` and `in_range` (None: every key in range) are bool
+    [R]; `route` is 'direct' (over `firsts`, `lo_packed`, `rng_packed`),
+    'table' (over `table` and `sorted_keys`) or 'sorted' (searchsorted
+    over `sorted_keys`); the table and sorted routes clamp ranges to the
+    0-d `n_build`. With `flags_only` only ok and matched are computed and
+    the other five are None. One tidb_probe_count launch on a CUDA tensor
+    (or an error), plain_probe_chunk on a CPU tensor."""
+    if not packed.is_cuda:
+        return plain_probe_chunk(packed, kvalid, in_range, sel, n_build, sorted_keys,
+                                 route=route, firsts=firsts, lo_packed=lo_packed,
+                                 rng_packed=rng_packed, table=table, left_pad=left_pad,
+                                 flags_only=flags_only)
+    fn = "probe_chunk"
+    if route not in ROUTES:
+        raise ExecutionError(f"{fn}: unknown route {route!r}")
+    dev = packed.device
+    packed = _operand(fn, packed, dev, torch.int64)
+    R = packed.shape[0]
+    keep = [packed, _operand(fn, kvalid, dev, torch.bool, R), _operand(fn, sel, dev, torch.bool, R)]
+    p = _ProbeParams(packed=packed.data_ptr(), kvalid=keep[1].data_ptr(),
+                     sel=keep[2].data_ptr(), R=R, route=ROUTES.index(route),
+                     mode=_MODE_FLAGS if flags_only else _MODE_FULL, left_pad=int(left_pad))
+    if in_range is not None:
+        keep.append(_operand(fn, in_range, dev, torch.bool, R))
+        p.in_range = keep[-1].data_ptr()
+    if route == "direct":
+        keep.append(_operand(fn, firsts, dev, torch.int64))
+        if keep[-1].shape[0] < 2:
+            raise ExecutionError(f"{fn}: the direct index needs at least 2 entries")
+        p.firsts, p.n_firsts = keep[-1].data_ptr(), keep[-1].shape[0]
+        p.lo_packed, p.rng_packed = lo_packed, rng_packed
+    else:
+        keep.append(_operand(fn, n_build.reshape(1), dev, torch.int64, 1))
+        keep.append(_operand(fn, sorted_keys, dev, torch.int64))
+        p.n_build = keep[-2].data_ptr()
+        p.sorted_keys, p.n_sorted = keep[-1].data_ptr(), keep[-1].shape[0]
+        if route == "table":
+            tkeys, tlos, this, p.cap = _table_operands(fn, table, dev)
+            keep += [tkeys, tlos, this]
+            p.tkeys, p.tlos, p.this = tkeys.data_ptr(), tlos.data_ptr(), this.data_ptr()
+    flags = torch.empty(2 * R, dtype=torch.bool, device=dev)
+    ok, matched = flags[:R], flags[R:]
+    p.ok, p.matched = ok.data_ptr(), matched.data_ptr()
+    outs = (None,) * 5
+    if not flags_only:
+        i64 = torch.empty(4 * R + 1, dtype=torch.int64, device=dev)
+        outs = tuple(i64[i * R:(i + 1) * R] for i in range(4)) + (i64[4 * R],)
+        p.start, p.count, p.real_count, p.cum, p.total = (t.data_ptr() for t in outs)
+        p.ticket, p.status = _scan_scratch(dev, -(-R // _TILE))
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.tidb_probe_count(ctypes.addressof(p), stream)
+    if err != 0:
+        raise ExecutionError(f"tidb_probe_count: CUDA launch failed with error {err}")
+    LAUNCHES["probe_count"] += 1
+    return outs + (ok, matched)
 
 
 def placed_table(sorted_keys: torch.Tensor):

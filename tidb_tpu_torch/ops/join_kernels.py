@@ -15,8 +15,9 @@ these; here they run eagerly on the tensors' device. What each does:
     host read per build).
   * `probe_count`: pack -> range lookup (direct index, table, or
     searchsorted) -> per-row match count -> prefix sum, one call per
-    probe chunk. `PROBE_ROUTES` counts the route per call (the
-    reference's JOIN_PROBE_MODE_TOTAL).
+    probe chunk. The pack stays here; the rest is ops/hash_probe.py's
+    `probe_chunk`, one kernel launch on the card. `PROBE_ROUTES` counts
+    the route per call (the reference's JOIN_PROBE_MODE_TOTAL).
   * `tile_positions` / `expand_tiles`: map output slots to (probe row,
     build position) and gather both sides into [T, C] output tiles.
 
@@ -36,7 +37,7 @@ from tidb_tpu_torch.ops.hash_probe import srl
 __all__ = [
     "shape_bucket", "as_int64_key", "hash_combine_device", "pack_keys",
     "build_sort", "build_direct_index", "build_hash_table",
-    "probe_ranges_any", "probe_count", "tile_positions", "expand_tiles",
+    "probe_count", "tile_positions", "expand_tiles",
     "PROBE_ROUTES", "reset_routes",
 ]
 
@@ -97,14 +98,14 @@ def hash_combine_device(keys_i64: Sequence[torch.Tensor]) -> torch.Tensor:
     return h
 
 
-def pack_keys(key_datas, key_valids, los, strides, rngs, sel,
-              modes: Tuple[str, ...], hash_mode: bool):
-    """(packed int64, key-valid, in-range) from per-key tensors and the
-    host-known pack ranges (lists of Python ints). Out of range is a
-    definite non-match, not a NULL: anti joins keep the row."""
-    ones = torch.ones_like(sel, dtype=torch.bool)
+def _pack(key_datas, key_valids, los, strides, rngs, sel,
+          modes: Tuple[str, ...], hash_mode: bool):
+    """pack_keys with in-range None where every key is in range (single
+    keys, hash mode): the probe then reads no all-true mask, and a single
+    int64 key costs no launch."""
     if not key_datas:  # keyless (cross) join: a constant key matches all
-        return torch.zeros(sel.shape[0], dtype=torch.int64, device=sel.device), ones, ones
+        return (torch.zeros(sel.shape[0], dtype=torch.int64, device=sel.device),
+                torch.ones_like(sel, dtype=torch.bool), None)
     if hash_mode:
         keys = [as_int64_key(d, m) for d, m in zip(key_datas, modes)]
         valid = key_valids[0]
@@ -112,18 +113,30 @@ def pack_keys(key_datas, key_valids, los, strides, rngs, sel,
             valid = valid & v
         # every hash is "in range"; exact per-key verification removes
         # false candidates after expansion
-        return hash_combine_device(keys), valid, ones
+        return hash_combine_device(keys), valid, None
     if len(key_datas) == 1:
-        return as_int64_key(key_datas[0], modes[0]), key_valids[0], ones
+        return as_int64_key(key_datas[0], modes[0]), key_valids[0], None
     packed = torch.zeros(sel.shape[0], dtype=torch.int64, device=sel.device)
-    valid = ones
-    in_range = ones
+    valid = in_range = None
     for i, (d, v) in enumerate(zip(key_datas, key_valids)):
         d = as_int64_key(d, modes[i])
         lo, stride, rng = los[i], strides[i], rngs[i]
-        valid = valid & v
-        in_range = in_range & (d >= lo) & (d < _wrap64(lo + rng))
+        valid = v if valid is None else valid & v
+        r = (d >= lo) & (d < _wrap64(lo + rng))
+        in_range = r if in_range is None else in_range & r
         packed = packed + (d - lo).clamp(0, max(rng - 1, 0)) * stride
+    return packed, valid, in_range
+
+
+def pack_keys(key_datas, key_valids, los, strides, rngs, sel,
+              modes: Tuple[str, ...], hash_mode: bool):
+    """(packed int64, key-valid, in-range) from per-key tensors and the
+    host-known pack ranges (lists of Python ints). Out of range is a
+    definite non-match, not a NULL: anti joins keep the row."""
+    packed, valid, in_range = _pack(key_datas, key_valids, los, strides, rngs, sel,
+                                    modes, hash_mode)
+    if in_range is None:
+        in_range = torch.ones_like(sel, dtype=torch.bool)
     return packed, valid, in_range
 
 
@@ -176,47 +189,23 @@ build_hash_table = hp.placed_table
 
 # -- probe -----------------------------------------------------------------
 
-def probe_ranges_any(sorted_keys, n_build, packed, firsts, lo_packed: int,
-                     rng_packed: int, table, direct: bool):
-    """(start, end, in_range) per packed probe key: the direct index when
-    the dense-domain index exists, else the table when there is one, else
-    searchsorted; ranges clamp to n_build."""
-    if direct:
-        idx = packed - lo_packed
-        in_range = (idx >= 0) & (idx < rng_packed)
-        idxc = idx.clamp(0, firsts.shape[0] - 2)
-        return firsts[idxc], firsts[idxc + 1], in_range
-    if table is not None:
-        start, end = hp.probe_table(*table, sorted_keys, packed)
-    else:
-        start, end = hp.sorted_probe_ranges(sorted_keys, packed)
-    ones = torch.ones(packed.shape[0], dtype=torch.bool, device=packed.device)
-    return torch.minimum(start, n_build), torch.minimum(end, n_build), ones
-
-
 def probe_count(sorted_keys, n_build, key_datas, key_valids, sel,
                 los, strides, rngs, firsts, lo_packed, rng_packed,
-                modes, hash_mode, left_pad, direct, table=None):
+                modes, hash_mode, left_pad, direct, table=None, flags_only=False):
     """Probe one chunk: (start, count, real_count, cum, total, ok,
     matched). `total` (a 0-d tensor) is the only value a caller reads on
-    the host, to size the expansion."""
+    the host, to size the expansion. With `flags_only` (the unfiltered
+    semi and anti joins) only ok and matched are made; the rest are None.
+    The keys are packed here; the lookup, count, pad and prefix sum are
+    hash_probe.probe_chunk, one kernel launch on the card."""
     route = "direct" if direct else ("table" if table is not None else "sorted")
     PROBE_ROUTES[route] += 1
-    packed, kvalid, in_range = pack_keys(
+    packed, kvalid, in_range = _pack(
         key_datas, key_valids, los, strides, rngs, sel, modes, hash_mode)
-    ok = kvalid & sel
-    start, end, range_ok = probe_ranges_any(
-        sorted_keys, n_build, packed, firsts, lo_packed, rng_packed, table, direct)
-    in_range = in_range & range_ok
-    count = torch.where(ok & in_range, end - start, torch.zeros_like(start))
-    matched = count > 0
-    real_count = count
-    if left_pad:
-        # unfiltered LEFT JOIN: every live probe row emits >= 1 slot; the
-        # slot beyond real_count carries NULL build payload
-        count = torch.where(sel, count.clamp(min=1), torch.zeros_like(count))
-    cum = torch.cumsum(count, 0)
-    return start, count, real_count, cum, cum[-1], ok, matched
+    return hp.probe_chunk(packed, kvalid, in_range, sel, n_build, sorted_keys,
+                          route=route, firsts=firsts, lo_packed=lo_packed,
+                          rng_packed=rng_packed, table=table, left_pad=left_pad,
+                          flags_only=flags_only)
 
 
 # -- expansion ---------------------------------------------------------------
