@@ -39,16 +39,29 @@ phases; any failure exits non-zero.
 2. TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
    tidb_tpu_torch.session.Session on cuda, each compared with a numpy
    evaluation of the same query over the same generated arrays (decimals
-   exact). Each query runs with the kernels' launch counters and the join's
-   probe-route counter set to 0 just before it and read just after; Q1, Q6
-   and Q5 must launch tidb_segagg exactly once per chunk their segment
-   aggregation updates and the one-accumulator entry points never; Q3, Q5
-   and Q18 must launch tidb_probe_count exactly once per probe chunk, on
-   every route, and the lookup-only B3 entry never; Q18 must probe through
-   the table route. The probe chunks' arguments are recorded for phase 3.
-3. Times: warm wall time (median of 3) and rows/s of each query; one more
-   warm run of each under torch.profiler (device busy time, idle share,
-   host launches, top operators by device time); each kernel's time at its
+   exact), on two paths. Each run has the kernels' launch counters, the
+   join's probe-route counter and the pipeline's and segment store's
+   counters set to 0 just before it and read just after. Every run must
+   launch tidb_segagg exactly once per chunk its segment aggregation
+   updates and tidb_probe_count exactly once per probe chunk, on every
+   route, and the one-column and lookup-only entries never.
+   The default path (columnar segment store, fused pipelines): Q1 and Q6
+   run twice and must each run in FusedScanAggExec, one pinned copy per
+   staged batch the first time and 0 bytes staged the second (the device
+   buffer cache); Q3, Q5 and Q18 must run every inner join whose probe
+   side is a plain scan (counted on the plan taken just before the run)
+   in FusedScanProbeExec. The classic path (tidb_tpu_pipeline_fuse = 0,
+   tidb_tpu_columnar_enable = 0, the earlier raw tree) must give the same
+   rows and run nothing fused. Then a 1,200,000-row table loaded with
+   8,192-row segments (8 packed a batch) answers one aggregate and one
+   join equal to numpy, through the fused executors, tidb_segagg once per
+   staged batch. The probe chunks' arguments are recorded for phase 3.
+3. Times: warm wall time (median of 3) and rows/s of each query in four
+   modes (fused with the buffer cache, fused with its budget 0, the same
+   staged inline at prefetch depth 0, classic); one more warm run of each
+   under torch.profiler (device busy time, idle share, host->device copies
+   split pinned/pageable with their bytes, host cudaMemcpyAsync and launch
+   counts, top operators by device time); each kernel's time at its
    main-path shape beside its bound, its plain version's time and a
    library call as the yardstick (`index_add_` for B1/B2 with one
    accumulator, and for the fused update one `index_add_` of the [R, 23]
@@ -56,7 +69,8 @@ phases; any failure exits non-zero.
    tidb_probe_count), and the time of what each fused kernel replaces
    (the single-column calls; the eager probe chain). tidb_probe_count is
    timed on the recorded arguments of Q18's table route (flags-only and
-   full), Q3's direct route and Q5's sorted route, and on a cap-2^18
+   full), Q3's direct route and Q5's sorted route (a phase-1 case of the
+   route where the plan takes it nowhere), and on a cap-2^18
    table. The full report goes to chiprun_out/chip_smoke.json.
 
 The card's name and power limit are printed first; the line before the
@@ -760,10 +774,49 @@ def check_join_rows(qname, got, want, decimal_cols):
             raise AssertionError(f"{qname} differs: {g} vs {w}")
 
 
+def trace_summary(trace_path: str) -> tuple:
+    """From a profiled run's chrome trace: the host->device copies by kind
+    ({"pinned"/"pageable": {"count", "bytes", "device_us"}}; the profiler
+    names each copy 'Memcpy HtoD (Pinned -> Device)' or '(Pageable ->
+    Device)'), and each host thread's busy time in torch operators and
+    CUDA runtime calls (the union of their intervals, in us), which shows
+    the prefetch thread beside the statement's own."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    copies = {"pinned": {"count": 0, "bytes": 0, "device_us": 0.0},
+              "pageable": {"count": 0, "bytes": 0, "device_us": 0.0}}
+    spans = {}
+    for e in trace.get("traceEvents", []):
+        name, cat = e.get("name", ""), e.get("cat")
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            kind = "pinned" if "Pinned" in name else "pageable"
+            copies[kind]["count"] += 1
+            copies[kind]["bytes"] += int((e.get("args") or {}).get("bytes", 0))
+            copies[kind]["device_us"] += float(e.get("dur", 0.0))
+        elif cat in ("cpu_op", "cuda_runtime") and "dur" in e:
+            ts = float(e["ts"])
+            spans.setdefault(str(e.get("tid")), []).append((ts, ts + float(e["dur"])))
+    busy = {}
+    for tid, iv in spans.items():
+        iv.sort()
+        total, end = 0.0, None
+        for a, b in iv:
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        busy[tid] = total
+    return copies, busy
+
+
 def profile_query(torch, session, sql: str) -> dict:
     """One warm run under torch.profiler: wall time, device busy time (the
-    sum over the kernels and copies on the card, which run on one stream),
-    the idle share, and the top entries by device and by host time."""
+    sum over the kernels and copies on the card), the idle share, the
+    host->device copies split pinned/pageable (count, bytes), the host's
+    cudaMemcpyAsync and launch counts, and the top entries by device and by
+    host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -774,6 +827,12 @@ def profile_query(torch, session, sql: str) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
+    trace_path = os.path.join(OUT_DIR, "profile_trace.tmp.json")
+    prof.export_chrome_trace(trace_path)
+    try:
+        copies, thread_busy = trace_summary(trace_path)
+    finally:
+        os.remove(trace_path)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -788,9 +847,13 @@ def profile_query(torch, session, sql: str) -> dict:
 
     launch_apis = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                    "cuLaunchKernelEx")
+    copy_apis = ("cudaMemcpyAsync",)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "idle_share": 1.0 - busy_us / wall_us,
             "host_launches": {e.key: e.count for e in host if e.key in launch_apis},
+            "host_copies": {e.key: {"count": e.count, "cpu_us": e.self_cpu_time_total}
+                            for e in host if e.key in copy_apis},
+            "h2d": copies, "host_thread_busy_us": thread_busy,
             "top_device": [row(e) for e in sorted(on_card, key=dev_us, reverse=True)[:8]],
             "top_host": [row(e) for e in sorted(
                 host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
@@ -818,17 +881,127 @@ def count_segment_chunks() -> list:
 
 
 def run_query(session, mods, sql: str):
-    """One run with the kernels' launch counters and the join's probe-route
-    counter zeroed just before and read just after; returns (rows,
-    launches, routes, seconds)."""
-    seg_mod, hp, jk = mods
+    """One run with the kernels' launch counters, the join's probe-route
+    counter and the pipeline's and segment store's counters zeroed just
+    before and read just after; returns (rows, counts, seconds)."""
+    seg_mod, hp, jk, pl, st = mods
     seg_mod.reset_launches()
     hp.reset_launches()
     jk.reset_routes()
+    pl.reset_counters()
+    seg0 = dict(st.SCAN_SEGMENTS_TOTAL)
     t0 = time.perf_counter()
     rows = session.query(sql)
     dt = time.perf_counter() - t0
-    return rows, {**seg_mod.LAUNCHES, **hp.LAUNCHES}, dict(jk.PROBE_ROUTES), dt
+    pre = dict(pl.PIPELINE_PREFETCH_TOTAL)
+    counts = {"launches": {**seg_mod.LAUNCHES, **hp.LAUNCHES},
+              "routes": dict(jk.PROBE_ROUTES),
+              "segments": {k: st.SCAN_SEGMENTS_TOTAL[k] - seg0[k] for k in seg0},
+              "staged_batches": pre["hit"] + pre["wait"] + pre["inline"],
+              "prefetch": pre, "h2d": dict(pl.PIPELINE_PREFETCH_BYTES),
+              "stage_s": dict(pl.PIPELINE_STAGE_SECONDS),
+              "cache": dict(pl.DEVICE_CACHE_TOTAL),
+              "fused": dict(pl.PIPELINE_FUSED_TOTAL)}
+    return rows, counts, dt
+
+
+def fusible_joins(plan) -> int:
+    """Inner/LEFT hash joins of a physical plan whose probe side peels to a
+    plain table scan: the joins the builder's gates send to
+    FusedScanProbeExec."""
+    from tidb_tpu_torch.executor.builder import peel_stages
+    from tidb_tpu_torch.planner.physical import PHashJoin, PScan
+
+    n, stack = 0, [plan]
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children)
+        if (isinstance(node, PHashJoin) and node.kind in ("inner", "left")
+                and node.other_cond is None and not node.exists_sem):
+            _stages, base = peel_stages(node.children[1 - node.build_side])
+            n += type(base) is PScan and base.table is not None
+    return n
+
+
+def check_path(qname, c, agg_chunks, fused_aggs, fused_probes):
+    """The launch contract of one query's run on one path: tidb_segagg once
+    per aggregated chunk (one-column entries never), tidb_probe_count once
+    per probe chunk (lookup-only never), and the fused fragments the plan
+    calls for."""
+    lc = c["launches"]
+    if lc["segagg"] != agg_chunks:
+        raise AssertionError(f"{qname}: segagg launched {lc['segagg']} times over "
+                             f"{agg_chunks} aggregated chunks, not once per chunk")
+    if lc["segsum_count"] or lc["segsum_i64"] or lc["hash_probe"]:
+        raise AssertionError(f"{qname} launched an off-path kernel entry: {lc}")
+    if lc["probe_count"] != sum(c["routes"].values()):
+        raise AssertionError(f"{qname}: probe_count launched {lc['probe_count']} times "
+                             f"over {c['routes']} probe chunks, not once per chunk")
+    if c["fused"]["agg"] != fused_aggs or c["fused"]["probe"] != fused_probes:
+        raise AssertionError(f"{qname}: fused fragments {c['fused']}, want "
+                             f"{fused_aggs} aggregations and {fused_probes} probes")
+
+
+def packed_batch_phase(torch, np, Session, mods, agg_chunks) -> dict:
+    """A 1,200,000-row table loaded with tidb_tpu_segment_rows = 8192
+    before its first scan, so the fused scan packs k = 65,536 / 8,192 = 8
+    segments a batch: one aggregate and one join over it, each equal to
+    numpy, each through its fused executor, tidb_segagg once per staged
+    batch."""
+    seg_mod, hp, jk, pl, st = mods
+    n, nd = 1_200_000, 100_000
+    rng = np.random.default_rng(5)
+    k = rng.integers(0, 2 * nd, n).astype(np.int64)  # half the keys miss
+    cvals = ["AIR", "MAIL", "RAIL", "SHIP", "TRUCK"]
+    c = rng.integers(0, len(cvals), n)
+    v = rng.integers(-100_000, 10_000_000, n).astype(np.int64)  # decimal(12,2)
+    w = rng.integers(0, 1000, nd).astype(np.int64)
+    s = Session()
+    s.execute("set tidb_tpu_segment_rows = 8192")
+    s.execute("create table big (k bigint, c varchar(8), v decimal(12,2))")
+    s.execute("create table dim (k bigint, w bigint)")
+    s.catalog.table("test", "big").insert_columns(
+        {"k": k, "v": v}, strings={"c": [cvals[i] for i in c]})
+    s.catalog.table("test", "dim").insert_columns({"k": np.arange(nd), "w": w})
+    out = {}
+    agg_sql = "select c, count(*), sum(v) from big where v > 0 group by c order by c"
+    agg_chunks[0] = 0
+    rows, cnt, dt = run_query(s, mods, agg_sql)
+    m = v > 0
+    want = [(cvals[i], int((m & (c == i)).sum()), int(v[m & (c == i)].sum()))
+            for i in range(len(cvals))]
+    got = [(r[0], r[1], _scaled(r[2])) for r in rows]
+    if got != want:
+        raise AssertionError(f"packed aggregate {got} vs numpy {want}")
+    n_segs = -(-n // 8192)
+    if cnt["segments"]["scanned"] + cnt["segments"]["pruned"] != n_segs:
+        raise AssertionError(f"packed aggregate read segments {cnt['segments']}")
+    check_path("packed_agg", cnt, agg_chunks[0], 1, 0)
+    if agg_chunks[0] != cnt["staged_batches"] or cnt["staged_batches"] != -(-n_segs // 8):
+        raise AssertionError(f"packed aggregate: {cnt['staged_batches']} staged batches, "
+                             f"{agg_chunks[0]} aggregated, {n_segs} segments")
+    out["agg"] = {"counts": cnt, "seconds": dt}
+    join_sql = ("select count(*), sum(dim.w), sum(big.v) from big join dim "
+                "on big.k = dim.k where big.c <> 'RAIL'")
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import explain_text
+
+    plan = s._plan_select(parse(join_sql)[0])
+    agg_chunks[0] = 0
+    rows, cnt, dt = run_query(s, mods, join_sql)
+    hit = (k < nd) & (c != cvals.index("RAIL"))
+    want = (int(hit.sum()), int(w[k[hit]].sum()), int(v[hit].sum()))
+    got = (rows[0][0], int(rows[0][1]), _scaled(rows[0][2]))
+    if got != want:
+        raise AssertionError(f"packed join {got} vs numpy {want}")
+    check_path("packed_join", cnt, agg_chunks[0], 0, fusible_joins(plan))
+    if cnt["fused"]["probe"] != 1:
+        raise AssertionError(f"the packed join did not run fused: {cnt['fused']}")
+    out["join"] = {"counts": cnt, "seconds": dt, "plan": explain_text(plan)}
+    log(f"packed batches (1,200,000 rows, 8,192-row segments, 8 a batch): aggregate "
+        f"{cnt['staged_batches']} staged batches; both equal numpy; counts "
+        f"{out['agg']['counts']} / {cnt}")
+    return out
 
 
 def probe_slot_reads(torch, hp, tkeys, tlos, sk, probes):
@@ -875,10 +1048,13 @@ def record_probe_chunks(hp) -> dict:
 
 def main_path_args(rec, query: str, route: str, mode: str):
     """The recorded arguments of the build `query` probed most often along
-    `route` in `mode` ('full' or 'flags')."""
+    `route` in `mode` ('full' or 'flags'); of another query's build when
+    this plan sent `query` elsewhere; None when no query took the route."""
     keys = [k for k in rec["calls"] if k[:3] == (query, route, mode)]
     if not keys:
-        raise AssertionError(f"{query} made no {route} probe in {mode} mode")
+        keys = [k for k in rec["calls"] if k[1:3] == (route, mode)]
+    if not keys:
+        return None
     return rec["args"][max(keys, key=rec["calls"].get)]
 
 
@@ -952,6 +1128,179 @@ def probe_chunk_row(torch, hp, name: str, args, kw, launches: int) -> dict:
     return row
 
 
+def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
+    """Phase 2 on a Session `s` holding the TPC-H tables: the fused path
+    (default sysvars), the classic raw path, and packed batches over a
+    table of `new_session()`; every result against numpy, every launch
+    contract checked. Returns what phases 3 and the report read."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st = mods
+    li = s.catalog.table("test", "lineitem")
+    n_rows = li.live_rows
+    agg_chunks = count_segment_chunks()
+    plans = {}
+
+    # the default sysvars: the columnar segment store and the fused
+    # pipelines. The first runs of Q1 and Q6 build the segment stores and
+    # fill the device buffer cache; their second runs stage nothing
+    results, per_query, cold = {}, {}, {}
+    probes = record_probe_chunks(hp)
+    for run in ("q1", "q1_warm", "q6", "q6_warm", "q3", "q5", "q18"):
+        qname = run.split("_")[0]
+        # the plan this run executes: segment stores built by earlier runs
+        # feed the planner's statistics, so it is taken just before
+        plans[qname] = s._plan_select(parse(Q[qname][0])[0])
+        want_fused = (1 if qname in ("q1", "q6") else 0, fusible_joins(plans[qname]))
+        agg_chunks[0] = 0
+        probes["query"] = qname
+        rows, cnt, dt = run_query(s, mods, Q[qname][0])
+        cnt["aggregated_chunks"] = agg_chunks[0]
+        per_query[run] = cnt
+        if run == qname:
+            results[qname], cold[qname] = rows, dt
+        elif rows != results[qname]:
+            raise AssertionError(f"{run} differs from the first run")
+        log(f"{run} (fused): {dt:.3f} s; launches {cnt['launches']}; probe routes "
+            f"{cnt['routes']}; segments scanned/pruned {cnt['segments']}; staged "
+            f"batches {cnt['staged_batches']}; prefetch {cnt['prefetch']}; host->device "
+            f"{cnt['h2d']}; staging host s {cnt['stage_s']}; device buffer cache {cnt['cache']}; fused {cnt['fused']}; "
+            f"aggregated chunks {agg_chunks[0]}")
+        check_path(run, cnt, agg_chunks[0], *want_fused)
+    hp.probe_chunk = probes["real"]
+    for q in ("q1", "q6"):
+        cold_c, warm_c = per_query[q], per_query[q + "_warm"]
+        if not (cold_c["staged_batches"] == cold_c["aggregated_chunks"]
+                == cold_c["h2d"]["copies"] > 0 and cold_c["h2d"]["h2d"] > 0):
+            raise AssertionError(f"{q}: staging {cold_c}, not one pinned copy a batch")
+        if warm_c["h2d"]["h2d"] or warm_c["staged_batches"] or warm_c["cache"]["hit"] < 1:
+            raise AssertionError(f"{q}'s second run staged: {warm_c}")
+        if warm_c["aggregated_chunks"] != cold_c["aggregated_chunks"]:
+            raise AssertionError(f"{q}'s second run aggregated another batch count")
+    if per_query["q18"]["routes"]["table"] <= 0:
+        log("note: q18 made no table-route probe at SF1 under this plan")
+    probe_modes = {}  # (route, mode) -> kernel launches over the five queries
+    for (_q, route, mode, _b), n in probes["calls"].items():
+        probe_modes[f"{route}/{mode}"] = probe_modes.get(f"{route}/{mode}", 0) + n
+    log(f"probe_count launches by route and mode: {probe_modes}")
+
+    def check_results(res, label):
+        check_q1(np, res["q1"], numpy_q1(np, li))
+        if len(res["q6"]) != 1 or _scaled(res["q6"][0][0]) != numpy_q6(np, li):
+            raise AssertionError(f"{label} Q6 {res['q6']} vs numpy {numpy_q6(np, li)}")
+        check_join_rows("q3", res["q3"], numpy_q3(np, s.catalog), {1})
+        check_join_rows("q5", res["q5"], numpy_q5(np, s.catalog), {1})
+        check_join_rows("q18", res["q18"], q18_want, {4, 5})
+        if not res["q3"] or not res["q5"] or not res["q18"]:
+            raise AssertionError(f"{label}: a join query returned no rows")
+
+    q18_want, q18_build = numpy_q18(np, s.catalog)
+    check_results(results, "fused")
+    log(f"fused path: Q1 ({len(results['q1'])} groups), Q6, Q3 ({len(results['q3'])} "
+        f"rows), Q5 ({len(results['q5'])}) and Q18 ({len(results['q18'])}) equal the "
+        f"numpy evaluation")
+    launches = {k: sum(per_query[r]["launches"][k] for r in per_query)
+                for k in ("segagg", "segsum_count", "segsum_i64", "hash_probe",
+                          "probe_count")}
+
+    # the earlier path: no segment store, no fused pipeline (the raw
+    # classic tree), the same queries and the same launch contract
+    s.execute("set tidb_tpu_pipeline_fuse = 0")
+    s.execute("set tidb_tpu_columnar_enable = 0")
+    classic, classic_counts = {}, {}
+    for qname in queries:
+        agg_chunks[0] = 0
+        rows, cnt, dt = run_query(s, mods, Q[qname][0])
+        cnt["aggregated_chunks"] = agg_chunks[0]
+        classic[qname], classic_counts[qname] = rows, cnt
+        log(f"{qname} (classic): {dt:.3f} s; launches {cnt['launches']}; probe routes "
+            f"{cnt['routes']}; fused {cnt['fused']}; aggregated chunks {agg_chunks[0]}")
+        check_path(qname, cnt, agg_chunks[0], 0, 0)
+        if cnt["segments"]["scanned"] or cnt["staged_batches"]:
+            raise AssertionError(f"{qname} (classic) read the segment store: {cnt}")
+    check_results(classic, "classic")
+    for qname in queries:
+        if classic[qname] != results[qname]:
+            raise AssertionError(f"{qname}: the classic path's rows differ from the fused path's")
+    s.execute("set tidb_tpu_pipeline_fuse = 1")
+    s.execute("set tidb_tpu_columnar_enable = 1")
+    launches_classic = {k: sum(classic_counts[q]["launches"][k] for q in queries)
+                        for k in launches}
+    log("classic path: the same rows as the fused path and numpy")
+
+    packed = packed_batch_phase(torch, np, new_session, mods, agg_chunks)
+    launches_packed = {k: packed["agg"]["counts"]["launches"][k]
+                       + packed["join"]["counts"]["launches"][k] for k in launches}
+    plans = {q: explain_text(plans[q]) for q in queries}
+    for qname in ("q3", "q5", "q18"):
+        log(f"{qname} plan at SF1:\n{plans[qname]}")
+
+    return {"li": li, "n_rows": n_rows, "results": results, "per_query": per_query,
+            "cold": cold, "probes": probes, "probe_modes": probe_modes,
+            "launches": launches, "launches_classic": launches_classic,
+            "launches_packed": launches_packed, "classic_counts": classic_counts,
+            "packed": packed, "plans": plans, "q18_build": q18_build}
+
+
+
+def phase_modes(torch, s, queries, n_rows) -> tuple:
+    """Phase 3's query times: warm medians of 3 and one profiled warm run of
+    each query in each mode. Returns (times, profiles)."""
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    # four modes: fused with the device buffer cache (the default), fused
+    # with the cache budget 0 (every run stages through the prefetcher),
+    # the classic raw path
+    # (and the same staged inline, prefetch depth 0: what the staging
+    # thread buys or costs against the host's Python launch loop)
+    modes = {"fused_cache": [],
+             "fused_nocache": ["set global tidb_tpu_device_buffer_cache_bytes = 0"],
+             "fused_nocache_inline": ["set global tidb_tpu_device_buffer_cache_bytes = 0",
+                                      "set tidb_tpu_pipeline_prefetch_depth = 0"],
+             "classic": ["set tidb_tpu_pipeline_fuse = 0",
+                         "set tidb_tpu_columnar_enable = 0"]}
+    undo = ["set global tidb_tpu_device_buffer_cache_bytes = 268435456",
+            "set tidb_tpu_pipeline_prefetch_depth = 2",
+            "set tidb_tpu_pipeline_fuse = 1", "set tidb_tpu_columnar_enable = 1"]
+    times, profiles = {}, {}
+    for mode, sets in modes.items():
+        for stmt in sets:
+            s.execute(stmt)
+        times[mode], profiles[mode] = {}, {}
+        for qname in queries:
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                s.query(Q[qname][0])
+                runs.append(time.perf_counter() - t0)
+            med = statistics.median(runs)
+            times[mode][qname] = med
+            pl.reset_counters()
+            prof = profile_query(torch, s, Q[qname][0])
+            prof["pipeline"] = {"prefetch": dict(pl.PIPELINE_PREFETCH_TOTAL),
+                                "stage_s": dict(pl.PIPELINE_STAGE_SECONDS),
+                                "cache": dict(pl.DEVICE_CACHE_TOTAL)}
+            profiles[mode][qname] = prof
+            log(f"{mode} {qname}: warm wall median of 3 {med * 1e3:.3f} ms "
+                f"({n_rows / med:,.0f} rows/s over {n_rows} lineitem rows); runs {runs}; "
+                f"profiled wall {prof['wall_us'] / 1e3:.3f} ms, device busy "
+                f"{prof['device_busy_us'] / 1e3:.3f} ms, idle share "
+                f"{prof['idle_share']:.3f}, host->device {prof['h2d']}, host "
+                f"{prof['host_copies']} {prof['host_launches']}; pipeline {prof['pipeline']}; "
+                f"host thread busy ms "
+                f"{ {t: round(v / 1e3, 1) for t, v in prof['host_thread_busy_us'].items()} }")
+            for e in prof["top_device"][:5] + prof["top_host"][:5]:
+                log(f"  {e['name'][:60]:60s} device {e['device_us'] / 1e3:9.3f} ms "
+                    f"x{e['count']}  host {e['cpu_us'] / 1e3:9.3f} ms")
+        for stmt in undo:
+            s.execute(stmt)
+    return times, profiles
+
+
+
 def main() -> int:
     import torch
 
@@ -961,6 +1310,8 @@ def main() -> int:
     try:
         import numpy as np
 
+        from tidb_tpu_torch.columnar import store as st
+        from tidb_tpu_torch.executor import pipeline as pl
         from tidb_tpu_torch.ops import hash_probe as hp
         from tidb_tpu_torch.ops import join_kernels as jk
         from tidb_tpu_torch.ops import nvcc_build
@@ -979,7 +1330,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
     os.makedirs(OUT_DIR, exist_ok=True)
-    mods = (seg_mod, hp, jk)
+    mods = (seg_mod, hp, jk, pl, st)
 
     t0 = time.perf_counter()
     nvcc_build.build_libraries([os.path.join(nvcc_build.CSRC, m.SOURCE)
@@ -1004,77 +1355,16 @@ def main() -> int:
     t0 = time.perf_counter()
     counts = s.load_tpch(1.0)
     log(f"TPC-H SF1 loaded in {time.perf_counter() - t0:.1f} s: {counts}")
-    li = s.catalog.table("test", "lineitem")
-    n_rows = li.live_rows
-
     queries = ("q1", "q6", "q3", "q5", "q18")
-    launches = {"segagg": 0, "segsum_count": 0, "segsum_i64": 0, "hash_probe": 0,
-                "probe_count": 0}
-    results, per_query, cold = {}, {}, {}
-    agg_chunks = count_segment_chunks()
-    probes = record_probe_chunks(hp)
-    for qname in queries:
-        agg_chunks[0] = 0
-        probes["query"] = qname
-        rows, lc, routes, dt = run_query(s, mods, Q[qname][0])
-        results[qname], cold[qname] = rows, dt
-        per_query[qname] = {"launches": lc, "routes": routes,
-                            "aggregated_chunks": agg_chunks[0]}
-        log(f"{qname} launches: {lc}; probe routes: {routes}; segment-aggregated "
-            f"chunks {agg_chunks[0]}; cold run {dt:.3f} s")
-        for k in launches:
-            launches[k] += lc[k]
-    for qname in ("q1", "q6", "q5"):
-        lc, n_chunks = per_query[qname]["launches"], per_query[qname]["aggregated_chunks"]
-        if n_chunks <= 0 or lc["segagg"] != n_chunks:
-            raise AssertionError(f"{qname} launched segagg {lc['segagg']} times over "
-                                 f"{n_chunks} aggregated chunks, not once per chunk")
-        if lc["segsum_count"] or lc["segsum_i64"]:
-            raise AssertionError(f"{qname} launched a single-column kernel: {lc}")
-    hp.probe_chunk = probes["real"]
-    for qname in ("q3", "q5", "q18"):
-        lc, routes = per_query[qname]["launches"], per_query[qname]["routes"]
-        if lc["probe_count"] <= 0 or lc["probe_count"] != sum(routes.values()):
-            raise AssertionError(f"{qname} launched probe_count {lc['probe_count']} times "
-                                 f"over {routes} probe chunks, not once per chunk")
-    if any(per_query[q]["launches"]["hash_probe"] for q in queries):
-        raise AssertionError("the lookup-only hash_probe ran on the main path")
-    if per_query["q18"]["routes"]["table"] <= 0:
-        raise AssertionError("q18 never probed through the table route")
-    probe_modes = {}  # (route, mode) -> kernel launches over the five queries
-    for (_q, route, mode, _b), n in probes["calls"].items():
-        probe_modes[f"{route}/{mode}"] = probe_modes.get(f"{route}/{mode}", 0) + n
-    log(f"probe_count launches by route and mode: {probe_modes}")
-    check_q1(np, results["q1"], numpy_q1(np, li))
-    q6_rows = results["q6"]
-    if len(q6_rows) != 1 or _scaled(q6_rows[0][0]) != numpy_q6(np, li):
-        raise AssertionError(f"Q6 {q6_rows} vs numpy {numpy_q6(np, li)}")
-    q18_want, q18_build = numpy_q18(np, s.catalog)
-    check_join_rows("q3", results["q3"], numpy_q3(np, s.catalog), {1})
-    check_join_rows("q5", results["q5"], numpy_q5(np, s.catalog), {1})
-    check_join_rows("q18", results["q18"], q18_want, {4, 5})
-    if not results["q3"] or not results["q5"] or not results["q18"]:
-        raise AssertionError("a join query returned no rows")
-    log(f"Q1 ({len(results['q1'])} groups), Q6, Q3 ({len(results['q3'])} rows), "
-        f"Q5 ({len(results['q5'])}) and Q18 ({len(results['q18'])}) equal the numpy "
-        f"evaluation")
-    plans = {}
-    for qname in ("q3", "q5", "q18"):
-        plans[qname] = explain_text(s._plan_select(parse(Q[qname][0])[0]))
-        log(f"{qname} plan at SF1:\n{plans[qname]}")
+    p2 = phase_paths(torch, np, s, mods, Session, queries)
+    li, n_rows, results, per_query = p2["li"], p2["n_rows"], p2["results"], p2["per_query"]
+    cold, probes, probe_modes = p2["cold"], p2["probes"], p2["probe_modes"]
+    launches, launches_classic = p2["launches"], p2["launches_classic"]
+    launches_packed, classic_counts = p2["launches_packed"], p2["classic_counts"]
+    packed, plans, q18_build = p2["packed"], p2["plans"], p2["q18_build"]
 
     # -- phase 3 ------------------------------------------------------------
-    times = {}
-    for qname in queries:
-        runs = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            s.query(Q[qname][0])
-            runs.append(time.perf_counter() - t0)
-        med = statistics.median(runs)
-        times[qname] = med
-        log(f"{qname} warm wall median of 3: {med * 1e3:.3f} ms "
-            f"({n_rows / med:,.0f} rows/s over {n_rows} lineitem rows); runs {runs}")
+    times, profiles = phase_modes(torch, s, queries, n_rows)
 
     # Q18's IN subquery alone (a generic aggregation of lineitem by order
     # key): how much of Q18 is not the join
@@ -1087,16 +1377,6 @@ def main() -> int:
     times["q18_subquery"] = statistics.median(runs)
     log(f"q18's IN subquery alone, warm wall median of 3: "
         f"{times['q18_subquery'] * 1e3:.3f} ms; runs {runs}")
-
-    profiles = {}
-    for qname in queries:
-        prof = profile_query(torch, s, Q[qname][0])
-        profiles[qname] = prof
-        log(f"{qname} profiled: wall {prof['wall_us'] / 1e3:.3f} ms, device busy "
-            f"{prof['device_busy_us'] / 1e3:.3f} ms, idle share {prof['idle_share']:.3f}")
-        for e in prof["top_device"] + prof["top_host"]:
-            log(f"  {e['name'][:60]:60s} device {e['device_us'] / 1e3:9.3f} ms "
-                f"x{e['count']}  host {e['cpu_us'] / 1e3:9.3f} ms")
 
     # Q1's chunk as the kernels see it: packed ids (returnflag code +
     # 4 x linestatus code) over the groups Q1 found, in the proportions of
@@ -1235,14 +1515,25 @@ def main() -> int:
     # run above gave it: Q18's semi join (the table route, flags only; also
     # timed in full), Q3's top join (direct) and Q5's two-key join (sorted);
     # and a table above the shared-memory limit (2^17 build rows, cap 2^18)
-    q18_args, q18_kw = main_path_args(probes, "q18", "table", "flags")
+    def recorded(query, route, mode, seed):
+        got = main_path_args(probes, query, route, mode)
+        if got is not None:
+            return got
+        # no query of this plan took the route: a phase-1 case of the shape
+        log(f"note: no main-path {route}/{mode} probe; timing a synthetic case")
+        case = make_probe_count_case(torch, np, jk, hp, R, 1 << 12,
+                                     {"route": route, "flags_only": mode == "flags"},
+                                     seed, "cuda")
+        return chunk_args(jk, case)
+
+    q18_args, q18_kw = recorded("q18", "table", "flags", 4001)
     shapes = [
         ("probe_count.table_flags", q18_args, q18_kw, probe_modes.get("table/flags", 0)),
         ("probe_count.table_full", q18_args, dict(q18_kw, flags_only=False),
          probe_modes.get("table/full", 0)),
-        ("probe_count.direct", *main_path_args(probes, "q3", "direct", "full"),
+        ("probe_count.direct", *recorded("q3", "direct", "full", 4002),
          probe_modes.get("direct/full", 0)),
-        ("probe_count.sorted", *main_path_args(probes, "q5", "sorted", "full"),
+        ("probe_count.sorted", *recorded("q5", "sorted", "full", 4003),
          probe_modes.get("sorted/full", 0)),
     ]
     big = make_probe_count_case(torch, np, jk, hp, R, 1 << 17, {"route": "table"}, 4999,
@@ -1251,8 +1542,13 @@ def main() -> int:
     for kname, args, kw, n_launch in shapes:
         rows.append(probe_chunk_row(torch, hp, kname, args, kw, n_launch))
 
+    log(f"main-path launches: fused path {launches}, classic path {launches_classic}, "
+        f"packed batches {launches_packed}")
     report = {"card": card, "device": name, "lineitem_rows": n_rows,
               "warm_s": times, "cold_s": cold, "per_query": per_query,
+              "classic_counts": classic_counts, "packed_batches": packed,
+              "launches_by_path": {"fused": launches, "classic": launches_classic,
+                                   "packed": launches_packed},
               "plans": plans, "probe_checks": probe_checks,
               "segagg_checks": segagg_checks, "segagg_q1": segagg_q1,
               "probe_count_checks": probe_count_checks, "probe_modes": probe_modes,

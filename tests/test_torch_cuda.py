@@ -197,3 +197,96 @@ def test_q1_q6_on_card_equal_cpu(card):
         assert port.LAUNCHES["segagg"] == 1
         assert port.LAUNCHES["segsum_count"] == port.LAUNCHES["segsum_i64"] == 0
         assert got == on_cpu.query(Q[q][0])
+
+
+def _staging_jobs(n, rows):
+    """n jobs whose batches are random int64 and int16 columns (seeded by
+    the batch index), carved from one arena each."""
+    from tidb_tpu_torch.executor.pipeline import HostArena
+
+    def job_for(i):
+        def job(arena_for):
+            rng = np.random.default_rng(i)
+            arena = arena_for(HostArena.nbytes_for([(rows, np.int64), (rows, np.int16)]))
+            x = arena.zeros(rows, np.int64)
+            x[:] = rng.integers(0, 1 << 20, rows)
+            y = arena.zeros(rows, np.int16)
+            y[:] = rng.integers(-(1 << 15), 1 << 15, rows)
+            return {"x": x, "y": y}
+        return job
+
+    return [job_for(i) for i in range(n)]
+
+
+def test_prefetcher_copy_stream_matches_inline(card):
+    """50 consecutive batches staged ahead on the prefetcher's copy stream
+    are bit-equal to inline staging, while kernels on the compute stream
+    still read the previous batch after the consumer dropped it: the copy
+    event orders the compute stream after each copy, and record_stream
+    keeps the caching allocator from handing a block that a queued kernel
+    reads to the next copy."""
+    from tidb_tpu_torch.executor.base import ExecContext
+    from tidb_tpu_torch.executor.pipeline import PIPELINE_PREFETCH_TOTAL, ChunkPrefetcher
+
+    n, rows = 50, 1 << 20
+
+    def run(depth):
+        pf = ChunkPrefetcher(_staging_jobs(n, rows), ExecContext(device=card,
+                                                                 prefetch_depth=depth))
+        sums, copies = [], []
+        try:
+            for i in range(n):
+                b = pf.get(i)
+                acc = torch.zeros((), dtype=torch.int64, device=card)
+                for r in range(8):  # a chain of kernels reading the batch
+                    acc = acc + (b["x"] * (r + 1)).sum() + b["y"].to(torch.int64).sum()
+                sums.append(acc)
+                copies.append((b["x"].clone(), b["y"].clone()))
+                del b  # only the queued kernels still read it
+        finally:
+            pf.close()
+        torch.cuda.synchronize()
+        return torch.stack(sums).cpu(), copies
+
+    inline0 = PIPELINE_PREFETCH_TOTAL["inline"]
+    want_sums, want = run(0)
+    assert PIPELINE_PREFETCH_TOTAL["inline"] == inline0 + n
+    ahead0 = PIPELINE_PREFETCH_TOTAL["hit"] + PIPELINE_PREFETCH_TOTAL["wait"]
+    got_sums, got = run(2)
+    assert PIPELINE_PREFETCH_TOTAL["hit"] + PIPELINE_PREFETCH_TOTAL["wait"] == ahead0 + n
+    assert torch.equal(got_sums, want_sums)
+    for i, ((gx, gy), (wx, wy)) in enumerate(zip(got, want)):
+        assert torch.equal(gx, wx) and torch.equal(gy, wy), i
+    rng = np.random.default_rng(n - 1)  # the last batch against the host
+    x = rng.integers(0, 1 << 20, rows)
+    assert np.array_equal(got[-1][0].cpu().numpy(), x)
+
+
+def test_fused_packed_batches_on_card_equal_cpu(card):
+    """The fused pipeline on the card with 1,024-row segments packed 4 to a
+    batch (chunk capacity 4,096) equals the port on the CPU, and the
+    segment update launches tidb_segagg once per staged batch."""
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = Catalog()
+    load_tpch(cat, sf=0.01)
+    on_card = Session(cat, chunk_capacity=1 << 12)
+    on_cpu = Session(cat, chunk_capacity=1 << 12, device="cpu")
+    for s in (on_card, on_cpu):
+        s.execute("set tidb_tpu_segment_rows = 1024")
+    on_card.execute("set global tidb_tpu_device_buffer_cache_bytes = 0")
+    for q in ("q1", "q6", "q3", "q5"):
+        want = on_cpu.query(Q[q][0])
+        port.reset_launches()
+        pl.reset_counters()
+        got = on_card.query(Q[q][0])
+        assert got == want, q
+        if q in ("q1", "q6"):
+            staged = sum(pl.PIPELINE_PREFETCH_TOTAL[k] for k in ("hit", "wait", "inline"))
+            assert pl.PIPELINE_FUSED_TOTAL["agg"] == 1
+            assert port.LAUNCHES["segagg"] == staged > 1
+            assert pl.PIPELINE_PREFETCH_BYTES["copies"] == staged

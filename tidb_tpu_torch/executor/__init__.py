@@ -1,12 +1,17 @@
 """Executor (ref: executor/ — the Open/Next/Close Volcano operators).
 
-  scan.py      -- TableScanExec (host slices staged to the device per
-                  chunk) + SelectionExec / ProjectionExec
+  scan.py      -- TableScanExec (segments or raw slices staged to the
+                  device per chunk) + SelectionExec / ProjectionExec
+  pipeline.py  -- FusedScanAggExec / FusedScanProbeExec (fused scan
+                  fragments), ChunkPrefetcher (pinned staging on a copy
+                  stream), DeviceBufferCache (staged inputs across
+                  statements)
   aggregate.py -- HashAggExec: packed-code segment strategy on the
                   device through the CUDA segment kernels, or the host
                   generic groupby
   sort.py      -- SortExec / TopNExec / LimitExec / UnionExec (root, host)
-  builder.py   -- physical plan -> executor tree (the classic tree only)
+  builder.py   -- physical plan -> executor tree (fused where the gates
+                  allow, else the classic tree)
   base.py      -- Executor protocol, ExecContext, ResultSet, run_plan
 """
 

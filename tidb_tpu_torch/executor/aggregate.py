@@ -304,7 +304,11 @@ class HashAggExec(Executor):
         state = init_state(self.ctx.device)
         for chunk in self.children[0].chunks():
             state = update(state, chunk)
-        # one fetch of the [G]-shaped accumulators, then a host finalize
+        self._finalize_segment_state(state, domains)
+
+    def _finalize_segment_state(self, state, domains):
+        """One fetch of the [G]-shaped accumulators, then a host finalize
+        (shared with FusedScanAggExec)."""
         host = {k: v.cpu().numpy() for k, v in state.items()}
         if self.group_exprs:
             occupied = np.nonzero(host["occ"] > 0)[0]

@@ -2,15 +2,15 @@
 
 The builder performs pipeline fusion: chains of Selection/Projection above
 a table scan collapse into the scan's stage list, so a scan+filter+project
-runs as one pass over each staged chunk.
-
-This slice builds the classic operator tree only. `_try_fused_scan_agg`
-and `_try_fused_scan_probe` return None until executor/pipeline.py
-(FusedScanAggExec, FusedScanProbeExec) is ported, so every aggregation
-runs as TableScanExec -> HashAggExec and every hash join as HashJoinExec
-over its two child trees. Index joins, window functions and the
-index/partition access paths are not yet ported and raise
-UnsupportedError.
+runs as one pass over each staged chunk. An aggregation whose child peels
+to a plain table scan becomes FusedScanAggExec, and an inner or LEFT hash
+join whose probe side does becomes FusedScanProbeExec (executor/
+pipeline.py), with the reference's plan-static gates; the context-
+dependent gates (the sysvars) decide at open() and fall back to the
+classic tree through each fused executor's `fallback_build` delegate.
+Index joins, window functions, the fused top-N and the index/partition
+access paths are not yet ported and raise UnsupportedError or take the
+classic tree.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from tidb_tpu_torch.planner.physical import (
     PhysicalPlan,
 )
 
-__all__ = ["build_executor", "peel_stages", "scan_stages_for"]
+__all__ = ["build_executor", "peel_stages", "scan_stages_for", "scan_prune_bounds"]
 
 
 def peel_stages(plan: PhysicalPlan):
@@ -65,15 +65,56 @@ def scan_stages_for(scan: PScan, stages) -> list:
     return out
 
 
+def scan_prune_bounds(scan: PScan):
+    """Zone-consultable bounds from the scan's pushed filter: the columnar
+    segment store prunes whole segments against these before any
+    host->device staging. Computed at executor-build time, so bounds
+    always come from the current literals."""
+    if scan.pushed_cond is None or scan.table is None:
+        return ()
+    from tidb_tpu_torch.columnar.zonemap import collect_prune_bounds
+
+    uid_map = {c.uid: (c.name, c.type_) for c in scan.schema}
+    return collect_prune_bounds(scan.pushed_cond, uid_map)
+
+
 def _try_fused_scan_agg(plan: PHashAgg):
-    """The fused scan->filter->project->partial-agg pipeline
-    (FusedScanAggExec in tidb_tpu/executor/pipeline.py) is not yet
-    ported: every aggregation takes the classic tree."""
-    return None
+    """HashAgg whose child peels to a PLAIN table scan pipeline runs as one
+    fused scan->filter->project->partial-agg fragment. Anything the
+    context later rules out falls back through `fallback_build` at open(),
+    so the routing decision needing ExecContext state doesn't have to
+    happen here."""
+    from tidb_tpu_torch.executor.pipeline import FusedScanAggExec
+
+    stages, base = peel_stages(plan.child)
+    if type(base) is not PScan or base.table is None:
+        return None
+    if plan.strategy != "segment":
+        # plan-static generic-strategy gates decide here so permanently
+        # unfusible shapes (DISTINCT, non-core funcs, global generic) keep
+        # the classic tree; ctx-dependent gates defer to open()
+        from tidb_tpu_torch.planner.logical import core_generic_agg
+
+        if not core_generic_agg(plan.group_exprs, plan.aggs):
+            return None
+
+    def fallback(plan=plan):
+        return HashAggExec(
+            plan.schema, build_executor(plan.child), plan.group_exprs,
+            plan.group_uids, plan.aggs, plan.strategy,
+            segment_sizes=getattr(plan, "segment_sizes", None))
+
+    return FusedScanAggExec(
+        plan.schema, base.schema, base.table,
+        scan_stages_for(base, stages), scan_prune_bounds(base),
+        plan.group_exprs, plan.group_uids, plan.aggs, plan.strategy,
+        segment_sizes=getattr(plan, "segment_sizes", None),
+        fallback_build=fallback)
 
 
 def _build_hash_join(plan: PHashJoin) -> HashJoinExec:
-    """The classic pull-based hash-join tree."""
+    """The classic pull-based hash-join tree (also the fused path's
+    open()-time fallback delegate)."""
     probe_idx = 1 - plan.build_side
     probe_plan = plan.children[probe_idx]
     build_plan = plan.children[plan.build_side]
@@ -108,10 +149,57 @@ def _build_hash_join(plan: PHashJoin) -> HashJoinExec:
 
 
 def _try_fused_scan_probe(plan: PHashJoin):
-    """The fused scan->probe fragment (FusedScanProbeExec in
-    tidb_tpu/executor/pipeline.py) is not yet ported: every hash join
-    takes the classic tree."""
-    return None
+    """Inner or LEFT OUTER hash join whose probe side peels to a PLAIN
+    table scan pipeline runs as a fused scan->probe fragment, the build
+    side device-resident (and device-buffer-cached when it is itself a
+    plain scan over a stored table). Plan-static gates decide here:
+    semi/anti kinds and other_cond keep the classic tree; ctx-dependent
+    gates (sysvars) defer to the open()-time delegate, as does the
+    data-dependent hash-mode packing escape (composite key ranges
+    overflowing int64 need the classic probe's exact re-verification,
+    known only after the build drain)."""
+    from tidb_tpu_torch.executor.pipeline import FusedScanProbeExec
+
+    if plan.kind not in ("inner", "left") or plan.other_cond is not None:
+        return None
+    if plan.exists_sem:
+        return None
+    if plan.kind == "left" and plan.build_side != 1:
+        # the fused probe streams the PRESERVED side; a left join built on
+        # the left would pad the wrong side
+        return None
+    probe_idx = 1 - plan.build_side
+    probe_plan = plan.children[probe_idx]
+    build_plan = plan.children[plan.build_side]
+    probe_keys = plan.eq_left if probe_idx == 0 else plan.eq_right
+    build_keys = plan.eq_right if plan.build_side == 1 else plan.eq_left
+    if len(probe_keys) != len(build_keys) or not probe_keys:
+        return None
+    stages, base = peel_stages(probe_plan)
+    if type(base) is not PScan or base.table is None:
+        return None
+    # build-side cache eligibility: only a plain scan pipeline over a
+    # stored table proves a parked build current via table_ident; the tag
+    # carries the peeled plan's full shape (literal values included)
+    bstages, bbase = peel_stages(build_plan)
+    build_table = bbase.table if type(bbase) is PScan else None
+    build_tag = None
+    if build_table is not None:
+        build_tag = repr((bstages, getattr(bbase, "pushed_cond", None),
+                          build_keys,
+                          tuple(c.uid for c in build_plan.schema)))
+
+    def fallback(plan=plan):
+        return _build_hash_join(plan)
+
+    return FusedScanProbeExec(
+        plan.schema, base.schema, base.table,
+        scan_stages_for(base, stages), scan_prune_bounds(base),
+        list(probe_plan.schema), probe_keys, build_keys,
+        list(build_plan.schema),
+        build_child_build=lambda: build_executor(build_plan),
+        build_table=build_table, build_tag=build_tag,
+        kind=plan.kind, fallback_build=fallback)
 
 
 def build_executor(plan: PhysicalPlan) -> Executor:
@@ -123,6 +211,7 @@ def build_executor(plan: PhysicalPlan) -> Executor:
             table=base.table,
             stages=scan_stages_for(base, stages),
             out_schema=plan.schema,
+            prune_bounds=scan_prune_bounds(base),
         )
 
     if isinstance(plan, PSelection):

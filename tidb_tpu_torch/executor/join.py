@@ -28,7 +28,8 @@ empties the result; NOT EXISTS keeps NULL-key probe rows).
 
 Not ported from the reference: the host-numpy tier (the port has one
 engine, torch on ctx.device, which is its CPU path too), memory-tracker
-accounting, plan-feedback output counts and cancellation polling.
+accounting and plan-feedback output counts. Cancellation is polled where
+the reference polls it (between build and probe chunks).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 
 from tidb_tpu_torch.chunk.chunk import Chunk
 from tidb_tpu_torch.chunk.column import Column
-from tidb_tpu_torch.executor.base import ExecContext, Executor
+from tidb_tpu_torch.executor.base import ExecContext, Executor, raise_if_cancelled
 from tidb_tpu_torch.expression.compiler import compile_predicate, eval_expr
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
@@ -91,15 +92,22 @@ class HashJoinExec(Executor):
         self._build()
 
     def _build(self):
-        """Drain the build child on the device, compacting key and payload
-        columns to live rows; then pack + sort + gather on the device, or
-        sort on the host (the join_device_build = 0 hatch)."""
+        """Drain the build child, then stage the build side (the fused
+        scan->probe executor runs the same two halves over a build child
+        of its own, executor/pipeline.py)."""
+        self._stage_build(*self._drain_build(self.children[1]))
+
+    def _drain_build(self, child: Executor):
+        """Drain `child` on the device, compacting key and payload columns
+        to live rows: (key arrays, key-ok mask, {uid: (data, valid)})."""
         dev = self.ctx.device
         keys_ir = self.build_keys
         key_cols = [[] for _ in (keys_ir or [None])]
         key_ok = []
         payload: dict = {c.uid: ([], []) for c in (self.build_schema or [])}
-        for chunk in self.children[1].chunks():
+        for chunk in child.chunks():
+            # KILL/deadline interrupts the build drain chunk by chunk
+            raise_if_cancelled(self.ctx)
             chunk = _to_device(chunk, dev)
             if keys_ir:
                 outs = [eval_expr(k, chunk) for k in keys_ir]
@@ -129,7 +137,11 @@ class HashJoinExec(Executor):
         for uid, (dlist, vlist) in payload.items():
             dt = torch_dtype(self._build_schema_by_uid[uid].type_.np_dtype)
             payload_cols[uid] = (cat(dlist, dt), cat(vlist, torch.bool))
+        return key_arrays, ok, payload_cols
 
+    def _stage_build(self, key_arrays, ok, payload_cols) -> None:
+        """Pack + sort + gather the drained build on the device, or sort on
+        the host (the join_device_build = 0 hatch), and index it."""
         # pack parameters (and the hash-mode decision) come from the VALID
         # keys only: a NULL slot's garbage value must not widen the range
         valid_keys = [k[ok] for k in key_arrays]
@@ -309,6 +321,8 @@ class HashJoinExec(Executor):
             if chunk is None:
                 self._drained = True
                 break
+            # a KILL/deadline interrupts the probe drain between chunks
+            raise_if_cancelled(self.ctx)
             tok = self._probe_start(chunk)
             if tok is None:
                 continue  # fully handled (unfiltered semi/anti)

@@ -6,9 +6,15 @@ host->device staging: each slice of the table's host buffers is copied
 into a fixed-capacity Chunk on the context's device, and the pushed
 filter plus any stacked Selection/Projection stages run over it.
 
-This slice stages raw row ranges only; the columnar segment store
-(`_open_segments` in tidb_tpu/executor/scan.py: zone-map pruning and
-frame-of-reference decode) is not yet ported.
+With tidb_tpu_columnar_enable (the default) a table that has grown past
+one segment reads through its columnar segment store (`_open_segments`):
+zone maps prune whole segments before any staging, each segment's narrow
+frame-of-reference payload is what crosses to the device, and the decode
+runs there before the pipeline (ops/segment_scan.py). Rows past the
+store's coverage (the delta) stage as raw slices. This is the classic,
+unfused scan: build sides and the `tidb_tpu_pipeline_fuse = 0` path read
+through it, with one pageable copy per column and chunk; the fused
+pipelines (executor/pipeline.py) stage through pinned buffers instead.
 """
 
 from __future__ import annotations
@@ -64,28 +70,112 @@ def stage(host: np.ndarray, cap: int, dtype: torch.dtype, device) -> torch.Tenso
 
 class TableScanExec(Executor):
     def __init__(self, schema: List[PlanCol], table, stages: List,
-                 out_schema: Optional[List[PlanCol]] = None):
+                 out_schema: Optional[List[PlanCol]] = None,
+                 prune_bounds=()):
         super().__init__(out_schema or schema, [])
         self.scan_schema = schema  # storage columns staged (pre-pipeline)
         self.table = table
         self.stages = stages
+        self.prune_bounds = prune_bounds  # zone-consultable pushed bounds
         self._fn = None
         self._slices = []
         self._i = 0
+        self._seg_chunks = []   # (Segment, rel_start, rel_end) to stage
+        self._seg_i = 0
+        self._seg_fn = None
+        self._pin = None
 
     def open(self, ctx: ExecContext) -> None:
         self.ctx = ctx
         cap = ctx.chunk_capacity
         self._fn = make_pipeline_fn(self.stages) if self.stages else None
+        self._seg_chunks = []
+        self._seg_i = 0
+        self._seg_fn = None
+        self._pin = None
         if self.table is not None:
+            tail_start = 0
+            if ctx.columnar_enable:
+                tail_start = self._open_segments(ctx, cap)
             n = self.table.n
-            self._slices = [(s, min(s + cap, n)) for s in range(0, n, cap)]
+            self._slices = [(s, min(s + cap, n)) for s in range(tail_start, n, cap)]
         else:
             # dual table: one empty-schema row (SELECT without FROM)
             self._slices = [None]
         self._i = 0
 
+    def _open_segments(self, ctx: ExecContext, cap: int) -> int:
+        """Plan the segment portion of the scan: consult zone maps to skip
+        whole segments before any staging, pick the decode+pipeline
+        closure, and register the spill pin on the statement tracker.
+        Returns the first delta (uncovered) row."""
+        from tidb_tpu_torch.columnar.store import ScanPin, store_for
+        from tidb_tpu_torch.ops.segment_scan import scan_fn
+
+        store = store_for(
+            self.table, segment_rows=ctx.segment_rows,
+            delta_rows=ctx.segment_delta_rows,
+            spill_dir=ctx.columnar_spill_dir or None)
+        if store is None:
+            return 0
+        # the pin exists BEFORE planning so every snapshot segment is
+        # reference-counted against a concurrent store invalidation
+        self._pin = ScanPin(store, ctx.mem_tracker)
+        segs, pruned, covered = store.plan_scan(self.prune_bounds, pin=self._pin)
+        self.stats.segs_scanned += len(segs)
+        self.stats.segs_pruned += pruned
+        # segment chunks size to the segment, not the plan's chunk
+        # capacity (padding a small segment into a large buffer would
+        # stage mostly zeros); one power-of-two capacity for all of them
+        seg_cap = 1
+        while seg_cap < min(store.segment_rows, cap):
+            seg_cap *= 2
+        self._seg_cap = seg_cap
+        for seg in segs:
+            for s in range(0, seg.rows, seg_cap):
+                self._seg_chunks.append((seg, s, min(s + seg_cap, seg.rows)))
+        if self._seg_chunks:
+            self._seg_fn = scan_fn(self.stages, [(c.uid, c.type_) for c in self.scan_schema])
+        else:
+            self._pin.close()  # nothing to stage: drop the refs now
+            self._pin = None
+        return covered
+
+    def _stage_segment(self, seg, s: int, e: int) -> Chunk:
+        """Stage one segment sub-range and run the decode+pipeline
+        closure. The narrow encoded bytes are what crosses to the device;
+        live-row visibility is read fresh from the table's MVCC arrays."""
+        self._pin.touch(seg)
+        cap = self._seg_cap
+        dev = self.ctx.device
+        data, valid, refs = {}, {}, {}
+        for c in self.scan_schema:
+            if c.name == "__rowid__":
+                d = np.arange(seg.start + s, seg.start + e, dtype=np.int64)
+                v = np.ones(e - s, dtype=np.bool_)
+            else:
+                enc, sd, sv = seg.col(c.name)
+                d, v = sd[s:e], sv[s:e]
+                if enc.kind == "for":
+                    refs[c.uid] = enc.ref
+            data[c.uid] = stage(d, cap, torch_dtype(d.dtype), dev)
+            valid[c.uid] = stage(v, cap, torch.bool, dev)
+        live = self.table.live_mask(seg.start + s, seg.start + e,
+                                    read_ts=self.ctx.read_ts, marker=self.ctx.txn_marker)
+        return self._seg_fn(data, valid, refs, stage(live, cap, torch.bool, dev))
+
+    def close(self) -> None:
+        if self._pin is not None:
+            self._pin.close()
+            self._pin = None
+        super().close()
+
     def next(self) -> Optional[Chunk]:
+        if self._seg_i < len(self._seg_chunks):
+            seg, s, e = self._seg_chunks[self._seg_i]
+            self._seg_i += 1
+            self.stats.chunks += 1
+            return self._stage_segment(seg, s, e)
         if self._i >= len(self._slices):
             return None
         sl = self._slices[self._i]
@@ -109,11 +199,12 @@ class TableScanExec(Executor):
                 cols[c.uid] = Column(
                     stage(data, cap, torch_dtype(c.type_.np_dtype), dev),
                     stage(valid, cap, torch.bool, dev), c.type_)
-            # committed-latest visibility: the port runs autocommit only
-            live = self.table.live_mask(start, end)
+            live = self.table.live_mask(start, end, read_ts=self.ctx.read_ts,
+                                        marker=self.ctx.txn_marker)
             chunk = Chunk(cols, stage(live, cap, torch.bool, dev))
         if self._fn is not None:
             chunk = self._fn(chunk)
+        self.stats.chunks += 1
         return chunk
 
 

@@ -476,13 +476,16 @@ def _materialized_cte_scan(name: str, ctx: BuildContext) -> LogicalPlan:
         # for the ws_wh rescan asserts this site fires once however
         # many consumers scan the result (a site EVENT, not a device
         # round trip — EXPLAIN's dispatch accounting must stay honest)
-        # segment the materialized result (ISSUE 8): every consumer
-        # then scans the encoded, zone-mapped form instead of raw rows.
-        # The session threads its columnar sysvars through session_info
-        # so SET tidb_tpu_columnar_enable=0 skips the encode entirely.
+        # segment the materialized result: every consumer then scans the
+        # encoded, zone-mapped form instead of raw rows. The session
+        # threads its columnar sysvars through session_info so SET
+        # tidb_tpu_columnar_enable=0 skips the encode entirely.
         si = ctx.binder.session_info
         if si.get("columnar_enable", True):
-            raise UnsupportedError("columnar.store is not yet ported")
+            from tidb_tpu_torch.columnar.store import build_for_result
+
+            build_for_result(
+                table, segment_rows=int(si.get("segment_rows", 1 << 16)))
         hit = (table, [c.name for c in schema.columns])
         ctx.cte_tables[id(body_ast)] = hit
     table, names = hit

@@ -94,13 +94,31 @@ class Session:
         return min(cap, want)
 
     def _exec_ctx(self, plan=None) -> ExecContext:
+        from tidb_tpu_torch.utils.memory import MemTracker
+
+        sv = self.sysvars.get
+        # the statement's memory root: its budget is tidb_mem_quota_query,
+        # and spillables (segment pins) anchor here
+        tracker = MemTracker(
+            "query", budget=int(sv("tidb_mem_quota_query")),
+            spill_enabled=bool(sv("tidb_enable_tmp_storage_on_oom")),
+            spill_root=True)
         return ExecContext(
             chunk_capacity=self._plan_capacity(plan),
             device=self.device,
-            group_concat_max_len=int(self.sysvars.get("group_concat_max_len")),
-            join_device_build=bool(self.sysvars.get("tidb_tpu_join_device_build")),
-            join_tiles=int(self.sysvars.get("tidb_tpu_join_tiles_per_dispatch")),
-            join_probe_mode=str(self.sysvars.get("tidb_tpu_join_probe_mode")),
+            group_concat_max_len=int(sv("group_concat_max_len")),
+            join_device_build=bool(sv("tidb_tpu_join_device_build")),
+            join_tiles=int(sv("tidb_tpu_join_tiles_per_dispatch")),
+            join_probe_mode=str(sv("tidb_tpu_join_probe_mode")),
+            mem_tracker=tracker,
+            device_agg=bool(sv("tidb_enable_tpu_exec")),
+            columnar_enable=bool(sv("tidb_tpu_columnar_enable")),
+            segment_rows=int(sv("tidb_tpu_segment_rows")),
+            segment_delta_rows=int(sv("tidb_tpu_segment_delta_rows")),
+            columnar_spill_dir=str(sv("tidb_tpu_columnar_spill_dir")),
+            pipeline_fuse=bool(sv("tidb_tpu_pipeline_fuse")),
+            prefetch_depth=int(sv("tidb_tpu_pipeline_prefetch_depth")),
+            device_buffer_cache_bytes=int(sv("tidb_tpu_device_buffer_cache_bytes")),
         )
 
     def _execute_subplan(self, logical) -> List[tuple]:
@@ -120,9 +138,12 @@ class Session:
             execute_subplan=self._execute_subplan,
             cascades=bool(self.sysvars.get("tidb_enable_cascades_planner")),
             n_parts=1,
-            # the columnar segment store is not yet ported
-            session_info={"user": "root", "conn_id": 0,
-                          "columnar_enable": False},
+            # columnar knobs for plan-time materialization (CTE reuse
+            # segments its result iff enabled)
+            session_info={
+                "user": "root", "conn_id": 0,
+                "columnar_enable": bool(self.sysvars.get("tidb_tpu_columnar_enable")),
+                "segment_rows": int(self.sysvars.get("tidb_tpu_segment_rows"))},
             agg_push_down=bool(self.sysvars.get("tidb_opt_agg_push_down")),
         )
 

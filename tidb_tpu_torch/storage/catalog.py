@@ -1,7 +1,8 @@
 """Catalog: databases -> tables (a trimmed copy of
 tidb_tpu/storage/catalog.py).
 
-In-memory and schema-versioned, with the timestamp oracle every table
+In-memory and schema-versioned (a schema change clears the device buffer
+cache), with the timestamp oracle every table
 stamps its commits from. This slice keeps databases, tables, views and
 the TSO. Not yet ported: information_schema, users and privileges,
 plugins, bindings, the DDL owner and job queue, the plan cache, statement
@@ -10,6 +11,7 @@ summaries, transactions' 2PC status records and GC.
 
 from __future__ import annotations
 
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -34,12 +36,30 @@ class Catalog:
         # single-writer by design
         self.lock = threading.RLock()
         self.databases: Dict[str, Database] = {"test": Database("test")}
-        self.schema_version = 0
+        self._schema_version = 0
         # cluster-wide GLOBAL sysvars (ref: mysql.global_variables)
         self.global_vars: Dict[str, object] = {}
         # timestamp oracle (ref: PD TSO; monotonically increasing, shared
         # by every table in this catalog)
         self._ts = 0
+
+    @property
+    def schema_version(self) -> int:
+        return self._schema_version
+
+    @schema_version.setter
+    def schema_version(self, v: int) -> None:
+        self._schema_version = int(v)
+        # the device buffer cache pins table objects: a schema change
+        # clears it eagerly, so DROP/CREATE never serves buffers of a
+        # dropped table. Looked up lazily: the catalog stays importable
+        # without the executor stack, and a cache that does not exist
+        # yet has nothing to invalidate (getattr-guarded: sys.modules can
+        # hold a module another thread is still importing)
+        pipe = sys.modules.get("tidb_tpu_torch.executor.pipeline")
+        cache = getattr(pipe, "DEVICE_CACHE", None)
+        if cache is not None:
+            cache.on_schema_change()
 
     def next_ts(self) -> int:
         self._ts += 1
@@ -88,6 +108,14 @@ class Catalog:
             if if_exists:
                 return
             raise SchemaError(f"no table {db}.{name}")
+        # columnar segment store: release spilled payloads promptly (a
+        # weakref finalizer on the store backstops tables dropped by GC)
+        store = getattr(d.tables[name], "_segment_store", None)
+        if store is not None:
+            try:
+                store.close()
+            except Exception:  # noqa: BLE001 — cleanup must not block DROP
+                pass
         del d.tables[name]
         self.schema_version += 1
 

@@ -7,7 +7,8 @@ Layout decisions (device-first):
   * appends grow buffers geometrically
   * each string column owns a sorted Dictionary; appends that introduce new
     strings re-encode the column
-  * `version` bumps on every mutation
+  * `version` bumps on every mutation; `data_epoch` when existing rows
+    are rewritten in place (the dictionary re-encode)
   * MVCC visibility per physical row: `begin_ts`/`end_ts`, read through
     `live_mask`
 
@@ -117,6 +118,16 @@ class Table:
         self.schema = schema
         self.n = 0  # physical rows incl. dead versions
         self.version = 0
+        # bumps whenever EXISTING physical rows' data/valid buffers are
+        # rewritten in place (the dictionary-growth re-encode; appends and
+        # MVCC timestamp changes don't count). The columnar segment store
+        # snapshots row-range payloads and rebuilds on any epoch move;
+        # `version` alone moves on every DML and cannot tell an append
+        # from a rewrite.
+        self.data_epoch = 0
+        # the columnar segment store (tidb_tpu_torch/columnar/store.py),
+        # made by the first scan once the table holds a segment of rows
+        self._segment_store = None
         self._auto_inc = 1
         self._local_ts = 0  # fallback TSO for catalog-less tables
         self.ts_source = None  # catalog-provided TSO (set by create_table)
@@ -362,7 +373,11 @@ class Table:
                 self.data[name][: self.n] = trans[self.data[name][: self.n]]
             self.dicts[name] = nd
             d = nd
-            self.version += 1  # existing codes rewrote in place
+            # re-encoding is a physical change: structures keyed on
+            # version must see it now, and segments holding the old codes
+            # must rebuild
+            self.version += 1
+            self.data_epoch += 1  # existing codes rewrote in place
         codes, valid = d.encode_with(vals)
         self.data[name][start:end] = codes
         self.valid[name][start:end] = valid

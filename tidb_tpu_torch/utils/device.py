@@ -16,6 +16,10 @@ __all__ = ["resolve_device", "torch_dtype"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
+    # int8/int16: the narrow frame-of-reference payloads of the columnar
+    # segment store, staged as they are and widened on the device
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.float32): torch.float32,
