@@ -6,8 +6,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from tidb_tpu_torch/ops/csrc with
-nvcc (sm_90a, one nvcc per source, all started together), then runs three
-phases; any failure exits non-zero.
+nvcc (sm_90a, one nvcc per source, all started together), then runs the
+phases below; any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card.
    The fused segment update (tidb_segagg, which replaces B1 and B2) on
@@ -36,6 +36,15 @@ phases; any failure exits non-zero.
    INT64 extremes throughout: all seven outputs bit-equal to
    plain_probe_chunk. The built library's atomic opcodes are read with
    cuobjdump -sass.
+Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
+   capacity 8,192) through Session on cuda, each against an indexed sqlite
+   oracle built here from the port's tables (sqlite_oracle), ordered, with
+   the oracle's SQL variants, numbers within 1e-6 relative. Each run must
+   keep the probe kernel's launch contract, take at least the fused
+   fragments its plan calls for, and run the device generic aggregation
+   exactly on Q2, Q3, Q7, Q8, Q9, Q10, Q11, Q13, Q15, Q16, Q17, Q18 and
+   Q20, fused at least on Q15, Q17, Q18 and Q20. Q9 is empty at this
+   scale and checks nothing.
 2. TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
    tidb_tpu_torch.session.Session on cuda, each compared with a numpy
    evaluation of the same query over the same generated arrays (decimals
@@ -50,18 +59,32 @@ phases; any failure exits non-zero.
    staged batch the first time and 0 bytes staged the second (the device
    buffer cache); Q3, Q5 and Q18 must run every inner join whose probe
    side is a plain scan (counted on the plan taken just before the run)
-   in FusedScanProbeExec. The classic path (tidb_tpu_pipeline_fuse = 0,
+   in FusedScanProbeExec, and every generic aggregation on the device:
+   fused over a plain scan (Q18's IN subquery), else on the classic
+   tree's device path (Q3's, Q18's outer), counted against the plan. The
+   classic path (tidb_tpu_pipeline_fuse = 0,
    tidb_tpu_columnar_enable = 0, the earlier raw tree) must give the same
    rows and run nothing fused. Then a 1,200,000-row table loaded with
    8,192-row segments (8 packed a batch) answers one aggregate and one
    join equal to numpy, through the fused executors, tidb_segagg once per
    staged batch. The probe chunks' arguments are recorded for phase 3.
+   Then Q3, Q18 and Q18's IN subquery run once more with torch's sync
+   debug mode set to "error" around every per-chunk step of the device
+   generic aggregation (a device->host copy or any sync there fails), and
+   a top-N report over lineitem runs with one sort key, with three, and
+   with a LIMIT above the chunk capacity, each against numpy: the first
+   two through FusedScanTopNExec, the last through the classic TopNExec.
 3. Times: warm wall time (median of 3) and rows/s of each query in four
    modes (fused with the buffer cache, fused with its budget 0, the same
-   staged inline at prefetch depth 0, classic); one more warm run of each
-   under torch.profiler (device busy time, idle share, host->device copies
-   split pinned/pageable with their bytes, host cudaMemcpyAsync and launch
-   counts, top operators by device time); each kernel's time at its
+   staged inline at prefetch depth 0, classic), and of Q3 and Q18 in a
+   fifth (generic_host: tidb_device_engine_mode = 'off', the host
+   groupby); one more warm run of each under torch.profiler (device busy
+   time, idle share, host->device copies split pinned/pageable with their
+   bytes, device->host copies, host cudaMemcpyAsync and launch counts, top
+   operators by device time); Q18's IN subquery alone on the device and
+   host paths (on the device it may copy device->host only in its
+   finalize: at most 2 copies), and the peak device memory of Q18, its
+   subquery and Q3; each kernel's time at its
    main-path shape beside its bound, its plain version's time and a
    library call as the yardstick (`index_add_` for B1/B2 with one
    accumulator, and for the fused update one `index_add_` of the [R, 23]
@@ -778,18 +801,20 @@ def trace_summary(trace_path: str) -> tuple:
     """From a profiled run's chrome trace: the host->device copies by kind
     ({"pinned"/"pageable": {"count", "bytes", "device_us"}}; the profiler
     names each copy 'Memcpy HtoD (Pinned -> Device)' or '(Pageable ->
-    Device)'), and each host thread's busy time in torch operators and
+    Device)'), the device->host copies ("d2h", 'Memcpy DtoH ...'), and each
+    host thread's busy time in torch operators and
     CUDA runtime calls (the union of their intervals, in us), which shows
     the prefetch thread beside the statement's own."""
     with open(trace_path) as f:
         trace = json.load(f)
     copies = {"pinned": {"count": 0, "bytes": 0, "device_us": 0.0},
-              "pageable": {"count": 0, "bytes": 0, "device_us": 0.0}}
+              "pageable": {"count": 0, "bytes": 0, "device_us": 0.0},
+              "d2h": {"count": 0, "bytes": 0, "device_us": 0.0}}
     spans = {}
     for e in trace.get("traceEvents", []):
         name, cat = e.get("name", ""), e.get("cat")
-        if cat == "gpu_memcpy" and "HtoD" in name:
-            kind = "pinned" if "Pinned" in name else "pageable"
+        if cat == "gpu_memcpy" and ("HtoD" in name or "DtoH" in name):
+            kind = "d2h" if "DtoH" in name else "pinned" if "Pinned" in name else "pageable"
             copies[kind]["count"] += 1
             copies[kind]["bytes"] += int((e.get("args") or {}).get("bytes", 0))
             copies[kind]["device_us"] += float(e.get("dur", 0.0))
@@ -853,7 +878,8 @@ def profile_query(torch, session, sql: str) -> dict:
             "host_launches": {e.key: e.count for e in host if e.key in launch_apis},
             "host_copies": {e.key: {"count": e.count, "cpu_us": e.self_cpu_time_total}
                             for e in host if e.key in copy_apis},
-            "h2d": copies, "host_thread_busy_us": thread_busy,
+            "h2d": {k: copies[k] for k in ("pinned", "pageable")}, "d2h": copies["d2h"],
+            "host_thread_busy_us": thread_busy,
             "top_device": [row(e) for e in sorted(on_card, key=dev_us, reverse=True)[:8]],
             "top_host": [row(e) for e in sorted(
                 host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
@@ -884,11 +910,12 @@ def run_query(session, mods, sql: str):
     """One run with the kernels' launch counters, the join's probe-route
     counter and the pipeline's and segment store's counters zeroed just
     before and read just after; returns (rows, counts, seconds)."""
-    seg_mod, hp, jk, pl, st = mods
+    seg_mod, hp, jk, pl, st, agg_mod = mods
     seg_mod.reset_launches()
     hp.reset_launches()
     jk.reset_routes()
     pl.reset_counters()
+    agg_mod.reset_counters()
     seg0 = dict(st.SCAN_SEGMENTS_TOTAL)
     t0 = time.perf_counter()
     rows = session.query(sql)
@@ -901,7 +928,8 @@ def run_query(session, mods, sql: str):
               "prefetch": pre, "h2d": dict(pl.PIPELINE_PREFETCH_BYTES),
               "stage_s": dict(pl.PIPELINE_STAGE_SECONDS),
               "cache": dict(pl.DEVICE_CACHE_TOTAL),
-              "fused": dict(pl.PIPELINE_FUSED_TOTAL)}
+              "fused": dict(pl.PIPELINE_FUSED_TOTAL),
+              "generic_runs": dict(agg_mod.DEVICE_GENERIC_TOTAL)}
     return rows, counts, dt
 
 
@@ -923,11 +951,50 @@ def fusible_joins(plan) -> int:
     return n
 
 
-def check_path(qname, c, agg_chunks, fused_aggs, fused_probes):
+def frags(agg=0, generic=0, probe=0, topn=0, generic_classic=0) -> dict:
+    """Fragments a run must take: fused segment ("agg") and generic
+    aggregations, probes and top-k roots, and generic aggregations on the
+    classic tree's device path ("generic_classic")."""
+    return {"agg": agg, "generic": generic, "probe": probe, "topn": topn,
+            "generic_classic": generic_classic}
+
+
+def plan_fragments(plan, capacity: int) -> dict:
+    """The fragments a physical plan calls for under the builder's gates and
+    the device engine: an aggregation over a plain scan runs fused (segment
+    or, for core generic functions, generic); other core generic
+    aggregations take the classic tree's device path; fusible joins probe
+    fused; an ORDER BY [LIMIT] over a plain scan whose state fits the chunk
+    capacity runs as a fused top-k."""
+    from tidb_tpu_torch.executor.builder import peel_stages
+    from tidb_tpu_torch.planner.logical import core_generic_agg
+    from tidb_tpu_torch.planner.physical import PHashAgg, PScan, PSort, PTopN
+
+    out = frags(probe=fusible_joins(plan))
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children)
+        if not node.children:
+            continue
+        _stages, base = peel_stages(node.children[0])
+        scan = type(base) is PScan and base.table is not None
+        if isinstance(node, PHashAgg):
+            if node.strategy == "segment":
+                out["agg"] += scan
+            elif core_generic_agg(node.group_exprs, node.aggs):
+                out["generic" if scan else "generic_classic"] += 1
+        elif isinstance(node, (PTopN, PSort)) and node.items and scan:
+            k = node.count + node.offset if isinstance(node, PTopN) else base.table.n
+            out["topn"] += k <= capacity
+    return out
+
+
+def check_path(qname, c, agg_chunks, want: dict):
     """The launch contract of one query's run on one path: tidb_segagg once
     per aggregated chunk (one-column entries never), tidb_probe_count once
-    per probe chunk (lookup-only never), and the fused fragments the plan
-    calls for."""
+    per probe chunk (lookup-only never), and the fused fragments and device
+    generic aggregations the plan calls for (`want`, from plan_fragments)."""
     lc = c["launches"]
     if lc["segagg"] != agg_chunks:
         raise AssertionError(f"{qname}: segagg launched {lc['segagg']} times over "
@@ -937,9 +1004,11 @@ def check_path(qname, c, agg_chunks, fused_aggs, fused_probes):
     if lc["probe_count"] != sum(c["routes"].values()):
         raise AssertionError(f"{qname}: probe_count launched {lc['probe_count']} times "
                              f"over {c['routes']} probe chunks, not once per chunk")
-    if c["fused"]["agg"] != fused_aggs or c["fused"]["probe"] != fused_probes:
-        raise AssertionError(f"{qname}: fused fragments {c['fused']}, want "
-                             f"{fused_aggs} aggregations and {fused_probes} probes")
+    got = {k: c["fused"][k] for k in ("agg", "generic", "probe", "topn")}
+    got["generic_classic"] = c["generic_runs"]["classic"]
+    if c["generic_runs"]["fused"] != c["fused"]["generic"] or got != want:
+        raise AssertionError(f"{qname}: fragments {c['fused']}, device generic runs "
+                             f"{c['generic_runs']}; the plan calls for {want}")
 
 
 def packed_batch_phase(torch, np, Session, mods, agg_chunks) -> dict:
@@ -948,7 +1017,6 @@ def packed_batch_phase(torch, np, Session, mods, agg_chunks) -> dict:
     segments a batch: one aggregate and one join over it, each equal to
     numpy, each through its fused executor, tidb_segagg once per staged
     batch."""
-    seg_mod, hp, jk, pl, st = mods
     n, nd = 1_200_000, 100_000
     rng = np.random.default_rng(5)
     k = rng.integers(0, 2 * nd, n).astype(np.int64)  # half the keys miss
@@ -976,7 +1044,7 @@ def packed_batch_phase(torch, np, Session, mods, agg_chunks) -> dict:
     n_segs = -(-n // 8192)
     if cnt["segments"]["scanned"] + cnt["segments"]["pruned"] != n_segs:
         raise AssertionError(f"packed aggregate read segments {cnt['segments']}")
-    check_path("packed_agg", cnt, agg_chunks[0], 1, 0)
+    check_path("packed_agg", cnt, agg_chunks[0], frags(agg=1))
     if agg_chunks[0] != cnt["staged_batches"] or cnt["staged_batches"] != -(-n_segs // 8):
         raise AssertionError(f"packed aggregate: {cnt['staged_batches']} staged batches, "
                              f"{agg_chunks[0]} aggregated, {n_segs} segments")
@@ -994,7 +1062,7 @@ def packed_batch_phase(torch, np, Session, mods, agg_chunks) -> dict:
     got = (rows[0][0], int(rows[0][1]), _scaled(rows[0][2]))
     if got != want:
         raise AssertionError(f"packed join {got} vs numpy {want}")
-    check_path("packed_join", cnt, agg_chunks[0], 0, fusible_joins(plan))
+    check_path("packed_join", cnt, agg_chunks[0], frags(probe=fusible_joins(plan)))
     if cnt["fused"]["probe"] != 1:
         raise AssertionError(f"the packed join did not run fused: {cnt['fused']}")
     out["join"] = {"counts": cnt, "seconds": dt, "plan": explain_text(plan)}
@@ -1137,7 +1205,7 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
     from tidb_tpu_torch.planner.physical import explain_text
     from tidb_tpu_torch.storage.tpch_queries import Q
 
-    seg_mod, hp, jk, pl, st = mods
+    seg_mod, hp, jk, pl, st, agg_mod = mods
     li = s.catalog.table("test", "lineitem")
     n_rows = li.live_rows
     agg_chunks = count_segment_chunks()
@@ -1153,7 +1221,13 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
         # the plan this run executes: segment stores built by earlier runs
         # feed the planner's statistics, so it is taken just before
         plans[qname] = s._plan_select(parse(Q[qname][0])[0])
-        want_fused = (1 if qname in ("q1", "q6") else 0, fusible_joins(plans[qname]))
+        want = plan_fragments(plans[qname], s._plan_capacity(plans[qname]))
+        if qname in ("q1", "q6") and want["agg"] != 1:
+            raise AssertionError(f"{qname}'s plan has no fused segment aggregation")
+        if qname in ("q3", "q18") and not want["generic"] + want["generic_classic"]:
+            raise AssertionError(f"{qname}'s plan has no device generic aggregation")
+        if qname == "q18" and not want["generic"]:
+            raise AssertionError("q18's IN subquery is not a fused generic aggregation")
         agg_chunks[0] = 0
         probes["query"] = qname
         rows, cnt, dt = run_query(s, mods, Q[qname][0])
@@ -1167,8 +1241,9 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
             f"{cnt['routes']}; segments scanned/pruned {cnt['segments']}; staged "
             f"batches {cnt['staged_batches']}; prefetch {cnt['prefetch']}; host->device "
             f"{cnt['h2d']}; staging host s {cnt['stage_s']}; device buffer cache {cnt['cache']}; fused {cnt['fused']}; "
-            f"aggregated chunks {agg_chunks[0]}")
-        check_path(run, cnt, agg_chunks[0], *want_fused)
+            f"aggregated chunks {agg_chunks[0]}; device generic runs {cnt['generic_runs']}")
+        check_path(run, cnt, agg_chunks[0], want)
+        cnt["want"] = want
     hp.probe_chunk = probes["real"]
     for q in ("q1", "q6"):
         cold_c, warm_c = per_query[q], per_query[q + "_warm"]
@@ -1216,8 +1291,11 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
         cnt["aggregated_chunks"] = agg_chunks[0]
         classic[qname], classic_counts[qname] = rows, cnt
         log(f"{qname} (classic): {dt:.3f} s; launches {cnt['launches']}; probe routes "
-            f"{cnt['routes']}; fused {cnt['fused']}; aggregated chunks {agg_chunks[0]}")
-        check_path(qname, cnt, agg_chunks[0], 0, 0)
+            f"{cnt['routes']}; fused {cnt['fused']}; aggregated chunks {agg_chunks[0]}; "
+            f"device generic runs {cnt['generic_runs']}")
+        want = per_query[qname]["want"]
+        check_path(qname, cnt, agg_chunks[0],
+                   frags(generic_classic=want["generic"] + want["generic_classic"]))
         if cnt["segments"]["scanned"] or cnt["staged_batches"]:
             raise AssertionError(f"{qname} (classic) read the segment store: {cnt}")
     check_results(classic, "classic")
@@ -1251,26 +1329,32 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
     from tidb_tpu_torch.executor import pipeline as pl
     from tidb_tpu_torch.storage.tpch_queries import Q
 
-    # four modes: fused with the device buffer cache (the default), fused
+    # five modes: fused with the device buffer cache (the default), fused
     # with the cache budget 0 (every run stages through the prefetcher),
     # the classic raw path
     # (and the same staged inline, prefetch depth 0: what the staging
-    # thread buys or costs against the host's Python launch loop)
+    # thread buys or costs against the host's Python launch loop), and for
+    # the generic aggregations of Q3 and Q18 the host engine
+    # (tidb_device_engine_mode = 'off': the numpy groupby, classic joins)
     modes = {"fused_cache": [],
              "fused_nocache": ["set global tidb_tpu_device_buffer_cache_bytes = 0"],
              "fused_nocache_inline": ["set global tidb_tpu_device_buffer_cache_bytes = 0",
                                       "set tidb_tpu_pipeline_prefetch_depth = 0"],
              "classic": ["set tidb_tpu_pipeline_fuse = 0",
-                         "set tidb_tpu_columnar_enable = 0"]}
+                         "set tidb_tpu_columnar_enable = 0"],
+             "generic_host": ["set tidb_device_engine_mode = 'off'"]}
     undo = ["set global tidb_tpu_device_buffer_cache_bytes = 268435456",
             "set tidb_tpu_pipeline_prefetch_depth = 2",
-            "set tidb_tpu_pipeline_fuse = 1", "set tidb_tpu_columnar_enable = 1"]
+            "set tidb_tpu_pipeline_fuse = 1", "set tidb_tpu_columnar_enable = 1",
+            "set tidb_device_engine_mode = 'auto'"]
     times, profiles = {}, {}
     for mode, sets in modes.items():
         for stmt in sets:
             s.execute(stmt)
         times[mode], profiles[mode] = {}, {}
         for qname in queries:
+            if mode == "generic_host" and qname not in ("q3", "q18"):
+                continue
             runs = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -1288,7 +1372,8 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
                 f"({n_rows / med:,.0f} rows/s over {n_rows} lineitem rows); runs {runs}; "
                 f"profiled wall {prof['wall_us'] / 1e3:.3f} ms, device busy "
                 f"{prof['device_busy_us'] / 1e3:.3f} ms, idle share "
-                f"{prof['idle_share']:.3f}, host->device {prof['h2d']}, host "
+                f"{prof['idle_share']:.3f}, host->device {prof['h2d']}, device->host "
+                f"{prof['d2h']}, host "
                 f"{prof['host_copies']} {prof['host_launches']}; pipeline {prof['pipeline']}; "
                 f"host thread busy ms "
                 f"{ {t: round(v / 1e3, 1) for t, v in prof['host_thread_busy_us'].items()} }")
@@ -1298,6 +1383,270 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
         for stmt in undo:
             s.execute(stmt)
     return times, profiles
+
+
+
+# ---------------------------------------------------------------------------
+# the 22 TPC-H queries at SF0.1 against an indexed sqlite oracle
+# ---------------------------------------------------------------------------
+
+GENERIC_QUERIES = ("q2", "q3", "q7", "q8", "q9", "q10", "q11", "q13", "q15", "q16", "q17",
+                   "q18", "q20")
+FUSED_GENERIC_QUERIES = ("q15", "q17", "q18", "q20")
+
+
+def sqlite_oracle(np, catalog, db: str = "test"):
+    """The port's tables copied into an in-memory sqlite database, with the
+    key indexes a TPC-H grid needs (what tidb_tpu/testutil.py's
+    mirror_to_sqlite and index_tpch_oracle do): decimals become REAL,
+    dates ISO strings, strings their dictionary values, case-insensitive
+    collations NOCASE."""
+    import sqlite3
+
+    from tidb_tpu_torch.types import TypeKind
+
+    sql_type = {TypeKind.INT: "INTEGER", TypeKind.BOOL: "INTEGER", TypeKind.FLOAT: "REAL",
+                TypeKind.DECIMAL: "REAL", TypeKind.STRING: "TEXT", TypeKind.DATE: "TEXT"}
+    conn = sqlite3.connect(":memory:")
+    for name in catalog.tables(db):
+        t = catalog.table(db, name)
+        cols = t.schema.columns
+        decls = ", ".join(
+            f"{c.name} {sql_type[c.type_.kind]}"
+            + (" COLLATE NOCASE" if c.type_.kind == TypeKind.STRING
+               and c.coll.endswith("_ci") else "") for c in cols)
+        conn.execute(f"CREATE TABLE {name} ({decls})")
+        n = t.n
+        if n == 0:
+            continue
+        pycols = []
+        for c in cols:
+            data, valid, k = t.data[c.name][:n], t.valid[c.name][:n], c.type_.kind
+            if k == TypeKind.STRING:
+                vals = np.asarray(t.dicts[c.name].values, dtype=object)[np.maximum(data, 0)]
+            elif k == TypeKind.DECIMAL:
+                vals = (data.astype(np.float64) / 10 ** c.type_.scale).astype(object)
+            elif k == TypeKind.DATE:
+                vals = (np.datetime64("1970-01-01", "D")
+                        + data.astype("timedelta64[D]")).astype(str).astype(object)
+            elif k == TypeKind.FLOAT:
+                vals = data.astype(np.float64).astype(object)
+            else:
+                vals = data.astype(np.int64).astype(object)
+            vals[~valid] = None
+            pycols.append(vals.tolist())
+        live = t.live_mask(0, n)
+        rows = [r for r, ok in zip(zip(*pycols), live) if ok]
+        conn.executemany(f"INSERT INTO {name} VALUES ({', '.join('?' * len(cols))})", rows)
+    for ddl in ("create index li_ok on lineitem(l_orderkey)",
+                "create index li_pk on lineitem(l_partkey, l_suppkey)",
+                "create index li_sk on lineitem(l_suppkey)",
+                "create index o_ok on orders(o_orderkey)",
+                "create index o_ck on orders(o_custkey)",
+                "create index c_ck on customer(c_custkey)",
+                "create index s_sk on supplier(s_suppkey)",
+                "create index p_pk on part(p_partkey)",
+                "create index ps_pk on partsupp(ps_partkey, ps_suppkey)",
+                "create index ps_sk on partsupp(ps_suppkey)"):
+        conn.execute(ddl)
+    conn.execute("analyze")
+    conn.commit()
+    return conn
+
+
+def _normal(v):
+    """A result value for comparison: numeric strings (decimals) -> float."""
+    if isinstance(v, str) and v:
+        body = v[1:] if v[0] in "+-" else v
+        if body.replace(".", "", 1).isdigit():
+            return float(v)
+    return v
+
+
+def rows_equal(got, want, rel_tol: float = 1e-6):
+    """(ok, message): the rows in order, numbers within rel_tol (sqlite keeps
+    decimals as REAL), everything else equal (testutil.rows_equal's rule)."""
+    if len(got) != len(want):
+        return False, f"row count {len(got)} != {len(want)}: {got[:3]} vs {want[:3]}"
+    for i, (rg, rw) in enumerate(zip(got, want)):
+        if len(rg) != len(rw):
+            return False, f"row {i}: width {len(rg)} != {len(rw)}"
+        for j, (a, b) in enumerate(zip(map(_normal, rg), map(_normal, rw))):
+            if a is None or b is None:
+                ok = a is b
+            elif isinstance(a, (int, float)) and isinstance(b, (int, float)):
+                ok = abs(a - b) <= rel_tol * max(1.0, abs(a), abs(b))
+            else:
+                ok = a == b
+            if not ok:
+                return False, f"row {i} col {j}: {rg[j]!r} != {rw[j]!r}"
+    return True, "ok"
+
+
+def phase_grid(torch, np, Session, mods) -> dict:
+    """All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
+    capacity 8,192) on the card against the sqlite oracle, ordered, with
+    the oracle's SQL variants. Each run: the probe kernel's launch contract,
+    the fused fragments its plan (taken just before) calls for, and the
+    device generic aggregation on exactly the thirteen queries whose plans
+    group generically, fused at least for Q15, Q17, Q18 and Q20. Plan-time
+    subqueries may add fragments beyond the final plan's (Q11's HAVING
+    subquery groups partsupp fused at this scale)."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    s = Session(chunk_capacity=8192)
+    t0 = time.perf_counter()
+    counts = s.load_tpch(0.1)
+    t_load = time.perf_counter() - t0
+    oracle = sqlite_oracle(np, s.catalog)
+    log(f"grid: SF0.1 loaded in {t_load:.1f} s ({counts}); sqlite oracle built in "
+        f"{time.perf_counter() - t0 - t_load:.1f} s")
+    out = {}
+    for name, (sql, osql) in Q.items():
+        plan = s._plan_select(parse(sql)[0])
+        want = plan_fragments(plan, s._plan_capacity(plan))
+        rows, cnt, dt = run_query(s, mods, sql)
+        expect = oracle.execute(osql or sql).fetchall()
+        ok, msg = rows_equal(rows, expect)
+        if not ok:
+            raise AssertionError(f"grid {name}: {msg}")
+        if not rows and name != "q9":
+            raise AssertionError(f"grid {name} returned no rows")
+        lc, gen = cnt["launches"], cnt["generic_runs"]
+        if lc["segsum_count"] or lc["segsum_i64"] or lc["hash_probe"]:
+            raise AssertionError(f"grid {name} launched an off-path kernel entry: {lc}")
+        if lc["probe_count"] != sum(cnt["routes"].values()):
+            raise AssertionError(f"grid {name}: probe_count {lc['probe_count']} over "
+                                 f"{cnt['routes']} probe chunks")
+        if (gen["classic"] + gen["fused"] > 0) != (name in GENERIC_QUERIES):
+            raise AssertionError(f"grid {name}: device generic runs {gen}")
+        if name in FUSED_GENERIC_QUERIES and not gen["fused"]:
+            raise AssertionError(f"grid {name}: fused generic runs {gen}")
+        ran = dict(cnt["fused"], generic_classic=gen["classic"])
+        if any(ran[k] < want[k] for k in want):
+            raise AssertionError(f"grid {name}: ran {ran}, the plan calls for {want}")
+        out[name] = {"rows": len(rows), "seconds": dt, "plan_fragments": want,
+                     "fused": cnt["fused"], "generic_runs": gen, "routes": cnt["routes"],
+                     "launches": lc, "checks_nothing": not rows}
+        log(f"grid {name}: {len(rows)} rows equal sqlite in {dt:.3f} s; fused "
+            f"{ {k: v for k, v in cnt['fused'].items() if v} }; device generic {gen}; "
+            f"probe routes {cnt['routes']}" + ("; empty: checks nothing" if not rows else ""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the per-chunk loop of the device generic aggregation makes no host read
+# ---------------------------------------------------------------------------
+
+
+def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
+    """Run each statement (inline staging, so no other thread works in the
+    window) with torch's sync debug mode set to "error" around every
+    per-chunk step of the device generic aggregation: the fused batch
+    function (decode, pipeline, partial table), the classic partial table
+    and each push onto the GroupTableStack (its merges). A device->host
+    copy, .item() or any other synchronising call in them raises. Returns
+    the steps checked per statement."""
+    from tidb_tpu_torch.executor import agg_device as ad
+    from tidb_tpu_torch.executor import pipeline as pl
+
+    calls = {}
+    real = (ad.make_partial_kernel, ad.GroupTableStack.push, pl._make_fused_generic_fn)
+
+    def strict(fn, key):
+        def run(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            calls[key] = calls.get(key, 0) + 1
+            return out
+        return run
+
+    ad.make_partial_kernel = lambda *a: strict(real[0](*a), "partial")
+    ad.GroupTableStack.push = lambda self, t: strict(real[1], "push")(self, t)
+    pl._make_fused_generic_fn = lambda *a: strict(real[2](*a), "fused_batch")
+    s.execute("set tidb_tpu_pipeline_prefetch_depth = 0")
+    out = {}
+    try:
+        for name, sql in sqls.items():
+            calls.clear()
+            rows, cnt, _dt = run_query(s, mods, sql)
+            if not calls.get("push"):
+                raise AssertionError(f"{name}: no device generic aggregation step ran")
+            out[name] = {"steps": dict(calls), "generic_runs": cnt["generic_runs"],
+                         "rows": len(rows)}
+            log(f"sync-free per-chunk loop, {name}: {dict(calls)} steps under sync debug "
+                f"mode 'error', none synchronised")
+    finally:
+        ad.make_partial_kernel, ad.GroupTableStack.push, pl._make_fused_generic_fn = real
+        s.execute("set tidb_tpu_pipeline_prefetch_depth = 2")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fused scan -> top-k root at SF1
+# ---------------------------------------------------------------------------
+
+TOPN_SQL = ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+            "where l_shipdate >= date '1995-01-01' order by l_extendedprice desc")
+
+
+def numpy_topn(np, li, limit: int, multi: bool):
+    """The top `limit` lineitems shipped since 1995 by extendedprice desc: with
+    `multi`, then by orderkey and linenumber; else ties in drain (row) order."""
+    ship, ext, okey, lnum = _cols(li, "l_shipdate", "l_extendedprice", "l_orderkey",
+                                  "l_linenumber")
+    rows = np.nonzero(ship >= _days(np, "1995-01-01"))[0]
+    if multi:
+        order = np.lexsort((lnum[rows], okey[rows], -ext[rows]))
+    else:
+        order = np.argsort(-ext[rows], kind="stable")
+    top = rows[order[:limit]]
+    return [(int(okey[i]), int(lnum[i]), int(ext[i])) for i in top]
+
+
+def phase_topn(np, s, mods) -> dict:
+    """A top-N report over lineitem at SF1 with one sort key (the threshold
+    cut), with three (the full merge) and with a LIMIT above the chunk
+    capacity (the classic delegate), each against numpy; the first two must
+    run fused."""
+    li = s.catalog.table("test", "lineitem")
+    cases = {"single_key": (TOPN_SQL + " limit 10", 10, False, "topn"),
+             "multi_key": (TOPN_SQL + ", l_orderkey, l_linenumber limit 100", 100, True,
+                           "topn"),
+             "over_capacity": (TOPN_SQL + " limit 70000", 70000, False, "delegate")}
+    out = {}
+    for name, (sql, limit, multi, route) in cases.items():
+        runs = []
+        for _ in range(2):
+            rows, cnt, dt = run_query(s, mods, sql)
+            runs.append(dt)
+        got = [(r[0], r[1], _scaled(r[2])) for r in rows]
+        want = numpy_topn(np, li, limit, multi)
+        if got != want:
+            raise AssertionError(f"top-k {name}: {got[:3]} vs numpy {want[:3]}")
+        if cnt["fused"][route] != 1 or cnt["fused"]["topn"] != (route == "topn"):
+            raise AssertionError(f"top-k {name} took {cnt['fused']}, not {route}")
+        out[name] = {"rows": len(rows), "seconds": runs, "fused": cnt["fused"],
+                     "h2d": cnt["h2d"], "staged_batches": cnt["staged_batches"]}
+        log(f"top-k {name}: {len(rows)} rows equal numpy; route {route}; cold/warm s {runs}; "
+            f"staged batches {cnt['staged_batches']}")
+    return out
+
+
+def peak_memory(torch, s, sql: str) -> dict:
+    """The card's allocated bytes before one warm run of `sql` and the
+    allocator's peak during it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s.query(sql)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"before_bytes": base, "peak_bytes": peak, "statement_peak_bytes": peak - base}
 
 
 
@@ -1311,6 +1660,7 @@ def main() -> int:
         import numpy as np
 
         from tidb_tpu_torch.columnar import store as st
+        from tidb_tpu_torch.executor import aggregate as agg_mod
         from tidb_tpu_torch.executor import pipeline as pl
         from tidb_tpu_torch.ops import hash_probe as hp
         from tidb_tpu_torch.ops import join_kernels as jk
@@ -1330,7 +1680,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
     os.makedirs(OUT_DIR, exist_ok=True)
-    mods = (seg_mod, hp, jk, pl, st)
+    mods = (seg_mod, hp, jk, pl, st, agg_mod)
 
     t0 = time.perf_counter()
     nvcc_build.build_libraries([os.path.join(nvcc_build.CSRC, m.SOURCE)
@@ -1350,6 +1700,12 @@ def main() -> int:
     probe_checks = phase_probe(torch, np, hp)
     probe_count_checks = phase_probe_count(torch, np, jk, hp)
 
+    # -- the grid: 22 queries at SF0.1 against sqlite ------------------------
+    t0 = time.perf_counter()
+    grid = phase_grid(torch, np, Session, mods)
+    pl.DEVICE_CACHE.clear()  # the grid's staged tables, off the card
+    log(f"grid: all 22 queries equal sqlite in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 2 ------------------------------------------------------------
     s = Session()  # device=None: the card
     t0 = time.perf_counter()
@@ -1362,21 +1718,38 @@ def main() -> int:
     launches, launches_classic = p2["launches"], p2["launches_classic"]
     launches_packed, classic_counts = p2["launches_packed"], p2["classic_counts"]
     packed, plans, q18_build = p2["packed"], p2["plans"], p2["q18_build"]
+    q18_sub = Q["q18"][0].split("in (", 1)[1].split(")\n", 1)[0]
+    sync_free = sync_free_pass(torch, s, mods, {"q3": Q["q3"][0], "q18": Q["q18"][0],
+                                                "q18_subquery": q18_sub})
+    topn = phase_topn(np, s, mods)
 
     # -- phase 3 ------------------------------------------------------------
     times, profiles = phase_modes(torch, s, queries, n_rows)
 
     # Q18's IN subquery alone (a generic aggregation of lineitem by order
-    # key): how much of Q18 is not the join
-    sub = Q["q18"][0].split("in (", 1)[1].split(")\n", 1)[0]
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        s.query(sub)
-        runs.append(time.perf_counter() - t0)
-    times["q18_subquery"] = statistics.median(runs)
-    log(f"q18's IN subquery alone, warm wall median of 3: "
-        f"{times['q18_subquery'] * 1e3:.3f} ms; runs {runs}")
+    # key, fused on the device; and on the host engine): how much of Q18 is
+    # not the join. Its profile's device->host copies are the finalize
+    # fetch of the stack's tables alone: the slot counts, then every live slot
+    for mode in ("fused_cache", "generic_host"):
+        if mode == "generic_host":
+            s.execute("set tidb_device_engine_mode = 'off'")
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            s.query(q18_sub)
+            runs.append(time.perf_counter() - t0)
+        times[mode]["q18_subquery"] = statistics.median(runs)
+        profiles[mode]["q18_subquery"] = prof = profile_query(torch, s, q18_sub)
+        s.execute("set tidb_device_engine_mode = 'auto'")
+        log(f"{mode} q18's IN subquery alone, warm wall median of 3: "
+            f"{times[mode]['q18_subquery'] * 1e3:.3f} ms; runs {runs}; device->host "
+            f"{prof['d2h']}; host->device {prof['h2d']}")
+    if profiles["fused_cache"]["q18_subquery"]["d2h"]["count"] > 2:
+        raise AssertionError("q18's IN subquery copied device->host beyond its finalize "
+                             f"fetch: {profiles['fused_cache']['q18_subquery']['d2h']}")
+    memory = {name: peak_memory(torch, s, sql) for name, sql in
+              (("q18", Q["q18"][0]), ("q18_subquery", q18_sub), ("q3", Q["q3"][0]))}
+    log(f"peak device memory (bytes): {memory}")
 
     # Q1's chunk as the kernels see it: packed ids (returnflag code +
     # 4 x linestatus code) over the groups Q1 found, in the proportions of
@@ -1549,7 +1922,8 @@ def main() -> int:
               "classic_counts": classic_counts, "packed_batches": packed,
               "launches_by_path": {"fused": launches, "classic": launches_classic,
                                    "packed": launches_packed},
-              "plans": plans, "probe_checks": probe_checks,
+              "plans": plans, "probe_checks": probe_checks, "grid": grid,
+              "sync_free": sync_free, "topn": topn, "peak_memory": memory,
               "segagg_checks": segagg_checks, "segagg_q1": segagg_q1,
               "probe_count_checks": probe_count_checks, "probe_modes": probe_modes,
               "sass_atomics": sass,

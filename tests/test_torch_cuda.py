@@ -290,3 +290,166 @@ def test_fused_packed_batches_on_card_equal_cpu(card):
             assert pl.PIPELINE_FUSED_TOTAL["agg"] == 1
             assert port.LAUNCHES["segagg"] == staged > 1
             assert pl.PIPELINE_PREFETCH_BYTES["copies"] == staged
+
+
+# -- the device generic aggregation and the top-k state (plain torch) ---------
+
+
+def _agg_case(seed, R=4096):
+    """A chunk with an int key (NULLs beside a live 0), a float key
+    (-0.0, 0.0, NaN), dead rows, and count/sum/avg/min/max over int, float
+    (NaN) and decimal (two-limb) arguments, as the port's objects."""
+    from tidb_tpu_torch.chunk.chunk import Chunk
+    from tidb_tpu_torch.chunk.column import Column
+    from tidb_tpu_torch.expression.expr import ColumnRef
+    from tidb_tpu_torch.planner.logical import AggSpec
+    from tidb_tpu_torch.types import FLOAT64, INT64, decimal_type
+
+    rng = np.random.default_rng(seed)
+    dec = decimal_type(15, 2)
+    cols = {"k": (INT64, rng.integers(-50, 50, R), rng.random(R) < 0.9),
+            "fk": (FLOAT64, rng.choice([-0.0, 0.0, 1.5, np.nan], R), rng.random(R) < 0.9),
+            "v": (INT64, rng.integers(-1000, 1000, R), rng.random(R) < 0.9),
+            "f": (FLOAT64, np.where(rng.random(R) < 0.05, np.nan, rng.standard_normal(R)),
+                  rng.random(R) < 0.9),
+            "d": (dec, rng.integers(3 << 30, 4 << 30, R), rng.random(R) < 0.95)}
+    sel = rng.random(R) < 0.85
+
+    def chunk(dev, lo, hi):
+        return Chunk({n: Column(torch.from_numpy(d[lo:hi].astype(t.np_dtype)).to(dev),
+                                torch.from_numpy(v[lo:hi].copy()).to(dev), t)
+                      for n, (t, d, v) in cols.items()},
+                     torch.from_numpy(sel[lo:hi].copy()).to(dev))
+
+    keys = [ColumnRef(INT64, "k"), ColumnRef(FLOAT64, "fk")]
+    aggs = [AggSpec("a0", "count", None), AggSpec("a1", "sum", ColumnRef(INT64, "v")),
+            AggSpec("a2", "avg", ColumnRef(dec, "d"), type_=FLOAT64),
+            AggSpec("a3", "min", ColumnRef(FLOAT64, "f"), type_=FLOAT64),
+            AggSpec("a4", "max", ColumnRef(INT64, "v")),
+            AggSpec("a5", "sum", ColumnRef(FLOAT64, "f"), type_=FLOAT64)]
+    return chunk, keys, aggs
+
+
+def _same_table(got, want, float_sums=("a5.sum",)):
+    n = int(want["n"])
+    assert int(got["n"]) == n
+    for k in want:
+        if k == "n":
+            continue
+        g, w = got[k][:n].cpu(), want[k][:n].cpu()
+        if k in float_sums:
+            assert torch.allclose(g, w, rtol=1e-12, atol=0, equal_nan=True), k
+        elif w.is_floating_point():
+            assert torch.equal(g.view(torch.int64), w.view(torch.int64)), k
+        else:
+            assert torch.equal(g, w), k
+
+
+def test_generic_group_tables_on_card_equal_cpu(card):
+    """The partial tables, five chunks through the stack and the finalize
+    fetch on the card equal the CPU's slot for slot (float sums rel 1e-12)."""
+    from tidb_tpu_torch.executor import agg_device as ad
+
+    chunk, keys, aggs = _agg_case(41)
+    partial = ad.make_partial_kernel(keys, aggs)
+    stacks = {d: ad.GroupTableStack(len(keys), aggs) for d in ("cpu", "cuda")}
+    for i in range(5):
+        for d, st in stacks.items():
+            st.push(partial(chunk(d, i * 800, (i + 1) * 800)))
+    cpu_t, card_t = stacks["cpu"].tables(), stacks["cuda"].tables()
+    assert len(card_t) == len(cpu_t) == 2
+    for g, w in zip(card_t, cpu_t):
+        assert g["k0.d"].is_cuda
+        _same_table(g, w)
+    for g, w in zip(ad.fetch_tables(card_t), ad.fetch_tables(cpu_t)):
+        assert set(g) == set(w) and g["n"] == w["n"]
+        for k in w:
+            if k != "n":
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-12 if k == "a5.sum" else 0)
+
+
+def test_generic_per_chunk_steps_make_no_host_read(card):
+    """The partial table and each push (its merges) run under torch's sync
+    debug mode "error": no device->host copy, no .item(), no sync."""
+    from tidb_tpu_torch.executor import agg_device as ad
+
+    chunk, keys, aggs = _agg_case(42)
+    partial = ad.make_partial_kernel(keys, aggs)
+    stack = ad.GroupTableStack(len(keys), aggs)
+    chunks = [chunk("cuda", i * 512, (i + 1) * 512) for i in range(8)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ch in chunks:
+            stack.push(partial(ch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(stack.tables()) == 1
+
+
+@pytest.mark.parametrize("kinds,descs", [(("float",), (False,)), (("float",), (True,)),
+                                         (("float", "int"), (True, False))])
+def test_topk_merge_on_card_equals_cpu(card, kinds, descs):
+    from tidb_tpu_torch.ops import topk as tk
+
+    rng = np.random.default_rng(len(kinds) + descs[0])
+    states = {d: tk.topk_init(64, [k == "float" for k in kinds], [torch.int64], d)
+              for d in ("cpu", "cuda")}
+    for _ in range(3):
+        N = 2048
+        keys = []
+        for k in kinds:
+            d = rng.integers(-3, 3, N).astype(np.float64 if k == "float" else np.int64)
+            if k == "float":
+                d[rng.random(N) < 0.05] = np.nan
+            keys.append((d, rng.random(N) < 0.9))
+        pay = (rng.integers(0, 10**9, N), rng.random(N) < 0.9)
+        sel = rng.random(N) < 0.8
+        for dev in states:
+            pairs = [tk.rank_operands(torch.from_numpy(d).to(dev), torch.from_numpy(v).to(dev), ds)
+                     for (d, v), ds in zip(keys, descs)]
+            payload = [(torch.from_numpy(pay[0]).to(dev), torch.from_numpy(pay[1]).to(dev))]
+            states[dev] = tk.merge_topk(states[dev], pairs, payload,
+                                        torch.from_numpy(sel).to(dev), descs)
+    (gd, gr, gp, gn, gpay), (wd, wr, wp, wn, wpay) = states["cuda"], states["cpu"]
+    live = wd == 0
+    assert torch.equal(gd.cpu(), wd) and int(gn) == int(wn)
+    for g, w in [(gp, wp)] + [x for pair in zip(gr, wr) for x in zip(*pair)] \
+            + [x for pair in zip(gpay, wpay) for x in zip(*pair)]:
+        g, w = g.cpu()[live], w[live]
+        if w.is_floating_point():
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(g, w)
+
+
+def test_generic_and_topn_queries_on_card_equal_cpu(card):
+    """Generic aggregations (classic and fused) and fused top-k roots through
+    Session on the card equal the CPU's rows, with the routes counted."""
+    from tidb_tpu_torch.executor import aggregate as agg
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = Catalog()
+    load_tpch(cat, sf=0.01)
+    on_card = Session(cat, chunk_capacity=1 << 12)
+    on_cpu = Session(cat, chunk_capacity=1 << 12, device="cpu")
+    top = ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+           "where l_shipdate >= date '1995-01-01' order by l_extendedprice desc")
+    cases = {"q3": (Q["q3"][0], "classic"), "q13": (Q["q13"][0], "classic"),
+             "q15": (Q["q15"][0], "fused"),
+             "q18_low": (Q["q18"][0].replace("> 300", "> 200"), "fused"),
+             "topn_single": (top + " limit 10", "topn"),
+             "topn_multi": (top + ", l_orderkey, l_linenumber limit 100", "topn")}
+    for name, (sql, route) in cases.items():
+        want = on_cpu.query(sql)
+        agg.reset_counters()
+        pl.reset_counters()
+        got = on_card.query(sql)
+        assert want and got == want, name
+        if route == "topn":
+            assert pl.PIPELINE_FUSED_TOTAL["topn"] == 1, name
+        else:
+            assert agg.DEVICE_GENERIC_TOTAL[route] >= 1, (name, agg.DEVICE_GENERIC_TOTAL)

@@ -234,7 +234,8 @@ def test_hash_packed_composite_keys_take_the_classic_delegate():
         _fill_wide(s)
     pl.reset_counters()
     got = ps.query(sql)
-    assert pl.PIPELINE_FUSED_TOTAL == {"agg": 0, "probe": 0, "delegate": 1}
+    assert pl.PIPELINE_FUSED_TOTAL == {"agg": 0, "generic": 0, "probe": 0, "topn": 0,
+                                       "delegate": 1}
     want = js.query(sql)
     assert want
     assert_rows(got, want, ordered=True)

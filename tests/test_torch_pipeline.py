@@ -96,7 +96,7 @@ def pipe_pair():
 QUERIES = [
     # segment strategy (dict-code group keys), NULL group included
     "select k, count(*), sum(v), min(v), max(f), avg(v) from t group by k",
-    # generic strategy (int keys): the classic delegate, fused filter
+    # generic strategy (int keys): the device group tables, fused filter
     "select g, sum(v + 1), count(v), max(v) from t where f < 1800 group by g",
     # global aggregate (no group keys)
     "select count(*), sum(v), min(f), max(f) from t where g <> 2",
@@ -158,11 +158,26 @@ def test_fused_agg_is_routed_and_runs_fused(pipe_pair):
 
 
 def test_generic_agg_takes_the_delegate(pipe_pair):
-    """The fused generic strategy needs agg_device.py: not yet ported."""
+    """The generic strategy runs fused on the device engine (its group
+    tables stack on the device); with the engine off
+    (tidb_device_engine_mode = 'off') it takes the classic delegate."""
+    from tidb_tpu_torch.executor import aggregate as agg
+
     _js, ps = pipe_pair
-    _rows, execs = _run(ps, QUERIES[1])
+    agg.reset_counters()
+    rows, execs = _run(ps, QUERIES[1])
+    fused = [e for e in execs if isinstance(e, FusedScanAggExec)]
+    assert fused and fused[0]._ran_fused and fused[0]._delegate is None
+    assert agg.DEVICE_GENERIC_TOTAL == {"classic": 0, "fused": 1}
+    ps.execute("set tidb_device_engine_mode = 'off'")
+    try:
+        host_rows, execs = _run(ps, QUERIES[1])
+    finally:
+        ps.execute("set tidb_device_engine_mode = 'auto'")
     fused = [e for e in execs if isinstance(e, FusedScanAggExec)]
     assert fused and not fused[0]._ran_fused
+    assert agg.DEVICE_GENERIC_TOTAL == {"classic": 0, "fused": 1}
+    assert sorted(host_rows) == sorted(rows)
 
 
 def test_delegate_under_pipeline_fuse_0(pipe_pair):

@@ -29,6 +29,14 @@ from tidb_tpu_torch.types import SQLType, TypeKind
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The port's CPU path runs torch's intra-op OpenMP pool. Under pytest-xdist
+# every worker process collects this module, and six workers each spinning
+# eight OpenMP threads on an eight-core host slow a 64k-row torch.sort from
+# about 1 ms to about 1 s; one thread per worker keeps the port's tests at
+# their single-process speed. It only sets torch's pool (the reference does
+# not use torch).
+torch.set_num_threads(1)
+
 
 def _port_type(t) -> SQLType:
     return SQLType(TypeKind[t.kind.name], t.precision, t.scale, t.members)
@@ -250,3 +258,21 @@ def test_expression_matches_jax(expr_pair, expr):
     sql = f"select {expr} from e"
     ok, msg = rows_equal(ps.query(sql), js.query(sql), ordered=True)
     assert ok, msg
+
+
+def test_lookup_tables_upload_once_per_content():
+    """A Lookup's table crosses to the device once per content: each plan
+    builds its own tuple, and a chunk's gather must not copy it again."""
+    from tidb_tpu_torch.expression import compiler
+
+    dev = torch.device("cpu")
+    a = tuple(float(i) for i in range(10))
+    b = tuple(float(i) for i in range(10))
+    assert a is not b
+    ta = compiler._device_table(a, np.float64, dev)
+    assert compiler._device_table(b, np.float64, dev) is ta
+    assert compiler._device_table(a, np.float64, dev) is ta
+    c = a[:-1] + (99.0,)
+    tc = compiler._device_table(c, np.float64, dev)
+    assert tc is not ta and tc.tolist() == list(c)
+    assert compiler._device_table(a, np.int64, dev) is not ta

@@ -13,12 +13,17 @@ Two strategies, chosen by the planner:
               NULL gets its own slot per key (domain+1) so SQL NULL-group
               semantics hold.
 
-  generic  -- arbitrary keys (wide ints, floats, many distinct). Chunks
-              compact to host and a vectorized numpy groupby finalizes.
+  generic  -- arbitrary keys (wide ints, floats, many distinct). With the
+              device engine on (ExecContext.device_agg) and a grouped,
+              non-DISTINCT aggregation of core functions, each chunk sorts
+              into a device group table (agg_device.py), the tables merge
+              on the device, and one batched fetch at finalize feeds the
+              host merge. Otherwise chunks compact to host and a vectorized
+              numpy groupby finalizes (the host engine, kept as the
+              oracle).
 
 Not yet ported from tidb_tpu/executor/aggregate.py: the spill-to-disk
-partial runs and external range merge of the generic path, and the device
-sort-based grouping (agg_device.py).
+partial runs and external range merge of the host generic path.
 """
 
 from __future__ import annotations
@@ -38,7 +43,18 @@ from tidb_tpu_torch.types import TypeKind
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["HashAggExec", "make_segment_kernel", "split_limbs",
-           "normalize_limbs", "combine_limbs_exact"]
+           "normalize_limbs", "combine_limbs_exact", "DEVICE_GENERIC_TOTAL",
+           "reset_counters"]
+
+# generic aggregations that ran on the device by how they were fed:
+# "classic" pulled chunks from a child executor, "fused" came from
+# FusedScanAggExec's staged scan (executor/pipeline.py)
+DEVICE_GENERIC_TOTAL = {"classic": 0, "fused": 0}
+
+
+def reset_counters() -> None:
+    for k in DEVICE_GENERIC_TOTAL:
+        DEVICE_GENERIC_TOTAL[k] = 0
 
 
 def _min_identity(dtype):
@@ -178,6 +194,15 @@ def _lexsort_groups(cols: List[np.ndarray]):
     return int(newseg.sum()), first_idx, inverse
 
 
+def _partial_nbytes(p: dict) -> int:
+    return int(
+        p["mat"].nbytes
+        + sum(a.nbytes for a in p["keys"])
+        + sum(a.nbytes for a in p["kvalids"])
+        + sum(a.nbytes for st in p["states"] for a in st.values())
+    )
+
+
 def make_segment_kernel(group_exprs, aggs: List[AggSpec], domains: List[int]):
     """Build (init_state, update, G) for segment-strategy aggregation.
 
@@ -298,12 +323,16 @@ class HashAggExec(Executor):
     # ------------------------------------------------------------------
 
     def _run_segment(self):
+        from tidb_tpu_torch.executor.join import _to_device
+
         sizes = self.segment_sizes or []
         domains = [s + 1 for s in sizes]  # +1 slot for NULL keys
         init_state, update, _ = make_segment_kernel(self.group_exprs, self.aggs, domains)
         state = init_state(self.ctx.device)
         for chunk in self.children[0].chunks():
-            state = update(state, chunk)
+            # a host-side child (another aggregate's groups: TPC-H Q15's max
+            # over its revenue view) moves to the state's device first
+            state = update(state, _to_device(chunk, self.ctx.device))
         self._finalize_segment_state(state, domains)
 
     def _finalize_segment_state(self, state, domains):
@@ -388,7 +417,12 @@ class HashAggExec(Executor):
     # ------------------------------------------------------------------
 
     def _run_generic(self):
+        from tidb_tpu_torch.planner.logical import core_generic_agg
+
         group_exprs, aggs = self.group_exprs, self.aggs
+        if self.ctx.device_agg and core_generic_agg(group_exprs, aggs):
+            self._run_generic_device()
+            return
         runs = []
         total = 0
         for chunk in self.children[0].chunks():
@@ -437,6 +471,139 @@ class HashAggExec(Executor):
             return arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
 
         self._run_generic_resident(total, cat, cap)
+
+    def _run_generic_device(self):
+        """Sort-based grouping on the device (agg_device.py): a partial
+        group table per chunk, pairwise device merges, one batched fetch,
+        the host finalize through the shared partial-state path."""
+        from tidb_tpu_torch.executor.agg_device import GroupTableStack, make_partial_kernel
+        from tidb_tpu_torch.executor.join import _to_device
+
+        DEVICE_GENERIC_TOTAL["classic"] += 1
+        partial = make_partial_kernel(self.group_exprs, self.aggs)
+        stack = GroupTableStack(len(self.group_exprs), self.aggs)
+        for chunk in self.children[0].chunks():
+            # a host-side child (another aggregate's groups) moves over first
+            stack.push(partial(_to_device(chunk, self.ctx.device)))
+        self._finalize_group_tables(stack.tables())
+
+    def _finalize_group_tables(self, tables):
+        """ONE batched fetch of the device group tables (agg_device's
+        fetch_tables: the slot counts, then every live slot in one copy),
+        host merge, emit. Shared by the pull-based device path above and the
+        fused scan->partial-agg pipeline (executor/pipeline.py), which
+        accumulates the same tables from its staged batches."""
+        from tidb_tpu_torch.executor.agg_device import fetch_tables, table_to_host_partial
+
+        cap = self.ctx.chunk_capacity
+        if not tables:
+            self._out = []  # grouped agg over empty input -> no rows
+            return
+        host_tables = fetch_tables(tables)
+        del tables
+        # account the durable (ngroups-sliced) partial tables with the
+        # same incremental discipline as the reference's host merge
+        tracker = self.ctx.mem_tracker.child("hashagg.device")
+        tracked = 0
+        try:
+            merged = None
+            for t in host_tables:
+                p = table_to_host_partial(t, len(self.group_exprs), self.aggs)
+                b_p = _partial_nbytes(p)
+                tracker.consume(b_p)
+                tracked += b_p
+                if merged is None:
+                    merged = p
+                else:
+                    merged = self._merge_partials([merged, p])
+                    b_m = _partial_nbytes(merged)
+                    tracker.consume(b_m)
+                    tracker.release(tracked)  # old merged + p are dead
+                    tracked = b_m
+            if len(host_tables) == 1 and len(self.group_exprs) > 1:
+                # multi-key device tables order by a mixed hash; a
+                # collision can split a group: exact dedup on the host
+                merged = self._merge_partials([merged])
+                b_m = _partial_nbytes(merged)
+                tracker.consume(b_m)
+                tracker.release(tracked)
+                tracked = b_m
+            self._emit_merged(merged, cap)
+        finally:
+            tracker.release(tracked)
+
+    def _merge_partials(self, partials):
+        """Merge partial group tables into one (final-agg merge step). Only
+        the core functions reach it (core_generic_agg): the reference's
+        bitwise and variance states belong to its spill path, not ported."""
+        mats = np.concatenate([p["mat"] for p in partials], axis=0)
+        ngroups, first_idx, inverse = _lexsort_groups(
+            [mats[:, j] for j in range(mats.shape[1])])
+        uniq = mats[first_idx]
+
+        keys, kvalids = [], []
+        for ki in range(len(self.group_exprs)):
+            kcat = np.concatenate([p["keys"][ki] for p in partials])
+            vcat = np.concatenate([p["kvalids"][ki] for p in partials])
+            keys.append(kcat[first_idx])
+            kvalids.append(vcat[first_idx])
+
+        states = []
+        for j, a in enumerate(self.aggs):
+            cnt = np.zeros(ngroups, dtype=np.int64)
+            np.add.at(cnt, inverse, np.concatenate([p["states"][j]["cnt"] for p in partials]))
+            st = {"cnt": cnt}
+            if a.func in ("sum", "avg"):
+                parts = np.concatenate([p["states"][j]["sum"] for p in partials])
+                s = np.zeros(ngroups, dtype=parts.dtype)
+                np.add.at(s, inverse, parts)
+                st["sum"] = s
+                if "sumhi" in partials[0]["states"][j]:
+                    ph = np.concatenate([p["states"][j]["sumhi"] for p in partials])
+                    h = np.zeros(ngroups, dtype=np.int64)
+                    np.add.at(h, inverse, ph)
+                    # carry-normalize per merge so lo never wraps across
+                    # arbitrarily deep merge chains
+                    st["sum"], st["sumhi"] = normalize_limbs(s, h)
+            elif a.func in ("min", "max"):
+                op, ident = ((np.minimum, _min_identity) if a.func == "min"
+                             else (np.maximum, _max_identity))
+                parts = np.concatenate([p["states"][j][a.func] for p in partials])
+                m = np.full(ngroups, ident(parts.dtype), dtype=parts.dtype)
+                op.at(m, inverse, parts)
+                st[a.func] = m
+            states.append(st)
+        return {"mat": uniq, "keys": keys, "kvalids": kvalids, "states": states}
+
+    def _emit_merged(self, merged, cap):
+        """Finalize a merged partial table into output chunks."""
+        ngroups = len(merged["mat"])
+        out_arrays: Dict[str, tuple] = {}
+        nk = len(self.group_exprs)
+        for ki, (uid, c) in enumerate(zip(self.group_uids, self.schema[:nk])):
+            out_arrays[uid] = (merged["keys"][ki].astype(c.type_.np_dtype),
+                               merged["kvalids"][ki])
+        for j, a in enumerate(self.aggs):
+            st = merged["states"][j]
+            cnt = st["cnt"]
+            if a.func == "count":
+                out_arrays[a.uid] = (cnt, np.ones(ngroups, dtype=np.bool_))
+            elif a.func == "sum":
+                s = st["sum"]
+                if "sumhi" in st:
+                    s = combine_limbs_exact(s, st["sumhi"])
+                out_arrays[a.uid] = (s.astype(a.type_.np_dtype), cnt > 0)
+            elif a.func == "avg":
+                sf = (limbs_to_float(st["sum"], st["sumhi"])
+                      if "sumhi" in st else st["sum"].astype(np.float64))
+                if a.arg.type_.kind == TypeKind.DECIMAL:
+                    sf = sf / (10 ** a.arg.type_.scale)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    avg = np.where(cnt > 0, sf / np.maximum(cnt, 1), 0.0)
+                out_arrays[a.uid] = (avg, cnt > 0)
+            else:
+                out_arrays[a.uid] = (st[a.func].astype(a.type_.np_dtype), cnt > 0)
+        self._chunks_from_host(out_arrays, ngroups, cap)
 
     def _run_generic_resident(self, total, cat, cap):
         group_exprs, aggs = self.group_exprs, self.aggs

@@ -104,9 +104,13 @@ class ExecContext:
     # directory for spilled segment files (tidb_tpu_columnar_spill_dir;
     # empty = system tmp)
     columnar_spill_dir: str = ""
-    # fused scan->aggregate and scan->probe fragments
+    # fused scan->aggregate, scan->probe and scan->top-k fragments
     # (tidb_tpu_pipeline_fuse); False runs the classic operator tree
     pipeline_fuse: bool = True
+    # the fused scan->top-k root; False keeps ORDER BY [LIMIT] on the
+    # classic sort (the reference's plan feedback clears it for a digest
+    # whose LIMIT overflowed the state; the port has no plan feedback yet)
+    fused_topn: bool = True
     # staged batches kept in flight ahead of compute by the prefetch
     # thread; 0 = stage inline (tidb_tpu_pipeline_prefetch_depth)
     prefetch_depth: int = 2

@@ -3,14 +3,14 @@
 The builder performs pipeline fusion: chains of Selection/Projection above
 a table scan collapse into the scan's stage list, so a scan+filter+project
 runs as one pass over each staged chunk. An aggregation whose child peels
-to a plain table scan becomes FusedScanAggExec, and an inner or LEFT hash
-join whose probe side does becomes FusedScanProbeExec (executor/
-pipeline.py), with the reference's plan-static gates; the context-
-dependent gates (the sysvars) decide at open() and fall back to the
-classic tree through each fused executor's `fallback_build` delegate.
-Index joins, window functions, the fused top-N and the index/partition
-access paths are not yet ported and raise UnsupportedError or take the
-classic tree.
+to a plain table scan becomes FusedScanAggExec, an inner or LEFT hash join
+whose probe side does becomes FusedScanProbeExec, and an ORDER BY [LIMIT]
+over one becomes FusedScanTopNExec (executor/pipeline.py), with the
+reference's plan-static gates; the context-dependent gates (the sysvars,
+the top-k state's capacity) decide at open() and fall back to the classic
+tree through each fused executor's `fallback_build` delegate. Index
+joins, window functions and the index/partition access paths are not yet
+ported and raise UnsupportedError or take the classic tree.
 """
 
 from __future__ import annotations
@@ -202,6 +202,36 @@ def _try_fused_scan_probe(plan: PHashJoin):
         kind=plan.kind, fallback_build=fallback)
 
 
+def _try_fused_scan_topn(plan):
+    """ORDER BY [LIMIT] root whose child peels to a PLAIN table scan
+    pipeline runs as a fused scan->top-k fragment: a bounded device state of
+    the current winners, one fetch at finalize. Plan-static gates only
+    reject shapes with no scan pipeline to fuse; the capacity gates (LIMIT
+    + offset against the chunk capacity, the table's size for a full ORDER
+    BY) depend on the context and the data and defer to the open()-time
+    delegate."""
+    from tidb_tpu_torch.executor.pipeline import FusedScanTopNExec
+
+    if not plan.items:
+        return None
+    stages, base = peel_stages(plan.child)
+    if type(base) is not PScan or base.table is None:
+        return None
+    topn = isinstance(plan, PTopN)
+
+    def fallback(plan=plan):
+        if isinstance(plan, PTopN):
+            return TopNExec(plan.schema, build_executor(plan.child), plan.items,
+                            plan.count, plan.offset)
+        return SortExec(plan.schema, build_executor(plan.child), plan.items)
+
+    return FusedScanTopNExec(
+        plan.schema, base.schema, base.table,
+        scan_stages_for(base, stages), scan_prune_bounds(base),
+        plan.items, plan.count if topn else None, plan.offset if topn else 0,
+        full_sort=not topn, fallback_build=fallback)
+
+
 def build_executor(plan: PhysicalPlan) -> Executor:
     # pipeline fusion: Selection/Projection chains over a scan
     stages, base = peel_stages(plan)
@@ -239,8 +269,14 @@ def build_executor(plan: PhysicalPlan) -> Executor:
     if isinstance(plan, PIndexJoin):
         raise UnsupportedError("IndexJoinExec is not yet ported")
     if isinstance(plan, PSort):
+        fused = _try_fused_scan_topn(plan)
+        if fused is not None:
+            return fused
         return SortExec(plan.schema, build_executor(plan.child), plan.items)
     if isinstance(plan, PTopN):
+        fused = _try_fused_scan_topn(plan)
+        if fused is not None:
+            return fused
         return TopNExec(plan.schema, build_executor(plan.child), plan.items,
                         plan.count, plan.offset)
     if isinstance(plan, PLimit):

@@ -1,15 +1,22 @@
 """Pipelined device-resident fragment execution (counterpart of
 tidb_tpu/executor/pipeline.py).
 
-Four pieces take the per-chunk host ping-pong out of the executor tree:
+Five pieces take the per-chunk host ping-pong out of the executor tree:
 
-  * ``FusedScanAggExec``: scan -> filter -> project -> segment-aggregation
-    update as one fragment. Each staged batch is decoded, filtered and
-    projected on the device and folded into [G]-shaped accumulators that
-    stay there across batches (one ``tidb_segagg`` launch per batch on
-    the card); the state visits the host once, at finalize. Columnar
+  * ``FusedScanAggExec``: scan -> filter -> project -> aggregation as one
+    fragment. Each staged batch is decoded, filtered and projected on the
+    device and folded into state that stays there across batches: the
+    segment strategy's [G]-shaped accumulators (one ``tidb_segagg`` launch
+    per batch on the card), or the generic strategy's sort-based group
+    tables (executor/agg_device.py, merged on the device in a binary
+    counter). The state visits the host once, at finalize. Columnar
     segments pack several per batch at a fixed ``seg_cap`` stride, so a
     scan over small segments still takes ~n / chunk_capacity batches.
+
+  * ``FusedScanTopNExec``: an ORDER BY [LIMIT] root over a plain scan
+    pipeline. Each staged batch is merged into a bounded device top-k
+    state (ops/topk.py) of the current offset + count winners, which the
+    host fetches once at finalize.
 
   * ``FusedScanProbeExec``: an inner or LEFT hash join whose probe side
     is a plain scan pipeline. Each staged probe batch runs decode +
@@ -41,19 +48,15 @@ Four pieces take the per-chunk host ping-pong out of the executor tree:
     nothing.
 
 The reference runs each fragment as one jitted XLA program per batch;
-here the same steps run eagerly on the staged tensors. Its generic
-strategy of the fused aggregation (``_run_generic_fused``, which needs
-executor/agg_device.py) and ``FusedScanTopNExec`` (which needs ops/topk.py)
-are not ported: generic aggregations take the ``fallback_build``
-delegate, as the reference does with its device engine off.
+here the same steps run eagerly on the staged tensors.
 
 The reference's metrics are plain module-level counters here, under its
 label names: ``DEVICE_CACHE_TOTAL`` (hit, miss, invalidate, evict),
 ``PIPELINE_PREFETCH_TOTAL`` (hit, wait, inline, cancelled, error) and
 ``PIPELINE_PREFETCH_BYTES`` (h2d bytes and copies the prefetcher issued);
 ``PIPELINE_STAGE_SECONDS`` the host time it spent building and copying;
-``PIPELINE_FUSED_TOTAL`` counts fragments that ran fused and those that
-took their classic delegate.
+``PIPELINE_FUSED_TOTAL`` counts fragments that ran fused, by kind, and
+those that took their classic delegate.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from tidb_tpu_torch.utils.device import torch_dtype
 from tidb_tpu_torch.utils.memory import QueryOOMError
 
 __all__ = ["DEVICE_CACHE", "DeviceBufferCache", "ChunkPrefetcher", "HostArena",
-           "FusedScanAggExec", "FusedScanProbeExec", "table_ident",
+           "FusedScanAggExec", "FusedScanProbeExec", "FusedScanTopNExec", "table_ident",
            "DEVICE_CACHE_TOTAL", "PIPELINE_PREFETCH_TOTAL",
            "PIPELINE_PREFETCH_BYTES", "PIPELINE_STAGE_SECONDS", "PIPELINE_FUSED_TOTAL",
            "reset_counters"]
@@ -94,9 +97,10 @@ PIPELINE_PREFETCH_BYTES = {"h2d": 0, "copies": 0}
 # host seconds the prefetcher spent building batches ("job": the staging
 # job, arena included) and handing them to the device ("copy")
 PIPELINE_STAGE_SECONDS = {"job": 0.0, "copy": 0.0}
-# fused fragments by how they ran: "agg" and "probe" ran fused,
-# "delegate" fell back to the classic tree at open()
-PIPELINE_FUSED_TOTAL = {"agg": 0, "probe": 0, "delegate": 0}
+# fused fragments by how they ran: "agg" (segment strategy), "generic"
+# (the generic strategy's device group tables), "probe" and "topn" ran
+# fused, "delegate" fell back to the classic tree at open()
+PIPELINE_FUSED_TOTAL = {"agg": 0, "generic": 0, "probe": 0, "topn": 0, "delegate": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -689,11 +693,11 @@ def _close_delegate(outer) -> None:
 class FusedScanAggExec(_StagedScanMixin, HashAggExec):
     """HashAgg whose child is a fusible scan pipeline, run as a push-based
     device-resident fragment: staged batches stream through decode,
-    pipeline and the segment-aggregation update, and the state never
-    visits the host until finalize. Falls back to the classic pull-based
-    tree (``fallback_build``) when the context disables fusion or the
-    aggregation takes the generic strategy (whose fused form needs
-    executor/agg_device.py, not yet ported)."""
+    pipeline and the aggregation (the segment update, or the generic
+    strategy's partial group table pushed onto a GroupTableStack), and the
+    state never visits the host until finalize. Falls back to the classic
+    pull-based tree (``fallback_build``) when the context disables fusion
+    or, for the generic strategy, the device engine (``device_agg``)."""
 
     def __init__(self, schema, scan_schema, table, stages, prune_bounds,
                  group_exprs, group_uids, aggs, strategy,
@@ -725,9 +729,13 @@ class FusedScanAggExec(_StagedScanMixin, HashAggExec):
             self._delegate = d
             return
         self._ran_fused = True
-        _count(PIPELINE_FUSED_TOTAL, "agg")
         try:
-            self._run_segment_fused()
+            if self.strategy == "segment":
+                _count(PIPELINE_FUSED_TOTAL, "agg")
+                self._run_segment_fused()
+            else:
+                _count(PIPELINE_FUSED_TOTAL, "generic")
+                self._run_generic_fused()
         finally:
             self._release_staging()
 
@@ -744,10 +752,11 @@ class FusedScanAggExec(_StagedScanMixin, HashAggExec):
     def _fuse_eligible(self, ctx: ExecContext) -> bool:
         if not getattr(ctx, "pipeline_fuse", True) or self.table is None:
             return False
-        # the reference also fuses the generic strategy (device_agg on and
-        # core_generic_agg): that needs executor/agg_device.py, not yet
-        # ported, so generic aggregations run the classic delegate
-        return self.strategy == "segment"
+        if self.strategy == "segment":
+            return True
+        from tidb_tpu_torch.planner.logical import core_generic_agg
+
+        return ctx.device_agg and core_generic_agg(self.group_exprs, self.aggs)
 
     def _run_segment_fused(self):
         ctx = self.ctx
@@ -765,6 +774,35 @@ class FusedScanAggExec(_StagedScanMixin, HashAggExec):
             raise_if_cancelled(ctx)
             state = update(state, scan(*staged))
         self._finalize_segment_state(state, domains)
+
+    def _run_generic_fused(self):
+        from tidb_tpu_torch.executor.agg_device import GroupTableStack
+
+        _agg.DEVICE_GENERIC_TOTAL["fused"] += 1
+        jobs = self._plan_staging(self.ctx)
+        fused = _make_fused_generic_fn(self._scan_fn(), self.group_exprs, self.aggs)
+        stack = GroupTableStack(len(self.group_exprs), self.aggs)
+        self._staged_iter = self._staged_chunks(jobs)
+        for staged in self._staged_iter:
+            raise_if_cancelled(self.ctx)  # see _run_segment_fused
+            stack.push(fused(*staged))
+        self._finalize_group_tables(stack.tables())
+
+
+def _make_fused_generic_fn(scan, group_exprs, aggs):
+    """(data, valid, refs, sel) -> group table: decode + pipeline +
+    sort-based partial grouping of one staged batch. No blocking inside the
+    batch: the partial is a whole-batch sort, and its table has the batch's
+    capacity (per-block tables would redo the stack's merges here)."""
+    # looked up on the module at call time, like HashAggExec's own call
+    from tidb_tpu_torch.executor import agg_device
+
+    partial = agg_device.make_partial_kernel(group_exprs, aggs)
+
+    def run(data, valid, refs, sel):
+        return partial(scan(data, valid, refs, sel))
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1049,3 +1087,151 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
                 self._pending.append(Chunk(cols, sel_t[i]))
                 self.stats.chunks += 1
             w0 += T * cap
+
+
+# ---------------------------------------------------------------------------
+# fused scan -> top-k
+# ---------------------------------------------------------------------------
+
+
+def _make_fused_topn_fn(scan, sort_irs, descs, out_cols):
+    """(state, staged scan inputs) -> state: decode + filter + project + the
+    batch's top-k merge. The bounded top-k state (ops/topk.py layout) is the
+    only thing carried between batches, so the scan never materializes on
+    the host and the winners are fetched once at finalize."""
+    from tidb_tpu_torch.ops import topk as tk
+
+    def run(state, data, valid, refs, sel):
+        ch = scan(data, valid, refs, sel)
+        pairs = tuple(tk.rank_operands(*eval_expr(ir, ch), desc)
+                      for ir, desc in zip(sort_irs, descs))
+        payload = tuple((ch.columns[c.uid].data.to(torch_dtype(c.type_.np_dtype)),
+                         ch.columns[c.uid].valid) for c in out_cols)
+        return tk.topk_merge(state, pairs, payload, ch.sel, descs)
+
+    return run
+
+
+class FusedScanTopNExec(_StagedScanMixin, Executor):
+    """ORDER BY [LIMIT] root whose child is a plain scan pipeline, run as a
+    push-based device fragment: each staged batch is folded into a bounded
+    device state of the current ``offset + count`` winners (ops/topk.py),
+    and the host fetches the winners once at finalize. The classic
+    ``TopNExec`` brings every child row to the host before ``np.lexsort``
+    keeps k of them.
+
+    A full ORDER BY (no LIMIT) takes the same path when every live row fits
+    the state (``table.n <= capacity``): the "top n" is then the complete
+    sort. Larger inputs, and a LIMIT whose ``offset + count`` exceeds the
+    chunk capacity, fall back to the classic materializing sort through the
+    open()-time ``fallback_build`` delegate. (The reference also records
+    the overflow for its plan feedback, which the port does not have.)
+
+    Ordering is exact against the classic path: ops/topk.py replicates
+    ``_sort_order``'s null-rank and negation, and ties resolve by global
+    drain position, the device analogue of np.lexsort's stability."""
+
+    def __init__(self, schema, scan_schema, table, stages, prune_bounds,
+                 items, count, offset, full_sort=False, fallback_build=None):
+        Executor.__init__(self, schema, [])
+        self.scan_schema = scan_schema
+        self.table = table
+        self.scan_stages = stages
+        self.prune_bounds = prune_bounds
+        self.items = items
+        self.count = count
+        self.offset = offset
+        self.full_sort = full_sort
+        self._fallback_build = fallback_build
+        self._delegate = None
+        self._ran_fused = False
+        self._pin = None
+        self._prefetcher = None
+        self._staged_iter = None
+        self._seg_cap = None
+
+    def open(self, ctx: ExecContext) -> None:
+        self.ctx = ctx
+        self._chunks: List[Chunk] = []
+        self._delegate = None
+        k, eligible = self._state_rows(ctx)
+        if not eligible:
+            self._ran_fused = False
+            _count(PIPELINE_FUSED_TOTAL, "delegate")
+            d = self._fallback_build()
+            d.open(ctx)
+            self._delegate = d
+            return
+        self._ran_fused = True
+        _count(PIPELINE_FUSED_TOTAL, "topn")
+        try:
+            self._run_fused(ctx, k)
+        finally:
+            self._release_staging()
+
+    def next(self) -> Optional[Chunk]:
+        if self._delegate is not None:
+            return self._delegate.next()
+        if self._chunks:
+            return self._chunks.pop(0)
+        return None
+
+    def close(self) -> None:
+        _close_delegate(self)
+        self._release_staging()
+        super().close()
+
+    def _state_rows(self, ctx: ExecContext):
+        """(k, fuse?): k the live-row bound the device state must hold
+        (offset + count, or the whole table for a full sort). The gate is
+        the chunk capacity: each merge sorts C + capacity rows, so a state
+        larger than one chunk loses the win over the classic path anyway.
+        No device_agg gate, as in the reference (like the segment-strategy
+        fused aggregation)."""
+        if not getattr(ctx, "pipeline_fuse", True) or self.table is None:
+            return 0, False
+        if not getattr(ctx, "fused_topn", True) or not self.items:
+            return 0, False
+        k = int(self.table.n) if self.full_sort else int(self.count) + int(self.offset)
+        return k, k <= int(ctx.chunk_capacity)
+
+    def _run_fused(self, ctx: ExecContext, k: int) -> None:
+        from tidb_tpu_torch.executor.agg_device import fetch_to_host
+        from tidb_tpu_torch.ops import topk as tk
+
+        jobs = self._plan_staging(ctx)
+        sort_irs = tuple(e for e, _ in self.items)
+        descs = tuple(bool(d) for _, d in self.items)
+        fused = _make_fused_topn_fn(self._scan_fn(), sort_irs, descs, self.schema)
+        state = tk.topk_init(jk.shape_bucket(k, floor=64),
+                             tuple(tk.key_spec(e.type_) for e in sort_irs),
+                             tuple(torch_dtype(c.type_.np_dtype) for c in self.schema),
+                             ctx.device)
+        self._staged_iter = self._staged_chunks(jobs)
+        for staged in self._staged_iter:
+            # KILL/deadline polls between batches: fusion must not turn a
+            # chunked fragment into an uninterruptible run
+            raise_if_cancelled(ctx)
+            state = fused(state, *staged)
+        # the one fetch of the C winners at finalize
+        dead, _ranks, _pos, _next, payload = state
+        host = fetch_to_host([dead] + [t for pair in payload for t in pair])
+        self._emit_winners(host[0], list(zip(host[1::2], host[2::2])))
+
+    def _emit_winners(self, dead, payload) -> None:
+        """Slice [offset, offset + count) of the live winners (the state is
+        already in final sort order: dead slots sort last) into
+        capacity-sized host chunks."""
+        n_live = int((dead == 0).sum())
+        lo = 0 if self.full_sort else min(int(self.offset), n_live)
+        hi = n_live if self.full_sort else min(int(self.offset) + int(self.count), n_live)
+        self.stats.add_out_rows(hi - lo)
+        cap = self.ctx.chunk_capacity
+        for s in range(lo, hi, cap):
+            e = min(s + cap, hi)
+            cols = {c.uid: Column.from_numpy(d[s:e], c.type_, valid=v[s:e], capacity=cap)
+                    for c, (d, v) in zip(self.schema, payload)}
+            sel = torch.zeros(cap, dtype=torch.bool)
+            sel[:e - s] = True
+            self._chunks.append(Chunk(cols, sel))
+            self.stats.chunks += 1

@@ -17,6 +17,8 @@ Each becomes `torch.div(..., rounding_mode=...)` with the mode spelled out.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Callable, Tuple
 
 import numpy as np
@@ -40,6 +42,36 @@ from tidb_tpu_torch.types import SQLType, TypeKind
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["compile_expr", "compile_predicate", "eval_expr"]
+
+# Lookup tables already on a device, by (values, dtype, device). Each plan
+# builds its own tuples, so a table object maps to its content key once
+# (_TABLE_KEYS, which keeps the object alive so its id stays its own) and
+# the tensor is shared by every statement with the same values: a chunk's
+# gather then makes no blocking host->device copy.
+_TABLE_KEYS: "OrderedDict" = OrderedDict()
+_TABLES: "OrderedDict" = OrderedDict()
+_TABLES_MAX = 64
+_TABLES_LOCK = threading.Lock()
+
+
+def _device_table(values: tuple, np_dtype, dev: torch.device) -> torch.Tensor:
+    with _TABLES_LOCK:
+        hit = _TABLE_KEYS.get(id(values))
+        if hit is None or hit[0] is not values:
+            hit = (values, hash(values))
+            _TABLE_KEYS[id(values)] = hit
+            while len(_TABLE_KEYS) > _TABLES_MAX:
+                _TABLE_KEYS.popitem(last=False)
+        key = (hit[1], len(values), np.dtype(np_dtype).str, str(dev))
+        entry = _TABLES.get(key)
+        if entry is None or (entry[0] is not values and entry[0] != values):
+            entry = (values, torch.as_tensor(np.asarray(values, dtype=np_dtype), device=dev))
+        # hold the caller's tuple: its next chunks match by identity
+        entry = _TABLES[key] = (values, entry[1])
+        _TABLES.move_to_end(key)
+        while len(_TABLES) > _TABLES_MAX:
+            _TABLES.popitem(last=False)
+        return entry[1]
 
 Pair = Tuple[torch.Tensor, torch.Tensor]  # (data, valid)
 
@@ -145,14 +177,11 @@ def eval_expr(e: Expr, chunk) -> Pair:
 
     if isinstance(e, Lookup):
         data, valid = eval_expr(e.arg, chunk)
-        table = torch.as_tensor(np.asarray(e.table, dtype=e.type_.np_dtype),
-                                device=dev)
+        table = _device_table(e.table, e.type_.np_dtype, dev)
         idx = data.to(torch.int64).clamp(0, len(e.table) - 1)
         out = table[idx]
         if e.table_valid is not None:
-            tv = torch.as_tensor(np.asarray(e.table_valid, dtype=np.bool_),
-                                 device=dev)
-            valid = valid & tv[idx]
+            valid = valid & _device_table(e.table_valid, np.bool_, dev)[idx]
         # codes outside the table (e.g. -1 absent sentinel) are invalid
         valid = valid & (data >= 0) & (data < len(e.table))
         return out, valid

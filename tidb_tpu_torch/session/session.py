@@ -111,7 +111,11 @@ class Session:
             join_tiles=int(sv("tidb_tpu_join_tiles_per_dispatch")),
             join_probe_mode=str(sv("tidb_tpu_join_probe_mode")),
             mem_tracker=tracker,
-            device_agg=bool(sv("tidb_enable_tpu_exec")),
+            # the port has one engine, torch on self.device, so 'auto' takes
+            # the device path on every device; 'off' keeps the host engine
+            # (the generic aggregation's numpy groupby, the classic joins)
+            device_agg=(bool(sv("tidb_enable_tpu_exec"))
+                        and str(sv("tidb_device_engine_mode")) != "off"),
             columnar_enable=bool(sv("tidb_tpu_columnar_enable")),
             segment_rows=int(sv("tidb_tpu_segment_rows")),
             segment_delta_rows=int(sv("tidb_tpu_segment_delta_rows")),

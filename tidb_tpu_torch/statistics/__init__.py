@@ -13,10 +13,12 @@ uniform key frequency (`eq_join_selectivity`).
 Stats are version-stamped: a table mutation bumps table.version and
 histogram/MCV estimates degrade to heuristics until the next ANALYZE.
 
-This port carries the estimation half only (what the physical planner's
-`_estimate` reads). ANALYZE, the insert-maintained NDV sketch and the
-zone-map fallback are not yet ported, so every estimate here takes the
-no-stats heuristic unless a caller attached `table.stats`.
+This port carries the estimation half (what the physical planner's
+`_estimate` reads) and the zone-map fallback: a table with no `table.stats`
+but a columnar segment store estimates from its zone maps
+(`zone_map_stats`), so plans can change once a table's store exists.
+ANALYZE and the insert-maintained NDV sketch are not yet ported; a table
+with neither stats nor a store takes the no-stats heuristic.
 """
 
 from __future__ import annotations
