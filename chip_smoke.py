@@ -94,7 +94,31 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    timed on the recorded arguments of Q18's table route (flags-only and
    full), Q3's direct route and Q5's sorted route (a phase-1 case of the
    route where the plan takes it nowhere), and on a cap-2^18
-   table. The full report goes to chiprun_out/chip_smoke.json.
+   table.
+4. The refresh phase (phase_refresh), on the phase-2 SF1 session after
+   phase 3: keys, index access and the write path. A duplicate o_orderkey
+   and a duplicate (l_orderkey, l_linenumber) are refused with the
+   duplicate-key error, the row counts unchanged; the primary-key checks'
+   share of the SF1 load is printed. A point get on orders plans PPointGet
+   and l_orderkey's equality prefix plans PIndexRangeScan (an
+   l_orderkey BETWEEN plans what the cost gate picks), each against numpy,
+   timed first (the sorted index build) and warm. TPC-H RF1 (clause
+   2.5.2: 1,500 new orders and their lineitems by multi-row INSERT ...
+   VALUES, storage/tpch_refresh.py) runs in one explicit transaction;
+   before COMMIT a second Session on the same catalog reads the pre-RF1
+   Q1 and Q6 and the writer its own provisional rows through the fused
+   pipeline's marker path. RF2 (clause 2.5.3: the 1,500 oldest orders)
+   deletes lineitem and orders by multi-table DELETE through a key table
+   (a hash join: tidb_probe_count runs). An UPDATE of the 1994 lineitems'
+   l_discount rolled back leaves Q6 as it was; committed, it moves Q6 to
+   numpy's new value. A scratch copy (INSERT ... SELECT) truncated gives
+   fused Q6 zero rows, and a re-insert is seen. After RF1, RF2 and the
+   UPDATE, Q1, Q6, Q3, Q5 and Q18 equal numpy over an independent array
+   model of the tables, and the first Q1 and Q6 after each DML restage
+   while the second stage 0 B. Every statement and query is timed, and
+   its launches, staging and cache outcomes recorded; tidb_segagg and
+   tidb_probe_count must both launch in the phase, the off-path entries
+   never. The full report goes to chiprun_out/chip_smoke.json.
 
 The card's name and power limit are printed first; the line before the
 last is one JSON object {"kernels": [...]}, the last {"ok": true,
@@ -1650,6 +1674,436 @@ def peak_memory(torch, s, sql: str) -> dict:
 
 
 
+# -- the refresh phase: keys, index access and the write path at SF1 ----------
+
+REFRESH_QUERIES = ("q1", "q6", "q3", "q5", "q18")
+
+
+class ModelTable:
+    """A table of the numpy model: live rows' columns in the engine's
+    device representation, with the engine table's dictionaries."""
+
+    def __init__(self, data, dicts):
+        self.data, self.dicts = data, dicts
+
+    @property
+    def n(self) -> int:
+        return len(next(iter(self.data.values())))
+
+
+class ArrayModel:
+    """An independent numpy model of orders and lineitem for the refresh
+    phase: their live rows copied once after the load, then RF1's rows
+    appended, RF2's orders and lineitems dropped and the UPDATE applied,
+    by numpy alone. Its `table()` serves the numpy queries (numpy_q1 ...
+    numpy_q18) in place of the catalog; the other tables, which no
+    refresh statement touches, are the catalog's own."""
+
+    COLS = {"lineitem": ("l_orderkey", "l_suppkey", "l_linenumber", "l_quantity",
+                         "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+                         "l_linestatus", "l_shipdate"),
+            "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+                       "o_totalprice")}
+
+    def __init__(self, np, cat):
+        self.np, self.cat = np, cat
+        self.tables = {}
+        for name, cols in self.COLS.items():
+            t = cat.table("test", name)
+            live = np.nonzero(t.live_mask(0, t.n))[0]
+            self.tables[name] = ModelTable({c: t.data[c][live].copy() for c in cols},
+                                           t.dicts)
+
+    def table(self, db, name):
+        return self.tables[name] if name in self.tables else self.cat.table(db, name)
+
+    def append(self, new):
+        for name, m in self.tables.items():
+            m.data = {c: self.np.concatenate([a, new[name][c]]) for c, a in m.data.items()}
+
+    def drop_orders(self, keys):
+        np = self.np
+        for name, col in (("lineitem", "l_orderkey"), ("orders", "o_orderkey")):
+            m = self.tables[name]
+            keep = ~np.isin(m.data[col], keys)
+            m.data = {c: a[keep] for c, a in m.data.items()}
+
+    def copy(self) -> "ArrayModel":
+        out = ArrayModel.__new__(ArrayModel)
+        out.np, out.cat = self.np, self.cat
+        out.tables = {k: ModelTable(dict(v.data), v.dicts) for k, v in self.tables.items()}
+        return out
+
+    def set_discount(self, lo_day: int, hi_day: int, scaled: int):
+        li = self.tables["lineitem"]
+        d = li.data["l_shipdate"]
+        li.data["l_discount"] = li.data["l_discount"].copy()
+        li.data["l_discount"][(d >= lo_day) & (d < hi_day)] = scaled
+
+
+def check_five(np, res, model, label):
+    """Q1, Q6, Q3, Q5 and Q18 rows against numpy over the model."""
+    li = model.table("test", "lineitem")
+    check_q1(np, res["q1"], numpy_q1(np, li))
+    if len(res["q6"]) != 1 or _scaled(res["q6"][0][0]) != numpy_q6(np, li):
+        raise AssertionError(f"{label}: Q6 {res['q6']} vs numpy {numpy_q6(np, li)}")
+    check_join_rows("q3", res["q3"], numpy_q3(np, model), {1})
+    check_join_rows("q5", res["q5"], numpy_q5(np, model), {1})
+    check_join_rows("q18", res["q18"], numpy_q18(np, model)[0], {4, 5})
+    if not all(res[q] for q in REFRESH_QUERIES):
+        raise AssertionError(f"{label}: a query returned no rows")
+
+
+def refresh_queries(np, s, mods, model, label, step) -> dict:
+    """The five queries after a DML, Q1 and Q6 twice: the first run of each
+    restages its table (no cache hit), the second stages 0 B; every row
+    against numpy over the model. Launches and staging into `step`."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    res = {}
+    for run in ("q1", "q1_again", "q6", "q6_again", "q3", "q5", "q18"):
+        q = run.split("_")[0]
+        rows, c, dt = run_query(s, mods, Q[q][0])
+        step["queries"][run] = {"s": dt, "launches": c["launches"], "routes": c["routes"],
+                                "h2d": c["h2d"], "staged_batches": c["staged_batches"],
+                                "cache": c["cache"], "fused": c["fused"]}
+        step_add(step, c)
+        if run == q:
+            res[q] = rows
+            if q in ("q1", "q6") and (c["cache"]["hit"] or not c["staged_batches"]
+                                      or not c["h2d"]["h2d"]):
+                raise AssertionError(f"{label}: the first {q} after the DML did not "
+                                     f"restage: {c}")
+        else:
+            if rows != res[q]:
+                raise AssertionError(f"{label}: {run} differs from the first run")
+            if c["h2d"]["h2d"] or c["staged_batches"] or not c["cache"]["hit"]:
+                raise AssertionError(f"{label}: {run} staged again: {c}")
+        log(f"refresh {label} {run}: {dt:.3f} s; launches {c['launches']}; host->device "
+            f"{c['h2d']}; staged batches {c['staged_batches']}; cache {c['cache']}")
+    check_five(np, res, model, label)
+    log(f"refresh {label}: Q1, Q6, Q3, Q5 and Q18 equal numpy over the model")
+    return res
+
+
+def step_add(step, c):
+    for k in ("segagg", "probe_count", "hash_probe", "segsum_count", "segsum_i64"):
+        step["launches"][k] = step["launches"].get(k, 0) + c["launches"][k]
+
+
+def new_step():
+    return {"launches": {}, "queries": {}, "statements": []}
+
+
+def timed(step, s, mods, sql, label=None) -> dict:
+    """Run one refresh statement with the kernels' launch counters and
+    the join's probe-route counter set to 0 just before it and read just
+    after, as run_query does; its time, launches and probe chunks by
+    route into `step`."""
+    seg_mod, hp, jk = mods[0], mods[1], mods[2]
+    seg_mod.reset_launches()
+    hp.reset_launches()
+    jk.reset_routes()
+    t0 = time.perf_counter()
+    s.execute(sql)
+    dt = time.perf_counter() - t0
+    got = launches_of(mods)
+    rec = {"sql": label or sql[:80], "s": dt, "launches": got,
+           "routes": dict(jk.PROBE_ROUTES)}
+    step["statements"].append(rec)
+    step_add(step, {"launches": got})
+    return rec
+
+
+def launches_of(mods) -> dict:
+    seg_mod, hp = mods[0], mods[1]
+    return {**seg_mod.LAUNCHES, **hp.LAUNCHES}
+
+
+def access_leaf(s, sql):
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import PScan
+
+    node = s._plan_select(parse(sql)[0])
+    while node.children and not isinstance(node, PScan):
+        node = node.children[0]
+    return node
+
+
+def point_get(np, s, model, key, step, label):
+    """`select * from orders where o_orderkey = key` through PPointGet,
+    against the model's row; its time into `step`."""
+    from tidb_tpu_torch.planner.physical import PPointGet
+
+    sql = f"select * from orders where o_orderkey = {key}"
+    if type(access_leaf(s, sql)) is not PPointGet:
+        raise AssertionError(f"{sql} does not plan PPointGet")
+    t0 = time.perf_counter()
+    rows = s.query(sql)
+    dt = time.perf_counter() - t0
+    o = model.table("test", "orders")
+    hit = np.nonzero(o.data["o_orderkey"] == key)[0]
+    want = [(int(key), int(o.data["o_custkey"][i]), int(o.data["o_totalprice"][i]),
+             _iso(np, o.data["o_orderdate"][i])) for i in hit]
+    got = [(r[0], r[1], _scaled(r[3]), r[4]) for r in rows]
+    if got != want:
+        raise AssertionError(f"{label}: point get {got} vs numpy {want}")
+    step["lookups"].append({"what": label, "s": dt, "rows": len(rows)})
+    log(f"refresh lookup {label}: {dt * 1e3:.3f} ms, {len(rows)} row(s)")
+    return dt
+
+
+def lineitem_range(np, s, model, lo, hi, step, label, eq=False):
+    """Lineitems of orders lo..hi (BETWEEN), or of order lo alone (the
+    composite key's equality prefix), against the model."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import explain_text
+
+    where = f"l_orderkey = {lo}" if eq else f"l_orderkey between {lo} and {hi}"
+    sql = f"select l_orderkey, l_linenumber, l_quantity from lineitem where {where}"
+    leaf = access_leaf(s, sql)
+    t0 = time.perf_counter()
+    rows = sorted(s.query(sql))
+    dt = time.perf_counter() - t0
+    li = model.table("test", "lineitem")
+    k = li.data["l_orderkey"]
+    m = (k == lo) if eq else (k >= lo) & (k <= hi)
+    want = sorted(zip(k[m].tolist(), li.data["l_linenumber"][m].tolist(),
+                      li.data["l_quantity"][m].tolist()))
+    if [(a, b, _scaled(c)) for a, b, c in rows] != want:
+        raise AssertionError(f"{label}: {len(rows)} lineitems vs numpy {len(want)}")
+    plan = explain_text(s._plan_select(parse(sql)[0]))
+    step["lookups"].append({"what": label, "s": dt, "rows": len(rows),
+                            "access": type(leaf).__name__, "plan": plan})
+    log(f"refresh lookup {label}: {type(leaf).__name__}, {dt * 1e3:.3f} ms, "
+        f"{len(rows)} rows; plan:\n{plan}")
+    return type(leaf).__name__
+
+
+def refused(s, sql):
+    """The statement must fail with the reference's duplicate-key error."""
+    from tidb_tpu_torch.errors import ExecutionError
+
+    try:
+        s.execute(sql)
+    except ExecutionError as e:
+        if "duplicate entry for unique index" not in str(e):
+            raise
+        return str(e)
+    raise AssertionError(f"accepted a duplicate key: {sql[:120]}")
+
+
+def phase_refresh(torch, np, s, mods, load, sf: float = 1.0) -> dict:
+    """Keys, index access and the write path at SF1 on the phase-2 session:
+    duplicate keys refused, point and range access, TPC-H RF1 in one
+    explicit transaction (a second session reads the pre-RF1 rows, the
+    writer its own), RF2 as multi-table DELETEs through a key table, an
+    UPDATE rolled back and one committed, TRUNCATE of a scratch table; the
+    five queries against an independent numpy model after each DML.
+    Each statement (timed) and each query (run_query) runs with the launch
+    counters set to 0 just before it and read just after; the phase's
+    launches are the sum of those readings, and its probe_count launches
+    by route and mode are counted by a wrapper over the whole phase."""
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import tpch_refresh as rf
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    cat = s.catalog
+    o, li = cat.table("test", "orders"), cat.table("test", "lineitem")
+    model = ArrayModel(np, cat)
+    report = {"load": load, "steps": {}}
+    log(f"refresh: the SF{sf:g} load took {load['load_s']:.3f} s, of which the primary-key "
+        f"checks {load['pk_check_s']:.3f} s ({load['pk_check_s'] / load['load_s']:.1%}); "
+        f"per table {load['pk_check_by_table']}")
+    probes = record_probe_chunks(hp)
+    probes["query"] = "refresh"
+    try:
+        # 1. keys: a duplicate o_orderkey and a duplicate (l_orderkey,
+        # l_linenumber) are refused, the row counts unchanged
+        step = report["steps"]["keys"] = new_step()
+        n0 = (o.live_rows, li.live_rows)
+        live_o = np.nonzero(o.live_mask(0, o.n))[0][:1]
+        live_l = np.nonzero(li.live_mask(0, li.n))[0][:1]
+        dup_o = rf.insert_statements(o, {c: o.data[c][live_o] for c in o.schema.names()})[0]
+        dup_l = rf.insert_statements(li, {c: li.data[c][live_l] for c in li.schema.names()})[0]
+        step["refused"] = [refused(s, dup_o), refused(s, dup_l)]
+        if (o.live_rows, li.live_rows) != n0:
+            raise AssertionError("a refused duplicate changed a row count")
+        log(f"refresh keys: both duplicates refused ({step['refused']}); rows {n0}")
+
+        # 2. access paths: a point get on orders, a range and an
+        # equality-prefix scan of lineitem; the first lookup of each index
+        # builds its sorted (key, row) cache
+        step = report["steps"]["access"] = new_step()
+        step["lookups"] = []
+        keys = np.sort(model.table("test", "orders").data["o_orderkey"])
+        k_mid = int(keys[len(keys) // 2])
+        point_get(np, s, model, k_mid, step, "orders point get, first (builds the index)")
+        point_get(np, s, model, k_mid, step, "orders point get, warm")
+        step["range_access"] = lineitem_range(np, s, model, k_mid, k_mid + 200, step,
+                                              "lineitem l_orderkey between k and k + 200")
+        if lineitem_range(np, s, model, k_mid, None, step,
+                          "lineitem l_orderkey = k, first (builds the index)",
+                          eq=True) != "PIndexRangeScan":
+            raise AssertionError("the composite key's equality prefix did not plan "
+                                 "PIndexRangeScan")
+        lineitem_range(np, s, model, k_mid, None, step, "lineitem l_orderkey = k, warm",
+                       eq=True)
+
+        # 3. RF1 (clause 2.5.2) in one explicit transaction
+        step = report["steps"]["rf1"] = new_step()
+        epochs = (o.data_epoch, li.data_epoch)
+        new = rf.rf1(cat, sf, seed=7)
+        stmts = [("orders", q) for q in rf.insert_statements(o, new["orders"])] + [
+            ("lineitem", q) for q in rf.insert_statements(li, new["lineitem"])]
+        other = Session(catalog=cat, device=s.device)
+        before_q1, before_q6 = numpy_q1(np, model.table("test", "lineitem")), \
+            numpy_q6(np, model.table("test", "lineitem"))
+        timed(step, s, mods, "begin")
+        for name, q in stmts:
+            timed(step, s, mods, q, f"insert into {name} ({q.count('), (') + 1} rows)")
+        # before COMMIT: another session reads the pre-RF1 rows ...
+        rows, c, dt = run_query(other, mods, Q["q1"][0])
+        check_q1(np, rows, before_q1)
+        step["queries"]["q1_other_session"] = {"s": dt, "h2d": c["h2d"], "cache": c["cache"]}
+        step_add(step, c)
+        rows, c, dt = run_query(other, mods, Q["q6"][0])
+        if _scaled(rows[0][0]) != before_q6:
+            raise AssertionError(f"another session's Q6 saw provisional rows: {rows}")
+        step_add(step, c)
+        # ... and the writer its own provisional rows, through the fused
+        # pipeline's marker path (no device buffer cache in a transaction)
+        model.append(new)
+        rows, c, dt = run_query(s, mods, Q["q1"][0])
+        check_q1(np, rows, numpy_q1(np, model.table("test", "lineitem")))
+        if c["fused"]["agg"] != 1 or c["cache"]["hit"] or not c["staged_batches"]:
+            raise AssertionError(f"the writer's Q1 did not run fused and uncached: {c}")
+        step["queries"]["q1_writer_in_txn"] = {"s": dt, "h2d": c["h2d"], "cache": c["cache"],
+                                              "fused": c["fused"]}
+        step_add(step, c)
+        timed(step, s, mods, "commit")
+        if (o.data_epoch, li.data_epoch) != epochs:
+            raise AssertionError("RF1 rewrote dictionary codes")
+        step["rows_inserted"] = {t: len(new[t][next(iter(new[t]))]) for t in new}
+        log(f"refresh rf1: inserted {step['rows_inserted']}; statements "
+            f"{[round(x['s'], 3) for x in step['statements']]} s")
+        refresh_queries(np, s, mods, model, "after rf1", step)
+
+        # 4. RF2 (clause 2.5.3): the oldest orders, through a key table
+        step = report["steps"]["rf2"] = new_step()
+        keys = rf.rf2_keys(cat, sf)
+        n_before = (o.live_rows, li.live_rows)
+        timed(step, s, mods, "create table rf2_keys (k bigint primary key)")
+        timed(step, s, mods, "insert into rf2_keys values " + ", ".join(f"({k})" for k in keys),
+              f"insert into rf2_keys ({len(keys)} rows)")
+        for sql in ("delete lineitem from lineitem join rf2_keys on l_orderkey = k",
+                    "delete orders from orders join rf2_keys on o_orderkey = k"):
+            rec = timed(step, s, mods, sql)
+            n = rec["launches"]["probe_count"]
+            if not n or n != sum(rec["routes"].values()):
+                raise AssertionError(f"{sql}: probe_count {n}, routes {rec['routes']}")
+        model.drop_orders(keys)
+        step["rows_deleted"] = {"orders": n_before[0] - o.live_rows,
+                                "lineitem": n_before[1] - li.live_rows}
+        if step["rows_deleted"]["orders"] != len(keys) or (
+                li.live_rows != model.table("test", "lineitem").n):
+            raise AssertionError(f"rf2 deleted {step['rows_deleted']} of {len(keys)} orders")
+        log(f"refresh rf2: deleted {step['rows_deleted']}; statements "
+            f"{[(x['sql'][:40], round(x['s'], 3)) for x in step['statements']]}")
+        refresh_queries(np, s, mods, model, "after rf2", step)
+        step["lookups"] = []
+        point_get(np, s, model, int(keys[0]), step, "orders point get of a deleted key, "
+                  "first after the DML (re-sorts the index)")
+        point_get(np, s, model, k_mid, step, "orders point get, warm")
+
+        # 5. an UPDATE rolled back, then committed; TRUNCATE of a scratch copy
+        step = report["steps"]["update"] = new_step()
+        lo, hi = _days(np, "1994-01-01"), _days(np, "1995-01-01")
+        upd = ("update lineitem set l_discount = 0.06 where l_shipdate >= '1994-01-01' "
+               "and l_shipdate < '1995-01-01'")
+        q6_before = numpy_q6(np, model.table("test", "lineitem"))
+        n_phys = li.n
+        timed(step, s, mods, "begin")
+        timed(step, s, mods, upd)
+        step["rows_updated"] = li.n - n_phys
+        rows, c, dt = run_query(s, mods, Q["q6"][0])
+        step_add(step, c)
+        check = model.copy()
+        check.set_discount(lo, hi, 6)
+        if _scaled(rows[0][0]) != numpy_q6(np, check.table("test", "lineitem")):
+            raise AssertionError(f"the writer's Q6 missed its own UPDATE: {rows}")
+        timed(step, s, mods, "rollback")
+        rows, c, dt = run_query(s, mods, Q["q6"][0])
+        step_add(step, c)
+        step["queries"]["q6_after_rollback"] = {"s": dt, "h2d": c["h2d"], "cache": c["cache"]}
+        if _scaled(rows[0][0]) != q6_before or c["cache"]["hit"]:
+            raise AssertionError(f"Q6 after ROLLBACK: {rows} (numpy {q6_before}), cache "
+                                 f"{c['cache']}")
+        timed(step, s, mods, upd, "update (autocommit)")
+        model.set_discount(lo, hi, 6)
+        log(f"refresh update: {step['rows_updated']} rows; statements "
+            f"{[(x['sql'][:40], round(x['s'], 3)) for x in step['statements']]}")
+        res = refresh_queries(np, s, mods, model, "after the update", step)
+        if _scaled(res["q6"][0][0]) == q6_before:
+            raise AssertionError("the committed UPDATE did not move Q6")
+
+        # the scratch copy: the lineitems of 25,000 orders (about 100,000
+        # rows, enough for a segment store), by INSERT ... SELECT
+        step = report["steps"]["truncate"] = new_step()
+        okeys = np.sort(model.table("test", "orders").data["o_orderkey"])
+        cut = int(okeys[min(25000, len(okeys) - 1)])
+        timed(step, s, mods, "create table li_scratch (l_orderkey bigint, "
+              "l_quantity decimal(15,2), l_extendedprice decimal(15,2), "
+              "l_discount decimal(15,2), l_shipdate date)")
+        timed(step, s, mods, "insert into li_scratch select l_orderkey, l_quantity, "
+              "l_extendedprice, l_discount, l_shipdate from lineitem "
+              f"where l_orderkey <= {cut}", "insert into li_scratch select ... from lineitem")
+        scratch = cat.table("test", "li_scratch")
+        q6s = Q["q6"][0].replace("lineitem", "li_scratch")
+        m = model.table("test", "lineitem")
+        part = ModelTable({c: a[m.data["l_orderkey"] <= cut] for c, a in m.data.items()},
+                          m.dicts)
+        rows, c, dt = run_query(s, mods, q6s)
+        step_add(step, c)
+        if _scaled(rows[0][0]) != numpy_q6(np, part) or c["fused"]["agg"] != 1:
+            raise AssertionError(f"scratch Q6 {rows} vs numpy {numpy_q6(np, part)}: {c}")
+        step["scratch_rows"] = scratch.live_rows
+        step["segment_store"] = scratch._segment_store is not None
+        timed(step, s, mods, "truncate table li_scratch")
+        rows, c, dt = run_query(s, mods, q6s)
+        step_add(step, c)
+        if rows != [(None,)] or c["fused"]["agg"] != 1:
+            raise AssertionError(f"Q6 over the truncated table: {rows}, {c['fused']}")
+        timed(step, s, mods, "insert into li_scratch values (1, 1.00, 100.00, 0.06, "
+                       "'1994-06-01'), (2, 30.00, 100.00, 0.06, '1994-06-01')")
+        rows, c, dt = run_query(s, mods, q6s)
+        step_add(step, c)
+        if rows != [("6.0000",)]:
+            raise AssertionError(f"Q6 after the re-insert: {rows}")
+        if not step["segment_store"]:
+            raise AssertionError("the scratch table has no segment store to drop")
+        log(f"refresh truncate: {step['scratch_rows']} scratch rows (segment store "
+            f"{step['segment_store']}); Q6 zero rows after TRUNCATE, the re-insert seen; "
+            f"statements {[(x['sql'][:40], round(x['s'], 3)) for x in step['statements']]}")
+    finally:
+        hp.probe_chunk = probes["real"]
+    total = {}
+    for step in report["steps"].values():
+        for k, v in step["launches"].items():
+            total[k] = total.get(k, 0) + v
+    modes = {}
+    for (_q, route, mode, _b), n in probes["calls"].items():
+        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    report["launches"], report["probe_modes"] = total, modes
+    if not total.get("segagg") or not total.get("probe_count"):
+        raise AssertionError(f"the refresh phase missed a kernel of its path: {total}")
+    if total.get("hash_probe") or total.get("segsum_count") or total.get("segsum_i64"):
+        raise AssertionError(f"the refresh phase launched an off-path entry: {total}")
+    log(f"refresh: launches {total}; probe_count by route and mode {modes}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1669,6 +2123,7 @@ def main() -> int:
         from tidb_tpu_torch.parser import parse
         from tidb_tpu_torch.planner.physical import explain_text
         from tidb_tpu_torch.session import Session
+        from tidb_tpu_torch.storage.table import Table
         from tidb_tpu_torch.storage.tpch_queries import Q
     except ImportError as e:
         print(f"chip_smoke: the tidb_tpu_torch package is missing: {e}",
@@ -1708,9 +2163,29 @@ def main() -> int:
 
     # -- phase 2 ------------------------------------------------------------
     s = Session()  # device=None: the card
+    load = {"pk_check_s": 0.0, "pk_check_by_table": {}}
+    real_check = Table._enforce_unique_new
+
+    def timed_check(self, *args, **kw):
+        # the primary-key check of every ingest, timed for the refresh phase
+        t1 = time.perf_counter()
+        try:
+            return real_check(self, *args, **kw)
+        finally:
+            dt = time.perf_counter() - t1
+            load["pk_check_s"] += dt
+            by = load["pk_check_by_table"]
+            by[self.schema.name] = by.get(self.schema.name, 0.0) + dt
+
+    Table._enforce_unique_new = timed_check
     t0 = time.perf_counter()
-    counts = s.load_tpch(1.0)
-    log(f"TPC-H SF1 loaded in {time.perf_counter() - t0:.1f} s: {counts}")
+    try:
+        counts = s.load_tpch(1.0)
+    finally:
+        Table._enforce_unique_new = real_check
+    load["load_s"] = time.perf_counter() - t0
+    log(f"TPC-H SF1 loaded in {load['load_s']:.1f} s (primary-key checks "
+        f"{load['pk_check_s']:.1f} s): {counts}")
     queries = ("q1", "q6", "q3", "q5", "q18")
     p2 = phase_paths(torch, np, s, mods, Session, queries)
     li, n_rows, results, per_query = p2["li"], p2["n_rows"], p2["results"], p2["per_query"]
@@ -1915,8 +2390,23 @@ def main() -> int:
     for kname, args, kw, n_launch in shapes:
         rows.append(probe_chunk_row(torch, hp, kname, args, kw, n_launch))
 
+    # -- the refresh phase: keys, index access and the write path ------------
+    t0 = time.perf_counter()
+    refresh = phase_refresh(torch, np, s, mods, load)
+    refresh["s"] = time.perf_counter() - t0
+    log(f"refresh phase passed in {refresh['s']:.1f} s")
+    by_mode = refresh["probe_modes"]
+    for row in rows:
+        if row["name"].startswith("probe_count."):
+            mode = {"table_flags": "table/flags", "table_full": "table/full",
+                    "direct": "direct/full", "sorted": "sorted/full"}.get(
+                        row["name"].split(".", 1)[1])
+            row["launches_refresh"] = by_mode.get(mode, 0)
+        else:
+            row["launches_refresh"] = refresh["launches"].get(row["name"], 0)
+
     log(f"main-path launches: fused path {launches}, classic path {launches_classic}, "
-        f"packed batches {launches_packed}")
+        f"packed batches {launches_packed}, refresh phase {refresh['launches']}")
     report = {"card": card, "device": name, "lineitem_rows": n_rows,
               "warm_s": times, "cold_s": cold, "per_query": per_query,
               "classic_counts": classic_counts, "packed_batches": packed,
@@ -1930,7 +2420,7 @@ def main() -> int:
               "q18_probe": {"R": R, "cap": cap, "runs": len(q18_build),
                             "slot_reads": reads},
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
-              "kernels": rows}
+              "refresh": refresh, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -453,3 +453,52 @@ def test_generic_and_topn_queries_on_card_equal_cpu(card):
             assert pl.PIPELINE_FUSED_TOTAL["topn"] == 1, name
         else:
             assert agg.DEVICE_GENERIC_TOTAL[route] >= 1, (name, agg.DEVICE_GENERIC_TOTAL)
+
+
+def test_refresh_functions_on_card_equal_cpu(card):
+    """TPC-H's RF1 (one explicit transaction of multi-row INSERTs) and RF2
+    (multi-table DELETEs through a key table, a hash join that launches
+    tidb_probe_count) at SF0.01, on the card and on the CPU, each over its
+    own catalog: the five main-path queries give equal rows after each."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import tpch_refresh as rf
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    sessions = []
+    for dev in ("cuda", "cpu"):
+        cat = Catalog()
+        load_tpch(cat, sf=0.01)
+        sessions.append(Session(cat, device=dev))
+    on_card, on_cpu = sessions
+    new = rf.rf1(on_cpu.catalog, 0.01, seed=7)
+    stmts = (rf.insert_statements(on_cpu.catalog.table("test", "orders"), new["orders"])
+             + rf.insert_statements(on_cpu.catalog.table("test", "lineitem"),
+                                    new["lineitem"]))
+    keys = rf.rf2_keys(on_cpu.catalog, 0.01)
+    rf2 = ["create table rf2_keys (k bigint primary key)",
+           "insert into rf2_keys values " + ", ".join(f"({k})" for k in keys),
+           "delete lineitem from lineitem join rf2_keys on l_orderkey = k",
+           "delete orders from orders join rf2_keys on o_orderkey = k"]
+    queries = [Q[q][0] for q in ("q1", "q6", "q3", "q5")] + [
+        Q["q18"][0].replace("> 300", "> 200")]
+    for s in sessions:
+        s.execute("begin")
+        for sql in stmts:
+            s.execute(sql)
+    assert on_card.query(queries[0]) == on_cpu.query(queries[0])
+    for s in sessions:
+        s.execute("commit")
+    for sql in queries:
+        assert on_card.query(sql) == on_cpu.query(sql)
+    for sql in rf2:
+        on_cpu.execute(sql)
+        hp.reset_launches()
+        on_card.execute(sql)
+        if sql.startswith("delete"):
+            assert hp.LAUNCHES["probe_count"] > 0, sql
+    for sql in queries:
+        want = on_cpu.query(sql)
+        assert want and on_card.query(sql) == want

@@ -44,7 +44,8 @@ def _port_type(t) -> SQLType:
 
 def _export_into(port_session, jax_table, name):
     """Copy one reference table's rows (device representation, validity,
-    dictionaries) into the port's catalog."""
+    dictionaries), its primary key and its secondary indexes into the
+    port's catalog."""
     n = jax_table.n
     cols, arrays, valids, dicts = [], {}, {}, {}
     for c in jax_table.schema.columns:
@@ -54,7 +55,11 @@ def _export_into(port_session, jax_table, name):
         valids[c.name] = np.asarray(jax_table.valid[c.name][:n])
         if c.name in jax_table.dicts:
             dicts[c.name] = list(jax_table.dicts[c.name].values)
-    load_arrays(port_session.catalog, name, cols, arrays, valids, dicts)
+    indexes = [(ix.name, list(ix.columns), ix.unique)
+               for ix in jax_table.indexes.values() if ix.name != "PRIMARY"]
+    pk = jax_table.schema.primary_key
+    return load_arrays(port_session.catalog, name, cols, arrays, valids, dicts,
+                       primary_key=list(pk) if pk else None, indexes=indexes)
 
 
 @pytest.fixture(scope="module")

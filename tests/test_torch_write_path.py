@@ -1,0 +1,289 @@
+"""The write path through the port (tidb_tpu_torch on the CPU) against the
+JAX package.
+
+- UPDATE by a constant and by an expression, DELETE, INSERT ... SELECT,
+  REPLACE, ON DUPLICATE KEY UPDATE and TRUNCATE, statement for
+  statement; a DELETE whose WHERE prunes segments of the columnar store
+  (small `tidb_tpu_segment_rows`) ends exactly the reference's physical
+  rows.
+- Multi-table UPDATE and DELETE (cases from tests/test_multi_dml.py).
+- The fused pipeline under change: TPC-H's refresh functions at SF0.01
+  (`storage/tpch_refresh.py`: RF1 in one explicit transaction, RF2 as two
+  multi-table DELETEs through a key table), an UPDATE rolled back and one
+  committed, each followed by Q1, Q6, Q3, Q5 and Q18 on the fused path
+  and on the classic path (the same rows), and against the reference
+  after RF1 and after RF2. Before COMMIT a second session reads the
+  pre-RF1 rows while the writer reads its own provisional ones, and the
+  first query after each DML restages its table while the second is
+  served from the device buffer cache.
+"""
+
+import numpy as np
+import pytest
+
+from tidb_tpu.parser import parse as jax_parse
+from tidb_tpu.session import Session as JaxSession
+from tidb_tpu.storage.tpch import load_tpch as jax_load_tpch
+from tidb_tpu_torch.columnar import store as st
+from tidb_tpu_torch.executor import pipeline as pl
+from tidb_tpu_torch.parser import parse
+from tidb_tpu_torch.session import Session
+from tidb_tpu_torch.storage import tpch_refresh as rf
+from tidb_tpu_torch.storage.table import MAX_TS
+from tidb_tpu_torch.storage.tpch_queries import Q
+
+from test_torch_keys import both, new_pair, same_rows
+from test_torch_session import _export_into, _same
+
+# -- single-table statements --------------------------------------------------
+
+_SETUP = [
+    "create table t (id bigint primary key, g bigint, c decimal(10,2), "
+    "d date, s varchar(10), u bigint, unique key uk_u (u))",
+    "insert into t values (1, 1, 1.50, '1995-01-01', 'x', 10), "
+    "(2, 1, -2.25, '1996-06-30', 'y', 20), (3, 2, 3.00, NULL, 'x', 30), "
+    "(4, 2, NULL, '1994-12-31', NULL, NULL), (5, 3, 0.01, '1998-08-02', 'z', 50)",
+    "create table src (id bigint, c decimal(10,2), s varchar(10))",
+    "insert into src values (10, 1.00, 'p'), (2, 7.77, 'q'), (11, NULL, NULL)",
+]
+
+_SCRIPTS = [
+    ("update_const", ["update t set c = 9.99, s = 'k' where g = 1"]),
+    ("update_expr", ["update t set c = c * 2 + 1, d = d + interval '1' day, "
+                     "s = upper(s) where id >= 2"]),
+    ("update_key_expr", ["update t set id = id + 100 where g = 2"]),
+    ("update_no_match", ["update t set c = 0 where id > 1000"]),
+    ("update_all_then_delete", ["update t set g = g * 10", "delete from t where g = 20"]),
+    ("delete_nulls", ["delete from t where c is null or s is null"]),
+    ("insert_select", ["insert into t (id, g, c, s) select id + 100, 9, c, s from src"]),
+    ("insert_select_dup", ["insert into t (id, g, c, s) select id, 9, c, s from src"]),
+    ("replace_values", ["replace into t values (2, 7, 7.00, '2000-01-01', 'r', 70), "
+                        "(6, 7, 6.00, NULL, 'n', 60), (6, 8, 6.50, NULL, 'm', 61)"]),
+    ("replace_unique_secondary", ["replace into t values (9, 0, 0, NULL, 'w', 30)"]),
+    ("replace_select", ["replace into t (id, g, c, s) select id, 4, c, s from src"]),
+    ("upsert", ["insert into t (id, g, c, s, u) values (1, 0, 5.00, 'a', 11), "
+                "(7, 0, 7.00, 'b', 70) on duplicate key update "
+                "c = values(c) + c, s = values(s)"]),
+    ("upsert_on_unique", ["insert into t (id, g, u) values (42, 0, 20) "
+                          "on duplicate key update g = g + 100"]),
+    ("upsert_select", ["insert into t (id, g, c, s) select id, 5, c, s from src "
+                       "on duplicate key update g = g + 1000"]),
+    ("truncate", ["truncate table t", "insert into t (id, g) values (1, 1)"]),
+    ("txn_mix", ["begin", "delete from t where id = 1",
+                 "replace into t values (1, 1, 1.00, NULL, 'again', 10)",
+                 "update t set c = c + 1", "commit"]),
+]
+
+
+@pytest.mark.parametrize("name,script", _SCRIPTS, ids=[c[0] for c in _SCRIPTS])
+def test_dml_matches_reference(name, script):
+    js, ps = new_pair()
+    for q in _SETUP + script:
+        both(js, ps, q)
+    for t in ("t", "src"):
+        same_rows(js, ps, f"select * from {t}")
+
+
+def test_delete_with_segment_pruning_ends_the_reference_rows():
+    """A DELETE whose WHERE prunes segments: the port's scan skips whole
+    segments by their zone maps, and its `__rowid__` is still the
+    physical row id, so exactly the reference's rows end."""
+    js, ps = new_pair()
+    for s in (js, ps):
+        s.execute("set tidb_tpu_segment_rows = 256")
+    both(js, ps, "create table z (k bigint, v bigint)")
+    both(js, ps, "insert into z values " + ",".join(
+        f"({i}, {i % 7})" for i in range(3000)))
+    same_rows(js, ps, "select count(*) from z")  # builds the segments
+    jt, pt = js.catalog.table("test", "z"), ps.catalog.table("test", "z")
+    where = "k >= 1000 and k < 1300 and v <> 3"
+    got = ps._rows_matching(pt, parse(f"select 1 from z where {where}")[0].where, "z")
+    want = js._rows_matching(jt, jax_parse(f"select 1 from z where {where}")[0].where, "z")
+    assert sorted(got.tolist()) == sorted(np.asarray(want).tolist())
+    st.SCAN_SEGMENTS_TOTAL["pruned"] = 0
+    both(js, ps, f"delete from z where {where}")
+    assert st.SCAN_SEGMENTS_TOTAL["pruned"] > 0
+    dead = lambda t: np.nonzero(t.end_ts[:t.n] != MAX_TS)[0].tolist()  # noqa: E731
+    assert dead(pt) == dead(jt) and len(dead(pt)) == 257
+    both(js, ps, "update z set v = v + 100 where k >= 2900")
+    assert dead(pt) == dead(jt) and pt.n == jt.n == 3100
+    same_rows(js, ps, "select v, count(*), sum(k) from z group by v")
+
+
+# -- multi-table UPDATE / DELETE -------------------------------------------------
+
+_MULTI_SETUP = [
+    "create table emp (id bigint, dept bigint, salary bigint)",
+    "create table dept (id bigint, bonus bigint, closed bigint)",
+    "insert into emp values (1, 10, 100), (2, 10, 200), (3, 20, 300), "
+    "(4, 30, 400), (5, NULL, 500)",
+    "insert into dept values (10, 5, 0), (20, 7, 1), (40, 9, 0)",
+]
+
+_MULTI = [
+    ("update_join_constant", ["update emp e join dept d on e.dept = d.id "
+                              "set e.salary = 0 where d.closed = 1"]),
+    ("update_join_expr", ["update emp e join dept d on e.dept = d.id "
+                          "set e.salary = e.salary + d.bonus"]),
+    ("update_dedup", ["insert into dept values (10, 50, 0)",
+                      "update emp e join dept d on e.dept = d.id "
+                      "set e.salary = e.salary + 1"]),
+    ("update_unqualified", ["update emp e join dept d on e.dept = d.id "
+                            "set salary = 1 where d.id = 20"]),
+    ("update_ambiguous", ["update emp e join dept d on e.dept = d.id "
+                          "set e.salary = 1, d.bonus = 2"]),
+    ("delete_join", ["delete e from emp e join dept d on e.dept = d.id "
+                     "where d.closed = 1"]),
+    ("delete_using", ["delete from emp using emp join dept on emp.dept = dept.id "
+                      "where dept.bonus >= 5"]),
+    ("outer_join_untouched", ["delete e from dept d left join emp e on e.dept = d.id "
+                              "where d.closed = 0",
+                              "update dept d left join emp e on e.dept = d.id "
+                              "set d.bonus = 0 where e.id is null"]),
+    ("multi_in_txn", ["begin", "update emp e join dept d on e.dept = d.id "
+                      "set e.salary = -1", "rollback"]),
+]
+
+
+@pytest.mark.parametrize("name,script", _MULTI, ids=[c[0] for c in _MULTI])
+def test_multi_table_dml_matches_reference(name, script):
+    js, ps = new_pair()
+    for q in _MULTI_SETUP + script:
+        both(js, ps, q)
+    for t in ("emp", "dept"):
+        same_rows(js, ps, f"select * from {t}")
+
+
+# -- the fused pipeline under TPC-H's refresh functions ---------------------------
+
+QUERIES = {"q1": Q["q1"][0], "q6": Q["q6"][0], "q3": Q["q3"][0], "q5": Q["q5"][0],
+           # Q18 at SF0.01 has no order above 300 units; 200 gives rows
+           "q18": Q["q18"][0].replace("> 300", "> 200")}
+
+
+def _both_paths(ps):
+    """Each query on the fused path and on the classic path: the same
+    rows. Returns the fused rows."""
+    out = {}
+    for name, sql in QUERIES.items():
+        pl.reset_counters()
+        fused = ps.query(sql)
+        assert pl.PIPELINE_FUSED_TOTAL["agg"] + pl.PIPELINE_FUSED_TOTAL["probe"] > 0, name
+        ps.execute("set tidb_tpu_pipeline_fuse = 0")
+        ps.execute("set tidb_tpu_columnar_enable = 0")
+        try:
+            classic = ps.query(sql)
+        finally:
+            ps.execute("set tidb_tpu_pipeline_fuse = 1")
+            ps.execute("set tidb_tpu_columnar_enable = 1")
+        _same(classic, fused, ordered=True)
+        out[name] = fused
+    return out
+
+
+def _against_reference(js, got):
+    for name, rows in got.items():
+        _same(rows, js.query(QUERIES[name]), ordered=True)
+
+
+def _cache_after_dml(ps, sql):
+    """The first run after a DML restages (no cache hit), the second is
+    served from the device buffer cache alone."""
+    pl.reset_counters()
+    ps.query(sql)
+    first = dict(pl.DEVICE_CACHE_TOTAL)
+    pl.reset_counters()
+    ps.query(sql)
+    second = dict(pl.DEVICE_CACHE_TOTAL)
+    assert first["hit"] == 0 and first["miss"] + first["invalidate"] > 0, first
+    assert second["hit"] > 0 and second["miss"] == 0, second
+
+
+@pytest.fixture(scope="module")
+def refresh_pair():
+    js = JaxSession()
+    js.execute("set tidb_tpu_compaction = 0")
+    jax_load_tpch(js.catalog, sf=0.01)
+    ps = Session(device="cpu")
+    ps.execute("set tidb_tpu_segment_rows = 4096")  # segment stores at SF0.01
+    for name in ("lineitem", "orders", "customer", "supplier", "nation", "region"):
+        _export_into(ps, js.catalog.table("test", name), name)
+    return js, ps
+
+
+def test_refresh_functions_through_both_paths(refresh_pair):
+    js, ps = refresh_pair
+    other = Session(catalog=ps.catalog, device="cpu")
+    before = _both_paths(ps)
+
+    # RF1: new sales in one explicit transaction
+    new = rf.rf1(ps.catalog, 0.01, seed=7)
+    stmts = (rf.insert_statements(ps.catalog.table("test", "orders"), new["orders"])
+             + rf.insert_statements(ps.catalog.table("test", "lineitem"),
+                                    new["lineitem"], batch=20))
+    for s in (js, ps):
+        s.execute("begin")
+        for q in stmts:
+            s.execute(q)
+    # the writer reads its own provisional rows through the fused
+    # pipeline's marker path; another session reads committed-latest
+    _same(ps.query(QUERIES["q1"]), js.query(QUERIES["q1"]), ordered=True)
+    assert ps.query(QUERIES["q1"]) != before["q1"]
+    assert other.query(QUERIES["q1"]) == before["q1"]
+    assert other.query(QUERIES["q6"]) == before["q6"]
+    for s in (js, ps):
+        s.execute("commit")
+    _cache_after_dml(ps, QUERIES["q6"])
+    after_rf1 = _both_paths(ps)
+    _against_reference(js, after_rf1)
+    assert after_rf1["q1"] != before["q1"]
+
+    # RF2: old sales, deleted through a key table by multi-table DELETEs
+    keys = rf.rf2_keys(ps.catalog, 0.01)
+    for q in ["create table rf2_keys (k bigint primary key)",
+              "insert into rf2_keys values " + ", ".join(f"({k})" for k in keys),
+              "delete lineitem from lineitem join rf2_keys on l_orderkey = k",
+              "delete orders from orders join rf2_keys on o_orderkey = k"]:
+        both(js, ps, q)
+    o = ps.catalog.table("test", "orders")
+    assert not np.isin(o.data["o_orderkey"][np.nonzero(o.live_mask(0, o.n))[0]],
+                       keys).any()
+    _cache_after_dml(ps, QUERIES["q1"])
+    _against_reference(js, _both_paths(ps))
+
+    # an UPDATE rolled back leaves Q6 as it was; committed, it moves Q6
+    upd = ("update lineitem set l_discount = 0.06 where l_shipdate >= '1994-01-01' "
+           "and l_shipdate < '1995-01-01'")
+    q6 = ps.query(QUERIES["q6"])
+    both(js, ps, "begin")
+    both(js, ps, upd)
+    assert ps.query(QUERIES["q6"]) != q6
+    both(js, ps, "rollback")
+    assert ps.query(QUERIES["q6"]) == q6
+    both(js, ps, upd)
+    _cache_after_dml(ps, QUERIES["q6"])
+    got = _both_paths(ps)
+    assert got["q6"] != q6
+    _same(got["q6"], js.query(QUERIES["q6"]), ordered=True)
+
+
+def test_truncate_empties_the_fused_scan_and_a_reinsert_is_seen():
+    js, ps = new_pair()
+    ps.execute("set tidb_tpu_segment_rows = 256")
+    both(js, ps, "create table s6 (q decimal(15,2), p decimal(15,2), "
+                 "disc decimal(15,2), d date)")
+    both(js, ps, "insert into s6 values " + ",".join(
+        f"({i % 50}.00, {i}.50, 0.0{i % 9}, '1994-0{1 + i % 9}-1{i % 9}')"
+        for i in range(1200)))
+    q6 = ("select sum(p * disc) as revenue, count(*) from s6 where d >= '1994-01-01' "
+          "and d < '1995-01-01' and disc between 0.05 and 0.07 and q < 24")
+    same_rows(js, ps, q6)
+    assert ps.catalog.table("test", "s6")._segment_store is not None
+    both(js, ps, "truncate table s6")
+    pl.reset_counters()
+    assert ps.query(q6) == [(None, 0)]
+    assert pl.PIPELINE_FUSED_TOTAL["agg"] == 1
+    same_rows(js, ps, q6)
+    both(js, ps, "insert into s6 values (1.00, 10.00, 0.06, '1994-05-05')")
+    same_rows(js, ps, q6)
+    assert ps.query(q6) == [("0.6000", 1)]

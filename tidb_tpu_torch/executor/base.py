@@ -79,8 +79,9 @@ class ExecContext:
     # open-addressing table on the card and searchsorted on the CPU,
     # xla/pallas = the table (tidb_tpu_join_probe_mode sysvar)
     join_probe_mode: str = "auto"
-    # MVCC snapshot: None reads committed-latest (the port runs
-    # autocommit statements only, so its sessions leave both unset)
+    # MVCC snapshot: None reads committed-latest; inside a transaction
+    # the session sets its snapshot ts and its marker (its own
+    # provisional rows are visible)
     read_ts: Optional[int] = None
     txn_marker: int = 0
     # KILL/deadline hook polled between chunks (None until KILL is

@@ -8,8 +8,10 @@ whose probe side does becomes FusedScanProbeExec, and an ORDER BY [LIMIT]
 over one becomes FusedScanTopNExec (executor/pipeline.py), with the
 reference's plan-static gates; the context-dependent gates (the sysvars,
 the top-k state's capacity) decide at open() and fall back to the classic
-tree through each fused executor's `fallback_build` delegate. Index
-joins, window functions and the index/partition access paths are not yet
+tree through each fused executor's `fallback_build` delegate. A point
+get or an index range scan (the planner picks them over a table's unique
+and secondary indexes) is its own leaf with the peeled stages on top.
+Index joins, window functions and the partition access path are not yet
 ported and raise UnsupportedError or take the classic tree.
 """
 
@@ -25,7 +27,10 @@ from tidb_tpu_torch.planner.physical import (
     PHashAgg,
     PHashJoin,
     PIndexJoin,
+    PIndexRangeScan,
     PLimit,
+    PPartitionScan,
+    PPointGet,
     PProjection,
     PScan,
     PSelection,
@@ -235,6 +240,39 @@ def _try_fused_scan_topn(plan):
 def build_executor(plan: PhysicalPlan) -> Executor:
     # pipeline fusion: Selection/Projection chains over a scan
     stages, base = peel_stages(plan)
+    if isinstance(base, PPointGet):
+        from tidb_tpu_torch.executor.scan import PointGetExec
+
+        return PointGetExec(
+            schema=base.schema,
+            table=base.table,
+            # a key-covered filter is subsumed by the unique-index probe
+            # itself, so only the peeled stages run
+            stages=(stages if base.cond_covered
+                    else scan_stages_for(base, stages)),
+            index_name=base.index_name,
+            key_values=base.key_values,
+            out_schema=plan.schema,
+        )
+    if isinstance(base, PIndexRangeScan):
+        from tidb_tpu_torch.executor.scan import IndexRangeScanExec
+
+        return IndexRangeScanExec(
+            schema=base.schema,
+            table=base.table,
+            stages=scan_stages_for(base, stages),
+            index_name=base.index_name,
+            eq_values=base.eq_values,
+            range_lo=base.range_lo,
+            range_hi=base.range_hi,
+            lo_incl=base.lo_incl,
+            hi_incl=base.hi_incl,
+            out_schema=plan.schema,
+        )
+    if isinstance(base, PPartitionScan):
+        raise UnsupportedError(
+            "PartitionScanExec is not yet ported: partitions come with the "
+            "slice after keys and the write path")
     if type(base) is PScan:
         return TableScanExec(
             schema=base.schema,
@@ -267,7 +305,9 @@ def build_executor(plan: PhysicalPlan) -> Executor:
             return fused
         return _build_hash_join(plan)
     if isinstance(plan, PIndexJoin):
-        raise UnsupportedError("IndexJoinExec is not yet ported")
+        raise UnsupportedError(
+            "IndexJoinExec is not yet ported: it comes with the cascades "
+            "planner and ANALYZE, which plan it")
     if isinstance(plan, PSort):
         fused = _try_fused_scan_topn(plan)
         if fused is not None:

@@ -32,7 +32,7 @@ from tidb_tpu_torch.planner.binder import PlanCol
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["TableScanExec", "make_pipeline_fn", "SelectionExec",
-           "ProjectionExec", "stage"]
+           "ProjectionExec", "stage", "PointGetExec", "IndexRangeScanExec"]
 
 
 def make_pipeline_fn(stages: List) -> Callable:
@@ -206,6 +206,119 @@ class TableScanExec(Executor):
             chunk = self._fn(chunk)
         self.stats.chunks += 1
         return chunk
+
+
+def _pow2_capacity(n: int) -> int:
+    cap = 8
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+class PointGetExec(TableScanExec):
+    """O(log n) unique-index point lookup feeding one small chunk (ref:
+    executor/point_get.go PointGetExecutor). The row ids come from the
+    host index (`Table.index_lookup`, which also applies MVCC
+    visibility); the full pushed filter still runs over the fetched rows,
+    so residual conjuncts compose, unless the planner proved the key
+    probe covers it (`cond_covered`)."""
+
+    def __init__(self, schema, table, stages, index_name, key_values,
+                 out_schema=None):
+        super().__init__(schema, table, stages, out_schema)
+        self.index_name = index_name
+        self.key_values = key_values
+
+    def open(self, ctx: ExecContext) -> None:
+        # deliberately NOT TableScanExec.open(): no segment store and no
+        # slice plan, only the looked-up rows
+        Executor.open(self, ctx)
+        self.ctx = ctx
+        self._fn = make_pipeline_fn(self.stages) if self.stages else None
+        self._rows = self.table.index_lookup(
+            self.index_name, self.key_values,
+            read_ts=ctx.read_ts, marker=ctx.txn_marker)
+        self._slices = [(0, len(self._rows))]  # one emission
+        self._i = 0
+
+    def next(self) -> Optional[Chunk]:
+        if self._i >= len(self._slices):
+            return None
+        start, end = self._slices[self._i]
+        self._i += 1
+        return self._emit_rows(self._rows[start:end])
+
+    def _emit_rows(self, rows: np.ndarray) -> Chunk:
+        """Gather a physical row-id set into one pow2-capacity chunk on
+        the context's device and run the residual pipeline. The host
+        gathers every column (data, then validity) into one byte buffer,
+        8-byte aligned per array, which crosses to the device in ONE
+        copy; the chunk's columns are typed views of it."""
+        n = len(rows)
+        cap = _pow2_capacity(n)
+        parts = []  # (uid, type_, data, valid) host arrays of length n
+        for c in self.scan_schema:
+            if c.name == "__rowid__":
+                d = np.asarray(rows, dtype=np.int64)
+                v = np.ones(n, dtype=np.bool_)
+            else:
+                d = self.table.data[c.name][rows]
+                v = self.table.valid[c.name][rows]
+            parts.append((c.uid, c.type_, d, v))
+        layout, off = [], 0
+        for _uid, t, _d, _v in parts:
+            dsz = cap * np.dtype(t.np_dtype).itemsize
+            layout.append((off, off + dsz))
+            off += (dsz + 7) // 8 * 8
+            off += (cap + 7) // 8 * 8
+        host = np.zeros(max(off, 8), dtype=np.uint8)
+        for (uid, t, d, v), (ds, vs) in zip(parts, layout):
+            host[ds:vs].view(t.np_dtype)[:n] = d.astype(t.np_dtype, copy=False)
+            vo = (vs + 7) // 8 * 8
+            host[vo:vo + n] = v
+        buf = torch.from_numpy(host).to(self.ctx.device)
+        cols = {}
+        for (uid, t, _d, _v), (ds, vs) in zip(parts, layout):
+            vo = (vs + 7) // 8 * 8
+            cols[uid] = Column(buf[ds:vs].view(torch_dtype(t.np_dtype)),
+                               buf[vo:vo + cap].view(torch.bool), t)
+        sel = torch.arange(cap, device=self.ctx.device) < n
+        chunk = Chunk(cols, sel)
+        if self._fn is not None:
+            chunk = self._fn(chunk)
+        self.stats.chunks += 1
+        return chunk
+
+
+class IndexRangeScanExec(PointGetExec):
+    """Index range access: binary-search the sorted index cache into a
+    compact row-id set and stage only those rows (ref: executor's
+    IndexLookUpExecutor index->table double read). Rows stream in
+    chunk_capacity batches, so a wide set behaves like a pre-filtered
+    scan, not one giant gather."""
+
+    def __init__(self, schema, table, stages, index_name, eq_values,
+                 range_lo, range_hi, lo_incl, hi_incl, out_schema=None):
+        super().__init__(schema, table, stages, index_name, (), out_schema)
+        self.eq_values = eq_values
+        self.range_lo = range_lo
+        self.range_hi = range_hi
+        self.lo_incl = lo_incl
+        self.hi_incl = hi_incl
+
+    def open(self, ctx: ExecContext) -> None:
+        Executor.open(self, ctx)
+        self.ctx = ctx
+        self._fn = make_pipeline_fn(self.stages) if self.stages else None
+        rows = self.table.index_range_lookup(
+            self.index_name, self.eq_values, self.range_lo, self.range_hi,
+            self.lo_incl, self.hi_incl,
+            read_ts=ctx.read_ts, marker=ctx.txn_marker)
+        self._rows = rows
+        cap = ctx.chunk_capacity
+        self._slices = [(s, min(s + cap, len(rows)))
+                        for s in range(0, len(rows), cap)] or [(0, 0)]
+        self._i = 0
 
 
 class SelectionExec(Executor):

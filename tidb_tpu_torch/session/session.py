@@ -1,23 +1,39 @@
 """Session: the SQL entry point of the port.
 
 A statement loop of its own over the copied parser and planner: CREATE
-TABLE / DROP TABLE / CREATE DATABASE / USE, INSERT ... VALUES, SET and
-SELECT (UNION included), each an autocommit statement, plus `load_tpch`.
+TABLE (PRIMARY KEY, UNIQUE KEY and INDEX included) / DROP TABLE / CREATE
+DATABASE / USE / TRUNCATE / CREATE and DROP INDEX, INSERT (VALUES and
+SELECT, REPLACE, ON DUPLICATE KEY UPDATE), UPDATE and DELETE (single-
+and multi-table), BEGIN / START TRANSACTION / COMMIT / ROLLBACK and the
+`autocommit` sysvar, SET and SELECT (UNION included), plus `load_tpch`.
+Writes run inside a transaction (`TxnState`: an implicit one commits at
+statement end) and commit through the two-phase committer
+(storage/txn2pc.py); reads inside a transaction see its snapshot and its
+own provisional rows (`_exec_ctx`'s `read_ts` and `txn_marker`).
 Statements run on `device`: None means the CUDA card, and a Session
 without a card raises instead of carrying on on the CPU.
 
-Not yet ported from tidb_tpu/session/session.py: transactions and
-savepoints, UPDATE/DELETE/REPLACE/upserts, INSERT ... SELECT, LOAD DATA,
-EXPLAIN/TRACE/SHOW, DDL breadth (indexes, constraints, partitions,
-views, ALTER), privileges, prepared statements, the plan cache, plan
-feedback, tracing and the serving, DCN and mesh tiers.
+Not yet ported from tidb_tpu/session/session.py (the next slice):
+savepoints, locking reads (FOR UPDATE), foreign keys, CHECK
+constraints, generated columns, partitions, column DDL (ALTER). Later:
+LOAD DATA, EXPLAIN/TRACE/SHOW, views, privileges, prepared statements,
+the plan cache, plan feedback, tracing and the serving, DCN and mesh
+tiers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
-from tidb_tpu_torch.errors import ExecutionError, UnsupportedError
+import numpy as np
+
+from tidb_tpu_torch.errors import (
+    ExecutionError,
+    PlanError,
+    UnsupportedError,
+    WriteConflictError,
+)
 from tidb_tpu_torch.executor import ExecContext, ResultSet, build_executor, run_plan
 from tidb_tpu_torch.parser import ast as A
 from tidb_tpu_torch.parser import parse
@@ -30,7 +46,28 @@ from tidb_tpu_torch.storage.table import ColumnInfo, TableSchema
 from tidb_tpu_torch.types import TypeKind, parse_type_name
 from tidb_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Session"]
+__all__ = ["Session", "TxnState"]
+
+
+@dataclasses.dataclass
+class TxnState:
+    """An open transaction (ref: session txn lifecycle over the Percolator
+    model — here the marker doubles as the provisional ts and row lock)."""
+
+    marker: int
+    read_ts: int
+    # id(table) -> (table, TableTxnLog): commit/rollback touch only the
+    # logged rows, not whole version arrays
+    logs: dict = dataclasses.field(default_factory=dict)
+
+    def log_for(self, table):
+        from tidb_tpu_torch.storage.table import TableTxnLog
+
+        entry = self.logs.get(id(table))
+        if entry is None:
+            entry = (table, TableTxnLog())
+            self.logs[id(table)] = entry
+        return entry[1]
 
 
 class Session:
@@ -42,12 +79,104 @@ class Session:
         self._chunk_capacity = chunk_capacity  # explicit override; else sysvar
         self.sysvars = SysVarStore(self.catalog.global_vars)
         self.user_vars: dict = {}
+        self.txn: Optional[TxnState] = None
 
     @property
     def chunk_capacity(self) -> int:
         if self._chunk_capacity is not None:
             return self._chunk_capacity
         return int(self.sysvars.get("tidb_max_chunk_size"))
+
+    # -- transactions ------------------------------------------------------
+
+    def _begin(self) -> None:
+        if self.txn is not None:
+            self._commit()  # MySQL: BEGIN implicitly commits the open txn
+        marker, read_ts = self.catalog.begin_txn()  # registers for GC safepoint
+        self.txn = TxnState(marker=marker, read_ts=read_ts)
+
+    def _ensure_txn(self):
+        """(txn, implicit): implicit txns commit at statement end."""
+        if self.txn is not None:
+            return self.txn, False
+        self._begin()
+        if not self.sysvars.get("autocommit"):
+            return self.txn, False
+        return self.txn, True
+
+    def _commit(self) -> None:
+        txn, self.txn = self.txn, None
+        if txn is None:
+            return
+        with self.catalog.lock:  # single-writer commit point
+            self._commit_locked(txn)
+
+    def _commit_locked(self, txn) -> None:
+        from tidb_tpu_torch.storage.txn2pc import TwoPhaseCommitter
+
+        committer = TwoPhaseCommitter(
+            self.catalog, txn.marker, list(txn.logs.values()))
+        try:
+            committer.execute()
+        except Exception:
+            # UNDECIDED failure (prewrite error / crash before the commit
+            # point): abort so the row locks can't leak — without a status
+            # record resolve_locks could never clean them up. A DECIDED
+            # txn (status recorded) is committed; leave its residue for
+            # resolve_locks, never roll it back.
+            if self.catalog.txn_status(txn.marker) is None:
+                committer.rollback()
+            raise
+        if txn.logs and self.sysvars.get("tidb_gc_enable"):
+            self.catalog.auto_gc([t for t, _ in txn.logs.values()])
+        # next slice: auto-analyze (maybe_auto_analyze) runs here
+
+    def _rollback(self) -> None:
+        txn, self.txn = self.txn, None
+        if txn is None:
+            return
+        with self.catalog.lock:
+            self._rollback_locked(txn)
+
+    def _rollback_locked(self, txn) -> None:
+        from tidb_tpu_torch.storage.txn2pc import TwoPhaseCommitter
+
+        TwoPhaseCommitter(
+            self.catalog, txn.marker, list(txn.logs.values())).rollback()
+        if txn.logs and self.sysvars.get("tidb_gc_enable"):
+            self.catalog.auto_gc([t for t, _ in txn.logs.values()])
+
+    def _run_dml(self, fn):
+        """Run a write inside the session txn; implicit txns commit (or
+        roll back on error) at statement end. A write conflict against a
+        marker whose txn already DECIDED (crashed mid-2PC) resolves the
+        stale locks and retries once — the Backoffer/resolve-lock flow.
+
+        The mutation + implicit commit run under the catalog's writer
+        lock: the storage layout is single-writer by design (ref: one
+        leaseholder per region). Readers stay lock-free — MVCC timestamps
+        make committed rows stable under concurrent appends."""
+        txn, implicit = self._ensure_txn()
+        with self.catalog.lock:
+            try:
+                try:
+                    fn(txn)
+                except WriteConflictError:
+                    if self.catalog.resolve_locks():
+                        fn(txn)  # stale locks cleared; one retry
+                    else:
+                        raise
+            except Exception:
+                if implicit:
+                    txn2, self.txn = self.txn, None
+                    if txn2 is not None:
+                        self._rollback_locked(txn2)
+                raise
+            if implicit:
+                txn2, self.txn = self.txn, None
+                if txn2 is not None:
+                    self._commit_locked(txn2)
+        return None
 
     def load_tpch(self, sf: float = 0.01, seed: int = 7, native=None) -> dict:
         """Generate and ingest the eight TPC-H tables into this session's
@@ -106,6 +235,11 @@ class Session:
         return ExecContext(
             chunk_capacity=self._plan_capacity(plan),
             device=self.device,
+            # inside a transaction: its snapshot plus its own provisional
+            # rows (the fused fragments read this per batch and bypass the
+            # device buffer cache)
+            read_ts=self.txn.read_ts if self.txn is not None else None,
+            txn_marker=self.txn.marker if self.txn is not None else 0,
             group_concat_max_len=int(sv("group_concat_max_len")),
             join_device_build=bool(sv("tidb_tpu_join_device_build")),
             join_tiles=int(sv("tidb_tpu_join_tiles_per_dispatch")),
@@ -152,6 +286,8 @@ class Session:
         )
 
     def _run_select(self, stmt) -> ResultSet:
+        if self.txn is None and not self.sysvars.get("autocommit"):
+            self._begin()  # consistent-snapshot reads without autocommit
         phys = self._plan_select(stmt)
         root = build_executor(phys)
         n_vis = phys.n_visible if isinstance(phys, PProjection) else None
@@ -208,6 +344,13 @@ class Session:
         return type(e)(**kwargs)
 
     def _execute_stmt(self, stmt) -> Optional[ResultSet]:
+        # a DECIDED txn whose commit crashed mid-secondaries leaves rows
+        # invisible behind marker timestamps; readers resolve such locks
+        # at the statement boundary (the reader-side resolve-lock flow) —
+        # commits run under the catalog lock, so a pending status here
+        # always means a crashed txn
+        if self.catalog.has_stale_txns():
+            self.catalog.resolve_locks()
         if not isinstance(stmt, A.SetStmt) and _ast_contains(stmt, A.EVar):
             stmt = self._sub_vars(stmt)
         if isinstance(stmt, (A.SelectStmt, A.UnionStmt)):
@@ -218,6 +361,38 @@ class Session:
             return self._run_select(stmt)
         if isinstance(stmt, A.InsertStmt):
             return self._run_insert(stmt)
+        if isinstance(stmt, A.UpdateStmt):
+            return self._run_update(stmt)
+        if isinstance(stmt, A.DeleteStmt):
+            return self._run_delete(stmt)
+        if isinstance(stmt, A.BeginStmt):
+            self._begin()
+            return None
+        if isinstance(stmt, A.CommitStmt):
+            self._commit()
+            return None
+        if isinstance(stmt, A.RollbackStmt):
+            self._rollback()
+            return None
+        if isinstance(stmt, A.TruncateStmt):
+            t = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
+            with self.catalog.lock:
+                t.truncate()
+            return None
+        if isinstance(stmt, A.CreateIndexStmt):
+            t = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
+            with self.catalog.lock:
+                t.create_index(stmt.name, stmt.columns, unique=stmt.unique)
+            # index DDL changes access-path choices (and clears the device
+            # buffer cache through the catalog hook)
+            self.catalog.schema_version += 1
+            return None
+        if isinstance(stmt, A.DropIndexStmt):
+            t = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
+            with self.catalog.lock:
+                t.drop_index(stmt.name)
+            self.catalog.schema_version += 1
+            return None
         if isinstance(stmt, A.CreateTableStmt):
             return self._run_create_table(stmt)
         if isinstance(stmt, A.DropTableStmt):
@@ -243,6 +418,10 @@ class Session:
                     self.user_vars[name.lstrip("@")] = v
                 else:
                     self.sysvars.set(name, v, scope or "session")
+                    # MySQL: enabling autocommit commits the open txn
+                    if (name.lower() == "autocommit" and scope != "global"
+                            and self.sysvars.get("autocommit")):
+                        self._commit()
             return None
         raise UnsupportedError(f"statement {type(stmt).__name__} is not yet ported")
 
@@ -282,9 +461,6 @@ class Session:
             ("PARTITION BY", stmt.partition is not None),
             ("SHARD BY", stmt.shard is not None),
             ("FOREIGN KEY", bool(stmt.foreign_keys)),
-            ("UNIQUE KEY", bool(stmt.unique_keys)
-             or any(c.unique for c in stmt.columns)),
-            ("INDEX", bool(stmt.indexes)),
             ("CHECK", bool(stmt.checks) or any(c.checks for c in stmt.columns)),
             ("GENERATED column", any(c.generated is not None for c in stmt.columns)),
         ]
@@ -302,19 +478,53 @@ class Session:
             cols.append(info)
         schema = TableSchema(stmt.table.name, cols, primary_key=pk,
                              collation=stmt.collation, cluster_by=stmt.cluster)
-        self.catalog.create_table(stmt.table.schema or self.db, schema,
-                                  stmt.if_not_exists)
+        t = self.catalog.create_table(stmt.table.schema or self.db, schema,
+                                      stmt.if_not_exists)
+        if t is not None and t.schema is schema:
+            # inline key wiring happens only on a table this statement
+            # actually created — and a failure must UNDO the creation, or
+            # the catalog keeps a half-constrained table
+            try:
+                for kname, kcols in stmt.unique_keys:
+                    t.create_index(kname or f"uk_{'_'.join(kcols)}", kcols,
+                                   unique=True)
+                for c in stmt.columns:
+                    # column-level UNIQUE attribute == a unique key
+                    if c.unique and not any(
+                            ix.columns == [c.name] and ix.unique
+                            for ix in t.indexes.values()):
+                        t.create_index(f"uk_{c.name}", [c.name], unique=True)
+                for kname, kcols in stmt.indexes:
+                    t.create_index(kname or f"idx_{'_'.join(kcols)}", kcols)
+            except Exception:
+                self.catalog.drop_table(stmt.table.schema or self.db,
+                                        schema.name, if_exists=True)
+                raise
         return None
 
     # -- DML ---------------------------------------------------------------
 
     def _run_insert(self, stmt: A.InsertStmt):
-        if stmt.select is not None or stmt.replace or stmt.on_dup:
-            raise UnsupportedError(
-                "INSERT ... SELECT / REPLACE / ON DUPLICATE KEY UPDATE are not yet ported")
+        table = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
+        # next slice: an INSERT naming a generated column refuses here
+        if stmt.select is not None:
+            def do(txn):
+                rs = self._run_select(stmt.select)
+                rows = [list(r) for r in rs.rows]
+                if stmt.replace:
+                    self._replace_rows(table, rows, stmt.columns, txn)
+                elif stmt.on_dup:
+                    row_asts = [[_value_to_ast(v) for v in r] for r in rows]
+                    self._upsert_rows(table, stmt.table.name, rows, row_asts,
+                                      stmt.columns, stmt.on_dup, txn)
+                else:
+                    table.insert_rows(rows, columns=stmt.columns,
+                                      begin_ts=txn.marker,
+                                      log=txn.log_for(table))
+
+            return self._run_dml(do)
         from tidb_tpu_torch.planner.binder import Binder
 
-        table = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
         binder = Binder()
         rows = []
         names = stmt.columns or table.insertable_names()
@@ -325,9 +535,134 @@ class Session:
                 )
             rows.append([self._bind_const(binder, cell, table.schema.col(cname))
                          for cell, cname in zip(r_ast, names)])
-        with self.catalog.lock:  # single-writer commit point
-            table.insert_rows(rows, columns=stmt.columns)
-        return None
+
+        tname = stmt.table.name
+
+        if stmt.replace:
+            def do(txn):
+                self._replace_rows(table, rows, stmt.columns, txn)
+
+            return self._run_dml(do)
+
+        if stmt.on_dup:
+            def do(txn):
+                self._upsert_rows(table, tname, rows, stmt.rows,
+                                  stmt.columns, stmt.on_dup, txn)
+
+            return self._run_dml(do)
+
+        def do(txn):
+            table.insert_rows(rows, columns=stmt.columns, begin_ts=txn.marker,
+                              log=txn.log_for(table))
+
+        return self._run_dml(do)
+
+    # -- upsert machinery (ref: InsertExec's dup-key flows) ------------
+
+    @staticmethod
+    def _conflict_maps(table, marker):
+        """One conflict map per enforced unique index (O(n) pass each);
+        maintained incrementally across the statement's own mutations."""
+        return {idx.name: (idx, table.conflict_map(idx, marker))
+                for idx in table.indexes.values() if idx.unique}
+
+    def _replace_rows(self, table, rows, columns, txn) -> None:
+        """REPLACE: delete every live row any unique key collides with;
+        a later VALUES row colliding with an earlier one of the same
+        statement supersedes it (last row wins). One delete + one
+        insert call per statement."""
+        names = columns or table.schema.public_names()
+        maps = self._conflict_maps(table, txn.marker)
+        log = txn.log_for(table)
+        pending: list = []
+        dead: list = []
+        for row in rows:
+            vals = table.row_value_map(names, row)
+            keys = [(idx, m, table.encode_index_key(idx, vals))
+                    for idx, m in maps.values()]
+            for _idx, m, key in keys:
+                if key is None:
+                    continue
+                hit = m.pop(key, None)
+                if hit is None:
+                    continue
+                if isinstance(hit, tuple):  # pending row of this statement
+                    pending[hit[1]] = None
+                elif hit not in dead:
+                    dead.append(hit)
+            pi = len(pending)
+            pending.append(list(row))
+            for _idx, m, key in keys:
+                if key is not None:
+                    m[key] = ("p", pi)
+        if dead:
+            table.delete_rows(np.array(dead, dtype=np.int64),
+                              end_ts=txn.marker, marker=txn.marker, log=log)
+        live = [r for r in pending if r is not None]
+        if live:
+            table.insert_rows(live, columns=columns, begin_ts=txn.marker,
+                              log=log)
+
+    def _upsert_rows(self, table, tname, rows, row_asts, columns,
+                     assignments, txn) -> None:
+        """INSERT ... ON DUPLICATE KEY UPDATE: conflicting rows are
+        updated (VALUES(col) refers to the would-be-inserted value),
+        fresh rows insert."""
+        from tidb_tpu_torch.planner.binder import Binder
+
+        binder = Binder()
+        names = columns or table.schema.public_names()
+        maps = self._conflict_maps(table, txn.marker)
+        log = txn.log_for(table)
+        for row, r_ast in zip(rows, row_asts):
+            vals = table.row_value_map(names, row)
+            hit = None
+            for idx, m in maps.values():
+                key = table.encode_index_key(idx, vals)
+                if key is not None and key in m:
+                    hit = m[key]
+                    break
+            if hit is None:
+                table.insert_rows([row], columns=columns,
+                                  begin_ts=txn.marker, log=log)
+                new_id = table.n - 1
+                for idx, m in maps.values():
+                    key = table.encode_index_key(idx, vals)
+                    if key is not None:
+                        m[key] = new_id
+                continue
+            ids = np.array([hit], dtype=np.int64)
+            cellmap = dict(zip(names, r_ast))
+            # VALUES(col) over an omitted column yields its default
+            # (consistent with row_value_map's conflict detection)
+            for c in table.schema.columns:
+                if c.name not in cellmap and c.default is not None \
+                        and not c.auto_increment:
+                    cellmap[c.name] = _value_to_ast(c.default)
+            updates = {}
+            for name_ast, val_ast in assignments:
+                col = table.schema.col(name_ast.name)
+                val_ast2 = _sub_values_refs(val_ast, cellmap)
+                if not _ast_has_name(val_ast2):
+                    v = self._bind_const(binder, val_ast2, col)
+                    updates[col.name] = [v]
+                else:
+                    updates[col.name] = self._eval_update_expr(
+                        table, tname, val_ast2, ids, col)
+            table.update_rows(ids, updates, begin_ts=txn.marker,
+                              end_ts=txn.marker, marker=txn.marker, log=log)
+            # the update superseded `hit` with a new version: refresh
+            # EVERY index's mapping (assignments may change key columns;
+            # a later VALUES row hitting the stale id would silently
+            # no-op against the dead version)
+            new_id = table.n - 1
+            for idx, m in maps.values():
+                old_key = table.index_key_at(idx, hit)
+                if old_key is not None and m.get(old_key) == hit:
+                    del m[old_key]
+                nk = table.index_key_at(idx, new_id)
+                if nk is not None:
+                    m[nk] = new_id
 
     def _bind_const(self, binder, cell_ast, col: ColumnInfo):
         """Evaluate a constant INSERT value to a python value in the
@@ -394,6 +729,284 @@ class Session:
         return v
 
 
+    # -- UPDATE / DELETE ---------------------------------------------------
+
+    def _scan_cols(self, table, table_name: str):
+        """(binder, storage PlanCols, the __rowid__ PlanCol) over `table`."""
+        from tidb_tpu_torch.planner.binder import Binder, PlanCol
+        from tidb_tpu_torch.types import INT64
+
+        binder = Binder()
+        cols = [
+            PlanCol(
+                uid=binder.new_uid(f"{table_name}.{c.name}"),
+                name=c.name, type_=c.type_, qualifier=table_name,
+                dict_=table.dicts.get(c.name),
+            )
+            for c in table.schema.columns
+        ]
+        rid = PlanCol(uid=binder.new_uid(f"{table_name}.__rowid__"),
+                      name="__rowid__", type_=INT64, qualifier=table_name)
+        return binder, cols, rid
+
+    def _drain_rowid_scan(self, table, cols, rid, stages, bounds=(),
+                          out_uid=None):
+        """Run a TableScanExec staging only `cols` (the ones an expression
+        references) plus the hidden __rowid__, and return the live rows'
+        physical ids (and the `out_uid` column's data and validity) on the
+        host."""
+        from tidb_tpu_torch.executor.scan import TableScanExec
+
+        scan = TableScanExec(schema=cols + [rid], table=table, stages=stages,
+                             prune_bounds=bounds)
+        scan.open(self._exec_ctx())
+        ids, datas, valids = [], [], []
+        try:
+            while True:
+                ch = scan.next()
+                if ch is None:
+                    break
+                live = ch.sel
+                ids.append(ch.col(rid.uid).data[live].cpu().numpy())
+                if out_uid is not None:
+                    c = ch.col(out_uid)
+                    datas.append(c.data[live].cpu().numpy())
+                    valids.append(c.valid[live].cpu().numpy())
+        finally:
+            scan.close()
+        ids = (np.concatenate(ids).astype(np.int64)
+               if ids else np.zeros(0, dtype=np.int64))
+        if out_uid is None:
+            return ids
+        return ids, np.concatenate(datas), np.concatenate(valids)
+
+    def _rows_matching(self, table, where, table_name: str) -> np.ndarray:
+        """Row ids (physical) matching a WHERE clause — shared by
+        UPDATE/DELETE. A scan of the columns the predicate reads plus the
+        hidden row id, the predicate its filter, its zone-consultable
+        bounds pruning whole segments before staging."""
+        from tidb_tpu_torch.columnar.zonemap import collect_prune_bounds
+        from tidb_tpu_torch.planner.binder import Scope
+        from tidb_tpu_torch.planner.rules import fold_constants
+
+        binder, cols, rid = self._scan_cols(table, table_name)
+        stages, bounds, refs = [], (), set()
+        if where is not None:
+            cond = fold_constants(binder.bind_expr(where, Scope(cols, None)))
+            stages.append(("filter", cond))
+            refs = _column_refs(cond)
+            bounds = collect_prune_bounds(
+                cond, {c.uid: (c.name, c.type_) for c in cols})
+        # the scan's __rowid__ pseudo-column carries each row's TRUE
+        # physical id. Reconstructing ids from chunk position is wrong
+        # under the columnar store: segment chunks size to the segment
+        # (not chunk_capacity) and zone pruning skips ranges.
+        return self._drain_rowid_scan(
+            table, [c for c in cols if c.uid in refs], rid, stages, bounds)
+
+    def _multi_table_targets(self, stmt) -> List[A.TableName]:
+        """All base tables in a multi-table DML's table-refs tree."""
+        out = []
+
+        def visit(src):
+            if isinstance(src, A.TableName):
+                out.append(src)
+            elif isinstance(src, A.Join):
+                visit(src.left)
+                visit(src.right)
+
+        visit(stmt.from_)
+        return out
+
+    def _multi_dml_rowids(self, stmt, target: A.TableName,
+                          val_asts=()) -> tuple:
+        """Run the multi-table DML's join as a real SELECT of the
+        target's hidden __rowid__ (+ SET value expressions), dedup by
+        rowid keeping the first match (MySQL: a row matching multiple
+        times is updated once)."""
+        alias = target.alias or target.name
+        items = [A.SelectItem(A.EName("__rowid__", qualifier=alias),
+                              alias="__rid")]
+        for i, v in enumerate(val_asts):
+            items.append(A.SelectItem(v, alias=f"__v{i}"))
+        sel = A.SelectStmt(items=items, from_=stmt.from_, where=stmt.where)
+        rs = self._run_select(sel)
+        seen = set()
+        ids, vals = [], []
+        for row in rs.rows:
+            rid = row[0]
+            # outer joins NULL-pad the target side; those rows have no
+            # target row to touch (MySQL: unmatched rows are untouched)
+            if rid is None or rid in seen:
+                continue
+            seen.add(rid)
+            ids.append(rid)
+            vals.append(row[1:])
+        return np.array(ids, dtype=np.int64), vals
+
+    def _run_update(self, stmt: A.UpdateStmt):
+        if stmt.from_ is not None:
+            return self._run_update_multi(stmt)
+        table = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
+
+        def do(txn):
+            ids = self._rows_matching(table, stmt.where, stmt.table.name)
+            if len(ids) == 0:
+                return
+            from tidb_tpu_torch.planner.binder import Binder
+
+            binder = Binder()
+            updates = {}
+            # next slice: SET of a generated column refuses here
+            for name_ast, val_ast in stmt.sets:
+                col = table.schema.col(name_ast.name)
+                if not _ast_has_name(val_ast):
+                    v = self._bind_const(binder, val_ast, col)
+                    updates[col.name] = [v] * len(ids)
+                else:
+                    # expression over current row values: evaluate via scan
+                    updates[col.name] = self._eval_update_expr(
+                        table, stmt.table.name, val_ast, ids, col)
+            table.update_rows(ids, updates, begin_ts=txn.marker,
+                              end_ts=txn.marker, marker=txn.marker,
+                              log=txn.log_for(table))
+
+        return self._run_dml(do)
+
+    def _run_update_multi(self, stmt: A.UpdateStmt):
+        """UPDATE t1 JOIN t2 ... SET t1.c = expr [WHERE ...]: the join
+        runs as a real SELECT of t1's hidden rowid + the SET values
+        (evaluated in full join context — expressions may reference any
+        joined table), then the target applies a plain MVCC update."""
+        refs = self._multi_table_targets(stmt)
+        by_alias = {(t.alias or t.name).lower(): t for t in refs}
+        quals = {q.lower() for q, _ in
+                 ((n.qualifier, n) for n, _ in stmt.sets) if q}
+        if len(quals) > 1:
+            raise UnsupportedError(
+                "multi-table UPDATE touching several target tables")
+        if quals:
+            target = by_alias.get(next(iter(quals)))
+            if target is None:
+                raise PlanError(f"unknown table {next(iter(quals))!r} in SET")
+        else:
+            # unqualified SET columns: the owning table must be unique
+            owners = set()
+            for name_ast, _ in stmt.sets:
+                for t in refs:
+                    tab = self.catalog.table(t.schema or self.db, t.name)
+                    if any(c.name == name_ast.name
+                           for c in tab.schema.columns):
+                        owners.add((t.alias or t.name).lower())
+            if len(owners) != 1:
+                raise PlanError(
+                    "SET columns must name their table in a multi-table "
+                    "UPDATE")
+            target = by_alias[next(iter(owners))]
+        table = self.catalog.table(target.schema or self.db, target.name)
+
+        def do(txn):
+            ids, vals = self._multi_dml_rowids(
+                stmt, target, [v for _, v in stmt.sets])
+            if len(ids) == 0:
+                return
+            updates = {}
+            for j, (name_ast, _) in enumerate(stmt.sets):
+                col = table.schema.col(name_ast.name)
+                updates[col.name] = [v[j] for v in vals]
+            table.update_rows(ids, updates, begin_ts=txn.marker,
+                              end_ts=txn.marker, marker=txn.marker,
+                              log=txn.log_for(table))
+
+        return self._run_dml(do)
+
+    def _eval_update_expr(self, table, table_name, val_ast, ids, col: ColumnInfo):
+        """Evaluate a SET expression at physical rows `ids`: one scan of
+        the columns it reads projects (row id, value); each id then takes
+        the value its own row id carries, so the answer does not depend
+        on the order or the chunking the scan staged rows in."""
+        import decimal as _dec
+
+        from tidb_tpu_torch.expression.expr import ColumnRef
+        from tidb_tpu_torch.planner.binder import Scope
+        from tidb_tpu_torch.types import days_to_date, micros_to_datetime
+
+        binder, cols, rid = self._scan_cols(table, table_name)
+        bound = binder.bind_expr(val_ast, Scope(cols, None))
+        out_uid = "__upd__"
+        refs = _column_refs(bound)
+        stages = [("project", [(out_uid, bound),
+                               (rid.uid, ColumnRef(rid.type_, rid.uid))])]
+        rids, data, valid = self._drain_rowid_scan(
+            table, [c for c in cols if c.uid in refs], rid, stages,
+            out_uid=out_uid)
+        order = np.argsort(rids, kind="stable")
+        pos = order[np.clip(np.searchsorted(rids[order], ids), 0,
+                            max(len(rids) - 1, 0))]
+        if len(ids) and (len(rids) == 0 or (rids[pos] != ids).any()):
+            raise ExecutionError("UPDATE lost a row between match and evaluation")
+        data, valid = data[pos], valid[pos]
+        k = col.type_.kind
+        if k == TypeKind.STRING:
+            # string exprs evaluate to dictionary codes; decode host-side
+            # (update_rows re-encodes into the column's own dictionary)
+            d = getattr(bound, "_dict", None)
+            if d is None:
+                raise UnsupportedError(
+                    "UPDATE string expression without a dictionary context")
+            return d.decode(data, valid)
+        out = []
+        for d, v in zip(data, valid):
+            if not v:
+                out.append(None)
+            elif k == TypeKind.DATE:
+                out.append(days_to_date(int(d)))
+            elif k == TypeKind.DATETIME:
+                out.append(micros_to_datetime(int(d)))
+            elif k == TypeKind.DECIMAL:
+                src_scale = bound.type_.scale if bound.type_.kind == TypeKind.DECIMAL else 0
+                # exact descale (float division corrupts long decimals)
+                out.append(_dec.Decimal(int(d)).scaleb(-src_scale)
+                           if src_scale else int(d))
+            else:
+                out.append(d.item())
+        return out
+
+    def _run_delete(self, stmt: A.DeleteStmt):
+        if stmt.from_ is not None:
+            # DELETE t FROM <refs> / DELETE FROM t USING <refs>: rows to
+            # delete come from the join (dedup'd target rowids). The
+            # DELETE target names a table OR its alias in the refs.
+            refs = self._multi_table_targets(stmt)
+            want = (stmt.table.alias or stmt.table.name).lower()
+            target = next(
+                (t for t in refs
+                 if (t.alias or t.name).lower() == want
+                 or t.name.lower() == want), None)
+            if target is None:
+                raise PlanError(
+                    f"DELETE target {stmt.table.name!r} is not in the "
+                    "table references")
+            table = self.catalog.table(target.schema or self.db, target.name)
+
+            def do(txn):
+                ids, _ = self._multi_dml_rowids(stmt, target)
+                if len(ids):
+                    table.delete_rows(ids, end_ts=txn.marker,
+                                      marker=txn.marker,
+                                      log=txn.log_for(table))
+
+            return self._run_dml(do)
+
+        table = self.catalog.table(stmt.table.schema or self.db, stmt.table.name)
+
+        def do(txn):
+            ids = self._rows_matching(table, stmt.where, stmt.table.name)
+            table.delete_rows(ids, end_ts=txn.marker, marker=txn.marker,
+                              log=txn.log_for(table))
+
+        return self._run_dml(do)
+
 def _ast_contains(e, cls) -> bool:
     """Whether any node of type `cls` occurs in an AST (tuples in lists
     included — e.g. SET assignments, CASE whens)."""
@@ -413,3 +1026,77 @@ def _ast_contains(e, cls) -> bool:
         elif hasattr(v, "__dataclass_fields__") and _ast_contains(v, cls):
             return True
     return False
+
+
+def _value_to_ast(v):
+    """Python logical value -> literal AST (SELECT-sourced upserts,
+    VALUES() over defaulted columns)."""
+    import decimal
+
+    if v is None:
+        return A.ENull()
+    if isinstance(v, bool):
+        return A.EBool(v)
+    if isinstance(v, (int, float, decimal.Decimal)):
+        return A.ENum(str(v))
+    return A.EStr(str(v))
+
+
+def _sub_values_refs(e, cellmap):
+    """ON DUPLICATE KEY UPDATE: VALUES(col) -> that row's insert value."""
+    def fn(x):
+        if (isinstance(x, A.EFunc) and x.name == "values"
+                and len(x.args) == 1 and isinstance(x.args[0], A.EName)):
+            n = x.args[0].name
+            if n not in cellmap:
+                raise PlanError(f"VALUES({n}) refers to a column not inserted")
+            return cellmap[n]
+        return x
+
+    return _ast_transform(e, fn)
+
+
+def _ast_has_name(e) -> bool:
+    return _ast_contains(e, A.EName)
+
+
+def _ast_transform(e, fn):
+    """Rebuild an AST applying fn to every dataclass node (pre-order);
+    fn returning a new node stops recursion into it. Containers (lists,
+    tuples, nested lists — e.g. InsertStmt.rows) recurse structurally."""
+    def walk(v):
+        if hasattr(v, "__dataclass_fields__"):
+            return _ast_transform(v, fn)
+        if isinstance(v, list):
+            return [walk(x) for x in v]
+        if isinstance(v, tuple):
+            return tuple(walk(x) for x in v)
+        return v
+
+    r = fn(e)
+    if r is not e:
+        return r
+    if not hasattr(e, "__dataclass_fields__"):
+        return e
+    return type(e)(**{f: walk(getattr(e, f)) for f in e.__dataclass_fields__})
+
+
+def _column_refs(e) -> set:
+    """Names of every ColumnRef in a bound expression tree (any node
+    type: fields, lists and tuples are walked structurally)."""
+    from tidb_tpu_torch.expression.expr import ColumnRef
+
+    out = set()
+
+    def walk(v):
+        if isinstance(v, ColumnRef):
+            out.add(v.name)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif hasattr(v, "__dataclass_fields__"):
+            for f in v.__dataclass_fields__:
+                walk(getattr(v, f))
+
+    walk(e)
+    return out

@@ -2,11 +2,12 @@
 tidb_tpu/storage/catalog.py).
 
 In-memory and schema-versioned (a schema change clears the device buffer
-cache), with the timestamp oracle every table
-stamps its commits from. This slice keeps databases, tables, views and
-the TSO. Not yet ported: information_schema, users and privileges,
-plugins, bindings, the DDL owner and job queue, the plan cache, statement
-summaries, transactions' 2PC status records and GC.
+cache), with the timestamp oracle every table stamps its commits from,
+the open-transaction registry (the GC safepoint), the 2PC status records
+lock resolution finishes crashed commits from, and MVCC GC. Not yet
+ported: information_schema, users and privileges, plugins, bindings, the
+DDL owner and job queue, the plan cache, statement summaries, the reader
+registry of CLUSTER BY recluster and auto-analyze.
 """
 
 from __future__ import annotations
@@ -39,9 +40,15 @@ class Catalog:
         self._schema_version = 0
         # cluster-wide GLOBAL sysvars (ref: mysql.global_variables)
         self.global_vars: Dict[str, object] = {}
-        # timestamp oracle (ref: PD TSO; monotonically increasing, shared
-        # by every table in this catalog)
+        # timestamp oracle + txn id allocator (ref: PD TSO; monotonically
+        # increasing, shared by every table in this catalog)
         self._ts = 0
+        self._txn_id = 0
+        # open transactions: marker -> read_ts (drives the GC safepoint)
+        self._open_txns: Dict[int, int] = {}
+        # 2PC status records: marker -> ("committed", ts) | ("aborted", 0)
+        # present only between commit/abort point and secondary completion
+        self._txn_status: Dict[int, tuple] = {}
 
     @property
     def schema_version(self) -> int:
@@ -68,6 +75,117 @@ class Catalog:
     @property
     def current_ts(self) -> int:
         return self._ts
+
+    def next_txn_id(self) -> int:
+        self._txn_id += 1
+        return self._txn_id
+
+    # -- transactions / GC safepoint ---------------------------------------
+    # (ref: PD's TSO + GC safepoint advance: the safepoint is the oldest
+    # snapshot any open txn can read; versions ended at/below it are dead)
+
+    def begin_txn(self) -> tuple:
+        """Allocate (marker, read_ts) and register the txn as open."""
+        from tidb_tpu_torch.storage.table import TXN_TS_BASE
+
+        marker = TXN_TS_BASE + self.next_txn_id()
+        read_ts = self.current_ts
+        self._open_txns[marker] = read_ts
+        return marker, read_ts
+
+    def end_txn(self, marker: int) -> None:
+        self._open_txns.pop(marker, None)
+
+    # -- 2PC status records (the Percolator primary; ref: txn status in
+    # TiKV consulted by lock resolution) ------------------------------------
+
+    def commit_point(self, marker: int) -> int:
+        """THE atomic commit: after this status write the txn is
+        committed regardless of crashes. Returns the commit ts."""
+        ts = self.next_ts()
+        self._txn_status[marker] = ("committed", ts)
+        return ts
+
+    def abort_point(self, marker: int) -> None:
+        self._txn_status[marker] = ("aborted", 0)
+
+    def finish_txn(self, marker: int) -> None:
+        """All secondaries applied: drop the status record + the open
+        registration."""
+        self._txn_status.pop(marker, None)
+        self.end_txn(marker)
+
+    def txn_status(self, marker: int):
+        return self._txn_status.get(marker)
+
+    def has_stale_txns(self) -> bool:
+        """Any decided txn with possibly-unapplied residue? (O(1) —
+        status records are dropped in finish_txn on the success path.)"""
+        return bool(self._txn_status)
+
+    def resolve_locks(self) -> int:
+        """Finish crashed commits/aborts (the resolve-lock flow): any
+        marker with a recorded decision but unapplied table residue gets
+        its markers rewritten (commit) or erased (rollback) via the
+        logless full-scan paths, which are idempotent. Returns resolved
+        txn count."""
+        n = 0
+        for marker, (st, ts) in list(self._txn_status.items()):
+            for db in self.databases.values():
+                for t in db.tables.values():
+                    if st == "committed":
+                        t.txn_commit(marker, ts)
+                    else:
+                        t.txn_rollback(marker)
+                    # next slice: crashed FOR UPDATE locks release here
+            self.finish_txn(marker)
+            n += 1
+        return n
+
+    def safepoint(self) -> int:
+        """Oldest snapshot any open txn can read. NOTE: today's GC
+        drivers refuse to run with open txns at all (their write logs
+        hold physical row positions — see Table.gc), so when GC actually
+        runs this equals current_ts; the min() is the contract for a
+        future log-remapping GC that can run under open snapshots."""
+        return min(self._open_txns.values(), default=self._ts)
+
+    def gc(self) -> Dict[str, int]:
+        """Reclaim dead MVCC versions in every table. Conservative: a
+        no-op while any txn is open (open write logs hold physical row
+        positions; see Table.gc contract). Returns table -> reclaimed."""
+        if self._open_txns:
+            return {}
+        sp = self.safepoint()
+        out: Dict[str, int] = {}
+        for db in self.databases.values():
+            for name, t in db.tables.items():
+                r = t.gc(sp)
+                if r:
+                    out[f"{db.name}.{name}"] = r
+        return out
+
+    def auto_gc(self, tables=None, min_dead: int = 4096,
+                ratio: float = 0.3) -> Dict[str, int]:
+        """Opportunistic GC after DML: compact tables whose dead-version
+        count crossed the threshold (the auto-GC worker analogue).
+        `tables` limits the scan to the tables a txn touched — the
+        threshold check costs an O(n) liveness pass per table, which
+        must not be paid for every table on every commit."""
+        if self._open_txns:
+            return {}
+        sp = self.safepoint()
+        if tables is None:
+            tables = [t for db in self.databases.values()
+                      for t in db.tables.values()]
+        out: Dict[str, int] = {}
+        for t in tables:
+            phys, dead = t.maintenance_stats()
+            if dead >= min_dead and dead >= ratio * phys:
+                r = t.gc(sp)
+                if r:
+                    out[t.schema.name] = r
+        return out
 
     def create_database(self, name: str, if_not_exists: bool = False):
         if name in self.databases:

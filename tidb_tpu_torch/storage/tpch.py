@@ -14,7 +14,7 @@ already in device representation for bulk ingest.
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -452,11 +452,17 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
 def load_arrays(catalog: Catalog, name: str, columns, arrays: Dict[str, np.ndarray],
                 valids: Optional[Dict[str, np.ndarray]] = None,
                 dicts: Optional[Dict[str, list]] = None,
-                db: str = "test"):
+                db: str = "test", primary_key: Optional[List[str]] = None,
+                indexes=()):
     """Create table `name` and ingest it from numpy arrays already in
     device representation — the tables another engine generated (the
     parity tests load the JAX package's TPC-H tables through here, so
     both engines query identical rows).
+
+    `primary_key` (column names) and `indexes` ((name, columns, unique)
+    per secondary index) give the table the other engine's keys, so both
+    plan the same access paths; the rows are checked against every unique
+    key before they become visible.
 
     `columns` are ColumnInfo; `arrays[col]` holds every physical row;
     `valids[col]` (default all True) the validity; for a dictionary-
@@ -464,7 +470,10 @@ def load_arrays(catalog: Catalog, name: str, columns, arrays: Dict[str, np.ndarr
     means dicts[col][i]). Codes are remapped onto this table's own
     sorted dictionary, so a dictionary in another order carries across
     with its rows' strings unchanged."""
-    t = catalog.create_table(db, TableSchema(name, list(columns)))
+    t = catalog.create_table(db, TableSchema(name, list(columns),
+                                             primary_key=primary_key))
+    for iname, icols, unique in indexes:
+        t.create_index(iname, list(icols), unique=unique)
     sizes = {len(np.asarray(a)) for a in arrays.values()}
     if len(sizes) != 1:
         raise ExecutionError(f"load_arrays length mismatch: {sizes}")
@@ -482,7 +491,9 @@ def load_arrays(catalog: Catalog, name: str, columns, arrays: Dict[str, np.ndarr
         t.data[c.name][:m] = data.astype(c.type_.np_dtype, copy=False)
         v = (valids or {}).get(c.name)
         t.valid[c.name][:m] = True if v is None else np.asarray(v, dtype=np.bool_)
+    t._enforce_unique_new(0, m)
     t.begin_ts[:m] = 0  # bulk loads are committed "at origin"
     t.n = m
     t.version += 1
+    t._uniq_commit()
     return t
