@@ -45,7 +45,11 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    exactly on Q2, Q3, Q7, Q8, Q9, Q10, Q11, Q13, Q15, Q16, Q17, Q18 and
    Q20, fused at least on Q15, Q17, Q18 and Q20. Q9 is empty at this
    scale and checks nothing.
-2. TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
+2. The load declares CLUSTER BY (l_shipdate) on lineitem, as the
+   reference's does: a cold Q6 over the store in ingest order folds it,
+   the re-sort runs at that statement's end (its host time printed), and
+   lineitem must then be sorted with clustered_rows == n (phase_cluster).
+   TPC-H Q1, Q6, Q3, Q5 and Q18 at SF1 (about 6M lineitem rows) through
    tidb_tpu_torch.session.Session on cuda, each compared with a numpy
    evaluation of the same query over the same generated arrays (decimals
    exact), on two paths. Each run has the kernels' launch counters, the
@@ -115,16 +119,43 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    fused Q6 zero rows, and a re-insert is seen. After RF1, RF2 and the
    UPDATE, Q1, Q6, Q3, Q5 and Q18 equal numpy over an independent array
    model of the tables, and the first Q1 and Q6 after each DML restage
-   while the second stage 0 B. Every statement and query is timed, and
-   its launches, staging and cache outcomes recorded; tidb_segagg and
-   tidb_probe_count must both launch in the phase, the off-path entries
-   never. The full report goes to chiprun_out/chip_smoke.json.
+   while the second stage 0 B (when the DML's delta made a CLUSTER BY
+   fold due, the first run re-sorts lineitem at its end, the next run
+   restages the moved rows and one more stages 0 B). Every statement and
+   query is timed, and its launches, staging and cache outcomes
+   recorded; tidb_segagg and tidb_probe_count must both launch in the
+   phase, the off-path entries never.
+5. The schema phase, on the same session. tidb_tpu_compaction on and
+   off over the same ingest (phase_compaction): a date-clustered copy of
+   lineitem's Q6 columns gets two thirds of its rows, then four appends
+   of later dates, Q6 after each against numpy; with the flag on the
+   background worker folds each append (its queue drained after the
+   query), off the statement folds inline; the rows, the physical order
+   and clustered_rows must agree and the worker's rebuilds must have
+   happened. Then phase_schema: a copy of lineitem's query columns
+   PARTITION BY RANGE (l_orderkey) at the order keys' quartiles, filled
+   by the bulk path: Q1 and Q6 on the first quartile plan a PartitionScan
+   of p0 feeding tidb_segagg, Q3 over the copy, each against numpy; a
+   row past a bound-less RANGE is refused. A copy with FOREIGN KEY
+   (l_orderkey) REFERENCES orders, CHECKs from TPC-H's domains and a
+   stored DECIMAL(15,4) generated column l_extendedprice * (1 -
+   l_discount): the load's FK, CHECK and generated-column times, the sum
+   of the generated column by Q1's groups against numpy, RF1 through it,
+   a violating row, an orphan key and the delete of a referenced order
+   refused, RF2 in TPC-H's order. ALTER TABLE ADD, MODIFY and DROP
+   COLUMN on orders with Q3 against numpy after each; a SAVEPOINT inside
+   RF1 rolled back to (Q1 against numpy, RF1's orders kept); SELECT ...
+   FOR UPDATE in one session refusing another session's UPDATE and
+   locking read until COMMIT. tidb_segagg and tidb_probe_count must both
+   launch in the phase. The full report goes to
+   chiprun_out/chip_smoke.json.
 
 The card's name and power limit are printed first; the line before the
 last is one JSON object {"kernels": [...]}, the last {"ok": true,
 "device": {...}}. Without a CUDA card, or without the repository beside
 it, it prints no result and exits non-zero."""
 
+import contextlib
 import copy
 import json
 import os
@@ -1761,14 +1792,35 @@ def refresh_queries(np, s, mods, model, label, step) -> dict:
     from tidb_tpu_torch.storage.tpch_queries import Q
 
     res = {}
-    for run in ("q1", "q1_again", "q6", "q6_again", "q3", "q5", "q18"):
+    li = s.catalog.table("test", "lineitem")
+    runs = ["q1", "q1_again", "q6", "q6_again", "q3", "q5", "q18"]
+    while runs:
+        run = runs.pop(0)
         q = run.split("_")[0]
+        epoch = li.data_epoch
         rows, c, dt = run_query(s, mods, Q[q][0])
         step["queries"][run] = {"s": dt, "launches": c["launches"], "routes": c["routes"],
                                 "h2d": c["h2d"], "staged_batches": c["staged_batches"],
-                                "cache": c["cache"], "fused": c["fused"]}
+                                "cache": c["cache"], "fused": c["fused"],
+                                "segments": c["segments"]}
         step_add(step, c)
-        if run == q:
+        if li.data_epoch != epoch:
+            # CLUSTER BY: the DML's delta made a fold due, and the re-sort
+            # ran at the end of this statement (a quiescent boundary). Its
+            # rows moved, so the next run restages them once; one more run
+            # then must stage nothing
+            step.setdefault("resorted_after", []).append(run)
+            if run.endswith("_again") or run.endswith("_resorted"):
+                raise AssertionError(f"{label}: {run} re-sorted lineitem again")
+            if q in ("q1", "q6"):
+                runs.insert(runs.index(q + "_again"), q + "_resorted")
+        if run.endswith("_resorted"):
+            if rows != res[q]:
+                raise AssertionError(f"{label}: {run} differs from the first run")
+            if c["cache"]["hit"] or not c["staged_batches"]:
+                raise AssertionError(f"{label}: {run} did not restage the re-sorted "
+                                     f"rows: {c}")
+        elif run == q:
             res[q] = rows
             if q in ("q1", "q6") and (c["cache"]["hit"] or not c["staged_batches"]
                                       or not c["h2d"]["h2d"]):
@@ -2104,6 +2156,454 @@ def phase_refresh(torch, np, s, mods, load, sf: float = 1.0) -> dict:
     return report
 
 
+
+# -- the schema phase: the reference's table layout and schema features ------
+
+@contextlib.contextmanager
+def timing(cls, attr, acc, key):
+    """Add the host seconds of every `cls.attr` call inside the block to
+    acc[key] (a method of storage.table.Table: the load's checks, the
+    CLUSTER BY permute)."""
+    real = getattr(cls, attr)
+
+    def timed_call(self, *args, **kw):
+        t1 = time.perf_counter()
+        try:
+            return real(self, *args, **kw)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t1
+
+    setattr(cls, attr, timed_call)
+    try:
+        yield acc
+    finally:
+        setattr(cls, attr, real)
+
+
+def phase_cluster(np, s, mods) -> dict:
+    """The clustered store at SF1, before phase 2: the load declares
+    CLUSTER BY (l_shipdate) on lineitem as the reference's does, and the
+    first statement that folds lineitem into segments (a cold Q6 over the
+    store in ingest order) queues the ordered compaction, which runs at
+    that statement's end. Lineitem must then be sorted by l_shipdate with
+    clustered_rows == n, and Q6 must equal numpy before and after. The
+    permute's host time is reported; the device buffer cache is emptied
+    so phase 2's first runs stay cold."""
+    from tidb_tpu_torch.storage.table import Table
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    li = s.catalog.table("test", "lineitem")
+    if li.schema.cluster_by != "l_shipdate":
+        raise AssertionError(f"lineitem declares CLUSTER BY {li.schema.cluster_by!r}")
+    if li.clustered_rows >= li.n:
+        raise AssertionError("lineitem is in cluster order before its first fold")
+    epoch, want = li.data_epoch, numpy_q6(np, li)
+    acc = {}
+    with timing(Table, "_recluster_locked", acc, "resort_s"):
+        rows, c, dt = run_query(s, mods, Q["q6"][0])
+    if len(rows) != 1 or _scaled(rows[0][0]) != want:
+        raise AssertionError(f"Q6 over the unsorted store {rows} vs numpy {want}")
+    ship = li.data["l_shipdate"][:li.n]
+    if li.clustered_rows != li.n or li.data_epoch == epoch or (np.diff(ship) < 0).any():
+        raise AssertionError(f"lineitem not re-sorted at the first fold: clustered_rows "
+                             f"{li.clustered_rows} of {li.n}, epoch {epoch} -> "
+                             f"{li.data_epoch}")
+    if _scaled(s.query(Q["q6"][0])[0][0]) != numpy_q6(np, li):
+        raise AssertionError("Q6 over the re-sorted store differs from numpy")
+    pl.DEVICE_CACHE.clear()  # phase 2's first runs stage from the store
+    out = {"resort_s": acc.get("resort_s", 0.0), "rows": li.n,
+           "q6_before": {"s": dt, "segments": c["segments"],
+                         "launches": c["launches"]["segagg"]},
+           "compaction": dict(st.COMPACTION_TOTAL)}
+    log(f"cluster: lineitem ({li.n} rows) sorted by l_shipdate at the first fold in "
+        f"{out['resort_s']:.3f} s of host time (the cold Q6 that folded it: {dt:.3f} s, "
+        f"segments scanned/pruned {c['segments']}, tidb_segagg {c['launches']['segagg']}); "
+        f"clustered_rows == n; rebuilds {out['compaction']}")
+    return out
+
+
+def cluster_summary(per_query) -> dict:
+    """Segments scanned and pruned and kernel launches of phase 2's fused
+    runs over the clustered store, per query."""
+    out = {}
+    for run, c in per_query.items():
+        out[run] = {"segments": c["segments"], "segagg": c["launches"]["segagg"],
+                    "probe_count": c["launches"]["probe_count"]}
+    log(f"cluster: phase 2 over the clustered store, per run: {out}")
+    if out["q6"]["segments"]["pruned"] <= 0:
+        raise AssertionError(f"Q6 pruned no segment of the clustered store: {out['q6']}")
+    return out
+
+
+def phase_compaction(np, s, mods) -> dict:
+    """tidb_tpu_compaction on and off over the same ingest: a date-clustered
+    copy of lineitem's Q6 columns (CLUSTER BY l_shipdate) gets two thirds
+    of the rows in date order, then the rest in four appends of later
+    dates, Q6 after each. With the worker on, each fold past
+    tidb_tpu_segment_delta_rows is rebuilt by the background compaction
+    worker (its queue drained after each query); off, inline on the
+    statement path. Both must give the same rows (equal to numpy), the
+    same physical order and clustered_rows, and the worker's rebuilds must
+    have happened; each query's statement time is recorded per flag."""
+    from tidb_tpu_torch.columnar import compaction
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    li = s.catalog.table("test", "lineitem")
+    live = np.nonzero(li.live_mask(0, li.n))[0]
+    live = live[np.argsort(li.data["l_shipdate"][live], kind="stable")]
+    cols = ("l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+    data = {c: li.data[c][live] for c in cols}
+    n = len(live)
+    cuts = [n * 2 // 3 + (n - n * 2 // 3) * k // 4 for k in range(5)]
+    out = {}
+    for flag in (1, 0):
+        name = f"li_compact{flag}"
+        s.execute(f"set tidb_tpu_compaction = {flag}")
+        s.execute(f"create table {name} (l_orderkey bigint, l_quantity decimal(15,2), "
+                  "l_extendedprice decimal(15,2), l_discount decimal(15,2), "
+                  "l_shipdate date) cluster by (l_shipdate)")
+        t = s.catalog.table("test", name)
+        q6 = Q["q6"][0].replace("lineitem", name)
+        c0 = dict(st.COMPACTION_TOTAL)
+        runs, prev = [], 0
+        for k, cut in enumerate(cuts):
+            t.insert_columns({c: data[c][prev:cut] for c in cols})
+            prev = cut
+            rows, c, dt = run_query(s, mods, q6)
+            want = numpy_q6(np, ModelTable({c_: data[c_][:cut] for c_ in cols}, {}))
+            if len(rows) != 1 or _scaled(rows[0][0]) != want:
+                raise AssertionError(f"{name} Q6 after append {k}: {rows} vs numpy {want}")
+            drained = compaction.default_worker().drain(120) if flag else True
+            if not drained:
+                raise AssertionError("the compaction worker did not drain in 120 s")
+            runs.append({"rows": cut, "s": dt, "segments": c["segments"],
+                         "segagg": c["launches"]["segagg"], "covered":
+                         t._segment_store.covered if t._segment_store else 0})
+        got = {k: st.COMPACTION_TOTAL[k] - c0[k] for k in c0}
+        out[flag] = {"runs": runs, "rebuilds": got, "clustered_rows": t.clustered_rows,
+                     "n": t.n, "order": {c: t.data[c][:t.n].copy() for c in cols},
+                     "q6": rows}
+        log(f"compaction {flag}: rebuilds {got}; Q6 statement s per append "
+            f"{[round(r['s'], 4) for r in runs]}; segments per run "
+            f"{[r['segments'] for r in runs]}; covered {[r['covered'] for r in runs]}")
+        s.execute(f"drop table {name}")
+    s.execute("set tidb_tpu_compaction = 1")
+    on, off = out[1], out[0]
+    if on["q6"] != off["q6"] or (on["clustered_rows"], on["n"]) != (off["clustered_rows"],
+                                                                    off["n"]):
+        raise AssertionError("the compaction flag changed what a scan returns")
+    for c in cols:
+        if not np.array_equal(on["order"][c], off["order"][c]):
+            raise AssertionError(f"the compaction flag changed the physical order of {c}")
+    if on["rebuilds"]["background"] < 1 or off["rebuilds"]["background"]:
+        raise AssertionError(f"background rebuilds: on {on['rebuilds']}, off "
+                             f"{off['rebuilds']}")
+    for v in out.values():
+        del v["order"]
+    return {"on": on, "off": off}
+
+
+_COPY_COLS = ("l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice", "l_discount",
+              "l_tax", "l_returnflag", "l_linestatus", "l_shipdate")
+_COPY_DDL = ("l_orderkey bigint, l_linenumber bigint, l_quantity decimal(15,2), "
+             "l_extendedprice decimal(15,2), l_discount decimal(15,2), "
+             "l_tax decimal(15,2), l_returnflag char(1), l_linestatus char(1), "
+             "l_shipdate date")
+
+
+def copy_columns(np, model):
+    """(arrays, strings) of the model's live lineitems over _COPY_COLS, for
+    Table.insert_columns: the string columns as Python strings."""
+    m = model.table("test", "lineitem")
+    arrays, strings = {}, {}
+    for c in _COPY_COLS:
+        if c in m.dicts:
+            pool = np.array(m.dicts[c].values, dtype=object)
+            strings[c] = pool[m.data[c]].tolist()
+        else:
+            arrays[c] = m.data[c]
+    return arrays, strings
+
+
+def model_where(model, mask) -> "ArrayModel":
+    """A copy of `model` whose lineitem keeps the rows under `mask`."""
+    out = model.copy()
+    li = out.tables["lineitem"]
+    li.data = {c: a[mask] for c, a in li.data.items()}
+    return out
+
+
+def expect_refusal(s, sql, words):
+    """`sql` must fail with an error naming `words`."""
+    try:
+        s.execute(sql)
+    except Exception as e:  # noqa: BLE001 — the refusal is the result
+        if words not in str(e):
+            raise
+        return f"{type(e).__name__}: {e}"
+    raise AssertionError(f"accepted: {sql[:160]}")
+
+
+def phase_schema(torch, np, s, mods, sf: float = 1.0) -> dict:
+    """The reference's schema features on the SF1 session after the
+    refresh phase, each query against numpy over an array model of the
+    tables' live rows (ArrayModel), each copy dropped once checked.
+
+    Partitions: a copy of lineitem's query columns PARTITION BY RANGE
+    (l_orderkey) in four partitions at the quartiles of the order keys,
+    created by SQL and filled by the bulk path (insert_columns); Q1 and
+    Q6 restricted to the first quartile plan a PartitionScanExec of p0
+    feeding the segment aggregation (tidb_segagg), Q3 over the copy
+    probes fused; a row past a bound-less RANGE is refused.
+    Constraints: a copy with FOREIGN KEY (l_orderkey) REFERENCES orders,
+    two CHECKs from TPC-H's domains and a stored DECIMAL(15,4) generated
+    column l_extendedprice * (1 - l_discount): the load's FK, CHECK and
+    generated-column times; Q1's sum_disc_price from the generated
+    column; RF1 into the copy passes, a violating row and an orphan key
+    are refused, deleting an order with live lineitems is refused, RF2 in
+    TPC-H's order (lineitems, then orders) passes.
+    DDL and transactions: ALTER TABLE ADD, MODIFY and DROP COLUMN on
+    orders, Q3 after each; a SAVEPOINT inside RF1 rolled back to, Q1
+    after; SELECT ... FOR UPDATE in one session refusing another
+    session's UPDATE of the same order until COMMIT."""
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    probes = record_probe_chunks(hp)
+    probes["query"] = "schema"
+    try:
+        report = schema_steps(np, s, mods, sf)
+    finally:
+        hp.probe_chunk = probes["real"]
+    modes = {}
+    for (_q, route, mode, _b), n in probes["calls"].items():
+        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    report["probe_modes"] = modes
+    launches = {}
+    for part in ("partitions", "constraints", "ddl"):
+        for kname, v in report[part]["launches"].items():
+            launches[kname] = launches.get(kname, 0) + v
+    report["launches"] = launches
+    if not launches.get("segagg") or not launches.get("probe_count"):
+        raise AssertionError(f"the schema phase missed a kernel of its path: {launches}")
+    if launches.get("hash_probe") or launches.get("segsum_count") \
+            or launches.get("segsum_i64"):
+        raise AssertionError(f"the schema phase launched an off-path entry: {launches}")
+    log(f"schema: probe_count by route and mode {modes}")
+    return report
+
+
+def schema_steps(np, s, mods, sf: float) -> dict:
+    """The three parts of phase_schema, in order; returns their reports."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import PPartitionScan, explain_text
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import tpch_refresh as rf
+    from tidb_tpu_torch.storage.table import Table
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = s.catalog
+    o, li = cat.table("test", "orders"), cat.table("test", "lineitem")
+    model = ArrayModel(np, cat)
+    agg_chunks = count_segment_chunks()
+    report = {}
+
+    # -- partitions -----------------------------------------------------------
+    okeys = np.sort(model.table("test", "orders").data["o_orderkey"])
+    b = [int(okeys[len(okeys) * k // 4]) for k in (1, 2, 3)]
+    step = report["partitions"] = dict(new_step(), bounds=b)
+    t0 = time.perf_counter()
+    s.execute(f"create table li_part ({_COPY_DDL}) partition by range (l_orderkey) ("
+              f"partition p0 values less than ({b[0]}), partition p1 values less than "
+              f"({b[1]}), partition p2 values less than ({b[2]}), "
+              "partition p3 values less than maxvalue)")
+    arrays, strings = copy_columns(np, model)
+    part = cat.table("test", "li_part")
+    part.insert_columns(arrays, strings=strings)
+    step["load_s"] = time.perf_counter() - t0
+    p0 = model_where(model, model.table("test", "lineitem").data["l_orderkey"] < b[0])
+    cases = [
+        ("q1_p0", Q["q1"][0].replace("from lineitem", "from li_part").replace(
+            "interval '90' day", f"interval '90' day and l_orderkey < {b[0]}"), p0),
+        ("q6_p0", Q["q6"][0].replace("from lineitem", "from li_part")
+         + f"  and l_orderkey < {b[0]}\n", p0),
+        ("q3", Q["q3"][0].replace("lineitem", "li_part"), model),
+    ]
+    for qname, sql, m in cases:
+        plan = s._plan_select(parse(sql)[0])
+        want = plan_fragments(plan, s._plan_capacity(plan))
+        parts = [n for n in _walk(plan) if isinstance(n, PPartitionScan)]
+        if qname != "q3" and (len(parts) != 1 or parts[0].part_names != ("p0",)):
+            raise AssertionError(f"{qname} did not plan a PartitionScan of p0:\n"
+                                 f"{explain_text(plan)}")
+        agg_chunks[0] = 0
+        rows, c, dt = run_query(s, mods, sql)
+        step_add(step, c)
+        check_path(qname, c, agg_chunks[0], want)
+        if qname == "q1_p0":
+            check_q1(np, rows, numpy_q1(np, m.table("test", "lineitem")))
+        elif qname == "q6_p0":
+            got = _scaled(rows[0][0])
+            if got != numpy_q6(np, m.table("test", "lineitem")):
+                raise AssertionError(f"partitioned Q6 {rows} vs numpy")
+        else:
+            check_join_rows("q3", rows, numpy_q3(np, m), {1})
+        if qname != "q3" and (not c["launches"]["segagg"]
+                              or c["launches"]["segagg"] != agg_chunks[0]):
+            raise AssertionError(f"{qname}: tidb_segagg {c['launches']['segagg']} over "
+                                 f"{agg_chunks[0]} aggregated chunks")
+        step["queries"][qname] = {"s": dt, "launches": c["launches"],
+                                  "aggregated_chunks": agg_chunks[0],
+                                  "routes": c["routes"], "fused": c["fused"],
+                                  "plan": explain_text(plan)}
+        log(f"schema partitions {qname}: {dt:.3f} s; launches {c['launches']}; "
+            f"aggregated chunks {agg_chunks[0]}; fused {c['fused']}; equal numpy")
+    s.execute("drop table li_part")
+    s.execute("create table part_bound (k bigint) partition by range (k) "
+              "(partition p0 values less than (10), partition p1 values less than (20))")
+    step["refused"] = expect_refusal(s, "insert into part_bound values (5), (25)",
+                                     "no partition for value")
+    if s.query("select count(*) from part_bound") != [(0,)]:
+        raise AssertionError("a refused partition insert left rows")
+    s.execute("drop table part_bound")
+    log(f"schema partitions: bounds {b}, load {step['load_s']:.3f} s; the row past a "
+        f"bound-less RANGE refused ({step['refused']})")
+
+    # -- constraints and a generated column -----------------------------------
+    step = report["constraints"] = new_step()
+    s.execute(f"create table li_cons ({_COPY_DDL}, l_disc_price decimal(15,4) "
+              "generated always as (l_extendedprice * (1 - l_discount)) stored, "
+              "check (l_discount between 0.00 and 0.10), "
+              "check (l_quantity between 1 and 50), "
+              "foreign key (l_orderkey) references orders (o_orderkey))")
+    cons = cat.table("test", "li_cons")
+    acc = {}
+    t0 = time.perf_counter()
+    with timing(Table, "_check_fk_parents", acc, "fk_s"), \
+            timing(Table, "_check_row_constraints", acc, "check_s"), \
+            timing(Table, "_apply_generated", acc, "generated_s"):
+        cons.insert_columns(arrays, strings=strings)
+    step["load"] = dict(acc, load_s=time.perf_counter() - t0, rows=cons.n)
+    sql = ("select l_returnflag, l_linestatus, sum(l_disc_price) from li_cons "
+           "where l_shipdate <= date '1998-12-01' - interval '90' day "
+           "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+    rows, c, dt = run_query(s, mods, sql)
+    step_add(step, c)
+    want = [(w[0], w[1], w[4]) for w in numpy_q1(np, model.table("test", "lineitem"))]
+    if [(r[0], r[1], _scaled(r[2])) for r in rows] != want or not c["launches"]["segagg"]:
+        raise AssertionError(f"sum of the generated column {rows} vs numpy {want}; {c}")
+    step["queries"]["generated_sum"] = {"s": dt, "launches": c["launches"],
+                                        "fused": c["fused"]}
+    log(f"schema constraints: load of {cons.n} rows {step['load']['load_s']:.3f} s (FK "
+        f"{acc.get('fk_s', 0):.3f} s, CHECK {acc.get('check_s', 0):.3f} s, generated "
+        f"{acc.get('generated_s', 0):.3f} s); sum(l_disc_price) by group equals Q1's "
+        f"sum_disc_price from numpy ({dt:.3f} s, launches {c['launches']})")
+    # RF1 into the copy: the new orders first, then their lineitems
+    new = rf.rf1(cat, sf, seed=11)
+    cols = list(_COPY_COLS)
+    lines = new["lineitem"]
+    stmts = rf.insert_statements(o, new["orders"])
+    vals = ["(" + ", ".join(rf._literal(li, li.schema.col(c), lines[c][i]) for c in cols)
+            + ")" for i in range(len(lines["l_orderkey"]))]
+    stmts += [f"insert into li_cons ({', '.join(cols)}) values " + ", ".join(vals[i:i + 500])
+              for i in range(0, len(vals), 500)]
+    for q in stmts:
+        timed(step, s, mods, q, q[:40])
+    n_new = len(vals)
+    good = dict(zip(cols, vals[0][1:-1].split(", ")))
+    bad_disc = dict(good, l_discount="0.20", l_linenumber="99")
+    orphan = dict(good, l_orderkey=str(int(okeys[-1]) + 10_000_000), l_linenumber="98")
+    ins = f"insert into li_cons ({', '.join(cols)}) values "
+    step["refused"] = [
+        expect_refusal(s, ins + "(" + ", ".join(bad_disc[c] for c in cols) + ")", "CHECK"),
+        expect_refusal(s, ins + "(" + ", ".join(orphan[c] for c in cols) + ")",
+                       "foreign key"),
+    ]
+    keys = rf.rf2_keys(cat, sf)
+    klist = ", ".join(str(k) for k in keys)
+    step["refused"].append(expect_refusal(
+        s, f"delete from orders where o_orderkey in ({klist})", "referenced by"))
+    for q in (f"delete from lineitem where l_orderkey in ({klist})",
+              f"delete from li_cons where l_orderkey in ({klist})",
+              f"delete from orders where o_orderkey in ({klist})"):
+        timed(step, s, mods, q, q[:40])
+    if cons.live_rows != len(model.table("test", "lineitem").data["l_orderkey"]) + n_new \
+            - int(np.isin(model.table("test", "lineitem").data["l_orderkey"], keys).sum()):
+        raise AssertionError(f"li_cons holds {cons.live_rows} rows after RF1 and RF2")
+    log(f"schema constraints: RF1 ({n_new} lineitems) passed the parent checks; refused "
+        f"{step['refused']}; RF2 in TPC-H's order passed; statements "
+        f"{[(x['sql'], round(x['s'], 3)) for x in step['statements']]}")
+    s.execute("drop table li_cons")
+
+    # -- ALTER TABLE on orders, a savepoint inside RF1, FOR UPDATE ------------
+    step = report["ddl"] = new_step()
+    model = ArrayModel(np, cat)  # RF1's orders in, RF2's orders and lineitems out
+    for q in ("alter table orders add column o_flag bigint default 1",
+              "alter table orders modify column o_flag decimal(12,2)",
+              "alter table orders drop column o_flag"):
+        timed(step, s, mods, q)
+        rows, c, dt = run_query(s, mods, Q["q3"][0])
+        step_add(step, c)
+        check_join_rows("q3", rows, numpy_q3(np, model), {1})
+        step["queries"][q] = {"s": dt, "launches": c["launches"]}
+        if q.startswith("alter table orders add"):
+            if s.query("select count(*), sum(o_flag) from orders") != [(o.live_rows,
+                                                                       o.live_rows)]:
+                raise AssertionError("ADD COLUMN did not fill its default")
+    new = rf.rf1(cat, sf, seed=13)
+    n_o, n_l = o.live_rows, li.live_rows
+    timed(step, s, mods, "begin")
+    for q in rf.insert_statements(o, new["orders"]):
+        timed(step, s, mods, q, q[:40])
+    timed(step, s, mods, "savepoint rf1_lines")
+    for q in rf.insert_statements(li, new["lineitem"]):
+        timed(step, s, mods, q, q[:40])
+    grown = model.copy()
+    grown.append(new)
+    rows, c, dt = run_query(s, mods, Q["q1"][0])
+    step_add(step, c)
+    check_q1(np, rows, numpy_q1(np, grown.table("test", "lineitem")))
+    timed(step, s, mods, "rollback to savepoint rf1_lines")
+    rows, c, dt = run_query(s, mods, Q["q1"][0])
+    step_add(step, c)
+    check_q1(np, rows, numpy_q1(np, model.table("test", "lineitem")))
+    timed(step, s, mods, "commit")
+    if (o.live_rows, li.live_rows) != (n_o + len(new["orders"]["o_orderkey"]), n_l):
+        raise AssertionError("the savepoint did not keep RF1's orders and drop its "
+                             f"lineitems: {(o.live_rows, li.live_rows)}")
+    step["savepoint"] = {"orders_kept": len(new["orders"]["o_orderkey"]),
+                         "lineitems_rolled_back": len(new["lineitem"]["l_orderkey"])}
+    k = int(okeys[len(okeys) // 3])
+    other = Session(catalog=cat, device=s.device)
+    s.execute("begin")
+    locked = s.query(f"select o_orderkey, o_totalprice from orders where o_orderkey = {k} "
+                     "for update")
+    upd = f"update orders set o_totalprice = o_totalprice + 1 where o_orderkey = {k}"
+    step["for_update"] = [
+        expect_refusal(other, upd, "locked by another transaction"),
+        expect_refusal(other, f"select * from orders where o_orderkey = {k} for update "
+                       "nowait", "Lock wait timeout"),
+    ]
+    s.execute("commit")
+    other.execute(upd)
+    after = s.query(f"select o_orderkey, o_totalprice from orders where o_orderkey = {k}")
+    if len(locked) != 1 or _scaled(after[0][1]) != _scaled(locked[0][1]) + 100:
+        raise AssertionError(f"FOR UPDATE: {locked} then {after}")
+    log(f"schema ddl: ADD/MODIFY/DROP COLUMN on orders, Q3 equal numpy after each "
+        f"({[round(v['s'], 3) for v in step['queries'].values()]} s); the savepoint kept "
+        f"RF1's orders and rolled back its lineitems; FOR UPDATE refused "
+        f"{step['for_update']}; the UPDATE passed after COMMIT")
+    return report
+
+
+def _walk(plan):
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        yield node
+        stack.extend(node.children)
+
+
 def main() -> int:
     import torch
 
@@ -2187,7 +2687,9 @@ def main() -> int:
     log(f"TPC-H SF1 loaded in {load['load_s']:.1f} s (primary-key checks "
         f"{load['pk_check_s']:.1f} s): {counts}")
     queries = ("q1", "q6", "q3", "q5", "q18")
+    cluster = phase_cluster(np, s, mods)
     p2 = phase_paths(torch, np, s, mods, Session, queries)
+    cluster["phase2"] = cluster_summary(p2["per_query"])
     li, n_rows, results, per_query = p2["li"], p2["n_rows"], p2["results"], p2["per_query"]
     cold, probes, probe_modes = p2["cold"], p2["probes"], p2["probe_modes"]
     launches, launches_classic = p2["launches"], p2["launches_classic"]
@@ -2395,6 +2897,14 @@ def main() -> int:
     refresh = phase_refresh(torch, np, s, mods, load)
     refresh["s"] = time.perf_counter() - t0
     log(f"refresh phase passed in {refresh['s']:.1f} s")
+
+    # -- the schema phase: compaction on and off, partitions, constraints,
+    # DDL and transactions ----------------------------------------------------
+    t0 = time.perf_counter()
+    compaction_report = phase_compaction(np, s, mods)
+    schema = phase_schema(torch, np, s, mods)
+    schema["s"] = time.perf_counter() - t0
+    log(f"schema phase passed in {schema['s']:.1f} s; launches {schema['launches']}")
     by_mode = refresh["probe_modes"]
     for row in rows:
         if row["name"].startswith("probe_count."):
@@ -2404,6 +2914,10 @@ def main() -> int:
             row["launches_refresh"] = by_mode.get(mode, 0)
         else:
             row["launches_refresh"] = refresh["launches"].get(row["name"], 0)
+        if row["name"].startswith("probe_count."):
+            row["launches_schema"] = schema["probe_modes"].get(mode, 0)
+        else:
+            row["launches_schema"] = schema["launches"].get(row["name"], 0)
 
     log(f"main-path launches: fused path {launches}, classic path {launches_classic}, "
         f"packed batches {launches_packed}, refresh phase {refresh['launches']}")
@@ -2420,7 +2934,8 @@ def main() -> int:
               "q18_probe": {"R": R, "cap": cap, "runs": len(q18_build),
                             "slot_reads": reads},
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
-              "refresh": refresh, "kernels": rows}
+              "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
+              "schema": schema, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

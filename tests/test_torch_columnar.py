@@ -30,6 +30,7 @@ from tidb_tpu.ops import segment_scan as jscan
 from tidb_tpu.session import Session as JaxSession
 from tidb_tpu.types import SQLType as JType
 from tidb_tpu.types import TypeKind as JKind
+from tidb_tpu_torch.columnar import compaction
 from tidb_tpu_torch.columnar import encoding as penc
 from tidb_tpu_torch.columnar import store as pstore
 from tidb_tpu_torch.columnar import zonemap as pzm
@@ -353,6 +354,8 @@ def test_delta_tail_before_and_past_threshold():
         if batch == 300:
             assert store.covered == covered0  # the delta merges raw
         else:
+            # tidb_tpu_compaction is on: the background worker folds it
+            assert compaction.default_worker().drain(30)
             assert store.covered == 11200  # folded into segments
 
 

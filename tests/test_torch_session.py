@@ -44,8 +44,12 @@ def _port_type(t) -> SQLType:
 
 def _export_into(port_session, jax_table, name):
     """Copy one reference table's rows (device representation, validity,
-    dictionaries), its primary key and its secondary indexes into the
-    port's catalog."""
+    dictionaries) and its schema into the port's catalog: primary key,
+    secondary indexes, CLUSTER BY column and watermark, partitioning,
+    CHECK constraints, generated columns and foreign keys (whose parents
+    must be exported first, under the same names)."""
+    from tidb_tpu_torch.storage.table import PartitionInfo
+
     n = jax_table.n
     cols, arrays, valids, dicts = [], {}, {}, {}
     for c in jax_table.schema.columns:
@@ -58,8 +62,20 @@ def _export_into(port_session, jax_table, name):
     indexes = [(ix.name, list(ix.columns), ix.unique)
                for ix in jax_table.indexes.values() if ix.name != "PRIMARY"]
     pk = jax_table.schema.primary_key
-    return load_arrays(port_session.catalog, name, cols, arrays, valids, dicts,
-                       primary_key=list(pk) if pk else None, indexes=indexes)
+    pi = jax_table.schema.partition
+    part = None if pi is None else PartitionInfo(
+        kind=pi.kind, column=pi.column, names=list(pi.names),
+        uppers=list(pi.uppers), n_parts=pi.n_parts)
+    return load_arrays(
+        port_session.catalog, name, cols, arrays, valids, dicts,
+        primary_key=list(pk) if pk else None, indexes=indexes,
+        cluster_by=jax_table.schema.cluster_by,
+        clustered_rows=jax_table.clustered_rows, partition=part,
+        checks=[(c.name, c.sql) for c in jax_table.checks],
+        generated=[(g.col, g.sql, g.stored) for g in jax_table.generated],
+        foreign_keys=[(list(fk.columns), fk.parent.schema.name,
+                       list(fk.parent_cols), fk.on_delete, fk.on_update)
+                      for fk in jax_table.foreign_keys])
 
 
 @pytest.fixture(scope="module")

@@ -20,9 +20,11 @@ immutable **segments**, each holding
 Delta rows (physical rows appended after the last segment build) stay on
 the raw scan path and merge at scan time; MVCC visibility is read live
 from the table. In-place rewrites of existing rows (the dictionary
-re-encode) bump `Table.data_epoch`, which invalidates the whole store.
-The background compaction worker of the reference is not ported:
-deltas fold inline at the next scan past `tidb_tpu_segment_delta_rows`.
+re-encode, GC, column DDL, a CLUSTER BY re-sort) bump `Table.data_epoch`,
+which invalidates the whole store. Deltas past
+`tidb_tpu_segment_delta_rows` fold on the background compaction worker
+(`compaction.py`) or, with `tidb_tpu_compaction` off, inline at the
+next scan.
 """
 
 from tidb_tpu_torch.columnar.store import (  # noqa: F401

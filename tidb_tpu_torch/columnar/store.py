@@ -7,13 +7,21 @@ past one segment of rows. It owns an ordered list of immutable
 are the delta, scanned through the raw slice path and merged at scan
 time. Stale stores rebuild lazily:
 
-  * ``table.data_epoch`` moved (the dictionary re-encode): every segment
-    is discarded and rebuilt;
+  * ``table.data_epoch`` moved (dictionary re-encode, GC compaction,
+    column DDL, TRUNCATE, a CLUSTER BY re-sort): every segment is
+    discarded and rebuilt;
   * appended delta reached ``tidb_tpu_segment_delta_rows``: coverage
-    extends inline at the next scan (the trailing partial segment, if
-    any, is rebuilt to full size) with fresh zone maps. This is the
-    reference's ``tidb_tpu_compaction = 0`` behaviour: its background
-    compaction worker and CLUSTER BY re-sort are not ported.
+    extends (the trailing partial segment, if any, is rebuilt to full
+    size) with fresh zone maps, on the background compaction worker
+    (`compaction.py`) when ``tidb_tpu_compaction`` is on, inline at the
+    next scan when it is off. The first segmentation is always inline.
+
+CLUSTER BY ordered compaction: when the fold cadence makes a re-sort
+worthwhile, the scan that notices only QUEUES it on the owning catalog
+(`_maybe_recluster`); the session performs it at a quiescent statement
+boundary (`Catalog.run_pending_reclusters` -> `recluster_now` ->
+`Table.recluster`), and the data_epoch bump rebuilds every segment in
+the new order.
 
 Memory protocol (the statement-anchored MemTracker contract): scans
 charge each segment's encoded bytes to their statement tracker as they
@@ -29,8 +37,8 @@ tracker.consume() (which can re-enter ScanPin.spill): touch pins under
 the lock, releases it, then charges.
 
 The reference's metrics are plain module-level counters here:
-`SCAN_SEGMENTS_TOTAL` (scanned, pruned) and `SPILL_SEGMENT_BYTES`
-(in, out).
+`SCAN_SEGMENTS_TOTAL` (scanned, pruned), `SPILL_SEGMENT_BYTES` (in,
+out), `COMPACTION_TOTAL` (rebuilds by outcome) and `COMPACTION_BYTES`.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from tidb_tpu_torch.columnar.zonemap import ZoneMap, build_zone_map, segment_pru
 
 __all__ = ["Segment", "SegmentStore", "ScanPin", "store_for",
            "build_for_result", "SCAN_SEGMENTS_TOTAL",
-           "SPILL_SEGMENT_BYTES"]
+           "SPILL_SEGMENT_BYTES", "COMPACTION_TOTAL", "COMPACTION_BYTES"]
 
 # smallest table (rows) that earns a store at all; matches the sysvar
 # floor so tiny unit-test tables stay on the raw path with zero overhead
@@ -60,6 +68,13 @@ MIN_STORE_ROWS = 1024
 SCAN_SEGMENTS_TOTAL = {"scanned": 0, "pruned": 0}
 # segment payload bytes spilled to disk ("out") and reloaded ("in")
 SPILL_SEGMENT_BYTES = {"in": 0, "out": 0}
+# segment rebuilds by outcome (the reference's tidb_tpu_compaction_total):
+# inline (statement path), background (the worker installed it),
+# inline_fallback (worker refused), discarded / failed (worker builds not
+# installed) and recluster (a CLUSTER BY permute); and rebuilt bytes
+COMPACTION_TOTAL = {"inline": 0, "background": 0, "inline_fallback": 0,
+                    "discarded": 0, "failed": 0, "recluster": 0}
+COMPACTION_BYTES = {"bytes": 0}
 
 _COUNT_LOCK = threading.Lock()
 
@@ -68,6 +83,14 @@ def _count_scan(scanned: int, pruned: int) -> None:
     with _COUNT_LOCK:
         SCAN_SEGMENTS_TOTAL["scanned"] += scanned
         SCAN_SEGMENTS_TOTAL["pruned"] += pruned
+
+
+def count_compaction(outcome: str, nbytes: int = 0) -> None:
+    """One rebuild of `outcome` (COMPACTION_TOTAL's keys), `nbytes`
+    encoded bytes installed."""
+    with _COUNT_LOCK:
+        COMPACTION_TOTAL[outcome] += 1
+        COMPACTION_BYTES["bytes"] += nbytes
 
 
 class Segment:
@@ -155,6 +178,15 @@ class SegmentStore:
         # invalidated segments still referenced by in-flight scans;
         # freed by the last release_planned
         self._retired: List[Segment] = []
+        # background compaction: follows the latest caller's
+        # tidb_tpu_compaction through store_for; while a job is pending
+        # the non-force refresh keeps serving the current generation
+        self.compaction_on = False
+        self._compact_pending = False
+        # CLUSTER BY ordered compaction: True while one statement thread
+        # runs the physical re-sort, so concurrent planners skip instead
+        # of double-permuting
+        self._recluster_busy = False
         # the LEAF lock (module doc)
         self._lock = threading.Lock()
 
@@ -182,9 +214,11 @@ class SegmentStore:
         self.generation += 1
         self._stats_view = None
 
-    def _refresh_locked(self, force: bool = False) -> int:
-        """Bring the segments up to date; returns the encoded bytes an
-        inline rebuild built (0 when nothing was due)."""
+    def _refresh_locked(self, force: bool = False) -> Tuple[bool, int]:
+        """Returns ``(want_background, inline_bytes_built)``. The
+        background request is only DECIDED here; the caller submits it
+        to the worker AFTER releasing the lock, so the store lock stays
+        a leaf and never blocks on the worker's queue."""
         t = self.table
         epoch = getattr(t, "data_epoch", 0)
         if epoch != self.built_epoch:
@@ -192,12 +226,23 @@ class SegmentStore:
             self.built_epoch = epoch
         tail = t.n - self.covered
         if tail <= 0:
-            return 0
+            return False, 0
         if not force and self.covered > 0 and tail < max(self.delta_rows, 1):
-            return 0  # small delta: stays on the raw merge path
+            return False, 0  # small delta: stays on the raw merge path
         if not force and self.covered == 0 and t.n < self.segment_rows:
-            return 0
-        return self._inline_rebuild_locked()
+            return False, 0
+        if not force and self.compaction_on and self.covered > 0:
+            # background path: scans keep serving the current generation
+            # + raw-merge delta while the worker folds the delta in; a
+            # pending job suppresses re-requests. Only DELTA folding
+            # defers: the initial segmentation (covered == 0) builds
+            # inline so the first scan of a table sees encoded,
+            # zone-mapped segments, exactly as with compaction off
+            if self._compact_pending:
+                return False, 0
+            self._compact_pending = True
+            return True, 0
+        return False, self._inline_rebuild_locked()
 
     def _inline_rebuild_locked(self) -> int:
         """The statement-path rebuild; returns encoded bytes built
@@ -220,9 +265,89 @@ class SegmentStore:
         self._stats_view = None
         return built
 
-    def refresh(self, force: bool = False) -> None:
+    def compact_inline_fallback(self) -> None:
+        """Backpressure degradation (worker queue full / worker dead):
+        clear the pending mark and rebuild inline on the statement
+        path, exactly as with tidb_tpu_compaction=0 — typed, counted."""
         with self._lock:
-            self._refresh_locked(force=force)
+            self._compact_pending = False
+            built = self._inline_rebuild_locked()
+        count_compaction("inline_fallback", built)
+
+    def _want_recluster_locked(self, force: bool) -> bool:
+        """Is an ordered (CLUSTER BY) rewrite due before the next fold?
+        Piggybacks on the fold cadence: the delta threshold that would
+        trigger a rebuild is also what makes re-sorting worthwhile."""
+        t = self.table
+        if not getattr(getattr(t, "schema", None), "cluster_by", None):
+            return False
+        if getattr(t, "clustered_rows", 0) >= t.n:
+            return False
+        if force:
+            return True
+        if self.covered > 0:
+            return t.n - self.covered >= max(self.delta_rows, 1)
+        return t.n >= self.segment_rows
+
+    def _maybe_recluster(self, force: bool = False) -> None:
+        """CLUSTER BY ordered compaction. A scan that
+        notices the fold cadence made a re-sort worthwhile must NOT
+        permute here: the caller is a lock-free reader (plan_scan), and
+        other statements may be mid-scan of the very arrays the permute
+        moves — torn rows with no lock to stop them. Instead the due
+        permute is QUEUED on the owning catalog and performed by
+        Session at a statement boundary, under the catalog writer lock
+        with the reader registry quiescent (run_pending_reclusters).
+        Catalog-less tables (unit fixtures, single-owner by
+        construction) keep the immediate permute."""
+        with self._lock:
+            want = self._want_recluster_locked(force) \
+                and not self._recluster_busy
+        if not want:
+            return
+        guard = getattr(self.table, "txn_guard", None)
+        if guard is None:
+            self.recluster_now()
+        else:
+            guard.note_recluster_due(self)
+
+    def recluster_now(self, quiesced: bool = False) -> bool:
+        """The permute body, with the STORE lock released (leaf rule;
+        the busy flag keeps a second caller from double-permuting). It
+        is Table.recluster that takes the CATALOG writer lock, refuses
+        while any transaction is open (row positions may only move with
+        no write log holding positional row ids) and — unless the
+        caller already quiesced the reader registry — refuses while any
+        statement or scan is in flight. The resulting data_epoch bump
+        makes the next _refresh_locked rebuild every segment in the new
+        order. Returns True when the queued work is DONE (rows moved,
+        or the table no longer wants sorting); False = retry later."""
+        with self._lock:
+            if self._recluster_busy:
+                return False
+            if not self._want_recluster_locked(True):
+                return True  # raced: sorted (or hint dropped) meanwhile
+            self._recluster_busy = True
+        try:
+            moved = self.table.recluster(quiesced=quiesced)
+        finally:
+            with self._lock:
+                self._recluster_busy = False
+        if moved:
+            count_compaction("recluster")
+        t = self.table
+        return bool(moved) or getattr(t, "clustered_rows", 0) >= t.n
+
+    def refresh(self, force: bool = False) -> None:
+        self._maybe_recluster(force)
+        with self._lock:
+            want, built = self._refresh_locked(force=force)
+        if built:
+            count_compaction("inline", built)
+        if want:
+            from tidb_tpu_torch.columnar.compaction import submit
+
+            submit(self)
 
     # -- scan planning -----------------------------------------------------
 
@@ -232,8 +357,9 @@ class SegmentStore:
         scan whose pushed filter yielded `bounds`. With a `pin`, every
         snapshot segment is reference-counted against invalidation
         until the pin closes. Counts flow to SCAN_SEGMENTS_TOTAL."""
+        self._maybe_recluster()
         with self._lock:
-            built = self._refresh_locked()
+            want, built = self._refresh_locked()
             segs = list(self.segments)
             covered = self.covered
             if pin is not None:
@@ -263,6 +389,12 @@ class SegmentStore:
                 # consume() records the charge BEFORE the budget check
                 # can raise OOM, so the release must run even then
                 pin.tracker.release(built)
+        if built:
+            count_compaction("inline", built)
+        if want:
+            from tidb_tpu_torch.columnar.compaction import submit
+
+            submit(self)
         if bounds:
             kept = [s for s in segs if not segment_pruned(s.zmaps, bounds)]
         else:
@@ -519,13 +651,14 @@ def _base_of(table):
 
 def store_for(table, segment_rows: int, delta_rows: Optional[int] = None,
               spill_dir: Optional[str] = None,
-              min_rows: Optional[int] = None) -> Optional[SegmentStore]:
+              min_rows: Optional[int] = None,
+              compaction: Optional[bool] = None) -> Optional[SegmentStore]:
     """The table's segment store, creating it on first use once the
     table has at least `min_rows` (default: one segment) of rows.
     Returns None for engines without `data_epoch` (foreign table
     objects) and for small tables. The first creator's `segment_rows`
-    wins for the store's lifetime; `delta_rows`/`spill_dir` follow the
-    latest caller."""
+    wins for the store's lifetime; `delta_rows`/`spill_dir`/
+    `compaction` follow the latest caller."""
     base = _base_of(table)
     if getattr(base, "data_epoch", None) is None:
         return None
@@ -544,6 +677,8 @@ def store_for(table, segment_rows: int, delta_rows: Optional[int] = None,
         store.delta_rows = max(int(delta_rows), 1)
     if spill_dir:
         store.spill_dir = spill_dir
+    if compaction is not None:
+        store.compaction_on = bool(compaction)
     return store
 
 

@@ -105,6 +105,10 @@ class ExecContext:
     # directory for spilled segment files (tidb_tpu_columnar_spill_dir;
     # empty = system tmp)
     columnar_spill_dir: str = ""
+    # background delta->segment compaction: delta-depth rebuilds run on
+    # the compaction worker instead of inline at the next scan
+    # (tidb_tpu_compaction)
+    compaction_enable: bool = True
     # fused scan->aggregate, scan->probe and scan->top-k fragments
     # (tidb_tpu_pipeline_fuse); False runs the classic operator tree
     pipeline_fuse: bool = True

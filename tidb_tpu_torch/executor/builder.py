@@ -270,9 +270,15 @@ def build_executor(plan: PhysicalPlan) -> Executor:
             out_schema=plan.schema,
         )
     if isinstance(base, PPartitionScan):
-        raise UnsupportedError(
-            "PartitionScanExec is not yet ported: partitions come with the "
-            "slice after keys and the write path")
+        from tidb_tpu_torch.executor.scan import PartitionScanExec
+
+        return PartitionScanExec(
+            schema=base.schema,
+            table=base.table,
+            stages=scan_stages_for(base, stages),
+            part_ids=base.part_ids,
+            out_schema=plan.schema,
+        )
     if type(base) is PScan:
         return TableScanExec(
             schema=base.schema,

@@ -459,6 +459,9 @@ class _StagedScanMixin:
         if self._pin is not None:
             self._pin.close()
             self._pin = None
+        if getattr(self, "_staged_scan_counted", False):
+            self._staged_scan_counted = False
+            self.table.txn_guard.scan_exit()
 
     def _scan_fn(self):
         from tidb_tpu_torch.ops.segment_scan import scan_fn
@@ -475,6 +478,14 @@ class _StagedScanMixin:
         prune segments before anything is staged, as in the unfused scan."""
         cap = ctx.chunk_capacity
         table = self.table
+        # count as an open scan for the staging window: raw-tail slices
+        # and live_mask reads hit the table's live arrays lock-free, so
+        # a CLUSTER BY permute must refuse until _release_staging runs
+        guard = getattr(table, "txn_guard", None)
+        if guard is not None and not getattr(
+                self, "_staged_scan_counted", False):
+            guard.scan_enter()
+            self._staged_scan_counted = True
         jobs = []
         tail_start = 0
         self._seg_cap = None
@@ -484,7 +495,8 @@ class _StagedScanMixin:
             store = store_for(
                 table, segment_rows=ctx.segment_rows,
                 delta_rows=ctx.segment_delta_rows,
-                spill_dir=ctx.columnar_spill_dir or None)
+                spill_dir=ctx.columnar_spill_dir or None,
+                compaction=ctx.compaction_enable)
             if store is not None:
                 self._pin = ScanPin(store, ctx.mem_tracker)
                 segs, pruned, covered = store.plan_scan(self.prune_bounds, pin=self._pin)

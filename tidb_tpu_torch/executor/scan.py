@@ -32,7 +32,8 @@ from tidb_tpu_torch.planner.binder import PlanCol
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["TableScanExec", "make_pipeline_fn", "SelectionExec",
-           "ProjectionExec", "stage", "PointGetExec", "IndexRangeScanExec"]
+           "ProjectionExec", "stage", "PointGetExec", "RowIdScanExec",
+           "IndexRangeScanExec", "PartitionScanExec"]
 
 
 def make_pipeline_fn(stages: List) -> Callable:
@@ -84,10 +85,21 @@ class TableScanExec(Executor):
         self._seg_i = 0
         self._seg_fn = None
         self._pin = None
+        self._scan_counted = False
+
+    def _count_scan(self) -> None:
+        """Register as a lock-free reader of the table's live arrays for
+        the scan's whole lifetime (point/index paths hold physical row
+        ids): a CLUSTER BY permute refuses while any scan is counted."""
+        guard = getattr(self.table, "txn_guard", None)
+        if guard is not None and not self._scan_counted:
+            guard.scan_enter()
+            self._scan_counted = True
 
     def open(self, ctx: ExecContext) -> None:
         self.ctx = ctx
         cap = ctx.chunk_capacity
+        self._count_scan()
         self._fn = make_pipeline_fn(self.stages) if self.stages else None
         self._seg_chunks = []
         self._seg_i = 0
@@ -115,7 +127,8 @@ class TableScanExec(Executor):
         store = store_for(
             self.table, segment_rows=ctx.segment_rows,
             delta_rows=ctx.segment_delta_rows,
-            spill_dir=ctx.columnar_spill_dir or None)
+            spill_dir=ctx.columnar_spill_dir or None,
+            compaction=ctx.compaction_enable)
         if store is None:
             return 0
         # the pin exists BEFORE planning so every snapshot segment is
@@ -168,6 +181,9 @@ class TableScanExec(Executor):
         if self._pin is not None:
             self._pin.close()
             self._pin = None
+        if self._scan_counted:
+            self._scan_counted = False
+            self.table.txn_guard.scan_exit()
         super().close()
 
     def next(self) -> Optional[Chunk]:
@@ -234,6 +250,7 @@ class PointGetExec(TableScanExec):
         # slice plan, only the looked-up rows
         Executor.open(self, ctx)
         self.ctx = ctx
+        self._count_scan()
         self._fn = make_pipeline_fn(self.stages) if self.stages else None
         self._rows = self.table.index_lookup(
             self.index_name, self.key_values,
@@ -290,35 +307,64 @@ class PointGetExec(TableScanExec):
         return chunk
 
 
-class IndexRangeScanExec(PointGetExec):
+class RowIdScanExec(PointGetExec):
+    """Base for access paths that resolve to a compact row-id set
+    (index ranges, pruned partitions) and stage only those rows (ref:
+    executor's IndexLookUpExecutor index->table double read). Rows
+    stream in chunk_capacity batches, so a wide set behaves like a
+    pre-filtered scan, not one giant gather."""
+
+    def __init__(self, schema, table, stages, out_schema=None):
+        super().__init__(schema, table, stages, None, (), out_schema)
+
+    def _row_ids(self, ctx: ExecContext) -> np.ndarray:
+        raise NotImplementedError
+
+    def open(self, ctx: ExecContext) -> None:
+        Executor.open(self, ctx)
+        self.ctx = ctx
+        self._count_scan()
+        self._fn = make_pipeline_fn(self.stages) if self.stages else None
+        rows = self._row_ids(ctx)
+        self._rows = rows
+        cap = ctx.chunk_capacity
+        self._slices = [(s, min(s + cap, len(rows)))
+                        for s in range(0, len(rows), cap)] or [(0, 0)]
+        self._i = 0
+
+
+class IndexRangeScanExec(RowIdScanExec):
     """Index range access: binary-search the sorted index cache into a
-    compact row-id set and stage only those rows (ref: executor's
-    IndexLookUpExecutor index->table double read). Rows stream in
-    chunk_capacity batches, so a wide set behaves like a pre-filtered
-    scan, not one giant gather."""
+    compact row-id set."""
 
     def __init__(self, schema, table, stages, index_name, eq_values,
                  range_lo, range_hi, lo_incl, hi_incl, out_schema=None):
-        super().__init__(schema, table, stages, index_name, (), out_schema)
+        super().__init__(schema, table, stages, out_schema)
+        self.index_name = index_name
         self.eq_values = eq_values
         self.range_lo = range_lo
         self.range_hi = range_hi
         self.lo_incl = lo_incl
         self.hi_incl = hi_incl
 
-    def open(self, ctx: ExecContext) -> None:
-        Executor.open(self, ctx)
-        self.ctx = ctx
-        self._fn = make_pipeline_fn(self.stages) if self.stages else None
-        rows = self.table.index_range_lookup(
+    def _row_ids(self, ctx: ExecContext) -> np.ndarray:
+        return self.table.index_range_lookup(
             self.index_name, self.eq_values, self.range_lo, self.range_hi,
             self.lo_incl, self.hi_incl,
             read_ts=ctx.read_ts, marker=ctx.txn_marker)
-        self._rows = rows
-        cap = ctx.chunk_capacity
-        self._slices = [(s, min(s + cap, len(rows)))
-                        for s in range(0, len(rows), cap)] or [(0, 0)]
-        self._i = 0
+
+
+class PartitionScanExec(RowIdScanExec):
+    """Pruned partitioned-table access: reads only the matching
+    partitions' cached row ids (storage/table.py partition_rows)."""
+
+    def __init__(self, schema, table, stages, part_ids, out_schema=None):
+        super().__init__(schema, table, stages, out_schema)
+        self.part_ids = part_ids
+
+    def _row_ids(self, ctx: ExecContext) -> np.ndarray:
+        return self.table.partition_rows(
+            self.part_ids, read_ts=ctx.read_ts, marker=ctx.txn_marker)
 
 
 class SelectionExec(Executor):

@@ -4,10 +4,11 @@ tidb_tpu/storage/catalog.py).
 In-memory and schema-versioned (a schema change clears the device buffer
 cache), with the timestamp oracle every table stamps its commits from,
 the open-transaction registry (the GC safepoint), the 2PC status records
-lock resolution finishes crashed commits from, and MVCC GC. Not yet
-ported: information_schema, users and privileges, plugins, bindings, the
-DDL owner and job queue, the plan cache, statement summaries, the reader
-registry of CLUSTER BY recluster and auto-analyze.
+lock resolution finishes crashed commits from, MVCC GC, foreign-key
+wiring, RENAME TABLE and the lock-free reader registry that CLUSTER BY
+permutes wait on. Not yet ported: information_schema, users and
+privileges, plugins, bindings, the DDL owner and job queue, the plan
+cache, statement summaries and auto-analyze.
 """
 
 from __future__ import annotations
@@ -49,6 +50,20 @@ class Catalog:
         # 2PC status records: marker -> ("committed", ts) | ("aborted", 0)
         # present only between commit/abort point and secondary completion
         self._txn_status: Dict[int, tuple] = {}
+        # lock-free reader registry (CLUSTER BY recluster): autocommit
+        # SELECTs never enter _open_txns, yet a CLUSTER BY permute moves
+        # the physical rows they read without any lock. Statements
+        # register their execution window here (reader_enter/exit), scan
+        # executors additionally count open scans (scan_enter/exit), and
+        # recluster runs ONLY while this registry is quiescent, holding
+        # _readers_lock so no new reader can start mid-permute. Order:
+        # Catalog.lock -> _readers_lock.
+        self._readers_lock = threading.Lock()
+        self._stmt_readers: Dict[int, int] = {}  # thread ident -> depth
+        self._open_scans = 0
+        # SegmentStores whose CLUSTER BY permute is due; performed at
+        # the next quiescent statement boundary (run_pending_reclusters)
+        self._recluster_pending: list = []
 
     @property
     def schema_version(self) -> int:
@@ -96,6 +111,69 @@ class Catalog:
     def end_txn(self, marker: int) -> None:
         self._open_txns.pop(marker, None)
 
+    # -- lock-free reader registry (CLUSTER BY permute safety) --------------
+    # Readers of the live column arrays take no lock (the MVCC design:
+    # committed rows are stable under concurrent APPENDS). A physical
+    # permute breaks that invariant, so it may only run while nothing is
+    # reading: statements bracket themselves with reader_enter/exit, scan
+    # executors (and the paged cursors that outlive a statement) with
+    # scan_enter/exit, and run_pending_reclusters refuses unless both
+    # counts are zero — holding _readers_lock across the permute so no
+    # new reader can begin mid-move.
+
+    def reader_enter(self) -> None:
+        ident = threading.get_ident()
+        with self._readers_lock:
+            self._stmt_readers[ident] = self._stmt_readers.get(ident, 0) + 1
+
+    def reader_exit(self) -> None:
+        ident = threading.get_ident()
+        with self._readers_lock:
+            d = self._stmt_readers.get(ident, 0) - 1
+            if d <= 0:
+                self._stmt_readers.pop(ident, None)
+            else:
+                self._stmt_readers[ident] = d
+
+    def scan_enter(self) -> None:
+        with self._readers_lock:
+            self._open_scans += 1
+
+    def scan_exit(self) -> None:
+        with self._readers_lock:
+            self._open_scans = max(self._open_scans - 1, 0)
+
+    def note_recluster_due(self, store) -> None:
+        """A scan noticed a CLUSTER BY permute is due (fold cadence).
+        Queue it; the permute runs at a statement boundary, never on the
+        reader path that noticed it."""
+        with self._readers_lock:
+            if store not in self._recluster_pending:
+                self._recluster_pending.append(store)
+
+    def run_pending_reclusters(self) -> None:
+        """Perform queued CLUSTER BY permutes if the world is quiescent
+        (no open txns, no registered statement windows, no open scans).
+        Called at statement boundaries with the calling thread NOT
+        registered. Stores whose permute still refuses (e.g. another
+        session's open txn) stay queued for a later boundary."""
+        if not self._recluster_pending:
+            return
+        with self.lock:
+            if self._open_txns:
+                return
+            done = []
+            with self._readers_lock:
+                if self._stmt_readers or self._open_scans:
+                    return
+                # _readers_lock HELD across the permute: a new reader
+                # blocks in reader_enter until rows stop moving
+                for store in self._recluster_pending:
+                    if store.recluster_now(quiesced=True):
+                        done.append(store)
+            for store in done:
+                self._recluster_pending.remove(store)
+
     # -- 2PC status records (the Percolator primary; ref: txn status in
     # TiKV consulted by lock resolution) ------------------------------------
 
@@ -137,7 +215,7 @@ class Catalog:
                         t.txn_commit(marker, ts)
                     else:
                         t.txn_rollback(marker)
-                    # next slice: crashed FOR UPDATE locks release here
+                    t.release_locks(marker)  # crashed FOR UPDATE locks
             self.finish_txn(marker)
             n += 1
         return n
@@ -204,7 +282,8 @@ class Catalog:
     # -- tables ------------------------------------------------------------
 
     def create_table(self, db: str, schema: TableSchema,
-                     if_not_exists: bool = False) -> Table:
+                     if_not_exists: bool = False,
+                     foreign_keys=None) -> Table:
         d = self.database(db)
         if schema.name in d.tables:
             if if_not_exists:
@@ -216,9 +295,61 @@ class Catalog:
             raise DuplicateTableError(f"view {schema.name!r} exists")
         t = Table(schema)
         t.ts_source = self.next_ts
+        t.txn_guard = self  # recluster's writer-lock + open-txn gate
+        # two-pass: every FK spec must RESOLVE before any back-edge is
+        # written; a failure after partial wiring would leave phantom
+        # references blocking DROP of the parents forever
+        resolved = [self._resolve_foreign_key(db, t, spec)
+                    for spec in foreign_keys or ()]
+        for parent, fk in resolved:
+            t.foreign_keys.append(fk)
+            parent.referencing.append((t, fk))
         d.tables[schema.name] = t
         self.schema_version += 1
         return t
+
+    def _resolve_foreign_key(self, db: str, child, spec):
+        """Resolve one FOREIGN KEY spec (multi-column, with referential
+        actions; ref: ddl foreign-key jobs) WITHOUT mutating anything.
+        The referenced column list must carry a matching unique index —
+        the same requirement MySQL effectively imposes for well-defined
+        parent probes."""
+        from tidb_tpu_torch.storage.table import FKInfo
+
+        cols, ref, ref_cols = spec[:3]
+        on_delete = spec[3] if len(spec) > 3 else "restrict"
+        on_update = spec[4] if len(spec) > 4 else "restrict"
+        if len(cols) != len(ref_cols) or not cols:
+            raise SchemaError(
+                "FOREIGN KEY column count must match REFERENCES")
+        for c in cols:
+            child.schema.col(c)  # raises if absent
+        parent = self.table(ref.schema or db, ref.name)
+        for c in ref_cols:
+            parent.schema.col(c)
+        unique_on_ref = any(
+            ix.unique and ix.columns == list(ref_cols)
+            for ix in parent.indexes.values())
+        if not unique_on_ref:
+            raise SchemaError(
+                f"foreign key target {ref.name}.({', '.join(ref_cols)}) "
+                "must be a PRIMARY KEY or matching UNIQUE index")
+        for c, pc in zip(cols, ref_cols):
+            cc, pcc = child.schema.col(c), parent.schema.col(pc)
+            if (cc.type_.is_dict_encoded and pcc.type_.is_dict_encoded
+                    and cc.coll != pcc.coll):
+                # FK matching compares fold keys; mixed collations would
+                # compare apples to oranges (MySQL requires identical
+                # collations on FK column pairs too)
+                raise SchemaError(
+                    f"foreign key column {c!r} collation {cc.coll!r} must "
+                    f"match referenced {pc!r} collation {pcc.coll!r}")
+        fk = FKInfo(columns=list(cols), parent=parent,
+                    parent_cols=list(ref_cols),
+                    name=f"fk_{child.schema.name}_{'_'.join(cols)}",
+                    parent_db=ref.schema or db,
+                    on_delete=on_delete, on_update=on_update)
+        return parent, fk
 
     def drop_table(self, db: str, name: str, if_exists: bool = False):
         d = self.database(db)
@@ -226,9 +357,17 @@ class Catalog:
             if if_exists:
                 return
             raise SchemaError(f"no table {db}.{name}")
+        t = d.tables[name]
+        if any(child is not t for child, _fk in t.referencing):
+            raise SchemaError(
+                f"cannot drop {name!r}: referenced by a foreign key")
+        # a dropped child releases its back-edges on every parent
+        for fk in t.foreign_keys:
+            fk.parent.referencing = [
+                (c, f) for c, f in fk.parent.referencing if c is not t]
         # columnar segment store: release spilled payloads promptly (a
         # weakref finalizer on the store backstops tables dropped by GC)
-        store = getattr(d.tables[name], "_segment_store", None)
+        store = getattr(t, "_segment_store", None)
         if store is not None:
             try:
                 store.close()
@@ -253,3 +392,16 @@ class Catalog:
     def view(self, db: str, name: str):
         d = self.databases.get(db)
         return d.views.get(name) if d is not None else None
+
+    def rename_table(self, db: str, old: str, new: str):
+        d = self.database(db)
+        if old not in d.tables:
+            raise SchemaError(f"no table {db}.{old}")
+        if new in d.tables:
+            raise DuplicateTableError(f"table {new!r} exists")
+        if new in d.views:
+            raise DuplicateTableError(f"view {new!r} exists")
+        t = d.tables.pop(old)
+        t.schema.name = new
+        d.tables[new] = t
+        self.schema_version += 1

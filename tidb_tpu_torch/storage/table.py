@@ -18,11 +18,14 @@ Layout decisions (device-first):
   * MVCC writes: DELETE ends rows at a commit ts or a txn marker, UPDATE
     ends the old versions and appends new ones; commit/rollback rewrite
     the markers of the rows a `TableTxnLog` recorded
+  * constraints on every write: FOREIGN KEY (with its referential
+    actions), CHECK, generated columns and the RANGE partition bound;
+    pessimistic row locks (FOR UPDATE/SHARE) block other writers
+  * column DDL (ADD/DROP/MODIFY COLUMN, online-DDL write_only states)
+  * CLUSTER BY: `recluster` physically re-sorts the rows by the cluster
+    column (stable, NULLs first) so the segment store's zone maps prune
 
-Not yet ported (the next slice): foreign keys, CHECK constraints,
-generated columns, partitions, pessimistic row locks (FOR UPDATE),
-online DDL, ANALYZE's NDV sketches and CLUSTER BY recluster. Their hooks
-sit where the reference calls them, marked "next slice".
+Not ported: ANALYZE's NDV sketches (`_sketch_insert`).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from tidb_tpu_torch.types import (
 )
 
 __all__ = ["ColumnInfo", "TableSchema", "Table", "TableTxnLog", "IndexInfo",
+           "FKInfo", "GeneratedInfo", "CheckInfo", "PartitionInfo",
            "TXN_TS_BASE", "MAX_TS"]
 
 
@@ -96,6 +100,58 @@ class ColumnInfo:
 
 
 @dataclass
+class FKInfo:
+    """A FOREIGN KEY constraint: multi-column, with referential actions.
+    `parent` is the referenced Table object (wired by the catalog at
+    CREATE time), whose `referencing` list holds the back-edge for
+    parent-side checks/actions. NULL matching is MySQL's simple match: a
+    child row with ANY NULL component passes."""
+
+    columns: List[str]
+    parent: object          # storage Table of the referenced table
+    parent_cols: List[str]
+    name: str = ""
+    parent_db: str = ""     # the parent's database
+    on_delete: str = "restrict"   # restrict | cascade | set_null
+    on_update: str = "restrict"
+
+    @property
+    def column(self) -> str:  # single-column convenience (display)
+        return self.columns[0]
+
+    @property
+    def parent_col(self) -> str:
+        return self.parent_cols[0]
+
+
+@dataclass
+class GeneratedInfo:
+    """A generated column (MySQL GENERATED ALWAYS AS): `fn` is the
+    compiled chunk->Column evaluator over the row's other columns, bound
+    at DDL time like CHECK constraints. STORED and VIRTUAL are both
+    materialized at write time (a columnar engine reads columns, not
+    rows)."""
+
+    col: str
+    fn: object
+    cols: List[str]
+    sql: str
+    stored: bool = True
+
+
+@dataclass
+class CheckInfo:
+    """A CHECK constraint: bound predicate over this table's columns
+    (uids == column names), compiled once at DDL time. A row violates
+    only when the predicate is FALSE; NULL/UNKNOWN passes."""
+
+    name: str
+    pred: object          # compiled chunk -> Column evaluator
+    cols: List[str]
+    sql: str
+
+
+@dataclass
 class IndexInfo:
     """Secondary index metadata. Unique indexes are ENFORCED on every
     write (ref: the reference's index KV records + unique-key checks);
@@ -106,8 +162,44 @@ class IndexInfo:
     name: str
     columns: List[str]
     unique: bool = False
-    # next slice: online DDL's index state ("write_only": maintained and
-    # enforced on writes, invisible to the planner's access paths)
+    # online-DDL state: "write_only" indexes are maintained/enforced on
+    # every write but invisible to the planner's access paths until the
+    # backfill validates existing rows and flips them public
+    state: str = "public"
+
+
+@dataclass
+class PartitionInfo:
+    """Logical table partitioning (MySQL PARTITION BY RANGE/HASH; the
+    planner prunes partitions). RANGE: partition i holds rows with
+    uppers[i-1] <= col < uppers[i] (None = MAXVALUE). HASH: pid = value
+    % n_parts (NULL rows land in partition 0, like MySQL)."""
+
+    kind: str                     # "range" | "hash"
+    column: str
+    names: List[str] = field(default_factory=list)
+    uppers: List[Optional[int]] = field(default_factory=list)  # range
+    n_parts: int = 0              # hash
+
+    def count(self) -> int:
+        return len(self.names) if self.kind == "range" else self.n_parts
+
+    def part_name(self, pid: int) -> str:
+        if self.kind == "range":
+            return self.names[pid]
+        return f"p{pid}"
+
+    def ids_of_values(self, vals: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Partition id per value. Without a MAXVALUE partition the
+        returned id can equal count(): an overflow the write path
+        rejects (_check_partition)."""
+        v = np.where(valid, vals.astype(np.int64), 0)
+        if self.kind == "hash":
+            return np.where(valid, v % max(self.n_parts, 1), 0)
+        bounds = np.array(
+            [u for u in self.uppers if u is not None], dtype=np.int64)
+        pid = np.searchsorted(bounds, v, side="right")
+        return np.where(valid, pid, 0)
 
 
 @dataclass
@@ -117,11 +209,13 @@ class TableSchema:
     primary_key: Optional[List[str]] = None
     # table default COLLATE (applied to columns that declare none)
     collation: Optional[str] = None
-    # PARTITION BY / SHARD BY metadata: not yet ported, always None
-    partition: Optional[object] = None
+    # PARTITION BY metadata; None = unpartitioned
+    partition: Optional[PartitionInfo] = None
+    # SHARD BY metadata waits for the multi-device tier: always None
     shard_by: Optional[object] = None
-    # CLUSTER BY column: recorded for the columnar store, which is not yet
-    # ported; scans read rows in ingest order
+    # CLUSTER BY column: delta->segment compaction keeps the table
+    # physically sorted by this column (ASC, NULLs first) so the columnar
+    # store's zone maps prune range filters; None = no ordered compaction
     cluster_by: Optional[str] = None
 
     def col(self, name: str) -> ColumnInfo:
@@ -178,6 +272,14 @@ class Table:
         # `version` alone moves on every DML and cannot tell an append
         # from a rewrite.
         self.data_epoch = 0
+        # CLUSTER BY watermark: leading physical rows known to be in
+        # cluster order. Appends grow `n` past it (the delta is
+        # unordered); recluster() advances it to `n`. Order-preserving
+        # rewrites (gc's mask compaction) keep a full watermark valid.
+        self.clustered_rows = 0
+        # owning catalog (set by create_table): recluster() takes its
+        # writer lock and consults its open-txn and reader registries
+        self.txn_guard = None
         # the columnar segment store (tidb_tpu_torch/columnar/store.py),
         # made by the first scan once the table holds a segment of rows
         self._segment_store = None
@@ -212,6 +314,22 @@ class Table:
         # rows provisionally ended per open txn marker (REPLACE/upsert
         # re-insert freedom + O(dead) instead of O(n) scans)
         self._txn_dead: Dict[int, list] = {}
+        # FOREIGN KEY constraints: this table's child-side FKs, and
+        # back-edges from tables whose FKs reference THIS table
+        self.foreign_keys: List[FKInfo] = []
+        self.referencing: List[tuple] = []  # (child Table, FKInfo)
+        # fk-check cache: cols -> (version, live key set / sorted array)
+        self._fk_keys: Dict[tuple, tuple] = {}
+        # CHECK constraints (CheckInfo), wired by the session at DDL time
+        self.checks: List[CheckInfo] = []
+        # generated columns (GeneratedInfo), wired at DDL time; computed
+        # on every write before constraints run
+        self.generated: List[GeneratedInfo] = []
+        # pessimistic row locks from SELECT ... FOR UPDATE / SHARE:
+        # rid -> {txn marker: "x"|"s"}. Guarded by the catalog lock like
+        # every mutation; writers check it in _writable_mask,
+        # commit/rollback release by marker.
+        self.row_locks: Dict[int, Dict[int, str]] = {}
 
     def _next_ts(self) -> int:
         if self.ts_source is not None:
@@ -334,7 +452,10 @@ class Table:
                 else:
                     self.data[c.name][start:end] = dv
                     self.valid[c.name][start:end] = True
-            elif c.not_null:
+            elif c.not_null and not any(
+                    g.col == c.name for g in self.generated):
+                # generated columns compute below (_apply_generated),
+                # so NOT NULL on them never needs a default
                 raise ExecutionError(f"column {c.name!r} has no default and is NOT NULL")
             # else: stays NULL
         for j, (name, c) in enumerate(zip(names, cols)):
@@ -357,12 +478,12 @@ class Table:
         # something in this table (REPLACE / upsert flows)
         in_txn = begin_ts is not None and begin_ts >= TXN_TS_BASE
         txn_deleted = log is not None and bool(log.ended)
-        # next slice: generated columns (_apply_generated) compute here
+        self._apply_generated(start, end)
         self._enforce_unique_new(
             start, end, marker=begin_ts if in_txn and txn_deleted else None)
-        # next slice: FK parents, CHECK constraints and the partition
-        # bound (_check_fk_parents, _check_row_constraints,
-        # _check_partition) validate here
+        self._check_fk_parents(start, end)
+        self._check_row_constraints(start, end)
+        self._check_partition(start, end)
         # before n advances: a violation leaves the table untouched
         self.begin_ts[start:end] = self._next_ts() if begin_ts is None else begin_ts
         self.end_ts[start:end] = MAX_TS
@@ -397,15 +518,320 @@ class Table:
                     self.valid[name][start:end] = valids[name]
                 else:
                     self.valid[name][start:end] = True
-            elif c.not_null:
+            elif c.not_null and not any(
+                    g.col == c.name for g in self.generated):
                 raise ExecutionError(f"bulk insert missing NOT NULL column {name!r}")
+        self._apply_generated(start, end)
         self._enforce_unique_new(start, end)
+        self._check_fk_parents(start, end)
+        self._check_row_constraints(start, end)
+        self._check_partition(start, end)
         self.begin_ts[start:end] = 0  # bulk loads are committed "at origin"
         self.end_ts[start:end] = MAX_TS
         self.n = end
         self.version += 1
         self._uniq_commit()
         return m
+
+    # -- foreign keys ------------------------------------------------------
+
+    def _fk_decode(self, col: str, vals: np.ndarray,
+                   fold: bool = True) -> np.ndarray:
+        """Decode this table's values of `col` for cross-table FK
+        comparison: the collation FOLD KEY for dict columns (so 'abc'
+        matches a parent's 'ABC' under _ci; canonical codes are
+        table-local and must never cross tables), raw otherwise.
+        fold=False decodes the raw stored strings, what a cascade WRITE
+        must use, or a _ci cascade would lowercase the child's data."""
+        dic = self.dicts.get(col)
+        if dic is None:
+            return vals
+        if not fold:
+            return np.array(
+                [dic.values[int(c)] for c in vals], dtype=object)
+        return np.array(
+            [dic.fold(dic.values[int(c)]) for c in vals], dtype=object)
+
+    def _fk_tuples(self, cols: List[str], rows: np.ndarray):
+        """(key tuples, all-components-valid mask) at `rows`: MySQL's
+        simple match, a row with ANY NULL component never participates."""
+        ok = np.ones(len(rows), dtype=np.bool_)
+        for c in cols:
+            ok &= self.valid[c][rows]
+        sel = rows[ok]
+        decoded = [self._fk_decode(c, self.data[c][sel]) for c in cols]
+        return list(zip(*decoded)) if len(sel) else [], ok
+
+    def _live_key_tuples(self, cols: List[str]) -> set:
+        """Key-tuple set of present rows (the parent side of an FK
+        probe), cached per version; values are decoded so they compare
+        across tables."""
+        key = tuple(cols)
+        hit = self._fk_keys.get(key)
+        if hit is not None and hit[0] == self.version:
+            return hit[1]
+        present = np.nonzero(self._present_mask())[0]
+        tuples, _ok = self._fk_tuples(cols, present)
+        keys = set(tuples)
+        self._fk_keys[key] = (self.version, keys)
+        return keys
+
+    def _live_key_array(self, col: str) -> np.ndarray:
+        """Single-column vectorized variant of _live_key_tuples: sorted
+        unique decoded values of present rows, cached per version, so
+        the common one-column FK probe stays on np.isin."""
+        key = (col, "arr")
+        hit = self._fk_keys.get(key)
+        if hit is not None and hit[0] == self.version:
+            return hit[1]
+        present = self._present_mask()
+        vals = self.data[col][: self.n][present & self.valid[col][: self.n]]
+        keys = np.unique(vals)
+        dic = self.dicts.get(col)
+        if dic is not None:
+            keys = np.unique(np.array(
+                [dic.fold(dic.values[int(c)]) for c in keys], dtype=object))
+        self._fk_keys[key] = (self.version, keys)
+        return keys
+
+    def _check_fk_parents(self, start: int, end: int,
+                          cols: Optional[set] = None,
+                          fks=None, live_only: bool = False) -> None:
+        """Every fully-non-NULL FK key in rows [start, end) must exist
+        in its parent (RESTRICT on the child write). Raises BEFORE the
+        rows become visible. `fks` restricts to specific constraints and
+        `live_only` to present row versions (ALTER TABLE ADD FOREIGN KEY
+        checking existing data)."""
+        rows = np.arange(start, end)
+        if live_only:
+            rows = rows[self._present_mask()[start:end]]
+        for fk in (fks if fks is not None else self.foreign_keys):
+            if cols is not None and not (set(fk.columns) & cols):
+                continue
+            if len(fk.columns) == 1:
+                # vectorized single-column fast path (the common case)
+                c = fk.columns[0]
+                vd = self.valid[c][rows]
+                vals = self._fk_decode(c, self.data[c][rows][vd])
+                if not len(vals):
+                    continue
+                keys = fk.parent._live_key_array(fk.parent_cols[0])
+                ok = np.isin(vals, keys)
+                if not ok.all():
+                    raise ExecutionError(
+                        f"foreign key {fk.name or fk.column!r} violation: "
+                        f"{vals[~ok][0]!r} not present in "
+                        f"{fk.parent.schema.name}.{fk.parent_cols[0]}")
+                continue
+            tuples, _ok = self._fk_tuples(fk.columns, rows)
+            if not tuples:
+                continue
+            keys = fk.parent._live_key_tuples(fk.parent_cols)
+            for t in tuples:
+                if t not in keys:
+                    raise ExecutionError(
+                        f"foreign key {fk.name or fk.column!r} violation: "
+                        f"{t if len(t) > 1 else t[0]!r} not present in "
+                        f"{fk.parent.schema.name}"
+                        f".({', '.join(fk.parent_cols)})")
+
+    def _fk_referencing_rows(self, cols: List[str], keys: set) -> np.ndarray:
+        """Present row ids whose (fully non-NULL) FK tuple is in `keys`."""
+        present = np.nonzero(self._present_mask())[0]
+        if len(cols) == 1:
+            c = cols[0]
+            vd = self.valid[c][present]
+            sel = present[vd]
+            if not len(sel):
+                return np.zeros(0, dtype=np.int64)
+            vals = self._fk_decode(c, self.data[c][sel])
+            # decoded strings compare as objects; numbers keep the column's
+            # dtype, so np.isin sorts instead of comparing object by object
+            karr = np.array([k[0] for k in keys], dtype=vals.dtype)
+            return sel[np.isin(vals, karr)]
+        tuples, ok = self._fk_tuples(cols, present)
+        sel = present[ok]
+        if not tuples:
+            return np.zeros(0, dtype=np.int64)
+        hit = np.fromiter((t in keys for t in tuples), dtype=np.bool_,
+                          count=len(tuples))
+        return sel[hit]
+
+    def _fk_tuples_aligned(self, cols: List[str], rows: np.ndarray,
+                           fold: bool = True):
+        """Row-aligned key tuples with None for NULL components.
+        fold=True yields comparison keys; fold=False the raw values."""
+        out = []
+        for i in rows.tolist():
+            t = []
+            for c in cols:
+                if self.valid[c][i]:
+                    t.append(self._fk_decode(
+                        c, self.data[c][i:i + 1], fold=fold)[0])
+                else:
+                    t.append(None)
+            out.append(tuple(t))
+        return out
+
+    def _check_fk_children(self, ids: np.ndarray, *, action: str = "delete",
+                           end_ts=None, marker: int = 0, log_for=None,
+                           new_rows: Optional[np.ndarray] = None,
+                           depth: int = 0, phase: str = "both") -> None:
+        """Rows `ids` are about to be deleted (action="delete") or have
+        their key columns rewritten (action="update", `new_rows` holding
+        the new versions). Applies each child FK's referential action:
+        restrict raises, cascade deletes/updates the child rows
+        (recursively, bounded like MySQL's 15-level cascade limit),
+        set_null NULLs the child key columns. `log_for` maps a child
+        Table to its TableTxnLog so cascaded writes stay inside the
+        caller's transaction."""
+        if not self.referencing or not len(ids):
+            return
+        if depth > 15:
+            raise ExecutionError("foreign key cascade depth exceeded")
+        for child, fk in list(self.referencing):
+            act = fk.on_delete if action == "delete" else fk.on_update
+            # phase="pre" runs BEFORE the parent mutation (abort-early
+            # restrict checks); phase="post" runs after the parent's new
+            # versions are visible, so a cascaded child write re-checks
+            # its FK against the UPDATED parent keys
+            if phase == "pre" and act != "restrict":
+                continue
+            if phase == "post" and act == "restrict":
+                continue
+            tuples, _ok = self._fk_tuples(fk.parent_cols, ids)
+            keys = set(tuples)
+            if not keys:
+                continue
+            rows = child._fk_referencing_rows(fk.columns, keys)
+            if not len(rows):
+                continue
+            if act == "restrict":
+                hit_c, _ok = child._fk_tuples(fk.columns, rows[:1])
+                bad = hit_c[0] if hit_c else "?"
+                raise ExecutionError(
+                    f"cannot delete or update {self.schema.name!r} row: "
+                    f"key {bad if len(fk.columns) > 1 else bad[0]!r} is "
+                    f"referenced by "
+                    f"{child.schema.name}.({', '.join(fk.columns)})")
+            clog = log_for(child) if log_for is not None else None
+            if act == "set_null":
+                for c in fk.columns:
+                    if child.schema.col(c).not_null:
+                        raise ExecutionError(
+                            f"FK {fk.name!r} ON {action.upper()} SET NULL: "
+                            f"{child.schema.name}.{c} is NOT NULL")
+                child.update_rows(
+                    rows, {c: [None] * len(rows) for c in fk.columns},
+                    begin_ts=marker or None, end_ts=end_ts if marker else None,
+                    marker=marker, log=clog, log_for=log_for,
+                    _fk_depth=depth + 1)
+            elif act == "cascade" and action == "delete":
+                child.delete_rows(rows, end_ts=end_ts, marker=marker,
+                                  log=clog, log_for=log_for,
+                                  _fk_depth=depth + 1)
+            elif act == "cascade":  # update: rewrite child keys old->new
+                # match on FOLD keys (how the referencing rows were
+                # found), but write the parent's RAW new values: a _ci
+                # cascade must not replace 'BOB' with its fold 'bob'
+                old_al = self._fk_tuples_aligned(fk.parent_cols, ids)
+                new_raw = self._fk_tuples_aligned(
+                    fk.parent_cols,
+                    new_rows if new_rows is not None else ids, fold=False)
+                new_keys = {o: n for o, n in zip(old_al, new_raw)
+                            if None not in o}
+                tuples_c, ok_c = child._fk_tuples(fk.columns, rows)
+                rows_ok = rows[ok_c]
+                raw_c = child._fk_tuples_aligned(fk.columns, rows_ok,
+                                                 fold=False)
+                updates = {c: [] for c in fk.columns}
+                for t, raw in zip(tuples_c, raw_c):
+                    # unmatched keys keep the child's own raw value
+                    nt = new_keys.get(t, raw)
+                    for c, v in zip(fk.columns, nt):
+                        updates[c].append(v)
+                child.update_rows(
+                    rows_ok, updates,
+                    begin_ts=marker or None, end_ts=end_ts if marker else None,
+                    marker=marker, log=clog, log_for=log_for,
+                    _fk_depth=depth + 1)
+
+    # -- generated columns and CHECK constraints ---------------------------
+
+    def _eval_rows(self, fn, cols: List[str], start: int, end: int):
+        """Run a compiled chunk->Column evaluator over buffer rows
+        [start, end); returns host (data, valid). The write path is host
+        work in both packages (the reference evaluates these under its
+        host_eager scope), so the evaluator runs on CPU tensors whatever
+        the session's device: this is the write path's own placement,
+        not a fallback from the card."""
+        import torch
+
+        from tidb_tpu_torch.chunk.chunk import Chunk
+        from tidb_tpu_torch.chunk.column import Column
+
+        n = end - start
+        cap = 8
+        while cap < n:
+            cap *= 2
+        cs = {}
+        for cname in cols:
+            t = self.schema.col(cname).type_
+            cs[cname] = Column.from_numpy(
+                self.data[cname][start:end], t,
+                valid=self.valid[cname][start:end], capacity=cap,
+                device="cpu")
+        sel = torch.arange(cap) < n
+        col = fn(Chunk(cs, sel))
+        return col.data[:n].numpy(), col.valid[:n].numpy()
+
+    def _apply_generated(self, start: int, end: int) -> None:
+        """Materialize generated columns for buffer rows [start, end)
+        from their source columns, BEFORE uniqueness/CHECK/FK
+        validation, which may reference them."""
+        if not self.generated:
+            return
+        for gen in self.generated:
+            data, valid = self._eval_rows(gen.fn, gen.cols, start, end)
+            col = self.schema.col(gen.col)
+            if col.not_null and not valid.all():
+                raise ExecutionError(
+                    f"generated column {gen.col!r} computed NULL but is "
+                    "declared NOT NULL")
+            self.data[gen.col][start:end] = data.astype(
+                col.type_.np_dtype, copy=False)
+            self.valid[gen.col][start:end] = valid
+
+    def insertable_names(self) -> List[str]:
+        """Positional-INSERT width: public columns minus generated ones
+        (their values are never supplied; omitting the slot keeps old
+        writers working)."""
+        gen = {g.col for g in self.generated}
+        return [n for n in self.schema.public_names() if n not in gen]
+
+    def _check_row_constraints(self, start: int, end: int,
+                               cols: Optional[set] = None,
+                               live_only: bool = False,
+                               checks=None) -> None:
+        """CHECK constraints over rows [start, end): violation =
+        predicate FALSE (NULL passes, per SQL). `live_only` restricts to
+        present row versions (ALTER TABLE ADD CHECK validating existing
+        data must skip dead versions)."""
+        if not self.checks:
+            return
+        rows_live = None
+        if live_only:
+            rows_live = self._present_mask()[start:end]
+        for chk in (checks if checks is not None else self.checks):
+            if cols is not None and not (set(chk.cols) & cols):
+                continue
+            data, valid = self._eval_rows(chk.pred, chk.cols, start, end)
+            bad = valid & ~data.astype(bool)
+            if rows_live is not None:
+                bad &= rows_live
+            if bad.any():
+                raise ExecutionError(
+                    f"CHECK constraint {chk.name!r} violated: ({chk.sql})")
 
     def ingest_encoded(self, arrays: Dict[str, np.ndarray],
                        pools: Dict[str, list]) -> int:
@@ -480,8 +906,15 @@ class Table:
         """Mask over `ids` this write may stamp: rows already ended by
         another txn's marker (lock conflict) or by a commit (optimistic
         conflict) raise; rows already ended by OUR marker are skipped.
-        (next slice: rows pessimistically locked by another txn with
-        FOR UPDATE/SHARE conflict here too.)"""
+        Rows pessimistically locked by ANOTHER txn (FOR UPDATE/SHARE)
+        also conflict: a shared lock blocks writers too."""
+        if self.row_locks:
+            for rid in ids.tolist():
+                holders = self.row_locks.get(int(rid))
+                if holders and any(m != marker for m in holders):
+                    raise WriteConflictError(
+                        "write conflict: row locked by another "
+                        f"transaction (table {self.schema.name!r})")
         in_bounds = (ids >= 0) & (ids < self.n)
         clipped = np.clip(ids, 0, max(self.n - 1, 0))
         cur = np.where(in_bounds, self.end_ts[clipped], MAX_TS)
@@ -498,15 +931,58 @@ class Table:
             )
         return in_bounds & ~ours
 
+    def lock_conflict(self, ids: np.ndarray, marker: int, mode: str):
+        """First conflict preventing `marker` from locking `ids` in
+        `mode` ("x"|"s"), or None. Caller holds the catalog lock.
+        Conflicts: another holder when either side is exclusive, or a
+        provisional write (insert/update/delete marker) by another txn."""
+        for rid in ids.tolist():
+            holders = self.row_locks.get(int(rid))
+            if holders and any(
+                    m != marker and (mode == "x" or md == "x")
+                    for m, md in holders.items()):
+                return f"row {int(rid)} locked"
+        if len(ids):
+            in_b = (ids >= 0) & (ids < self.n)
+            cl = np.clip(ids, 0, max(self.n - 1, 0))
+            ets = np.where(in_b, self.end_ts[cl], MAX_TS)
+            bts = np.where(in_b, self.begin_ts[cl], 0)
+            prov = ((ets >= TXN_TS_BASE) & (ets < MAX_TS) & (ets != marker)) \
+                | ((bts >= TXN_TS_BASE) & (bts != marker))
+            if prov.any():
+                return f"row {int(ids[prov.argmax()])} has an uncommitted write"
+        return None
+
+    def lock_rows(self, ids: np.ndarray, marker: int, mode: str) -> None:
+        """Register `marker`'s locks over `ids` (no conflict checking:
+        call lock_conflict first, same catalog-lock hold). An existing
+        shared lock upgrades to exclusive, never downgrades."""
+        for rid in ids.tolist():
+            holders = self.row_locks.setdefault(int(rid), {})
+            if mode == "x" or holders.get(marker) != "x":
+                holders[marker] = mode
+
+    def release_locks(self, marker: int) -> None:
+        """Drop every lock `marker` holds (commit/rollback/resolve)."""
+        if not self.row_locks:
+            return
+        for rid in list(self.row_locks):
+            holders = self.row_locks[rid]
+            if holders.pop(marker, None) is not None and not holders:
+                del self.row_locks[rid]
+
     def delete_rows(self, row_ids: np.ndarray, end_ts: Optional[int] = None,
-                    marker: int = 0, log: Optional["TableTxnLog"] = None) -> int:
+                    marker: int = 0, log: Optional["TableTxnLog"] = None,
+                    log_for=None, _fk_depth: int = 0) -> int:
         """End rows' visibility at end_ts (a commit ts, or a txn marker for
-        provisional deletes). Returns count newly deleted."""
+        provisional deletes). Returns count newly deleted. `log_for`
+        maps child tables to their txn logs so ON DELETE CASCADE /
+        SET NULL writes join the caller's transaction."""
         ids = np.asarray(row_ids, dtype=np.int64)
         ids = ids[self._writable_mask(ids, marker)]
-        # next slice: the FK children's referential actions
-        # (_check_fk_children) run here, their writes joining the
-        # caller's transaction through a map of child tables to txn logs
+        self._check_fk_children(ids, action="delete", end_ts=end_ts,
+                                marker=marker, log_for=log_for,
+                                depth=_fk_depth)
         self.end_ts[ids] = self._next_ts() if end_ts is None else end_ts
         if end_ts is not None and end_ts >= TXN_TS_BASE and len(ids):
             self._txn_dead.setdefault(end_ts, []).extend(ids.tolist())
@@ -519,7 +995,8 @@ class Table:
 
     def update_rows(self, row_ids: np.ndarray, updates: Dict[str, list],
                     begin_ts: Optional[int] = None, end_ts: Optional[int] = None,
-                    marker: int = 0, log: Optional["TableTxnLog"] = None) -> int:
+                    marker: int = 0, log: Optional["TableTxnLog"] = None,
+                    log_for=None, _fk_depth: int = 0) -> int:
         """MVCC update: end the old row versions and append new versions
         carrying the updated values (ref: TiDB writes a new MVCC version
         per update; here the version chain is physical-row append)."""
@@ -565,7 +1042,7 @@ class Table:
                     else:
                         self.data[name][i] = v
                         self.valid[name][i] = True
-        # next slice: generated columns (_apply_generated) compute here
+        self._apply_generated(start, end)
         if any(ix.unique for ix in self.indexes.values()):
             # the replaced versions don't count as present for uniqueness;
             # full-scan check (the incremental cache can't express the
@@ -584,8 +1061,36 @@ class Table:
             finally:
                 self.end_ts[ids] = saved
 
-        # next slice: FK parents, CHECK constraints, the partition bound
-        # and ON UPDATE RESTRICT children validate the new versions here
+        upd_cols = set(converted)
+        try:
+            self._check_fk_parents(start, end, cols=upd_cols)
+            self._check_row_constraints(start, end, cols=upd_cols)
+            if (self.schema.partition is not None
+                    and self.schema.partition.column in upd_cols):
+                self._check_partition(start, end)
+            ref_cols = set()
+            for _c, fk in self.referencing:
+                ref_cols |= set(fk.parent_cols)
+            fk_changed = None
+            if ref_cols & upd_cols:
+                changed = np.zeros(len(ids), dtype=np.bool_)
+                for pcol in ref_cols & upd_cols:
+                    old = self.data[pcol][ids]
+                    ov = self.valid[pcol][ids]
+                    new = self.data[pcol][start:end]
+                    nv = self.valid[pcol][start:end]
+                    changed |= (ov != nv) | (ov & nv & (old != new))
+                if changed.any():
+                    fk_changed = (ids[changed].copy(),
+                                  np.arange(start, end)[changed])
+                    # abort-early half: ON UPDATE RESTRICT children
+                    self._check_fk_children(
+                        fk_changed[0], action="update", phase="pre",
+                        depth=_fk_depth)
+        except ExecutionError:
+            for name in self.valid:
+                self.valid[name][start:end] = False
+            raise
         self.end_ts[ids] = end_ts
         if end_ts >= TXN_TS_BASE and m:
             self._txn_dead.setdefault(end_ts, []).extend(ids.tolist())
@@ -598,8 +1103,15 @@ class Table:
         self.version += 1
         if log is not None:
             self._log_mark(log)
-        # next slice: ON UPDATE CASCADE / SET NULL children run here, after
-        # the new parent keys are visible
+        if fk_changed is not None:
+            # action half AFTER the new parent keys are visible, so a
+            # cascaded child write FK-checks against the updated parent;
+            # statement atomicity on a mid-cascade failure is the txn
+            # layer's (marker rollback), like any multi-table statement
+            self._check_fk_children(
+                fk_changed[0], action="update", phase="post",
+                end_ts=end_ts, marker=marker, log_for=log_for,
+                new_rows=fk_changed[1], depth=_fk_depth)
         return m
 
     def _log_mark(self, log: "TableTxnLog") -> None:
@@ -714,18 +1226,179 @@ class Table:
             e[em] = MAX_TS
         self.version += 1
 
+    # -- DDL ---------------------------------------------------------------
+    # (ref: ddl/ online schema change; single-process => synchronous, but
+    # the backfill over existing rows is the same job)
+
+    def add_column(self, col: ColumnInfo) -> None:
+        if any(c.name == col.name for c in self.schema.columns):
+            raise SchemaError(f"duplicate column {col.name!r}")
+        if col.not_null and col.default is None and self.live_rows > 0:
+            raise ExecutionError(
+                f"cannot add NOT NULL column {col.name!r} without DEFAULT "
+                "to a non-empty table")
+        self.schema.columns.append(col)
+        self.data[col.name] = np.zeros(self._cap, dtype=col.type_.np_dtype)
+        self.valid[col.name] = np.zeros(self._cap, dtype=np.bool_)
+        if col.type_.is_dict_encoded:
+            self.dicts[col.name] = Dictionary([], col.coll)
+        if col.default is not None:
+            # backfill existing rows with the default
+            dv = self.to_device_value(col, col.default)
+            if col.type_.is_dict_encoded:
+                self._append_strings(col.name, [dv] * self.n, 0, self.n)
+            else:
+                self.data[col.name][: self.n] = dv
+                self.valid[col.name][: self.n] = True
+        self.version += 1
+        self.data_epoch += 1  # column set changed under existing rows
+
+    def drop_column(self, name: str) -> None:
+        if any(name in fk.columns for fk in self.foreign_keys) or any(
+                name in fk.parent_cols for _c, fk in self.referencing):
+            raise SchemaError(
+                f"cannot drop column {name!r}: used by a foreign key")
+        if any(name in chk.cols for chk in self.checks):
+            raise SchemaError(
+                f"cannot drop column {name!r}: used by a CHECK constraint")
+        col = self.schema.col(name)  # raises if absent
+        if self.schema.primary_key and name in self.schema.primary_key:
+            raise ExecutionError(f"cannot drop primary-key column {name!r}")
+        for idx in self.indexes.values():
+            if name in idx.columns:
+                raise ExecutionError(
+                    f"cannot drop column {name!r}: used by index {idx.name!r}")
+        self.schema.columns.remove(col)
+        del self.data[name]
+        del self.valid[name]
+        self.dicts.pop(name, None)
+        if self.schema.cluster_by == name:
+            self.schema.cluster_by = None  # ordering key is gone
+        self.version += 1
+        self.data_epoch += 1  # column set changed under existing rows
+
+    def modify_column(self, col: ColumnInfo) -> None:
+        """Change a column's type, converting existing values. Numeric
+        widenings and integer-domain decimal scale shifts only; anything
+        lossy (non-integral, indivisible scale-down, out-of-domain BOOL,
+        int64 overflow, precision loss above 2^53 into FLOAT) raises
+        rather than corrupting. Lossy-value checks look only at valid
+        slots of PRESENT versions — stale bytes under NULLs and dead
+        (ended) versions are never read by current/future readers and
+        must not turn the statement into an error."""
+        old = self.schema.col(col.name)
+        ok_kinds = {TypeKind.INT, TypeKind.FLOAT, TypeKind.DECIMAL, TypeKind.BOOL}
+        ok, nk = old.type_.kind, col.type_.kind
+        n = self.n
+        valid = self.valid[col.name][:n]
+        # lossiness is judged on present (not-ended) valid values only
+        chk = valid & self._present_mask()
+        # zero stale bytes under NULL/dead slots: they are never read,
+        # but they must not overflow or NaN-poison the bulk conversion
+        data = np.where(valid, self.data[col.name][:n],
+                        np.zeros((), dtype=self.data[col.name].dtype))
+
+        def lossy(msg):
+            raise ExecutionError(f"MODIFY {col.name}: {msg}")
+
+        saved_dict = saved_coll = None
+        if (ok == nk == TypeKind.STRING
+                and col.collation is not None and col.collation != old.coll):
+            # MODIFY ... COLLATE: re-sort the dictionary under the new
+            # collation and translate stored codes; new-collation unique
+            # semantics re-validate below like any narrowing
+            d_old = self.dicts[col.name]
+            saved_dict, saved_coll = d_old, old.collation
+            d_new = Dictionary(list(d_old.values), col.collation)
+            trans = d_old.translate_to(d_new)
+            conv = np.where(valid, trans[np.clip(data, 0, max(len(trans) - 1, 0))]
+                            if len(trans) else data, 0)
+            self.dicts[col.name] = d_new
+            old.collation = col.collation
+        elif ok == nk and not (ok == TypeKind.DECIMAL
+                               and old.type_.scale != col.type_.scale):
+            conv = data
+        elif ok not in ok_kinds or nk not in ok_kinds:
+            lossy(f"cannot convert {ok.name} to {nk.name}")
+        elif nk == TypeKind.BOOL:
+            if ((data[chk] != 0) & (data[chk] != 1)).any():
+                lossy("values outside 0/1 cannot become BOOL")
+            conv = data.astype(np.bool_)
+        elif {ok, nk} <= {TypeKind.INT, TypeKind.DECIMAL, TypeKind.BOOL}:
+            # pure integer-domain scale shift: no float round trip, so
+            # 18-digit decimals survive exactly
+            shift = ((col.type_.scale if nk == TypeKind.DECIMAL else 0)
+                     - (old.type_.scale if ok == TypeKind.DECIMAL else 0))
+            src = np.where(chk, data.astype(np.int64), 0)
+            if shift >= 0:
+                mul = 10 ** shift
+                if len(src) and np.abs(src).max() > (2 ** 63 - 1) // mul:
+                    lossy(f"scale-up by {mul} overflows int64")
+                conv = src * mul
+            else:
+                div = 10 ** (-shift)
+                if (src[chk] % div != 0).any():
+                    lossy(f"scale reduction loses digits (divide by {div})")
+                conv = src // div
+        elif nk == TypeKind.FLOAT:
+            src = np.where(chk, data, np.zeros((), dtype=data.dtype))
+            if np.issubdtype(src.dtype, np.integer) and len(src) and (
+                    np.abs(src).max() > (1 << 53)):
+                lossy("magnitudes above 2^53 lose precision in FLOAT")
+            conv = src.astype(np.float64)
+            if ok == TypeKind.DECIMAL:
+                conv = conv / (10 ** old.type_.scale)
+        elif ok == TypeKind.FLOAT and nk == TypeKind.DECIMAL:
+            conv = np.round(data * 10 ** col.type_.scale)
+            back = conv[chk] / (10 ** col.type_.scale)
+            if not np.allclose(back, data[chk], rtol=0, atol=0.5 * 10 ** -col.type_.scale):
+                lossy(f"values do not fit DECIMAL scale {col.type_.scale}")
+            conv = conv.astype(np.int64)
+        else:  # FLOAT -> INT
+            if not np.allclose(data[chk], np.round(data[chk])):
+                lossy("non-integral values")
+            conv = np.round(data).astype(np.int64)
+
+        if col.not_null and n and (
+                ~valid[self.live_mask(0, n)]).any():
+            lossy("NULLs present, NOT NULL requested")
+        buf = np.zeros(self._cap, dtype=col.type_.np_dtype)
+        buf[:n] = conv
+        saved = self.data[col.name]
+        self.data[col.name] = buf
+        # a narrowing conversion (e.g. float -> decimal rounding) can
+        # merge previously distinct unique keys: re-validate, and restore
+        # the old column on violation so the table stays consistent
+        try:
+            for idx in self.indexes.values():
+                if idx.unique and col.name in idx.columns:
+                    self._check_unique(idx)
+        except ExecutionError:
+            self.data[col.name] = saved
+            if saved_dict is not None:
+                self.dicts[col.name] = saved_dict
+                old.collation = saved_coll
+            raise
+        old.type_ = col.type_
+        old.not_null = col.not_null
+        if col.default is not None:
+            old.default = col.default
+        self.version += 1
+        self.data_epoch += 1  # stored values converted in place
+
     # -- indexes -----------------------------------------------------------
 
     def create_index(self, name: str, columns: List[str],
-                     unique: bool = False) -> None:
+                     unique: bool = False, state: str = "public") -> None:
         for c in columns:
             self.schema.col(c)  # raises if absent
         if name in self.indexes:
             raise SchemaError(f"duplicate index {name!r}")
-        idx = IndexInfo(name=name, columns=list(columns), unique=unique)
-        if unique:
-            # next slice: online DDL's write_only index defers this
-            # existing-row validation to its backfill stage
+        idx = IndexInfo(name=name, columns=list(columns), unique=unique,
+                        state=state)
+        if unique and state == "public":
+            # atomic path validates now; a write_only (online DDL)
+            # index defers existing-row validation to its backfill stage
             self._check_unique(idx)
         self.indexes[name] = idx
         self.version += 1
@@ -1065,6 +1738,10 @@ class Table:
             self.valid[name][m:n] = False
         self.begin_ts[:m] = self.begin_ts[:n][keep]
         self.end_ts[:m] = self.end_ts[:n][keep]
+        # mask compaction preserves relative order: a FULLY clustered
+        # table stays clustered; a partial watermark would need per-row
+        # accounting, so it conservatively resets
+        self.clustered_rows = m if self.clustered_rows >= n else 0
         self.n = m
         self.data_epoch += 1  # physical row positions moved
         # release buffer memory when the table shrank far below capacity
@@ -1079,11 +1756,102 @@ class Table:
         self.version += 1
         return k
 
+    def recluster(self, quiesced: bool = False) -> bool:
+        """Physically re-sort ALL rows by the CLUSTER BY column (ASC,
+        NULLs first, stable — so same-key rows keep arrival order) so
+        segment zone maps over the rebuild prune range filters. Returns True when rows actually moved (data_epoch bumps,
+        invalidating the segment store for an ordered rebuild).
+
+        Row positions may only move under the catalog's writer lock
+        with NO transaction open — the same contract as gc(): txn write
+        logs address rows by position, and _run_dml's collect-to-apply
+        window assumes positions are stable while it holds the catalog
+        lock. Open txns are NOT the only readers of physical positions:
+        an autocommit SELECT reads the live arrays lock-free (it never
+        enters _open_txns), so the permute additionally requires the
+        catalog's reader registry to be quiescent — no registered
+        statement window, no open scan executor or paged cursor — and
+        holds the registry lock across the move so no new reader can
+        start mid-permute. ``quiesced=True`` is the catalog's own
+        run_pending_reclusters path, which already holds that lock.
+        Refusals return False; the queued fold retries at a later
+        statement boundary. Catalog-less tables (unit fixtures) fall
+        back to the table-local evidence of an open txn: provisional
+        begin/end timestamps, pessimistic row locks, provisionally-ended
+        rows."""
+        col = self.schema.cluster_by
+        if not col or col not in self.data or self.n <= 1:
+            return False
+        if self.clustered_rows >= self.n:
+            return False  # already in order
+        guard = self.txn_guard
+        if guard is None:
+            return self._recluster_locked()
+        with guard.lock:
+            if guard._open_txns:
+                return False
+            if quiesced:
+                return self._recluster_locked()
+            with guard._readers_lock:
+                if guard._stmt_readers or guard._open_scans:
+                    return False
+                return self._recluster_locked()
+
+    def _recluster_locked(self) -> bool:
+        """The permute body; caller holds the catalog lock (or owns the
+        table outright). The table-local open-txn checks stay as
+        defense in depth for catalog-less tables."""
+        col = self.schema.cluster_by
+        n = self.n
+        if self.clustered_rows >= n:
+            return False  # raced: another caller sorted first
+        if self.row_locks or self._txn_dead:
+            return False
+        b, e = self.begin_ts[:n], self.end_ts[:n]
+        if (b >= TXN_TS_BASE).any() or \
+                ((e >= TXN_TS_BASE) & (e < MAX_TS)).any():
+            return False
+        d, v = self.data[col][:n], self.valid[col][:n]
+        if np.issubdtype(d.dtype, np.floating):
+            key = d.astype(np.float64)
+        else:
+            # dict codes order lexicographically by construction, so
+            # sorting string/date columns by code is sorting by value
+            key = d.astype(np.int64)
+        key = np.where(v, key, 0)
+        nullrank = v.astype(np.int64)  # NULLs first, like ASC sort
+        order = np.lexsort((key, nullrank))
+        if (order == np.arange(n)).all():
+            self.clustered_rows = n  # already sorted: watermark only
+            return False
+        # permute into FRESH buffers first — each fancy-index allocates
+        # (tens of MB per column at SF1), and a MemoryError halfway
+        # through an in-place loop would leave some columns permuted
+        # and others not, permanently. The install loop below is plain
+        # buffer copies into existing storage: nothing left to fail.
+        perm = [(name, self.data[name][:n][order],
+                 self.valid[name][:n][order]) for name in self.data]
+        b_new = self.begin_ts[:n][order]
+        e_new = self.end_ts[:n][order]
+        for name, d_new, v_new in perm:
+            self.data[name][:n] = d_new
+            self.valid[name][:n] = v_new
+        self.begin_ts[:n] = b_new
+        self.end_ts[:n] = e_new
+        self.clustered_rows = n
+        self.data_epoch += 1  # physical row positions moved
+        self.version += 1
+        return True
+
     def truncate(self):
-        # next slice: a table referenced by a foreign key refuses here
+        if any(child is not self for child, _fk in self.referencing):
+            raise ExecutionError(
+                f"cannot truncate {self.schema.name!r}: referenced by a "
+                "foreign key")
         self.n = 0
         self.version += 1
         self.data_epoch += 1  # every stored payload discarded
+        self.clustered_rows = 0
         self.begin_ts[:] = 0
         self.end_ts[:] = MAX_TS
         for c in self.schema.columns:
@@ -1093,10 +1861,6 @@ class Table:
             self.data[c.name][:] = 0
             if c.type_.is_dict_encoded:
                 self.dicts[c.name] = Dictionary([], c.coll)
-
-    def insertable_names(self) -> List[str]:
-        """Positional-INSERT width: the public columns."""
-        return self.schema.public_names()
 
     # -- reads -------------------------------------------------------------
 
@@ -1124,3 +1888,44 @@ class Table:
         if marker:
             vis = ((b <= read_ts) | (b == marker)) & (e > read_ts) & (e != marker)
         return vis
+
+    def _check_partition(self, start: int, end: int) -> None:
+        """RANGE partitioning without a MAXVALUE partition rejects
+        out-of-range rows at write time (MySQL: 'no partition for
+        value')."""
+        pi = self.schema.partition
+        if pi is None or pi.kind != "range" or pi.uppers[-1] is None:
+            return
+        vals = self.data[pi.column][start:end]
+        valid = self.valid[pi.column][start:end]
+        pids = pi.ids_of_values(vals, valid)
+        if (pids[valid] >= pi.count()).any():
+            bad = vals[valid][pids[valid] >= pi.count()][0]
+            raise ExecutionError(
+                f"table {self.schema.name!r} has no partition for "
+                f"value {int(bad)}")
+
+    def partition_rows(self, pids, read_ts=None, marker: int = 0) -> np.ndarray:
+        """Visible physical rows in the given partitions, via a
+        per-version cache of partition -> physical row ids (one
+        vectorized pass over the partition column; the pruned-scan
+        analogue of the sorted index cache)."""
+        pi = self.schema.partition
+        assert pi is not None
+        hit = getattr(self, "_part_cache", None)
+        if hit is None or hit[0] != self.version:
+            vals = self.data[pi.column][: self.n]
+            valid = self.valid[pi.column][: self.n]
+            all_pids = pi.ids_of_values(vals, valid)
+            by_pid = {}
+            for pid in range(pi.count() + 1):  # +1: overflow bucket
+                rows = np.nonzero(all_pids == pid)[0]
+                if len(rows):
+                    by_pid[pid] = rows
+            hit = (self.version, by_pid)
+            self._part_cache = hit
+        rows = [hit[1].get(int(p), np.zeros(0, dtype=np.int64))
+                for p in pids]
+        allrows = np.sort(np.concatenate(rows)) if rows else \
+            np.zeros(0, dtype=np.int64)
+        return self._mvcc_visible(allrows, read_ts, marker)

@@ -453,16 +453,31 @@ def load_arrays(catalog: Catalog, name: str, columns, arrays: Dict[str, np.ndarr
                 valids: Optional[Dict[str, np.ndarray]] = None,
                 dicts: Optional[Dict[str, list]] = None,
                 db: str = "test", primary_key: Optional[List[str]] = None,
-                indexes=()):
+                indexes=(), cluster_by: Optional[str] = None,
+                clustered_rows: int = 0, partition=None, checks=(),
+                generated=(), foreign_keys=()):
     """Create table `name` and ingest it from numpy arrays already in
     device representation — the tables another engine generated (the
     parity tests load the JAX package's TPC-H tables through here, so
     both engines query identical rows).
 
-    `primary_key` (column names) and `indexes` ((name, columns, unique)
-    per secondary index) give the table the other engine's keys, so both
-    plan the same access paths; the rows are checked against every unique
-    key before they become visible.
+    The other engine's schema comes across with the rows, so both plan
+    the same access paths and refuse the same writes:
+      * `primary_key` (column names) and `indexes` ((name, columns,
+        unique) per secondary index);
+      * `cluster_by` (the CLUSTER BY column) and `clustered_rows` (its
+        watermark: the leading rows already in cluster order, which the
+        arrays keep in the other engine's physical order);
+      * `partition`, a `storage.table.PartitionInfo`;
+      * `checks` ((name, expression SQL) per CHECK constraint) and
+        `generated` ((column, expression SQL, stored) per generated
+        column), bound and compiled here from their SQL text;
+      * `foreign_keys` ((columns, parent table, parent columns,
+        on_delete, on_update) per constraint; the parent is loaded
+        first).
+    The rows are checked against every unique key, foreign key, CHECK
+    and partition bound (and the generated columns recomputed) before
+    they become visible.
 
     `columns` are ColumnInfo; `arrays[col]` holds every physical row;
     `valids[col]` (default all True) the validity; for a dictionary-
@@ -470,10 +485,22 @@ def load_arrays(catalog: Catalog, name: str, columns, arrays: Dict[str, np.ndarr
     means dicts[col][i]). Codes are remapped onto this table's own
     sorted dictionary, so a dictionary in another order carries across
     with its rows' strings unchanged."""
-    t = catalog.create_table(db, TableSchema(name, list(columns),
-                                             primary_key=primary_key))
+    from tidb_tpu_torch.parser import ast as A
+    from tidb_tpu_torch.parser.parser import Parser
+    from tidb_tpu_torch.session.session import wire_check, wire_generated
+
+    fks = [(list(cols), A.TableName(parent), list(pcols), on_delete, on_update)
+           for cols, parent, pcols, on_delete, on_update in foreign_keys]
+    t = catalog.create_table(
+        db, TableSchema(name, list(columns), primary_key=primary_key,
+                        partition=partition, cluster_by=cluster_by),
+        foreign_keys=fks)
     for iname, icols, unique in indexes:
         t.create_index(iname, list(icols), unique=unique)
+    for cname, sql in checks:
+        wire_check(t, cname, Parser(sql).parse_expr(), sql)
+    for gcol, sql, stored in generated:
+        wire_generated(t, gcol, Parser(sql).parse_expr(), sql, stored)
     sizes = {len(np.asarray(a)) for a in arrays.values()}
     if len(sizes) != 1:
         raise ExecutionError(f"load_arrays length mismatch: {sizes}")
@@ -491,9 +518,14 @@ def load_arrays(catalog: Catalog, name: str, columns, arrays: Dict[str, np.ndarr
         t.data[c.name][:m] = data.astype(c.type_.np_dtype, copy=False)
         v = (valids or {}).get(c.name)
         t.valid[c.name][:m] = True if v is None else np.asarray(v, dtype=np.bool_)
+    t._apply_generated(0, m)
     t._enforce_unique_new(0, m)
+    t._check_fk_parents(0, m)
+    t._check_row_constraints(0, m)
+    t._check_partition(0, m)
     t.begin_ts[:m] = 0  # bulk loads are committed "at origin"
     t.n = m
+    t.clustered_rows = min(int(clustered_rows), m)
     t.version += 1
     t._uniq_commit()
     return t
