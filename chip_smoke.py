@@ -39,7 +39,9 @@ phases below; any failure exits non-zero.
 Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    capacity 8,192) through Session on cuda, each against an indexed sqlite
    oracle built here from the port's tables (sqlite_oracle), ordered, with
-   the oracle's SQL variants, numbers within 1e-6 relative. Each run must
+   the oracle's SQL variants, numbers within 1e-6 relative; twice, as
+   loaded and after ANALYZE TABLE of the eight tables (the analyzed
+   plans). Each run must
    keep the probe kernel's launch contract, take at least the fused
    fragments its plan calls for, and run the device generic aggregation
    exactly on Q2, Q3, Q7, Q8, Q9, Q10, Q11, Q13, Q15, Q16, Q17, Q18 and
@@ -82,7 +84,9 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    modes (fused with the buffer cache, fused with its budget 0, the same
    staged inline at prefetch depth 0, classic), and of Q3 and Q18 in a
    fifth (generic_host: tidb_device_engine_mode = 'off', the host
-   groupby); one more warm run of each under torch.profiler (device busy
+   groupby); one more warm run of each under torch.profiler (not Q5's and
+   Q18's in the two cache-off modes, where the profiler would add a
+   minute; device busy
    time, idle share, host->device copies split pinned/pageable with their
    bytes, device->host copies, host cudaMemcpyAsync and launch counts, top
    operators by device time); Q18's IN subquery alone on the device and
@@ -111,7 +115,11 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    VALUES, storage/tpch_refresh.py) runs in one explicit transaction;
    before COMMIT a second Session on the same catalog reads the pre-RF1
    Q1 and Q6 and the writer its own provisional rows through the fused
-   pipeline's marker path. RF2 (clause 2.5.3: the 1,500 oldest orders)
+   pipeline's marker path. The COMMIT must auto-analyze orders and
+   lineitem (the reference's rule: no statistics, at least 1,024 rows,
+   rows modified; the bulk load analyzes nothing): its time is printed
+   with and without the analyze share, and the five queries' plans before
+   RF1 and after the COMMIT. RF2 (clause 2.5.3: the 1,500 oldest orders)
    deletes lineitem and orders by multi-table DELETE through a key table
    (a hash join: tidb_probe_count runs). An UPDATE of the 1994 lineitems'
    l_discount rolled back leaves Q6 as it was; committed, it moves Q6 to
@@ -147,8 +155,23 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    RF1 rolled back to (Q1 against numpy, RF1's orders kept); SELECT ...
    FOR UPDATE in one session refusing another session's UPDATE and
    locking read until COMMIT. tidb_segagg and tidb_probe_count must both
-   launch in the phase. The full report goes to
-   chiprun_out/chip_smoke.json.
+   launch in the phase.
+6. Statistics, EXPLAIN ANALYZE, windows and views, on the same session.
+   phase_stats: ANALYZE TABLE of the eight tables, timed per table; Q1,
+   Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
+   tables' live rows (warm median of 3, one profiled run: device busy
+   time; tidb_segagg once per aggregated chunk, tidb_probe_count once per
+   probe chunk); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared,
+   so it stages), Q3 and Q18: the root's actRows must equal the query's
+   row count, the operators' dispatches must add up to the kernels'
+   launches in the statement and the profile line's xfer_bytes to the
+   bytes the fused pipeline and the classic scan staged. phase_window:
+   ROW_NUMBER and RANK by customer over orders' price, a running SUM by
+   order date, LAG and an AVG over a ROWS frame, each over every live
+   order against numpy; the official TPC-H Q15 (CREATE VIEW revenue0, the
+   query, DROP VIEW) against numpy and the inlined Q15; SHOW TABLES, SHOW
+   CREATE TABLE lineitem and SHOW INDEX FROM orders printed. The full
+   report goes to chiprun_out/chip_smoke.json.
 
 The card's name and power limit are printed first; the line before the
 last is one JSON object {"kernels": [...]}, the last {"ok": true,
@@ -159,6 +182,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1169,6 +1193,21 @@ def record_probe_chunks(hp) -> dict:
     return rec
 
 
+def with_probe_modes(hp, run) -> dict:
+    """Run a phase with its probe_count calls recorded; its report gains
+    "probe_modes": calls by route and mode ("direct/full", ...)."""
+    probes = record_probe_chunks(hp)
+    try:
+        report = run()
+    finally:
+        hp.probe_chunk = probes["real"]
+    modes = {}
+    for (_q, route, mode, _b), n in probes["calls"].items():
+        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    report["probe_modes"] = modes
+    return report
+
+
 def main_path_args(rec, query: str, route: str, mode: str):
     """The recorded arguments of the build `query` probed most often along
     `route` in `mode` ('full' or 'flags'); of another query's build when
@@ -1378,6 +1417,13 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
 
 
 
+# queries phase 3 times but does not profile in a mode: the profiler adds
+# 20-40 s to each run of Q5 and Q18 (tens of thousands of launches), and
+# the cache-off modes' findings (staged bytes, the prefetch thread against
+# inline staging) are read from Q1, Q6 and Q3
+UNPROFILED = {"fused_nocache": ("q5", "q18"), "fused_nocache_inline": ("q5", "q18")}
+
+
 def phase_modes(torch, s, queries, n_rows) -> tuple:
     """Phase 3's query times: warm medians of 3 and one profiled warm run of
     each query in each mode. Returns (times, profiles)."""
@@ -1417,6 +1463,9 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
                 runs.append(time.perf_counter() - t0)
             med = statistics.median(runs)
             times[mode][qname] = med
+            if qname in UNPROFILED.get(mode, ()):
+                log(f"{mode} {qname}: warm wall median of 3 {med * 1e3:.3f} ms; runs {runs}")
+                continue
             pl.reset_counters()
             prof = profile_query(torch, s, Q[qname][0])
             prof["pipeline"] = {"prefetch": dict(pl.PIPELINE_PREFETCH_TOTAL),
@@ -1541,15 +1590,15 @@ def rows_equal(got, want, rel_tol: float = 1e-6):
 def phase_grid(torch, np, Session, mods) -> dict:
     """All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
     capacity 8,192) on the card against the sqlite oracle, ordered, with
-    the oracle's SQL variants. Each run: the probe kernel's launch contract,
-    the fused fragments its plan (taken just before) calls for, and the
-    device generic aggregation on exactly the thirteen queries whose plans
-    group generically, fused at least for Q15, Q17, Q18 and Q20. Plan-time
-    subqueries may add fragments beyond the final plan's (Q11's HAVING
-    subquery groups partsupp fused at this scale)."""
-    from tidb_tpu_torch.parser import parse
-    from tidb_tpu_torch.storage.tpch_queries import Q
-
+    the oracle's SQL variants, twice: as loaded (no statistics), then
+    after ANALYZE TABLE of the eight tables (the plans an analyzed catalog
+    gives, as after any committed DML). Each run: the probe kernel's
+    launch contract, the fused fragments its plan (taken just before)
+    calls for, and the device generic aggregation on exactly the queries
+    whose plans group generically (GENERIC_QUERIES: ANALYZE changes the
+    estimates and join orders, not which queries group generically), fused
+    at least for Q15, Q17, Q18 and Q20. Plan-time subqueries may add fragments beyond the final
+    plan's (Q11's HAVING subquery groups partsupp fused at this scale)."""
     s = Session(chunk_capacity=8192)
     t0 = time.perf_counter()
     counts = s.load_tpch(0.1)
@@ -1557,6 +1606,24 @@ def phase_grid(torch, np, Session, mods) -> dict:
     oracle = sqlite_oracle(np, s.catalog)
     log(f"grid: SF0.1 loaded in {t_load:.1f} s ({counts}); sqlite oracle built in "
         f"{time.perf_counter() - t0 - t_load:.1f} s")
+    out = {"unanalyzed": grid_pass(s, mods, oracle, GENERIC_QUERIES, "grid")}
+    t0 = time.perf_counter()
+    s.execute("analyze table " + ", ".join(TPCH_TABLES))
+    log(f"grid: ANALYZE TABLE of the eight tables in {time.perf_counter() - t0:.1f} s")
+    out["analyzed"] = grid_pass(s, mods, oracle, GENERIC_QUERIES, "grid analyzed")
+    out["plans_changed"] = [q for q in out["analyzed"]
+                            if plan_shape(out["analyzed"][q]["plan"])
+                            != plan_shape(out["unanalyzed"][q]["plan"])]
+    log(f"grid: plans whose operators ANALYZE changed: {out['plans_changed']}")
+    return out
+
+
+def grid_pass(s, mods, oracle, generic, label) -> dict:
+    """One pass of the 22 queries; see phase_grid."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
     out = {}
     for name, (sql, osql) in Q.items():
         plan = s._plan_select(parse(sql)[0])
@@ -1565,26 +1632,27 @@ def phase_grid(torch, np, Session, mods) -> dict:
         expect = oracle.execute(osql or sql).fetchall()
         ok, msg = rows_equal(rows, expect)
         if not ok:
-            raise AssertionError(f"grid {name}: {msg}")
+            raise AssertionError(f"{label} {name}: {msg}")
         if not rows and name != "q9":
-            raise AssertionError(f"grid {name} returned no rows")
+            raise AssertionError(f"{label} {name} returned no rows")
         lc, gen = cnt["launches"], cnt["generic_runs"]
         if lc["segsum_count"] or lc["segsum_i64"] or lc["hash_probe"]:
-            raise AssertionError(f"grid {name} launched an off-path kernel entry: {lc}")
+            raise AssertionError(f"{label} {name} launched an off-path kernel entry: {lc}")
         if lc["probe_count"] != sum(cnt["routes"].values()):
-            raise AssertionError(f"grid {name}: probe_count {lc['probe_count']} over "
+            raise AssertionError(f"{label} {name}: probe_count {lc['probe_count']} over "
                                  f"{cnt['routes']} probe chunks")
-        if (gen["classic"] + gen["fused"] > 0) != (name in GENERIC_QUERIES):
-            raise AssertionError(f"grid {name}: device generic runs {gen}")
+        if (gen["classic"] + gen["fused"] > 0) != (name in generic):
+            raise AssertionError(f"{label} {name}: device generic runs {gen}")
         if name in FUSED_GENERIC_QUERIES and not gen["fused"]:
-            raise AssertionError(f"grid {name}: fused generic runs {gen}")
+            raise AssertionError(f"{label} {name}: fused generic runs {gen}")
         ran = dict(cnt["fused"], generic_classic=gen["classic"])
         if any(ran[k] < want[k] for k in want):
-            raise AssertionError(f"grid {name}: ran {ran}, the plan calls for {want}")
+            raise AssertionError(f"{label} {name}: ran {ran}, the plan calls for {want}")
         out[name] = {"rows": len(rows), "seconds": dt, "plan_fragments": want,
                      "fused": cnt["fused"], "generic_runs": gen, "routes": cnt["routes"],
-                     "launches": lc, "checks_nothing": not rows}
-        log(f"grid {name}: {len(rows)} rows equal sqlite in {dt:.3f} s; fused "
+                     "launches": lc, "checks_nothing": not rows,
+                     "plan": explain_text(plan)}
+        log(f"{label} {name}: {len(rows)} rows equal sqlite in {dt:.3f} s; fused "
             f"{ {k: v for k, v in cnt['fused'].items() if v} }; device generic {gen}; "
             f"probe routes {cnt['routes']}" + ("; empty: checks nothing" if not rows else ""))
     return out
@@ -2012,6 +2080,10 @@ def phase_refresh(torch, np, s, mods, load, sf: float = 1.0) -> dict:
         other = Session(catalog=cat, device=s.device)
         before_q1, before_q6 = numpy_q1(np, model.table("test", "lineitem")), \
             numpy_q6(np, model.table("test", "lineitem"))
+        if stats_fresh(o) or stats_fresh(li):
+            raise AssertionError("orders or lineitem carry statistics before RF1: the "
+                                 "bulk load does not analyze")
+        step["plans_before"] = five_plans(s)
         timed(step, s, mods, "begin")
         for name, q in stmts:
             timed(step, s, mods, q, f"insert into {name} ({q.count('), (') + 1} rows)")
@@ -2034,7 +2106,23 @@ def phase_refresh(torch, np, s, mods, load, sf: float = 1.0) -> dict:
         step["queries"]["q1_writer_in_txn"] = {"s": dt, "h2d": c["h2d"], "cache": c["cache"],
                                               "fused": c["fused"]}
         step_add(step, c)
-        timed(step, s, mods, "commit")
+        # the COMMIT auto-analyzes both tables (the reference's rule: no
+        # statistics, at least 1,024 rows, modify_count > 0)
+        with timed_analyze({}) as analyzed:
+            rec = timed(step, s, mods, "commit")
+        rec["analyze_s"] = analyzed
+        step["commit"] = {"s": rec["s"], "analyze_s": analyzed,
+                          "without_analyze_s": rec["s"] - sum(analyzed.values())}
+        if set(analyzed) != {"orders", "lineitem"} or not (
+                stats_fresh(o) and stats_fresh(li)) or o.modify_count or li.modify_count:
+            raise AssertionError(f"RF1's COMMIT analyzed {analyzed}, not orders and "
+                                 "lineitem")
+        log(f"refresh rf1: COMMIT {rec['s']:.3f} s, of which auto-analyze "
+            f"{ {k: round(v, 3) for k, v in analyzed.items()} } s "
+            f"({step['commit']['without_analyze_s']:.3f} s without it)")
+        step["plans_after"] = five_plans(s)
+        log_plans("refresh: before RF1", step["plans_before"])
+        log_plans("refresh: after RF1's COMMIT", step["plans_after"], step["plans_before"])
         if (o.data_epoch, li.data_epoch) != epochs:
             raise AssertionError("RF1 rewrote dictionary codes")
         step["rows_inserted"] = {t: len(new[t][next(iter(new[t]))]) for t in new}
@@ -2596,6 +2684,422 @@ def schema_steps(np, s, mods, sf: float) -> dict:
     return report
 
 
+# -- statistics, EXPLAIN ANALYZE, windows and views at SF1 ---------------------
+
+TPCH_TABLES = ("lineitem", "orders", "partsupp", "part", "customer", "supplier",
+               "nation", "region")
+
+
+def stats_fresh(t) -> bool:
+    """The table carries statistics collected at its current version."""
+    st = getattr(t, "stats", None)
+    return st is not None and st.version == t.version
+
+
+def five_plans(s) -> dict:
+    """The plans of Q1, Q6, Q3, Q5 and Q18 as the planner makes them now."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    return {q: explain_text(s._plan_select(parse(Q[q][0])[0])) for q in REFRESH_QUERIES}
+
+
+def plan_shape(text: str) -> list:
+    """An explain_text without its estRows column: the operators, their
+    order and their info."""
+    lines = text.split("\n")
+    e = lines[0].index("estRows")
+    return [line[:e].rstrip() + " " + " ".join(line[e:].split()[1:]) for line in lines[1:]]
+
+
+def log_plans(label, plans, before=None):
+    for q, text in plans.items():
+        moved = "" if before is None else (
+            " (same operators)" if plan_shape(before[q]) == plan_shape(text)
+            else " (operators changed)")
+        log(f"{label} plan of {q}{moved}:\n{text}")
+
+
+@contextlib.contextmanager
+def timed_analyze(acc: dict):
+    """Time every analyze_table call (auto-analyze's included) by table."""
+    from tidb_tpu_torch import statistics as stats_mod
+
+    real = stats_mod.analyze_table
+
+    def timed_call(t):
+        t0 = time.perf_counter()
+        try:
+            return real(t)
+        finally:
+            acc[t.schema.name] = acc.get(t.schema.name, 0.0) + time.perf_counter() - t0
+
+    stats_mod.analyze_table = timed_call
+    try:
+        yield acc
+    finally:
+        stats_mod.analyze_table = real
+
+
+@contextlib.contextmanager
+def scan_stage_bytes(counter: list):
+    """Count the bytes the classic scan copies host->device (its `stage`),
+    independently of utils.dispatch."""
+    from tidb_tpu_torch.executor import scan as scan_mod
+
+    real = scan_mod.stage
+
+    def counting(host, cap, dtype, device):
+        out = real(host, cap, dtype, device)
+        if out.is_cuda:
+            counter[0] += len(host) * host.dtype.itemsize
+        return out
+
+    scan_mod.stage = counting
+    try:
+        yield counter
+    finally:
+        scan_mod.stage = real
+
+
+def explain_analyze(s, mods, sql: str, n_rows: int, agg_chunks) -> dict:
+    """EXPLAIN ANALYZE of one query with the launch, pipeline and staging
+    counters set to 0 just before it and read just after. The root's
+    actRows must equal the query's row count, the operators' own
+    dispatches must add up to the kernels' launches in the statement, and
+    the profile line's xfer_bytes to the bytes the fused pipeline and the
+    classic scan staged."""
+    from tidb_tpu_torch.utils import dispatch
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    seg_mod.reset_launches()
+    hp.reset_launches()
+    jk.reset_routes()
+    pl.reset_counters()
+    agg_chunks[0] = 0
+    x0 = dispatch.xfer_bytes()
+    t0 = time.perf_counter()
+    with scan_stage_bytes([0]) as classic:
+        res = s.execute("explain analyze " + sql)
+    dt = time.perf_counter() - t0
+    launches = launches_of((seg_mod, hp))
+    lines = [r[0] for r in res.rows]
+    head = lines[0]
+    act = int(lines[1][head.index("actRows"):head.index("drift")])
+    own = sum(int(n) for n in re.findall(r"dispatches:(\d+)", "\n".join(lines[1:-1])))
+    prof = dict(kv.split("=") for kv in lines[-1].split()[1:])
+    staged = pl.PIPELINE_PREFETCH_BYTES["h2d"] + classic[0]
+    out = {"s": dt, "text": "\n".join(lines), "act_rows": act, "rows": n_rows,
+           "dispatches": own, "launches": launches, "profile": prof,
+           "xfer_bytes": dispatch.xfer_bytes() - x0, "staged_bytes": staged,
+           "aggregated_chunks": agg_chunks[0], "routes": dict(jk.PROBE_ROUTES)}
+    if act != n_rows:
+        raise AssertionError(f"EXPLAIN ANALYZE root actRows {act}, the query gives "
+                             f"{n_rows} rows")
+    if own != sum(launches.values()):
+        raise AssertionError(f"EXPLAIN ANALYZE dispatches add up to {own}, the kernels "
+                             f"launched {launches}")
+    if int(prof["xfer_bytes"]) != staged or out["xfer_bytes"] != staged:
+        raise AssertionError(f"EXPLAIN ANALYZE xfer_bytes {prof['xfer_bytes']}, staged "
+                             f"{staged} (pipeline {pl.PIPELINE_PREFETCH_BYTES}, classic "
+                             f"scan {classic[0]})")
+    if launches["segagg"] != agg_chunks[0]:
+        raise AssertionError(f"tidb_segagg launched {launches['segagg']} times over "
+                             f"{agg_chunks[0]} aggregated chunks")
+    if launches["probe_count"] != sum(out["routes"].values()):
+        raise AssertionError(f"probe_count {launches['probe_count']} over "
+                             f"{out['routes']} probe chunks")
+    return out
+
+
+def phase_stats(torch, np, s, mods) -> dict:
+    """ANALYZE TABLE of the eight TPC-H tables at SF1, timed per table; Q1,
+    Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
+    tables' live rows (warm median of 3, one profiled run each: device
+    busy time); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared
+    first, so it stages), Q3 and Q18 with their counters checked."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    cat = s.catalog
+    report = {"analyze_s": {}, "queries": {}, "explain_analyze": {}}
+    t_phase = time.perf_counter()
+    plans_before = five_plans(s)
+    for name in TPCH_TABLES:
+        t = cat.table("test", name)
+        t0 = time.perf_counter()
+        s.execute(f"analyze table {name}")
+        report["analyze_s"][name] = time.perf_counter() - t0
+        if not stats_fresh(t) or t.stats.n_rows != t.live_rows or t.modify_count:
+            raise AssertionError(f"ANALYZE {name} left stats {t.stats and t.stats.n_rows} "
+                                 f"for {t.live_rows} live rows")
+        log(f"stats: ANALYZE TABLE {name} ({t.live_rows} rows, "
+            f"{len(t.schema.columns)} columns): {report['analyze_s'][name]:.3f} s")
+    report["plans"] = plans = five_plans(s)
+    report["plans_changed"] = [q for q in plans
+                               if plan_shape(plans[q]) != plan_shape(plans_before[q])]
+    log_plans("stats: analyzed", plans, plans_before)
+    model = ArrayModel(np, cat)
+    agg_chunks = count_segment_chunks()
+    res = {}
+    for q in REFRESH_QUERIES:
+        # the first run and three warm ones, each with the counters set to
+        # 0 just before it and read just after (run_query), then one
+        # profiled run; the launches of all five count
+        runs, launches = [], {}
+        for i in range(4):
+            agg_chunks[0] = 0
+            rows, c, dt = run_query(s, mods, Q[q][0])
+            if c["launches"]["segagg"] != agg_chunks[0] or (
+                    c["launches"]["probe_count"] != sum(c["routes"].values())):
+                raise AssertionError(f"stats {q}: launches {c['launches']} over "
+                                     f"{agg_chunks[0]} aggregated chunks, routes "
+                                     f"{c['routes']}")
+            if i == 0:
+                res[q], first = rows, (c, dt)
+            else:
+                runs.append(dt)
+                if rows != res[q]:
+                    raise AssertionError(f"stats {q}: a warm run differs from the first")
+            for k, v in c["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        seg_mod.reset_launches()
+        hp.reset_launches()
+        t0 = time.perf_counter()
+        prof = profile_query(torch, s, Q[q][0])
+        prof_s = time.perf_counter() - t0
+        for k, v in launches_of(mods).items():
+            launches[k] += v
+        c, dt = first
+        report["queries"][q] = {"first_s": dt, "warm_median_s": statistics.median(runs),
+                                "runs_s": runs, "launches": launches,
+                                "first_run_launches": c["launches"],
+                                "routes": c["routes"], "fused": c["fused"],
+                                "generic_runs": c["generic_runs"],
+                                "segments": c["segments"],
+                                "device_busy_ms": prof["device_busy_us"] / 1e3,
+                                "idle_share": prof["idle_share"], "profile_s": prof_s}
+        log(f"stats {q} (+{time.perf_counter() - t_phase:.1f} s into the phase; the "
+            f"profiled run {prof_s:.1f} s): first {dt:.3f} s, warm median of 3 "
+            f"{statistics.median(runs) * 1e3:.3f} ms (runs {runs}); device busy "
+            f"{prof['device_busy_us'] / 1e3:.3f} ms, idle {prof['idle_share']:.3f}; "
+            f"first run's launches {c['launches']}; routes {c['routes']}; segments "
+            f"{c['segments']}; fused {c['fused']}; device generic {c['generic_runs']}")
+    check_five(np, res, model, "analyzed")
+    log(f"stats: Q1, Q6, Q3, Q5 and Q18 under the analyzed plans equal numpy (+"
+        f"{time.perf_counter() - t_phase:.1f} s into the phase)")
+    pl.DEVICE_CACHE.clear()  # Q1 stages its batches again under EXPLAIN ANALYZE
+    for q in ("q1", "q3", "q18"):
+        ea = explain_analyze(s, mods, Q[q][0], len(res[q]), agg_chunks)
+        report["explain_analyze"][q] = ea
+        log(f"stats: EXPLAIN ANALYZE {q} in {ea['s']:.3f} s; root actRows {ea['act_rows']}"
+            f" = rows; dispatches {ea['dispatches']} = launches {ea['launches']}; "
+            f"xfer_bytes {ea['xfer_bytes']} = staged {ea['staged_bytes']}:\n{ea['text']}")
+    if not report["explain_analyze"]["q1"]["xfer_bytes"]:
+        raise AssertionError("EXPLAIN ANALYZE of Q1 staged nothing after the cache clear")
+    launches = {}
+    for part in list(report["queries"].values()) + list(report["explain_analyze"].values()):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    report["launches"] = launches
+    if not launches.get("segagg") or not launches.get("probe_count"):
+        raise AssertionError(f"the stats phase missed a kernel of its path: {launches}")
+    if launches.get("hash_probe") or launches.get("segsum_count") \
+            or launches.get("segsum_i64"):
+        raise AssertionError(f"the stats phase launched an off-path entry: {launches}")
+    return report
+
+
+# the window queries of phase_window over orders: (name, SQL); each ORDER BY
+# that row_number, lag and the ROWS frame read ends in the unique
+# o_orderkey, so every value is defined by the data alone
+WINDOW_SQL = [
+    ("row_number_rank",
+     "select o_orderkey, row_number() over (partition by o_custkey order by "
+     "o_totalprice desc, o_orderkey) as rn, rank() over (partition by o_custkey "
+     "order by o_totalprice desc) as rk from orders"),
+    ("running_sum",
+     "select o_orderkey, sum(o_totalprice) over (partition by o_custkey order by "
+     "o_orderdate) from orders"),
+    ("lag",
+     "select o_orderkey, lag(o_totalprice) over (partition by o_custkey order by "
+     "o_orderdate, o_orderkey) from orders"),
+    ("avg_rows_frame",
+     "select o_orderkey, avg(o_totalprice) over (partition by o_custkey order by "
+     "o_orderdate, o_orderkey rows between 2 preceding and current row) from orders"),
+]
+
+
+def _partition_walk(np, keys):
+    """Over rows sorted by `keys` (a lexsort tuple, last key primary):
+    (perm, partition start of each sorted row, new-partition flags); the
+    partition is the primary key."""
+    perm = np.lexsort(keys)
+    part = keys[-1][perm]
+    new = np.ones(len(perm), dtype=bool)
+    new[1:] = part[1:] != part[:-1]
+    starts = np.flatnonzero(new)
+    return perm, starts[np.cumsum(new) - 1], new
+
+
+def numpy_windows(np, ok, ck, tp, od) -> dict:
+    """The four window queries evaluated by numpy alone, each as arrays
+    aligned with o_orderkey ascending (decimals as scaled ints)."""
+    n = len(ok)
+    idx = np.arange(n)
+    out = {}
+    perm, pstart, new = _partition_walk(np, (ok, -tp, ck))
+    rn = np.empty(n, dtype=np.int64)
+    rn[perm] = idx - pstart + 1
+    tie = new.copy()
+    tie[1:] |= tp[perm][1:] != tp[perm][:-1]
+    tstart = np.flatnonzero(tie)[np.cumsum(tie) - 1]
+    rk = np.empty(n, dtype=np.int64)
+    rk[perm] = tstart - pstart + 1
+    out["row_number_rank"] = (rn, rk)
+    perm, pstart, new = _partition_walk(np, (od, ck))
+    v = tp[perm]
+    cs = np.cumsum(v)
+    run = cs - (cs[pstart] - v[pstart])
+    tie = new.copy()
+    tie[1:] |= od[perm][1:] != od[perm][:-1]
+    tstarts = np.flatnonzero(tie)
+    tlast = np.append(tstarts[1:] - 1, n - 1)[np.cumsum(tie) - 1]
+    rs = np.empty(n, dtype=np.int64)
+    rs[perm] = run[tlast]
+    out["running_sum"] = (rs,)
+    perm, pstart, new = _partition_walk(np, (ok, od, ck))
+    v = tp[perm]
+    prev = np.where(new, 0, np.roll(v, 1))
+    lag = np.empty(n, dtype=np.int64)
+    lag[perm] = prev
+    has = np.empty(n, dtype=bool)
+    has[perm] = ~new
+    out["lag"] = (lag, has)
+    cs = np.concatenate(([0], np.cumsum(v)))
+    lo = np.maximum(idx - 2, pstart)
+    avg = (cs[idx + 1] - cs[lo]) / (idx - lo + 1) / 100.0
+    av = np.empty(n)
+    av[perm] = avg
+    out["avg_rows_frame"] = (av,)
+    order = np.argsort(ok)
+    return {k: tuple(a[order] for a in arrs) for k, arrs in out.items()}
+
+
+def check_window(np, name, rows, want):
+    """Port rows (o_orderkey, value...) against numpy's arrays."""
+    rows = sorted(rows)
+    if len(rows) != len(want[0]):
+        raise AssertionError(f"window {name}: {len(rows)} rows, numpy has {len(want[0])}")
+    if name == "row_number_rank":
+        got = np.array([r[1:] for r in rows], dtype=np.int64)
+        ok = np.array_equal(got[:, 0], want[0]) and np.array_equal(got[:, 1], want[1])
+    elif name == "running_sum":
+        ok = np.array_equal(np.array([_scaled(r[1]) for r in rows]), want[0])
+    elif name == "lag":
+        has = np.array([r[1] is not None for r in rows])
+        vals = np.array([_scaled(r[1]) if r[1] is not None else 0 for r in rows])
+        ok = np.array_equal(has, want[1]) and np.array_equal(vals, want[0])
+    else:
+        got = np.array([r[1] for r in rows], dtype=np.float64)
+        ok = bool(np.all(np.abs(got - want[0]) <= 1e-12 * np.abs(want[0])))
+    if not ok:
+        raise AssertionError(f"window {name} differs from numpy")
+
+
+# the official TPC-H Q15 (clause 2.4.15): a view, the query, DROP VIEW
+Q15_VIEW = ("create view revenue0 (supplier_no, total_revenue) as "
+            "select l_suppkey, sum(l_extendedprice * (1 - l_discount)) from lineitem "
+            "where l_shipdate >= date '1996-01-01' "
+            "and l_shipdate < date '1996-01-01' + interval '3' month "
+            "group by l_suppkey",
+            "select s_suppkey, s_name, s_address, s_phone, total_revenue "
+            "from supplier, revenue0 where s_suppkey = supplier_no "
+            "and total_revenue = (select max(total_revenue) from revenue0) "
+            "order by s_suppkey",
+            "drop view revenue0")
+
+
+def numpy_q15(np, model, cat):
+    """TPC-H Q15 by numpy: (s_suppkey, s_name, s_address, s_phone,
+    revenue scaled 4) of the suppliers with the top revenue."""
+    li = model.table("test", "lineitem")
+    ship, supp, ext, disc = (li.data[c] for c in ("l_shipdate", "l_suppkey",
+                                                  "l_extendedprice", "l_discount"))
+    m = (ship >= _days(np, "1996-01-01")) & (ship < _days(np, "1996-04-01"))
+    uniq, rev = _group_sum(np, supp[m], ext[m] * (100 - disc[m]))
+    top = uniq[rev == rev.max()]
+    su = cat.table("test", "supplier")
+    key = su.data["s_suppkey"][:su.n]
+    out = []
+    for k in sorted(top.tolist()):
+        i = int(np.flatnonzero(key == k)[0])
+        strs = tuple(su.dicts[c].values[int(su.data[c][i])]
+                     for c in ("s_name", "s_address", "s_phone"))
+        out.append((k, *strs, int(rev.max())))
+    return out
+
+
+def phase_window(np, s, mods) -> dict:
+    """Window functions over orders (every live row) and the official
+    TPC-H Q15 through a view, each against numpy; one line each of SHOW
+    TABLES, SHOW CREATE TABLE lineitem and SHOW INDEX FROM orders."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = s.catalog
+    model = ArrayModel(np, cat)
+    o = model.table("test", "orders")
+    want = numpy_windows(np, *(o.data[c].astype(np.int64) for c in (
+        "o_orderkey", "o_custkey", "o_totalprice", "o_orderdate")))
+    report = {"windows": {}, "launches": {}}
+    for name, sql in WINDOW_SQL:
+        rows, c, dt = run_query(s, mods, sql)
+        check_window(np, name, rows, want[name])
+        for k, v in c["launches"].items():
+            report["launches"][k] = report["launches"].get(k, 0) + v
+        report["windows"][name] = {"s": dt, "rows": len(rows), "launches": c["launches"]}
+        log(f"window {name}: {len(rows)} rows equal numpy in {dt:.3f} s; launches "
+            f"{c['launches']}")
+    seg_mod, hp, jk = mods[0], mods[1], mods[2]
+    seg_mod.reset_launches()
+    hp.reset_launches()
+    jk.reset_routes()
+    t0 = time.perf_counter()
+    s.execute(Q15_VIEW[0])
+    view_rows = s.query(Q15_VIEW[1])
+    s.execute(Q15_VIEW[2])
+    dt = time.perf_counter() - t0
+    launched = launches_of(mods)
+    routes = dict(jk.PROBE_ROUTES)
+    inline_rows, c, _dt = run_query(s, mods, Q["q15"][0])
+    for counts in (launched, c["launches"]):
+        for k, v in counts.items():
+            report["launches"][k] = report["launches"].get(k, 0) + v
+    want15 = numpy_q15(np, model, cat)
+    got15 = [(r[0], r[1], r[2], r[3], _scaled(r[4])) for r in view_rows]
+    if got15 != want15 or view_rows != inline_rows:
+        raise AssertionError(f"Q15 through its view {view_rows} vs numpy {want15}, "
+                             f"inlined {inline_rows}")
+    if cat.view("test", "revenue0") is not None:
+        raise AssertionError("DROP VIEW revenue0 left the view")
+    report["q15_view"] = {"s": dt, "rows": view_rows, "launches": launched,
+                          "routes": routes, "inline_launches": c["launches"]}
+    log(f"window: the official Q15 (CREATE VIEW revenue0, the query, DROP VIEW) in "
+        f"{dt:.3f} s equals numpy and the inlined Q15: {view_rows}; launches {launched}")
+    shows = {}
+    for sql in ("show tables", "show create table lineitem", "show index from orders"):
+        rows = s.query(sql)
+        shows[sql] = rows
+        log(f"{sql}: " + " | ".join(" ".join(str(v) for v in r).replace("\n", " ")
+                                     for r in rows))
+    if ("lineitem",) not in shows["show tables"] or \
+            "CLUSTER BY (`l_shipdate`)" not in shows["show create table lineitem"][0][1]:
+        raise AssertionError(f"SHOW gave {shows}")
+    report["show"] = shows
+    return report
+
+
 def _walk(plan):
     stack = [plan]
     while stack:
@@ -2905,6 +3409,19 @@ def main() -> int:
     schema = phase_schema(torch, np, s, mods)
     schema["s"] = time.perf_counter() - t0
     log(f"schema phase passed in {schema['s']:.1f} s; launches {schema['launches']}")
+
+    # -- statistics, EXPLAIN ANALYZE, windows and views -----------------------
+    t0 = time.perf_counter()
+    stats_report = with_probe_modes(hp, lambda: phase_stats(torch, np, s, mods))
+    stats_report["s"] = time.perf_counter() - t0
+    log(f"stats phase passed in {stats_report['s']:.1f} s; launches "
+        f"{stats_report['launches']}; probe_count by route and mode "
+        f"{stats_report['probe_modes']}")
+    t0 = time.perf_counter()
+    window = with_probe_modes(hp, lambda: phase_window(np, s, mods))
+    window["s"] = time.perf_counter() - t0
+    log(f"window phase passed in {window['s']:.1f} s; launches {window['launches']}; "
+        f"probe_count by route and mode {window['probe_modes']}")
     by_mode = refresh["probe_modes"]
     for row in rows:
         if row["name"].startswith("probe_count."):
@@ -2918,6 +3435,10 @@ def main() -> int:
             row["launches_schema"] = schema["probe_modes"].get(mode, 0)
         else:
             row["launches_schema"] = schema["launches"].get(row["name"], 0)
+        for key, rep in (("launches_stats", stats_report), ("launches_window", window)):
+            row[key] = (rep["probe_modes"].get(mode, 0)
+                        if row["name"].startswith("probe_count.")
+                        else rep["launches"].get(row["name"], 0))
 
     log(f"main-path launches: fused path {launches}, classic path {launches_classic}, "
         f"packed batches {launches_packed}, refresh phase {refresh['launches']}")
@@ -2935,7 +3456,8 @@ def main() -> int:
                             "slot_reads": reads},
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
-              "schema": schema, "kernels": rows}
+              "schema": schema, "stats": stats_report, "window": window,
+              "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

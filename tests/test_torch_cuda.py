@@ -502,3 +502,45 @@ def test_refresh_functions_on_card_equal_cpu(card):
     for sql in queries:
         want = on_cpu.query(sql)
         assert want and on_card.query(sql) == want
+
+
+def test_analyzed_plans_explain_analyze_and_windows_on_card_equal_cpu(card):
+    """ANALYZE, EXPLAIN ANALYZE, a window and a view at SF0.01 on the card
+    and on the CPU over one catalog: the same plans and rows; on the card
+    the operators' dispatches add up to the kernels' launches in the
+    statement, and the root's actRows to the query's rows."""
+    import re
+
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = Catalog()
+    load_tpch(cat, sf=0.01)
+    on_card, on_cpu = Session(cat), Session(cat, device="cpu")
+    on_card.execute("analyze table lineitem, orders, customer, supplier, nation, region")
+    for q in ("q1", "q3", "q5", "q18"):
+        assert on_card.query("explain " + Q[q][0]) == on_cpu.query("explain " + Q[q][0])
+        want = on_cpu.query(Q[q][0])
+        port.reset_launches()
+        hp.reset_launches()
+        rows = on_card.query("explain analyze " + Q[q][0])
+        launched = sum(port.LAUNCHES.values()) + sum(hp.LAUNCHES.values())
+        text = "\n".join(r[0] for r in rows)
+        assert sum(int(n) for n in re.findall(r"dispatches:(\d+)", text)) == launched
+        head = rows[0][0]
+        act = rows[1][0][head.index("actRows"):head.index("drift")]
+        assert int(act) == len(want)
+        assert on_card.query(Q[q][0]) == want
+    for sql in ("select o_custkey, o_orderkey, rank() over (partition by o_custkey "
+                "order by o_totalprice desc) from orders order by 1, 2",
+                "create view v as select o_custkey as k, sum(o_totalprice) as t "
+                "from orders group by o_custkey",
+                "select k, t from v order by t desc, k limit 5"):
+        got = on_card.execute(sql)
+        if got is not None:
+            assert got.rows == on_cpu.query(sql)
+        elif sql.startswith("create view"):
+            assert cat.view("test", "v") is not None

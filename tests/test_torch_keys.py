@@ -10,8 +10,10 @@ against the JAX package, statement for statement.
   (test_torch_session._export_into): a duplicate o_orderkey, or a
   duplicate (l_orderkey, l_linenumber), is refused by both engines.
 - Point and range access (cases from tests/test_pointget.py): the port's
-  planner picks PPointGet / PIndexRangeScan, and the rows equal the
-  reference's, also after a DELETE and inside a transaction's snapshot.
+  planner picks the reference's PPointGet / PIndexRangeScan / PScan (pure
+  ranges take the index once the INSERT's commit has auto-analyzed the
+  table), and the rows equal the reference's, also after a DELETE and
+  inside a transaction's snapshot.
 
 Every reference Session here sets `tidb_tpu_compaction = 0`: the port
 has no compaction worker, and the reference's must not start.
@@ -195,12 +197,12 @@ _POINT_CASES = [
     ("absent_key", "select v from p where id = -1", PPointGet),
     ("string_residual", "select s from p where id = 8 and s = 'x1'", PPointGet),
     ("composite_point", "select v from r where a = 12 and b = 3", PPointGet),
-    # a pure range takes the index only when statistics make it selective;
-    # the port has no ANALYZE yet (the reference's auto-analyze gives it a
-    # histogram after the INSERT), so its cost gate's no-stats selectivity
-    # (0.33) keeps the full scan. An equality prefix (0.1 a column) wins.
-    ("range", "select id, v from p where id between 100 and 110", PScan),
-    ("range_open", "select id from p where id > 1990", PScan),
+    # a pure range takes the index only when statistics make it selective:
+    # the 2,000-row INSERT's commit auto-analyzes p in both packages, and
+    # its histogram makes these ranges narrow. An equality prefix (0.1 a
+    # column) wins without statistics.
+    ("range", "select id, v from p where id between 100 and 110", PIndexRangeScan),
+    ("range_open", "select id from p where id > 1990", PIndexRangeScan),
     ("prefix_range", "select v from r where a = 7 and b >= 4", PIndexRangeScan),
     ("prefix_eq", "select v from r where a = 50", PIndexRangeScan),
     ("not_selective", "select count(*) from p where id > 5", PScan),
@@ -210,8 +212,14 @@ _POINT_CASES = [
 
 @pytest.mark.parametrize("name,sql,kind", _POINT_CASES, ids=[c[0] for c in _POINT_CASES])
 def test_access_paths_match_reference(points_read_only, name, sql, kind):
+    from tidb_tpu.parser import parse as jax_parse
+
     js, ps = points_read_only
     assert type(leaf(ps, sql)) is kind, name
+    node = js._plan_select(jax_parse(sql)[0])
+    while node.children and type(node).__name__ != kind.__name__:
+        node = node.children[0]
+    assert type(node).__name__ == kind.__name__, name  # the reference's plan
     same_rows(js, ps, sql)
 
 

@@ -38,13 +38,15 @@ the lock, releases it, then charges.
 
 The reference's metrics are plain module-level counters here:
 `SCAN_SEGMENTS_TOTAL` (scanned, pruned), `SPILL_SEGMENT_BYTES` (in,
-out), `COMPACTION_TOTAL` (rebuilds by outcome) and `COMPACTION_BYTES`.
+out), `COMPACTION_TOTAL` (rebuilds by outcome), `COMPACTION_BYTES` and
+`COMPACTION_WAIT` (seconds statements waited on a rebuild or a re-sort).
 """
 
 from __future__ import annotations
 
 import shutil
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,7 +57,8 @@ from tidb_tpu_torch.columnar.zonemap import ZoneMap, build_zone_map, segment_pru
 
 __all__ = ["Segment", "SegmentStore", "ScanPin", "store_for",
            "build_for_result", "SCAN_SEGMENTS_TOTAL",
-           "SPILL_SEGMENT_BYTES", "COMPACTION_TOTAL", "COMPACTION_BYTES"]
+           "SPILL_SEGMENT_BYTES", "COMPACTION_TOTAL", "COMPACTION_BYTES",
+           "COMPACTION_WAIT"]
 
 # smallest table (rows) that earns a store at all; matches the sysvar
 # floor so tiny unit-test tables stay on the raw path with zero overhead
@@ -75,6 +78,10 @@ SPILL_SEGMENT_BYTES = {"in": 0, "out": 0}
 COMPACTION_TOTAL = {"inline": 0, "background": 0, "inline_fallback": 0,
                     "discarded": 0, "failed": 0, "recluster": 0}
 COMPACTION_BYTES = {"bytes": 0}
+# wall seconds statements waited on an inline rebuild or a CLUSTER BY
+# permute (EXPLAIN ANALYZE's compaction_wait_ms; process-wide, as the
+# port's other counters)
+COMPACTION_WAIT = {"s": 0.0}
 
 _COUNT_LOCK = threading.Lock()
 
@@ -83,6 +90,11 @@ def _count_scan(scanned: int, pruned: int) -> None:
     with _COUNT_LOCK:
         SCAN_SEGMENTS_TOTAL["scanned"] += scanned
         SCAN_SEGMENTS_TOTAL["pruned"] += pruned
+
+
+def _count_compact_wait(seconds: float) -> None:
+    with _COUNT_LOCK:
+        COMPACTION_WAIT["s"] += seconds
 
 
 def count_compaction(outcome: str, nbytes: int = 0) -> None:
@@ -246,8 +258,10 @@ class SegmentStore:
 
     def _inline_rebuild_locked(self) -> int:
         """The statement-path rebuild; returns encoded bytes built
-        (charged to the scanning statement by plan_scan)."""
+        (charged to the scanning statement by plan_scan) and records the
+        wall time on the compaction-wait counter."""
         t = self.table
+        t0 = time.perf_counter()
         built = 0
         # the trailing partial segment (if any) re-builds at full size
         if self.segments and self.segments[-1].rows < self.segment_rows:
@@ -263,6 +277,7 @@ class SegmentStore:
             self.covered = e
             built += seg.nbytes
         self._stats_view = None
+        _count_compact_wait(time.perf_counter() - t0)
         return built
 
     def compact_inline_fallback(self) -> None:
@@ -328,12 +343,14 @@ class SegmentStore:
             if not self._want_recluster_locked(True):
                 return True  # raced: sorted (or hint dropped) meanwhile
             self._recluster_busy = True
+        t0 = time.perf_counter()
         try:
             moved = self.table.recluster(quiesced=quiesced)
         finally:
             with self._lock:
                 self._recluster_busy = False
         if moved:
+            _count_compact_wait(time.perf_counter() - t0)
             count_compaction("recluster")
         t = self.table
         return bool(moved) or getattr(t, "clustered_rows", 0) >= t.n

@@ -36,10 +36,26 @@ def raise_if_cancelled(ctx: "ExecContext") -> None:
 
 @dataclass
 class RuntimeStats:
-    """Per-operator counters (ref: util/execdetails RuntimeStats); the
-    subset the scan and the fused pipelines bump."""
+    """Per-operator stats surfaced by EXPLAIN ANALYZE
+    (ref: util/execdetails RuntimeStats)."""
 
+    rows: int = 0
     chunks: int = 0
+    open_wall: float = 0.0
+    next_wall: float = 0.0
+    # kernel launches issued while this operator (incl. its children)
+    # ran — utils.dispatch deltas; EXPLAIN ANALYZE shows own =
+    # cumulative - children's
+    dispatches: int = 0
+    # kernel library builds (nvcc at first use) while this operator ran
+    recompiles: int = 0
+    # perf_counter of this operator's first open/next activity
+    first_ts: Optional[float] = None
+    # the planner's row estimate for the plan node this executor answers
+    # for (-1 = unannotated); `measured` marks `rows` as exact (the
+    # instrument() wrapper counted every emitted chunk)
+    est_rows: float = -1.0
+    measured: bool = False
     # columnar segment store: segments a scan skipped through zone-map
     # pruning and segments it staged
     segs_pruned: int = 0

@@ -9,10 +9,11 @@ over one becomes FusedScanTopNExec (executor/pipeline.py), with the
 reference's plan-static gates; the context-dependent gates (the sysvars,
 the top-k state's capacity) decide at open() and fall back to the classic
 tree through each fused executor's `fallback_build` delegate. A point
-get or an index range scan (the planner picks them over a table's unique
-and secondary indexes) is its own leaf with the peeled stages on top.
-Index joins, window functions and the partition access path are not yet
-ported and raise UnsupportedError or take the classic tree.
+get, an index range scan (the planner picks them over a table's unique
+and secondary indexes) or a partition scan is its own leaf with the
+peeled stages on top. A window function runs in WindowExec
+(executor/window.py) over its child's rows, drained to the host. Index
+joins are not yet ported and raise UnsupportedError.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from tidb_tpu_torch.planner.physical import (
     PSort,
     PTopN,
     PUnion,
+    PWindow,
     PhysicalPlan,
 )
 
@@ -238,6 +240,17 @@ def _try_fused_scan_topn(plan):
 
 
 def build_executor(plan: PhysicalPlan) -> Executor:
+    """Build the executor for `plan` and annotate it with the plan node
+    it answers for: EXPLAIN ANALYZE's est/drift columns pair each
+    executor's actual row count with its node's est_rows through this
+    link. Fused/peeled executors carry the TOP of the chain they
+    absorbed — their output is that node's."""
+    e = _build_executor(plan)
+    e._feedback_plan = plan
+    return e
+
+
+def _build_executor(plan: PhysicalPlan) -> Executor:
     # pipeline fusion: Selection/Projection chains over a scan
     stages, base = peel_stages(plan)
     if isinstance(base, PPointGet):
@@ -319,6 +332,13 @@ def build_executor(plan: PhysicalPlan) -> Executor:
         if fused is not None:
             return fused
         return SortExec(plan.schema, build_executor(plan.child), plan.items)
+    if isinstance(plan, PWindow):
+        from tidb_tpu_torch.executor.window import WindowExec
+
+        return WindowExec(plan.schema, build_executor(plan.child), plan.func,
+                          plan.args, plan.partition_by, plan.order_by,
+                          plan.out_uid, plan.out_type, plan.params,
+                          frame=plan.frame)
     if isinstance(plan, PTopN):
         fused = _try_fused_scan_topn(plan)
         if fused is not None:

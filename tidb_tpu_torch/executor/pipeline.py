@@ -79,6 +79,7 @@ from tidb_tpu_torch.executor.join import HashJoinExec, _pad
 from tidb_tpu_torch.expression.compiler import eval_expr
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 from tidb_tpu_torch.utils.memory import QueryOOMError
 
@@ -347,6 +348,7 @@ class ChunkPrefetcher:
         _count(PIPELINE_STAGE_SECONDS, "copy", time.perf_counter() - t1)
         _count(PIPELINE_PREFETCH_BYTES, "h2d", nbytes)
         _count(PIPELINE_PREFETCH_BYTES, "copies")
+        dispatch.record_xfer(nbytes)
         return _tree_map(lambda a: arena.view_of(dev_buf, a), host), nbytes, event, dev_buf
 
     def _run(self) -> None:
@@ -695,6 +697,9 @@ def _close_delegate(outer) -> None:
     d, outer._delegate = outer._delegate, None
     if d is not None:
         d.close()
+        # EXPLAIN ANALYZE renders after the tree is closed: keep the
+        # delegate that ran reachable for its [classic] subtree
+        outer._fallback_taken = d
 
 
 # ---------------------------------------------------------------------------

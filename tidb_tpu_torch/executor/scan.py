@@ -29,6 +29,7 @@ from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.executor.base import ExecContext, Executor
 from tidb_tpu_torch.expression.compiler import compile_expr, compile_predicate
 from tidb_tpu_torch.planner.binder import PlanCol
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["TableScanExec", "make_pipeline_fn", "SelectionExec",
@@ -65,7 +66,10 @@ def stage(host: np.ndarray, cap: int, dtype: torch.dtype, device) -> torch.Tenso
     out = torch.zeros(cap, dtype=dtype, device=device)
     n = len(host)
     if n:
-        out[:n].copy_(torch.from_numpy(np.ascontiguousarray(host)))
+        src = np.ascontiguousarray(host)
+        out[:n].copy_(torch.from_numpy(src))
+        if out.is_cuda:
+            dispatch.record_xfer(src.nbytes)
     return out
 
 
@@ -294,6 +298,8 @@ class PointGetExec(TableScanExec):
             vo = (vs + 7) // 8 * 8
             host[vo:vo + n] = v
         buf = torch.from_numpy(host).to(self.ctx.device)
+        if buf.is_cuda:
+            dispatch.record_xfer(host.nbytes)
         cols = {}
         for (uid, t, _d, _v), (ds, vs) in zip(parts, layout):
             vo = (vs + 7) // 8 * 8

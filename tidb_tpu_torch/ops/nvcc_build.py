@@ -17,9 +17,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
 
 from tidb_tpu_torch.errors import ExecutionError
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = ["CSRC", "build_libraries", "load_library", "nvcc_path"]
 
@@ -57,6 +59,7 @@ def build_libraries(sources: List[str]) -> List[str]:
     paths = [_so_path(s) for s in sources]
     os.makedirs(os.path.abspath(_BUILD_DIR), exist_ok=True)
     running = []
+    t0 = time.perf_counter()
     for src, so in zip(sources, paths):
         if os.path.exists(so):
             continue
@@ -72,6 +75,9 @@ def build_libraries(sources: List[str]) -> List[str]:
             failed.append(f"nvcc failed ({proc.returncode}) building {src}:\n{out}\n{err}")
         else:
             os.replace(tmp, so)
+    if len(running) > len(failed):
+        # the builds ran together: their wall time is the batch's
+        dispatch.record_compile(time.perf_counter() - t0, len(running) - len(failed))
     if failed:
         raise ExecutionError("\n".join(failed))
     return paths

@@ -10,11 +10,15 @@ ADD/DROP CHECK, CLUSTER BY) and the single-process online-DDL stages
 KEY UPDATE), UPDATE and DELETE (single- and multi-table), BEGIN / START
 TRANSACTION / COMMIT / ROLLBACK, SAVEPOINT / ROLLBACK TO / RELEASE
 SAVEPOINT and the `autocommit` sysvar, SET, SELECT (UNION included) and
-its locking form (FOR UPDATE / FOR SHARE), plus `load_tpch`.
+its locking form (FOR UPDATE / FOR SHARE), CREATE [OR REPLACE] / DROP
+VIEW, ANALYZE TABLE, EXPLAIN [ANALYZE] and SHOW, plus `load_tpch`.
 Writes run inside a transaction (`TxnState`: an implicit one commits at
 statement end) and commit through the two-phase committer
 (storage/txn2pc.py); reads inside a transaction see its snapshot and its
-own provisional rows (`_exec_ctx`'s `read_ts` and `txn_marker`).
+own provisional rows (`_exec_ctx`'s `read_ts` and `txn_marker`). A
+commit that wrote rows re-analyzes the tables whose modifications crossed
+the auto-analyze threshold (`tidb_enable_auto_analyze`,
+`tidb_auto_analyze_ratio`), as the reference does.
 Statements run on `device`: None means the CUDA card, and a Session
 without a card raises instead of carrying on on the CPU.
 
@@ -24,9 +28,11 @@ registers as a lock-free reader in between.
 
 Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... LIKE /
 AS SELECT / TEMPORARY / SHARD BY, the DDL job queue, the delta engine,
-KILL and statement deadlines, LOAD DATA, EXPLAIN/TRACE/SHOW/ANALYZE,
-views, users and privileges, prepared statements, the plan cache, plan
-feedback, tracing and the serving, DCN and mesh tiers.
+KILL and statement deadlines, LOAD DATA, TRACE, SHOW GRANTS /
+PROCESSLIST / BINDINGS / PLUGINS, users and privileges (EXPLAIN checks
+none), SQL bindings (EXPLAIN shows the unbound plan), prepared
+statements, the plan cache, plan feedback, tracing and the serving, DCN
+and mesh tiers.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from tidb_tpu_torch.executor import ExecContext, ResultSet, build_executor, run_
 from tidb_tpu_torch.parser import ast as A
 from tidb_tpu_torch.parser import parse
 from tidb_tpu_torch.planner.optimizer import plan_statement
-from tidb_tpu_torch.planner.physical import PProjection, lower
+from tidb_tpu_torch.planner.physical import PProjection, explain_text, lower
 from tidb_tpu_torch.planner.rules import optimize_logical
 from tidb_tpu_torch.session.sysvars import SysVarStore
 from tidb_tpu_torch.storage.catalog import Catalog
@@ -56,6 +62,12 @@ from tidb_tpu_torch.types import TypeKind, parse_type_name
 from tidb_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Session", "TxnState", "wire_check", "wire_generated"]
+
+# SHOW kinds whose modules the port does not have yet
+_SHOW_UNPORTED = {"grants": "users and privileges",
+                  "processlist": "KILL and the process list",
+                  "bindings": "SQL plan bindings",
+                  "plugins": "the plugin framework"}
 
 
 @dataclasses.dataclass
@@ -158,6 +170,10 @@ class Session:
         # set while a FOR UPDATE/SHARE read runs: reads latest committed
         # instead of the txn snapshot (MySQL locking reads are current)
         self._lock_read = False
+        # SHOW WARNINGS' area, reset by every other statement
+        self._warnings: list = []
+        # the statement's memory trackers (EXPLAIN ANALYZE's mem_max)
+        self._stmt_trackers: list = []
 
     @property
     def chunk_capacity(self) -> int:
@@ -211,7 +227,10 @@ class Session:
                 t.release_locks(txn.marker)
         if txn.logs and self.sysvars.get("tidb_gc_enable"):
             self.catalog.auto_gc([t for t, _ in txn.logs.values()])
-        # next slice: auto-analyze (maybe_auto_analyze) runs here
+        if txn.logs and self.sysvars.get("tidb_enable_auto_analyze"):
+            self.catalog.maybe_auto_analyze(
+                [t for t, _ in txn.logs.values()],
+                ratio=float(self.sysvars.get("tidb_auto_analyze_ratio")))
 
     def _rollback(self) -> None:
         txn, self.txn = self.txn, None
@@ -286,6 +305,9 @@ class Session:
         statement registers as a lock-free reader in between, so no
         other thread's boundary can move rows out from under it."""
         self.catalog.run_pending_reclusters()
+        if not (isinstance(stmt, A.ShowStmt) and stmt.kind == "warnings"):
+            self._warnings.clear()  # MySQL: each statement resets the area
+        self._stmt_trackers = []
         self.catalog.reader_enter()
         try:
             return self._execute_stmt(stmt)
@@ -332,6 +354,10 @@ class Session:
             "query", budget=int(sv("tidb_mem_quota_query")),
             spill_enabled=bool(sv("tidb_enable_tmp_storage_on_oom")),
             spill_root=True)
+        # the statement may build several contexts (subplans): EXPLAIN
+        # ANALYZE reports the max over all of them
+        self._stmt_trackers.append(tracker)
+        del self._stmt_trackers[:-64]  # bound pathological statements
         return ExecContext(
             chunk_capacity=self._plan_capacity(plan),
             device=self.device,
@@ -553,6 +579,34 @@ class Session:
             if getattr(stmt, "lock_mode", None) is not None:
                 return self._run_locking_select(stmt)
             return self._run_select(stmt)
+        if isinstance(stmt, A.ExplainStmt):
+            return self._run_explain(stmt)
+        if isinstance(stmt, A.ShowStmt):
+            return self._run_show(stmt)
+        if isinstance(stmt, A.AnalyzeStmt):
+            from tidb_tpu_torch.statistics import analyze_table
+
+            for tn in stmt.tables:
+                t = self.catalog.table(tn.schema or self.db, tn.name)
+                analyze_table(t)
+                t.modify_count = 0
+            return None
+        if isinstance(stmt, A.CreateViewStmt):
+            self._commit()  # DDL semantics
+            self.catalog.create_view(
+                stmt.schema or self.db, stmt.name, stmt.columns,
+                stmt.select, stmt.select_sql, stmt.or_replace)
+            return None
+        if isinstance(stmt, A.DropViewStmt):
+            self._commit()
+            # MySQL 8: all-or-nothing — validate every name first
+            if not stmt.if_exists:
+                for t in stmt.names:
+                    if self.catalog.view(t.schema or self.db, t.name) is None:
+                        raise SchemaError(f"no view {t.schema or self.db}.{t.name}")
+            for t in stmt.names:
+                self.catalog.drop_view(t.schema or self.db, t.name, if_exists=True)
+            return None
         if isinstance(stmt, A.InsertStmt):
             return self._run_insert(stmt)
         if isinstance(stmt, A.UpdateStmt):
@@ -924,6 +978,12 @@ class Session:
                 self.catalog.drop_table(stmt.table.schema or self.db,
                                         schema.name, if_exists=True)
                 raise
+            for item in stmt.ignored + [i for c in stmt.columns
+                                        for i in c.ignored]:
+                # accepted-but-ignored clauses surface as warnings
+                # instead of vanishing (SHOW WARNINGS; MySQL code 1235)
+                self._warnings.append(
+                    ("Warning", 1235, f"{item} is parsed but ignored"))
         return None
 
     # -- DML ---------------------------------------------------------------
@@ -1442,6 +1502,170 @@ class Session:
                               log=txn.log_for(table), log_for=txn.log_for)
 
         return self._run_dml(do)
+
+    def _run_explain(self, stmt: A.ExplainStmt):
+        """EXPLAIN shows the plan (`explain_text`); EXPLAIN ANALYZE runs it
+        with every operator instrumented (utils/execdetails.py) and adds
+        the statement's resource profile. The reference's SQL bindings
+        and privilege checks are not ported: the plan is the unbound one
+        and nothing is checked."""
+        target = stmt.stmt
+        if not isinstance(target, (A.SelectStmt, A.UnionStmt)):
+            raise UnsupportedError("EXPLAIN only supports SELECT")
+        phys = self._plan_select(target)
+        if stmt.analyze:
+            from tidb_tpu_torch.columnar.store import COMPACTION_WAIT
+            from tidb_tpu_torch.utils import dispatch as _dsp
+            from tidb_tpu_torch.utils.execdetails import analyze_text, instrument
+
+            root = build_executor(phys)
+            instrument(root)
+            # resource profile: deltas of the host-side counters around
+            # the execution — no new syncs
+            p0 = (_dsp.xfer_bytes(), _dsp.compile_seconds(),
+                  _dsp.spill_bytes(), COMPACTION_WAIT["s"])
+            run_plan(root, self._exec_ctx(plan=phys))  # execute; rows discarded
+            text = analyze_text(root)
+            mem_max = max((t.max_consumed for t in self._stmt_trackers),
+                          default=0)
+            text += ("\nprofile: mem_max=%d xfer_bytes=%d compile_ms=%.1f"
+                     " spill_bytes=%d compaction_wait_ms=%.1f"
+                     % (mem_max, _dsp.xfer_bytes() - p0[0],
+                        (_dsp.compile_seconds() - p0[1]) * 1e3,
+                        _dsp.spill_bytes() - p0[2],
+                        (COMPACTION_WAIT["s"] - p0[3]) * 1e3))
+            return ResultSet(names=["EXPLAIN ANALYZE"],
+                             rows=[(line,) for line in text.split("\n")])
+        text = explain_text(phys)
+        return ResultSet(names=["EXPLAIN"], rows=[(line,) for line in text.split("\n")])
+
+    @staticmethod
+    def _like_filter(rows, like: Optional[str], col: int = 0):
+        if like is None:
+            return rows
+        import re
+
+        pat = re.escape(like).replace("%", ".*").replace("_", ".")
+        rx = re.compile(f"^{pat}$", re.IGNORECASE)
+        return [r for r in rows if rx.match(str(r[col]))]
+
+    def _run_show(self, stmt: A.ShowStmt):
+        if stmt.kind in _SHOW_UNPORTED:
+            raise UnsupportedError(
+                f"SHOW {stmt.kind.upper()} is not yet ported: it waits for "
+                f"{_SHOW_UNPORTED[stmt.kind]}")
+        if stmt.kind == "warnings":
+            return ResultSet(names=["Level", "Code", "Message"],
+                             rows=list(self._warnings))
+        if stmt.kind == "databases":
+            rows = [(n,) for n in sorted(self.catalog.databases)]
+            return ResultSet(names=["Database"], rows=self._like_filter(rows, stmt.like))
+        if stmt.kind == "tables":
+            names = set(self.catalog.tables(self.db))
+            names.update(self.catalog.database(self.db).views)
+            rows = [(n,) for n in sorted(names)]  # MySQL lists views too
+            return ResultSet(names=[f"Tables_in_{self.db}"], rows=self._like_filter(rows, stmt.like))
+        if stmt.kind == "columns":
+            t = self.catalog.table(self.db, stmt.target)
+            rows = [
+                (c.name, str(c.type_), "NO" if c.not_null else "YES")
+                for c in t.schema.public_columns()
+            ]
+            return ResultSet(names=["Field", "Type", "Null"], rows=rows)
+        if stmt.kind == "index":
+            t = self.catalog.table(self.db, stmt.target)
+            rows = []
+            for idx in t.indexes.values():
+                if idx.state != "public":
+                    continue  # staged online-DDL index: not visible yet
+                for seq, col in enumerate(idx.columns, 1):
+                    rows.append((stmt.target, 0 if idx.unique else 1,
+                                 idx.name, seq, col))
+            return ResultSet(
+                names=["Table", "Non_unique", "Key_name", "Seq_in_index",
+                       "Column_name"],
+                rows=rows)
+        if stmt.kind == "create_table":
+            t = self.catalog.table(self.db, stmt.target)
+            kindmap = {"int": "bigint", "float": "double",
+                       "string": "varchar(255)", "bool": "tinyint(1)"}
+            lines = []
+            for c in t.schema.public_columns():
+                ty = c.type_text or kindmap.get(str(c.type_), str(c.type_))
+                parts = [f"  `{c.name}` {ty}"]
+                if c.type_.is_dict_encoded and c.collation is not None:
+                    # a non-default collation round-trips (the default,
+                    # utf8mb4_general_ci, is implied like MySQL's)
+                    parts.append(f"COLLATE {c.collation}")
+                if c.not_null:
+                    parts.append("NOT NULL")
+                if c.auto_increment:
+                    parts.append("AUTO_INCREMENT")
+                if c.default is not None:
+                    dv = str(c.default).replace("\\", "\\\\")
+                    dv = dv.replace("'", "''")
+                    parts.append(f"DEFAULT '{dv}'")
+                lines.append(" ".join(parts))
+            if t.schema.primary_key:
+                keys = ", ".join(f"`{k}`" for k in t.schema.primary_key)
+                lines.append(f"  PRIMARY KEY ({keys})")
+            for name, ix in t.indexes.items():
+                if name == "PRIMARY" or ix.state != "public":
+                    continue
+                keys = ", ".join(f"`{k}`" for k in ix.columns)
+                kw = "UNIQUE KEY" if ix.unique else "KEY"
+                lines.append(f"  {kw} `{name}` ({keys})")
+            for fk in t.foreign_keys:
+                cols = ", ".join(f"`{c}`" for c in fk.columns)
+                pcols = ", ".join(f"`{c}`" for c in fk.parent_cols)
+                line = (f"  FOREIGN KEY ({cols}) REFERENCES "
+                        f"`{fk.parent.schema.name}` ({pcols})")
+                for clause, act in (("ON DELETE", fk.on_delete),
+                                    ("ON UPDATE", fk.on_update)):
+                    if act != "restrict":
+                        line += f" {clause} {act.replace('_', ' ').upper()}"
+                lines.append(line)
+            for chk in getattr(t, "checks", ()):
+                lines.append(
+                    f"  CONSTRAINT `{chk.name}` CHECK ({chk.sql})")
+            ddl = (f"CREATE TABLE `{stmt.target}` (\n"
+                   + ",\n".join(lines)
+                   + f"\n) ENGINE={t.engine}")
+            pi = t.schema.partition
+            if pi is not None:
+                if pi.kind == "hash":
+                    ddl += (f"\nPARTITION BY HASH (`{pi.column}`) "
+                            f"PARTITIONS {pi.n_parts}")
+                else:
+                    parts = ", ".join(
+                        f"PARTITION `{n}` VALUES LESS THAN "
+                        + ("MAXVALUE" if u is None else f"({u})")
+                        for n, u in zip(pi.names, pi.uppers))
+                    ddl += (f"\nPARTITION BY RANGE (`{pi.column}`) "
+                            f"({parts})")
+            if t.schema.cluster_by:
+                ddl += f"\nCLUSTER BY (`{t.schema.cluster_by}`)"
+            return ResultSet(names=["Table", "Create Table"],
+                             rows=[(stmt.target, ddl)])
+        if stmt.kind == "create_view":
+            v = self.catalog.view(self.db, stmt.target)
+            if v is None:
+                raise SchemaError(f"no view {self.db}.{stmt.target}")
+            vcols, _ast, sql = v
+            collist = f" ({', '.join(vcols)})" if vcols else ""
+            return ResultSet(
+                names=["View", "Create View"],
+                rows=[(stmt.target,
+                       f"CREATE VIEW `{stmt.target}`{collist} AS {sql}")])
+        if stmt.kind == "variables":
+            from tidb_tpu_torch.session.sysvars import display
+
+            rows = sorted((k, display(v)) for k, v in self.sysvars.all_effective().items())
+            return ResultSet(names=["Variable_name", "Value"],
+                             rows=self._like_filter(rows, stmt.like))
+        raise UnsupportedError(f"SHOW {stmt.kind}")
+
+
 
 def _union_arms(u):
     """Leaf SelectStmts of a UnionStmt tree."""

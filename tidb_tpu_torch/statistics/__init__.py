@@ -11,14 +11,19 @@ selectivity matches heavy hitters across both sides instead of assuming
 uniform key frequency (`eq_join_selectivity`).
 
 Stats are version-stamped: a table mutation bumps table.version and
-histogram/MCV estimates degrade to heuristics until the next ANALYZE.
+histogram/MCV estimates degrade to heuristics until the next ANALYZE —
+the reference's stale-stats freshness model. NDV degrades more
+gracefully: a per-column KMV sketch (`NDVSketch`, the analogue of the
+reference's sketch-based NDV maintenance between analyzes) is seeded at
+ANALYZE and updated on every insert, so join-key distinct counts track
+DML churn without a full re-collection. A table with no fresh stats but
+a columnar segment store estimates from its zone maps (`zone_map_stats`).
 
-This port carries the estimation half (what the physical planner's
-`_estimate` reads) and the zone-map fallback: a table with no `table.stats`
-but a columnar segment store estimates from its zone maps
-(`zone_map_stats`), so plans can change once a table's store exists.
-ANALYZE and the insert-maintained NDV sketch are not yet ported; a table
-with neither stats nor a store takes the no-stats heuristic.
+`analyze_table` is the reference's collection over the table's host
+arrays, so a port table and a reference table holding the same rows get
+field-by-field equal `TableStats`. The reference's ANALYZE also resets
+its plan-feedback store; the port has no plan feedback
+(planner/feedback.py is not ported), so that reset is left out.
 """
 
 from __future__ import annotations
@@ -30,9 +35,9 @@ import numpy as np
 
 from tidb_tpu_torch.types import TypeKind
 
-__all__ = ["ColumnStats", "TableStats", "table_stats",
+__all__ = ["ColumnStats", "TableStats", "analyze_table", "table_stats",
            "zone_map_stats", "scan_selectivity", "column_ndv",
-           "eq_join_selectivity", "HIST_BUCKETS", "MCV_SIZE"]
+           "eq_join_selectivity", "NDVSketch", "HIST_BUCKETS", "MCV_SIZE"]
 
 HIST_BUCKETS = 64
 MCV_SIZE = 16
@@ -60,6 +65,137 @@ class TableStats:
     n_rows: int
     version: int
     cols: Dict[str, ColumnStats] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# NDV sketch (stats maintenance between analyzes)
+# ---------------------------------------------------------------------------
+
+
+from tidb_tpu_torch.utils.hashutil import splitmix64 as _splitmix64
+
+
+def _hash_reprs(arr: np.ndarray) -> np.ndarray:
+    """Hash device-representation values (ints/floats) to uint64."""
+    a = np.asarray(arr)
+    if a.dtype.kind == "f":
+        u = a.astype(np.float64).view(np.uint64)
+    elif a.dtype.kind == "b":
+        u = a.astype(np.uint64)
+    else:
+        u = a.astype(np.int64).view(np.uint64)
+    return _splitmix64(u)
+
+
+def _hash_strings(vals) -> np.ndarray:
+    """Hash python strings to uint64 (CPython string hash is 64-bit and
+    stable within a process — sketches are in-memory state, never
+    persisted)."""
+    return _splitmix64(np.array([hash(v) for v in vals],
+                                dtype=np.int64).view(np.uint64))
+
+
+class NDVSketch:
+    """K-minimum-values distinct-count sketch.
+
+    Keeps the K smallest distinct 64-bit hashes seen; NDV is estimated
+    as (K-1) / kth_min_normalized. Inserts only — deletes are ignored,
+    so between analyzes the estimate is an (approximate) upper bound on
+    live NDV, which is the safe direction for join estimates. Ref
+    counterpart: the sketch-based NDV the reference maintains between
+    full analyzes (statistics/ CMSketch family)."""
+
+    __slots__ = ("mins",)
+    K = 256
+
+    def __init__(self, mins: Optional[np.ndarray] = None):
+        self.mins = (np.empty(0, dtype=np.uint64)
+                     if mins is None else mins.astype(np.uint64))
+
+    def update(self, hashes: np.ndarray) -> None:
+        if len(hashes) == 0:
+            return
+        h = hashes.astype(np.uint64)
+        if len(self.mins) >= self.K:
+            # saturated: only hashes below the current kth-min can enter;
+            # pre-filter before the O(B log B) merge (expected survivors
+            # ~ K*B/2^64, i.e. none)
+            h = h[h < self.mins[-1]]
+            if len(h) == 0:
+                return
+        merged = np.union1d(self.mins, h)
+        self.mins = merged[: self.K]
+
+    def estimate(self) -> float:
+        k = len(self.mins)
+        if k < self.K:
+            return float(k)
+        return (self.K - 1) * (2.0 ** 64) / float(max(self.mins[-1], 1))
+
+
+def hash_column_values(vals: np.ndarray, dic) -> np.ndarray:
+    """Hash a column's device-representation values for the NDV sketch.
+    Dict-encoded columns hash the decoded strings — codes shift when the
+    sorted dictionary grows, so they are not stable identities over
+    time. The ONE definition shared by ANALYZE seeding and the insert
+    hook (desynchronized hashing would corrupt estimates)."""
+    if dic is not None:
+        codes = np.unique(np.asarray(vals).astype(np.int64))
+        return _hash_strings([dic.values[int(c)] for c in codes])
+    return _hash_reprs(vals)
+
+
+def _seed_sketch(table, col_name: str, vals: np.ndarray) -> None:
+    """Seed the per-column NDV sketch from ANALYZE's value pass."""
+    sk = NDVSketch()
+    if len(vals):
+        sk.update(hash_column_values(vals, table.dicts.get(col_name)))
+    table.ndv_sketch[col_name] = sk
+
+
+def analyze_table(table) -> TableStats:
+    """Collect stats over the live rows of a host table. (The reference
+    also resets its plan-feedback store here; the port has none.)"""
+    n = table.n
+    live = np.asarray(table.live_mask(0, n)) if n else np.zeros(0, dtype=bool)
+    n_live = int(live.sum())
+    stats = TableStats(n_rows=n_live, version=table.version)
+    if not hasattr(table, "ndv_sketch"):
+        table.ndv_sketch = {}
+    for c in table.schema.columns:
+        data, valid = table.column_slice(c.name, 0, n)
+        data, valid = np.asarray(data)[live], np.asarray(valid)[live]
+        vals = data[valid]
+        null_count = n_live - len(vals)
+        _seed_sketch(table, c.name, vals)
+        if len(vals) == 0:
+            stats.cols[c.name] = ColumnStats(ndv=0, null_count=null_count)
+            continue
+        sv = np.sort(vals.astype(np.float64, copy=False))
+        boundaries = np.flatnonzero(np.diff(sv))  # last index of each run
+        starts = np.concatenate(([0], boundaries + 1))
+        counts = np.diff(np.concatenate((starts, [len(sv)])))
+        ndv = len(starts)
+        idx = np.linspace(0, len(sv) - 1, min(HIST_BUCKETS + 1, len(sv))).astype(np.int64)
+        # MCV/TopN: heaviest values with count >= 2, decoded to a
+        # cross-table-comparable form
+        mcv = None
+        heavy = np.flatnonzero(counts >= 2)
+        if len(heavy):
+            top = heavy[np.argsort(counts[heavy])[::-1][:MCV_SIZE]]
+            dic = table.dicts.get(c.name)
+            mcv = {}
+            for i in top:
+                v = sv[starts[i]]
+                key = dic.values[int(v)] if dic is not None else float(v)
+                mcv[key] = int(counts[i])
+        stats.cols[c.name] = ColumnStats(
+            ndv=ndv, null_count=null_count,
+            min=float(sv[0]), max=float(sv[-1]),
+            bounds=sv[idx], mcv=mcv,
+        )
+    table.stats = stats
+    return stats
 
 
 def table_stats(table) -> Optional[TableStats]:

@@ -5,10 +5,10 @@ In-memory and schema-versioned (a schema change clears the device buffer
 cache), with the timestamp oracle every table stamps its commits from,
 the open-transaction registry (the GC safepoint), the 2PC status records
 lock resolution finishes crashed commits from, MVCC GC, foreign-key
-wiring, RENAME TABLE and the lock-free reader registry that CLUSTER BY
-permutes wait on. Not yet ported: information_schema, users and
-privileges, plugins, bindings, the DDL owner and job queue, the plan
-cache, statement summaries and auto-analyze.
+wiring, RENAME TABLE, views, auto-analyze after commit and the
+lock-free reader registry that CLUSTER BY permutes wait on. Not yet
+ported: information_schema, users and privileges, plugins, bindings, the
+DDL owner and job queue, the plan cache and statement summaries.
 """
 
 from __future__ import annotations
@@ -265,6 +265,30 @@ class Catalog:
                     out[t.schema.name] = r
         return out
 
+    def maybe_auto_analyze(self, tables, ratio: float = 0.5,
+                           min_rows: int = 1024) -> int:
+        """Stats lifecycle (ref: statistics auto-analyze): re-collect a
+        touched table's statistics when the rows modified since the last
+        ANALYZE cross ratio * analyzed row count (or the table has grown
+        past min_rows with no stats at all). Runs inline after commit —
+        the single-process analogue of the reference's stats-owner
+        background worker. Returns how many tables were analyzed."""
+        from tidb_tpu_torch.statistics import analyze_table
+
+        done = 0
+        for t in tables:
+            mc = getattr(t, "modify_count", 0)
+            stats = getattr(t, "stats", None)
+            if stats is None:
+                if t.maintenance_stats()[0] < min_rows or mc == 0:
+                    continue
+            elif mc < ratio * max(stats.n_rows, min_rows):
+                continue
+            analyze_table(t)
+            t.modify_count = 0
+            done += 1
+        return done
+
     def create_database(self, name: str, if_not_exists: bool = False):
         if name in self.databases:
             if if_not_exists:
@@ -388,6 +412,28 @@ class Catalog:
 
     def tables(self, db: str) -> List[str]:
         return sorted(self.database(db).tables.keys())
+
+    # -- views (ref: the view half of ddl/ + infoschema; a view is a
+    # stored SELECT expanded at plan time like a derived table) ---------
+
+    def create_view(self, db: str, name: str, columns, stmt, sql: str,
+                    or_replace: bool = False) -> None:
+        d = self.database(db)
+        if name in d.tables:
+            raise DuplicateTableError(f"table {name!r} exists")
+        if name in d.views and not or_replace:
+            raise DuplicateTableError(f"view {name!r} exists")
+        d.views[name] = (tuple(columns) if columns else None, stmt, sql)
+        self.schema_version += 1
+
+    def drop_view(self, db: str, name: str, if_exists: bool = False) -> None:
+        d = self.database(db)
+        if name not in d.views:
+            if if_exists:
+                return
+            raise SchemaError(f"no view {db}.{name}")
+        del d.views[name]
+        self.schema_version += 1
 
     def view(self, db: str, name: str):
         d = self.databases.get(db)

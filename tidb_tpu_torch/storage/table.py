@@ -24,8 +24,9 @@ Layout decisions (device-first):
   * column DDL (ADD/DROP/MODIFY COLUMN, online-DDL write_only states)
   * CLUSTER BY: `recluster` physically re-sorts the rows by the cluster
     column (stable, NULLs first) so the segment store's zone maps prune
-
-Not ported: ANALYZE's NDV sketches (`_sketch_insert`).
+  * statistics upkeep: `modify_count` (rows a commit wrote since the last
+    ANALYZE, the auto-analyze trigger) and the per-column NDV sketches
+    ANALYZE seeds and every insert path feeds (`_sketch_insert`)
 """
 
 from __future__ import annotations
@@ -314,6 +315,12 @@ class Table:
         # rows provisionally ended per open txn marker (REPLACE/upsert
         # re-insert freedom + O(dead) instead of O(n) scans)
         self._txn_dead: Dict[int, list] = {}
+        # rows modified since the last ANALYZE (auto-analyze trigger)
+        self.modify_count = 0
+        # per-column KMV NDV sketches (statistics.NDVSketch), seeded by
+        # ANALYZE and fed by every insert so distinct-count estimates
+        # track DML churn between analyzes
+        self.ndv_sketch: Dict[str, object] = {}
         # FOREIGN KEY constraints: this table's child-side FKs, and
         # back-edges from tables whose FKs reference THIS table
         self.foreign_keys: List[FKInfo] = []
@@ -494,6 +501,7 @@ class Table:
         if log is not None:
             self._log_mark(log)
         self._uniq_commit()
+        self._sketch_insert(start, end)
         return m
 
     def insert_columns(self, arrays: Dict[str, np.ndarray], valids: Optional[Dict[str, np.ndarray]] = None, strings: Optional[Dict[str, list]] = None):
@@ -531,6 +539,7 @@ class Table:
         self.n = end
         self.version += 1
         self._uniq_commit()
+        self._sketch_insert(start, end)
         return m
 
     # -- foreign keys ------------------------------------------------------
@@ -833,6 +842,22 @@ class Table:
                 raise ExecutionError(
                     f"CHECK constraint {chk.name!r} violated: ({chk.sql})")
 
+    def _sketch_insert(self, start: int, end: int) -> None:
+        """Feed newly written rows into the per-column NDV sketches (a
+        no-op until ANALYZE seeds them). Dict-encoded columns hash the
+        decoded strings — codes shift when the sorted dictionary grows,
+        so they are not stable identities over time."""
+        if not self.ndv_sketch:
+            return
+        from tidb_tpu_torch.statistics import hash_column_values
+
+        for name, sk in self.ndv_sketch.items():
+            vd = self.valid[name][start:end]
+            vals = self.data[name][start:end][vd]
+            if not len(vals):
+                continue
+            sk.update(hash_column_values(vals, self.dicts.get(name)))
+
     def ingest_encoded(self, arrays: Dict[str, np.ndarray],
                        pools: Dict[str, list]) -> int:
         """Bulk ingest with PRE-ENCODED dictionary codes (the native
@@ -1103,6 +1128,7 @@ class Table:
         self.version += 1
         if log is not None:
             self._log_mark(log)
+        self._sketch_insert(start, end)
         if fk_changed is not None:
             # action half AFTER the new parent keys are visible, so a
             # cascaded child write FK-checks against the updated parent;
@@ -1139,9 +1165,11 @@ class Table:
             for s, e in log.ranges:
                 b = self.begin_ts[s:e]
                 b[b == marker] = commit_ts
+                self.modify_count += e - s
             for ids in log.ended:
                 e_ = self.end_ts[ids]
                 self.end_ts[ids] = np.where(e_ == marker, commit_ts, e_)
+                self.modify_count += len(ids)
         else:
             b = self.begin_ts[: self.n]
             e = self.end_ts[: self.n]
@@ -1151,6 +1179,9 @@ class Table:
                 return  # no residue here: don't invalidate caches
             b[bm] = commit_ts
             e[em] = commit_ts
+            # full-scan commits must still advance the auto-analyze
+            # trigger or stats silently go stale for these workloads
+            self.modify_count += int(bm.sum()) + int(em.sum())
         self.version += 1
         if log is not None and not log.ended:
             # a pure-insert commit doesn't change the present key set:
