@@ -103,6 +103,27 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    full), Q3's direct route and Q5's sorted route (a phase-1 case of the
    route where the plan takes it nowhere), and on a cap-2^18
    table.
+Server. The MySQL-protocol server over the SF1 catalog after phase 3
+   (phase_server): Server(port=0, status_port=0, device="cuda") started;
+   Q1, Q6, Q3, Q5 and Q18 by COM_QUERY over one connection, each against
+   numpy and the session's rows, its wall time beside phase 3's median
+   and its launches (the statements summary's per-thread dispatches)
+   equal to a solo in-process run's; 32,000 prepared point-selects on
+   orders by o_orderkey (COM_STMT_PREPARE / COM_STMT_EXECUTE) from 16
+   connections in a client process of their own (point_clients), keys
+   from seed 7 with 10% absent, the default 250 us batch window, every
+   row against numpy, at least one batch of more than one member
+   (statements/s, p50/p99, mean batch size printed); Q1, Q3 and Q18 from
+   4 connections at once (the scheduler's workers run them one at a
+   time on the catalog lock), each statement's rows and launches (its
+   slow-log row) equal to its solo run's; KILL QUERY from a second connection 0.2 s
+   into Q18 must give 1317 and Q18 under max_execution_time = 50 must
+   give 3024, then Q1 and Q18 right on both connections, no prefetch
+   thread alive and no device buffer cache entry added by a cut-short
+   statement; GET /status and /metrics (the plan-cache, device-cache,
+   batch-size and launch families); shutdown(drain=True) leaving no scheduler, DDL or accept
+   thread; `python -m tidb_tpu_torch --port 0 --status-port -1
+   --load-tpch 0.01` as a subprocess answering Q6, exit 0 at SIGINT.
 4. The refresh phase (phase_refresh), on the phase-2 SF1 session after
    phase 3: keys, index access and the write path. A duplicate o_orderkey
    and a duplicate (l_orderkey, l_linenumber) are refused with the
@@ -3108,6 +3129,401 @@ def _walk(plan):
         stack.extend(node.children)
 
 
+# -- the server phase: the MySQL protocol and the serving tier ---------------
+
+POINT_SQL = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate,"
+             " o_orderpriority, o_clerk, o_shippriority, o_comment from orders"
+             " where o_orderkey = ?")
+# the point-select fleet: connections, and statements from each
+POINT_CONNS, POINT_STMTS = 16, 2000
+# the text rows of the five queries as the port's Session types them
+WIRE_TYPES = {"q1": (str, str, str, str, str, str, float, float, float, int),
+              "q6": (str,), "q3": (int, str, str, int), "q5": (str, str),
+              "q18": (str, int, int, str, str, str)}
+
+
+def _typed(q, rows):
+    return [tuple(None if v is None else f(v) for f, v in zip(WIRE_TYPES[q], r))
+            for r in rows]
+
+
+def numpy_orders(np, o, keys):
+    """Each key's orders row as the binary protocol returns it (None:
+    absent)."""
+    n = o.n
+    okey = o.data["o_orderkey"][:n]
+    pos = _lookup(np, okey, int(okey.max()))
+    live = o.live_mask(0, n)
+    out = {}
+    for k in keys:
+        r = int(pos[k]) if 0 <= k < len(pos) else -1
+        if r < 0 or not live[r]:
+            out[k] = None
+            continue
+        v = {c: o.data[c][r] for c in o.data}
+        dec = lambda c: o.dicts[c].values[int(v[c])]  # noqa: E731
+        tp = int(v["o_totalprice"])
+        out[k] = (int(v["o_orderkey"]), int(v["o_custkey"]), dec("o_orderstatus"),
+                  f"{tp // 100}.{tp % 100:02d}", _iso(np, v["o_orderdate"]),
+                  dec("o_orderpriority"), dec("o_clerk"), int(v["o_shippriority"]),
+                  dec("o_comment"))
+    return out
+
+
+def _summary_entry(cat, sql):
+    from tidb_tpu_torch.bindinfo import normalize_sql, sql_digest
+
+    digest = sql_digest(normalize_sql(sql))
+    return next((e for e in cat.stmt_summary.top(10_000) if e["digest"] == digest),
+                {"exec_count": 0, "dispatches": 0, "xfer_bytes": 0})
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
+
+
+def point_clients(port, n_conns, keys_path, out_path) -> int:
+    """The point-select client fleet, run in its own process by
+    phase_server: `n_conns` connections, each preparing POINT_SQL and
+    executing its share of the keys in `keys_path` (connection i takes
+    every n_conns-th key from i), all started together. Writes the rows
+    in key order, the per-statement latencies and the wall time to
+    `out_path`."""
+    import threading
+
+    from tidb_tpu_torch.server.client import Client
+
+    port, n_conns = int(port), int(n_conns)
+    with open(keys_path) as f:
+        keys = json.load(f)
+    clients = [Client(port=int(port), timeout=600) for _ in range(n_conns)]
+    sids = [c.prepare(POINT_SQL)[0] for c in clients]
+    clients[0].execute_prepared(sids[0], [keys[0]])  # the plan-cache fill
+    rows = [None] * len(keys)
+    lat = [[] for _ in range(n_conns)]
+    errs = []
+    barrier = threading.Barrier(n_conns)
+
+    def run(ci):
+        try:
+            barrier.wait(60)
+            for j in range(ci, len(keys), n_conns):
+                t1 = time.perf_counter()
+                rows[j] = clients[ci].execute_prepared(sids[ci], [keys[j]])[1]
+                lat[ci].append(time.perf_counter() - t1)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errs.append(repr(e))
+
+    ts = [threading.Thread(target=run, args=(ci,)) for ci in range(n_conns)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if errs or any(t.is_alive() for t in ts):
+        print(f"point clients failed: {errs[:3]}", file=sys.stderr)
+        return 1
+    with open(out_path, "w") as f:
+        json.dump({"rows": rows, "wall_s": wall,
+                   "latency_s": [x for xs in lat for x in xs]}, f)
+    return 0
+
+
+def phase_server(torch, np, s, mods, warm_s) -> dict:
+    """The port's MySQL-protocol server over the SF1 catalog of `s`
+    (phase_server in the module docstring). Every step fails the run on
+    a wrong answer; returns the report."""
+    import signal
+    import threading
+    import urllib.request
+
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.server.client import Client, ServerError
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import dispatch
+    from tidb_tpu_torch.utils import metrics as M
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    cat = s.catalog
+    rep = {"card": card_line()}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    srv = Server(catalog=cat, host="127.0.0.1", port=0, status_port=0, device="cuda")
+    srv.start()
+    rep["start_s"] = time.perf_counter() - t0
+    log(f"server: started on {srv.device} port {srv.port} status {srv.status_port} "
+        f"in {rep['start_s']:.3f} s")
+    seg_mod.reset_launches()
+    hp.reset_launches()
+    conns = []
+
+    def connect():
+        c = Client(port=srv.port, timeout=600)
+        conns.append(c)
+        return c
+
+    try:
+        # -- the five queries over one connection --------------------------
+        c = connect()
+        res, five = {}, {}
+        for q in REFRESH_QUERIES:
+            sql = Q[q][0]
+            d0 = dispatch.count()
+            solo_rows = s.query(sql)  # in process: its own launches
+            solo = dispatch.count() - d0
+            e0 = _summary_entry(cat, sql)
+            t0 = time.perf_counter()
+            names, rows = c.query(sql)
+            wall = time.perf_counter() - t0
+            e1 = _summary_entry(cat, sql)
+            res[q] = _typed(q, rows)
+            if res[q] != solo_rows:
+                raise AssertionError(f"server {q}: wire rows differ from the session's")
+            wire_launches = e1["dispatches"] - e0["dispatches"]
+            if e1["exec_count"] - e0["exec_count"] != 1 or wire_launches != solo:
+                raise AssertionError(f"server {q}: {wire_launches} launches over the "
+                                     f"wire, {solo} solo")
+            five[q] = {"wire_s": wall, "in_process_median_s": warm_s.get(q),
+                       "launches": wire_launches, "solo_launches": solo,
+                       "xfer_bytes": e1["xfer_bytes"] - e0["xfer_bytes"]}
+            log(f"server {q}: {wall * 1e3:.3f} ms over the wire against "
+                f"{(warm_s.get(q) or 0) * 1e3:.3f} ms in process (phase 3 median); "
+                f"launches {wire_launches} (solo {solo})")
+        check_five(np, res, cat, "server")
+        rep["five"] = five
+
+        # -- prepared point-selects from 16 connections --------------------
+        # the clients run in a process of their own, as a client fleet
+        # would: 16 client threads in this one would take the GIL from
+        # the server they measure
+        o = cat.table("test", "orders")
+        okeys = o.data["o_orderkey"][:o.n]
+        rng = np.random.default_rng(7)
+        n_all = POINT_CONNS * POINT_STMTS
+        keys = rng.choice(okeys, n_all)
+        absent = rng.random(n_all) < 0.1
+        # an absent key: past the largest one
+        gap = int(okeys.max()) + 1 + rng.integers(0, 1 << 20, n_all)
+        keys = np.where(absent, gap, keys).astype(np.int64)
+        want = numpy_orders(np, o, set(int(k) for k in keys))
+        c0 = M.BATCH_COALESCE_TOTAL.value()
+        b0 = M.BATCH_SIZE.count()
+        hist0 = {k: list(v) for k, v in M.BATCH_SIZE._counts.items()}
+        keys_path = os.path.join(OUT_DIR, "point_keys.json")
+        out_path = os.path.join(OUT_DIR, "point_rows.json")
+        with open(keys_path, "w") as f:
+            json.dump([int(k) for k in keys], f)
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.point_clients(*sys.argv[1:]))",
+             str(srv.port), str(POINT_CONNS), keys_path, out_path],
+            cwd=here, capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"point-select clients failed: {r.stderr[-2000:]}")
+        with open(out_path) as f:
+            got = json.load(f)
+        os.remove(out_path)
+        os.remove(keys_path)
+        for k, rows in zip(keys, got["rows"]):
+            w = want[int(k)]
+            if [tuple(x) for x in rows] != ([] if w is None else [w]):
+                raise AssertionError(f"point-select {k}: {rows} vs numpy {w}")
+        wall = got["wall_s"]
+        batches = M.BATCH_SIZE.count() - b0
+        flat = got["latency_s"]
+        sizes = {}
+        for key, counts in M.BATCH_SIZE._counts.items():
+            before = hist0.get(key, [0] * len(counts))
+            for bound, n1, n0 in zip(list(M.BATCH_SIZE.buckets) + ["inf"], counts, before):
+                if n1 - n0:
+                    sizes[str(bound)] = sizes.get(str(bound), 0) + n1 - n0
+        coalesced = M.BATCH_COALESCE_TOTAL.value() - c0
+        multi = sum(v for k, v in sizes.items() if k != "1")
+        rep["point_select"] = {
+            "connections": POINT_CONNS, "statements": n_all,
+            "absent": int(absent.sum()), "wall_s": wall, "stmts_per_s": n_all / wall,
+            "p50_ms": _pct(flat, 0.50) * 1e3, "p99_ms": _pct(flat, 0.99) * 1e3,
+            "batches": batches, "coalesced_stmts": coalesced,
+            "batch_size_histogram": sizes,
+            "mean_batch_size": (n_all / batches) if batches else 0.0,
+            "client_process_s": time.perf_counter() - t0}
+        if not multi or coalesced < 2:
+            raise AssertionError(f"no batch had more than one member: {sizes}")
+        log(f"server point-selects: {n_all} ({int(absent.sum())} absent) from "
+            f"{POINT_CONNS} connections in {wall:.3f} s = {n_all / wall:.1f} stmt/s, "
+            f"p50 {rep['point_select']['p50_ms']:.3f} ms p99 "
+            f"{rep['point_select']['p99_ms']:.3f} ms; {batches} batches, mean size "
+            f"{rep['point_select']['mean_batch_size']:.3f}, histogram {sizes}; "
+            f"{coalesced:.0f} statements rode a batch of two or more")
+
+        # -- concurrent analytics: 4 connections, Q1 / Q3 / Q18 each ---------
+        solo = {}
+        for q in ("q1", "q3", "q18"):
+            d0 = dispatch.count()
+            s.query(Q[q][0])
+            solo[q] = dispatch.count() - d0
+        cat.global_vars["tidb_slow_log_threshold"] = 0  # a slow-log row each
+        n_slow0 = len(cat.slow_queries)
+        acl = [connect() for _ in range(4)]
+        orders_ = [("q1", "q3", "q18"), ("q3", "q18", "q1"), ("q18", "q1", "q3"),
+                   ("q1", "q18", "q3")]
+        got, errs = {}, []
+
+        def analyst(i):
+            try:
+                for q in orders_[i]:
+                    got[(i, q)] = _typed(q, acl[i].query(Q[q][0])[1])
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+
+        ts = [threading.Thread(target=analyst, args=(i,)) for i in range(4)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        cwall = time.perf_counter() - t0
+        cat.global_vars["tidb_slow_log_threshold"] = 300
+        if errs or any(t.is_alive() for t in ts):
+            raise AssertionError(f"concurrent analytics failed: {errs[:3]}")
+        for (i, q), rows in got.items():
+            if rows != res[q]:
+                raise AssertionError(f"concurrent {q} on connection {i} differs")
+        rows_slow = list(cat.slow_queries)[n_slow0:]
+        per_stmt = {}
+        for q in ("q1", "q3", "q18"):
+            text = Q[q][0].strip()[:2048]
+            ds = [r[7] for r in rows_slow if r[3] == text]
+            per_stmt[q] = ds
+            if len(ds) != 4 or any(d != solo[q] for d in ds):
+                raise AssertionError(f"concurrent {q}: launches {ds}, solo {solo[q]}")
+        rep["concurrent"] = {"wall_s": cwall, "launches": per_stmt, "solo": solo}
+        log(f"server concurrent analytics: 12 statements on 4 connections in "
+            f"{cwall:.3f} s; launches per statement {per_stmt} (solo {solo})")
+
+        # -- KILL and the statement deadline -------------------------------
+        victim, killer = connect(), connect()
+        cid = int(victim.query("select connection_id()")[1][0][0])
+        before = {k: (id(e["chunks"]), e["nbytes"]) for k, e in pl.DEVICE_CACHE._entries.items()}
+        box = {}
+
+        def run_victim():
+            try:
+                box["rows"] = victim.query(Q["q18"][0])
+            except ServerError as e:
+                box["err"] = (e.code, e.message)
+            box["t"] = time.perf_counter()
+
+        th = threading.Thread(target=run_victim)
+        th.start()
+        time.sleep(0.2)
+        tk = time.perf_counter()
+        killer.execute(f"kill query {cid}")
+        th.join(600)
+        if box.get("err", (None,))[0] != 1317:
+            raise AssertionError(f"KILL QUERY: {box}")
+        kill_latency = box["t"] - tk
+        victim.execute("set session max_execution_time = 50")
+        t0 = time.perf_counter()
+        try:
+            victim.query(Q["q18"][0])
+            raise AssertionError("Q18 under max_execution_time = 50 completed")
+        except ServerError as e:
+            if e.code != 3024:
+                raise
+            deadline_s = time.perf_counter() - t0
+        victim.execute("set session max_execution_time = 0")
+        after = {k: (id(e["chunks"]), e["nbytes"]) for k, e in pl.DEVICE_CACHE._entries.items()}
+        if any(before.get(k) != v for k, v in after.items()):
+            raise AssertionError("a statement cut short put a staging into the cache")
+        for e in pl.DEVICE_CACHE._entries.values():
+            if pl._pytree_nbytes(e["chunks"]) != e["nbytes"]:
+                raise AssertionError("a device buffer cache entry is not whole")
+        for cl in (victim, killer):
+            for q in ("q1", "q18"):
+                if _typed(q, cl.query(Q[q][0])[1]) != res[q]:
+                    raise AssertionError(f"{q} after KILL differs")
+        alive = [t.name for t in threading.enumerate()
+                 if t.name == "tidb-torch-prefetch" and t.is_alive()]
+        if alive:
+            raise AssertionError(f"prefetch threads alive after KILL: {alive}")
+        rep["kill"] = {"kill_latency_s": kill_latency, "deadline_error_s": deadline_s}
+        log(f"server KILL QUERY 0.2 s into Q18: 1317 after {kill_latency * 1e3:.3f} ms; "
+            f"max_execution_time = 50: 3024 after {deadline_s * 1e3:.3f} ms; Q1 and Q18 "
+            f"right afterwards on both connections; no prefetch thread alive")
+
+        # -- the status port ------------------------------------------------
+        base = f"http://127.0.0.1:{srv.status_port}"
+        st_body = json.loads(urllib.request.urlopen(base + "/status", timeout=30).read())
+        metrics = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+        for fam in ("tidb_tpu_plan_cache_total{", "tidb_tpu_device_cache_total{",
+                    "tidb_tpu_batch_size_bucket{", "tidb_tpu_device_dispatch_total{"):
+            if fam not in metrics:
+                raise AssertionError(f"/metrics lacks {fam}")
+        rep["status"] = st_body
+        log(f"server status port: /status {st_body}; /metrics "
+            f"{len(metrics.splitlines())} lines with the plan-cache, device-cache, "
+            "batch-size and launch families")
+    finally:
+        for cl in conns:
+            try:
+                cl.close()
+            except OSError:
+                pass
+        t0 = time.perf_counter()
+        srv.shutdown(drain=True)
+        rep["shutdown_s"] = time.perf_counter() - t0
+    left = [t.name for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith(("sched-worker", "ddl-worker",
+                                                    "server-accept", "status-http"))]
+    if left:
+        raise AssertionError(f"threads alive after shutdown: {left}")
+    rep["launches"] = {**seg_mod.LAUNCHES, **hp.LAUNCHES}
+    log(f"server shutdown(drain=True) in {rep['shutdown_s']:.3f} s, no scheduler, DDL "
+        f"or accept thread left; launches in the phase {rep['launches']}")
+
+    # -- the entry point as a subprocess --------------------------------
+    cmd = [sys.executable, "-m", "tidb_tpu_torch", "--port", "0", "--status-port", "-1",
+           "--load-tpch", "0.01"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        port = None
+        while time.perf_counter() - t0 < 300:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            if "listening on" in line:
+                port = int(line.rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise AssertionError("python -m tidb_tpu_torch reported no port")
+        cl = Client(port=port, timeout=120)
+        _n, rows = cl.query(Q["q6"][0])
+        cl.close()
+        up = time.perf_counter() - t0
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=60)
+        if code != 0 or len(rows) != 1:
+            raise AssertionError(f"python -m tidb_tpu_torch exited {code}, Q6 {rows}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    rep["entry_point"] = {"up_s": up, "total_s": time.perf_counter() - t0, "q6": rows}
+    rep["s"] = time.perf_counter() - t_phase
+    log(f"server entry point: python -m tidb_tpu_torch up and answering Q6 at "
+        f"SF0.01 in {up:.3f} s, SIGINT exit 0; phase {rep['s']:.1f} s")
+    return rep
+
+
 def main() -> int:
     import torch
 
@@ -3134,6 +3550,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    # the slow-query log's rows still land in each catalog; its stderr
+    # warning per statement over 300 ms would bury this script's output
+    import logging
+
+    logging.getLogger("tidb_tpu_torch.slowlog").setLevel(logging.ERROR)
     card = card_line()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
@@ -3396,6 +3817,10 @@ def main() -> int:
     for kname, args, kw, n_launch in shapes:
         rows.append(probe_chunk_row(torch, hp, kname, args, kw, n_launch))
 
+    # -- the server phase: the MySQL protocol and the serving tier ----------
+    server = with_probe_modes(hp, lambda: phase_server(torch, np, s, mods,
+                                                        times["fused_cache"]))
+
     # -- the refresh phase: keys, index access and the write path ------------
     t0 = time.perf_counter()
     refresh = phase_refresh(torch, np, s, mods, load)
@@ -3435,7 +3860,8 @@ def main() -> int:
             row["launches_schema"] = schema["probe_modes"].get(mode, 0)
         else:
             row["launches_schema"] = schema["launches"].get(row["name"], 0)
-        for key, rep in (("launches_stats", stats_report), ("launches_window", window)):
+        for key, rep in (("launches_stats", stats_report), ("launches_window", window),
+                         ("launches_server", server)):
             row[key] = (rep["probe_modes"].get(mode, 0)
                         if row["name"].startswith("probe_count.")
                         else rep["launches"].get(row["name"], 0))
@@ -3457,7 +3883,7 @@ def main() -> int:
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
               "schema": schema, "stats": stats_report, "window": window,
-              "kernels": rows}
+              "server": server, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -544,3 +544,110 @@ def test_analyzed_plans_explain_analyze_and_windows_on_card_equal_cpu(card):
             assert got.rows == on_cpu.query(sql)
         elif sql.startswith("create view"):
             assert cat.view("test", "v") is not None
+
+
+def _tpch_card_catalog(sf=0.01):
+    """TPC-H at `sf` with 1,024-row segments (several staged batches per
+    scan) and the device buffer cache off, so every run stages."""
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+
+    cat = Catalog()
+    load_tpch(cat, sf=sf)
+    boot = Session(cat, device="cpu")
+    for sql in ("set global tidb_tpu_segment_rows = 1024",
+                "set global tidb_tpu_device_buffer_cache_bytes = 0",
+                "set global tidb_tpu_compaction = 0"):
+        boot.execute(sql)
+    return cat
+
+
+def _counted(s, sql):
+    """(rows, this thread's launches, staged bytes) of one statement."""
+    from tidb_tpu_torch.utils import dispatch
+
+    d0, x0 = dispatch.count(), dispatch.xfer_bytes()
+    rows = s.query(sql)
+    return rows, dispatch.count() - d0, dispatch.xfer_bytes() - x0
+
+
+def test_concurrent_statements_count_their_own_launches_and_bytes(card):
+    """Four threads run Q1 and Q3 at once on the card, each on its own
+    session: rows equal the serial run's, and each statement's launches
+    and staged bytes (utils/dispatch, per thread) equal its solo run's."""
+    import threading
+
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = _tpch_card_catalog()
+    solo_s = Session(cat, chunk_capacity=4096)
+    for q in ("q1", "q3", "q1", "q3"):  # settle stores, re-sorts, plans
+        solo_s.query(Q[q][0])
+    solo = {q: _counted(solo_s, Q[q][0]) for q in ("q1", "q3")}
+    assert all(n > 0 and x > 0 for _r, n, x in solo.values())
+    out, errs = {}, []
+    barrier = threading.Barrier(4)
+
+    def run(i):
+        s = Session(cat, chunk_capacity=4096)
+        order = ("q1", "q3") if i % 2 else ("q3", "q1")
+        barrier.wait(30)
+        try:
+            for rep in range(2):
+                for q in order:
+                    out[(i, rep, q)] = _counted(s, Q[q][0])
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errs.append(e)
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    assert not any(t.is_alive() for t in ts) and not errs, errs
+    assert len(out) == 16
+    for (_i, _rep, q), got in out.items():
+        assert got == solo[q], q
+
+
+def test_kill_inside_fused_fragment_on_card_leaves_next_statement_right(card, monkeypatch):
+    """A KILL lands mid-fragment while the prefetch thread stages to the
+    card (the per-chunk loop never synchronises, so kernels may still be
+    queued when the error returns): the typed error, no prefetch thread
+    left, no partial cache entry, and the next statements on the card
+    equal the CPU's."""
+    import threading
+
+    from tidb_tpu_torch.errors import QueryKilledError
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = _tpch_card_catalog()
+    s = Session(cat, chunk_capacity=4096)
+    s.execute("set global tidb_tpu_device_buffer_cache_bytes = 1073741824")
+    on_cpu = Session(cat, device="cpu", chunk_capacity=4096)
+    want = {q: on_cpu.query(Q[q][0]) for q in ("q1", "q3")}
+    pl.DEVICE_CACHE.clear()
+    stage = pl.ChunkPrefetcher._stage
+    calls = [0]
+
+    def staging(self, job):
+        calls[0] += 1
+        if calls[0] == 3:
+            s._kill_query = True
+        return stage(self, job)
+
+    monkeypatch.setattr(pl.ChunkPrefetcher, "_stage", staging)
+    with pytest.raises(QueryKilledError):
+        s.query(Q["q1"][0])
+    monkeypatch.setattr(pl.ChunkPrefetcher, "_stage", stage)
+    assert not [t for t in threading.enumerate()
+                if t.name == "tidb-torch-prefetch" and t.is_alive()]
+    lineitem = cat.table("test", "lineitem")
+    assert all(e["table"] is not lineitem
+               for e in pl.DEVICE_CACHE._entries.values())
+    for q in ("q1", "q3", "q1"):
+        assert s.query(Q[q][0]) == want[q], q

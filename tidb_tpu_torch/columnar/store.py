@@ -58,7 +58,7 @@ from tidb_tpu_torch.columnar.zonemap import ZoneMap, build_zone_map, segment_pru
 __all__ = ["Segment", "SegmentStore", "ScanPin", "store_for",
            "build_for_result", "SCAN_SEGMENTS_TOTAL",
            "SPILL_SEGMENT_BYTES", "COMPACTION_TOTAL", "COMPACTION_BYTES",
-           "COMPACTION_WAIT"]
+           "COMPACTION_WAIT", "scan_counts", "compact_counts"]
 
 # smallest table (rows) that earns a store at all; matches the sysvar
 # floor so tiny unit-test tables stay on the raw path with zero overhead
@@ -84,17 +84,36 @@ COMPACTION_BYTES = {"bytes": 0}
 COMPACTION_WAIT = {"s": 0.0}
 
 _COUNT_LOCK = threading.Lock()
+# the same counts per thread: a statement diffs its own thread's around
+# its execution (the slow log, the statements summary, EXPLAIN ANALYZE),
+# so a concurrent statement's scans never land in its figures
+_tls = threading.local()
 
 
 def _count_scan(scanned: int, pruned: int) -> None:
     with _COUNT_LOCK:
         SCAN_SEGMENTS_TOTAL["scanned"] += scanned
         SCAN_SEGMENTS_TOTAL["pruned"] += pruned
+    _tls.scanned = getattr(_tls, "scanned", 0) + scanned
+    _tls.pruned = getattr(_tls, "pruned", 0) + pruned
+
+
+def scan_counts() -> Tuple[int, int]:
+    """Cumulative (scanned, pruned) on this thread."""
+    return (getattr(_tls, "scanned", 0), getattr(_tls, "pruned", 0))
 
 
 def _count_compact_wait(seconds: float) -> None:
     with _COUNT_LOCK:
         COMPACTION_WAIT["s"] += seconds
+    _tls.compact_wait = getattr(_tls, "compact_wait", 0.0) + seconds
+
+
+def compact_counts() -> Tuple[float, int]:
+    """Cumulative (rebuild and re-sort wait seconds, 0) paid by this
+    thread's statements; the second slot, the reference's rebuilt bytes,
+    stays 0 (COMPACTION_BYTES counts them process-wide)."""
+    return (getattr(_tls, "compact_wait", 0.0), 0)
 
 
 def count_compaction(outcome: str, nbytes: int = 0) -> None:

@@ -20,8 +20,7 @@ def raise_if_cancelled(ctx: "ExecContext") -> None:
     The hook may return a bool or an exception instance carrying the
     cancellation reason (a deadline expiry surfaces as the timeout
     error, not as a generic KILL). Every long executor loop polls through
-    this one function. The port has no KILL or deadline yet, so its
-    sessions leave `cancel_check` None."""
+    this one function; sessions wire their `cancel_reason` into it."""
     if ctx.cancel_check is None:
         return
     r = ctx.cancel_check()
@@ -100,8 +99,8 @@ class ExecContext:
     # provisional rows are visible)
     read_ts: Optional[int] = None
     txn_marker: int = 0
-    # KILL/deadline hook polled between chunks (None until KILL is
-    # ported); see raise_if_cancelled
+    # KILL/deadline hook polled between chunks (the session's
+    # cancel_reason); see raise_if_cancelled
     cancel_check: Optional[object] = None
     # statement memory accounting root (tidb_mem_quota_query); None
     # makes an unbudgeted tracker
@@ -180,6 +179,15 @@ class Executor:
 class ResultSet:
     names: List[str]
     rows: List[tuple]
+    # column type kinds (tidb_tpu_torch.types.TypeKind) for the wire
+    # protocol's column metadata; None for synthetic result sets
+    # (SHOW/EXPLAIN)
+    types: Optional[list] = None
+    # full SQLTypes (precision/scale preserved) when produced by a plan
+    sql_types: Optional[list] = None
+    # per-column string collation (from the plan column's dictionary);
+    # None entries = non-string
+    collations: Optional[list] = None
 
     def __len__(self):
         return len(self.rows)
@@ -198,7 +206,14 @@ def run_plan(root: Executor, ctx: ExecContext, n_visible: Optional[int] = None) 
         for ch in root.chunks():
             raise_if_cancelled(ctx)
             rows.extend(ch.to_pylist(dicts=dicts, names=uids))
-        return ResultSet(names=[c.name for c in visible], rows=rows)
+        return ResultSet(
+            names=[c.name for c in visible],
+            rows=rows,
+            types=[c.type_.kind for c in visible],
+            sql_types=[c.type_ for c in visible],
+            collations=[getattr(c.dict_, "collation", None)
+                        for c in visible],
+        )
     finally:
         try:
             root.close()

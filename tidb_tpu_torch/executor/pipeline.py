@@ -294,7 +294,10 @@ class ChunkPrefetcher:
     current stream wait on the event and calls ``record_stream`` on the
     device buffer. The pinned arena is released after ``get``; torch's
     pinned-memory allocator recorded the copy's event on the block, so
-    it hands the block out again only once the copy is done."""
+    it hands the block out again only once the copy is done. The staged
+    bytes are charged to the statement's thread (utils/dispatch's
+    ``Account``), not to the staging thread, and ``close`` joins the
+    staging thread."""
 
     POLL_S = 0.05
 
@@ -307,6 +310,9 @@ class ChunkPrefetcher:
         self.device = torch.device(ctx.device)
         self._cuda = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(device=self.device) if self._cuda else None
+        # the statement's dispatch account: the bytes this prefetcher
+        # stages (on its own thread too) are the statement's transfer
+        self._account = dispatch.account()
         self._staged: Dict[int, tuple] = {}
         self._err: Optional[BaseException] = None
         self._next_get = 0
@@ -348,7 +354,7 @@ class ChunkPrefetcher:
         _count(PIPELINE_STAGE_SECONDS, "copy", time.perf_counter() - t1)
         _count(PIPELINE_PREFETCH_BYTES, "h2d", nbytes)
         _count(PIPELINE_PREFETCH_BYTES, "copies")
-        dispatch.record_xfer(nbytes)
+        dispatch.record_xfer(nbytes, into=self._account)
         return _tree_map(lambda a: arena.view_of(dev_buf, a), host), nbytes, event, dev_buf
 
     def _run(self) -> None:
@@ -425,7 +431,9 @@ class ChunkPrefetcher:
             leftover = sum(e[1] for e in self._staged.values())
             self._staged.clear()
         if self._thread is not None:
-            self._thread.join(timeout=2.0)
+            # joined, not abandoned: the thread stops at its next job or
+            # poll, and a statement's end leaves no staging behind it
+            self._thread.join()
             self._thread = None
         if leftover:
             self.tracker.release(leftover)

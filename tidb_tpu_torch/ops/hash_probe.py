@@ -47,6 +47,7 @@ import torch
 
 from tidb_tpu_torch.errors import ExecutionError
 from tidb_tpu_torch.ops.nvcc_build import load_library
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = ["MAX_PROBES", "MAX_CAPACITY", "LAUNCHES", "reset_launches",
            "resolve_mode", "table_capacity", "build_table", "probe_table",
@@ -74,8 +75,9 @@ def i64_bits(x: int) -> int:
 _M1 = i64_bits(0xBF58476D1CE4E5B9)
 _M2 = i64_bits(0x94D049BB133111EB)
 
-# launches on CUDA tensors (the plain CPU path counts nothing): the probe
-# program of a chunk, and the table lookup alone
+# launches on CUDA tensors, process-wide (the plain CPU path counts
+# nothing): the probe program of a chunk, and the table lookup alone; the
+# launching thread's own count is utils/dispatch's
 LAUNCHES = {"probe_count": 0, "hash_probe": 0}
 
 
@@ -354,7 +356,7 @@ def probe_table(tkeys: torch.Tensor, tlos: torch.Tensor, this: torch.Tensor,
                                   lo.data_ptr(), hi.data_ptr(), stream)
     if err != 0:
         raise ExecutionError(f"hash_probe: CUDA launch failed with error {err}")
-    LAUNCHES["hash_probe"] += 1
+    dispatch.count_launch(LAUNCHES, "hash_probe")
     return lo, hi
 
 
@@ -420,7 +422,7 @@ def probe_chunk(packed: torch.Tensor, kvalid: torch.Tensor, in_range: Optional[t
         err = lib.tidb_probe_count(ctypes.addressof(p), stream)
     if err != 0:
         raise ExecutionError(f"tidb_probe_count: CUDA launch failed with error {err}")
-    LAUNCHES["probe_count"] += 1
+    dispatch.count_launch(LAUNCHES, "probe_count")
     return outs + (ok, matched)
 
 

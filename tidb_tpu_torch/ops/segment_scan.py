@@ -18,6 +18,7 @@ are not rebuilt for each statement.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -34,6 +35,9 @@ __all__ = ["make_segment_scan_fn", "segment_scan_key", "decode_for", "scan_fn"]
 # bake in literal values (dictionary codes of string literals)
 MAX_ENTRIES = 512
 _FNS: "OrderedDict[str, Callable]" = OrderedDict()
+# statements on concurrent server workers share the cache: a lookup's
+# move_to_end must not race another's eviction of the same key
+_FNS_LOCK = threading.Lock()
 
 
 def decode_for(d: torch.Tensor, ref, np_dtype) -> torch.Tensor:
@@ -106,6 +110,8 @@ def make_segment_scan_fn(stages, col_types: List[Tuple[str, object]],
 
 def scan_fn(stages, col_types, seg_stride: Optional[int] = None) -> Callable:
     """The cached make_segment_scan_fn closure for this layout."""
-    return get_or_build(
-        _FNS, segment_scan_key(stages, col_types, seg_stride),
-        lambda: make_segment_scan_fn(stages, col_types, seg_stride), MAX_ENTRIES)
+    key = segment_scan_key(stages, col_types, seg_stride)
+    with _FNS_LOCK:
+        return get_or_build(
+            _FNS, key, lambda: make_segment_scan_fn(stages, col_types, seg_stride),
+            MAX_ENTRIES)

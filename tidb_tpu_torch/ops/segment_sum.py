@@ -35,6 +35,7 @@ import torch
 
 from tidb_tpu_torch.errors import ExecutionError
 from tidb_tpu_torch.ops.nvcc_build import load_library
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = ["SegAcc", "segment_accumulate", "plain_segment_accumulate",
            "segment_count", "segment_sum_f32", "segment_sum_i64",
@@ -45,7 +46,8 @@ __all__ = ["SegAcc", "segment_accumulate", "plain_segment_accumulate",
 SOURCE = "segment_sum.cu"
 MAX_ACCS = 32  # accumulators per tidb_segagg launch
 
-# launches per wrapper on CUDA tensors (the plain CPU path counts nothing)
+# launches per wrapper on CUDA tensors, process-wide (the plain CPU path
+# counts nothing); the launching thread's own count is utils/dispatch's
 LAUNCHES = {"segagg": 0, "segsum_count": 0, "segsum_f32": 0, "segsum_i64": 0}
 
 _KINDS = {"count": 0, "sum": 1, "limbs": 2}
@@ -142,7 +144,7 @@ def _launch(fn_name: str, counter: str, vals: torch.Tensor, seg: torch.Tensor,
                                     seg.shape[0], G, out.data_ptr(), stream)
     if err != 0:
         raise ExecutionError(f"{fn_name}: CUDA launch failed with error {err}")
-    LAUNCHES[counter] += 1
+    dispatch.count_launch(LAUNCHES, counter)
     return out
 
 
@@ -267,7 +269,7 @@ def segment_accumulate(seg: torch.Tensor, G: int, sel: Optional[torch.Tensor],
                                   stream)
         if err != 0:
             raise ExecutionError(f"tidb_segagg: CUDA launch failed with error {err}")
-        LAUNCHES["segagg"] += 1
+        dispatch.count_launch(LAUNCHES, "segagg")
 
 
 def segment_count(mask: torch.Tensor, seg: torch.Tensor, G: int) -> torch.Tensor:

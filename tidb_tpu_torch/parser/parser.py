@@ -1223,9 +1223,7 @@ class Parser:
 
     def _parse_priv_list(self):
         """SELECT, INSERT ... | ALL [PRIVILEGES] — lowercase names."""
-        from tidb_tpu_torch.errors import UnsupportedError
-
-        raise UnsupportedError("privilege is not yet ported")
+        from tidb_tpu_torch.privilege import PRIV_KINDS
 
         if self.accept_kw("all"):
             self.accept_kw("privileges")

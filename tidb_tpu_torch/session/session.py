@@ -22,17 +22,26 @@ the auto-analyze threshold (`tidb_enable_auto_analyze`,
 Statements run on `device`: None means the CUDA card, and a Session
 without a card raises instead of carrying on on the CPU.
 
-Every statement is bracketed for CLUSTER BY ordered compaction: due
-permutes run at quiescent statement boundaries, and the statement itself
-registers as a lock-free reader in between.
+Every statement runs inside `_execute_timed`, the reference's statement
+envelope: the deadline from `max_execution_time` and the KILL flags
+(`cancel_reason`, polled by every executor through `cancel_check`), the
+always-on trace, the statements summary, the slow log, the SLO store,
+the plugins' audit hooks, the optional `torch.profiler` trace
+(`tidb_profile_dir`) and the CLUSTER BY bracket (due permutes run at
+quiescent statement boundaries; the statement registers as a lock-free
+reader in between). SELECTs plan through the digest-keyed plan cache
+(planner/plancache.py); `prepare` / `execute_prepared` serve the binary
+protocol, and `batch_probe` / `dml_batch_probe` the serving tier's
+micro-batcher. Privileges are checked as the reference checks them
+(`root` bypasses); KILL, TRACE, SHOW PROCESSLIST / GRANTS / BINDINGS /
+PLUGINS, CREATE / DROP USER, GRANT / REVOKE and INSTALL / UNINSTALL
+PLUGIN are the reference's. DDL goes to the elected DDL owner's job
+queue when a server runs one (owner/).
 
 Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... LIKE /
-AS SELECT / TEMPORARY / SHARD BY, the DDL job queue, the delta engine,
-KILL and statement deadlines, LOAD DATA, TRACE, SHOW GRANTS /
-PROCESSLIST / BINDINGS / PLUGINS, users and privileges (EXPLAIN checks
-none), SQL bindings (EXPLAIN shows the unbound plan), prepared
-statements, the plan cache, plan feedback, tracing and the serving, DCN
-and mesh tiers.
+AS SELECT / TEMPORARY / SHARD BY, the delta engine, LOAD DATA, SQL
+bindings (CREATE / DROP BINDING raise: the port's planner takes no
+hints), plan feedback, and the DCN and mesh tiers.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ import numpy as np
 from tidb_tpu_torch.errors import (
     ExecutionError,
     PlanError,
+    QueryKilledError,
+    QueryTimeoutError,
     SchemaError,
     UnsupportedError,
     WriteConflictError,
@@ -62,12 +73,6 @@ from tidb_tpu_torch.types import TypeKind, parse_type_name
 from tidb_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Session", "TxnState", "wire_check", "wire_generated"]
-
-# SHOW kinds whose modules the port does not have yet
-_SHOW_UNPORTED = {"grants": "users and privileges",
-                  "processlist": "KILL and the process list",
-                  "bindings": "SQL plan bindings",
-                  "plugins": "the plugin framework"}
 
 
 @dataclasses.dataclass
@@ -166,14 +171,60 @@ class Session:
         self._chunk_capacity = chunk_capacity  # explicit override; else sysvar
         self.sysvars = SysVarStore(self.catalog.global_vars)
         self.user_vars: dict = {}
+        # authenticated account for privilege checks (ref: privilege/
+        # RequestVerification); in-process sessions default to the
+        # bootstrap superuser, the wire server sets this after handshake
+        self.user = "root"
+        from tidb_tpu_torch.bindinfo import BindHandle
+
+        self._bindings = BindHandle("session")
+        # stmt_id -> (ast, n_params, sql, normalized, digest, TemplateInfo)
+        self._prepared: dict = {}
+        self._stmt_id = 0
         self.txn: Optional[TxnState] = None
         # set while a FOR UPDATE/SHARE read runs: reads latest committed
         # instead of the txn snapshot (MySQL locking reads are current)
         self._lock_read = False
+        # processlist registration (ref: server/ connection registry)
+        self.conn_id = self.catalog.next_conn_id()
+        self.catalog.processes[self.conn_id] = self
+        self._current_sql: Optional[str] = None
+        self._current_t0: float = 0.0
+        # per-statement diagnostics: the statement's memory trackers
+        # (EXPLAIN ANALYZE's mem_max, the summary) and its plan digest
+        self._stmt_trackers: list = []
+        self._last_plan_digest: Optional[str] = None
+        # plan-cache per-statement context: is the current statement a
+        # prepared execution (picks the enable sysvar), did its plan
+        # come from the cache, and the plan-acquisition wall time
+        self._exec_prepared = False
+        self._plan_from_cache_stmt = False
+        self._stmt_plan_s = 0.0
+        # (source, normalized, digest) computed once per statement
+        self._stmt_digest_memo = None
+        # prepare-time (sql, norm, digest, StmtInfo) for the current
+        # prepared execution, and its deferred parameters: a plan-cache
+        # hit never materializes the bound AST
+        self._ps_ctx = None
+        self._ps_params = None
+        self._ps_materialized = None
+        self._killed = False       # KILL <id>: connection is dead
+        self._kill_query = False   # KILL QUERY <id>: one-shot cancel
+        # serving-tier seams (serving/): a coalesced batch member runs
+        # through _execute_timed with the executor replaced by a runner
+        # returning its pre-demuxed result
+        self._stmt_runner = None
+        # parent for per-statement MemTrackers (the scheduler's
+        # session-level tracker, itself a child of the server tracker)
+        self._mem_parent = None
+        # scheduler queue wait of the statement about to execute
+        # (seconds); _execute_timed records it as a sched.queue span
+        self._sched_queue_s = 0.0
+        # statement deadline (monotonic seconds) armed per statement
+        # from max_execution_time; None = unbounded
+        self._stmt_deadline: Optional[float] = None
         # SHOW WARNINGS' area, reset by every other statement
         self._warnings: list = []
-        # the statement's memory trackers (EXPLAIN ANALYZE's mem_max)
-        self._stmt_trackers: list = []
 
     @property
     def chunk_capacity(self) -> int:
@@ -225,6 +276,9 @@ class Session:
             # the txn is decided either way: pessimistic locks release
             for t in txn.lock_tables.values():
                 t.release_locks(txn.marker)
+        from tidb_tpu_torch.utils.metrics import TXN_TOTAL
+
+        TXN_TOTAL.inc(outcome="commit")
         if txn.logs and self.sysvars.get("tidb_gc_enable"):
             self.catalog.auto_gc([t for t, _ in txn.logs.values()])
         if txn.logs and self.sysvars.get("tidb_enable_auto_analyze"):
@@ -246,6 +300,9 @@ class Session:
             t.release_locks(txn.marker)
         TwoPhaseCommitter(
             self.catalog, txn.marker, list(txn.logs.values())).rollback()
+        from tidb_tpu_torch.utils.metrics import TXN_TOTAL
+
+        TXN_TOTAL.inc(outcome="rollback")
         if txn.logs and self.sysvars.get("tidb_gc_enable"):
             self.catalog.auto_gc([t for t, _ in txn.logs.values()])
 
@@ -293,35 +350,301 @@ class Session:
 
     def execute(self, sql: str) -> Optional[ResultSet]:
         """Execute one or more statements; returns the last result set."""
+        import time as _time
+
+        from tidb_tpu_torch.utils import metrics as M
+
+        t0 = _time.perf_counter()
+        stmts = parse(sql)
+        M.PARSE_SECONDS.observe(_time.perf_counter() - t0)
         result = None
-        for stmt in parse(sql):
-            result = self._execute_bracketed(stmt)
+        for stmt in stmts:
+            result = self._execute_timed(stmt, sql)
         return result
 
-    def _execute_bracketed(self, stmt) -> Optional[ResultSet]:
-        """One statement inside the CLUSTER BY bracket: due permutes run
-        at statement boundaries ONLY (never from a reader's plan_scan)
-        and only while the catalog's reader registry is quiescent; the
-        statement registers as a lock-free reader in between, so no
-        other thread's boundary can move rows out from under it."""
-        self.catalog.run_pending_reclusters()
-        if not (isinstance(stmt, A.ShowStmt) and stmt.kind == "warnings"):
+    def _execute_timed(self, stmt, sql: str) -> Optional[ResultSet]:
+        """Metrics, the statements summary, the slow log, the trace and
+        the optional torch.profiler trace around one statement (the
+        reference's statement envelope), inside the CLUSTER BY bracket."""
+        import contextlib
+        import time as _time
+
+        from tidb_tpu_torch.columnar.store import compact_counts as _cmp_counts
+        from tidb_tpu_torch.columnar.store import scan_counts as _seg_counts
+        from tidb_tpu_torch.utils import dispatch as _dsp
+        from tidb_tpu_torch.utils import metrics as M
+        from tidb_tpu_torch.utils import tracing
+
+        # a DECIDED txn whose commit crashed mid-secondaries leaves rows
+        # invisible behind marker timestamps; readers resolve such locks
+        # at the statement boundary (the reader-side resolve-lock flow) —
+        # commits run under the catalog lock, so a pending status here
+        # always means a crashed txn. Here, not in execute(), so prepared
+        # executions get the same guarantee.
+        if self.catalog.has_stale_txns():
+            self.catalog.resolve_locks()
+        if self._killed:
+            raise QueryKilledError("connection was killed")
+        self._kill_query = False  # a prior KILL QUERY cancels only its query
+        # arm the statement deadline: max_execution_time is a per-
+        # statement budget in ms (0 = unbounded); monotonic, so wall-
+        # clock jumps can neither fire nor defuse it
+        met = int(self.sysvars.get("max_execution_time"))
+        self._stmt_deadline = (
+            _time.monotonic() + met / 1e3) if met > 0 else None
+        if not (isinstance(stmt, A.ShowStmt)
+                and getattr(stmt, "kind", "") == "warnings"):
             self._warnings.clear()  # MySQL: each statement resets the area
+        self._current_sql = sql
+        self._current_t0 = _time.time()
+        stype = type(stmt).__name__.removesuffix("Stmt").lower()
+        self.catalog.plugins.statement_begin(self, sql, stype)
+        prof_dir = str(self.sysvars.get("tidb_profile_dir"))
+        ctx = (_profiled(prof_dir, self.device, self.conn_id) if prof_dir
+               else contextlib.nullcontext())
         self._stmt_trackers = []
-        self.catalog.reader_enter()
+        self._last_plan_digest = None
+        self._plan_from_cache_stmt = False
+        self._stmt_plan_s = 0.0
+        self._stmt_digest_memo = None
+        # per-statement resource profile: this thread's baselines
+        prof0 = (_dsp.xfer_bytes(), _dsp.compile_seconds(),
+                 _dsp.spill_bytes())
+        # always-on tracing: every statement records a span tree; tail
+        # rules / head sampling decide at the end whether it is kept. A
+        # statement arriving with a trace already installed nests.
         try:
-            return self._execute_stmt(stmt)
+            digest_now = self._stmt_digest(stmt, sql)[1]
+        except Exception:  # noqa: BLE001 — diagnostics never fail a stmt
+            digest_now = ""
+        tr = tracing.current()
+        owns_trace = tr is None
+        if owns_trace:
+            rate = float(self.sysvars.get("tidb_trace_sample_rate"))
+            tr = tracing.Trace(tracing.make_trace_id(digest_now),
+                               sampled=tracing.head_sampled(rate))
+            tracing.push(tr)
+        stmt_span = tracing.begin(f"stmt.{stype}")
+        q_s, self._sched_queue_s = self._sched_queue_s, 0.0
+        if q_s > 0 and tr is not None and stmt_span is not None:
+            # the scheduler queue wait happened BEFORE this trace
+            # existed; anchor the span at the trace start
+            qs = tr.add_complete("sched.queue", tr.t0_perf, q_s,
+                                 parent_id=stmt_span.span_id)
+            qs.notes.append(f"queued {int(q_s * 1e6)}us before execution")
+        d0 = _dsp.count()
+        seg0 = _seg_counts()
+        cw0 = _cmp_counts()
+        # CLUSTER BY ordered compaction: due permutes run at statement
+        # boundaries ONLY and only while the catalog's reader registry
+        # is quiescent; this statement then registers as a lock-free
+        # reader so no other thread's boundary can move rows under it
+        self.catalog.run_pending_reclusters()
+        self.catalog.reader_enter()
+        t0 = _time.perf_counter()
+        try:
+            with ctx:
+                runner = self._stmt_runner
+                result = (self._execute_stmt(stmt) if runner is None
+                          else runner(stmt))
+        except Exception as exc:
+            dur = _time.perf_counter() - t0
+            M.QUERY_TOTAL.inc(type=stype, status="error")
+            if isinstance(exc, QueryTimeoutError):
+                M.DEADLINE_EXCEEDED_TOTAL.inc()
+            detail = self._record_stmt(stmt, sql, stype, dur, d0, None,
+                                       seg0=seg0, prof0=prof0, cw0=cw0,
+                                       error=True)
+            self._slo_observe(dur)
+            tracing.annotate(f"error:{type(exc).__name__}: {exc}")
+            trace_id = self._finish_trace(tr, stmt_span, owns_trace, dur,
+                                          error=exc)
+            self._maybe_log_slow(sql, dur, detail, trace_id,
+                                 disposition=f"error:{type(exc).__name__}")
+            self.catalog.plugins.statement_end(self, sql, stype, dur, exc)
+            raise
         finally:
             self.catalog.reader_exit()
             # a permute the statement's own plan_scan queued runs now,
             # at ITS end, with its scans closed
             self.catalog.run_pending_reclusters()
+            self._current_sql = None
+            self._stmt_deadline = None
+            # serving tier: return residual operator consumption to the
+            # session/server trackers
+            if self._mem_parent is not None:
+                for t in self._stmt_trackers:
+                    t.detach()
+            # BaseException safety net (KeyboardInterrupt & co bypass
+            # the except): a trace must never leak onto the thread
+            import sys as _sys
+
+            if owns_trace and _sys.exc_info()[0] is not None \
+                    and tracing.current() is tr:
+                tracing.pop()
+        dur = _time.perf_counter() - t0
+        M.QUERY_TOTAL.inc(type=stype, status="ok")
+        M.QUERY_DURATION.observe(dur, type=stype)
+        detail = self._record_stmt(stmt, sql, stype, dur, d0, result,
+                                   seg0=seg0, prof0=prof0, cw0=cw0)
+        self._slo_observe(dur)
+        trace_id = self._finish_trace(tr, stmt_span, owns_trace, dur)
+        self._maybe_log_slow(sql, dur, detail, trace_id)
+        # plugin hooks run LAST (mirroring the error path): an audit
+        # plugin that raises must not skip trace finalization
+        self.catalog.plugins.statement_end(self, sql, stype, dur, None)
+        return result
+
+    def _slo_observe(self, dur: float) -> None:
+        """Fold this statement's wall time into the per-digest SLO
+        window (success and error paths alike)."""
+        try:
+            memo = self._stmt_digest_memo
+            if memo is None or not memo[2]:
+                return
+            from tidb_tpu_torch.serving import slo as _slo
+
+            _slo.STORE.observe(
+                memo[2], memo[1], dur,
+                target_ms=int(self.sysvars.get("tidb_tpu_slo_target_ms")),
+                capacity=int(self.sysvars.get("tidb_tpu_slo_capacity")))
+        except Exception:  # noqa: BLE001 — diagnostics never fail a stmt
+            pass
+
+    def _maybe_log_slow(self, sql: str, dur: float, detail, trace_id: str,
+                        disposition: str = "") -> None:
+        """One slow-log decision for both the success and the error path.
+        Threshold in ms; 0 logs every statement."""
+        from tidb_tpu_torch.utils import metrics as M
+
+        threshold = int(self.sysvars.get("tidb_slow_log_threshold"))
+        if dur * 1e3 < threshold:
+            return
+        M.SLOW_QUERY_TOTAL.inc()
+        self.catalog.log_slow_query(
+            self.db, sql, dur, digest=detail[0],
+            plan_digest=self._last_plan_digest or "",
+            max_mem=detail[1], dispatches=detail[2],
+            segs_scanned=detail[3], segs_pruned=detail[4],
+            trace_id=trace_id, disposition=disposition,
+            xfer_bytes=detail[5], compile_ms=detail[6],
+            spill_bytes=detail[7], compaction_wait_ms=detail[8])
+
+    def _stmt_digest(self, stmt, sql: str):
+        """(normalized_text, digest) for this statement, memoized per
+        source text: one lex per statement."""
+        from tidb_tpu_torch.bindinfo import normalize_sql, sql_digest
+
+        src = getattr(stmt, "_source", None) or sql
+        memo = self._stmt_digest_memo
+        if memo is not None and memo[0] == src:
+            return memo[1], memo[2]
+        ps = self._ps_ctx
+        if ps is not None and ps[0] == src:
+            # prepared execution: prepare-time analysis already lexed
+            self._stmt_digest_memo = (src, ps[1], ps[2])
+            return ps[1], ps[2]
+        if len(src) > 16384:
+            # bound the lex: bulk statements digest their raw text
+            norm = src[:2048]
+            digest = sql_digest(src)
+        else:
+            norm = normalize_sql(src)
+            digest = sql_digest(norm)
+        self._stmt_digest_memo = (src, norm, digest)
+        return norm, digest
+
+    def _finish_trace(self, tr, stmt_span, owns: bool, dur_s: float,
+                      error=None) -> str:
+        """Close the statement span; when this statement OWNS the trace,
+        apply the tail rules, pop it off the thread and store it if
+        kept. Returns the trace_id for the slow-log row."""
+        from tidb_tpu_torch.utils import tracing
+
+        try:
+            tracing.finish(stmt_span)
+            if not owns or tr is None:
+                return tr.trace_id if tr is not None else ""
+            return tracing.apply_tail_rules(
+                tr, dur_s,
+                int(self.sysvars.get("tidb_slow_log_threshold")),
+                error=error,
+                capacity=int(self.sysvars.get("tidb_trace_store_capacity")))
+        except Exception:  # noqa: BLE001 — diagnostics never fail a stmt
+            return ""
+
+    def _record_stmt(self, stmt, sql: str, stype: str, dur: float,
+                     d0: int, result, seg0=(0, 0), prof0=(0, 0.0, 0),
+                     cw0=(0.0, 0), error: bool = False):
+        """Fold one execution into the per-digest statements summary;
+        returns (digest, max_mem, dispatches, segs_scanned, segs_pruned,
+        xfer_bytes, compile_ms, spill_bytes, compaction_wait_ms) for the
+        slow-query log. `dispatches` and `xfer_bytes` are this thread's
+        (utils/dispatch.py): a concurrent statement's never count."""
+        from tidb_tpu_torch.columnar.store import compact_counts as _cmp_counts
+        from tidb_tpu_torch.columnar.store import scan_counts as _seg_counts
+        from tidb_tpu_torch.utils import dispatch as _dsp
+
+        try:
+            norm, digest = self._stmt_digest(stmt, sql)
+            max_mem = max((t.max_consumed for t in self._stmt_trackers),
+                          default=0)
+            if self._mem_parent is not None:
+                for t in self._stmt_trackers:
+                    t.detach()  # idempotent; the finally path re-runs it
+            self._stmt_trackers = []  # don't pin operator state while idle
+            dispatches = _dsp.count() - d0
+            seg1 = _seg_counts()
+            segs_scanned = seg1[0] - seg0[0]
+            segs_pruned = seg1[1] - seg0[1]
+            xfer = _dsp.xfer_bytes() - prof0[0]
+            compile_ms = (_dsp.compile_seconds() - prof0[1]) * 1e3
+            spill = _dsp.spill_bytes() - prof0[2]
+            compact_ms = (_cmp_counts()[0] - cw0[0]) * 1e3
+            if xfer or spill or compile_ms >= 1.0:
+                from tidb_tpu_torch.utils import tracing as _tracing
+
+                _tracing.annotate(
+                    f"profile: mem_max={max_mem} xfer_bytes={xfer} "
+                    f"compile_ms={compile_ms:.1f} spill_bytes={spill}")
+            self.catalog.stmt_summary.record(
+                digest, norm, stype, self._last_plan_digest or "", dur,
+                max_mem=max_mem,
+                rows_sent=len(result.rows) if result is not None else 0,
+                dispatches=dispatches, fragments=0, error=error,
+                plan_from_cache=self._plan_from_cache_stmt,
+                plan_latency_s=self._stmt_plan_s,
+                xfer_bytes=xfer, compile_ms=compile_ms, spill_bytes=spill,
+                max_stmt_count=int(
+                    self.sysvars.get("tidb_stmt_summary_max_stmt_count")))
+            return (digest, max_mem, dispatches, segs_scanned, segs_pruned,
+                    xfer, compile_ms, spill, compact_ms)
+        except Exception:  # noqa: BLE001 — diagnostics must never fail
+            return "", 0, 0, 0, 0, 0, 0.0, 0, 0.0
 
     def query(self, sql: str) -> List[tuple]:
         rs = self.execute(sql)
         if rs is None:
             return []
         return rs.rows
+
+    def cancel_reason(self):
+        """Why the in-flight statement should stop, or None: a typed
+        exception instance (the executor raises it verbatim), so a KILL
+        and a deadline expiry surface as different MySQL errors. Polled
+        at every chunk boundary through ExecContext.cancel_check."""
+        import time as _time
+
+        if self._killed:
+            return QueryKilledError("connection was killed")
+        if self._kill_query:
+            return QueryKilledError("Query execution was interrupted (KILL)")
+        dl = self._stmt_deadline
+        if dl is not None and _time.monotonic() > dl:
+            return QueryTimeoutError(
+                "Query execution was interrupted, maximum "
+                "statement execution time exceeded")
+        return None
 
     # ------------------------------------------------------------------
 
@@ -352,11 +675,17 @@ class Session:
         # and spillables (segment pins) anchor here
         tracker = MemTracker(
             "query", budget=int(sv("tidb_mem_quota_query")),
+            # serving tier: chain into the scheduler's session/server
+            # trackers so per-session and server-wide quotas see this
+            # statement; spill decisions stay anchored HERE (spill_root)
+            parent=self._mem_parent,
             spill_enabled=bool(sv("tidb_enable_tmp_storage_on_oom")),
             spill_root=True)
         # the statement may build several contexts (subplans): EXPLAIN
         # ANALYZE reports the max over all of them
         self._stmt_trackers.append(tracker)
+        for old in self._stmt_trackers[:-64]:
+            old.detach()  # evicted trackers must not pin parent bytes
         del self._stmt_trackers[:-64]  # bound pathological statements
         return ExecContext(
             chunk_capacity=self._plan_capacity(plan),
@@ -385,33 +714,358 @@ class Session:
             pipeline_fuse=bool(sv("tidb_tpu_pipeline_fuse")),
             prefetch_depth=int(sv("tidb_tpu_pipeline_prefetch_depth")),
             device_buffer_cache_bytes=int(sv("tidb_tpu_device_buffer_cache_bytes")),
+            cancel_check=self.cancel_reason,
         )
+
+    def _build_root(self, phys):
+        """The executor tree for `phys`. An installed executor plugin
+        named by tidb_executor_plugin takes over construction (the
+        plugin/ extension point)."""
+        plug_name = str(self.sysvars.get("tidb_executor_plugin"))
+        if plug_name:
+            build = self.catalog.plugins.executor_builder(plug_name)
+            if build is not None:
+                return build(phys, self)
+        return build_executor(phys)
+
+    def _agg_push_down(self) -> bool:
+        return bool(self.sysvars.get("tidb_opt_agg_push_down"))
 
     def _execute_subplan(self, logical) -> List[tuple]:
         """Planner callback: run a bound logical subplan to completion."""
         logical = optimize_logical(
             logical,
             cascades=bool(self.sysvars.get("tidb_enable_cascades_planner")),
-            agg_push_down=bool(self.sysvars.get("tidb_opt_agg_push_down")))
+            agg_push_down=self._agg_push_down())
         phys = lower(logical)
+        # plan-time subqueries execute before the statement-level check
+        # and fold into literals, so they are checked here
+        self._check_plan_privs(phys)
         n_vis = phys.n_visible if isinstance(phys, PProjection) else None
-        return run_plan(build_executor(phys), self._exec_ctx(plan=phys),
+        return run_plan(self._build_root(phys), self._exec_ctx(plan=phys),
                         n_visible=n_vis).rows
 
-    def _plan_select(self, stmt):
-        return plan_statement(
+    def _plan_select(self, stmt, execute_subplan=None):
+        import time as _time
+
+        from tidb_tpu_torch.utils import metrics as M
+
+        t0 = _time.perf_counter()
+        phys = plan_statement(
             stmt, self.catalog, db=self.db,
-            execute_subplan=self._execute_subplan,
+            execute_subplan=execute_subplan or self._execute_subplan,
             cascades=bool(self.sysvars.get("tidb_enable_cascades_planner")),
             n_parts=1,
             # columnar knobs for plan-time materialization (CTE reuse
             # segments its result iff enabled)
             session_info={
-                "user": "root", "conn_id": 0,
+                "user": self.user, "conn_id": self.conn_id,
                 "columnar_enable": bool(self.sysvars.get("tidb_tpu_columnar_enable")),
                 "segment_rows": int(self.sysvars.get("tidb_tpu_segment_rows"))},
-            agg_push_down=bool(self.sysvars.get("tidb_opt_agg_push_down")),
+            agg_push_down=self._agg_push_down(),
         )
+        M.PLAN_SECONDS.observe(_time.perf_counter() - t0)
+        return phys
+
+    def _acquire_plan(self, stmt):
+        """Physical plan for a SELECT/UNION, through the digest-keyed
+        plan cache when the statement is eligible (ref: planner/core
+        plan_cache*). Sets @@last_plan_from_cache and accumulates the
+        acquisition wall time for the statements summary."""
+        import time as _time
+
+        t0 = _time.perf_counter()
+        try:
+            return self._acquire_plan_inner(stmt)
+        finally:
+            self._stmt_plan_s += _time.perf_counter() - t0
+
+    def _materialize_stmt(self, stmt):
+        """Bind deferred prepared parameters into `stmt` (identity memo:
+        a statement may be planned twice)."""
+        params = self._ps_params
+        if params is None:
+            return stmt
+        memo = self._ps_materialized
+        if memo is not None and memo[0] is stmt:
+            return memo[1]
+        src = getattr(stmt, "_source", None)
+        out = _sub_params(stmt, params)
+        if src is not None:
+            out._source = src
+        self._ps_materialized = (stmt, out)
+        return out
+
+    def _acquire_plan_inner(self, stmt):
+        from tidb_tpu_torch.planner import plancache as _pc
+
+        self._last_plan_digest = None  # _run_select hashes the fresh
+        # plan unless a cache hit installs the entry's memoized digest
+        self.sysvars.set("last_plan_from_cache", False, "session")
+        enabled = bool(self.sysvars.get(
+            "tidb_enable_prepared_plan_cache" if self._exec_prepared
+            else "tidb_enable_non_prepared_plan_cache"))
+        cache = getattr(self.catalog, "plan_cache", None)
+        if not enabled or cache is None:
+            return self._plan_select(self._materialize_stmt(stmt))
+
+        def bypass(reason):
+            cache.note_bypass(reason)
+            return self._plan_select(self._materialize_stmt(stmt))
+
+        if self._lock_read:
+            return bypass("locking read")
+        if getattr(stmt, "into_outfile", None) is not None:
+            return bypass("INTO OUTFILE")
+        # only parser-produced statements carry _source; synthetic ASTs
+        # (DML subselects, locking-read shadow scans) must never share a
+        # digest with the statement that spawned them
+        src = getattr(stmt, "_source", None)
+        if not src or len(src) > 16384:
+            return bypass("no normalizable source")
+        ps = self._ps_ctx
+        if ps is not None and ps[0] == src:
+            _, norm, digest, info = ps  # prepare-time analysis
+        else:
+            try:
+                info = _pc.analyze_statement(stmt)
+            except Exception:  # noqa: BLE001 — analysis is best-effort
+                return bypass("analysis failed")
+            memo = self._stmt_digest_memo
+            if memo is not None and memo[0] == src:
+                _src, norm, digest = memo  # statement start already lexed
+            else:
+                from tidb_tpu_torch.bindinfo import normalize_sql, sql_digest
+
+                norm = normalize_sql(src)
+                digest = sql_digest(norm)
+        if info.volatile:
+            return bypass(f"volatile builtin {info.volatile}()")
+        if info.unsafe:
+            # a literal inside a foldable expression (abs(?), ?+1, ...)
+            # can bake a derived value the patcher would overwrite with
+            # the raw parameter — refuse the whole statement
+            return bypass("literal in foldable expression context")
+        self._stmt_digest_memo = (src, norm, digest)
+        key = self._plan_cache_key(stmt, info, digest, self._agg_push_down())
+        sv = self.catalog.schema_version
+        cap = int(self.sysvars.get("tidb_prepared_plan_cache_size"))
+        entry = cache.lookup(key, sv, cap)
+        if entry is not None and entry.patches is None:
+            return bypass(entry.reason or "known uncacheable")
+        if entry is not None and entry.n_params == len(info.params):
+            try:
+                phys = _pc.instantiate(entry, info.params)
+            except Exception:  # noqa: BLE001 — fall back to planning
+                phys = None
+            if phys is not None:
+                cache.note_hit(entry)
+                self.sysvars.set("last_plan_from_cache", True, "session")
+                self._plan_from_cache_stmt = True
+                if not entry.plan_digest:
+                    import hashlib as _hl
+
+                    entry.plan_digest = _hl.sha256(
+                        explain_text(entry.phys).encode()).hexdigest()[:32]
+                self._last_plan_digest = entry.plan_digest
+                return phys
+        cache.note_miss()
+        used = [False]
+
+        def _sub(logical):
+            used[0] = True
+            return self._execute_subplan(logical)
+
+        stmt = self._materialize_stmt(stmt)
+        phys = self._plan_select(stmt, execute_subplan=_sub)
+        try:
+            new = _pc.build_entry(
+                stmt, phys, info, digest, self.db, sv,
+                plan_sentinel=lambda s2: self._plan_select(
+                    s2, execute_subplan=_sub),
+                subplan_used=lambda: used[0])
+            cache.store(key, new, sv)
+        except Exception:  # noqa: BLE001 — the cache must never fail
+            pass          # (or slow-path-block) the statement
+        return phys
+
+    def _plan_cache_key(self, stmt, info, digest, eff_apd):
+        """THE plan-cache key — shared by the probe/fill path above and
+        the serving tier's coalescing probe (batch_probe), so two
+        statements coalesce exactly when they would share a cache entry
+        (same digest, db, param-type fingerprint, structural constants,
+        hints, planner sysvars, mesh width, binding versions). The port
+        has no mesh (width 1) and no TEMPORARY tables (0)."""
+        hints_fp = tuple((h, tuple(str(a) for a in args))
+                         for h, args in getattr(stmt, "hints", ()) or ())
+        return (
+            digest, self.db, info.kinds, info.struct, hints_fp,
+            bool(self.sysvars.get("tidb_enable_cascades_planner")),
+            bool(eff_apd), 1,
+            self._bindings.version, self.catalog.bind_handle.version, 0,
+        )
+
+    def batch_probe(self, stmt_id: int, params: list):
+        """Serving-tier coalescing probe (serving/batcher.py): decide
+        WITHOUT executing whether this prepared execution would be a
+        plan-cache hit on a batchable plan. Returns (key, entry, info)
+        when every safety gate passes, else None (the statement then runs
+        the full singleton path)."""
+        ent = self._prepared.get(stmt_id)
+        if ent is None:
+            return None  # execute_prepared raises the real error
+        stmt, n_params, sql, norm, digest, tinfo = ent
+        if (tinfo is None or digest is None or len(params) != n_params
+                or not isinstance(stmt, A.SelectStmt)
+                or getattr(stmt, "lock_mode", None) is not None
+                or getattr(stmt, "into_outfile", None) is not None):
+            return None
+        # session-state gates: txn snapshots, kill flags, plugins and
+        # plan bindings all change execution
+        if (self.txn is not None or self._killed or self._kill_query
+                or self._lock_read
+                or not self.sysvars.get("autocommit")
+                or str(self.sysvars.get("tidb_executor_plugin"))
+                or len(self._bindings) or len(self.catalog.bind_handle)
+                or not self.sysvars.get("tidb_enable_prepared_plan_cache")):
+            return None
+        cache = getattr(self.catalog, "plan_cache", None)
+        if cache is None:
+            return None
+        from tidb_tpu_torch.planner import plancache as _pc
+
+        info = _pc.bind_template_params(tinfo, params)
+        if info is None or info.volatile or info.unsafe:
+            return None
+        key = self._plan_cache_key(stmt, info, digest, self._agg_push_down())
+        entry = cache.lookup(
+            key, self.catalog.schema_version,
+            int(self.sysvars.get("tidb_prepared_plan_cache_size")))
+        if (entry is None or entry.patches is None
+                or entry.n_params != len(info.params)):
+            return None
+        if _pc.batchable_plan(entry):
+            return None  # non-empty string = the blocking reason
+        return key, entry, info
+
+    _DML_HEADS = ("insert", "update", "delete")
+
+    def dml_batch_probe(self, sql: str):
+        """Group-commit coalescing probe (the write-path sibling of
+        batch_probe): decide WITHOUT executing whether this autocommit
+        text-protocol write can join a gathered DML window. Returns
+        (key, spec) when every gate passes, else None."""
+        head = sql.lstrip()[:6].lower()
+        if head not in self._DML_HEADS:
+            return None
+        if (self.txn is not None or self._killed or self._kill_query
+                or not self.sysvars.get("autocommit")
+                or str(self.sysvars.get("tidb_executor_plugin"))):
+            return None
+        try:
+            stmts = parse(sql)
+        except Exception:  # noqa: BLE001 — singleton raises the parse error
+            return None
+        if len(stmts) != 1:
+            return None
+        stmt = stmts[0]
+        from tidb_tpu_torch.planner import plancache as _pc
+
+        reason, parts = _pc.classify_dml(stmt)
+        if reason:
+            return None
+        kind = parts["kind"]
+        # the singleton dispatch's privilege gate, probed up front: a
+        # denial falls back to singleton execution, which raises it
+        self._priv_table(kind, stmt.table)
+        db = stmt.table.schema or self.db
+        try:
+            table = self.catalog.table(db, stmt.table.name)
+            spec = self._dml_spec(kind, stmt, db, table, parts)
+        except Exception:  # noqa: BLE001 — any refusal -> singleton
+            return None
+        if spec is None:
+            return None
+        from tidb_tpu_torch.bindinfo import normalize_sql, sql_digest
+
+        digest = sql_digest(normalize_sql(sql))
+        # schema_version pins the spec's bindings: a DDL between probe
+        # and execution splits groups, and the batcher re-checks the
+        # version at apply time under the catalog lock
+        key = (digest, "dml", db, kind, self.catalog.schema_version)
+        return key, spec
+
+    def _dml_spec(self, kind, stmt, db, table, parts):
+        """Schema-dependent half of the group-commit classifier: bind
+        the statement's literals and resolve its point-access index.
+        None = not coalescible."""
+        from tidb_tpu_torch.planner.binder import Binder
+
+        binder = Binder()
+        gen_cols = {g.col for g in table.generated}
+        spec = {"kind": kind, "db": db, "table": stmt.table.name}
+        if kind == "insert":
+            if stmt.columns and gen_cols & set(stmt.columns):
+                return None  # singleton raises the generated-column error
+            names = stmt.columns or table.insertable_names()
+            rows = []
+            for r_ast in stmt.rows:
+                if len(r_ast) != len(names):
+                    return None  # singleton raises the count mismatch
+                rows.append([self._bind_const(binder, cell,
+                                              table.schema.col(cname))
+                             for cell, cname in zip(r_ast, names)])
+            spec["columns"] = stmt.columns
+            spec["rows"] = rows
+            return spec
+        where_col, lit_ast = parts["where"]
+        col = table.schema.col(where_col)
+        if col.type_.is_dict_encoded:
+            # a string key's encoding can shift when the dictionary
+            # grows between probe and apply; ints/dates are stable
+            return None
+        idx = next((ix for ix in table.indexes.values()
+                    if ix.unique and ix.columns == [where_col]), None)
+        if idx is None:
+            return None  # no O(log n) point access; singleton scans
+        v = self._bind_const(binder, lit_ast, col)
+        if v is None:
+            return None  # WHERE col = NULL matches nothing (MySQL)
+        key_vals = table.encode_index_key(idx, {where_col: v})
+        if key_vals is None:
+            return None
+        spec["index"] = idx.name
+        spec["key"] = key_vals
+        if kind == "delete":
+            return spec
+        indexed = {c for ix in table.indexes.values() for c in ix.columns}
+        sets = []
+        for set_col, how in parts["sets"]:
+            tc = table.schema.col(set_col)
+            if tc.name in gen_cols:
+                return None  # singleton raises the generated-column error
+            if tc.name in indexed:
+                # a SET over an indexed column could redirect ANOTHER
+                # member's point probe mid-window
+                return None
+            if how[0] == "const":
+                sets.append((tc.name, "const",
+                             self._bind_const(binder, how[1], tc)))
+                continue
+            _tag, src, op, delta_ast, _swap = how
+            sc = table.schema.col(src)
+            if sc.type_.is_dict_encoded or sc.type_.kind not in (
+                    TypeKind.INT, TypeKind.FLOAT):
+                return None  # host-side ± only over plain numerics
+            if tc.type_.is_dict_encoded or tc.type_.kind not in (
+                    TypeKind.INT, TypeKind.FLOAT):
+                return None
+            delta = self._bind_const(binder, delta_ast, sc)
+            if delta is None:
+                return None  # col ± NULL is NULL; keep the host eval dumb
+            sets.append((tc.name, "delta", (src, op, delta)))
+        spec["sets"] = sets
+        return spec
 
     def _run_locking_select(self, stmt) -> ResultSet:
         # NOTE on cost: the visible query runs once, plus one hidden
@@ -501,10 +1155,22 @@ class Session:
             _time.sleep(0.02)
 
     def _run_select(self, stmt) -> ResultSet:
+        from tidb_tpu_torch.utils import tracing
+
         if self.txn is None and not self.sysvars.get("autocommit"):
             self._begin()  # consistent-snapshot reads without autocommit
-        phys = self._plan_select(stmt)
-        root = build_executor(phys)
+        with tracing.span("session.plan"):
+            phys = self._acquire_plan(stmt)
+            self._check_plan_privs(phys)
+            root = self._build_root(phys)
+        # plan digest: hash of the plan's shape (explain text), paired
+        # with the statement digest in the summary and the slow log; a
+        # cache hit already set the entry's memoized digest
+        if self._last_plan_digest is None:
+            import hashlib as _hl
+
+            self._last_plan_digest = _hl.sha256(
+                explain_text(phys).encode()).hexdigest()[:32]
         n_vis = phys.n_visible if isinstance(phys, PProjection) else None
         if n_vis is None and hasattr(phys, "children") and phys.children:
             # Sort/Limit on top of the projection keep hidden sort columns
@@ -513,7 +1179,8 @@ class Session:
                 c = c.children[0]
             if isinstance(c, PProjection) and c.n_visible is not None and c.n_visible < len(phys.schema):
                 n_vis = c.n_visible
-        return run_plan(root, self._exec_ctx(plan=phys), n_visible=n_vis)
+        with tracing.span("session.execute"):
+            return run_plan(root, self._exec_ctx(plan=phys), n_visible=n_vis)
 
     # ------------------------------------------------------------------
 
@@ -558,16 +1225,82 @@ class Session:
                 kwargs[f] = v
         return type(e)(**kwargs)
 
+    def kill(self, stmt) -> None:
+        """KILL [QUERY|CONNECTION] <id>: QUERY cancels the victim's
+        in-flight statement at its next chunk boundary; CONNECTION also
+        fails every later statement. It only sets the victim's flags:
+        no statement envelope (resolve-locks, recluster), so the server's
+        connection thread may call it without the catalog lock, while a
+        commit of the victim's or another's is in flight."""
+        if self._killed:
+            raise QueryKilledError("connection was killed")
+        victim = self.catalog.processes.get(stmt.conn_id)
+        if victim is None:
+            # existence BEFORE privilege (MySQL): a nonexistent id is
+            # "Unknown thread id" for every user
+            raise ExecutionError(f"Unknown thread id: {stmt.conn_id}")
+        if self.user != "root" and victim.user != self.user:
+            self._priv("super")  # only SUPER kills others
+        if stmt.query_only:
+            victim._kill_query = True
+        else:
+            victim._killed = True
+
+    def _priv(self, priv: str, db: str = "*", table: str = "*") -> None:
+        self.catalog.privileges.require(self.user, priv, db, table)
+
+    def _priv_table(self, priv: str, tn) -> None:
+        self._priv(priv, tn.schema or self.db, tn.name)
+
+    def _check_plan_privs(self, phys) -> None:
+        """SELECT privilege on every base table the plan scans (views
+        are expanded at bind time, so their underlying tables are what
+        gets checked)."""
+        from tidb_tpu_torch.planner.physical import PScan
+
+        stack = [phys]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, PScan) and node.table is not None:
+                if getattr(node.table, "_anonymous", False):
+                    # plan-time temp (materialized CTE): its body was
+                    # privilege-checked when the subplan executed
+                    stack.extend(getattr(node, "children", ()))
+                    continue
+                db = getattr(node, "db", None) or self.db
+                if db.lower() != "information_schema":  # world-readable
+                    self._priv("select", db, node.table_name)
+            stack.extend(getattr(node, "children", ()))
+
+    _DDL_PRIV = {
+        A.CreateTableStmt: "create", A.CreateDatabaseStmt: "create",
+        A.CreateIndexStmt: "index", A.DropIndexStmt: "index",
+        A.DropTableStmt: "drop", A.DropDatabaseStmt: "drop",
+        A.TruncateStmt: "drop", A.AlterTableStmt: "alter",
+    }
+
+    def _check_ddl_privs(self, stmt) -> None:
+        priv = self._DDL_PRIV[type(stmt)]
+        if isinstance(stmt, A.DropTableStmt):
+            for tn in stmt.tables:
+                self._priv_table(priv, tn)
+            return
+        if isinstance(stmt, (A.CreateDatabaseStmt, A.DropDatabaseStmt)):
+            self._priv(priv, stmt.name)
+            return
+        self._priv_table(priv, stmt.table)
+
     def _execute_stmt(self, stmt) -> Optional[ResultSet]:
-        # a DECIDED txn whose commit crashed mid-secondaries leaves rows
-        # invisible behind marker timestamps; readers resolve such locks
-        # at the statement boundary (the reader-side resolve-lock flow) —
-        # commits run under the catalog lock, so a pending status here
-        # always means a crashed txn
-        if self.catalog.has_stale_txns():
-            self.catalog.resolve_locks()
-        if not isinstance(stmt, A.SetStmt) and _ast_contains(stmt, A.EVar):
+        # textual fast path for the per-statement AST sweep: the parser
+        # makes EVar nodes only from a literal '@', so sources without
+        # one skip the walk (the OLTP hot path runs this per statement)
+        src_txt = getattr(stmt, "_source", None)
+        if (not isinstance(stmt, A.SetStmt)
+                and (src_txt is None or "@" in src_txt)
+                and _ast_contains(stmt, A.EVar)):
             stmt = self._sub_vars(stmt)
+            if src_txt is not None:
+                stmt._source = src_txt  # the rebuild drops parser attrs
         if isinstance(stmt, (A.SelectStmt, A.UnionStmt)):
             if getattr(stmt, "into_outfile", None) is not None:
                 raise UnsupportedError("SELECT ... INTO OUTFILE is not yet ported")
@@ -579,8 +1312,73 @@ class Session:
             if getattr(stmt, "lock_mode", None) is not None:
                 return self._run_locking_select(stmt)
             return self._run_select(stmt)
+        if isinstance(stmt, (A.CreateBindingStmt, A.DropBindingStmt)):
+            raise UnsupportedError(
+                "SQL plan bindings are not yet ported: they wait for the "
+                "planner's hints (ROADMAP Queue A, item 8)")
+        if isinstance(stmt, A.InsertStmt):
+            self._priv_table("insert", stmt.table)
+        elif isinstance(stmt, A.UpdateStmt):
+            if stmt.from_ is None:
+                self._priv_table("update", stmt.table)
+        elif isinstance(stmt, A.DeleteStmt):
+            if stmt.from_ is None:
+                self._priv_table("delete", stmt.table)
+        if isinstance(stmt, tuple(self._DDL_PRIV)):
+            self._check_ddl_privs(stmt)
+            self._commit()  # DDL implicitly commits the open txn (MySQL)
+            # a server's elected DDL owner runs queued DDL for every
+            # connection (ref: ddl job queue + owner election); inline
+            # otherwise (embedded use / the worker's own session)
+            if (self.catalog.ddl_workers
+                    and not getattr(self, "_ddl_direct", False)):
+                source = getattr(stmt, "_source", None)
+                if source:
+                    job = self.catalog.submit_ddl(source, self.db)
+                    # no arbitrary deadline: abandoning a RUNNING job
+                    # would release the statement lock while its worker
+                    # still mutates the catalog; fail fast only when no
+                    # worker remains to ever run it
+                    while not job.done.wait(timeout=1):
+                        if not self.catalog.ddl_workers:
+                            self.catalog.drain_ddl_jobs("DDL owner shut down")
+                    if job.error is not None:
+                        raise job.error
+                    return None
         if isinstance(stmt, A.ExplainStmt):
             return self._run_explain(stmt)
+        if isinstance(stmt, A.TraceStmt):
+            return self._run_trace(stmt)
+        if isinstance(stmt, A.KillStmt):
+            self.kill(stmt)
+            return None
+        if isinstance(stmt, A.InstallPluginStmt):
+            self._priv("super")  # SQL-reachable module import is admin-only
+            self.catalog.plugins.load_module(stmt.name, stmt.module)
+            return None
+        if isinstance(stmt, A.UninstallPluginStmt):
+            self._priv("super")
+            self.catalog.plugins.uninstall(stmt.name)
+            return None
+        if isinstance(stmt, A.CreateUserStmt):
+            self._priv("super")
+            self.catalog.create_user(stmt.user, stmt.password, stmt.if_not_exists)
+            return None
+        if isinstance(stmt, A.DropUserStmt):
+            self._priv("super")
+            self.catalog.drop_user(stmt.user, stmt.if_exists)
+            self.catalog.privileges.drop_user(stmt.user)
+            return None
+        if isinstance(stmt, (A.GrantStmt, A.RevokeStmt)):
+            self._priv("super")
+            if stmt.user not in self.catalog.users:
+                raise ExecutionError(f"no user {stmt.user!r}")
+            db = stmt.db if stmt.db is not None else self.db
+            if isinstance(stmt, A.GrantStmt):
+                self.catalog.privileges.grant(stmt.user, stmt.privs, db, stmt.table)
+            else:
+                self.catalog.privileges.revoke(stmt.user, stmt.privs, db, stmt.table)
+            return None
         if isinstance(stmt, A.ShowStmt):
             return self._run_show(stmt)
         if isinstance(stmt, A.AnalyzeStmt):
@@ -592,12 +1390,15 @@ class Session:
                 t.modify_count = 0
             return None
         if isinstance(stmt, A.CreateViewStmt):
+            self._priv("create", stmt.schema or self.db)
             self._commit()  # DDL semantics
             self.catalog.create_view(
                 stmt.schema or self.db, stmt.name, stmt.columns,
                 stmt.select, stmt.select_sql, stmt.or_replace)
             return None
         if isinstance(stmt, A.DropViewStmt):
+            for t in stmt.names:
+                self._priv("drop", t.schema or self.db, t.name)
             self._commit()
             # MySQL 8: all-or-nothing — validate every name first
             if not stmt.if_exists:
@@ -688,6 +1489,8 @@ class Session:
                 if scope == "user":
                     self.user_vars[name.lstrip("@")] = v
                 else:
+                    if scope == "global":
+                        self._priv("super")  # ref: SUPER for global sysvars
                     self.sysvars.set(name, v, scope or "session")
                     # MySQL: enabling autocommit commits the open txn
                     if (name.lower() == "autocommit" and scope != "global"
@@ -695,6 +1498,87 @@ class Session:
                         self._commit()
             return None
         raise UnsupportedError(f"statement {type(stmt).__name__} is not yet ported")
+
+    # -- prepared statements (ref: server/conn_stmt.go + planner plan
+    # cache; the binary protocol's COM_STMT_* commands drive these) -------
+
+    def prepare(self, sql: str) -> tuple:
+        """Parse once, count placeholders. Returns (stmt_id, n_params)."""
+        import time as _time
+
+        from tidb_tpu_torch.utils import metrics as M
+
+        t0 = _time.perf_counter()
+        stmts = parse(sql)
+        M.PARSE_SECONDS.observe(_time.perf_counter() - t0)
+        if len(stmts) != 1:
+            raise UnsupportedError("PREPARE requires exactly one statement")
+        stmt = stmts[0]
+        n_params = _count_params(stmt)
+        # prepare-time plan-cache context: the normalized digest and the
+        # template's literal-slot analysis are value-independent, so the
+        # per-execution hot path never re-lexes or re-walks the AST
+        from tidb_tpu_torch.bindinfo import normalize_sql, sql_digest
+        from tidb_tpu_torch.planner import plancache as _pc
+
+        try:
+            norm = normalize_sql(sql) if len(sql) <= 16384 else None
+            digest = sql_digest(norm) if norm is not None else None
+            tinfo = _pc.analyze_template(stmt)
+        except Exception:  # noqa: BLE001 — fall back to per-exec analysis
+            norm = digest = tinfo = None
+        self._stmt_id += 1
+        self._prepared[self._stmt_id] = (stmt, n_params, sql, norm, digest,
+                                         tinfo)
+        return self._stmt_id, n_params
+
+    def execute_prepared(self, stmt_id: int, params: list) -> Optional[ResultSet]:
+        ent = self._prepared.get(stmt_id)
+        if ent is None:
+            raise ExecutionError(f"unknown prepared statement {stmt_id}")
+        stmt, n_params, sql, norm, digest, tinfo = ent
+        if len(params) != n_params:
+            raise ExecutionError(
+                f"prepared statement takes {n_params} params, got {len(params)}")
+        info = None
+        if tinfo is not None and digest is not None:
+            from tidb_tpu_torch.planner import plancache as _pc
+
+            info = _pc.bind_template_params(tinfo, params)
+        # defer parameter substitution for plain SELECT/UNION templates:
+        # a plan-cache hit executes without the bound AST, and every
+        # planning path materializes it via _materialize_stmt. Locking
+        # reads and DML consume literals outside the planner, so they
+        # always bind eagerly.
+        defer = (info is not None and n_params
+                 and isinstance(stmt, (A.SelectStmt, A.UnionStmt))
+                 and getattr(stmt, "lock_mode", None) is None
+                 and getattr(stmt, "into_outfile", None) is None
+                 and not (isinstance(stmt, A.UnionStmt) and any(
+                     getattr(arm, "lock_mode", None)
+                     for arm in _union_arms(stmt))))
+        if n_params and not defer:
+            stmt = _sub_params(stmt, params)
+            # the rebuilt AST loses the parser's _source attr; restore
+            # it — the plan cache and statements summary digest it
+            stmt._source = sql
+        # through the timed path: prepared executions get the same
+        # metrics / slow log / trace / profiler hooks as text queries
+        self._exec_prepared = True
+        if info is not None:
+            self._ps_ctx = (sql, norm, digest, info)
+        if defer:
+            self._ps_params = params
+        try:
+            return self._execute_timed(stmt, sql)
+        finally:
+            self._exec_prepared = False
+            self._ps_ctx = None
+            self._ps_params = None
+            self._ps_materialized = None
+
+    def close_prepared(self, stmt_id: int) -> None:
+        self._prepared.pop(stmt_id, None)
 
     # -- DDL ---------------------------------------------------------------
 
@@ -1399,6 +2283,7 @@ class Session:
                     "UPDATE")
             target = by_alias[next(iter(owners))]
         table = self.catalog.table(target.schema or self.db, target.name)
+        self._priv("update", target.schema or self.db, target.name)
 
         def do(txn):
             ids, vals = self._multi_dml_rowids(
@@ -1483,6 +2368,7 @@ class Session:
                     f"DELETE target {stmt.table.name!r} is not in the "
                     "table references")
             table = self.catalog.table(target.schema or self.db, target.name)
+            self._priv("delete", target.schema or self.db, target.name)
 
             def do(txn):
                 ids, _ = self._multi_dml_rowids(stmt, target)
@@ -1506,24 +2392,27 @@ class Session:
     def _run_explain(self, stmt: A.ExplainStmt):
         """EXPLAIN shows the plan (`explain_text`); EXPLAIN ANALYZE runs it
         with every operator instrumented (utils/execdetails.py) and adds
-        the statement's resource profile. The reference's SQL bindings
-        and privilege checks are not ported: the plan is the unbound one
-        and nothing is checked."""
+        the statement's resource profile. The statement's privileges are
+        checked as for the statement itself. SQL bindings are not
+        ported, so the plan is the unbound one."""
         target = stmt.stmt
         if not isinstance(target, (A.SelectStmt, A.UnionStmt)):
             raise UnsupportedError("EXPLAIN only supports SELECT")
         phys = self._plan_select(target)
+        # MySQL requires the same privileges for EXPLAIN as for the
+        # statement itself; ANALYZE even executes it
+        self._check_plan_privs(phys)
         if stmt.analyze:
-            from tidb_tpu_torch.columnar.store import COMPACTION_WAIT
+            from tidb_tpu_torch.columnar.store import compact_counts as _cmp
             from tidb_tpu_torch.utils import dispatch as _dsp
             from tidb_tpu_torch.utils.execdetails import analyze_text, instrument
 
-            root = build_executor(phys)
+            root = self._build_root(phys)
             instrument(root)
-            # resource profile: deltas of the host-side counters around
-            # the execution — no new syncs
+            # resource profile: deltas of this thread's host-side
+            # counters around the execution — no new syncs
             p0 = (_dsp.xfer_bytes(), _dsp.compile_seconds(),
-                  _dsp.spill_bytes(), COMPACTION_WAIT["s"])
+                  _dsp.spill_bytes(), _cmp()[0])
             run_plan(root, self._exec_ctx(plan=phys))  # execute; rows discarded
             text = analyze_text(root)
             mem_max = max((t.max_consumed for t in self._stmt_trackers),
@@ -1533,11 +2422,90 @@ class Session:
                      % (mem_max, _dsp.xfer_bytes() - p0[0],
                         (_dsp.compile_seconds() - p0[1]) * 1e3,
                         _dsp.spill_bytes() - p0[2],
-                        (COMPACTION_WAIT["s"] - p0[3]) * 1e3))
+                        (_cmp()[0] - p0[3]) * 1e3))
             return ResultSet(names=["EXPLAIN ANALYZE"],
                              rows=[(line,) for line in text.split("\n")])
         text = explain_text(phys)
         return ResultSet(names=["EXPLAIN"], rows=[(line,) for line in text.split("\n")])
+
+    def _run_trace(self, stmt: A.TraceStmt):
+        """TRACE <select>: execute under the statement's (always-on)
+        trace and render ITS span tree — one tracer serves TRACE, the
+        slow log and /trace."""
+        target = stmt.stmt
+        if not isinstance(target, (A.SelectStmt, A.UnionStmt)):
+            raise UnsupportedError("TRACE only supports SELECT")
+        from tidb_tpu_torch.utils import tracing
+        from tidb_tpu_torch.utils.execdetails import instrument
+
+        if self.txn is None and not self.sysvars.get("autocommit"):
+            self._begin()  # same consistent-snapshot rule as _run_select
+        tracing.keep("trace")  # the trace IS the output: always retain
+        tr = tracing.current()
+        with tracing.span("session.plan"):
+            phys = self._plan_select(target)
+            self._check_plan_privs(phys)  # TRACE executes the statement
+        with tracing.span("session.build_executor"):
+            root = self._build_root(phys)
+            instrument(root)
+        with tracing.span("session.execute") as exec_span:
+            run_plan(root, self._exec_ctx(plan=phys))
+        if tr is not None and exec_span is not None:
+            self._graft_operator_spans(tr, exec_span, root)
+        return ResultSet(names=["span", "start_ms", "duration_ms"],
+                         rows=self._trace_rows(tr))
+
+    @staticmethod
+    def _graft_operator_spans(tr, exec_span, root) -> None:
+        """Per-operator spans from the EXPLAIN ANALYZE instrumentation:
+        start = the operator's first open/next activity, duration = its
+        cumulative open+next wall (a coverage envelope: operators
+        interleave per chunk)."""
+        def visit(e, parent_id):
+            st = e.stats
+            t0 = (st.first_ts if st.first_ts is not None
+                  else tr.t0_perf + exec_span.start_us / 1e6)
+            notes = [f"rows={st.rows}", f"loops={st.chunks}",
+                     f"dispatches={st.dispatches}"]
+            if st.recompiles:
+                notes.append(f"recompiles={st.recompiles}")
+            s = tr.add_complete("executor." + type(e).__name__, t0,
+                                st.open_wall + st.next_wall,
+                                parent_id=parent_id, notes=notes)
+            pid = s.span_id if s.span_id > 0 else parent_id
+            for c in e.children:
+                visit(c, pid)
+
+        visit(root, exec_span.span_id)
+
+    @staticmethod
+    def _trace_rows(tr) -> list:
+        """Render the current statement span's subtree as the TRACE
+        result rows: (indented name, start_ms offset, duration_ms)."""
+        from tidb_tpu_torch.utils import tracing
+
+        if tr is None:
+            return []
+        base_id = tracing.current_span_id()
+        spans = list(tr.spans)
+        base = next((s for s in spans if s.span_id == base_id), None)
+        base_start = base.start_us if base is not None else 0
+        children: dict = {}
+        for s in spans:
+            children.setdefault(s.parent_id, []).append(s)
+        rows: list = []
+
+        def visit(s, depth):
+            rows.append(("  " * depth + s.name,
+                         round((s.start_us - base_start) / 1e3, 3),
+                         round(max(s.dur_us, 0) / 1e3, 3)))
+            for c in sorted(children.get(s.span_id, ()),
+                            key=lambda x: x.start_us):
+                visit(c, depth + 1)
+
+        for c in sorted(children.get(base_id, ()), key=lambda x: x.start_us):
+            visit(c, 0)
+        return rows
 
     @staticmethod
     def _like_filter(rows, like: Optional[str], col: int = 0):
@@ -1550,10 +2518,28 @@ class Session:
         return [r for r in rows if rx.match(str(r[col]))]
 
     def _run_show(self, stmt: A.ShowStmt):
-        if stmt.kind in _SHOW_UNPORTED:
-            raise UnsupportedError(
-                f"SHOW {stmt.kind.upper()} is not yet ported: it waits for "
-                f"{_SHOW_UNPORTED[stmt.kind]}")
+        if stmt.kind == "grants":
+            user = stmt.target or self.user
+            if user != self.user:
+                self._priv("super")
+            if user not in self.catalog.users:
+                raise ExecutionError(f"no user {user!r}")
+            rows = [(g,) for g in self.catalog.privileges.grants_for(user)]
+            return ResultSet(names=[f"Grants for {user}"], rows=rows)
+        if stmt.kind == "processlist":
+            rows = self.catalog.processlist_rows(
+                viewer_user=self.user, with_state=True)
+            return ResultSet(
+                names=["Id", "User", "Host", "db", "Command", "Time",
+                       "State", "Info"], rows=rows)
+        if stmt.kind == "bindings":
+            rows = self._bindings.rows() + self.catalog.bind_handle.rows()
+            return ResultSet(
+                names=["Original_sql", "Bind_sql", "Scope", "Status"], rows=rows)
+        if stmt.kind == "plugins":
+            return ResultSet(
+                names=["Name", "Status", "Type", "Library", "Version"],
+                rows=self.catalog.plugins.rows())
         if stmt.kind == "warnings":
             return ResultSet(names=["Level", "Code", "Message"],
                              rows=list(self._warnings))
@@ -1586,6 +2572,9 @@ class Session:
                        "Column_name"],
                 rows=rows)
         if stmt.kind == "create_table":
+            # privilege BEFORE the lookup: an unprivileged probe must not
+            # learn which table names exist
+            self._priv("select", self.db, stmt.target)
             t = self.catalog.table(self.db, stmt.target)
             kindmap = {"int": "bigint", "float": "double",
                        "string": "varchar(255)", "bool": "tinyint(1)"}
@@ -1862,3 +2851,71 @@ def _ast_names(e):
                     else:
                         stack.append(item)
     return out
+
+
+def _count_params(stmt) -> int:
+    n = 0
+    stack = [stmt]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, A.EParam):
+            n = max(n, e.index + 1)
+        elif isinstance(e, (list, tuple)):
+            stack.extend(e)
+        elif hasattr(e, "__dataclass_fields__"):
+            stack.extend(getattr(e, f) for f in e.__dataclass_fields__)
+    return n
+
+
+def _param_literal(v):
+    """Bound parameter value -> literal AST node (typed contexts coerce
+    strings the same way quoted literals coerce)."""
+    import datetime
+
+    if v is None:
+        return A.ENull()
+    if isinstance(v, bool):
+        return A.ENum("1" if v else "0")
+    if isinstance(v, int):
+        return A.ENum(str(v))
+    if isinstance(v, float):
+        return A.ENum(repr(v))
+    if isinstance(v, bytes):
+        return A.EStr(v.decode("utf-8", "replace"))
+    if isinstance(v, datetime.datetime):
+        return A.EStr(v.isoformat(sep=" "))
+    if isinstance(v, datetime.date):
+        return A.EStr(v.isoformat())
+    return A.EStr(str(v))
+
+
+def _sub_params(stmt, params):
+    return _ast_transform(
+        stmt, lambda e: _param_literal(params[e.index]) if isinstance(e, A.EParam) else e
+    )
+
+
+_PROFILE_SEQ = __import__("itertools").count(1)
+
+
+def _profiled(prof_dir: str, device, conn_id: int):
+    """The `tidb_profile_dir` hook (the reference's jax.profiler trace):
+    a torch.profiler trace of the statement, CUDA activity included on
+    the card, written as a chrome trace into `prof_dir`."""
+    import contextlib
+    import os
+
+    import torch
+
+    @contextlib.contextmanager
+    def run():
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(prof_dir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(
+            prof_dir, f"stmt-{conn_id}-{next(_PROFILE_SEQ)}.json"))
+
+    return run()

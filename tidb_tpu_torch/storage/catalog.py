@@ -6,9 +6,11 @@ cache), with the timestamp oracle every table stamps its commits from,
 the open-transaction registry (the GC safepoint), the 2PC status records
 lock resolution finishes crashed commits from, MVCC GC, foreign-key
 wiring, RENAME TABLE, views, auto-analyze after commit and the
-lock-free reader registry that CLUSTER BY permutes wait on. Not yet
-ported: information_schema, users and privileges, plugins, bindings, the
-DDL owner and job queue, the plan cache and statement summaries.
+lock-free reader registry that CLUSTER BY permutes wait on, and its
+serving half: user accounts (mysql_native_password) and grants, the
+plugin registry, global plan bindings, the DDL owner election and job
+queue, the plan cache, the statements summary, the slow-query log and
+the process list KILL reads. Not yet ported: information_schema.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List
 
-from tidb_tpu_torch.errors import DuplicateTableError, SchemaError
+from tidb_tpu_torch.errors import DuplicateTableError, ExecutionError, SchemaError
 from tidb_tpu_torch.storage.table import Table, TableSchema
 
 __all__ = ["Database", "Catalog"]
@@ -38,6 +40,24 @@ class Catalog:
         # single-writer by design
         self.lock = threading.RLock()
         self.databases: Dict[str, Database] = {"test": Database("test")}
+        # extension points (ref: plugin/ — per-process plugin list)
+        from tidb_tpu_torch.plugin import PluginRegistry
+
+        self.plugins = PluginRegistry()
+        # global plan bindings (ref: bindinfo — mysql.bind_info); empty
+        # until CREATE BINDING is ported with the planner's hints
+        from tidb_tpu_torch.bindinfo import BindHandle
+
+        self.bind_handle = BindHandle("global")
+        # DDL owner election + job queue (ref: owner/ + ddl/ job rows);
+        # workers register per server instance — empty means inline DDL
+        from tidb_tpu_torch.owner import Election
+
+        self.ddl_owner = Election()
+        self.ddl_workers: Dict[str, object] = {}
+        self._ddl_jobs: list = []
+        self._ddl_job_id = 0
+        self._ddl_qlock = threading.Lock()
         self._schema_version = 0
         # cluster-wide GLOBAL sysvars (ref: mysql.global_variables)
         self.global_vars: Dict[str, object] = {}
@@ -50,6 +70,34 @@ class Catalog:
         # 2PC status records: marker -> ("committed", ts) | ("aborted", 0)
         # present only between commit/abort point and secondary completion
         self._txn_status: Dict[int, tuple] = {}
+        # user accounts: name -> mysql_native_password stage-2 hash
+        # (SHA1(SHA1(password)), like mysql.user.authentication_string);
+        # "" means empty password. Ref: privilege/'s MySQLPrivilege.
+        self.users: Dict[str, bytes] = {"root": b""}
+        from tidb_tpu_torch.privilege import Privileges
+
+        self.privileges = Privileges()
+        # recent slow statements (ref: the slow-query log)
+        from collections import deque
+
+        self.slow_queries = deque(maxlen=128)
+        # per-digest statement aggregates (the status port's /statements)
+        from tidb_tpu_torch.utils.stmtsummary import StmtSummary
+
+        self.stmt_summary = StmtSummary()
+        # instance-wide digest-keyed plan cache (ref: the prepared plan
+        # cache + tidb_enable_non_prepared_plan_cache); imported lazily:
+        # the planner pulls in the optimizer stack
+        from tidb_tpu_torch.planner.plancache import PlanCache
+
+        self.plan_cache = PlanCache()
+        # live sessions for SHOW PROCESSLIST / KILL (ref: server/'s
+        # connection registry); weak values — a dropped session vanishes
+        import weakref
+
+        self.processes = weakref.WeakValueDictionary()
+        self._conn_id = 0
+        self._conn_id_lock = threading.Lock()
         # lock-free reader registry (CLUSTER BY recluster): autocommit
         # SELECTs never enter _open_txns, yet a CLUSTER BY permute moves
         # the physical rows they read without any lock. Statements
@@ -72,6 +120,11 @@ class Catalog:
     @schema_version.setter
     def schema_version(self, v: int) -> None:
         self._schema_version = int(v)
+        # eager plan-cache invalidation: entries pin table objects, so
+        # waiting for the next probe would keep DROPped tables alive
+        pc = getattr(self, "plan_cache", None)
+        if pc is not None:
+            pc.on_schema_change(self._schema_version)
         # the device buffer cache pins table objects: a schema change
         # clears it eagerly, so DROP/CREATE never serves buffers of a
         # dropped table. Looked up lazily: the catalog stays importable
@@ -82,6 +135,81 @@ class Catalog:
         cache = getattr(pipe, "DEVICE_CACHE", None)
         if cache is not None:
             cache.on_schema_change()
+
+    def processlist_rows(self, viewer_user=None, with_state=False):
+        """Live-session rows for SHOW PROCESSLIST. A viewer without the
+        SUPER privilege sees only their own threads (MySQL)."""
+        import time as _time
+
+        all_users = (viewer_user is None
+                     or self.privileges.has(viewer_user, "super"))
+        rows = []
+        for cid in sorted(self.processes.keys()):
+            sess = self.processes.get(cid)
+            if sess is None or (not all_users
+                                and sess.user != viewer_user):
+                continue
+            sql_now = getattr(sess, "_current_sql", None)
+            row = [cid, sess.user, "localhost", sess.db,
+                   "Query" if sql_now else "Sleep",
+                   int(_time.time() - sess._current_t0) if sql_now else 0]
+            if with_state:
+                row.append("" if sql_now else None)
+            row.append((sql_now or "")[:100] or None)
+            rows.append(tuple(row))
+        return rows
+
+    def next_conn_id(self) -> int:
+        # its own tiny lock: the catalog statement lock can be held for
+        # a whole long statement, and session CREATION must never block
+        # behind it (the wire server handshakes on a fresh thread)
+        with self._conn_id_lock:
+            self._conn_id += 1
+            return self._conn_id
+
+    def submit_ddl(self, sql: str, db: str):
+        """Enqueue a DDL job for the elected owner's worker."""
+        from tidb_tpu_torch.owner import DDLJob
+
+        with self._ddl_qlock:
+            self._ddl_job_id += 1
+            job = DDLJob(self._ddl_job_id, sql, db)
+            self._ddl_jobs.append(job)
+        return job
+
+    def next_ddl_job(self, worker_id: str = ""):
+        with self._ddl_qlock:
+            for j in self._ddl_jobs:
+                if j.state == "queued":
+                    j.state = "running"  # claimed atomically: a lease
+                    # change between campaign() and here must not let
+                    # two workers run the same job
+                    j.claimed_by = worker_id
+                    return j
+            # opportunistic pruning of finished history
+            self._ddl_jobs = [j for j in self._ddl_jobs if not j.done.is_set()]
+        return None
+
+    def reclaim_ddl_jobs(self) -> int:
+        """Requeue jobs claimed by a worker that is gone (owner died
+        mid-execution; the new owner picks them up)."""
+        n = 0
+        with self._ddl_qlock:
+            for j in self._ddl_jobs:
+                if (j.state == "running" and j.claimed_by
+                        and j.claimed_by not in self.ddl_workers):
+                    j.state = "queued"
+                    j.claimed_by = None
+                    n += 1
+        return n
+
+    def drain_ddl_jobs(self, reason: str) -> None:
+        """Fail every unfinished job (no workers remain to run them)."""
+        with self._ddl_qlock:
+            for j in self._ddl_jobs:
+                if not j.done.is_set():
+                    j.fail(ExecutionError(reason))
+            self._ddl_jobs = []
 
     def next_ts(self) -> int:
         self._ts += 1
@@ -227,6 +355,40 @@ class Catalog:
         runs this equals current_ts; the min() is the contract for a
         future log-remapping GC that can run under open snapshots."""
         return min(self._open_txns.values(), default=self._ts)
+
+    def log_slow_query(self, db: str, sql: str, duration_s: float,
+                       digest: str = "", plan_digest: str = "",
+                       max_mem: int = 0, dispatches: int = 0,
+                       segs_scanned: int = 0, segs_pruned: int = 0,
+                       trace_id: str = "", disposition: str = "",
+                       worst_drift: float = 0.0,
+                       worst_drift_op: str = "",
+                       xfer_bytes: int = 0, compile_ms: float = 0.0,
+                       spill_bytes: int = 0,
+                       compaction_wait_ms: float = 0.0) -> None:
+        """One slow-log row. `trace_id` joins the row to the kept trace
+        on /trace?id=; `disposition` is "" for a completed statement or
+        "error:<Type>" for one that died mid-execution (deadline, kill,
+        runtime error). `worst_drift*` stay empty: plan feedback is not
+        ported."""
+        import logging
+        import time
+
+        self.slow_queries.append((
+            time.strftime("%Y-%m-%d %H:%M:%S"), db, round(duration_s, 4),
+            sql.strip()[:2048], digest, plan_digest, int(max_mem),
+            int(dispatches), int(segs_scanned), int(segs_pruned),
+            trace_id, disposition, worst_drift_op, round(worst_drift, 4),
+            int(xfer_bytes), round(float(compile_ms), 3), int(spill_bytes),
+            round(float(compaction_wait_ms), 3),
+        ))
+        logging.getLogger("tidb_tpu_torch.slowlog").warning(
+            "slow query (%.3fs) db=%s digest=%s mem=%d dispatches=%d "
+            "segs=%d/%d trace=%s%s: %s",
+            duration_s, db, digest, max_mem, dispatches, segs_scanned,
+            segs_scanned + segs_pruned, trace_id,
+            f" [{disposition}]" if disposition else "",
+            sql.strip()[:512])
 
     def gc(self) -> Dict[str, int]:
         """Reclaim dead MVCC versions in every table. Conservative: a
@@ -451,3 +613,50 @@ class Catalog:
         t.schema.name = new
         d.tables[new] = t
         self.schema_version += 1
+
+    # -- users (ref: privilege/ — mysql_native_password authentication) --
+
+    @staticmethod
+    def native_hash(password: str) -> bytes:
+        """mysql_native_password stage-2 hash (what the server stores)."""
+        import hashlib
+
+        if not password:
+            return b""
+        return hashlib.sha1(hashlib.sha1(password.encode()).digest()).digest()
+
+    def create_user(self, user: str, password: str = "",
+                    if_not_exists: bool = False) -> None:
+        if user in self.users:
+            if if_not_exists:
+                return  # MySQL: existing account (and password) untouched
+            raise DuplicateTableError(f"user {user!r} exists")
+        self.users[user] = self.native_hash(password)
+
+    def drop_user(self, user: str, if_exists: bool = False) -> None:
+        if user not in self.users:
+            if if_exists:
+                return
+            raise SchemaError(f"no user {user!r}")
+        del self.users[user]
+
+    def set_password(self, user: str, password: str) -> None:
+        if user not in self.users:
+            raise SchemaError(f"no user {user!r}")
+        self.users[user] = self.native_hash(password)
+
+    def verify_user(self, user: str, token: bytes, salt: bytes) -> bool:
+        """Check a mysql_native_password scramble:
+        token = SHA1(password) XOR SHA1(salt + SHA1(SHA1(password)))."""
+        import hashlib
+
+        stage2 = self.users.get(user)
+        if stage2 is None:
+            return False
+        if stage2 == b"":
+            return token in (b"", b"\x00" * 20)
+        if len(token) != 20:
+            return False
+        mix = hashlib.sha1(salt + stage2).digest()
+        stage1 = bytes(a ^ b for a, b in zip(token, mix))
+        return hashlib.sha1(stage1).digest() == stage2

@@ -2,13 +2,15 @@
 
 ``execdetails`` snapshots these counters around each operator's
 open/next, so EXPLAIN ANALYZE shows per-operator launch counts, and the
-statement's ``profile:`` line shows its transfer and build costs. The
-reference counts XLA program dispatches; eager torch has no program to
-count, so the port gives each name its torch meaning:
+statement's ``profile:`` line and the statements summary show its
+transfer and build costs. The reference counts XLA program dispatches;
+eager torch has no program to count, so the port gives each name its
+torch meaning:
 
-  - ``count``: launches of the port's own CUDA kernels, read from the
-    wrappers' ``LAUNCHES`` counters (ops/segment_sum.py, ops/hash_probe.py);
-    the plain versions a CPU tensor takes launch nothing
+  - ``count`` / ``by_site``: launches of the port's own CUDA kernels,
+    counted by the wrappers (ops/segment_sum.py, ops/hash_probe.py)
+    through ``count_launch``; the plain versions a CPU tensor takes
+    launch nothing
   - ``compile_count`` / ``compile_seconds``: nvcc builds of a kernel
     library at first use (ops/nvcc_build.py)
   - ``xfer_bytes``: host->device bytes staged (the fused pipeline's
@@ -16,61 +18,116 @@ count, so the port gives each name its torch meaning:
   - ``spill_bytes``: bytes a statement spilled to disk (0: spill is not
     ported)
 
-The counters are process-wide, not per thread as in the reference: the
-prefetch thread stages a statement's batches, and the launch counters
-they read are process-wide already.
+As in the reference, every counter is per thread: the server runs
+statements on concurrent worker threads, and one statement's figures
+must not absorb another's launches. Work done on a statement's behalf
+by another thread (the pipeline's prefetch thread) is charged to that
+statement's thread through its ``Account`` (``account()`` on the
+statement's thread, ``record_xfer(n, into=acct)`` on the helper). The
+process-wide totals are the wrappers' ``LAUNCHES`` dicts (rendered as
+``tidb_tpu_device_dispatch_total``) and the metrics registry's
+``tidb_tpu_xfer_bytes_total`` and ``tidb_tpu_compile_seconds_total``.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Dict, Optional
 
-__all__ = ["count", "by_site", "record_xfer", "xfer_bytes", "record_compile",
-           "compile_count", "compile_seconds", "spill_bytes"]
+__all__ = ["Account", "account", "count", "by_site", "count_launch",
+           "record_xfer", "xfer_bytes", "record_compile", "compile_count",
+           "compile_seconds", "spill_bytes"]
 
-_lock = threading.Lock()
-_xfer = 0
-_compiles = 0
-_compile_s = 0.0
+
+class Account:
+    """One thread's counters. Written by its own thread and, for staging
+    done on its behalf, by a helper thread: hence the lock."""
+
+    __slots__ = ("lock", "count", "by_site", "xfer", "compiles", "compile_s")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.count = 0
+        self.by_site: Dict[str, int] = {}
+        self.xfer = 0
+        self.compiles = 0
+        self.compile_s = 0.0
+
+
+_tls = threading.local()
+
+
+def account() -> Account:
+    """The calling thread's counters (made at first use)."""
+    acct = getattr(_tls, "acct", None)
+    if acct is None:
+        acct = _tls.acct = Account()
+    return acct
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(launches: Dict[str, int], site: str) -> None:
+    """One launch of the kernel entry `site`: into its wrapper module's
+    process total `launches` (the ``LAUNCHES`` dict) and this thread's
+    account."""
+    with _LAUNCH_LOCK:
+        launches[site] += 1
+    acct = account()
+    with acct.lock:
+        acct.count += 1
+        acct.by_site[site] = acct.by_site.get(site, 0) + 1
 
 
 def by_site() -> dict:
-    """Launches per kernel entry (the wrappers' LAUNCHES, merged)."""
-    from tidb_tpu_torch.ops import hash_probe, segment_sum
-
-    return {**segment_sum.LAUNCHES, **hash_probe.LAUNCHES}
+    """This thread's launches per kernel entry."""
+    acct = account()
+    with acct.lock:
+        return dict(acct.by_site)
 
 
 def count() -> int:
-    """Kernel launches so far (the sum of every wrapper's count)."""
-    return sum(by_site().values())
+    """Kernel launches on this thread so far."""
+    return account().count
 
 
-def record_xfer(nbytes: int) -> None:
-    """Count host->device bytes, called where a staging copy is issued."""
-    global _xfer
-    with _lock:
-        _xfer += int(nbytes)
+def record_xfer(nbytes: int, into: Optional[Account] = None) -> None:
+    """Count host->device bytes where a staging copy is issued, on this
+    thread or on the statement account `into`."""
+    n = int(nbytes)
+    if n <= 0:
+        return
+    acct = into if into is not None else account()
+    with acct.lock:
+        acct.xfer += n
+    from tidb_tpu_torch.utils.metrics import XFER_BYTES
+
+    XFER_BYTES.inc(n, dir="h2d")
 
 
 def xfer_bytes() -> int:
-    return _xfer
+    return account().xfer
 
 
 def record_compile(seconds: float, builds: int) -> None:
-    """Count kernel libraries built by nvcc and the wall seconds taken."""
-    global _compiles, _compile_s
-    with _lock:
-        _compiles += builds
-        _compile_s += float(seconds)
+    """Count kernel libraries built by nvcc and the wall seconds taken,
+    charged to the thread whose statement triggered the build."""
+    acct = account()
+    with acct.lock:
+        acct.compiles += builds
+        acct.compile_s += float(seconds)
+    from tidb_tpu_torch.utils.metrics import COMPILE_SECONDS
+
+    COMPILE_SECONDS.inc(float(seconds))
 
 
 def compile_count() -> int:
-    return _compiles
+    return account().compiles
 
 
 def compile_seconds() -> float:
-    return _compile_s
+    return account().compile_s
 
 
 def spill_bytes() -> int:
