@@ -191,8 +191,31 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    order date, LAG and an AVG over a ROWS frame, each over every live
    order against numpy; the official TPC-H Q15 (CREATE VIEW revenue0, the
    query, DROP VIEW) against numpy and the inlined Q15; SHOW TABLES, SHOW
-   CREATE TABLE lineitem and SHOW INDEX FROM orders printed. The full
-   report goes to chiprun_out/chip_smoke.json.
+   CREATE TABLE lineitem and SHOW INDEX FROM orders printed.
+7. The storage phase (phase_storage), on the same session, its tables in
+   a scratch database. The delta engine: orders' columns, no key,
+   ENGINE=delta, filled by INSERT ... SELECT from orders, then 10,000
+   single-row autocommit INSERTs of fresh keys (the last of them still
+   buffered when the next read starts); an aggregation by
+   o_orderpriority and Q3 over it against numpy; 1,000 of the same
+   INSERTs into a columnar copy of the same rows, per-statement times of
+   both engines printed. CREATE TABLE ... AS SELECT of lineitem's
+   revenue by order (one row per order), joined to orders under a date
+   filter against numpy; CREATE TABLE ... LIKE orders (engine, CHECKs,
+   keys, no rows). SELECT * FROM orders INTO OUTFILE under build/, LOAD
+   DATA INFILE into a LIKE copy, rows/s both ways; Q3 over the loaded
+   copy equals Q3 and numpy. Over the wire: one connection's TEMPORARY
+   orders of 1,000 rows read by its Q3 while a second connection's Q3
+   reads the permanent table, both against numpy; the temp table gone
+   after the first disconnects, torch.cuda.memory_allocated() and the
+   device buffer cache's entries of it recorded. information_schema's
+   tables (row counts against the catalog), columns, statistics (after
+   ANALYZE), processlist and statements_summary read in process and over
+   the wire alike. DROP DATABASE refused while an FK points into it, then
+   dropped, no device buffer cache entry of its tables left. Each step
+   prints its wall time and launches; tidb_segagg and tidb_probe_count
+   must both launch. The full report goes to chip_smoke.json under
+   OUT_DIR.
 
 The card's name and power limit are printed first; the line before the
 last is one JSON object {"kernels": [...]}, the last {"ok": true,
@@ -3121,6 +3144,456 @@ def phase_window(np, s, mods) -> dict:
     return report
 
 
+# -- the storage phase: the delta engine, CTAS, LIKE, OUTFILE and LOAD
+# DATA, TEMPORARY over the wire, information_schema, DROP DATABASE ---------
+
+STORAGE_DB = "stage"
+TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 10_000, 1_000, 1_000
+PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+STORAGE_AGG = ("select o_orderpriority, count(*), sum(o_totalprice) from {t} "
+               "group by o_orderpriority order by o_orderpriority")
+CTAS_REV = (f"create table {STORAGE_DB}.rev as select l_orderkey, "
+            "sum(l_extendedprice * (1 - l_discount)) as revenue from lineitem "
+            "group by l_orderkey")
+REV_JOIN = (f"select o_orderpriority, count(*), sum(revenue) from {STORAGE_DB}.rev "
+            "join orders on l_orderkey = o_orderkey where o_orderdate < '1995-03-15' "
+            "group by o_orderpriority order by o_orderpriority")
+
+
+def no_key_ddl(s, src: str, dst: str, engine: str) -> str:
+    """CREATE TABLE `dst` with `src`'s columns and no keys, CLUSTER BY or
+    CHECKs, from SHOW CREATE TABLE: a keyed delta table writes through,
+    and this one must buffer."""
+    text = s.execute(f"show create table {src}").rows[0][1]
+    keep = [ln for ln in text.splitlines()
+            if not ln.strip().startswith(("PRIMARY KEY", "UNIQUE KEY", "KEY ",
+                                          "CONSTRAINT", "CHECK", "CLUSTER BY",
+                                          ") ENGINE"))]
+    body = "\n".join(keep).replace(f"`{src}`", f"{dst}", 1).rstrip().rstrip(",")
+    return body + f"\n) ENGINE={engine}"
+
+
+def trickle_row(k: int) -> tuple:
+    """One fresh orders row for key k: (sql values text, priority,
+    scaled price, date days, custkey)."""
+    prio = PRIORITIES[k % 5]
+    cents = 100_000 + (k * 7919) % 900_000
+    day = 9131 + k % 500  # 1995-01-01 onwards
+    return prio, cents, day, 1 + k % 1000
+
+
+def trickle_sql(np, table: str, k: int) -> str:
+    prio, cents, day, cust = trickle_row(k)
+    return (f"insert into {table} values ({k}, {cust}, 'O', {cents // 100}.{cents % 100:02d}, "
+            f"'{_iso(np, day)}', '{prio}', 'Clerk#000000001', 0, 'trickle {k}')")
+
+
+def numpy_priority_agg(np, o, extra_keys=()):
+    """(priority, count, scaled price sum) over orders' live rows and the
+    trickle rows of `extra_keys`."""
+    n = o.n
+    live = o.live_mask(0, n)
+    codes = o.data["o_orderpriority"][:n][live]
+    price = o.data["o_totalprice"][:n][live].astype(np.int64)
+    names = o.dicts["o_orderpriority"].values
+    out = {}
+    for code in np.unique(codes):
+        m = codes == code
+        out[names[int(code)]] = [int(m.sum()), int(price[m].sum())]
+    for k in extra_keys:
+        prio, cents, _d, _c = trickle_row(k)
+        e = out.setdefault(prio, [0, 0])
+        e[0] += 1
+        e[1] += cents
+    return [(p, c, s) for p, (c, s) in sorted(out.items())]
+
+
+def check_priority_rows(label, got, want):
+    g = [(p, c, _scaled(s)) for p, c, s in got]
+    if g != want:
+        raise AssertionError(f"storage {label}: {g} vs numpy {want}")
+
+
+class StorageModel:
+    """Tables for numpy_q3: orders (and lineitem) replaced by given rows,
+    the rest the ArrayModel's or the catalog's own."""
+
+    def __init__(self, base, orders, lineitem=None):
+        self.base, self.over = base, {"orders": orders, "lineitem": lineitem}
+
+    def table(self, db, name):
+        return self.over.get(name) or self.base.table(db, name)
+
+
+def orders_model(np, model, keys=(), rows=None):
+    """The ArrayModel's live orders plus trickle rows for `keys`, or only
+    the orders rows at `rows` (positions into the model's arrays)."""
+    o = model.table("test", "orders")
+    data = {c: a if rows is None else a[rows] for c, a in o.data.items()}
+    if len(keys):
+        extra = [trickle_row(int(k)) for k in keys]
+        add = {"o_orderkey": np.asarray(keys, dtype=np.int64),
+               "o_custkey": np.asarray([e[3] for e in extra], dtype=np.int64),
+               "o_orderdate": np.asarray([e[2] for e in extra], dtype=np.int32),
+               "o_shippriority": np.zeros(len(keys), dtype=np.int64),
+               "o_totalprice": np.asarray([e[1] for e in extra], dtype=np.int64)}
+        data = {c: np.concatenate([a, add[c].astype(a.dtype)]) for c, a in data.items()}
+    return ModelTable(data, o.dicts)
+
+
+def storage_step(name, t0, step, log_extra=""):
+    step["s"] = time.perf_counter() - t0
+    log(f"storage {name}: {step['s']:.3f} s{log_extra}")
+    log(f"storage {name} launches: tidb_segagg {step['launches'].get('segagg', 0)}, "
+        f"tidb_probe_count {step['launches'].get('probe_count', 0)}, off-path "
+        f"{ {k: v for k, v in step['launches'].items() if k not in ('segagg', 'probe_count')} }")
+    return step
+
+
+def step_query(step, s, mods, sql, label):
+    rows, c, dt = run_query(s, mods, sql)
+    step_add(step, c)
+    step["queries"][label] = {"s": dt, "rows": len(rows), "launches": c["launches"],
+                              "routes": c["routes"], "fused": c["fused"]}
+    return rows
+
+
+def phase_storage(torch, np, s, mods) -> dict:
+    """The storage phase on the SF1 catalog after phase_window (module
+    docstring, phase 7). Every step fails the run on a wrong answer;
+    returns the report."""
+    import shutil
+    import threading
+
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.server.client import Client
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    cat = s.catalog
+    db = STORAGE_DB
+    rep = {"card": card_line(), "steps": {}}
+    t_phase = time.perf_counter()
+    s.execute(f"create database {db}")
+    model = ArrayModel(np, cat)
+    orders = cat.table("test", "orders")
+    q3 = Q["q3"][0]
+    if q3.count(" orders,") != 1:
+        raise AssertionError("storage: Q3's FROM list changed")
+    want_q3 = numpy_q3(np, model)
+
+    # -- 1. the delta engine: trickle ingest into a reporting table --------
+    step, t0 = new_step(), time.perf_counter()
+    s.execute(no_key_ddl(s, "orders", f"{db}.orders_d", "delta"))
+    rec = timed(step, s, mods, f"insert into {db}.orders_d select * from orders",
+                "insert select")
+    n_src = int(orders.live_mask(0, orders.n).sum())
+    td = cat.table(db, "orders_d")
+    if td.engine != "delta" or td.maintenance_stats()[0] != n_src:
+        raise AssertionError(f"storage delta: {td.engine} holds "
+                             f"{td.maintenance_stats()[0]} rows, orders {n_src}")
+    step["insert_select_s"] = rec["s"]
+    step["insert_select_rows_per_s"] = n_src / rec["s"]
+    base_key = int(orders.data["o_orderkey"][:orders.n].max()) + 1
+    keys = np.arange(base_key, base_key + TRICKLE, dtype=np.int64)
+    per = []
+    for k in keys:
+        t1 = time.perf_counter()
+        s.execute(trickle_sql(np, f"{db}.orders_d", int(k)))
+        per.append(time.perf_counter() - t1)
+    buffered = td.buffered_rows
+    if buffered == 0:
+        raise AssertionError("storage delta: the trickle left nothing buffered")
+    got = step_query(step, s, mods, STORAGE_AGG.format(t=f"{db}.orders_d"), "agg")
+    if td.buffered_rows:
+        raise AssertionError("storage delta: the read left rows buffered")
+    check_priority_rows("delta agg", got, numpy_priority_agg(np, orders, keys))
+    sql = q3.replace(" orders,", f" {db}.orders_d,")
+    got = step_query(step, s, mods, sql, "q3")
+    check_join_rows("storage q3 over orders_d", got,
+                    numpy_q3(np, StorageModel(model, orders_model(np, model, keys))), {1})
+    # the same INSERTs into a columnar copy holding the same rows (filled
+    # by the bulk path: only the per-statement time is compared)
+    s.execute(no_key_ddl(s, "orders", f"{db}.orders_c", "columnar"))
+    tc = cat.table(db, "orders_c")
+    live = np.nonzero(orders.live_mask(0, orders.n))[0]
+    arrays, strings = {}, {}
+    for c in orders.schema.columns:
+        col = orders.data[c.name][live]
+        if c.name in orders.dicts:
+            vals = orders.dicts[c.name].values
+            strings[c.name] = [vals[int(x)] for x in col]
+        else:
+            arrays[c.name] = np.asarray(col)
+    tc.insert_columns(arrays, strings=strings)
+    ckeys = keys[:TRICKLE_COLUMNAR]
+    per_c = []
+    for k in ckeys:
+        t1 = time.perf_counter()
+        s.execute(trickle_sql(np, f"{db}.orders_c", int(k)))
+        per_c.append(time.perf_counter() - t1)
+    got = step_query(step, s, mods, STORAGE_AGG.format(t=f"{db}.orders_c"), "agg columnar")
+    check_priority_rows("columnar agg", got, numpy_priority_agg(np, orders, ckeys))
+    step.update({"trickle": TRICKLE, "trickle_columnar": TRICKLE_COLUMNAR,
+                 "buffered_before_read": buffered,
+                 "insert_ms": {"delta_p50": _pct(per, 0.5) * 1e3,
+                               "delta_mean": sum(per) / len(per) * 1e3,
+                               "delta_p99": _pct(per, 0.99) * 1e3,
+                               "columnar_p50": _pct(per_c, 0.5) * 1e3,
+                               "columnar_mean": sum(per_c) / len(per_c) * 1e3,
+                               "columnar_p99": _pct(per_c, 0.99) * 1e3}})
+    im = step["insert_ms"]
+    rep["steps"]["delta"] = storage_step(
+        "delta", t0, step,
+        f"; INSERT ... SELECT of {n_src} rows {rec['s']:.3f} s; {TRICKLE} single-row "
+        f"INSERTs mean {im['delta_mean']:.3f} ms (p50 {im['delta_p50']:.3f}, p99 "
+        f"{im['delta_p99']:.3f}), {buffered} buffered at the first read; columnar "
+        f"copy {TRICKLE_COLUMNAR} INSERTs mean {im['columnar_mean']:.3f} ms (p50 "
+        f"{im['columnar_p50']:.3f}, p99 {im['columnar_p99']:.3f}); the aggregation and "
+        f"Q3 over orders_d equal numpy")
+
+    # -- 2. CTAS and LIKE ----------------------------------------------------
+    step, t0 = new_step(), time.perf_counter()
+    rec = timed(step, s, mods, CTAS_REV, "ctas rev")
+    li = model.table("test", "lineitem")
+    lkey, ext, disc = (li.data[c] for c in ("l_orderkey", "l_extendedprice", "l_discount"))
+    uniq, rev = _group_sum(np, lkey, ext * (100 - disc))  # scale 4
+    trev = cat.table(db, "rev")
+    if trev.live_rows != len(uniq):
+        raise AssertionError(f"storage ctas: {trev.live_rows} rows, numpy {len(uniq)}")
+    step["ctas_s"], step["ctas_rows"] = rec["s"], len(uniq)
+    got = step_query(step, s, mods, REV_JOIN, "rev join")
+    o = model.table("test", "orders")
+    opos = _lookup(np, o.data["o_orderkey"], int(max(o.data["o_orderkey"].max(), uniq.max())))
+    row = opos[uniq]
+    keep = (row >= 0) & (o.data["o_orderdate"][np.maximum(row, 0)] < _days(np, "1995-03-15"))
+    live_o = orders.live_mask(0, orders.n)
+    prio_of = orders.data["o_orderpriority"][:orders.n][live_o]
+    names = orders.dicts["o_orderpriority"].values
+    want = {}
+    for p_code, r in zip(prio_of[row[keep]], rev[keep]):
+        e = want.setdefault(names[int(p_code)], [0, 0])
+        e[0] += 1
+        e[1] += int(r)
+    want = [(p, c, v) for p, (c, v) in sorted(want.items())]
+    check_priority_rows("ctas rev join", got, want)
+    rec = timed(step, s, mods, f"create table {db}.orders_like like orders", "like")
+    tl = cat.table(db, "orders_like")
+    if (tl.engine != orders.engine or tl.n != 0
+            or [(c.name, c.sql) for c in tl.checks] != [(c.name, c.sql) for c in orders.checks]
+            or sorted(tl.indexes) != sorted(orders.indexes)
+            or tl.schema.primary_key != orders.schema.primary_key):
+        raise AssertionError("storage like: orders_like is not orders' structure")
+    rep["steps"]["ctas_like"] = storage_step(
+        "ctas_like", t0, step,
+        f"; CTAS of {len(uniq)} rows {step['ctas_s']:.3f} s; its join with orders equals "
+        f"numpy; LIKE copied engine {tl.engine}, {len(tl.checks)} CHECKs, indexes "
+        f"{sorted(tl.indexes)}, no rows")
+
+    # -- 3. OUTFILE and LOAD DATA --------------------------------------------
+    step, t0 = new_step(), time.perf_counter()
+    out_dir = os.path.join("build", "chip_smoke_storage")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.abspath(os.path.join(out_dir, "orders.tsv"))
+    try:
+        t1 = time.perf_counter()
+        rs = s.execute(f"select * from orders into outfile '{path}'")
+        out_s = time.perf_counter() - t1
+        if rs.rows != [(n_src,)]:
+            raise AssertionError(f"storage outfile: {rs.rows}, orders {n_src}")
+        file_bytes = os.path.getsize(path)
+        s.execute(f"create table {db}.orders_loaded like orders")
+        t1 = time.perf_counter()
+        rs = s.execute(f"load data infile '{path}' into table {db}.orders_loaded")
+        load_s = time.perf_counter() - t1
+        if rs.rows != [(n_src,)]:
+            raise AssertionError(f"storage load: {rs.rows}, orders {n_src}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    got_loaded = step_query(step, s, mods, q3.replace(" orders,", f" {db}.orders_loaded,"),
+                            "q3 loaded")
+    got_orders = step_query(step, s, mods, q3, "q3")
+    check_join_rows("storage q3 over orders_loaded", got_loaded, want_q3, {1})
+    if got_loaded != got_orders:
+        raise AssertionError("storage: Q3 over orders_loaded differs from Q3")
+    step.update({"outfile_s": out_s, "load_s": load_s, "file_bytes": file_bytes,
+                 "outfile_rows_per_s": n_src / out_s, "load_rows_per_s": n_src / load_s})
+    rep["steps"]["outfile_load"] = storage_step(
+        "outfile_load", t0, step,
+        f"; OUTFILE {n_src} rows ({file_bytes} B) {out_s:.3f} s = "
+        f"{n_src / out_s:.1f} rows/s; LOAD DATA {load_s:.3f} s = {n_src / load_s:.1f} "
+        f"rows/s; Q3 over orders_loaded equals Q3 and numpy")
+
+    # -- 4. TEMPORARY over the wire ------------------------------------------
+    step, t0 = new_step(), time.perf_counter()
+    pl.DEVICE_CACHE.clear()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    srv = Server(catalog=cat, host="127.0.0.1", port=0, device="cuda")
+    srv.start()
+    c1 = c2 = None
+    try:
+        c1 = Client(port=srv.port, timeout=600)
+        c2 = Client(port=srv.port, timeout=600)
+        okeys = np.sort(model.table("test", "orders").data["o_orderkey"])
+        kmax = int(okeys[TEMP_ROWS - 1])
+        # a temp table shadows its name for every later statement of its
+        # connection, so its rows come from a staging copy
+        s.execute(f"create table {db}.orders_head as select * from orders "
+                  f"where o_orderkey <= {kmax}")
+        c1.execute("create temporary table orders like orders")
+        c1.execute(f"insert into orders select * from {db}.orders_head")
+        sess = next(p for p in cat.processes.values() if p.catalog._temp)
+        temp = sess.catalog._temp[("test", "orders")]
+        if temp.live_rows != TEMP_ROWS:
+            raise AssertionError(f"storage temp: {temp.live_rows} rows")
+        box = {}
+
+        def permanent():
+            box["rows"] = c2.query(q3)[1]
+
+        th = threading.Thread(target=permanent)
+        seg_mod.reset_launches()
+        hp.reset_launches()
+        th.start()
+        rows1 = c1.query(q3)[1]
+        th.join(600)
+        step_add(step, {"launches": launches_of(mods)})
+        # numpy_q3 indexes orders by key: lineitem cut to the same keys
+        li = model.table("test", "lineitem")
+        head = li.data["l_orderkey"] <= kmax
+        temp_model = StorageModel(model, orders_model(
+            np, model, rows=np.nonzero(model.table("test", "orders").data["o_orderkey"]
+                                       <= kmax)[0]),
+            ModelTable({c: a[head] for c, a in li.data.items()}, li.dicts))
+        check_join_rows("storage temp q3", _typed("q3", rows1), numpy_q3(np, temp_model), {1})
+        check_join_rows("storage permanent q3", _typed("q3", box["rows"]), want_q3, {1})
+        cached_temp = sum(1 for e in pl.DEVICE_CACHE._entries.values()
+                          if e["table"] is temp)
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        c1.close()
+        c1 = None
+        for _ in range(1000):
+            if not sess.catalog._temp:
+                break
+            time.sleep(0.01)
+        if sess.catalog._temp:
+            raise AssertionError("storage temp: the disconnect left the temp table")
+        if c2.query("select count(*) from orders")[1] != [(str(n_src),)]:
+            raise AssertionError("storage temp: the permanent orders changed")
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        still = [e["nbytes"] for e in pl.DEVICE_CACHE._entries.values()
+                 if e["table"] is temp]
+        del temp
+        step.update({"memory_allocated": {"before": mem0, "with_temp": mem1,
+                                          "after_disconnect": mem2},
+                     "cache_entries_of_temp": {"while_open": cached_temp,
+                                               "after_disconnect": len(still),
+                                               "bytes_after_disconnect": sum(still)}})
+
+        # -- 5. information_schema, in process and over the wire ----------
+        info = {}
+        t5 = time.perf_counter()
+        s.execute(f"analyze table {db}.orders_loaded")
+        tables_sql = ("select table_schema, table_name, table_rows from "
+                      "information_schema.tables where table_type = 'BASE TABLE' "
+                      f"and table_schema in ('test', '{db}')")
+        cols_sql = ("select table_name, count(*) from information_schema.columns "
+                    f"where table_schema = '{db}' group by table_name")
+        stat_sql = ("select index_name, seq_in_index, column_name, non_unique from "
+                    "information_schema.statistics where table_schema = "
+                    f"'{db}' and table_name = 'orders_loaded'")
+        proc_sql = "select id, user from information_schema.processlist"
+        summ_sql = ("select exec_count from information_schema.statements_summary "
+                    "where digest_text like '%orders_d%group by%'")
+        for label, sql in (("tables", tables_sql), ("columns", cols_sql),
+                           ("statistics", stat_sql), ("processlist", proc_sql),
+                           ("statements_summary", summ_sql)):
+            t1 = time.perf_counter()
+            mine = s.query(sql)
+            t2 = time.perf_counter()
+            wire = c2.query(sql)[1]
+            t3 = time.perf_counter()
+            info[label] = {"rows": len(mine), "in_process_s": t2 - t1, "wire_s": t3 - t2}
+            if label == "processlist":
+                ids = {r[0] for r in mine}
+                if s.conn_id not in ids or {int(r[0]) for r in wire} != ids:
+                    raise AssertionError(f"storage processlist: {mine} / {wire}")
+                continue
+            as_text = sorted(tuple(None if v is None else str(v) for v in r) for r in mine)
+            if as_text != sorted(wire):
+                raise AssertionError(f"storage {label}: wire rows differ from in process")
+            if label == "tables":
+                for dbn, tn, n in mine:
+                    if n != cat.table(dbn, tn).live_rows:
+                        raise AssertionError(f"storage tables: {dbn}.{tn} {n} rows")
+                if (db, "orders_d", n_src + TRICKLE) not in mine:
+                    raise AssertionError(f"storage tables: orders_d missing from {mine}")
+            elif label == "columns":
+                for tn, n in mine:
+                    if n != len(cat.table(db, tn).schema.columns):
+                        raise AssertionError(f"storage columns: {tn} has {n}")
+            elif label == "statistics":
+                if sorted(mine) != [("PRIMARY", 1, "o_orderkey", 0)]:
+                    raise AssertionError(f"storage statistics: {mine}")
+            elif not mine or mine[0][0] < 1:
+                raise AssertionError(f"storage statements_summary: {mine}")
+        step["info_schema"] = info
+        step["info_schema_s"] = time.perf_counter() - t5
+    finally:
+        for c in (c1, c2):
+            if c is not None:
+                c.close()
+        srv.shutdown(drain=True)
+    mc = step["memory_allocated"]
+    rep["steps"]["temporary_info_schema"] = storage_step(
+        "temporary_info_schema", t0, step,
+        f"; a temp orders of {TEMP_ROWS} rows read by its connection's Q3 while another "
+        f"read the permanent one, both equal numpy; dropped at disconnect; "
+        f"memory_allocated {mc['before']} B before, {mc['with_temp']} B with it, "
+        f"{mc['after_disconnect']} B after the disconnect; device cache entries of the "
+        f"temp table {step['cache_entries_of_temp']}; information_schema tables, "
+        f"columns, statistics, processlist and statements_summary equal in process and "
+        f"over the wire")
+
+    # -- 6. DROP DATABASE ----------------------------------------------------
+    step, t0 = new_step(), time.perf_counter()
+    dropped = []
+    for tn in cat.tables(db):
+        t = cat.table(db, tn)
+        dropped.extend([t, getattr(t, "_base", t)])
+    s.execute(f"create table fk_child (k bigint, foreign key (k) "
+              f"references {db}.orders_like(o_orderkey))")
+    expect_refusal(s, f"drop database {db}", "referenced by a foreign key")
+    s.execute("drop table fk_child")
+    v0 = cat.schema_version
+    rec = timed(step, s, mods, f"drop database {db}", "drop database")
+    if db in cat.databases or cat.schema_version != v0 + 1:
+        raise AssertionError("storage drop: the database is still there")
+    if any(e["table"] is t for e in pl.DEVICE_CACHE._entries.values() for t in dropped):
+        raise AssertionError("storage drop: DEVICE_CACHE holds a dropped table")
+    del dropped
+    torch.cuda.synchronize()
+    step["memory_allocated_after"] = torch.cuda.memory_allocated()
+    rep["steps"]["drop_database"] = storage_step(
+        "drop_database", t0, step,
+        f"; refused while an FK pointed in, dropped in {rec['s']:.3f} s once it was gone; "
+        f"no device cache entry of its tables; memory_allocated "
+        f"{step['memory_allocated_after']} B")
+
+    rep["launches"] = {}
+    for st_ in rep["steps"].values():
+        for k, v in st_["launches"].items():
+            rep["launches"][k] = rep["launches"].get(k, 0) + v
+    if not (rep["launches"].get("segagg") and rep["launches"].get("probe_count")):
+        raise AssertionError(f"storage: a kernel never launched: {rep['launches']}")
+    rep["s"] = time.perf_counter() - t_phase
+    return rep
+
+
 def _walk(plan):
     stack = [plan]
     while stack:
@@ -3847,6 +4320,9 @@ def main() -> int:
     window["s"] = time.perf_counter() - t0
     log(f"window phase passed in {window['s']:.1f} s; launches {window['launches']}; "
         f"probe_count by route and mode {window['probe_modes']}")
+    storage = with_probe_modes(hp, lambda: phase_storage(torch, np, s, mods))
+    log(f"storage phase passed in {storage['s']:.1f} s; launches {storage['launches']}; "
+        f"probe_count by route and mode {storage['probe_modes']}")
     by_mode = refresh["probe_modes"]
     for row in rows:
         if row["name"].startswith("probe_count."):
@@ -3861,7 +4337,7 @@ def main() -> int:
         else:
             row["launches_schema"] = schema["launches"].get(row["name"], 0)
         for key, rep in (("launches_stats", stats_report), ("launches_window", window),
-                         ("launches_server", server)):
+                         ("launches_server", server), ("launches_storage", storage)):
             row[key] = (rep["probe_modes"].get(mode, 0)
                         if row["name"].startswith("probe_count.")
                         else rep["launches"].get(row["name"], 0))
@@ -3883,7 +4359,7 @@ def main() -> int:
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
               "schema": schema, "stats": stats_report, "window": window,
-              "server": server, "kernels": rows}
+              "server": server, "storage": storage, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

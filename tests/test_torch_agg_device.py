@@ -26,6 +26,7 @@ from tidb_tpu_torch.executor import agg_device as pad
 from tidb_tpu_torch.expression.expr import ColumnRef as PRef
 from tidb_tpu_torch.planner.logical import AggSpec as PAgg
 from tidb_tpu_torch import types as pt
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 R = 256
 # the reference's GroupTableStack donates its merge inputs, which the CPU

@@ -30,7 +30,7 @@ from tidb_tpu_torch.utils import failpoint as fp
 from tidb_tpu_torch.utils.memory import MemTracker
 
 from test_torch_keys import both
-from test_torch_session import _export_into, _same
+from test_torch_session import _export_into, _same, reference_witness_paused  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -41,7 +41,7 @@ from tidb_tpu_torch.types import SQLType as PType
 from tidb_tpu_torch.types import TypeKind as PKind
 from tidb_tpu_torch.utils.device import torch_dtype
 
-from test_torch_session import _same
+from test_torch_session import _same, reference_witness_paused  # noqa: F401
 
 # (kind, precision, scale) of the types the cases use
 TYPES = {"int": ("INT", None, None), "dec2": ("DECIMAL", 10, 2),

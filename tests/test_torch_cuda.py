@@ -651,3 +651,101 @@ def test_kill_inside_fused_fragment_on_card_leaves_next_statement_right(card, mo
                for e in pl.DEVICE_CACHE._entries.values())
     for q in ("q1", "q3", "q1"):
         assert s.query(Q[q][0]) == want[q], q
+
+
+def test_delta_table_through_fused_path_after_buffered_inserts(card):
+    """orders as a delta table: single-row INSERTs stay in the memtable,
+    and the first fused aggregation and the first join on the card see
+    them (equal to the CPU over the same catalog), through tidb_segagg
+    and tidb_probe_count."""
+    import chip_smoke
+
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.session import Session
+
+    cat = _tpch_card_catalog()
+    s = Session(cat, chunk_capacity=4096)
+    on_cpu = Session(cat, device="cpu", chunk_capacity=4096)
+    s.execute(chip_smoke.no_key_ddl(s, "orders", "orders_d", "delta"))
+    s.execute("insert into orders_d select * from orders")
+    agg = ("select o_orderpriority, count(*), sum(o_totalprice) from orders_d "
+           "group by o_orderpriority order by o_orderpriority")
+    join = ("select o_orderpriority, count(*), sum(l_extendedprice) from orders_d "
+            "join lineitem on l_orderkey = o_orderkey where o_orderdate >= '1995-01-01' "
+            "group by o_orderpriority order by o_orderpriority")
+    s.query(agg)
+    t = cat.table("test", "orders_d")
+    for round_ in range(2):
+        for i in range(20):
+            k = 9_000_000 + 100 * round_ + i
+            s.execute(f"insert into orders_d values ({k}, 1, 'O', {100 + i}.25, "
+                      f"'1996-0{1 + i % 9}-11', '1-URGENT', 'Clerk#1', 0, 'new')")
+        assert t.buffered_rows == 20
+        port.reset_launches()
+        hp.reset_launches()
+        fused0 = dict(pl.PIPELINE_FUSED_TOTAL)
+        got_agg, got_join = s.query(agg), s.query(join)
+        assert t.buffered_rows == 0
+        assert port.LAUNCHES["segagg"] > 0 and hp.LAUNCHES["probe_count"] > 0
+        assert pl.PIPELINE_FUSED_TOTAL["agg"] > fused0["agg"]
+        # the join fuses its probe, or (once the INSERTs' commits have
+        # analyzed orders_d) its eager aggregation over lineitem
+        assert (pl.PIPELINE_FUSED_TOTAL["probe"] + pl.PIPELINE_FUSED_TOTAL["generic"]
+                > fused0["probe"] + fused0["generic"])
+        assert got_agg == on_cpu.query(agg)
+        assert got_join == on_cpu.query(join)
+        assert sum(r[1] for r in got_agg) == 15_000 + 20 * (round_ + 1)
+
+
+def test_ctas_result_scanned_by_segagg(card):
+    """CREATE TABLE ... AS SELECT on the card, then a fused aggregation
+    over the result: tidb_segagg launches, and the rows equal the CPU's."""
+    from tidb_tpu_torch.session import Session
+
+    cat = _tpch_card_catalog()
+    s = Session(cat, chunk_capacity=4096)
+    on_cpu = Session(cat, device="cpu", chunk_capacity=4096)
+    s.execute("create table rev as select l_orderkey, l_returnflag, "
+              "sum(l_extendedprice * (1 - l_discount)) as revenue "
+              "from lineitem group by l_orderkey, l_returnflag")
+    assert cat.table("test", "rev").n == on_cpu.query("select count(*) from rev")[0][0] > 0
+    sql = ("select l_returnflag, count(*), sum(revenue) from rev "
+           "group by l_returnflag order by l_returnflag")
+    port.reset_launches()
+    got = s.query(sql)
+    assert port.LAUNCHES["segagg"] > 0
+    assert got == on_cpu.query(sql)
+
+
+def test_temporary_fused_scan_beside_permanent_in_another_session(card):
+    """One session's temp `orders` (1,000 rows) shadows the permanent one;
+    another session's fused scan of the same SQL reads the permanent
+    table. Both run on the card, alternately, and equal the CPU."""
+    import chip_smoke
+
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.session import Session
+
+    cat = _tpch_card_catalog()
+    a, b = Session(cat, chunk_capacity=4096), Session(cat, chunk_capacity=4096)
+    on_cpu = Session(cat, device="cpu", chunk_capacity=4096)
+    a.execute(chip_smoke.no_key_ddl(a, "orders", "orders", "columnar")
+              .replace("CREATE TABLE", "CREATE TEMPORARY TABLE", 1))
+    a.execute("insert into orders values " + ", ".join(
+                  f"({k}, {k % 100 + 1}, 'F', {k}.50, '1995-03-0{1 + k % 9}', "
+                  f"'{1 + k % 5}-X', 'Clerk', 0, 'tmp')" for k in range(1, 1001)))
+    sql = ("select o_orderpriority, count(*), sum(o_totalprice) from orders "
+           "group by o_orderpriority order by o_orderpriority")
+    want_perm = on_cpu.query(sql)
+    for _ in range(2):
+        port.reset_launches()
+        fused0 = pl.PIPELINE_FUSED_TOTAL["agg"]
+        got_a, got_b = a.query(sql), b.query(sql)
+        assert port.LAUNCHES["segagg"] >= 2
+        assert pl.PIPELINE_FUSED_TOTAL["agg"] >= fused0 + 2
+        assert sum(r[1] for r in got_a) == 1000
+        assert got_b == want_perm
+        assert sum(r[1] for r in got_b) == 15_000
+    a.catalog.drop_temp_tables()
+    assert a.query(sql) == want_perm

@@ -20,6 +20,7 @@ from tidb_tpu_torch.planner.physical import PIndexRangeScan, PPointGet
 from tidb_tpu_torch.session import Session
 
 from test_torch_keys import same_rows
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 
 def _outcome(fn):

@@ -20,6 +20,7 @@ from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.errors import QueryKilledError, QueryTimeoutError
 from tidb_tpu_torch.executor import pipeline as pl
 from tidb_tpu_torch.session import Session
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -29,7 +29,7 @@ from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.tpch_queries import Q
 
 from test_torch_keys import both, new_pair
-from test_torch_session import _export_into
+from test_torch_session import _export_into, reference_witness_paused  # noqa: F401
 
 TABLES = ("nation", "region", "part", "supplier", "partsupp", "customer",
           "orders", "lineitem")

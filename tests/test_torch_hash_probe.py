@@ -15,6 +15,7 @@ import torch
 
 from tidb_tpu.ops import hash_probe as ref
 from tidb_tpu_torch.ops import hash_probe as hp
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 I64 = np.iinfo(np.int64)
 M64 = (1 << 64) - 1

@@ -21,6 +21,7 @@ from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.tpch_queries import Q
 
 from test_torch_session import _same, tpch_pair  # noqa: F401  (fixture)
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 # Q18 at SF0.01 has no order above 300 units, so it returns no rows; the
 # same query at a lower threshold returns some

@@ -31,6 +31,7 @@ from tidb_tpu_torch.storage.tpch_queries import Q
 
 from test_torch_join import _tree
 from test_torch_pipeline import CAP, SEG_ROWS, _arms, _run, assert_rows, tpch_seg_pair
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 Q18_LOW = Q["q18"][0].replace("> 300", "> 200")
 TPCH = {"q3": Q["q3"][0], "q5": Q["q5"][0], "q18": Q["q18"][0], "q18_low": Q18_LOW}

@@ -14,6 +14,7 @@ import torch
 
 from tidb_tpu.ops import join_kernels as ref
 from tidb_tpu_torch.ops import join_kernels as jk
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 I64 = np.iinfo(np.int64)
 

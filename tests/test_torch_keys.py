@@ -28,7 +28,7 @@ from tidb_tpu_torch.parser import parse
 from tidb_tpu_torch.planner.physical import PIndexRangeScan, PPointGet, PScan
 from tidb_tpu_torch.session import Session
 
-from test_torch_session import _export_into, _same
+from test_torch_session import _export_into, _same, reference_witness_paused  # noqa: F401
 
 
 def new_pair():

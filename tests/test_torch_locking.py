@@ -22,7 +22,7 @@ from tidb_tpu_torch.errors import ExecutionError, WriteConflictError
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.catalog import Catalog
 
-from test_torch_session import _same
+from test_torch_session import _same, reference_witness_paused  # noqa: F401
 
 _SETUP = [(0, "create table acct (id bigint primary key, v bigint)"),
           (0, "insert into acct values (1, 100), (2, 100)")]

@@ -25,6 +25,7 @@ from tidb_tpu_torch.parser import ast as A
 from tidb_tpu_torch.parser import parse
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.catalog import Catalog
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

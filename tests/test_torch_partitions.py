@@ -18,6 +18,7 @@ from tidb_tpu_torch.parser import parse
 from tidb_tpu_torch.session import Session
 
 from test_torch_keys import both, same_rows
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 _RANGE = """create table pt (id bigint, v bigint)
   partition by range (id) (

@@ -33,7 +33,7 @@ from tidb_tpu_torch.storage.tpch_queries import Q
 from tidb_tpu_torch.types import date_to_days
 from tidb_tpu_torch.utils.memory import MemTracker, QueryOOMError
 
-from test_torch_session import _export_into
+from test_torch_session import _export_into, reference_witness_paused  # noqa: F401
 
 CAP = 1 << 12
 SEG_ROWS = 1024

@@ -10,6 +10,7 @@ import torch
 
 from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.session import Session
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -13,6 +13,7 @@ from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.server import Server
 from tidb_tpu_torch.server.client import Client, ServerError
 from tidb_tpu_torch.session import Session
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

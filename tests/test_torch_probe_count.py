@@ -27,6 +27,7 @@ import chip_smoke
 from tidb_tpu.ops import join_kernels as ref
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 R = 1500  # not a multiple of the kernel's 512-row tile
 

@@ -13,6 +13,7 @@ from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.session import Session
 
 from test_torch_keys import both, same_rows
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 _SETUP = ["create table t (a bigint, b bigint)", "insert into t values (1, 10), (2, 20)"]
 

@@ -34,6 +34,7 @@ import tidb_tpu_torch.types as port_types
 from tidb_tpu_torch.chunk.chunk import Chunk as PortChunk
 from tidb_tpu_torch.chunk.column import Column as PortColumn
 from tidb_tpu_torch.ops import segment_sum as port
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 _INFO = np.iinfo(np.int64)
 _EXTREMES = np.array([_INFO.max, _INFO.min, _INFO.max - 1, _INFO.min + 1, -1, 1, 0],

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from tidb_tpu.ops import segment_count, segment_sum_f32, segment_sum_i64
 from tidb_tpu.ops import set_pallas_enabled
 from tidb_tpu_torch.ops import segment_sum as port
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 _GS = [1, 12, 300, 9000]
 _RS = [1024, 4097]  # one tile-aligned, one ragged

@@ -36,7 +36,7 @@ from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.catalog import Catalog
 from tidb_tpu_torch.storage.tpch_queries import Q
 
-from test_torch_session import _REPO, _export_into
+from test_torch_session import _REPO, _export_into, reference_witness_paused  # noqa: F401
 
 torch.set_num_threads(1)
 

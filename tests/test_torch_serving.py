@@ -31,6 +31,7 @@ import tidb_tpu_torch.session as psession
 import tidb_tpu_torch.storage.catalog as pcatalog
 import tidb_tpu_torch.utils.memory as pmemory
 import tidb_tpu_torch.utils.metrics as pmetrics
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

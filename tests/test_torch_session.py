@@ -9,6 +9,7 @@ and then exactly: decimals are exact strings, and the port computes every
 float (AVG) with the same float64 operations as the reference, so the rows
 must also be equal as Python values."""
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -36,6 +37,35 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # their single-process speed. It only sets torch's pool (the reference does
 # not use torch).
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def reference_witness_off():
+    """The reference's runtime sanitizer (tidb_tpu/analysis/sanitizer.py),
+    once a sanitized statement has turned it on, stays on for the whole
+    process and records every tracked lock order, from every thread, into
+    one graph that a later sanitized reference test checks for cycles. A
+    port test that drives reference sessions must add nothing to it: the
+    witness is off for the block and on again afterwards, with the graph
+    and findings as they were."""
+    from tidb_tpu.analysis import sanitizer as san
+
+    was_on = san.enabled()
+    if was_on:
+        san.disable(reset_state=False)
+    try:
+        yield
+    finally:
+        if was_on:
+            san.enable()
+
+
+@pytest.fixture(autouse=True)
+def reference_witness_paused():
+    """Every port test that imports this fixture runs with the
+    reference's lock-order witness off (reference_witness_off)."""
+    with reference_witness_off():
+        yield
 
 
 def _port_type(t) -> SQLType:

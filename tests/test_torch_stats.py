@@ -39,7 +39,7 @@ from tidb_tpu_torch.storage.tpch_queries import Q
 from tidb_tpu_torch.utils import failpoint as fp
 
 from test_torch_keys import both
-from test_torch_session import _export_into, _same
+from test_torch_session import _export_into, _same, reference_witness_paused  # noqa: F401
 
 TABLES = ("nation", "region", "part", "supplier", "partsupp", "customer",
           "orders", "lineitem")

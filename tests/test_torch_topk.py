@@ -14,6 +14,7 @@ import torch
 
 from tidb_tpu.ops import topk as jtk
 from tidb_tpu_torch.ops import topk as ptk
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.filterwarnings("ignore:Some donated buffers were not usable")
 

@@ -30,7 +30,7 @@ from tidb_tpu_torch.executor import pipeline as pl
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.tpch_queries import Q
 
-from test_torch_session import _export_into, _same
+from test_torch_session import _export_into, _same, reference_witness_paused  # noqa: F401
 
 GENERIC = ("q2", "q3", "q7", "q8", "q9", "q10", "q11", "q13", "q15", "q16", "q17",
            "q18", "q20")

@@ -27,6 +27,7 @@ from tidb_tpu_torch.errors import QueryTimeoutError
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.utils import metrics as pmetrics
 from tidb_tpu_torch.utils import tracing as ptracing
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -22,6 +22,7 @@ from tidb_tpu_torch.storage.catalog import Catalog
 from tidb_tpu_torch.utils import failpoint as fp
 
 from test_torch_keys import both, same_rows
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 
 def _sessions(n=2):

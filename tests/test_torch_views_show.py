@@ -20,6 +20,7 @@ from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.session import Session
 
 from test_torch_keys import both
+from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 
 def _pair():

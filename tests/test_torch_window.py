@@ -18,7 +18,7 @@ from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.session import Session
 
 from test_torch_keys import both
-from test_torch_session import _same
+from test_torch_session import _same, reference_witness_paused  # noqa: F401
 
 
 def _pair(setup, chunk_capacity=None):

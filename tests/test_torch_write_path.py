@@ -33,7 +33,7 @@ from tidb_tpu_torch.storage.table import MAX_TS
 from tidb_tpu_torch.storage.tpch_queries import Q
 
 from test_torch_keys import both, new_pair, same_rows
-from test_torch_session import _export_into, _same
+from test_torch_session import _export_into, _same, reference_witness_paused  # noqa: F401
 
 # -- single-table statements --------------------------------------------------
 

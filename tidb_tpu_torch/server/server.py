@@ -229,9 +229,12 @@ class Server:
             CONN_GAUGE.dec()
             with self._conn_lock:
                 self._active_conns -= 1
-            # the reference drops the session's TEMPORARY tables here;
-            # the port has none until CREATE TEMPORARY TABLE is ported
-            # (ROADMAP's next slice)
+            try:
+                # connection end: the session's TEMPORARY tables vanish
+                if sess is not None:
+                    sess.catalog.drop_temp_tables()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
             try:
                 conn.close()
             except OSError:

@@ -2,8 +2,9 @@
 
 A statement loop of its own over the copied parser and planner: CREATE
 TABLE (PRIMARY KEY, UNIQUE KEY, INDEX, FOREIGN KEY, CHECK, generated
-columns, PARTITION BY RANGE/HASH and CLUSTER BY included) / DROP TABLE /
-CREATE DATABASE / USE / TRUNCATE / CREATE and DROP INDEX / ALTER TABLE
+columns, PARTITION BY RANGE/HASH, CLUSTER BY and ENGINE=delta included;
+TEMPORARY, LIKE and AS SELECT too) / DROP TABLE / CREATE and DROP
+DATABASE / USE / TRUNCATE / CREATE and DROP INDEX / ALTER TABLE
 (ADD/DROP/MODIFY COLUMN, RENAME, ADD INDEX, ADD/DROP FOREIGN KEY,
 ADD/DROP CHECK, CLUSTER BY) and the single-process online-DDL stages
 (`apply_ddl_stage`), INSERT (VALUES and SELECT, REPLACE, ON DUPLICATE
@@ -11,7 +12,10 @@ KEY UPDATE), UPDATE and DELETE (single- and multi-table), BEGIN / START
 TRANSACTION / COMMIT / ROLLBACK, SAVEPOINT / ROLLBACK TO / RELEASE
 SAVEPOINT and the `autocommit` sysvar, SET, SELECT (UNION included) and
 its locking form (FOR UPDATE / FOR SHARE), CREATE [OR REPLACE] / DROP
-VIEW, ANALYZE TABLE, EXPLAIN [ANALYZE] and SHOW, plus `load_tpch`.
+VIEW, ANALYZE TABLE, EXPLAIN [ANALYZE] and SHOW, LOAD DATA [LOCAL]
+INFILE and SELECT ... INTO OUTFILE, plus `load_tpch`. `self.catalog` is
+a `SessionCatalog`: the session's TEMPORARY tables shadow the shared
+catalog's by name and vanish with the connection.
 Writes run inside a transaction (`TxnState`: an implicit one commits at
 statement end) and commit through the two-phase committer
 (storage/txn2pc.py); reads inside a transaction see its snapshot and its
@@ -38,10 +42,9 @@ PLUGINS, CREATE / DROP USER, GRANT / REVOKE and INSTALL / UNINSTALL
 PLUGIN are the reference's. DDL goes to the elected DDL owner's job
 queue when a server runs one (owner/).
 
-Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... LIKE /
-AS SELECT / TEMPORARY / SHARD BY, the delta engine, LOAD DATA, SQL
-bindings (CREATE / DROP BINDING raise: the port's planner takes no
-hints), plan feedback, and the DCN and mesh tiers.
+Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... SHARD
+BY, SQL bindings (CREATE / DROP BINDING raise: the port's planner takes
+no hints), plan feedback, and the DCN and mesh tiers.
 """
 
 from __future__ import annotations
@@ -67,12 +70,104 @@ from tidb_tpu_torch.planner.optimizer import plan_statement
 from tidb_tpu_torch.planner.physical import PProjection, explain_text, lower
 from tidb_tpu_torch.planner.rules import optimize_logical
 from tidb_tpu_torch.session.sysvars import SysVarStore
-from tidb_tpu_torch.storage.catalog import Catalog
+from tidb_tpu_torch.storage.catalog import Catalog, SessionCatalog
 from tidb_tpu_torch.storage.table import ColumnInfo, TableSchema
 from tidb_tpu_torch.types import TypeKind, parse_type_name
 from tidb_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Session", "TxnState", "wire_check", "wire_generated"]
+
+
+_LOAD_ESCAPES = {"n": "\n", "t": "\t", "r": "\r", "0": "\0", "b": "\b",
+                 "Z": "\x1a"}
+
+
+def _split_load_fields(line: str, delim: str, quote):
+    """Split one LOAD DATA line into fields with MySQL semantics the csv
+    module cannot express: backslash escapes delimiters/specials
+    (\\t \\n \\\\, an escaped delimiter stays inside the field), the NULL
+    sentinel is the two-character sequence \\N standing ALONE unquoted
+    (a quoted "N" or literal N is data), and an optional enclosure char
+    with doubled- or backslash-escaped quotes. Returns a list of
+    str-or-None. A line with no backslash and no enclosure char splits
+    as str.split does, so it takes that path (the same fields, without
+    the walk over every character)."""
+    if "\\" not in line and (not quote or quote not in line):
+        return line.split(delim)
+    out = []
+    i, n = 0, len(line)
+    while True:
+        buf = []
+        is_null = False
+        if quote and i < n and line[i] == quote:
+            i += 1
+            while i < n:
+                c = line[i]
+                if c == "\\" and i + 1 < n:
+                    nxt = line[i + 1]
+                    buf.append(_LOAD_ESCAPES.get(nxt, nxt))
+                    i += 2
+                    continue
+                if c == quote:
+                    if i + 1 < n and line[i + 1] == quote:  # doubled
+                        buf.append(quote)
+                        i += 2
+                        continue
+                    i += 1
+                    break
+                buf.append(c)
+                i += 1
+        else:
+            start = i
+            while i < n and line[i] != delim:
+                c = line[i]
+                if c == "\\" and i + 1 < n:
+                    nxt = line[i + 1]
+                    if (nxt == "N" and i == start
+                            and (i + 2 == n or line[i + 2] == delim)):
+                        is_null = True
+                        i += 2
+                        continue
+                    # an escaped delimiter is the delimiter, even when
+                    # the delimiter char is also an escape-table key
+                    buf.append(delim if nxt == delim
+                               else _LOAD_ESCAPES.get(nxt, nxt))
+                    i += 2
+                    continue
+                buf.append(c)
+                i += 1
+        out.append(None if is_null else "".join(buf))
+        if i >= n:
+            break
+        i += 1  # consume the delimiter
+    return out
+
+
+def _nested_into_outfile(node, top) -> bool:
+    """INTO OUTFILE anywhere except the top-level SelectStmt (inside a
+    UNION arm, derived table, or subquery) is a silent-no-op hazard —
+    detect it so execute() can refuse loudly (MySQL errors likewise)."""
+    import dataclasses as _dc
+
+    stack = [node]
+    seen = set()
+    while stack:
+        e = stack.pop()
+        if id(e) in seen or not _dc.is_dataclass(e):
+            continue
+        seen.add(id(e))
+        if isinstance(e, A.SelectStmt) and e is not top \
+                and e.into_outfile is not None:
+            return True
+        for f in _dc.fields(e):
+            v = getattr(e, f.name)
+            vs = v if isinstance(v, (list, tuple)) else [v]
+            for item in vs:
+                if isinstance(item, tuple):
+                    stack.extend(item)
+                else:
+                    stack.append(item)
+    return False
 
 
 @dataclasses.dataclass
@@ -101,7 +196,11 @@ class TxnState:
 
     def set_savepoint(self, name: str) -> None:
         """Snapshot per-table log positions (ref: the txn memdb's
-        staging checkpoints backing SAVEPOINT)."""
+        staging checkpoints backing SAVEPOINT). Delta-engine buffers
+        compact first so every pre-savepoint write has a logged range
+        a later partial rollback will never touch."""
+        for table, _log in list(self.logs.values()):
+            _ = table.n  # delta tables compact on this read
         snap = {tid: (len(log.ranges), len(log.ended))
                 for tid, (_t, log) in self.logs.items()}
         # re-declaring a name moves it (MySQL: old one is deleted)
@@ -122,6 +221,7 @@ class TxnState:
             return False
         snap = self.savepoints[idx][1]
         for tid, (table, log) in self.logs.items():
+            _ = table.n  # compact delta buffers so undo sees every row
             nr, ne = snap.get(tid, (0, 0))
             if len(log.ranges) == nr and len(log.ended) == ne:
                 continue  # untouched since the savepoint: keep caches
@@ -166,7 +266,10 @@ class Session:
     def __init__(self, catalog: Optional[Catalog] = None, db: str = "test",
                  chunk_capacity: Optional[int] = None, device=None):
         self.device = resolve_device(device)
-        self.catalog = catalog if catalog is not None else Catalog()
+        # per-session overlay: TEMPORARY-table namespace over the shared
+        # catalog (unwraps another session's proxy to the common base)
+        self.catalog = SessionCatalog(catalog if catalog is not None
+                                      else Catalog())
         self.db = db
         self._chunk_capacity = chunk_capacity  # explicit override; else sysvar
         self.sysvars = SysVarStore(self.catalog.global_vars)
@@ -188,6 +291,9 @@ class Session:
         # processlist registration (ref: server/ connection registry)
         self.conn_id = self.catalog.next_conn_id()
         self.catalog.processes[self.conn_id] = self
+        import weakref
+
+        object.__setattr__(self.catalog, "_viewer", weakref.ref(self))
         self._current_sql: Optional[str] = None
         self._current_t0: float = 0.0
         # per-statement diagnostics: the statement's memory trackers
@@ -895,14 +1001,20 @@ class Session:
         statements coalesce exactly when they would share a cache entry
         (same digest, db, param-type fingerprint, structural constants,
         hints, planner sysvars, mesh width, binding versions). The port
-        has no mesh (width 1) and no TEMPORARY tables (0)."""
+        has no mesh (width 1)."""
         hints_fp = tuple((h, tuple(str(a) for a in args))
                          for h, args in getattr(stmt, "hints", ()) or ())
         return (
             digest, self.db, info.kinds, info.struct, hints_fp,
             bool(self.sysvars.get("tidb_enable_cascades_planner")),
             bool(eff_apd), 1,
-            self._bindings.version, self.catalog.bind_handle.version, 0,
+            self._bindings.version, self.catalog.bind_handle.version,
+            # TEMPORARY tables shadow names without a schema_version
+            # bump: a session holding any gets private entries, re-keyed
+            # by the temp epoch so drop+recreate can never serve the old
+            # table object's plan
+            ((self.conn_id, getattr(self.catalog, "_temp_epoch", 0))
+             if getattr(self.catalog, "_temp", None) else 0),
         )
 
     def batch_probe(self, stmt_id: int, params: list):
@@ -961,6 +1073,10 @@ class Session:
         if (self.txn is not None or self._killed or self._kill_query
                 or not self.sysvars.get("autocommit")
                 or str(self.sysvars.get("tidb_executor_plugin"))):
+            return None
+        if getattr(self.catalog, "_temp", None):
+            # a TEMPORARY namespace is session-local; the batcher's
+            # writer session could resolve the wrong table
             return None
         try:
             stmts = parse(sql)
@@ -1066,6 +1182,49 @@ class Session:
             sets.append((tc.name, "delta", (src, op, delta)))
         spec["sets"] = sets
         return spec
+
+    def _targets_temp_table(self, stmt) -> bool:
+        """True when a DDL statement targets a table shadowed by this
+        session's TEMPORARY namespace — such DDL must run inline (the
+        DDL owner's session cannot see session-local tables)."""
+        temp = getattr(self.catalog, "_temp", {})
+        if not temp:
+            return False
+        names = []
+        if isinstance(stmt, A.DropTableStmt):
+            names = [(t.schema or self.db, t.name) for t in stmt.tables]
+        elif isinstance(stmt, (A.TruncateStmt, A.AlterTableStmt)):
+            tn = stmt.table
+            names = [(tn.schema or self.db, tn.name)]
+        elif isinstance(stmt, (A.CreateIndexStmt, A.DropIndexStmt)):
+            tn = stmt.table
+            names = [(tn.schema or self.db, tn.name)]
+        elif isinstance(stmt, A.CreateTableStmt):
+            # LIKE / AS SELECT reading a temp-shadowed SOURCE must also
+            # stay inline: the DDL owner's session resolves the
+            # permanent table instead
+            if stmt.like is not None:
+                tn = stmt.like
+                names.append((tn.schema or self.db, tn.name))
+            sel = getattr(stmt, "as_select", None)
+            if sel is not None:
+                def walk_sources(node):
+                    if isinstance(node, A.TableName):
+                        names.append((node.schema or self.db, node.name))
+                    elif isinstance(node, A.Join):
+                        walk_sources(node.left)
+                        walk_sources(node.right)
+                    elif isinstance(node, A.SubqueryTable):
+                        walk_select(node.select)
+
+                def walk_select(st):
+                    for arm in ([st] if isinstance(st, A.SelectStmt)
+                                else list(_union_arms(st))):
+                        if arm.from_ is not None:
+                            walk_sources(arm.from_)
+
+                walk_select(sel)
+        return any(k in temp for k in names)
 
     def _run_locking_select(self, stmt) -> ResultSet:
         # NOTE on cost: the visible query runs once, plus one hidden
@@ -1302,20 +1461,29 @@ class Session:
             if src_txt is not None:
                 stmt._source = src_txt  # the rebuild drops parser attrs
         if isinstance(stmt, (A.SelectStmt, A.UnionStmt)):
-            if getattr(stmt, "into_outfile", None) is not None:
-                raise UnsupportedError("SELECT ... INTO OUTFILE is not yet ported")
+            into = getattr(stmt, "into_outfile", None)
+            if ((src_txt is None or "outfile" in src_txt.lower())
+                    and _nested_into_outfile(stmt, top=stmt)):
+                raise UnsupportedError(
+                    "INTO OUTFILE is only supported on a top-level SELECT")
+            if into is not None:
+                self._precheck_outfile(into)  # fail BEFORE the query runs
             if isinstance(stmt, A.UnionStmt) and any(
                     getattr(arm, "lock_mode", None)
                     for arm in _union_arms(stmt)):
                 # MySQL rejects FOR UPDATE on union arms too
                 raise UnsupportedError("FOR UPDATE is not allowed with UNION")
             if getattr(stmt, "lock_mode", None) is not None:
-                return self._run_locking_select(stmt)
-            return self._run_select(stmt)
+                rs = self._run_locking_select(stmt)
+            else:
+                rs = self._run_select(stmt)
+            if into is not None:
+                return self._write_outfile(rs, into)
+            return rs
         if isinstance(stmt, (A.CreateBindingStmt, A.DropBindingStmt)):
             raise UnsupportedError(
                 "SQL plan bindings are not yet ported: they wait for the "
-                "planner's hints (ROADMAP Queue A, item 8)")
+                "planner's hints (ROADMAP Queue A, item 5)")
         if isinstance(stmt, A.InsertStmt):
             self._priv_table("insert", stmt.table)
         elif isinstance(stmt, A.UpdateStmt):
@@ -1331,7 +1499,11 @@ class Session:
             # connection (ref: ddl job queue + owner election); inline
             # otherwise (embedded use / the worker's own session)
             if (self.catalog.ddl_workers
-                    and not getattr(self, "_ddl_direct", False)):
+                    and not getattr(self, "_ddl_direct", False)
+                    and not getattr(stmt, "temporary", False)
+                    and not self._targets_temp_table(stmt)):
+                # TEMPORARY tables are session-local: routing them to the
+                # DDL owner would create them in the WORKER's namespace
                 source = getattr(stmt, "_source", None)
                 if source:
                     job = self.catalog.submit_ddl(source, self.db)
@@ -1474,6 +1646,11 @@ class Session:
         if isinstance(stmt, A.CreateDatabaseStmt):
             self.catalog.create_database(stmt.name, stmt.if_not_exists)
             return None
+        if isinstance(stmt, A.DropDatabaseStmt):
+            self.catalog.drop_database(stmt.name, stmt.if_exists)
+            return None
+        if isinstance(stmt, A.LoadDataStmt):
+            return self._run_load_data(stmt)
         if isinstance(stmt, A.UseStmt):
             self.catalog.database(stmt.db)  # raises if missing
             self.db = stmt.db
@@ -1781,15 +1958,14 @@ class Session:
         return name
 
     def _run_create_table(self, stmt: A.CreateTableStmt):
-        unported = [
-            ("LIKE", stmt.like is not None),
-            ("AS SELECT", stmt.as_select is not None),
-            ("TEMPORARY", stmt.temporary),
-            ("SHARD BY", stmt.shard is not None),
-        ]
-        for what, present in unported:
-            if present:
-                raise UnsupportedError(f"CREATE TABLE ... {what} is not yet ported")
+        if stmt.shard is not None:
+            raise UnsupportedError(
+                "CREATE TABLE ... SHARD BY is not yet ported: it waits for "
+                "the multi-device tier (ROADMAP Queue A, item 6)")
+        if stmt.like is not None:
+            return self._run_create_like(stmt)
+        if stmt.as_select is not None:
+            return self._run_ctas(stmt)
         cols = []
         pk = list(stmt.primary_key) if stmt.primary_key else None
         for c in stmt.columns:
@@ -1830,9 +2006,18 @@ class Session:
                              collation=stmt.collation, partition=part,
                              cluster_by=self._cluster_by_col(
                                  stmt.cluster, cols))
-        t = self.catalog.create_table(
-            stmt.table.schema or self.db, schema, stmt.if_not_exists,
-            foreign_keys=stmt.foreign_keys)
+        if stmt.temporary:
+            if stmt.foreign_keys:
+                raise UnsupportedError(
+                    "TEMPORARY tables cannot have foreign keys (MySQL)")
+            t = self.catalog.create_temp_table(
+                stmt.table.schema or self.db, schema, stmt.if_not_exists,
+                engine=stmt.engine)
+        else:
+            t = self.catalog.create_table(
+                stmt.table.schema or self.db, schema,
+                stmt.if_not_exists, engine=stmt.engine,
+                foreign_keys=stmt.foreign_keys)
         if t is not None and t.schema is schema:
             # inline constraint wiring happens only on a table this
             # statement actually created, and a failure must UNDO the
@@ -1868,6 +2053,104 @@ class Session:
                 # instead of vanishing (SHOW WARNINGS; MySQL code 1235)
                 self._warnings.append(
                     ("Warning", 1235, f"{item} is parsed but ignored"))
+        return None
+
+    def _run_create_like(self, stmt: A.CreateTableStmt):
+        """CREATE TABLE t LIKE src: clone columns (incl. declared type
+        text, defaults, auto-increment), primary key, and secondary
+        indexes — NOT data, foreign keys, or the source's rows (MySQL
+        semantics; FKs are deliberately not copied, like MySQL)."""
+        import copy
+
+        src_tn = stmt.like
+        self._priv("select", src_tn.schema or self.db, src_tn.name)
+        # (FKs are deliberately not copied — MySQL LIKE semantics)
+        src = self.catalog.table(src_tn.schema or self.db, src_tn.name)
+        schema = copy.deepcopy(src.schema)
+        schema.name = stmt.table.name
+        for c in schema.columns:
+            c.state = "public"
+        if stmt.temporary:
+            t = self.catalog.create_temp_table(
+                stmt.table.schema or self.db, schema, stmt.if_not_exists,
+                engine=src.engine)
+        else:
+            t = self.catalog.create_table(
+                stmt.table.schema or self.db, schema,
+                stmt.if_not_exists, engine=src.engine)
+        if t is not None and t.schema is schema:
+            for name, ix in src.indexes.items():
+                if name != "PRIMARY" and name not in t.indexes:
+                    t.create_index(name, list(ix.columns), unique=ix.unique)
+            # MySQL 8 clones CHECK constraints too (preds bind by column
+            # name against an identical schema, so sharing is sound)
+            t.checks = list(src.checks)
+        return None
+
+    def _run_ctas(self, stmt: A.CreateTableStmt):
+        """CREATE TABLE t AS SELECT ...: infer the schema from the
+        select's output columns (engine types; strings land as varchar)
+        and bulk-insert the result (ref: the reference's CTAS path)."""
+        # refuse BEFORE running the (possibly expensive) select
+        db = stmt.table.schema or self.db
+        if self.catalog.has_table(db, stmt.table.name):
+            if stmt.if_not_exists:
+                return None
+            from tidb_tpu_torch.errors import DuplicateTableError
+
+            raise DuplicateTableError(f"table {stmt.table.name!r} exists")
+        rs = self._run_select(stmt.as_select)
+        from tidb_tpu_torch.types import (DATE, DATETIME, FLOAT64, INT64, STRING,
+                                    TIME, TypeKind)
+
+        kind_to_type = {
+            TypeKind.INT: INT64, TypeKind.FLOAT: FLOAT64,
+            TypeKind.BOOL: parse_type_name("boolean", ()),
+            TypeKind.DATE: DATE, TypeKind.DATETIME: DATETIME,
+            TypeKind.TIME: TIME,
+        }
+        cols = []
+        seen = set()
+        fulls = rs.sql_types or [None] * len(rs.names)
+        colls = rs.collations or [None] * len(rs.names)
+        for name, kind, full, coll in zip(rs.names, rs.types, fulls, colls):
+            cname = name
+            i = 2
+            while cname in seen:  # duplicate output names disambiguate
+                cname = f"{name}_{i}"
+                i += 1
+            seen.add(cname)
+            if kind == TypeKind.DECIMAL:
+                # the select's exact precision/scale carries over
+                t_ = full if full is not None else parse_type_name(
+                    "decimal", (18, 4))
+            elif kind in (TypeKind.STRING, TypeKind.JSON):
+                t_ = STRING
+            elif full is not None and kind in (TypeKind.ENUM, TypeKind.SET):
+                t_ = full
+            else:
+                t_ = kind_to_type.get(kind, STRING)
+            # the source column's collation carries over (MySQL CTAS)
+            cols.append(ColumnInfo(cname, t_, collation=coll))
+        schema = TableSchema(stmt.table.name, cols)
+        if stmt.temporary:
+            t = self.catalog.create_temp_table(
+                stmt.table.schema or self.db, schema, stmt.if_not_exists)
+        else:
+            t = self.catalog.create_table(
+                stmt.table.schema or self.db, schema, stmt.if_not_exists)
+        if t is not None and t.schema is schema and rs.rows:
+            def do(txn):
+                for start in range(0, len(rs.rows), 4096):
+                    t.insert_rows(rs.rows[start:start + 4096],
+                                  begin_ts=txn.marker, log=txn.log_for(t))
+
+            self._run_dml(do)
+        # CTAS is DDL: implicit commit even under autocommit=0 (MySQL) —
+        # _run_select may have opened a snapshot txn that would otherwise
+        # hold the inserted rows provisional forever
+        if self.txn is not None:
+            self._commit()
         return None
 
     # -- DML ---------------------------------------------------------------
@@ -2218,6 +2501,124 @@ class Session:
             ids.append(rid)
             vals.append(row[1:])
         return np.array(ids, dtype=np.int64), vals
+
+    def _precheck_outfile(self, into) -> None:
+        """OUTFILE refusals run BEFORE the query: a non-SUPER user or a
+        pre-existing target must not pay for the whole scan first."""
+        import os
+
+        self._priv("super")  # server-side file write (FILE analogue)
+        if len(into.fields_term) != 1 or (
+                into.enclosed is not None and len(into.enclosed) != 1):
+            raise UnsupportedError(
+                "FIELDS TERMINATED/ENCLOSED BY must be one character")
+        if os.path.exists(into.path):
+            raise ExecutionError(f"file {into.path!r} already exists")
+
+    def _write_outfile(self, rs: ResultSet, into) -> ResultSet:
+        """SELECT ... INTO OUTFILE: the LOAD DATA-compatible export pair
+        (round-trips through _split_load_fields). mode='x' keeps the
+        no-overwrite guarantee atomic under concurrent exporters."""
+        delim, quote = into.fields_term, into.enclosed
+
+        def field_text(v):
+            if v is None:
+                return "\\N"
+            # control chars escape FIRST (line framing is \n; a tab
+            # delim is covered by the \t mapping), then the delimiter
+            s = (str(v).replace("\\", "\\\\").replace("\n", "\\n")
+                 .replace("\t", "\\t").replace("\r", "\\r"))
+            if quote:
+                return quote + s.replace(quote, quote + quote) + quote
+            if delim not in ("\t", "\n", "\r"):
+                s = s.replace(delim, "\\" + delim)
+            return s
+
+        with open(into.path, "x", newline="") as f:
+            for row in rs.rows:
+                f.write(delim.join(field_text(v) for v in row))
+                f.write(into.lines_term)
+        return ResultSet(names=["rows"], rows=[(len(rs.rows),)],
+                         types=[TypeKind.INT])
+
+    def _run_load_data(self, stmt: A.LoadDataStmt):
+        """LOAD DATA INFILE: streamed ingest in txn'd batches (ref:
+        executor/load_data). Server-side reads gate on SUPER — the FILE
+        privilege analogue; LOCAL (the caller supplies its own file, as
+        in MySQL) needs only INSERT. MySQL field semantics via
+        _split_load_fields: backslash escapes (\\t \\n \\\\ and escaped
+        delimiters), the \\N NULL sentinel, optional enclosure with
+        doubled or escaped quotes; empty fields are NULL for non-string
+        columns and '' for strings; IGNORE n LINES skips headers."""
+        db = stmt.table.schema or self.db
+        self._priv("insert", db, stmt.table.name)
+        if not stmt.local:
+            self._priv("super")  # server-side file access (FILE analogue)
+        table = self.catalog.table(db, stmt.table.name)
+        if stmt.lines_term not in ("\n", "\r\n"):
+            raise UnsupportedError("LINES TERMINATED BY must be \\n or \\r\\n")
+        if len(stmt.fields_term) != 1 or (
+                stmt.enclosed is not None and len(stmt.enclosed) != 1):
+            raise UnsupportedError(
+                "FIELDS TERMINATED/ENCLOSED BY must be one character")
+        names = stmt.columns or table.schema.public_names()
+        cols = [table.schema.col(n) for n in names]
+        str_col = [c.type_.kind in (TypeKind.STRING, TypeKind.JSON)
+                   for c in cols]
+        bool_col = [c.type_.kind == TypeKind.BOOL for c in cols]
+
+        def convert(row):
+            out = []
+            for j in range(len(cols)):
+                raw = row[j] if j < len(row) else None
+                if raw is None or (raw == "" and not str_col[j]):
+                    out.append(None)
+                elif bool_col[j]:
+                    # raw text reaches to_device_value, whose bool(v)
+                    # would make the STRING "0" truthy
+                    out.append(raw.strip().lower() not in ("0", "false", ""))
+                else:
+                    out.append(raw)
+            return out
+
+        total = [0]
+        resume_pos = [None]  # retry resumes AFTER already-staged batches
+
+        def do(txn):
+            with open(stmt.path, newline="") as f:
+                if resume_pos[0] is not None:
+                    # a WriteConflict retry re-enters with the earlier
+                    # batches already provisionally inserted under this
+                    # txn marker (a failing insert leaves the table
+                    # untouched) — continue from the saved offset
+                    f.seek(resume_pos[0])
+                else:
+                    for _ in range(stmt.ignore_lines):
+                        f.readline()
+                batch = []
+                # readline, not `for line in f`: a text file refuses
+                # tell() while it is iterated, and the resume offset
+                # needs tell() after every batch (the reference iterates
+                # and raises OSError past its first 4,096 lines)
+                for line in iter(f.readline, ""):
+                    line = line.rstrip("\r\n")
+                    batch.append(convert(_split_load_fields(
+                        line, stmt.fields_term, stmt.enclosed)))
+                    if len(batch) >= 4096:
+                        total[0] += table.insert_rows(
+                            batch, columns=names, begin_ts=txn.marker,
+                            log=txn.log_for(table))
+                        resume_pos[0] = f.tell()
+                        batch = []
+                if batch:
+                    total[0] += table.insert_rows(
+                        batch, columns=names, begin_ts=txn.marker,
+                        log=txn.log_for(table))
+                    resume_pos[0] = f.tell()
+
+        self._run_dml(do)
+        return ResultSet(names=["rows"], rows=[(total[0],)],
+                         types=[TypeKind.INT])
 
     def _run_update(self, stmt: A.UpdateStmt):
         if stmt.from_ is not None:

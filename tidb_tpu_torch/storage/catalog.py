@@ -10,7 +10,18 @@ lock-free reader registry that CLUSTER BY permutes wait on, and its
 serving half: user accounts (mysql_native_password) and grants, the
 plugin registry, global plan bindings, the DDL owner election and job
 queue, the plan cache, the statements summary, the slow-query log and
-the process list KILL reads. Not yet ported: information_schema.
+the process list KILL reads; the table engine per table
+(storage/kvapi.py: columnar or delta), DROP DATABASE, information_schema
+and the per-session TEMPORARY namespace (`SessionCatalog`).
+
+Four information_schema tables read reference modules the port has not
+got (ROADMAP, intended divergences): `dcn_worker_stats` and
+`cluster_info` list their columns and no rows, as the reference does in
+a process with no live cluster; `cluster_metrics` gives the rows the
+reference gives when it finds no fleet (this process's registry as
+``coordinator`` and the merged ``fleet`` view); a read of
+`plan_feedback` raises UnsupportedError (planner/feedback.py, ROADMAP
+Queue A item 5).
 """
 
 from __future__ import annotations
@@ -20,10 +31,15 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List
 
-from tidb_tpu_torch.errors import DuplicateTableError, ExecutionError, SchemaError
-from tidb_tpu_torch.storage.table import Table, TableSchema
+from tidb_tpu_torch.errors import (
+    DuplicateTableError,
+    ExecutionError,
+    SchemaError,
+    UnsupportedError,
+)
+from tidb_tpu_torch.storage.table import ColumnInfo, Table, TableSchema
 
-__all__ = ["Database", "Catalog"]
+__all__ = ["Database", "Catalog", "SessionCatalog"]
 
 
 @dataclass
@@ -442,6 +458,8 @@ class Catalog:
             mc = getattr(t, "modify_count", 0)
             stats = getattr(t, "stats", None)
             if stats is None:
+                # maintenance_stats: threshold probe that must not force
+                # a delta-engine compaction on every commit
                 if t.maintenance_stats()[0] < min_rows or mc == 0:
                     continue
             elif mc < ratio * max(stats.n_rows, min_rows):
@@ -459,7 +477,34 @@ class Catalog:
         self.databases[name] = Database(name)
         self.schema_version += 1
 
+    def drop_database(self, name: str, if_exists: bool = False):
+        if name not in self.databases:
+            if if_exists:
+                return
+            raise SchemaError(f"no database {name!r}")
+        dropped = set(self.databases[name].tables.values())
+        # FK hygiene matching drop_table: refuse when a table here is
+        # referenced from OUTSIDE the database; release the back-edges
+        # dropped children hold on external parents
+        for t in dropped:
+            for child, _fk in getattr(t, "referencing", ()):
+                if child is not t and child not in dropped:
+                    raise SchemaError(
+                        f"cannot drop database {name!r}: "
+                        f"{t.schema.name!r} is referenced by a foreign "
+                        "key outside it")
+        for t in dropped:
+            for fk in getattr(t, "foreign_keys", ()):
+                if fk.parent not in dropped:
+                    fk.parent.referencing = [
+                        (c, f) for c, f in fk.parent.referencing
+                        if c is not t]
+        del self.databases[name]
+        self.schema_version += 1
+
     def database(self, name: str) -> Database:
+        if name.lower() == "information_schema":
+            return self._info_schema_db()
         db = self.databases.get(name)
         if db is None:
             raise SchemaError(f"no database {name!r}")
@@ -469,6 +514,7 @@ class Catalog:
 
     def create_table(self, db: str, schema: TableSchema,
                      if_not_exists: bool = False,
+                     engine: str = None,
                      foreign_keys=None) -> Table:
         d = self.database(db)
         if schema.name in d.tables:
@@ -479,7 +525,9 @@ class Catalog:
             if if_not_exists:
                 return None
             raise DuplicateTableError(f"view {schema.name!r} exists")
-        t = Table(schema)
+        from tidb_tpu_torch.storage.kvapi import make_table
+
+        t = make_table(schema, engine)
         t.ts_source = self.next_ts
         t.txn_guard = self  # recluster's writer-lock + open-txn gate
         # two-pass: every FK spec must RESOLVE before any back-edge is
@@ -563,6 +611,11 @@ class Catalog:
         self.schema_version += 1
 
     def table(self, db: str, name: str) -> Table:
+        if db.lower() == "information_schema":
+            t = self._info_schema_table(name.lower())
+            if t is None:
+                raise SchemaError(f"no table {db}.{name}")
+            return t
         d = self.database(db)
         t = d.tables.get(name)
         if t is None:
@@ -570,6 +623,8 @@ class Catalog:
         return t
 
     def has_table(self, db: str, name: str) -> bool:
+        if db.lower() == "information_schema":
+            return name.lower() in _INFO_TABLES
         return name in self.databases.get(db, Database(db)).tables
 
     def tables(self, db: str) -> List[str]:
@@ -660,3 +715,432 @@ class Catalog:
         mix = hashlib.sha1(salt + stage2).digest()
         stage1 = bytes(a ^ b for a, b in zip(token, mix))
         return hashlib.sha1(stage1).digest() == stage2
+
+    # -- INFORMATION_SCHEMA (ref: infoschema/'s virtual memtables) ----------
+    # Read-only views over catalog metadata, materialized per access so
+    # they always reflect the current schema version.
+
+    def _info_schema_db(self) -> Database:
+        # listing=True: a SHOW TABLES / schema walk materializes every
+        # info table — dcn_worker_stats must not fan RPCs out to live
+        # clusters just to report that it exists
+        d = Database("information_schema")
+        for name in _INFO_TABLES:
+            d.tables[name] = self._info_schema_table(name, listing=True)
+        return d
+
+    def _info_schema_table(self, name: str, viewer=None,
+                           listing: bool = False):
+        from tidb_tpu_torch.types import FLOAT64, INT64, STRING
+
+        def make(cols, rows):
+            schema = TableSchema(
+                name, [ColumnInfo(c, t, not_null=False) for c, t in cols])
+            t = Table(schema)
+            if rows:
+                t.insert_rows(rows, begin_ts=0)
+            return t
+
+        if name == "schemata":
+            return make(
+                [("catalog_name", STRING), ("schema_name", STRING)],
+                [("def", n) for n in sorted(self.databases)]
+                + [("def", "information_schema")],
+            )
+        if name == "tables":
+            rows = []
+            for dbn in sorted(self.databases):
+                for tn in sorted(self.databases[dbn].tables):
+                    t = self.databases[dbn].tables[tn]
+                    rows.append(("def", dbn, tn, "BASE TABLE", t.live_rows))
+                for vn in sorted(self.databases[dbn].views):
+                    rows.append(("def", dbn, vn, "VIEW", 0))
+            return make(
+                [("table_catalog", STRING), ("table_schema", STRING),
+                 ("table_name", STRING), ("table_type", STRING),
+                 ("table_rows", INT64)],
+                rows,
+            )
+        if name == "columns":
+            rows = []
+            for dbn in sorted(self.databases):
+                for tn in sorted(self.databases[dbn].tables):
+                    t = self.databases[dbn].tables[tn]
+                    pk = set(t.schema.primary_key or [])
+                    for i, c in enumerate(t.schema.columns):
+                        rows.append((
+                            dbn, tn, c.name, i + 1,
+                            c.type_.kind.name.lower(),
+                            "NO" if c.not_null else "YES",
+                            "PRI" if c.name in pk else "",
+                        ))
+            return make(
+                [("table_schema", STRING), ("table_name", STRING),
+                 ("column_name", STRING), ("ordinal_position", INT64),
+                 ("data_type", STRING), ("is_nullable", STRING),
+                 ("column_key", STRING)],
+                rows,
+            )
+        if name == "key_column_usage":
+            rows = []
+            for dbn in sorted(self.databases):
+                for tn in sorted(self.databases[dbn].tables):
+                    t = self.databases[dbn].tables[tn]
+                    for idx in t.indexes.values():
+                        if not idx.unique:
+                            continue
+                        for i, cname in enumerate(idx.columns):
+                            rows.append(("def", dbn, idx.name, dbn, tn,
+                                         cname, i + 1, None, None, None))
+                    for fk in getattr(t, "foreign_keys", ()):
+                        for i, (c, pc) in enumerate(
+                                zip(fk.columns, fk.parent_cols)):
+                            rows.append(("def", dbn, fk.name, dbn, tn,
+                                         c, i + 1, fk.parent_db,
+                                         fk.parent.schema.name, pc))
+            return make(
+                [("constraint_catalog", STRING),
+                 ("constraint_schema", STRING), ("constraint_name", STRING),
+                 ("table_schema", STRING), ("table_name", STRING),
+                 ("column_name", STRING), ("ordinal_position", INT64),
+                 ("referenced_table_schema", STRING),
+                 ("referenced_table_name", STRING),
+                 ("referenced_column_name", STRING)],
+                rows,
+            )
+        if name == "referential_constraints":
+            rows = []
+            for dbn in sorted(self.databases):
+                for tn in sorted(self.databases[dbn].tables):
+                    t = self.databases[dbn].tables[tn]
+                    for fk in getattr(t, "foreign_keys", ()):
+                        rows.append(
+                            ("def", dbn, fk.name, tn,
+                             fk.parent_db, fk.parent.schema.name,
+                             fk.on_update.replace("_", " ").upper(),
+                             fk.on_delete.replace("_", " ").upper()))
+            return make(
+                [("constraint_catalog", STRING),
+                 ("constraint_schema", STRING), ("constraint_name", STRING),
+                 ("table_name", STRING),
+                 ("unique_constraint_schema", STRING),
+                 ("referenced_table_name", STRING),
+                 ("update_rule", STRING), ("delete_rule", STRING)],
+                rows,
+            )
+        if name == "partitions":
+            rows = []
+            for dbn in sorted(self.databases):
+                for tn in sorted(self.databases[dbn].tables):
+                    pi = self.databases[dbn].tables[tn].schema.partition
+                    if pi is None:
+                        rows.append(("def", dbn, tn, None, None, None, None))
+                        continue
+                    for p in range(pi.count()):
+                        desc = None
+                        if pi.kind == "range":
+                            u = pi.uppers[p]
+                            desc = "MAXVALUE" if u is None else str(u)
+                        rows.append(("def", dbn, tn, pi.part_name(p), p + 1,
+                                     pi.kind.upper(), desc))
+            return make(
+                [("table_catalog", STRING), ("table_schema", STRING),
+                 ("table_name", STRING), ("partition_name", STRING),
+                 ("partition_ordinal_position", INT64),
+                 ("partition_method", STRING),
+                 ("partition_description", STRING)],
+                rows,
+            )
+        if name == "processlist":
+            rows = self.processlist_rows(viewer_user=viewer,
+                                         with_state=True)
+            return make(
+                [("id", INT64), ("user", STRING), ("host", STRING),
+                 ("db", STRING), ("command", STRING), ("time", INT64),
+                 ("state", STRING), ("info", STRING)],
+                rows,
+            )
+        if name == "slow_query":
+            return make(
+                [("time", STRING), ("db", STRING), ("query_time", FLOAT64),
+                 ("query", STRING), ("digest", STRING),
+                 ("plan_digest", STRING), ("max_mem", INT64),
+                 ("dispatches", INT64), ("segs_scanned", INT64),
+                 ("segs_pruned", INT64), ("trace_id", STRING),
+                 ("disposition", STRING), ("worst_drift_op", STRING),
+                 ("worst_drift", FLOAT64), ("xfer_bytes", INT64),
+                 ("compile_ms", FLOAT64), ("spill_bytes", INT64),
+                 ("compaction_wait_ms", FLOAT64)],
+                list(self.slow_queries),
+            )
+        if name == "cluster_trace":
+            # one row per span of every KEPT trace (the process-global
+            # tail-sampled store) — joinable against slow_query.trace_id
+            # and the /metrics exemplars
+            from tidb_tpu_torch.utils import tracing
+
+            rows = []
+            for t in tracing.STORE.traces():
+                ts = _time_strftime(t.start_ts)
+                keep = ",".join(t.keep_reasons)
+                for s in list(t.spans):
+                    rows.append((
+                        t.trace_id, ts, keep, s.span_id, s.parent_id,
+                        s.name, s.proc or "local", s.start_us,
+                        max(s.dur_us, 0), ";".join(s.notes)))
+            return make(
+                [("trace_id", STRING), ("time", STRING), ("keep", STRING),
+                 ("span_id", INT64), ("parent_span_id", INT64),
+                 ("name", STRING), ("proc", STRING), ("start_us", INT64),
+                 ("duration_us", INT64), ("annotations", STRING)],
+                rows,
+            )
+        if name == "dcn_worker_stats":
+            # per-worker failure-domain counters of every live Cluster.
+            # The port has no cluster tier (parallel/dcn.py, ROADMAP
+            # Queue A item 6): its columns and no rows, what the
+            # reference shows with no live cluster in the process
+            return make(
+                [("cluster", INT64), ("worker", INT64),
+                 ("endpoint", STRING), ("state", STRING),
+                 ("executed", INT64), ("cancelled", INT64),
+                 ("deadline_exceeded", INT64), ("cancel_rpcs", INT64),
+                 ("pages", INT64), ("open_cursors", INT64),
+                 ("shards_owned", INT64), ("shard_bytes", INT64),
+                 ("shuffle_bytes_in", INT64),
+                 ("shuffle_bytes_out", INT64),
+                 ("reconnects", INT64), ("replica", INT64),
+                 ("error", STRING)],
+                [],
+            )
+        if name == "scheduler_stats":
+            # serving-tier counters of every live statement scheduler in
+            # this process: one summary row per scheduler (digest = '')
+            # plus one row per coalesced digest. Guarded like
+            # dcn_worker_stats: a SHOW TABLES / schema walk (listing)
+            # must not touch live schedulers just to report existence.
+            rows = []
+            if not listing:
+                from tidb_tpu_torch.serving import schedulers_alive
+
+                for si, sch in enumerate(schedulers_alive()):
+                    try:
+                        d = sch.stats_dict()
+                    except Exception:  # noqa: BLE001 — a dying scheduler
+                        continue       # must not fail the whole read
+                    rows.append((
+                        si, "", d["workers"], d["queue_depth"],
+                        d["inflight_batches"], d["admitted"],
+                        d["rejected"], d["timed_out"], d["batches"],
+                        d["coalesced_stmts"], d["mem_consumed"],
+                        d["mem_budget"],
+                        "draining" if d["draining"] else "running"))
+                    for dg, cnt in sorted(d["coalesce_by_digest"].items()):
+                        rows.append((si, dg, None, None, None, None, None,
+                                     None, None, cnt, None, None, ""))
+            return make(
+                [("scheduler", INT64), ("digest", STRING),
+                 ("workers", INT64), ("queue_depth", INT64),
+                 ("inflight_batches", INT64), ("admitted", INT64),
+                 ("rejected", INT64), ("timed_out", INT64),
+                 ("batches", INT64), ("coalesced_stmts", INT64),
+                 ("mem_consumed", INT64), ("mem_budget", INT64),
+                 ("state", STRING)],
+                rows,
+            )
+        if name == "statements_summary":
+            return make(
+                [("digest", STRING), ("stmt_type", STRING),
+                 ("digest_text", STRING), ("plan_digest", STRING),
+                 ("exec_count", INT64), ("sum_latency", FLOAT64),
+                 ("avg_latency", FLOAT64), ("max_latency", FLOAT64),
+                 ("p95_latency", FLOAT64), ("max_mem", INT64),
+                 ("rows_sent", INT64), ("errors", INT64),
+                 ("dispatches", INT64), ("fragments", INT64),
+                 ("first_seen", STRING), ("last_seen", STRING),
+                 ("plan_cache_hits", INT64), ("sum_plan_latency", FLOAT64),
+                 ("max_drift", FLOAT64), ("mean_drift", FLOAT64),
+                 ("worst_drift_op", STRING), ("xfer_bytes", INT64),
+                 ("compile_ms", FLOAT64), ("spill_bytes", INT64)],
+                self.stmt_summary.rows(),
+            )
+        if name == "plan_feedback":
+            # per-operator est-vs-actual truth of every recorded
+            # (digest, plan): the plan-feedback store is not ported, so
+            # a listing shows the columns and a read refuses, as the
+            # status port's /plan_feedback answers 501
+            if not listing:
+                raise UnsupportedError(
+                    "information_schema.plan_feedback is not yet ported: "
+                    "it waits for planner/feedback.py (ROADMAP Queue A, "
+                    "item 5)")
+            return make(
+                [("digest", STRING), ("plan_digest", STRING),
+                 ("variant", STRING), ("execs", INT64),
+                 ("warm_execs", INT64), ("best_warm_ms", FLOAT64),
+                 ("eager_partial", INT64), ("fused_probe", INT64),
+                 ("op", STRING), ("est_rows", FLOAT64),
+                 ("actual_rows", FLOAT64), ("drift", FLOAT64),
+                 ("op_execs", INT64)],
+                [],
+            )
+        if name == "cluster_metrics":
+            # the fleet metrics plane: the SAME scrape entries
+            # /metrics?scope=cluster renders, as SQL rows. The port has
+            # no fleet, so the entries are the reference's with no live
+            # cluster: this process's registry as the coordinator (and
+            # the merged worker='fleet' view of it). Guarded for a
+            # listing like the reference.
+            rows = []
+            if not listing:
+                from tidb_tpu_torch.utils.metrics import cluster_rows, snapshot
+
+                rows = cluster_rows([("coordinator", snapshot(), "")])
+            return make(
+                [("worker", STRING), ("metric", STRING),
+                 ("labels", STRING), ("value", FLOAT64),
+                 ("error", STRING)],
+                rows,
+            )
+        if name == "cluster_info":
+            # topology / online-reshard progress: a fleet summary row
+            # per live coordinator plus one row per moved shard. The
+            # port has no coordinator (ROADMAP Queue A item 6): the
+            # columns and no rows, as the reference with no live cluster
+            return make(
+                [("table_name", STRING), ("shard", INT64),
+                 ("state", STRING), ("dst_worker", INT64),
+                 ("old_version", INT64), ("new_version", INT64),
+                 ("workers", INT64), ("draining", INT64)],
+                [],
+            )
+        if name == "digest_latency":
+            # per-digest latency SLO store: sliding-window
+            # percentiles + burn ratio against tidb_tpu_slo_target_ms.
+            # No listing guard needed: local process memory.
+            from tidb_tpu_torch.serving.slo import STORE as _slo_store
+
+            return make(
+                [("digest", STRING), ("digest_text", STRING),
+                 ("window_n", INT64), ("execs", INT64),
+                 ("p50_ms", FLOAT64), ("p95_ms", FLOAT64),
+                 ("p99_ms", FLOAT64), ("target_ms", FLOAT64),
+                 ("breaches", INT64), ("burn_ratio", FLOAT64),
+                 ("last_seen", STRING)],
+                _slo_store.rows(),
+            )
+        if name == "statistics":
+            rows = []
+            for dbn in sorted(self.databases):
+                for tn in sorted(self.databases[dbn].tables):
+                    t = self.databases[dbn].tables[tn]
+                    for idx in t.indexes.values():
+                        for i, cname in enumerate(idx.columns):
+                            rows.append((
+                                dbn, tn, 0 if idx.unique else 1,
+                                idx.name, i + 1, cname,
+                            ))
+            return make(
+                [("table_schema", STRING), ("table_name", STRING),
+                 ("non_unique", INT64), ("index_name", STRING),
+                 ("seq_in_index", INT64), ("column_name", STRING)],
+                rows,
+            )
+        return None
+
+
+def _time_strftime(ts: float) -> str:
+    import time
+
+    return time.strftime("%Y-%m-%d %H:%M:%S", time.localtime(ts))
+
+
+_INFO_TABLES = ("schemata", "tables", "columns", "statistics", "slow_query",
+                "key_column_usage", "referential_constraints",
+                "partitions", "processlist", "statements_summary",
+                "cluster_trace", "dcn_worker_stats", "scheduler_stats",
+                "plan_feedback", "cluster_metrics", "digest_latency",
+                "cluster_info")
+
+
+class SessionCatalog:
+    """Per-session overlay adding a TEMPORARY-table namespace over the
+    shared catalog (ref: MySQL temporary tables — session-local, shadow
+    permanent tables by name, vanish with the connection). Everything
+    except table resolution/creation/drop delegates to the base; the
+    planner and executors only ever resolve through `table()`, so temp
+    tables flow through every downstream path unchanged."""
+
+    def __init__(self, base: "Catalog"):
+        while isinstance(base, SessionCatalog):
+            base = base._base
+        object.__setattr__(self, "_base", base)
+        object.__setattr__(self, "_temp", {})  # (db, name) -> Table
+        # bumped on every temp create/drop: temp DDL never advances the
+        # shared schema_version, so the plan cache keys on this instead
+        # (a dropped-and-recreated temp table must never serve the old
+        # table object's cached plan)
+        object.__setattr__(self, "_temp_epoch", 0)
+        object.__setattr__(self, "_viewer", None)  # weakref to Session
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+    def __setattr__(self, name, value):
+        # attribute writes always land on the shared base — a proxy-local
+        # shadow (e.g. schema_version) would silently fork the catalog
+        setattr(self._base, name, value)
+
+    @property
+    def base(self) -> "Catalog":
+        return self._base
+
+    def table(self, db: str, name: str) -> Table:
+        t = self._temp.get((db, name))
+        if t is not None:
+            return t
+        if (db.lower() == "information_schema"
+                and name.lower() == "processlist"):
+            # viewer-aware: a session without SUPER sees only its own
+            # threads, same as SHOW PROCESSLIST
+            viewer = self._viewer() if self._viewer is not None else None
+            # always returns a Table — never fall through to the
+            # base path, whose viewer-less build is unfiltered
+            return self._base._info_schema_table(
+                "processlist",
+                viewer=getattr(viewer, "user", None) or "")
+        return self._base.table(db, name)
+
+    def tables(self, db: str):
+        out = list(self._base.tables(db))
+        out.extend(n for (d, n) in self._temp if d == db and n not in out)
+        return out
+
+    def create_temp_table(self, db: str, schema: TableSchema,
+                          if_not_exists: bool = False,
+                          engine: str = None) -> Table:
+        if (db, schema.name) in self._temp:
+            if if_not_exists:
+                return self._temp[(db, schema.name)]
+            raise DuplicateTableError(
+                f"temporary table {schema.name!r} exists")
+        from tidb_tpu_torch.storage.kvapi import make_table
+
+        t = make_table(schema, engine)
+        t.ts_source = self._base.next_ts
+        t.txn_guard = self._base
+        self._temp[(db, schema.name)] = t
+        object.__setattr__(self, "_temp_epoch", self._temp_epoch + 1)
+        return t
+
+    def drop_table(self, db: str, name: str, if_exists: bool = False):
+        if (db, name) in self._temp:
+            del self._temp[(db, name)]
+            object.__setattr__(self, "_temp_epoch", self._temp_epoch + 1)
+            return
+        return self._base.drop_table(db, name, if_exists=if_exists)
+
+    def drop_temp_tables(self) -> None:
+        """Connection end: the whole temp namespace vanishes."""
+        self._temp.clear()
+        object.__setattr__(self, "_temp_epoch", self._temp_epoch + 1)

@@ -15,8 +15,9 @@ one lock (metric updates are far off the hot device path).
 Fleet aggregation: ``snapshot()`` produces the wire form of every
 registered metric and ``render_cluster`` the ``/metrics?scope=cluster``
 exposition (per-worker ``worker`` labels plus a merged
-``worker="fleet"`` view). The port has no DCN tier, so its cluster
-scrape holds one entry: this process's own registry."""
+``worker="fleet"`` view), and ``cluster_rows`` the same scrape as
+information_schema.cluster_metrics rows. The port has no DCN tier, so
+its cluster scrape holds one entry: this process's own registry."""
 
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 __all__ = ["Counter", "DictCounter", "Histogram", "Gauge", "REGISTRY",
            "Registry",
            "render_prometheus", "snapshot", "merge_snapshots",
-           "render_cluster", "SNAPSHOT_SCHEMA"]
+           "render_cluster", "cluster_rows", "SNAPSHOT_SCHEMA"]
 
 _DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0)
 
@@ -446,6 +447,44 @@ def render_cluster(entries) -> str:
                                "error": err.replace('"', "'")})
             out.append(f"tidb_tpu_cluster_scrape_error{lbl} 1")
     return "\n".join(out) + "\n"
+
+
+def cluster_rows(entries) -> List[tuple]:
+    """information_schema.cluster_metrics rows from scrape entries:
+    ``(worker, metric, labels, value, error)``. Histograms contribute
+    their ``_count`` and ``_sum`` series (the SQL surface is for
+    totals; bucket shapes live on /metrics). Fleet-merged rows carry
+    ``worker='fleet'``; an unreachable worker yields one row whose
+    ``error`` is set and whose metric columns are NULL."""
+    rows: List[tuple] = []
+
+    def sample_rows(worker: str, m: Dict) -> None:
+        name = m["name"]
+        for s in m.get("samples") or ():
+            try:
+                labels = dict(s[0])
+            except (TypeError, IndexError):
+                continue
+            lbl = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+            if m.get("kind") == "histogram":
+                rows.append((worker, f"{name}_count", lbl,
+                             float(sum(s[1])), ""))
+                rows.append((worker, f"{name}_sum", lbl, float(s[2]), ""))
+            else:
+                rows.append((worker, name, lbl, float(s[1]), ""))
+
+    for label, snap, err in entries:
+        if err:
+            rows.append((label, None, None, None, err))
+            continue
+        if not isinstance(snap, dict):
+            continue
+        for m in snap.get("metrics") or ():
+            if isinstance(m, dict) and m.get("name"):
+                sample_rows(label, m)
+    for m in merge_snapshots(entries):
+        sample_rows("fleet", m)
+    return rows
 
 
 # -- engine collectors (ref: metrics/*.go one file per layer) ---------------
