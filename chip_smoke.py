@@ -194,12 +194,14 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    CREATE TABLE lineitem and SHOW INDEX FROM orders printed.
 7. The storage phase (phase_storage), on the same session, its tables in
    a scratch database. The delta engine: orders' columns, no key,
-   ENGINE=delta, filled by INSERT ... SELECT from orders, then 10,000
-   single-row autocommit INSERTs of fresh keys (the last of them still
-   buffered when the next read starts); an aggregation by
-   o_orderpriority and Q3 over it against numpy; 1,000 of the same
-   INSERTs into a columnar copy of the same rows, per-statement times of
-   both engines printed. CREATE TABLE ... AS SELECT of lineitem's
+   ENGINE=delta, filled by INSERT ... SELECT from orders, then 5,000
+   single-row autocommit INSERTs of fresh keys (one bulk append at 4,096
+   buffered rows, the last 904 still buffered when the next read
+   starts); an aggregation by o_orderpriority and Q3 over it against
+   numpy; 500 of the same INSERTs into a columnar copy of the same rows,
+   per-statement times of both engines printed. (10,000 and 1,000 until
+   the planner phase was added: cut to keep the script inside its time
+   limit.) CREATE TABLE ... AS SELECT of lineitem's
    revenue by order (one row per order), joined to orders under a date
    filter against numpy; CREATE TABLE ... LIKE orders (engine, CHECKs,
    keys, no rows). SELECT * FROM orders INTO OUTFILE under build/, LOAD
@@ -214,13 +216,59 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    the wire alike. DROP DATABASE refused while an FK points into it, then
    dropped, no device buffer cache entry of its tables left. Each step
    prints its wall time and launches; tidb_segagg and tidb_probe_count
-   must both launch. The full report goes to chip_smoke.json under
-   OUT_DIR.
+   must both launch.
+8. The planner phase (phase_planner), on the same session after the
+   storage phase, with numpy over the tables' live rows as the reference.
+   Spill: Q18 with tidb_device_engine_mode = 'off' under
+   /*+ MEMORY_QUOTA(256 MB) */ (SPILL_QUOTA: at 64 MB Q18's hash-join
+   builds alone, which cannot spill, pass the quota) must spill and
+   equal numpy; an ORDER BY l_extendedprice DESC, l_orderkey,
+   l_linenumber over lineitem's three columns under the same quota must
+   spill and equal numpy's lexsort (its length, the first and last 1,000
+   rows, every row's keys in order and every 1,009th price); both again
+   with no quota; Q18 in the default mode under the quota (completed or
+   QueryOOMError, recorded); the ORDER BY with
+   tidb_enable_tmp_storage_on_oom = OFF must raise QueryOOMError; no
+   spill file may be left. Plan feedback, from an empty store and with
+   the text statements' plan cache on (warm runs come from it): Q18 four
+   times, each run's plan (taken from the session as it ran) held to its
+   launch contract, with and without the eager partial, the store's
+   push-down decision before and after, rows against numpy;
+   information_schema.plan_feedback equal to the status port's
+   /plan_feedback; EXPLAIN ANALYZE of Q3 with its est and drift columns;
+   a many-to-many join (orders to 16 build rows per key) whose fused
+   probe overflows its first tile, twice: the second run's join_tiles is
+   raised by the tile hint and it makes fewer expand calls. The cascades
+   memo (tidb_enable_cascades_planner = 1): Q3 and Q5 equal numpy, the
+   memo's modeled join cost at most the greedy orderer's. IndexJoinExec:
+   the orders of one date joined to customer and lineitem under the memo
+   plan IndexJoin in EXPLAIN, equal numpy, timed beside the hash join. A
+   GLOBAL binding of Q3 with a LEADING hint that changes its join order:
+   the statement runs the hinted plan with the same rows, and DROP
+   BINDING restores the plan. Every step prints its wall time, its
+   tidb_segagg and tidb_probe_count launches, its spill bytes and its
+   trackers' max_consumed; every tracker must end at consumed 0, and
+   both kernels must launch in the phase.
+   The full report goes to chip_smoke.json under OUT_DIR.
+
+Plan feedback is on in every phase, as it is by default: a launch check
+holds each run to the plan taken just before it by `planned`, which
+plans as the session does (the feedback store's hints and its push-down
+decision). The server phase compares each wire statement's launches
+with a solo run's, so it pins the plan: tidb_opt_agg_push_down = 0 for
+the phase (a user's pin that feedback never overrides), and each query
+runs until two runs in a row take the same plan (settle_plan).
 
 The card's name and power limit are printed first; the line before the
-last is one JSON object {"kernels": [...]}, the last {"ok": true,
-"device": {...}}. Without a CUDA card, or without the repository beside
-it, it prints no result and exits non-zero."""
+last is one JSON object {"kernels": [...]}: per kernel its name, route,
+source, the TPU kernel it replaces, the launches of phase 2's main path
+(`launches`) and of each later phase (`launches_refresh`,
+`launches_schema`, `launches_stats`, `launches_window`,
+`launches_server`, `launches_storage`, `launches_planner`), its largest
+error against the plain version, and its time, its plain version's, its
+bound with what bounds it, and a library call's; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card, or without the
+repository beside it, it prints no result and exits non-zero."""
 
 import contextlib
 import copy
@@ -1029,6 +1077,23 @@ def count_segment_chunks() -> list:
     return counter
 
 
+def planned(s, sql: str):
+    """The physical plan the session's next execution of `sql` takes: the
+    planner with plan feedback's hints (as Session._plan_select plans) and
+    the push-down decision Session._acquire_plan reads from the feedback
+    store for the statement's digest. The launch checks hold each run to
+    this plan, taken just before the run."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner import feedback as fb
+
+    stmt = parse(sql)[0]
+    apd = None
+    if s._fb_enabled() and s._agg_push_down():
+        if fb.STORE.apd_decision(s._stmt_digest(stmt, sql)[1]) is False:
+            apd = False
+    return s._plan_select(stmt, agg_push_down=apd)
+
+
 def run_query(session, mods, sql: str):
     """One run with the kernels' launch counters, the join's probe-route
     counter and the pipeline's and segment store's counters zeroed just
@@ -1174,10 +1239,9 @@ def packed_batch_phase(torch, np, Session, mods, agg_chunks) -> dict:
     out["agg"] = {"counts": cnt, "seconds": dt}
     join_sql = ("select count(*), sum(dim.w), sum(big.v) from big join dim "
                 "on big.k = dim.k where big.c <> 'RAIL'")
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import explain_text
 
-    plan = s._plan_select(parse(join_sql)[0])
+    plan = planned(s, join_sql)
     agg_chunks[0] = 0
     rows, cnt, dt = run_query(s, mods, join_sql)
     hit = (k < nd) & (c != cvals.index("RAIL"))
@@ -1339,7 +1403,6 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
     (default sysvars), the classic raw path, and packed batches over a
     table of `new_session()`; every result against numpy, every launch
     contract checked. Returns what phases 3 and the report read."""
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import explain_text
     from tidb_tpu_torch.storage.tpch_queries import Q
 
@@ -1358,7 +1421,7 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
         qname = run.split("_")[0]
         # the plan this run executes: segment stores built by earlier runs
         # feed the planner's statistics, so it is taken just before
-        plans[qname] = s._plan_select(parse(Q[qname][0])[0])
+        plans[qname] = planned(s, Q[qname][0])
         want = plan_fragments(plans[qname], s._plan_capacity(plans[qname]))
         if qname in ("q1", "q6") and want["agg"] != 1:
             raise AssertionError(f"{qname}'s plan has no fused segment aggregation")
@@ -1425,13 +1488,16 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
     classic, classic_counts = {}, {}
     for qname in queries:
         agg_chunks[0] = 0
+        # its own plan, taken just before: plan feedback may have moved it
+        # since the fused run (the push-down exploration, join hints)
+        plan = planned(s, Q[qname][0])
+        want = plan_fragments(plan, s._plan_capacity(plan))
         rows, cnt, dt = run_query(s, mods, Q[qname][0])
         cnt["aggregated_chunks"] = agg_chunks[0]
         classic[qname], classic_counts[qname] = rows, cnt
         log(f"{qname} (classic): {dt:.3f} s; launches {cnt['launches']}; probe routes "
             f"{cnt['routes']}; fused {cnt['fused']}; aggregated chunks {agg_chunks[0]}; "
             f"device generic runs {cnt['generic_runs']}")
-        want = per_query[qname]["want"]
         check_path(qname, cnt, agg_chunks[0],
                    frags(generic_classic=want["generic"] + want["generic_classic"]))
         if cnt["segments"]["scanned"] or cnt["staged_batches"]:
@@ -1664,13 +1730,12 @@ def phase_grid(torch, np, Session, mods) -> dict:
 
 def grid_pass(s, mods, oracle, generic, label) -> dict:
     """One pass of the 22 queries; see phase_grid."""
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import explain_text
     from tidb_tpu_torch.storage.tpch_queries import Q
 
     out = {}
     for name, (sql, osql) in Q.items():
-        plan = s._plan_select(parse(sql)[0])
+        plan = planned(s, sql)
         want = plan_fragments(plan, s._plan_capacity(plan))
         rows, cnt, dt = run_query(s, mods, sql)
         expect = oracle.execute(osql or sql).fetchall()
@@ -1985,10 +2050,9 @@ def launches_of(mods) -> dict:
 
 
 def access_leaf(s, sql):
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import PScan
 
-    node = s._plan_select(parse(sql)[0])
+    node = planned(s, sql)
     while node.children and not isinstance(node, PScan):
         node = node.children[0]
     return node
@@ -2020,7 +2084,6 @@ def point_get(np, s, model, key, step, label):
 def lineitem_range(np, s, model, lo, hi, step, label, eq=False):
     """Lineitems of orders lo..hi (BETWEEN), or of order lo alone (the
     composite key's equality prefix), against the model."""
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import explain_text
 
     where = f"l_orderkey = {lo}" if eq else f"l_orderkey between {lo} and {hi}"
@@ -2036,7 +2099,7 @@ def lineitem_range(np, s, model, lo, hi, step, label, eq=False):
                       li.data["l_quantity"][m].tolist()))
     if [(a, b, _scaled(c)) for a, b, c in rows] != want:
         raise AssertionError(f"{label}: {len(rows)} lineitems vs numpy {len(want)}")
-    plan = explain_text(s._plan_select(parse(sql)[0]))
+    plan = explain_text(planned(s, sql))
     step["lookups"].append({"what": label, "s": dt, "rows": len(rows),
                             "access": type(leaf).__name__, "plan": plan})
     log(f"refresh lookup {label}: {type(leaf).__name__}, {dt * 1e3:.3f} ms, "
@@ -2527,7 +2590,6 @@ def phase_schema(torch, np, s, mods, sf: float = 1.0) -> dict:
 
 def schema_steps(np, s, mods, sf: float) -> dict:
     """The three parts of phase_schema, in order; returns their reports."""
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import PPartitionScan, explain_text
     from tidb_tpu_torch.session import Session
     from tidb_tpu_torch.storage import tpch_refresh as rf
@@ -2562,7 +2624,7 @@ def schema_steps(np, s, mods, sf: float) -> dict:
         ("q3", Q["q3"][0].replace("lineitem", "li_part"), model),
     ]
     for qname, sql, m in cases:
-        plan = s._plan_select(parse(sql)[0])
+        plan = planned(s, sql)
         want = plan_fragments(plan, s._plan_capacity(plan))
         parts = [n for n in _walk(plan) if isinstance(n, PPartitionScan)]
         if qname != "q3" and (len(parts) != 1 or parts[0].part_names != ("p0",)):
@@ -2742,11 +2804,10 @@ def stats_fresh(t) -> bool:
 
 def five_plans(s) -> dict:
     """The plans of Q1, Q6, Q3, Q5 and Q18 as the planner makes them now."""
-    from tidb_tpu_torch.parser import parse
     from tidb_tpu_torch.planner.physical import explain_text
     from tidb_tpu_torch.storage.tpch_queries import Q
 
-    return {q: explain_text(s._plan_select(parse(Q[q][0])[0])) for q in REFRESH_QUERIES}
+    return {q: explain_text(planned(s, Q[q][0])) for q in REFRESH_QUERIES}
 
 
 def plan_shape(text: str) -> list:
@@ -3148,7 +3209,9 @@ def phase_window(np, s, mods) -> dict:
 # DATA, TEMPORARY over the wire, information_schema, DROP DATABASE ---------
 
 STORAGE_DB = "stage"
-TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 10_000, 1_000, 1_000
+# the trickle's INSERT counts (10,000 and 1,000 before the planner phase
+# took its share of the script's time limit)
+TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 5_000, 500, 1_000
 PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 STORAGE_AGG = ("select o_orderpriority, count(*), sum(o_totalprice) from {t} "
                "group by o_orderpriority order by o_orderpriority")
@@ -3710,6 +3773,44 @@ def phase_server(torch, np, s, mods, warm_s) -> dict:
     """The port's MySQL-protocol server over the SF1 catalog of `s`
     (phase_server in the module docstring). Every step fails the run on
     a wrong answer; returns the report."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = s.catalog
+    rep = {"card": card_line()}
+    t_phase = time.perf_counter()
+    # the phase holds each wire statement's launches to a solo run's, so it
+    # needs a fixed plan: it pins the eager-aggregation push-down with the
+    # sysvar (a user's tidb_opt_agg_push_down = 0 is never overridden by
+    # plan feedback's measured push-down decision, which would otherwise
+    # alternate Q18's plans while it explores), and runs each query until
+    # two runs in a row take the same plan, so the feedback store's join
+    # hints have settled before the compared runs
+    s.execute("set global tidb_opt_agg_push_down = 0")
+    rep["pinned"] = {"tidb_opt_agg_push_down": 0, "settle_runs": {}}
+    try:
+        for q in REFRESH_QUERIES:
+            rep["pinned"]["settle_runs"][q] = settle_plan(s, Q[q][0])
+        log(f"server: plan pinned by tidb_opt_agg_push_down = 0; runs until the plan "
+            f"settled: {rep['pinned']['settle_runs']}")
+        return _phase_server(torch, np, s, mods, warm_s, rep, t_phase)
+    finally:
+        s.execute("set global tidb_opt_agg_push_down = 1")
+
+
+def settle_plan(s, sql: str, most: int = 5) -> int:
+    """Run `sql` until two runs in a row take the same plan (plan feedback
+    reshapes a plan from the cardinalities its runs record); returns the
+    runs it took."""
+    last = None
+    for n in range(1, most + 1):
+        s.query(sql)
+        if s._last_plan_digest == last:
+            return n
+        last = s._last_plan_digest
+    raise AssertionError(f"the plan of {sql[:60]!r} did not settle in {most} runs")
+
+
+def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
     import signal
     import threading
     import urllib.request
@@ -3722,8 +3823,6 @@ def phase_server(torch, np, s, mods, warm_s) -> dict:
 
     seg_mod, hp, jk, pl, st, agg_mod = mods
     cat = s.catalog
-    rep = {"card": card_line()}
-    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     srv = Server(catalog=cat, host="127.0.0.1", port=0, status_port=0, device="cuda")
     srv.start()
@@ -3995,6 +4094,482 @@ def phase_server(torch, np, s, mods, warm_s) -> dict:
     log(f"server entry point: python -m tidb_tpu_torch up and answering Q6 at "
         f"SF0.01 in {up:.3f} s, SIGINT exit 0; phase {rep['s']:.1f} s")
     return rep
+
+
+# ---------------------------------------------------------------------------
+# phase_planner: spill and memory accounting, plan feedback, the cascades
+# memo, the index join and SQL bindings
+# ---------------------------------------------------------------------------
+
+# the statement budget of the spill steps. 64 MB would be below Q18's three
+# hash-join builds alone at SF1 (charged to `hashjoin.build`, which cannot
+# spill), in the reference as in the port (at SF0.1 both give QueryOOMError
+# under 6.4 MB and spill under 20 MB and up), so the phase takes 256 MB: the
+# builds fit, and lineitem grouped by order (the host generic aggregation's
+# raw runs) and the sort's runs do not
+SPILL_QUOTA = "256 MB"
+SORT_SQL = ("select {hint}l_orderkey, l_linenumber, l_extendedprice from lineitem "
+            "order by l_extendedprice desc, l_orderkey, l_linenumber")
+TILE_DUPS = 16  # build rows per key of the many-to-many join
+INDEX_JOIN_DATE = "1995-03-15"
+INDEX_JOIN_SQL = ("select count(*), sum(l_extendedprice) from customer join orders "
+                  "on c_custkey = o_custkey join lineitem on l_orderkey = o_orderkey "
+                  f"where o_orderdate = '{INDEX_JOIN_DATE}'")
+
+
+@contextlib.contextmanager
+def statement_trackers(s):
+    """The memory trackers of the statements `s` runs inside the block (the
+    session's exec contexts, spied)."""
+    seen = []
+    orig = s._exec_ctx
+
+    def spy(**kw):
+        ctx = orig(**kw)
+        seen.append(ctx)
+        return ctx
+
+    s._exec_ctx = spy
+    try:
+        yield seen
+    finally:
+        del s._exec_ctx
+
+
+def planner_step(s, mods, sql, label, step_log, check=None):
+    """One statement with the kernels' counters set to 0 just before it and
+    read just after, its trackers and spill bytes; raises what it raised
+    after recording it. Every tracker must end at consumed 0."""
+    from tidb_tpu_torch.utils import dispatch
+
+    seg_mod, hp = mods[0], mods[1]
+    seg_mod.reset_launches()
+    hp.reset_launches()
+    sp0 = dispatch.spill_bytes()
+    rec = {"label": label}
+    t0 = time.perf_counter()
+    err = rows = None
+    with statement_trackers(s) as ctxs:
+        try:
+            rows = s.query(sql)
+        except Exception as e:  # noqa: BLE001 — recorded, re-raised below
+            err = e
+    rec["s"] = time.perf_counter() - t0
+    rec["launches"] = launches_of(mods)
+    rec["spill_bytes"] = dispatch.spill_bytes() - sp0
+    rec["max_consumed"] = max((c.mem_tracker.max_consumed for c in ctxs), default=0)
+    rec["consumed_after"] = [c.mem_tracker.consumed for c in ctxs]
+    rec["join_tiles"] = [c.join_tiles for c in ctxs]
+    rec["error"] = None if err is None else f"{type(err).__name__}: {err}"
+    rec["rows"] = None if rows is None else len(rows)
+    step_log.append(rec)
+    log(f"planner {label}: {rec['s']:.3f} s; launches segagg "
+        f"{rec['launches']['segagg']} probe_count {rec['launches']['probe_count']}; "
+        f"spill_bytes {rec['spill_bytes']}; max_consumed {rec['max_consumed']}; "
+        f"consumed after {rec['consumed_after']}"
+        + (f"; {rec['error']}" if err is not None else f"; {rec['rows']} rows"))
+    if any(rec["consumed_after"]):
+        raise AssertionError(f"planner {label}: a tracker ends at "
+                             f"{rec['consumed_after']}, not 0")
+    if err is not None:
+        raise err
+    if check is not None:
+        check(rows)
+    return rows, rec
+
+
+def modeled_cost(s, sql: str, cascades: bool) -> float:
+    """The sum of the modeled intermediate join cardinalities of the
+    optimized logical plan of `sql`: the join-order search's cost."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner.binder import Binder
+    from tidb_tpu_torch.planner.logical import BuildContext, LJoin, build_select
+    from tidb_tpu_torch.planner.physical import _estimate, eq_join_rows
+    from tidb_tpu_torch.planner.rules import optimize_logical
+
+    total = 0.0
+    stack = [optimize_logical(build_select(parse(sql)[0], BuildContext(
+        catalog=s.catalog, db="test", binder=Binder(),
+        execute_subplan=s._execute_subplan)), cascades=cascades)]
+    while stack:
+        p = stack.pop()
+        stack.extend(getattr(p, "children", []))
+        if isinstance(p, LJoin) and p.kind in ("inner", "cross"):
+            l, r = p.children
+            total += float(eq_join_rows(l, r, p.eq_conds, _estimate(l), _estimate(r))
+                           if p.eq_conds else _estimate(l) * _estimate(r))
+    return total
+
+
+def numpy_sorted_lineitem(np, li):
+    """ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber over the
+    model's live lineitem rows: (orderkey, linenumber, scaled price)."""
+    ok, ln, pr = (li.data[c] for c in ("l_orderkey", "l_linenumber", "l_extendedprice"))
+    order = np.lexsort((ln, ok, -pr))
+    return ok[order], ln[order], pr[order]
+
+
+def check_sorted(np, rows, want):
+    """The sort's rows against numpy: the length, the first and last 1,000
+    rows exactly, every row's (orderkey, linenumber) in order, and the
+    price of every 1,009th row."""
+    ok, ln, pr = want
+    n = len(ok)
+    if len(rows) != n:
+        raise AssertionError(f"sort: {len(rows)} rows, numpy has {n}")
+    for i in list(range(min(1000, n))) + list(range(max(n - 1000, 0), n)):
+        g = rows[i]
+        if (g[0], g[1], _scaled(g[2])) != (int(ok[i]), int(ln[i]), int(pr[i])):
+            raise AssertionError(f"sort row {i}: {g} vs numpy "
+                                 f"{(int(ok[i]), int(ln[i]), int(pr[i]))}")
+    gok = np.fromiter((r[0] for r in rows), np.int64, n)
+    gln = np.fromiter((r[1] for r in rows), np.int64, n)
+    if not (np.array_equal(gok, ok) and np.array_equal(gln, ln)):
+        bad = int(np.nonzero((gok != ok) | (gln != ln))[0][0])
+        raise AssertionError(f"sort: row {bad} is {rows[bad]}, numpy "
+                             f"({int(ok[bad])}, {int(ln[bad])})")
+    for i in range(0, n, 1009):
+        if _scaled(rows[i][2]) != int(pr[i]):
+            raise AssertionError(f"sort row {i}: price {rows[i][2]} vs numpy {int(pr[i])}")
+
+
+@contextlib.contextmanager
+def plans_run(s):
+    """The physical plans `s` acquires for the statements it runs inside
+    the block (Session._acquire_plan, spied): the plans actually run."""
+    ran = []
+    orig = s._acquire_plan
+
+    def acquire(stmt, agg_push_down=None):
+        plan = orig(stmt, agg_push_down)
+        ran.append(plan)
+        return plan
+
+    s._acquire_plan = acquire
+    try:
+        yield ran
+    finally:
+        del s._acquire_plan
+
+
+def phase_planner(torch, np, s, mods) -> dict:
+    """Spill and memory accounting, plan feedback, the cascades memo, the
+    index join and SQL bindings at SF1 on the session `s` (item 8 of the
+    module docstring). Every step fails the run on a wrong answer; returns
+    the report."""
+    import tempfile
+    import urllib.request
+
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.planner import feedback as fb
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils.memory import QueryOOMError
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    cat = s.catalog
+    s.execute("use test")
+    rep = {"card": card_line(), "steps": [], "spill_quota": SPILL_QUOTA}
+    steps = rep["steps"]
+    t_phase = time.perf_counter()
+    model = ArrayModel(np, cat)
+    li = model.table("test", "lineitem")
+    q18 = Q["q18"][0]
+    q18_want = numpy_q18(np, model)[0]
+    hinted = f"/*+ MEMORY_QUOTA({SPILL_QUOTA}) */ "
+
+    # -- 1. spill ---------------------------------------------------------
+    spill_dir = os.path.abspath(os.path.join("build", "planner_spill"))
+    os.makedirs(spill_dir, exist_ok=True)
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = spill_dir
+    try:
+        s.execute("set tidb_device_engine_mode = 'off'")
+        q18_off = q18.replace("select", "select " + hinted, 1)
+        _, r_off = planner_step(
+            s, mods, q18_off, "q18 engine off under quota", steps,
+            check=lambda rows: check_join_rows("q18", rows, q18_want, {4, 5}))
+        if r_off["spill_bytes"] <= 0:
+            raise AssertionError(f"Q18 under {SPILL_QUOTA} did not spill: {r_off}")
+        _, r_off_free = planner_step(
+            s, mods, q18, "q18 engine off, no quota", steps,
+            check=lambda rows: check_join_rows("q18", rows, q18_want, {4, 5}))
+        s.execute("set tidb_device_engine_mode = 'auto'")
+        want_sorted = numpy_sorted_lineitem(np, li)
+        _, r_sort = planner_step(s, mods, SORT_SQL.format(hint=hinted),
+                                 "order by under quota", steps,
+                                 check=lambda rows: check_sorted(np, rows, want_sorted))
+        if r_sort["spill_bytes"] <= 0:
+            raise AssertionError(f"the ORDER BY under {SPILL_QUOTA} did not spill")
+        _, r_sort_free = planner_step(s, mods, SORT_SQL.format(hint=""),
+                                      "order by, no quota", steps,
+                                      check=lambda rows: check_sorted(np, rows, want_sorted))
+        try:
+            planner_step(s, mods, q18.replace("select", "select " + hinted, 1),
+                         "q18 default mode under quota", steps,
+                         check=lambda rows: check_join_rows("q18", rows, q18_want, {4, 5}))
+            rep["q18_default_under_quota"] = "completed"
+        except QueryOOMError:
+            rep["q18_default_under_quota"] = "QueryOOMError"
+        s.execute("set tidb_enable_tmp_storage_on_oom = OFF")
+        try:
+            planner_step(s, mods, SORT_SQL.format(hint=hinted),
+                         "order by under quota, spill off", steps)
+            raise AssertionError("the ORDER BY with spilling off did not raise "
+                                 "QueryOOMError")
+        except QueryOOMError:
+            pass
+        finally:
+            s.execute("set tidb_enable_tmp_storage_on_oom = 1")
+        left = [n for n in os.listdir(spill_dir) if n.startswith("tidb_tpu_spill_")]
+        if left:
+            raise AssertionError(f"spill files left behind: {left}")
+    finally:
+        tempfile.tempdir = saved_tmp
+        s.execute("set tidb_device_engine_mode = 'auto'")
+    rep["spill"] = {"q18_off_s": r_off["s"], "q18_off_free_s": r_off_free["s"],
+                    "sort_s": r_sort["s"], "sort_free_s": r_sort_free["s"],
+                    "q18_off_spill_bytes": r_off["spill_bytes"],
+                    "sort_spill_bytes": r_sort["spill_bytes"]}
+    log(f"planner spill: Q18 (engine off) {r_off['s']:.3f} s under {SPILL_QUOTA} "
+        f"({r_off['spill_bytes']} B spilled) against {r_off_free['s']:.3f} s without; "
+        f"ORDER BY {r_sort['s']:.3f} s ({r_sort['spill_bytes']} B spilled) against "
+        f"{r_sort_free['s']:.3f} s; Q18 in the default mode under the quota: "
+        f"{rep['q18_default_under_quota']}; no spill file left")
+
+    # -- 2. plan feedback -------------------------------------------------
+    # the push-down protocol measures warm runs, which come from the plan
+    # cache: the step turns the text statements' plan cache on (and off
+    # again), and starts from an empty feedback store
+    fb.STORE.on_schema_change()
+    s.execute("set tidb_enable_non_prepared_plan_cache = 1")
+    digest = s._stmt_digest(parse(q18)[0], q18)[1]
+    rep["feedback"] = []
+    agg_chunks = count_segment_chunks()
+    try:
+        for i in range(4):
+            before = fb.STORE.apd_decision(digest)
+            agg_chunks[0] = 0
+            with plans_run(s) as ran:
+                rows, c, dt = run_query(s, mods, q18)
+            plan = ran[-1]
+            check_path(f"q18 feedback run {i + 1}", c, agg_chunks[0],
+                       plan_fragments(plan, s._plan_capacity(plan)))
+            check_join_rows("q18", rows, q18_want, {4, 5})
+            eager = has_eager_partial(plan)
+            entry = {"run": i + 1, "s": dt, "decision_before": before,
+                     "agg_push_down": s._fb_last_apd, "eager_partial": eager,
+                     "decision_after": fb.STORE.apd_decision(digest),
+                     "from_plan_cache": bool(s.sysvars.get("last_plan_from_cache")),
+                     "launches": c["launches"], "plan": explain_text(plan)}
+            rep["feedback"].append(entry)
+            log(f"planner feedback Q18 run {i + 1}: {dt:.3f} s; push-down decision "
+                f"{before} -> plan {'with' if eager else 'without'} the eager partial "
+                f"(agg_push_down {s._fb_last_apd}, plan cache "
+                f"{entry['from_plan_cache']}); decision now {entry['decision_after']}; "
+                f"rows equal numpy; probe_count {c['launches']['probe_count']}, segagg "
+                f"{c['launches']['segagg']}")
+        if not rep["feedback"][0]["eager_partial"] or rep["feedback"][1]["eager_partial"]:
+            raise AssertionError("Q18's first run did not push the eager partial, or "
+                                 "the second did not explore the plan without it: "
+                                 f"{[e['eager_partial'] for e in rep['feedback']]}")
+    finally:
+        s.execute("set tidb_enable_non_prepared_plan_cache = 0")
+
+    # information_schema.plan_feedback in process and over /plan_feedback
+    srv = Server(catalog=cat, host="127.0.0.1", port=0, status_port=0, device="cuda")
+    srv.start()
+    try:
+        doc = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.status_port}/plan_feedback?top=1000", timeout=60).read())
+    finally:
+        srv.shutdown(drain=True)
+    rows = s.query("select digest, plan_digest, variant, execs from "
+                   "information_schema.plan_feedback")
+    in_process = {tuple(r) for r in rows}
+    over_http = {(d["digest"], v["plan_digest"], "push" if v["agg_push_down"] else "no_push",
+                  v["execs"]) for d in doc["digests"] for v in d["variants"]}
+    if not in_process or in_process != over_http:
+        raise AssertionError(f"plan_feedback: {sorted(in_process)[:4]} in process, "
+                             f"{sorted(over_http)[:4]} over /plan_feedback")
+    rep["plan_feedback_rows"] = len(rows)
+    log(f"planner: information_schema.plan_feedback ({len(rows)} rows, "
+        f"{len(in_process)} variants) equals /plan_feedback")
+
+    # EXPLAIN ANALYZE of Q3: the est and drift columns
+    ea = s.execute("explain analyze " + Q["q3"][0]).rows
+    head = ea[0][0]
+    if not all(c in head for c in ("estRows", "actRows", "drift")):
+        raise AssertionError(f"EXPLAIN ANALYZE's header lacks est/drift: {head}")
+    drifts = [ln[0][head.index("drift"):head.index("time")].strip() for ln in ea[1:-1]]
+    if not any(re.fullmatch(r"\d+\.\d\d", d) for d in drifts):
+        raise AssertionError(f"EXPLAIN ANALYZE of Q3 shows no drift: {drifts}")
+    rep["q3_explain_analyze"] = [r[0] for r in ea]
+    log("planner: EXPLAIN ANALYZE of Q3 with est and drift columns:\n"
+        + "\n".join(r[0] for r in ea))
+
+    # a many-to-many join whose fused probe overflows its first tile: the
+    # second run's join_tiles comes from the tile hint
+    s.execute("create table planner_dup (k bigint, v bigint)")
+    try:
+        cat.table("test", "planner_dup").insert_columns({
+            "k": np.zeros(TILE_DUPS, dtype=np.int64),
+            "v": np.arange(1, TILE_DUPS + 1, dtype=np.int64)})
+        o = model.table("test", "orders")
+        if not (o.data["o_shippriority"] == 0).all():
+            raise AssertionError("o_shippriority is not 0 throughout")
+        n_o = o.n
+        tile_sql = ("select count(*), sum(v), sum(o_totalprice) from orders join "
+                    "planner_dup on o_shippriority = k")
+        want = (n_o * TILE_DUPS, n_o * TILE_DUPS * (TILE_DUPS + 1) // 2,
+                int(o.data["o_totalprice"].sum()) * TILE_DUPS)
+        expands = [0]
+        real_expand = jk.expand_tiles
+
+        def counted_expand(*a, **kw):
+            expands[0] += 1
+            return real_expand(*a, **kw)
+
+        jk.expand_tiles = counted_expand
+        rep["tiles"] = []
+        try:
+            for i in range(2):
+                expands[0] = 0
+                pl.reset_counters()
+                rows, r = planner_step(s, mods, tile_sql, f"many-to-many join run {i + 1}",
+                                       steps)
+                got = (rows[0][0], int(rows[0][1]), _scaled(rows[0][2]))
+                if got != want:
+                    raise AssertionError(f"many-to-many join {got} vs numpy {want}")
+                if pl.PIPELINE_FUSED_TOTAL["probe"] != 1:
+                    raise AssertionError(f"the many-to-many join did not probe fused: "
+                                         f"{pl.PIPELINE_FUSED_TOTAL}")
+                r["expand_calls"] = expands[0]
+                rep["tiles"].append(r)
+                log(f"planner many-to-many run {i + 1}: join_tiles {r['join_tiles']}, "
+                    f"{expands[0]} expand calls, launches {r['launches']}; equals numpy")
+        finally:
+            jk.expand_tiles = real_expand
+        t1, t2 = rep["tiles"]
+        if not (max(t2["join_tiles"]) > max(t1["join_tiles"])
+                and t2["expand_calls"] < t1["expand_calls"]):
+            raise AssertionError(f"the tile hint did not raise join_tiles: "
+                                 f"{t1['join_tiles']} -> {t2['join_tiles']}, expand "
+                                 f"calls {t1['expand_calls']} -> {t2['expand_calls']}")
+    finally:
+        s.execute("drop table planner_dup")
+
+    # -- 3. the cascades memo ---------------------------------------------
+    rep["cascades"] = {}
+    for q in ("q3", "q5"):
+        sql = Q[q][0]
+        greedy_cost = modeled_cost(s, sql, cascades=False)
+        memo_cost = modeled_cost(s, sql, cascades=True)
+        s.execute("set tidb_enable_cascades_planner = 1")
+        try:
+            plan = explain_text(planned(s, sql))
+            rows, r = planner_step(s, mods, sql, f"{q} under the memo", steps)
+        finally:
+            s.execute("set tidb_enable_cascades_planner = 0")
+        check_join_rows(q, rows, (numpy_q3 if q == "q3" else numpy_q5)(np, model), {1})
+        if memo_cost > greedy_cost * 1.0001:
+            raise AssertionError(f"{q}: the memo's plan costs {memo_cost}, greedy "
+                                 f"{greedy_cost}")
+        rep["cascades"][q] = {"memo_cost": memo_cost, "greedy_cost": greedy_cost,
+                              "plan": plan, **r}
+        log(f"planner cascades {q}: equals numpy; modeled cost {memo_cost:.1f} against "
+            f"greedy {greedy_cost:.1f}; plan:\n{plan}")
+
+    # -- 4. IndexJoinExec -------------------------------------------------
+    d = _days(np, INDEX_JOIN_DATE)
+    keys = o.data["o_orderkey"][o.data["o_orderdate"] == d]
+    hit = np.isin(li.data["l_orderkey"], keys)
+    ij_want = (int(hit.sum()), int(li.data["l_extendedprice"][hit].sum()))
+    s.execute("set tidb_enable_cascades_planner = 1")
+    try:
+        ij_plan = [r[0] for r in s.query("explain " + INDEX_JOIN_SQL)]
+        if not any("IndexJoin" in ln for ln in ij_plan):
+            raise AssertionError("the memo did not plan IndexJoin:\n" + "\n".join(ij_plan))
+        rows, r_ij = planner_step(s, mods, INDEX_JOIN_SQL, "index join", steps)
+    finally:
+        s.execute("set tidb_enable_cascades_planner = 0")
+    rows_h, r_hash = planner_step(s, mods, INDEX_JOIN_SQL, "the same join, hashed", steps)
+    for label, got in (("index join", rows), ("hash join", rows_h)):
+        if (got[0][0], _scaled(got[0][1])) != ij_want:
+            raise AssertionError(f"{label} {got} vs numpy {ij_want}")
+    rep["index_join"] = {"orders": int(len(keys)), "plan": ij_plan, "s": r_ij["s"],
+                         "hash_s": r_hash["s"], "launches": r_ij["launches"],
+                         "hash_launches": r_hash["launches"]}
+    log(f"planner index join over {len(keys)} orders of {INDEX_JOIN_DATE}: "
+        f"{r_ij['s'] * 1e3:.3f} ms against {r_hash['s'] * 1e3:.3f} ms hashed; both "
+        f"equal numpy; plan:\n" + "\n".join(ij_plan))
+
+    # -- 5. SQL bindings --------------------------------------------------
+    q3 = Q["q3"][0]
+    default = explain_text(planned(s, q3))
+    bound_sql = None
+    for order in ("lineitem, orders, customer", "orders, lineitem, customer",
+                  "customer, orders, lineitem", "orders, customer, lineitem"):
+        cand = q3.replace("select", f"select /*+ LEADING({order}) */", 1)
+        if plan_shape(explain_text(planned(s, cand))) != plan_shape(default):
+            bound_sql = cand
+            break
+    if bound_sql is None:
+        raise AssertionError("no LEADING order changes Q3's plan")
+    want_bound = plan_shape(explain_text(planned(s, bound_sql)))
+    s.execute(f"create global binding for {q3} using {bound_sql}")
+    try:
+        shown = "\n".join(r[0] for r in s.query("explain " + q3))
+        with plans_run(s) as ran:
+            rows, r_b = planner_step(s, mods, q3, "q3 under the binding", steps)
+        check_join_rows("q3", rows, numpy_q3(np, model), {1})
+        if not (plan_shape(shown) == plan_shape(explain_text(ran[-1])) == want_bound
+                != plan_shape(default)):
+            raise AssertionError(f"the binding did not give Q3 the hinted plan:\n{shown}")
+    finally:
+        s.execute(f"drop global binding for {q3}")
+    after = "\n".join(r[0] for r in s.query("explain " + q3))
+    if plan_shape(after) != plan_shape(default):
+        raise AssertionError(f"DROP BINDING did not restore Q3's plan:\n{after}")
+    rows, r_u = planner_step(s, mods, q3, "q3 after DROP BINDING", steps)
+    check_join_rows("q3", rows, numpy_q3(np, model), {1})
+    rep["binding"] = {"hint": bound_sql.split("*/")[0].strip() + " */", "default": default,
+                      "bound": shown, "s": r_b["s"], "launches": r_b["launches"]}
+    log(f"planner binding: {rep['binding']['hint']} changes Q3's plan and not its rows "
+        f"({r_b['s']:.3f} s); DROP restores it. Bound plan:\n{shown}")
+
+    launches = {}
+    for r in steps:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for e in rep["feedback"]:
+        for k, v in e["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rep["launches"] = launches
+    if not launches.get("segagg") or not launches.get("probe_count"):
+        raise AssertionError(f"the planner phase missed a kernel of its path: {launches}")
+    if launches.get("hash_probe") or launches.get("segsum_count") \
+            or launches.get("segsum_i64"):
+        raise AssertionError(f"the planner phase launched an off-path entry: {launches}")
+    rep["s"] = time.perf_counter() - t_phase
+    return rep
+
+
+def has_eager_partial(plan) -> bool:
+    """Does the physical plan carry an eager-aggregation partial (an
+    aggregation whose outputs carry the rule's derived `eagg.` uids, as
+    plan feedback's harvest reads it)?"""
+    from tidb_tpu_torch.planner.physical import PHashAgg
+
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, PHashAgg) and any(a.uid.startswith("eagg.")
+                                              for a in node.aggs):
+            return True
+        stack.extend(node.children)
+    return False
 
 
 def main() -> int:
@@ -4323,6 +4898,9 @@ def main() -> int:
     storage = with_probe_modes(hp, lambda: phase_storage(torch, np, s, mods))
     log(f"storage phase passed in {storage['s']:.1f} s; launches {storage['launches']}; "
         f"probe_count by route and mode {storage['probe_modes']}")
+    planner = with_probe_modes(hp, lambda: phase_planner(torch, np, s, mods))
+    log(f"planner phase passed in {planner['s']:.1f} s; launches {planner['launches']}; "
+        f"probe_count by route and mode {planner['probe_modes']}")
     by_mode = refresh["probe_modes"]
     for row in rows:
         if row["name"].startswith("probe_count."):
@@ -4337,7 +4915,8 @@ def main() -> int:
         else:
             row["launches_schema"] = schema["launches"].get(row["name"], 0)
         for key, rep in (("launches_stats", stats_report), ("launches_window", window),
-                         ("launches_server", server), ("launches_storage", storage)):
+                         ("launches_server", server), ("launches_storage", storage),
+                         ("launches_planner", planner)):
             row[key] = (rep["probe_modes"].get(mode, 0)
                         if row["name"].startswith("probe_count.")
                         else rep["launches"].get(row["name"], 0))
@@ -4359,7 +4938,8 @@ def main() -> int:
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
               "schema": schema, "stats": stats_report, "window": window,
-              "server": server, "storage": storage, "kernels": rows}
+              "server": server, "storage": storage, "planner": planner,
+              "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -749,3 +749,74 @@ def test_temporary_fused_scan_beside_permanent_in_another_session(card):
         assert sum(r[1] for r in got_b) == 15_000
     a.catalog.drop_temp_tables()
     assert a.query(sql) == want_perm
+
+
+def test_spilled_sort_and_aggregation_on_card_equal_the_plain_path(card):
+    """Under a MEMORY_QUOTA that forces a spill, an ORDER BY over lineitem
+    and the host generic aggregation on the card equal the CPU session's
+    unspilled rows; the statements spill and every tracker ends at 0."""
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.utils import dispatch
+
+    cat = _tpch_card_catalog()
+    s = Session(cat, chunk_capacity=4096)
+    on_cpu = Session(cat, device="cpu", chunk_capacity=4096)
+    sort = ("select {h}l_orderkey, l_linenumber, l_extendedprice from lineitem "
+            "order by l_extendedprice desc, l_orderkey, l_linenumber")
+    agg = ("select {h}l_orderkey, count(*), sum(l_quantity), max(l_extendedprice) "
+           "from lineitem group by l_orderkey order by l_orderkey")
+    s.execute("set tidb_device_engine_mode = 'off'")
+    for sql in (sort, agg):
+        trackers = []
+        orig = s._exec_ctx
+
+        def spy(**kw):
+            ctx = orig(**kw)
+            trackers.append(ctx.mem_tracker)
+            return ctx
+
+        s._exec_ctx = spy
+        sp0 = dispatch.spill_bytes()
+        got = s.query(sql.format(h="/*+ MEMORY_QUOTA(256 KB) */ "))
+        del s._exec_ctx
+        assert dispatch.spill_bytes() > sp0
+        assert got == on_cpu.query(sql.format(h=""))
+        assert trackers and all(t.consumed == 0 for t in trackers)
+
+
+def test_fused_probe_under_raised_join_tiles_equals_plain_probe(card):
+    """A many-to-many join whose fused probe overflows its first tile:
+    plan feedback records the overflow, the second run's join_tiles is
+    raised by the tile hint, and both runs equal the CPU session's rows
+    (the plain probe_count path)."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.planner import feedback as fb
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+
+    fb.STORE.on_schema_change()
+    cat = Catalog()
+    s = Session(cat, chunk_capacity=4096)
+    on_cpu = Session(cat, device="cpu", chunk_capacity=4096)
+    s.execute("create table dup (k bigint, v bigint)")
+    k = np.arange(20000, dtype=np.int64)
+    cat.table("test", "dup").insert_columns({"k": k % 200, "v": k})
+    sql = ("select a.k, count(*), sum(b.v) from dup a join dup b on a.k = b.k "
+           "group by a.k order by a.k")
+    want = on_cpu.query(sql)
+    fb.STORE.on_schema_change()  # the CPU run's observations go
+    tiles = []
+    orig = s._exec_ctx
+
+    def spy(**kw):
+        ctx = orig(**kw)
+        tiles.append(ctx.join_tiles)
+        return ctx
+
+    s._exec_ctx = spy
+    for _ in range(2):
+        hp.reset_launches()
+        assert s.query(sql) == want
+        assert hp.LAUNCHES["probe_count"] > 0
+    assert tiles[0] == 8 and tiles[-1] > 8, tiles
+    fb.STORE.on_schema_change()

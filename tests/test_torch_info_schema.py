@@ -11,13 +11,14 @@ runtime tables (slow_query, statements_summary, processlist,
 cluster_trace, scheduler_stats, digest_latency) the same columns and
 the same rows where they do not carry times or ids of their own.
 
-Four tables read reference modules the port has not got (ROADMAP,
+Three tables read reference modules the port has not got (ROADMAP,
 intended divergences): dcn_worker_stats and cluster_info give the
 reference's columns and no rows, as the reference does with no live
 cluster; cluster_metrics gives this process's metrics as `coordinator`
-and the merged `fleet` rows, as the reference does with no fleet; a
-read of plan_feedback raises UnsupportedError naming ROADMAP Queue A
-item 5 (a listing still shows it with its columns).
+and the merged `fleet` rows, as the reference does with no fleet.
+plan_feedback reads each package's plan-feedback store and gives the
+same rows after the same statements, apart from the columns that carry
+times.
 """
 
 import numpy as np
@@ -25,7 +26,6 @@ import pytest
 
 from tidb_tpu.session import Session as JaxSession
 from tidb_tpu.storage.catalog import _INFO_TABLES as JAX_INFO_TABLES
-from tidb_tpu_torch.errors import UnsupportedError
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.catalog import _INFO_TABLES
 
@@ -61,12 +61,7 @@ def test_the_same_tables_and_columns():
     assert _INFO_TABLES == JAX_INFO_TABLES
     assert _listing(ps) == _listing(js) == [(n,) for n in sorted(_INFO_TABLES)]
     for name in _INFO_TABLES:
-        if name == "plan_feedback":
-            continue  # a read refuses (below); the listing has its columns
         assert _cols(ps, name) == _cols(js, name), name
-    jt = js.catalog.database("information_schema").tables["plan_feedback"]
-    pt = ps.catalog.database("information_schema").tables["plan_feedback"]
-    assert [c.name for c in pt.schema.columns] == [c.name for c in jt.schema.columns]
 
 
 _META = [
@@ -441,12 +436,39 @@ def test_cluster_metrics_without_a_fleet():
 
 
 def test_plan_feedback_read_refuses():
+    """information_schema.plan_feedback no longer refuses: after the same
+    statements in both packages it gives the same rows (the store's
+    digest, plan digest, variant, executions and per-operator estimates
+    and actuals; warm executions and best warm time carry the clock and
+    are left out). Both process-global stores start and end empty."""
+    from tidb_tpu.planner import feedback as jfb
+    from tidb_tpu_torch.planner import feedback as pfb
+
+    cols = ("digest, plan_digest, variant, execs, eager_partial, op, "
+            "est_rows, actual_rows, drift, op_execs")
+    stmts = ("select b, count(*), sum(a) from fb group by b order by b",
+             "select a from fb where b = 2 order by a",
+             "select count(*) from fb where a > 3")
     js, ps = new_pair()
-    with pytest.raises(UnsupportedError, match="Queue A, item 5"):
-        ps.query("select * from information_schema.plan_feedback")
-    assert isinstance(js.query("select * from information_schema.plan_feedback"), list)
-    # the listing still has it (SHOW TABLES, schema walks)
-    assert ("plan_feedback",) in _listing(ps)
+    js.execute("set tidb_device_engine_mode = 'force'")
+    pfb.STORE.on_schema_change()
+    jfb.STORE.on_schema_change()
+    try:
+        run_both(js, ps, [
+            "create table fb (a bigint, b bigint)",
+            "insert into fb values " + ",".join(
+                f"({i}, {i % 5})" for i in range(64))])
+        for sql in stmts * 2:
+            assert ps.query(sql) == js.query(sql)
+        q = f"select {cols} from information_schema.plan_feedback"
+        got, want = ps.query(q), js.query(q)
+        assert want and len(got) == len(want)
+        key = lambda r: tuple(str(v) for v in r)  # noqa: E731
+        assert sorted(got, key=key) == sorted(want, key=key)
+        assert ("plan_feedback",) in _listing(ps)
+    finally:
+        pfb.STORE.on_schema_change()
+        jfb.STORE.on_schema_change()
 
 
 def test_information_schema_is_world_readable():

@@ -49,7 +49,6 @@ _UNPORTED_FAMILIES = {
     "tidb_tpu_reshard_shards_total": "sharding/",
     "tidb_tpu_reshard_active": "sharding/",
     "tidb_tpu_membership_total": "parallel/membership.py",
-    "tidb_tpu_plan_est_drift": "planner/feedback.py",
 }
 
 _SETUP = ("set tidb_slow_log_threshold = 300000",

@@ -1,9 +1,8 @@
 """SQL plan bindings (a copy of tidb_tpu/bindinfo/__init__.py; ref:
 bindinfo/ — BindHandle: normalized-SQL -> hinted statement, session- and
-global-scoped). The port's planner takes no hints yet, so CREATE / DROP
-BINDING raise in the session and every handle stays empty; its
-normalizer and digest key the plan cache, the statements summary and the
-serving tier.
+global-scoped). The session injects a matching binding's hints into the
+statement; the normalizer and digest also key the plan cache, the
+statements summary and the serving tier.
 
 A binding maps the *normalized* form of a statement (literals
 parameterized, whitespace collapsed, hints stripped) to a replacement
@@ -82,3 +81,18 @@ class BindHandle:
 
     def __len__(self):
         return len(self._by_norm)
+
+    def create(self, target_sql: str, using_sql: str) -> None:
+        from tidb_tpu_torch.parser import parse
+
+        norm = normalize_sql(target_sql)
+        stmts = parse(using_sql)
+        stmt = stmts[0] if len(stmts) == 1 else None
+        self._by_norm[norm] = Binding(target_sql, using_sql, self.scope, stmt=stmt)
+        self.version += 1
+
+    def drop(self, target_sql: str) -> bool:
+        hit = self._by_norm.pop(normalize_sql(target_sql), None) is not None
+        if hit:
+            self.version += 1
+        return hit

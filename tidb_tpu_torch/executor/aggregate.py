@@ -22,8 +22,11 @@ Two strategies, chosen by the planner:
               numpy groupby finalizes (the host engine, kept as the
               oracle).
 
-Not yet ported from tidb_tpu/executor/aggregate.py: the spill-to-disk
-partial runs and external range merge of the host generic path.
+The host generic path drains into SpillableRuns under the query's memory
+tracker: past the budget the runs spill to disk, per-run partial states
+merge (or, for near-unique keys, merge one key range at a time from
+spilled partials), as in tidb_tpu/executor/aggregate.py. The device path
+charges its fetched tables to `hashagg.device` and does not spill.
 """
 
 from __future__ import annotations
@@ -303,6 +306,7 @@ class HashAggExec(Executor):
         self.strategy = strategy
         self.segment_sizes = segment_sizes
         self._out: List[Chunk] = []
+        self._runs = None
 
     def open(self, ctx: ExecContext) -> None:
         super().open(ctx)
@@ -395,6 +399,10 @@ class HashAggExec(Executor):
     def _chunks_from_host(self, out_arrays: Dict[str, tuple], n: int, cap: int):
         """Host result arrays -> output chunks (on the host: the groups are
         few and the root operators above run host-side)."""
+        # plan feedback: the group count is host-known here for free;
+        # every finalize path (segment, generic host, device tables,
+        # external merge ranges) emits through this
+        self.stats.add_out_rows(n)
         for start in range(0, max(n, 1), cap):
             end = min(start + cap, n)
             if n == 0 and self.group_exprs:
@@ -418,16 +426,19 @@ class HashAggExec(Executor):
 
     def _run_generic(self):
         from tidb_tpu_torch.planner.logical import core_generic_agg
+        from tidb_tpu_torch.utils.memory import SpillableRuns
 
         group_exprs, aggs = self.group_exprs, self.aggs
         if self.ctx.device_agg and core_generic_agg(group_exprs, aggs):
             self._run_generic_device()
             return
-        runs = []
+        runs = SpillableRuns(self.ctx.mem_tracker.child("hashagg"), "hashagg")
+        self._runs = runs
         total = 0
         for chunk in self.children[0].chunks():
             # the host groupby needs raw values: each chunk's evaluated
-            # keys and arguments cross to the host once
+            # keys and arguments cross to the host once, into a run the
+            # query budget may spill
             live = torch.nonzero(chunk.sel).squeeze(1)
             total += len(live)
             named = {}
@@ -447,6 +458,7 @@ class HashAggExec(Executor):
 
         cap = self.ctx.chunk_capacity
         if total == 0:
+            runs.close()
             if self.group_exprs:
                 self._out = []  # grouped agg over empty input -> no rows
                 return
@@ -466,11 +478,102 @@ class HashAggExec(Executor):
             self._chunks_from_host(out_arrays, 1, cap)
             return
 
-        def cat(name):
-            arrays = [r[name] for r in runs]
-            return arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
+        run_list = runs.all_runs()
+        has_distinct = any(a.distinct for a in aggs)
+        if len(run_list) > 1 and not has_distinct:
+            # spilled: per-run partial groupby states merged like the
+            # partial/final HashAgg worker split. When the total group
+            # state overflows the budget (near-unique keys), fall to a
+            # key-range external merge: each run's partial is key-sorted,
+            # so a range is a contiguous slice of every run, merged one
+            # range at a time in O(state / ranges) memory.
+            tracker = self.ctx.mem_tracker.child("hashagg.final")
+            tracked = 0
+            budget = getattr(self.ctx.mem_tracker, "budget", 0) or 0
+            # per-group partial bytes: mat + keys + kvalids + states
+            nk_ = len(self.group_exprs)
+            per_group = 8 * (2 * nk_ + 1) + nk_ + 24 * max(len(aggs), 1)
+            go_external = False
+            if budget:
+                # estimate the total group state from a bounded sample of
+                # the first run (its partial keys/rows ratio); a
+                # worst-case bound by rows would send low-cardinality
+                # aggregations external too
+                l0, r0 = run_list[0]
+                samp = min(r0, 1 << 14)
 
-        self._run_generic_resident(total, cat, cap)
+                def _s(name, _l=l0, _n=samp):
+                    return np.asarray(_l(name))[:_n]
+
+                p0 = self._partial_states(_s)
+                density = max(len(p0["mat"]), 1) / max(samp, 1)
+                del p0
+                total_rows = sum(r for _, r in run_list)
+                go_external = (density * total_rows * per_group
+                               > budget // 2)
+            try:
+                merged = None
+                if not go_external:
+                    for loader, _rows in run_list:
+                        p = self._partial_states(loader)
+                        b_p = _partial_nbytes(p)
+                        # the pairwise merge transiently holds old merged
+                        # + p + the new merged (~2x their sum) on top of
+                        # what the rest of the query consumes: bail to the
+                        # external path before that peak when the sampled
+                        # estimate undershot (sorted or skewed keys make
+                        # early rows look low-cardinality)
+                        root_used = self.ctx.mem_tracker.consumed
+                        if budget and root_used + 2 * b_p + tracked > budget:
+                            del p
+                            tracker.release(tracked)
+                            tracked = 0
+                            merged = None
+                            go_external = True
+                            break
+                        # counted before the charge: a QueryOOMError out
+                        # of consume() leaves it charged, and the finally
+                        # below releases it
+                        tracked += b_p
+                        tracker.consume(b_p)
+                        if merged is not None:
+                            merged = self._merge_partials([merged, p])
+                            b_m = _partial_nbytes(merged)
+                            tracked += b_m
+                            tracker.consume(b_m)
+                            tracker.release(tracked - b_m)  # merged + p dead
+                            tracked = b_m
+                        else:
+                            merged = p
+                if go_external:
+                    self._external_range_merge(run_list, cap, tracker, budget)
+                elif merged is not None:
+                    self._emit_merged(merged, cap)
+            finally:
+                tracker.release(tracked)
+            runs.close()
+            return
+
+        # resident (or DISTINCT, which needs raw values): the whole-input
+        # path. Spilled runs rematerialize here, charged to the budget so
+        # a quota violation surfaces as OOM, not as silent host growth.
+        fallback_tracker = self.ctx.mem_tracker.child("hashagg.distinct")
+        fallback_bytes = 0
+
+        def cat(name):
+            nonlocal fallback_bytes
+            arrays = [np.asarray(l(name)) for l, _ in run_list]
+            out = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
+            if runs.spilled:
+                fallback_bytes += out.nbytes
+                fallback_tracker.consume(out.nbytes)
+            return out
+
+        try:
+            self._run_generic_resident(run_list, cat, cap)
+        finally:
+            fallback_tracker.release(fallback_bytes)
+            runs.close()
 
     def _run_generic_device(self):
         """Sort-based grouping on the device (agg_device.py): a partial
@@ -510,39 +613,214 @@ class HashAggExec(Executor):
             for t in host_tables:
                 p = table_to_host_partial(t, len(self.group_exprs), self.aggs)
                 b_p = _partial_nbytes(p)
-                tracker.consume(b_p)
+                # counted before the charge: the finally releases it when
+                # consume() raises QueryOOMError
                 tracked += b_p
+                tracker.consume(b_p)
                 if merged is None:
                     merged = p
                 else:
                     merged = self._merge_partials([merged, p])
                     b_m = _partial_nbytes(merged)
+                    tracked += b_m
                     tracker.consume(b_m)
-                    tracker.release(tracked)  # old merged + p are dead
+                    tracker.release(tracked - b_m)  # old merged + p are dead
                     tracked = b_m
             if len(host_tables) == 1 and len(self.group_exprs) > 1:
                 # multi-key device tables order by a mixed hash; a
                 # collision can split a group: exact dedup on the host
                 merged = self._merge_partials([merged])
                 b_m = _partial_nbytes(merged)
+                tracked += b_m
                 tracker.consume(b_m)
-                tracker.release(tracked)
+                tracker.release(tracked - b_m)
                 tracked = b_m
             self._emit_merged(merged, cap)
         finally:
             tracker.release(tracked)
 
-    def _merge_partials(self, partials):
-        """Merge partial group tables into one (final-agg merge step). Only
-        the core functions reach it (core_generic_agg): the reference's
-        bitwise and variance states belong to its spill path, not ported."""
-        mats = np.concatenate([p["mat"] for p in partials], axis=0)
-        ngroups, first_idx, inverse = _lexsort_groups(
-            [mats[:, j] for j in range(mats.shape[1])])
-        uniq = mats[first_idx]
+    def _external_range_merge(self, run_list, cap, tracker, budget) -> None:
+        """External grouped aggregation: spill each run's key-sorted
+        partial to disk, then merge and emit one KEY RANGE at a time.
+        Ranges slice on the first key column (the lexsorted mat's major
+        key), so every run contributes a contiguous, cheap-to-load
+        mmap slice; resident state is ~total/ranges instead of total."""
+        from tidb_tpu_torch.utils.memory import SpillFile
+        from tidb_tpu_torch.utils.metrics import EXTERNAL_AGG
 
+        EXTERNAL_AGG.inc()
+
+        flat_files = []  # (SpillFile, state field names per agg)
+        total = 0
+        nk = len(self.group_exprs)
+        # sub-slice runs so even a near-unique-key partial stays inside
+        # the budget while it is being built
+        step = max((budget // 8) // 64 if budget else (1 << 20), 1 << 13)
+        try:
+            for loader, rows in run_list:
+                for i0 in range(0, rows, step):
+                    i1 = min(i0 + step, rows)
+
+                    def sub(name, _l=loader, _a=i0, _b=i1):
+                        return np.asarray(_l(name))[_a:_b]
+
+                    p = self._partial_states(sub)
+                    b = _partial_nbytes(p)
+                    try:
+                        tracker.consume(b)
+                        arrays = {"mat": p["mat"]}
+                        for ki in range(nk):
+                            arrays[f"k{ki}"] = p["keys"][ki]
+                            arrays[f"kv{ki}"] = p["kvalids"][ki]
+                        for j, st in enumerate(p["states"]):
+                            for f, a in st.items():
+                                arrays[f"s{j}.{f}"] = a
+                        fields = [sorted(st.keys()) for st in p["states"]]
+                        flat_files.append((SpillFile(arrays), fields))
+                    finally:
+                        tracker.release(b)  # consume() charged it even if it raised
+                    total += b
+                    del p, arrays
+            # pivots: quantiles of the major key, estimated from a
+            # BOUNDED per-file sample (each file's mat[:, 0] is already
+            # sorted, so a strided sample is itself quantile-spaced) —
+            # materializing every group's key here would allocate the
+            # very state the budget forbids
+            per_range = max(budget // 8, 1 << 17)
+            n_ranges = max(1, int(np.ceil(total / per_range)))
+            if nk and n_ranges > 1:
+                samples = []
+                for f, _ in flat_files:
+                    col0 = np.asarray(f.load("mat"))[:, 0]
+                    stride = max(len(col0) // 256, 1)
+                    samples.append(np.array(col0[::stride]))
+                majors = np.concatenate(samples)
+                majors.sort()
+                qs = np.linspace(0, len(majors) - 1, n_ranges + 1)[1:-1]
+                pivots = np.unique(majors[qs.astype(np.int64)])
+            else:
+                # keyless partials have a single logical group: one range
+                pivots = np.zeros(0, dtype=np.int64)
+            bounds = ([None] + list(pivots), list(pivots) + [None])
+            for lo, hi in zip(*bounds):
+                slices = []
+                sliced_bytes = 0
+                for f, fields in flat_files:
+                    mat = np.asarray(f.load("mat"))
+                    col0 = mat[:, 0] if mat.shape[1] else mat[:, :0]
+                    a = 0 if lo is None else int(
+                        np.searchsorted(col0, lo, "left"))
+                    b_ = len(mat) if hi is None else int(
+                        np.searchsorted(col0, hi, "left"))
+                    if a >= b_:
+                        continue
+                    p = {
+                        "mat": mat[a:b_],
+                        "keys": [np.asarray(f.load(f"k{ki}"))[a:b_]
+                                 for ki in range(nk)],
+                        "kvalids": [np.asarray(f.load(f"kv{ki}"))[a:b_]
+                                    for ki in range(nk)],
+                        "states": [
+                            {fl: np.asarray(f.load(f"s{j}.{fl}"))[a:b_]
+                             for fl in fields[j]}
+                            for j in range(len(fields))],
+                    }
+                    sliced_bytes += _partial_nbytes(p)
+                    slices.append(p)
+                if not slices:
+                    continue
+                try:
+                    tracker.consume(sliced_bytes)
+                    merged = (slices[0] if len(slices) == 1
+                              else self._merge_partials(slices))
+                    self._emit_merged(merged, cap)
+                finally:
+                    tracker.release(sliced_bytes)
+        finally:
+            for f, _ in flat_files:
+                f.close()
+
+    def _partial_states(self, loader):
+        """Groupby one run into (group key table, mergeable agg states)."""
+        nk = len(self.group_exprs)
+        keys = [np.asarray(loader(f"k{k}.d")) for k in range(nk)]
+        kvalids = [np.asarray(loader(f"k{k}.v")) for k in range(nk)]
+        n = len(keys[0]) if keys else len(np.asarray(loader("a0.d")))
+        if keys:
+            cols = ([self._to_int64_bits(k, kv) for k, kv in zip(keys, kvalids)]
+                    + [kv.astype(np.int64) for kv in kvalids])
+            g, first_idx, inverse = _lexsort_groups(cols)
+            uniq = np.stack([c[first_idx] for c in cols], axis=1)
+        else:
+            uniq = np.zeros((1, 0), dtype=np.int64)
+            inverse = np.zeros(n, dtype=np.int64)
+            g = 1
+            first_idx = np.zeros(1, dtype=np.int64)
+        states = []
+        for j, a in enumerate(self.aggs):
+            vals = np.asarray(loader(f"a{j}.d"))
+            ok = np.asarray(loader(f"a{j}.v")).astype(np.bool_)
+            cnt = np.zeros(g, dtype=np.int64)
+            np.add.at(cnt, inverse[ok], 1)
+            st = {"cnt": cnt}
+            if needs_sum_limbs(a):
+                st["sum"], st["sumhi"] = scatter_limbs(
+                    vals[ok], inverse[ok], g)
+            elif a.func in ("sum", "avg"):
+                dt = np.float64 if a.arg.type_.kind == TypeKind.FLOAT else np.int64
+                s = np.zeros(g, dtype=dt)
+                np.add.at(s, inverse[ok], vals[ok])
+                st["sum"] = s
+            elif a.func == "min":
+                m = np.full(g, _min_identity(vals.dtype), dtype=vals.dtype)
+                np.minimum.at(m, inverse[ok], vals[ok])
+                st["min"] = m
+            elif a.func == "max":
+                m = np.full(g, _max_identity(vals.dtype), dtype=vals.dtype)
+                np.maximum.at(m, inverse[ok], vals[ok])
+                st["max"] = m
+            elif a.func in _BIT_AGGS:
+                op, ident = _BIT_AGGS[a.func]
+                m = np.full(g, ident, dtype=np.int64)
+                op.at(m, inverse[ok], vals[ok].astype(np.int64))
+                st[a.func] = m
+            elif a.func in _VAR_AGGS:
+                v = vals[ok]
+                if a.arg.type_.kind == TypeKind.DECIMAL:
+                    v = v.astype(np.float64) / (10 ** a.arg.type_.scale)
+                _, s, m2 = _var_m2(v, inverse[ok], g)
+                st["vsum"] = s
+                st["vm2"] = m2
+            elif a.func == "group_concat":
+                raise ExecutionError(
+                    "GROUP_CONCAT exceeded the in-memory aggregation "
+                    "budget (spill partials are not supported for it); "
+                    "raise tidb_mem_quota_query")
+            states.append(st)
+        return {
+            "mat": uniq,
+            "keys": [k[first_idx] for k in keys],
+            "kvalids": [kv[first_idx] for kv in kvalids],
+            "states": states,
+        }
+
+    def _merge_partials(self, partials):
+        """Merge partial group tables into one (final-agg merge step)."""
+        mats = np.concatenate([p["mat"] for p in partials], axis=0)
+        ntotal = len(mats)
+        if mats.shape[1]:
+            ngroups, first_idx, inverse = _lexsort_groups(
+                [mats[:, j] for j in range(mats.shape[1])])
+            uniq = mats[first_idx]
+        else:
+            uniq = np.zeros((1, 0), dtype=np.int64)
+            ngroups = 1
+            inverse = np.zeros(ntotal, dtype=np.int64)
+            first_idx = np.zeros(1, dtype=np.int64)
+
+        nk = len(self.group_exprs)
         keys, kvalids = [], []
-        for ki in range(len(self.group_exprs)):
+        for ki in range(nk):
             kcat = np.concatenate([p["keys"][ki] for p in partials])
             vcat = np.concatenate([p["kvalids"][ki] for p in partials])
             keys.append(kcat[first_idx])
@@ -559,30 +837,57 @@ class HashAggExec(Executor):
                 np.add.at(s, inverse, parts)
                 st["sum"] = s
                 if "sumhi" in partials[0]["states"][j]:
-                    ph = np.concatenate([p["states"][j]["sumhi"] for p in partials])
+                    ph = np.concatenate(
+                        [p["states"][j]["sumhi"] for p in partials])
                     h = np.zeros(ngroups, dtype=np.int64)
                     np.add.at(h, inverse, ph)
                     # carry-normalize per merge so lo never wraps across
-                    # arbitrarily deep merge chains
+                    # arbitrarily deep merge chains (streaming batches)
                     st["sum"], st["sumhi"] = normalize_limbs(s, h)
             elif a.func in ("min", "max"):
-                op, ident = ((np.minimum, _min_identity) if a.func == "min"
-                             else (np.maximum, _max_identity))
+                op, ident = (
+                    (np.minimum, _min_identity) if a.func == "min" else (np.maximum, _max_identity)
+                )
                 parts = np.concatenate([p["states"][j][a.func] for p in partials])
                 m = np.full(ngroups, ident(parts.dtype), dtype=parts.dtype)
                 op.at(m, inverse, parts)
                 st[a.func] = m
+            elif a.func in _BIT_AGGS:
+                op, ident = _BIT_AGGS[a.func]
+                parts = np.concatenate([p["states"][j][a.func] for p in partials])
+                m = np.full(ngroups, ident, dtype=np.int64)
+                op.at(m, inverse, parts)
+                st[a.func] = m
+            elif a.func in _VAR_AGGS:
+                # exact m2 combine: sum_i [m2_i + n_i (mean_i - mean)^2]
+                # == sum over all x of (x - mean)^2
+                pc = np.concatenate(
+                    [p["states"][j]["cnt"] for p in partials]).astype(np.float64)
+                ps = np.concatenate([p["states"][j]["vsum"] for p in partials])
+                pm2 = np.concatenate([p["states"][j]["vm2"] for p in partials])
+                tot_s = np.zeros(ngroups, dtype=np.float64)
+                np.add.at(tot_s, inverse, ps)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    mean_t = np.where(cnt > 0, tot_s / np.maximum(cnt, 1), 0.0)
+                    mean_i = np.where(pc > 0, ps / np.maximum(pc, 1), 0.0)
+                m2 = np.zeros(ngroups, dtype=np.float64)
+                np.add.at(m2, inverse,
+                          pm2 + pc * (mean_i - mean_t[inverse]) ** 2)
+                st["vsum"] = tot_s
+                st["vm2"] = m2
             states.append(st)
         return {"mat": uniq, "keys": keys, "kvalids": kvalids, "states": states}
 
     def _emit_merged(self, merged, cap):
         """Finalize a merged partial table into output chunks."""
-        ngroups = len(merged["mat"])
+        ngroups = len(merged["mat"]) if merged["mat"].shape[1] else 1
         out_arrays: Dict[str, tuple] = {}
         nk = len(self.group_exprs)
         for ki, (uid, c) in enumerate(zip(self.group_uids, self.schema[:nk])):
-            out_arrays[uid] = (merged["keys"][ki].astype(c.type_.np_dtype),
-                               merged["kvalids"][ki])
+            out_arrays[uid] = (
+                merged["keys"][ki].astype(c.type_.np_dtype),
+                merged["kvalids"][ki],
+            )
         for j, a in enumerate(self.aggs):
             st = merged["states"][j]
             cnt = st["cnt"]
@@ -601,12 +906,24 @@ class HashAggExec(Executor):
                 with np.errstate(divide="ignore", invalid="ignore"):
                     avg = np.where(cnt > 0, sf / np.maximum(cnt, 1), 0.0)
                 out_arrays[a.uid] = (avg, cnt > 0)
+            elif a.func in _BIT_AGGS:
+                out_arrays[a.uid] = (st[a.func],
+                                     np.ones(ngroups, dtype=np.bool_))
+            elif a.func in _VAR_AGGS:
+                out_arrays[a.uid] = _var_finalize(a.func, cnt, st["vm2"])
             else:
                 out_arrays[a.uid] = (st[a.func].astype(a.type_.np_dtype), cnt > 0)
         self._chunks_from_host(out_arrays, ngroups, cap)
 
-    def _run_generic_resident(self, total, cat, cap):
+    def close(self) -> None:
+        if getattr(self, "_runs", None) is not None:
+            self._runs.close()
+            self._runs = None
+        super().close()
+
+    def _run_generic_resident(self, run_list, cat, cap):
         group_exprs, aggs = self.group_exprs, self.aggs
+        total = sum(rows for _, rows in run_list)
         keys = [cat(f"k{k}.d") for k in range(len(group_exprs))]
         kvalids = [cat(f"k{k}.v") for k in range(len(group_exprs))]
         avals = [cat(f"a{j}.d") for j in range(len(aggs))]

@@ -128,8 +128,8 @@ class ExecContext:
     # (tidb_tpu_pipeline_fuse); False runs the classic operator tree
     pipeline_fuse: bool = True
     # the fused scan->top-k root; False keeps ORDER BY [LIMIT] on the
-    # classic sort (the reference's plan feedback clears it for a digest
-    # whose LIMIT overflowed the state; the port has no plan feedback yet)
+    # classic sort (plan feedback clears it for a digest whose LIMIT
+    # overflowed the state)
     fused_topn: bool = True
     # staged batches kept in flight ahead of compute by the prefetch
     # thread; 0 = stage inline (tidb_tpu_pipeline_prefetch_depth)

@@ -12,8 +12,9 @@ tree through each fused executor's `fallback_build` delegate. A point
 get, an index range scan (the planner picks them over a table's unique
 and secondary indexes) or a partition scan is its own leaf with the
 peeled stages on top. A window function runs in WindowExec
-(executor/window.py) over its child's rows, drained to the host. Index
-joins are not yet ported and raise UnsupportedError.
+(executor/window.py) over its child's rows, drained to the host. An
+index join (planned by the cascades memo) is IndexJoinExec over its outer
+child.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 from tidb_tpu_torch.errors import UnsupportedError
 from tidb_tpu_torch.executor.aggregate import HashAggExec
 from tidb_tpu_torch.executor.base import Executor
-from tidb_tpu_torch.executor.join import HashJoinExec
+from tidb_tpu_torch.executor.join import HashJoinExec, IndexJoinExec
 from tidb_tpu_torch.executor.scan import ProjectionExec, SelectionExec, TableScanExec
 from tidb_tpu_torch.executor.sort import LimitExec, SortExec, TopNExec, UnionExec
 from tidb_tpu_torch.planner.physical import (
@@ -324,9 +325,16 @@ def _build_executor(plan: PhysicalPlan) -> Executor:
             return fused
         return _build_hash_join(plan)
     if isinstance(plan, PIndexJoin):
-        raise UnsupportedError(
-            "IndexJoinExec is not yet ported: it comes with the cascades "
-            "planner and ANALYZE, which plan it")
+        return IndexJoinExec(
+            plan.schema,
+            build_executor(plan.child),
+            plan.eq_outer,
+            plan.inner_table,
+            plan.index_name,
+            plan.inner_schema,
+            plan.inner_cond,
+            plan.other_cond,
+        )
     if isinstance(plan, PSort):
         fused = _try_fused_scan_topn(plan)
         if fused is not None:

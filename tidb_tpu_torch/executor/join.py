@@ -26,10 +26,18 @@ with exact re-verification of every expanded candidate (`_match_filter`).
 Join kinds: inner, left (outer), semi, anti (NOT IN: any NULL build key
 empties the result; NOT EXISTS keeps NULL-key probe rows).
 
+The staged build's resident bytes are charged to the query's
+`hashjoin.build` tracker until close(). An unfiltered inner join records
+its summed match totals as its output rows for plan feedback.
+
+IndexJoinExec is the index-lookup join the cascades memo plans: each
+outer chunk's keys are binary-searched against the inner table's sorted
+index on the host, and the visible matches are gathered from table
+storage.
+
 Not ported from the reference: the host-numpy tier (the port has one
-engine, torch on ctx.device, which is its CPU path too), memory-tracker
-accounting and plan-feedback output counts. Cancellation is polled where
-the reference polls it (between build and probe chunks).
+engine, torch on ctx.device, which is its CPU path too). Cancellation is
+polled where the reference polls it (between build and probe chunks).
 """
 
 from __future__ import annotations
@@ -42,13 +50,13 @@ import torch
 from tidb_tpu_torch.chunk.chunk import Chunk
 from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.executor.base import ExecContext, Executor, raise_if_cancelled
-from tidb_tpu_torch.expression.compiler import compile_predicate, eval_expr
+from tidb_tpu_torch.expression.compiler import compile_expr, compile_predicate, eval_expr
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
 from tidb_tpu_torch.types import INT64
 from tidb_tpu_torch.utils.device import torch_dtype
 
-__all__ = ["HashJoinExec"]
+__all__ = ["HashJoinExec", "IndexJoinExec"]
 
 
 def _pad(a: torch.Tensor, cap: int, fill=0) -> torch.Tensor:
@@ -153,9 +161,20 @@ class HashJoinExec(Executor):
         if self.ctx.join_device_build or self._hash_mode:
             # hash mode always builds on the device: its packed keys are
             # made there
-            self._stage_device_build(key_arrays, ok, payload_cols)
+            nbytes = self._stage_device_build(key_arrays, ok, payload_cols)
         else:
-            self._stage_host_sorted_build(valid_keys, ok, payload_cols)
+            nbytes = self._stage_host_sorted_build(valid_keys, ok, payload_cols)
+        # account the materialized build side against the query budget
+        # (ref: HashJoinExec's build RowContainer under the memory tracker)
+        self._mem_tracker = self.ctx.mem_tracker.child("hashjoin.build")
+        self._build_bytes = int(nbytes)
+        self._mem_tracker.consume(self._build_bytes)
+
+    def close(self) -> None:
+        if getattr(self, "_build_bytes", 0):
+            self._mem_tracker.release(self._build_bytes)
+            self._build_bytes = 0
+        super().close()
 
     def _key_pack_info(self, key_arrays: List[torch.Tensor]):
         """Pack parameters per key. Sets self._hash_mode; returns
@@ -219,12 +238,12 @@ class HashJoinExec(Executor):
             return None
         return lo, rng
 
-    def _index_build(self, n_bucket: int) -> None:
+    def _index_build(self, n_bucket: int) -> int:
         """The probe's index over the staged sorted keys: the direct-address
         index over a dense packed domain, else the open-addressing table
         when tidb_tpu_join_probe_mode resolves to it on this device (None
         for a build over capacity or with a run unplaced), else nothing
-        (searchsorted)."""
+        (searchsorted). Returns the index's resident bytes."""
         dom = self._direct_domain(n_bucket)
         self._direct = dom is not None
         self._probe_table = None
@@ -234,11 +253,15 @@ class HashJoinExec(Executor):
             self._firsts = jk.build_direct_index(
                 self._sorted_keys, self._n_build_dev, lo, jk.shape_bucket(rng, floor=64))
             self._direct_lo, self._direct_rng = lo, rng
-            return
+            return self._firsts.nbytes
         self._firsts = torch.zeros(2, dtype=torch.int64, device=self.ctx.device)
         self._direct_lo = self._direct_rng = 0
         if hp.resolve_mode(self.ctx.join_probe_mode, self.ctx.device) == "table":
             self._probe_table = jk.build_hash_table(self._sorted_keys)
+        nbytes = self._firsts.nbytes
+        if self._probe_table is not None:
+            nbytes += sum(a.nbytes for a in self._probe_table[:3])
+        return nbytes
 
     def _set_probe_pack_params(self) -> None:
         """Pack parameters the probe packer takes, as Python ints."""
@@ -252,7 +275,7 @@ class HashJoinExec(Executor):
             self._strides = [e[2] for e in info]
             self._rngs = [e[3] for e in info]
 
-    def _stage_host_sorted_build(self, valid_keys, ok, payload_cols) -> None:
+    def _stage_host_sorted_build(self, valid_keys, ok, payload_cols) -> int:
         """tidb_tpu_join_device_build = 0: the build sorts on the host (one
         stable argsort of the packed keys) and the sorted keys go back to
         the device for the same probe programs. Answers as the device
@@ -272,12 +295,22 @@ class HashJoinExec(Executor):
         self._build_payload = {
             uid: (_pad(d[live_idx], B), _pad(v[live_idx], B, False))
             for uid, (d, v) in payload_cols.items()}
-        self._index_build(B)
+        return self._staged_nbytes() + self._index_build(B)
 
-    def _stage_device_build(self, key_arrays, ok, payload_cols) -> None:
+    def _staged_nbytes(self) -> int:
+        """Resident bytes of the staged sorted keys, payload and raw key
+        values (the memory tracker's charge, with the index's)."""
+        nbytes = self._sorted_keys.nbytes
+        for d, v in self._build_payload.values():
+            nbytes += d.nbytes + v.nbytes
+        for k in self._build_keyvals:
+            nbytes += k.nbytes
+        return int(nbytes)
+
+    def _stage_device_build(self, key_arrays, ok, payload_cols) -> int:
         """Pad to a power-of-two shape bucket and run pack + sort + gather
         on the device: the build side becomes sorted tensors with the
-        NULL/dead keys at the tail."""
+        NULL/dead keys at the tail. Returns the resident bytes."""
         B = jk.shape_bucket(ok.shape[0])
         ok_p = _pad(ok, B, False)
         kd = tuple(_pad(k, B) for k in key_arrays)
@@ -294,7 +327,7 @@ class HashJoinExec(Executor):
         # raw key values in build order: exact verification of
         # hash-expanded candidates reads them
         self._build_keyvals = out_k if self._hash_mode else ()
-        self._index_build(B)
+        return self._staged_nbytes() + self._index_build(B)
 
     # per-chunk match totals stay on the device and are fetched in one
     # read per window of this many probe chunks (or this many bytes pinned)
@@ -344,6 +377,11 @@ class HashJoinExec(Executor):
         """Resolve a deferred window: one device-to-host read of every
         queued chunk's match total, then each chunk finishes."""
         totals = torch.stack([t["total_dev"] for t in tokens]).tolist()
+        if self.kind == "inner" and not self._has_filter:
+            # plan feedback: for the unfiltered inner join the summed
+            # match totals are the output cardinality, host-known from
+            # the read this window already pays
+            self.stats.add_out_rows(int(sum(int(t) for t in totals)))
         for tok, total in zip(tokens, totals):
             self._probe_finish(tok, int(total))
 
@@ -518,3 +556,118 @@ class HashJoinExec(Executor):
                 torch.zeros(chunk.capacity, dtype=torch.bool, device=chunk.device),
                 c.type_)
         return Chunk(cols, sel)
+
+
+class IndexJoinExec(Executor):
+    """Index-lookup join (ref: executor's IndexLookUpJoin): the inner side
+    is never scanned. Each outer chunk's join keys are binary-searched on
+    the host against the inner table's sorted index cache (the substrate
+    PointGet and IndexRangeScan probe), candidate rows pass MVCC
+    visibility, and matches gather straight from table storage onto the
+    context's device. O((outer + matches) log n) host work, independent
+    of the inner table's size: the access path the cascades memo costs
+    against the hash join's build."""
+
+    def __init__(self, schema, outer: Executor, eq_outer, inner_table,
+                 index_name, inner_schema, inner_cond, other_cond):
+        super().__init__(schema, [outer])
+        self.eq_outer = eq_outer
+        self.inner_table = inner_table
+        self.index_name = index_name
+        self.inner_schema = inner_schema
+        self.inner_cond = inner_cond
+        self.other_cond = other_cond
+
+    def open(self, ctx: ExecContext) -> None:
+        super().open(ctx)
+        self.ctx = ctx
+        self._key_fns = [compile_expr(e) for e in self.eq_outer]
+        self._pending: List[Chunk] = []
+        self._skeys, self._srows = self.inner_table._sorted_index(
+            self.index_name)
+        self._resid = None
+        if self.inner_cond is not None or self.other_cond is not None:
+            conds = [c for c in (self.inner_cond, self.other_cond)
+                     if c is not None]
+            self._resid = [compile_predicate(c) for c in conds]
+
+    def next(self) -> Optional[Chunk]:
+        while True:
+            if self._pending:
+                return self._pending.pop(0)
+            ch = self.children[0].next()
+            if ch is None:
+                return None
+            raise_if_cancelled(self.ctx)
+            self._join_chunk(_to_device(ch, self.ctx.device))
+
+    def _join_chunk(self, ch: Chunk) -> None:
+        live_t = torch.nonzero(ch.sel).squeeze(1)
+        if live_t.shape[0] == 0:
+            return
+        skeys, srows = self._skeys, self._srows
+        nkeys = len(self._key_fns)
+        i64 = np.iinfo(np.int64)
+        # the index may be wider than the join key set (a composite key
+        # probed on its prefix): floor/ceil the suffix fields so the whole
+        # equal-prefix run matches, not just suffix == 0
+        n = live_t.shape[0]
+        probe_lo = np.zeros(n, dtype=skeys.dtype)
+        probe_hi = np.zeros(n, dtype=skeys.dtype)
+        for name in skeys.dtype.names[nkeys:]:
+            probe_lo[name] = i64.min
+            probe_hi[name] = i64.max
+        kvalid = np.ones(n, dtype=np.bool_)
+        for i, fn in enumerate(self._key_fns):
+            # the outer keys cross to the host once per chunk
+            col = fn(ch)
+            kvalid &= col.valid[live_t].cpu().numpy()
+            keys = col.data[live_t].cpu().numpy().astype(np.int64)
+            probe_lo[f"k{i}"] = keys
+            probe_hi[f"k{i}"] = keys
+        # NULL keys match nothing; searchsorted over the composite tuple
+        # gives the exact equality run: no hashing, no collisions
+        lo = np.searchsorted(skeys, probe_lo, side="left")
+        hi = np.searchsorted(skeys, probe_hi, side="right")
+        counts = np.where(kvalid, hi - lo, 0)
+        total = int(counts.sum())
+        if total == 0:
+            return
+        outer_pos = np.repeat(np.arange(n), counts)
+        starts = np.repeat(lo, counts)
+        offs = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+        cand = srows[starts + offs]
+        vis = self.inner_table._mvcc_mask(
+            cand, read_ts=self.ctx.read_ts, marker=self.ctx.txn_marker)
+        cand = cand[vis]
+        outer_rows = live_t.cpu().numpy()[outer_pos[vis]]
+        # windowed emission: expansion is bounded to chunk_capacity per
+        # output chunk (the HashJoinExec contract), so a many-match key
+        # set cannot spike memory or mint giant downstream shapes
+        win = max(self.ctx.chunk_capacity, 8)
+        for s0 in range(0, len(cand), win):
+            self._emit(ch, outer_rows[s0:s0 + win], cand[s0:s0 + win])
+
+    def _emit(self, ch: Chunk, outer_rows, cand) -> None:
+        if len(cand) == 0:
+            return
+        dev = ch.device
+        cap = 8
+        while cap < len(cand):
+            cap *= 2
+        cols = {}
+        for c in self.inner_schema:
+            d = self.inner_table.data[c.name][cand]
+            v = self.inner_table.valid[c.name][cand]
+            cols[c.uid] = Column.from_numpy(d, c.type_, valid=v, capacity=cap,
+                                            device=dev)
+        idx = _pad(torch.from_numpy(outer_rows).to(dev), cap)
+        pad = torch.arange(cap, device=dev) < len(cand)
+        for uid, col in ch.columns.items():
+            cols[uid] = Column(col.data[idx], col.valid[idx] & pad, col.type_)
+        out = Chunk(cols, pad)
+        if self._resid is not None:
+            for pred in self._resid:
+                out = out.filter(pred(out))
+        self.stats.chunks += 1
+        self._pending.append(out)

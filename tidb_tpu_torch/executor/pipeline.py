@@ -371,7 +371,13 @@ class ChunkPrefetcher:
                             return
                     raise_if_cancelled(self.ctx)
                     entry = self._stage(job)
-                    self.tracker.consume(entry[1])  # typed OOM propagates below
+                    try:
+                        self.tracker.consume(entry[1])  # typed OOM propagates below
+                    except BaseException:
+                        # the charge was recorded before the budget check
+                        # raised, and the entry is never handed over
+                        self.tracker.release(entry[1])
+                        raise
                     with self._cv:
                         if self._stop:
                             self.tracker.release(entry[1])
@@ -689,6 +695,7 @@ class _StagedScanMixin:
                         try:
                             fill_tracker.consume(b)
                         except QueryOOMError:
+                            fill_tracker.release(b)  # charged before it raised
                             abandon()
                         else:
                             nbytes += b
@@ -700,14 +707,45 @@ class _StagedScanMixin:
             fill_tracker.release(nbytes)
 
 
+def _collect_feedback_pairs(root) -> list:
+    """(plan_node, actual_out_rows) pairs of every annotated exec in a
+    transient subtree whose actual is host-known, taken before the subtree
+    is dropped, so plan feedback still sees e.g. the build-side join a
+    fused probe drained inside its own open()."""
+    out = []
+    stack = [root]
+    while stack:
+        e = stack.pop()
+        if e is None:
+            continue
+        p = getattr(e, "_feedback_plan", None)
+        rows = getattr(getattr(e, "stats", None), "out_rows", -1)
+        if p is not None and rows >= 0:
+            out.append((p, int(rows)))
+        out.extend(getattr(e, "_fb_build_pairs", ()))
+        stack.extend(getattr(e, "children", ()))
+        stack.append(getattr(e, "_delegate", None))
+    return out
+
+
 def _close_delegate(outer) -> None:
-    """Close a fused exec's open()-time fallback delegate."""
+    """Close a fused exec's open()-time fallback delegate and keep the
+    feedback truth its subtree learned: the delegate's host-known output
+    count folds onto the outer exec's stats (both answer for the same plan
+    node), and its annotated children's pairs park on _fb_build_pairs, as
+    plan feedback harvests after the tree is closed."""
     d, outer._delegate = outer._delegate, None
-    if d is not None:
-        d.close()
-        # EXPLAIN ANALYZE renders after the tree is closed: keep the
-        # delegate that ran reachable for its [classic] subtree
-        outer._fallback_taken = d
+    if d is None:
+        return
+    d.close()  # first: nested fused execs fold their own delegates
+    # EXPLAIN ANALYZE renders after the tree is closed: keep the delegate
+    # that ran reachable for its [classic] subtree
+    outer._fallback_taken = d
+    st = getattr(d, "stats", None)
+    if st is not None and st.out_rows >= 0:
+        outer.stats.add_out_rows(st.out_rows)
+    outer._fb_build_pairs = (tuple(outer._fb_build_pairs)
+                             + tuple(_collect_feedback_pairs(d)))
 
 
 # ---------------------------------------------------------------------------
@@ -737,6 +775,7 @@ class FusedScanAggExec(_StagedScanMixin, HashAggExec):
         self._fallback_build = fallback_build
         self._delegate = None
         self._ran_fused = False
+        self._fb_build_pairs = ()
         self._pin = None
         self._prefetcher = None
         self._staged_iter = None
@@ -749,9 +788,10 @@ class FusedScanAggExec(_StagedScanMixin, HashAggExec):
         if not self._fuse_eligible(ctx):
             self._ran_fused = False
             _count(PIPELINE_FUSED_TOTAL, "delegate")
-            d = self._fallback_build()
+            # held before open(): a delegate whose open() raises still gets
+            # its close() (spill files, tracked bytes) through _close_delegate
+            d = self._delegate = self._fallback_build()
             d.open(ctx)
-            self._delegate = d
             return
         self._ran_fused = True
         try:
@@ -879,6 +919,7 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         self._fallback_build = fallback_build
         self._delegate = None
         self._ran_fused = False
+        self._fb_build_pairs = ()
         self._pin = None
         self._prefetcher = None
         self._staged_iter = None
@@ -913,9 +954,10 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
     def _open_delegate(self, ctx: ExecContext) -> None:
         self._ran_fused = False
         _count(PIPELINE_FUSED_TOTAL, "delegate")
-        d = self._fallback_build()
+        # held before open(): a delegate whose open() raises still gets
+        # its close() (spill files, tracked bytes) through _close_delegate
+        d = self._delegate = self._fallback_build()
         d.open(ctx)
-        self._delegate = d
 
     def next(self) -> Optional[Chunk]:
         if self._delegate is not None:
@@ -973,6 +1015,9 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
             self._stage_build(*self._drain_build(child))
         finally:
             child.close()
+            # the transient build subtree is gone after this open(): park
+            # its host-known actuals for the feedback harvest
+            self._fb_build_pairs = _collect_feedback_pairs(child)
         if cacheable:
             # the identity as the drain left it: the build's own scan may
             # have made or extended the table's segment store, and the next
@@ -987,6 +1032,9 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
     def _restore_build(self, state: dict) -> None:
         for f, v in state.items():
             setattr(self, f, v)
+        # the resident bytes are owned (and budgeted) by the process cache
+        # on a hit: close() must not release them
+        self._build_bytes = 0
 
     # -- fused probe loop --------------------------------------------------
 
@@ -1149,8 +1197,9 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
     the state (``table.n <= capacity``): the "top n" is then the complete
     sort. Larger inputs, and a LIMIT whose ``offset + count`` exceeds the
     chunk capacity, fall back to the classic materializing sort through the
-    open()-time ``fallback_build`` delegate. (The reference also records
-    the overflow for its plan feedback, which the port does not have.)
+    open()-time ``fallback_build`` delegate; the LIMIT case records the
+    k-overflow on the exec, and plan feedback harvests it, so the digest's
+    second execution routes to the classic plan up front.
 
     Ordering is exact against the classic path: ops/topk.py replicates
     ``_sort_order``'s null-rank and negation, and ties resolve by global
@@ -1170,6 +1219,8 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
         self._fallback_build = fallback_build
         self._delegate = None
         self._ran_fused = False
+        self._topn_overflow = 0
+        self._fb_build_pairs = ()
         self._pin = None
         self._prefetcher = None
         self._staged_iter = None
@@ -1179,13 +1230,15 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
         self.ctx = ctx
         self._chunks: List[Chunk] = []
         self._delegate = None
+        self._topn_overflow = 0
         k, eligible = self._state_rows(ctx)
         if not eligible:
             self._ran_fused = False
             _count(PIPELINE_FUSED_TOTAL, "delegate")
-            d = self._fallback_build()
+            # held before open(): a delegate whose open() raises still gets
+            # its close() (spill files, tracked bytes) through _close_delegate
+            d = self._delegate = self._fallback_build()
             d.open(ctx)
-            self._delegate = d
             return
         self._ran_fused = True
         _count(PIPELINE_FUSED_TOTAL, "topn")
@@ -1212,13 +1265,20 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
         the chunk capacity: each merge sorts C + capacity rows, so a state
         larger than one chunk loses the win over the classic path anyway.
         No device_agg gate, as in the reference (like the segment-strategy
-        fused aggregation)."""
+        fused aggregation). An overflow is recorded on the exec for the
+        feedback harvest: a digest whose LIMIT + offset proved too big
+        plans classic on its next execution."""
         if not getattr(ctx, "pipeline_fuse", True) or self.table is None:
             return 0, False
-        if not getattr(ctx, "fused_topn", True) or not self.items:
+        if not getattr(ctx, "fused_topn", True):
+            return 0, False  # plan feedback routed this digest classic
+        if not self.items:
             return 0, False
         k = int(self.table.n) if self.full_sort else int(self.count) + int(self.offset)
-        return k, k <= int(ctx.chunk_capacity)
+        if k > int(ctx.chunk_capacity):
+            self._topn_overflow = k
+            return k, False
+        return k, True
 
     def _run_fused(self, ctx: ExecContext, k: int) -> None:
         from tidb_tpu_torch.executor.agg_device import fetch_to_host

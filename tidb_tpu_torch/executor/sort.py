@@ -3,8 +3,10 @@
 results, so they run host-side — the reference similarly runs root
 executors on the SQL node while coprocessors do the heavy scans).
 
-Not yet ported from tidb_tpu/executor/sort.py: spilling the drained runs
-under the query memory budget.
+Sort and TopN drain into SpillableRuns under the query's memory tracker:
+past the budget the runs spill to disk, the sort keys are gathered back to
+the host and the payload is gathered from the (mmap-backed) runs in
+output order, as in tidb_tpu/executor/sort.py.
 """
 
 from __future__ import annotations
@@ -23,53 +25,97 @@ __all__ = ["SortExec", "TopNExec", "LimitExec", "UnionExec"]
 
 
 class _Materializing(Executor):
-    """Shared: drain the child to host-compacted columns, order them,
-    emit output chunks."""
+    """Shared: drain the child to host-compacted runs (spillable under the
+    query memory budget: the RowContainer + SpillDiskAction shape), order
+    them, emit output chunks."""
 
-    def _drain(self, sort_items: List[Tuple[object, bool]]):
-        """(payload columns, sort keys, row count): host (data, valid)
-        pairs over the live rows of every child chunk."""
-        uids = [c.uid for c in self.schema]
+    _runs = None
+
+    def _drain_to_runs(self, sort_items: List[Tuple[object, bool]]):
+        from tidb_tpu_torch.utils.memory import SpillableRuns
+
         key_fns = [compile_expr(e) for e, _ in sort_items]
-        cols = {uid: ([], []) for uid in uids}
-        keys = [([], []) for _ in key_fns]
-        n = 0
+        runs = SpillableRuns(self.ctx.mem_tracker.child("sort"), "sort")
+        self._runs = runs
         for ch in self.children[0].chunks():
+            # the sort materializes host runs, so each chunk's live rows
+            # cross to the host once
             live = torch.nonzero(ch.sel).squeeze(1)
-            n += len(live)
-            for uid in uids:
-                col = ch.columns[uid]
-                cols[uid][0].append(col.data[live].cpu().numpy())
-                cols[uid][1].append(col.valid[live].cpu().numpy())
-            for (ds, vs), f in zip(keys, key_fns):
+            named = {}
+            for c in self.schema:
+                col = ch.columns[c.uid]
+                named[f"c.{c.uid}.d"] = col.data[live].cpu().numpy()
+                named[f"c.{c.uid}.v"] = col.valid[live].cpu().numpy()
+            for i, f in enumerate(key_fns):
                 kc = f(ch)
-                ds.append(kc.data[live].cpu().numpy())
-                vs.append(kc.valid[live].cpu().numpy())
+                named[f"k.{i}.d"] = kc.data[live].cpu().numpy()
+                named[f"k.{i}.v"] = kc.valid[live].cpu().numpy()
+            runs.append(named)
+        return runs
 
-        def cat(parts, dtype):
-            return np.concatenate(parts) if parts else np.zeros(0, dtype=dtype)
+    def _global_keys(self, runs, n_keys: int):
+        """Concatenate sort keys across runs (keys stay in host memory;
+        only the payload gather is mmap-backed)."""
+        host_keys = []
+        for i in range(n_keys):
+            ds, vs = [], []
+            for loader, _rows in runs.all_runs():
+                ds.append(np.asarray(loader(f"k.{i}.d")))
+                vs.append(np.asarray(loader(f"k.{i}.v")))
+            host_keys.append(
+                (ds[0] if len(ds) == 1 else np.concatenate(ds) if ds else np.zeros(0),
+                 vs[0] if len(vs) == 1 else np.concatenate(vs) if vs else np.zeros(0, dtype=np.bool_))
+            )
+        return host_keys
 
-        host_cols = {c.uid: (cat(cols[c.uid][0], c.type_.np_dtype),
-                             cat(cols[c.uid][1], np.bool_))
-                     for c in self.schema}
-        host_keys = [(cat(ds, np.int64), cat(vs, np.bool_)) for ds, vs in keys]
-        return host_cols, host_keys, n
-
-    def _emit(self, host_cols, order: Optional[np.ndarray], n: int):
-        """Emit output chunks gathering `order` rows of the host columns."""
+    def _emit(self, runs, order: Optional[np.ndarray], n: int):
+        """Emit output chunks by gathering `order` rows from the runs."""
         cap = self.ctx.chunk_capacity
         self._chunks = []
         idx = order if order is not None else np.arange(n)
+        run_list = runs.all_runs()
+        bases = np.cumsum([0] + [rows for _, rows in run_list])
+        handles = {}
+
+        def col_of(ri, name):
+            key = (ri, name)
+            if key not in handles:
+                handles[key] = run_list[ri][0](name)
+            return handles[key]
+
         for s in range(0, len(idx), cap):
             part = idx[s : s + cap]
             cols = {}
             for c in self.schema:
-                d, v = host_cols[c.uid]
-                cols[c.uid] = Column.from_numpy(d[part], c.type_, valid=v[part],
+                d_out = v_out = None
+                for ri in range(len(run_list)):
+                    m = (part >= bases[ri]) & (part < bases[ri + 1])
+                    if not m.any():
+                        continue
+                    local = part[m] - bases[ri]
+                    d = col_of(ri, f"c.{c.uid}.d")
+                    if d_out is None:
+                        d_out = np.empty(len(part), dtype=d.dtype)
+                        v_out = np.empty(len(part), dtype=np.bool_)
+                    d_out[m] = d[local]
+                    v_out[m] = col_of(ri, f"c.{c.uid}.v")[local]
+                if d_out is None:
+                    d_out = np.zeros(len(part), dtype=c.type_.np_dtype)
+                    v_out = np.zeros(len(part), dtype=np.bool_)
+                cols[c.uid] = Column.from_numpy(d_out, c.type_, valid=v_out,
                                                 capacity=cap)
             sel = torch.zeros(cap, dtype=torch.bool)
             sel[: len(part)] = True
             self._chunks.append(Chunk(cols, sel))
+
+    def _close_runs(self) -> None:
+        if self._runs is not None:
+            self._runs.close()
+            self._runs = None
+
+    def close(self) -> None:
+        self._close_runs()
+        super().close()
 
     def next(self) -> Optional[Chunk]:
         if self._chunks:
@@ -106,9 +152,14 @@ class SortExec(_Materializing):
     def open(self, ctx: ExecContext) -> None:
         super().open(ctx)
         self.ctx = ctx
-        host_cols, host_keys, n = self._drain(self.items)
-        order = _sort_order(host_keys, self.items) if self.items else None
-        self._emit(host_cols, order, n)
+        runs = self._drain_to_runs(self.items)
+        n = sum(rows for _, rows in runs.all_runs())
+        order = None
+        if self.items:
+            host_keys = self._global_keys(runs, len(self.items))
+            order = _sort_order(host_keys, self.items)
+        self._emit(runs, order, n)
+        self._close_runs()  # output chunks own copies; free the charge now
 
 
 class TopNExec(_Materializing):
@@ -121,10 +172,13 @@ class TopNExec(_Materializing):
     def open(self, ctx: ExecContext) -> None:
         super().open(ctx)
         self.ctx = ctx
-        host_cols, host_keys, n = self._drain(self.items)
+        runs = self._drain_to_runs(self.items)
+        n = sum(rows for _, rows in runs.all_runs())
+        host_keys = self._global_keys(runs, len(self.items))
         order = _sort_order(host_keys, self.items)
         order = order[self.offset : self.offset + self.count]
-        self._emit(host_cols, order, n)
+        self._emit(runs, order, n)
+        self._close_runs()
 
 
 class LimitExec(Executor):

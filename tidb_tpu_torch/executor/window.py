@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from tidb_tpu_torch.chunk.chunk import Chunk
+from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.errors import UnsupportedError
 from tidb_tpu_torch.executor.base import ExecContext, Executor
 from tidb_tpu_torch.executor.sort import _Materializing, _sort_order
@@ -52,23 +54,43 @@ class WindowExec(_Materializing):
         out_schema = self.schema
         self.schema = out_schema[:-1]  # the out column isn't in the child
         try:
-            host_cols, host_keys, n = self._drain(key_items)
+            # the drained rows are runs the query budget may spill, as a
+            # sort's are
+            runs = self._drain_to_runs(key_items)
+            host_keys = self._global_keys(runs, len(key_items))
+            n = len(host_keys[0][0]) if key_items else sum(
+                r for _, r in runs.all_runs())
+            np_part = len(self.partition_by)
+            np_ord = len(self.order_by)
+            descale = 1.0
+            if (self.func == "avg" and self.args
+                    and self.args[0].type_.kind == TypeKind.DECIMAL):
+                descale = float(10 ** self.args[0].type_.scale)
+            vals, valid = _compute_window(
+                self.func, host_keys[:np_part],
+                host_keys[np_part : np_part + np_ord],
+                list(self.order_by),
+                host_keys[np_part + np_ord :],
+                n, self.out_type, avg_descale=descale,
+                params=self.params, frame=self.frame)
+            self._emit(runs, None, n)  # original row order
         finally:
             self.schema = out_schema
-        np_part = len(self.partition_by)
-        np_ord = len(self.order_by)
-        descale = 1.0
-        if (self.func == "avg" and self.args
-                and self.args[0].type_.kind == TypeKind.DECIMAL):
-            descale = float(10 ** self.args[0].type_.scale)
-        host_cols[self.out_uid] = _compute_window(
-            self.func, host_keys[:np_part],
-            host_keys[np_part : np_part + np_ord],
-            list(self.order_by),
-            host_keys[np_part + np_ord :],
-            n, self.out_type, avg_descale=descale,
-            params=self.params, frame=self.frame)
-        self._emit(host_cols, None, n)  # original row order
+            self._close_runs()
+        # attach the output column, sliced chunk by chunk
+        cap = self.ctx.chunk_capacity
+        out_col = self.schema[-1]
+        patched = []
+        off = 0
+        for ch in self._chunks:
+            m = int(ch.sel.sum())
+            col = Column.from_numpy(vals[off : off + m], out_col.type_,
+                                    valid=valid[off : off + m], capacity=cap)
+            cols = dict(ch.columns)
+            cols[self.out_uid] = col
+            patched.append(Chunk(cols, ch.sel))
+            off += m
+        self._chunks = patched
 
 
 def _frame_edges(frame, idx, part_start, part_end,

@@ -688,7 +688,9 @@ def eq_join_rows(left: LogicalPlan, right: LogicalPlan, eq_conds,
     statistic can see)."""
     from tidb_tpu_torch.statistics import eq_join_selectivity
 
-    hints = None  # plan feedback (planner/feedback.py) is not yet ported
+    from tidb_tpu_torch.planner import feedback as _fb
+
+    hints = _fb.current_hints()
     if hints is not None:
         got = hints.join_rows(left, right, eq_conds)
         if got is not None:
@@ -728,7 +730,9 @@ def _estimate(plan: LogicalPlan) -> float:
             # plan feedback (ISSUE 15): an observed selectivity for this
             # (table, filter) shape — recorded where a past execution
             # knew the actual — beats the histogram guess
-            hints = None  # plan feedback is not yet ported
+            from tidb_tpu_torch.planner import feedback as _fb
+
+            hints = _fb.current_hints()
             if hints is not None:
                 uid_to_name = {c.uid: c.name for c in plan.schema}
                 got = hints.scan_rows(plan.table, plan.table_name,

@@ -588,9 +588,7 @@ def _rule_reorder(plan: LogicalPlan, leading=None, cascades=False,
             leaves = [_rule_reorder(l, cascades=cascades, n_parts=n_parts)
                       for l in leaves]
             if cascades:
-                from tidb_tpu_torch.errors import UnsupportedError
-
-                raise UnsupportedError("planner.cascades is not yet ported")
+                from tidb_tpu_torch.planner.cascades import memo_join_search
 
                 best = memo_join_search(leaves, eqs, others, _classify_edges,
                                         _conj_join, _rule_pushdown,
@@ -835,9 +833,7 @@ def _rule_eager_agg(plan: LogicalPlan, cost_based: bool = False,
     # The heuristic mode keeps the fresh-stats 70% shrink gate.
     p_rows = _estimate(partial)
     if cost_based:
-        from tidb_tpu_torch.errors import UnsupportedError
-
-        raise UnsupportedError("planner.cascades is not yet ported")
+        from tidb_tpu_torch.planner.cascades import LOCAL_WORK
 
         def path_cost(side_rows: float) -> float:
             # join outputs scale linearly in the S-side cardinality

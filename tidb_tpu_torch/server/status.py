@@ -2,11 +2,9 @@
 tidb-server status port: /metrics for Prometheus, /status for
 liveness/version, plus schema introspection).
 
-The port has no DCN tier (parallel/dcn.py) and no plan feedback
-(planner/feedback.py). So /metrics?scope=cluster and /cluster answer
-what the reference answers with no live cluster: the coordinator's own
-registry, and an empty cluster list. /plan_feedback answers 501 naming
-the module.
+The port has no DCN tier (parallel/dcn.py). So /metrics?scope=cluster
+and /cluster answer what the reference answers with no live cluster: the
+coordinator's own registry, and an empty cluster list.
 
 Endpoints:
     /metrics     - Prometheus text exposition of tidb_tpu_* collectors;
@@ -146,10 +144,17 @@ class StatusServer:
                         ctype = "application/json"
                     elif self.path == "/plan_feedback" or \
                             self.path.startswith("/plan_feedback?"):
-                        self.send_error(
-                            501, "plan feedback (planner/feedback.py) is "
-                            "not ported")
-                        return
+                        from urllib.parse import parse_qs, urlparse
+
+                        from tidb_tpu_torch.planner.feedback import STORE
+
+                        q = parse_qs(urlparse(self.path).query)
+                        try:
+                            top = int(q.get("top", ["50"])[0])
+                        except ValueError:
+                            top = 50
+                        body = json.dumps(STORE.stats_dict(top)).encode()
+                        ctype = "application/json"
                     elif self.path == "/slo" or \
                             self.path.startswith("/slo?"):
                         from urllib.parse import parse_qs, urlparse

@@ -42,9 +42,16 @@ PLUGINS, CREATE / DROP USER, GRANT / REVOKE and INSTALL / UNINSTALL
 PLUGIN are the reference's. DDL goes to the elected DDL owner's job
 queue when a server runs one (owner/).
 
+Plan feedback (planner/feedback.py): a SELECT parks its executed tree;
+the statement envelope harvests est-vs-actual rows into the process
+store, whose hints then shape the next planning of the digest (join
+cardinalities, the eager-aggregation push-down decision, the fused
+probe's tile count, the fused top-k routing). SQL bindings
+(CREATE / DROP [GLOBAL] BINDING) inject their hints into a matching
+statement; `/*+ MEMORY_QUOTA(...) */` sets the statement's budget.
+
 Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... SHARD
-BY, SQL bindings (CREATE / DROP BINDING raise: the port's planner takes
-no hints), plan feedback, and the DCN and mesh tiers.
+BY and the DCN and mesh tiers.
 """
 
 from __future__ import annotations
@@ -308,6 +315,13 @@ class Session:
         self._stmt_plan_s = 0.0
         # (source, normalized, digest) computed once per statement
         self._stmt_digest_memo = None
+        # plan feedback: the executed (phys, root, rows) parked for
+        # harvest, the worst est-vs-actual drift of the last statement
+        # (slow-log column), and the effective eager-agg setting the plan
+        # was acquired with (exploration may differ from the sysvar)
+        self._fb_capture = None
+        self._fb_worst_drift = (0.0, "")
+        self._fb_last_apd = None
         # prepare-time (sql, norm, digest, StmtInfo) for the current
         # prepared execution, and its deferred parameters: a plan-cache
         # hit never materializes the bound AST
@@ -513,6 +527,13 @@ class Session:
         self._plan_from_cache_stmt = False
         self._stmt_plan_s = 0.0
         self._stmt_digest_memo = None
+        # plan feedback: _run_select parks (phys, root, rows) here; the
+        # success path below harvests it and drops the reference at
+        # statement end (a parked executor tree pins device tensors)
+        self._fb_capture = None
+        self._fb_worst_drift = (0.0, "")
+        self._fb_last_apd = None
+        c0 = _dsp.compile_count()
         # per-statement resource profile: this thread's baselines
         prof0 = (_dsp.xfer_bytes(), _dsp.compile_seconds(),
                  _dsp.spill_bytes())
@@ -585,12 +606,20 @@ class Session:
             # the except): a trace must never leak onto the thread
             import sys as _sys
 
+            if _sys.exc_info()[0] is not None:
+                # failed statements don't harvest: drop the parked
+                # executor tree now (the success path consumes it below)
+                self._fb_capture = None
             if owns_trace and _sys.exc_info()[0] is not None \
                     and tracing.current() is tr:
                 tracing.pop()
         dur = _time.perf_counter() - t0
         M.QUERY_TOTAL.inc(type=stype, status="ok")
         M.QUERY_DURATION.observe(dur, type=stype)
+        # plan feedback: fold this execution's est-vs-actual truth into the
+        # per-digest store before the summary, slow log and trace run, so
+        # they all see the drift it computed
+        self._fb_record(dur, result, _dsp.compile_count() - c0)
         detail = self._record_stmt(stmt, sql, stype, dur, d0, result,
                                    seg0=seg0, prof0=prof0, cw0=cw0)
         self._slo_observe(dur)
@@ -600,6 +629,56 @@ class Session:
         # plugin that raises must not skip trace finalization
         self.catalog.plugins.statement_end(self, sql, stype, dur, None)
         return result
+
+    def _fb_enabled(self) -> bool:
+        return bool(self.sysvars.get("tidb_tpu_plan_feedback"))
+
+    def _fb_record(self, dur: float, result, recompiles: int) -> None:
+        """Plan feedback capture: harvest the executed tree parked by
+        _run_select and fold the observation into the process store. Runs
+        on the success path only (a partial execution's actuals are not
+        the statement's truth) and never fails the statement. When a new
+        significant cardinality hint landed, the digest's plan-cache
+        entries are evicted so the next planning consults it."""
+        cap, self._fb_capture = self._fb_capture, None
+        self._fb_worst_drift = (0.0, "")
+        if cap is None or not self._fb_enabled():
+            return
+        try:
+            from tidb_tpu_torch.planner import feedback as _fb
+            from tidb_tpu_torch.utils import metrics as M
+            from tidb_tpu_torch.utils import tracing
+
+            phys, root, n_rows = cap
+            memo = self._stmt_digest_memo
+            digest = memo[2] if memo is not None else ""
+            if not digest:
+                return
+            warm = self._plan_from_cache_stmt and recompiles == 0
+            obs = _fb.harvest(phys, root, n_rows, dur, warm)
+            apd = self._fb_last_apd if self._fb_last_apd is not None \
+                else self._agg_push_down()
+            new_hint = _fb.STORE.record(
+                digest, self._last_plan_digest or "", apd, obs,
+                capacity=int(
+                    self.sysvars.get("tidb_tpu_plan_feedback_capacity")))
+            if obs.worst_drift > 1.0:
+                self._fb_worst_drift = (obs.worst_drift_ratio,
+                                        obs.worst_drift_op)
+                tracing.annotate(
+                    f"worst_drift:{obs.worst_drift_op} "
+                    f"{obs.worst_drift_ratio:.2f}x")
+            if obs.worst_drift > 0:
+                # only statements with at least one known actual observe:
+                # otherwise the 1.0 bucket would conflate "every estimate
+                # exact" with "no data"
+                M.PLAN_EST_DRIFT.observe(_fb.drift_factor(obs))
+            if new_hint:
+                pc = getattr(self.catalog, "plan_cache", None)
+                if pc is not None:
+                    pc.invalidate_digest(digest)
+        except Exception:  # noqa: BLE001 — diagnostics never fail a stmt
+            pass
 
     def _slo_observe(self, dur: float) -> None:
         """Fold this statement's wall time into the per-digest SLO
@@ -627,12 +706,14 @@ class Session:
         if dur * 1e3 < threshold:
             return
         M.SLOW_QUERY_TOTAL.inc()
+        drift, drift_op = self._fb_worst_drift
         self.catalog.log_slow_query(
             self.db, sql, dur, digest=detail[0],
             plan_digest=self._last_plan_digest or "",
             max_mem=detail[1], dispatches=detail[2],
             segs_scanned=detail[3], segs_pruned=detail[4],
             trace_id=trace_id, disposition=disposition,
+            worst_drift=drift, worst_drift_op=drift_op,
             xfer_bytes=detail[5], compile_ms=detail[6],
             spill_bytes=detail[7], compaction_wait_ms=detail[8])
 
@@ -713,6 +794,7 @@ class Session:
                 _tracing.annotate(
                     f"profile: mem_max={max_mem} xfer_bytes={xfer} "
                     f"compile_ms={compile_ms:.1f} spill_bytes={spill}")
+            drift, drift_op = self._fb_worst_drift
             self.catalog.stmt_summary.record(
                 digest, norm, stype, self._last_plan_digest or "", dur,
                 max_mem=max_mem,
@@ -720,6 +802,7 @@ class Session:
                 dispatches=dispatches, fragments=0, error=error,
                 plan_from_cache=self._plan_from_cache_stmt,
                 plan_latency_s=self._stmt_plan_s,
+                worst_drift=drift, worst_drift_op=drift_op,
                 xfer_bytes=xfer, compile_ms=compile_ms, spill_bytes=spill,
                 max_stmt_count=int(
                     self.sysvars.get("tidb_stmt_summary_max_stmt_count")))
@@ -773,14 +856,21 @@ class Session:
         want = max(1 << 14, 1 << (biggest + (biggest >> 2)).bit_length())
         return min(cap, want)
 
-    def _exec_ctx(self, plan=None) -> ExecContext:
+    def _exec_ctx(self, hints=(), plan=None) -> ExecContext:
         from tidb_tpu_torch.utils.memory import MemTracker
 
         sv = self.sysvars.get
-        # the statement's memory root: its budget is tidb_mem_quota_query,
-        # and spillables (segment pins) anchor here
+        quota = int(sv("tidb_mem_quota_query"))
+        for hname, hargs in hints or ():
+            if hname == "memory_quota" and hargs:
+                q = _parse_quota(hargs[0])  # MEMORY_QUOTA(bytes | N MB | N GB)
+                if q is not None:
+                    quota = q  # unparseable hints are ignored, as TiDB warns
+        # the statement's memory root: its budget is tidb_mem_quota_query
+        # or the statement's MEMORY_QUOTA hint, and spillables (sort and
+        # aggregation runs, segment pins) anchor here
         tracker = MemTracker(
-            "query", budget=int(sv("tidb_mem_quota_query")),
+            "query", budget=quota,
             # serving tier: chain into the scheduler's session/server
             # trackers so per-session and server-wide quotas see this
             # statement; spill decisions stay anchored HERE (spill_root)
@@ -793,7 +883,7 @@ class Session:
         for old in self._stmt_trackers[:-64]:
             old.detach()  # evicted trackers must not pin parent bytes
         del self._stmt_trackers[:-64]  # bound pathological statements
-        return ExecContext(
+        ctx = ExecContext(
             chunk_capacity=self._plan_capacity(plan),
             device=self.device,
             # inside a transaction: its snapshot plus its own provisional
@@ -822,6 +912,23 @@ class Session:
             device_buffer_cache_bytes=int(sv("tidb_tpu_device_buffer_cache_bytes")),
             cancel_check=self.cancel_reason,
         )
+        if self._fb_enabled():
+            # plan feedback consumer: a digest whose fused probes overflowed
+            # their first tiles gets its tile batch sized to the observed
+            # worst need, so the overflow expands in one call, not several
+            memo = self._stmt_digest_memo
+            if memo is not None and memo[2]:
+                from tidb_tpu_torch.planner import feedback as _fb
+
+                need = _fb.STORE.tile_hint(memo[2])
+                if need > ctx.join_tiles:
+                    ctx.join_tiles = need
+                # fused top-k consumer: a digest whose ORDER BY + LIMIT k
+                # overflowed the device state's gate starts classic on its
+                # second execution
+                if _fb.STORE.topn_overflow(memo[2]):
+                    ctx.fused_topn = False
+        return ctx
 
     def _build_root(self, phys):
         """The executor tree for `phys`. An installed executor plugin
@@ -851,38 +958,66 @@ class Session:
         return run_plan(self._build_root(phys), self._exec_ctx(plan=phys),
                         n_visible=n_vis).rows
 
-    def _plan_select(self, stmt, execute_subplan=None):
+    def _plan_select(self, stmt, agg_push_down=None, execute_subplan=None):
         import time as _time
 
+        from tidb_tpu_torch.planner import feedback as _fb
         from tidb_tpu_torch.utils import metrics as M
 
         t0 = _time.perf_counter()
-        phys = plan_statement(
-            stmt, self.catalog, db=self.db,
-            execute_subplan=execute_subplan or self._execute_subplan,
-            cascades=bool(self.sysvars.get("tidb_enable_cascades_planner")),
-            n_parts=1,
-            # columnar knobs for plan-time materialization (CTE reuse
-            # segments its result iff enabled)
-            session_info={
-                "user": self.user, "conn_id": self.conn_id,
-                "columnar_enable": bool(self.sysvars.get("tidb_tpu_columnar_enable")),
-                "segment_rows": int(self.sysvars.get("tidb_tpu_segment_rows"))},
-            agg_push_down=self._agg_push_down(),
-        )
+        # plan feedback: install the recorded-cardinality hints for this
+        # one planning call; the estimators consult them thread-locally,
+        # so EXPLAIN and TRACE show the plan an execution would get
+        with _fb.planning_hints(self._fb_enabled()):
+            phys = plan_statement(
+                stmt, self.catalog, db=self.db,
+                execute_subplan=execute_subplan or self._execute_subplan,
+                cascades=bool(self.sysvars.get("tidb_enable_cascades_planner")),
+                n_parts=1,
+                # columnar knobs for plan-time materialization (CTE reuse
+                # segments its result iff enabled)
+                session_info={
+                    "user": self.user, "conn_id": self.conn_id,
+                    "columnar_enable": bool(self.sysvars.get("tidb_tpu_columnar_enable")),
+                    "segment_rows": int(self.sysvars.get("tidb_tpu_segment_rows"))},
+                agg_push_down=(self._agg_push_down() if agg_push_down is None
+                               else agg_push_down),
+            )
         M.PLAN_SECONDS.observe(_time.perf_counter() - t0)
         return phys
 
-    def _acquire_plan(self, stmt):
+    def _acquire_plan(self, stmt, agg_push_down=None):
         """Physical plan for a SELECT/UNION, through the digest-keyed
         plan cache when the statement is eligible (ref: planner/core
         plan_cache*). Sets @@last_plan_from_cache and accumulates the
-        acquisition wall time for the statements summary."""
+        acquisition wall time for the statements summary.
+
+        Plan feedback: when the session would push eager aggregation
+        (sysvar on, no explicit override), the digest's measured
+        push-vs-no-push decision can select the no-push variant instead;
+        it caches under its own key (the effective setting is part of the
+        plan-cache key). A user pin of tidb_opt_agg_push_down = 0 is
+        authoritative and never consulted."""
         import time as _time
 
         t0 = _time.perf_counter()
         try:
-            return self._acquire_plan_inner(stmt)
+            if (agg_push_down is None and self._fb_enabled()
+                    and self._agg_push_down()):
+                src = getattr(stmt, "_source", None)
+                if src and len(src) <= 16384:
+                    from tidb_tpu_torch.planner import feedback as _fb
+
+                    try:
+                        digest = self._stmt_digest(stmt, src)[1]
+                        if _fb.STORE.apd_decision(digest) is False:
+                            agg_push_down = False
+                    except Exception:  # noqa: BLE001 — feedback is
+                        pass           # advisory, never load-bearing
+            self._fb_last_apd = (self._agg_push_down()
+                                 if agg_push_down is None
+                                 else bool(agg_push_down))
+            return self._acquire_plan_inner(stmt, agg_push_down)
         finally:
             self._stmt_plan_s += _time.perf_counter() - t0
 
@@ -902,7 +1037,7 @@ class Session:
         self._ps_materialized = (stmt, out)
         return out
 
-    def _acquire_plan_inner(self, stmt):
+    def _acquire_plan_inner(self, stmt, agg_push_down=None):
         from tidb_tpu_torch.planner import plancache as _pc
 
         self._last_plan_digest = None  # _run_select hashes the fresh
@@ -913,11 +1048,13 @@ class Session:
             else "tidb_enable_non_prepared_plan_cache"))
         cache = getattr(self.catalog, "plan_cache", None)
         if not enabled or cache is None:
-            return self._plan_select(self._materialize_stmt(stmt))
+            return self._plan_select(self._materialize_stmt(stmt),
+                                     agg_push_down=agg_push_down)
 
         def bypass(reason):
             cache.note_bypass(reason)
-            return self._plan_select(self._materialize_stmt(stmt))
+            return self._plan_select(self._materialize_stmt(stmt),
+                                     agg_push_down=agg_push_down)
 
         if self._lock_read:
             return bypass("locking read")
@@ -953,7 +1090,9 @@ class Session:
             # the raw parameter — refuse the whole statement
             return bypass("literal in foldable expression context")
         self._stmt_digest_memo = (src, norm, digest)
-        key = self._plan_cache_key(stmt, info, digest, self._agg_push_down())
+        eff_apd = (self._agg_push_down() if agg_push_down is None
+                   else agg_push_down)
+        key = self._plan_cache_key(stmt, info, digest, eff_apd)
         sv = self.catalog.schema_version
         cap = int(self.sysvars.get("tidb_prepared_plan_cache_size"))
         entry = cache.lookup(key, sv, cap)
@@ -983,12 +1122,13 @@ class Session:
             return self._execute_subplan(logical)
 
         stmt = self._materialize_stmt(stmt)
-        phys = self._plan_select(stmt, execute_subplan=_sub)
+        phys = self._plan_select(stmt, agg_push_down=agg_push_down,
+                                 execute_subplan=_sub)
         try:
             new = _pc.build_entry(
                 stmt, phys, info, digest, self.db, sv,
                 plan_sentinel=lambda s2: self._plan_select(
-                    s2, execute_subplan=_sub),
+                    s2, agg_push_down=agg_push_down, execute_subplan=_sub),
                 subplan_used=lambda: used[0])
             cache.store(key, new, sv)
         except Exception:  # noqa: BLE001 — the cache must never fail
@@ -1183,6 +1323,35 @@ class Session:
         spec["sets"] = sets
         return spec
 
+    def _apply_binding(self, stmt):
+        """Plan-binding lookup (ref: bindinfo BindHandle): on a match of
+        the statement's normalized source, plan the bound (hinted)
+        statement instead. Session bindings shadow global ones."""
+        if not len(self._bindings) and not len(self.catalog.bind_handle):
+            return stmt
+        source = getattr(stmt, "_source", None)
+        if not source:
+            return stmt
+        from tidb_tpu_torch.bindinfo import normalize_sql
+
+        norm = normalize_sql(source)
+        b = self._bindings.match(norm) or self.catalog.bind_handle.match(norm)
+        if b is None:
+            return stmt
+        # inject the binding's hints into the user's statement, never the
+        # bound statement itself, whose literals are the ones CREATE
+        # BINDING happened to carry. Copy instead of mutating: a cached
+        # prepared-statement AST must not keep the hints after the binding
+        # is dropped.
+        if (isinstance(stmt, A.SelectStmt) and isinstance(b.stmt, A.SelectStmt)
+                and b.stmt.hints):
+            out = dataclasses.replace(stmt, hints=list(b.stmt.hints))
+            out._source = source  # replace() drops parser attrs; the plan
+            # cache keys on (digest, hints, binding versions), so a hinted
+            # copy is still safely distinguishable
+            return out
+        return stmt
+
     def _targets_temp_table(self, stmt) -> bool:
         """True when a DDL statement targets a table shadowed by this
         session's TEMPORARY namespace — such DDL must run inline (the
@@ -1339,7 +1508,15 @@ class Session:
             if isinstance(c, PProjection) and c.n_visible is not None and c.n_visible < len(phys.schema):
                 n_vis = c.n_visible
         with tracing.span("session.execute"):
-            return run_plan(root, self._exec_ctx(plan=phys), n_visible=n_vis)
+            rs = run_plan(root,
+                          self._exec_ctx(hints=getattr(stmt, "hints", ()),
+                                         plan=phys),
+                          n_visible=n_vis)
+        if self._fb_enabled():
+            # park the executed tree for the statement-end feedback
+            # harvest; _execute_timed drops the reference either way
+            self._fb_capture = (phys, root, len(rs.rows))
+        return rs
 
     # ------------------------------------------------------------------
 
@@ -1474,16 +1651,28 @@ class Session:
                 # MySQL rejects FOR UPDATE on union arms too
                 raise UnsupportedError("FOR UPDATE is not allowed with UNION")
             if getattr(stmt, "lock_mode", None) is not None:
-                rs = self._run_locking_select(stmt)
+                rs = self._run_locking_select(self._apply_binding(stmt))
             else:
-                rs = self._run_select(stmt)
+                rs = self._run_select(self._apply_binding(stmt))
             if into is not None:
                 return self._write_outfile(rs, into)
             return rs
-        if isinstance(stmt, (A.CreateBindingStmt, A.DropBindingStmt)):
-            raise UnsupportedError(
-                "SQL plan bindings are not yet ported: they wait for the "
-                "planner's hints (ROADMAP Queue A, item 5)")
+        if isinstance(stmt, A.CreateBindingStmt):
+            from tidb_tpu_torch.bindinfo import normalize_sql
+
+            if normalize_sql(stmt.target_sql) != normalize_sql(stmt.using_sql):
+                raise PlanError(
+                    "binding statements differ after normalization")
+            handle = (self.catalog.bind_handle if stmt.scope == "global"
+                      else self._bindings)
+            handle.create(stmt.target_sql, stmt.using_sql)
+            return None
+        if isinstance(stmt, A.DropBindingStmt):
+            handle = (self.catalog.bind_handle if stmt.scope == "global"
+                      else self._bindings)
+            if not handle.drop(stmt.target_sql):
+                raise ExecutionError("no such binding")
+            return None
         if isinstance(stmt, A.InsertStmt):
             self._priv_table("insert", stmt.table)
         elif isinstance(stmt, A.UpdateStmt):
@@ -2794,11 +2983,12 @@ class Session:
         """EXPLAIN shows the plan (`explain_text`); EXPLAIN ANALYZE runs it
         with every operator instrumented (utils/execdetails.py) and adds
         the statement's resource profile. The statement's privileges are
-        checked as for the statement itself. SQL bindings are not
-        ported, so the plan is the unbound one."""
+        checked as for the statement itself; a matching SQL binding's
+        hints apply, so EXPLAIN shows the bound plan."""
         target = stmt.stmt
         if not isinstance(target, (A.SelectStmt, A.UnionStmt)):
             raise UnsupportedError("EXPLAIN only supports SELECT")
+        target = self._apply_binding(target)  # EXPLAIN shows the bound plan
         phys = self._plan_select(target)
         # MySQL requires the same privileges for EXPLAIN as for the
         # statement itself; ANALYZE even executes it
@@ -3113,6 +3303,19 @@ def _sub_values_refs(e, cellmap):
         return x
 
     return _ast_transform(e, fn)
+
+
+def _parse_quota(arg: str):
+    """MEMORY_QUOTA hint argument: plain bytes, or 'N MB' / 'N GB'
+    (TiDB's documented unit forms). None = unparseable, ignore."""
+    parts = str(arg).strip().split()
+    try:
+        n = int(parts[0])
+    except (ValueError, IndexError):
+        return None
+    unit = parts[1].upper() if len(parts) > 1 else ""
+    mult = {"": 1, "KB": 1 << 10, "MB": 1 << 20, "GB": 1 << 30}.get(unit)
+    return n * mult if mult is not None else None
 
 
 def _ast_has_name(e) -> bool:

@@ -21,9 +21,9 @@ a columnar segment store estimates from its zone maps (`zone_map_stats`).
 
 `analyze_table` is the reference's collection over the table's host
 arrays, so a port table and a reference table holding the same rows get
-field-by-field equal `TableStats`. The reference's ANALYZE also resets
-its plan-feedback store; the port has no plan feedback
-(planner/feedback.py is not ported), so that reset is left out.
+field-by-field equal `TableStats`. Like the reference's, it resets the
+plan-feedback store (planner/feedback.py): recorded actuals belong to the
+old statistics.
 """
 
 from __future__ import annotations
@@ -154,8 +154,15 @@ def _seed_sketch(table, col_name: str, vals: np.ndarray) -> None:
 
 
 def analyze_table(table) -> TableStats:
-    """Collect stats over the live rows of a host table. (The reference
-    also resets its plan-feedback store here; the port has none.)"""
+    """Collect stats over the live rows of a host table.
+
+    Also invalidates the plan-feedback store: recorded est-vs-actual
+    truth was measured against the old statistics and the plans they
+    produced, so ANALYZE (manual or auto) resets the baseline. One choke
+    point here covers both the ANALYZE statement and auto-analyze."""
+    from tidb_tpu_torch.planner import feedback as _feedback
+
+    _feedback.STORE.on_schema_change()
     n = table.n
     live = np.asarray(table.live_mask(0, n)) if n else np.zeros(0, dtype=bool)
     n_live = int(live.sum())

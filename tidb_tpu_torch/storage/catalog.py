@@ -14,14 +14,13 @@ the process list KILL reads; the table engine per table
 (storage/kvapi.py: columnar or delta), DROP DATABASE, information_schema
 and the per-session TEMPORARY namespace (`SessionCatalog`).
 
-Four information_schema tables read reference modules the port has not
+Three information_schema tables read reference modules the port has not
 got (ROADMAP, intended divergences): `dcn_worker_stats` and
 `cluster_info` list their columns and no rows, as the reference does in
 a process with no live cluster; `cluster_metrics` gives the rows the
 reference gives when it finds no fleet (this process's registry as
-``coordinator`` and the merged ``fleet`` view); a read of
-`plan_feedback` raises UnsupportedError (planner/feedback.py, ROADMAP
-Queue A item 5).
+``coordinator`` and the merged ``fleet`` view). `plan_feedback` reads the
+process's plan-feedback store (planner/feedback.py).
 """
 
 from __future__ import annotations
@@ -151,6 +150,13 @@ class Catalog:
         cache = getattr(pipe, "DEVICE_CACHE", None)
         if cache is not None:
             cache.on_schema_change()
+        # plan feedback: recorded est-vs-actual truth was measured against
+        # plans over the old schema; same eager rule (and the same lazy
+        # lookup) as the device cache
+        fb = sys.modules.get("tidb_tpu_torch.planner.feedback")
+        store = getattr(fb, "STORE", None)
+        if store is not None:
+            store.on_schema_change()
 
     def processlist_rows(self, viewer_user=None, with_state=False):
         """Live-session rows for SHOW PROCESSLIST. A viewer without the
@@ -385,8 +391,9 @@ class Catalog:
         """One slow-log row. `trace_id` joins the row to the kept trace
         on /trace?id=; `disposition` is "" for a completed statement or
         "error:<Type>" for one that died mid-execution (deadline, kill,
-        runtime error). `worst_drift*` stay empty: plan feedback is not
-        ported."""
+        runtime error). `worst_drift`/`worst_drift_op`: the statement's
+        worst est-vs-actual operator drift from plan feedback, so a slow
+        statement with a hundredfold drift reads as a planning problem."""
         import logging
         import time
 
@@ -966,14 +973,9 @@ class Catalog:
             )
         if name == "plan_feedback":
             # per-operator est-vs-actual truth of every recorded
-            # (digest, plan): the plan-feedback store is not ported, so
-            # a listing shows the columns and a read refuses, as the
-            # status port's /plan_feedback answers 501
-            if not listing:
-                raise UnsupportedError(
-                    "information_schema.plan_feedback is not yet ported: "
-                    "it waits for planner/feedback.py (ROADMAP Queue A, "
-                    "item 5)")
+            # (digest, plan): the SQL face of the plan-feedback store
+            from tidb_tpu_torch.planner.feedback import STORE as _fb_store
+
             return make(
                 [("digest", STRING), ("plan_digest", STRING),
                  ("variant", STRING), ("execs", INT64),
@@ -982,7 +984,7 @@ class Catalog:
                  ("op", STRING), ("est_rows", FLOAT64),
                  ("actual_rows", FLOAT64), ("drift", FLOAT64),
                  ("op_execs", INT64)],
-                [],
+                _fb_store.rows(),
             )
         if name == "cluster_metrics":
             # the fleet metrics plane: the SAME scrape entries

@@ -15,8 +15,8 @@ torch meaning:
     library at first use (ops/nvcc_build.py)
   - ``xfer_bytes``: host->device bytes staged (the fused pipeline's
     copies and the classic scan's)
-  - ``spill_bytes``: bytes a statement spilled to disk (0: spill is not
-    ported)
+  - ``spill_bytes``: bytes a statement's operators spilled to disk
+    (utils/memory.py's SpillableRuns)
 
 As in the reference, every counter is per thread: the server runs
 statements on concurrent worker threads, and one statement's figures
@@ -36,14 +36,15 @@ from typing import Dict, Optional
 
 __all__ = ["Account", "account", "count", "by_site", "count_launch",
            "record_xfer", "xfer_bytes", "record_compile", "compile_count",
-           "compile_seconds", "spill_bytes"]
+           "compile_seconds", "record_spill", "spill_bytes"]
 
 
 class Account:
     """One thread's counters. Written by its own thread and, for staging
     done on its behalf, by a helper thread: hence the lock."""
 
-    __slots__ = ("lock", "count", "by_site", "xfer", "compiles", "compile_s")
+    __slots__ = ("lock", "count", "by_site", "xfer", "compiles", "compile_s",
+                 "spill")
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -52,6 +53,7 @@ class Account:
         self.xfer = 0
         self.compiles = 0
         self.compile_s = 0.0
+        self.spill = 0
 
 
 _tls = threading.local()
@@ -130,5 +132,13 @@ def compile_seconds() -> float:
     return account().compile_s
 
 
+def record_spill(nbytes: int) -> None:
+    """Count bytes this thread's statement spilled to disk (the process
+    totals move at the spill site, utils/memory.py's SPILL_TOTAL)."""
+    acct = account()
+    with acct.lock:
+        acct.spill += int(nbytes)
+
+
 def spill_bytes() -> int:
-    return 0
+    return account().spill

@@ -106,11 +106,21 @@ class MemTracker:
             self._spillables.remove(obj)
 
     def consume(self, nbytes: int) -> None:
+        """Charge `nbytes` to this tracker and every ancestor, then run the
+        budget checks. The charge is recorded on the whole chain before any
+        check can raise QueryOOMError, so a caller that counted the bytes
+        before the call releases exactly what was charged, on the error
+        path too. (The reference checks each node as it charges it: an OOM
+        raised at the statement's root left the ancestors above it
+        uncharged, and a caller's release then took them below zero.)"""
         with _ACCOUNT_LOCK:
             node = self
             while node is not None:
                 node.consumed += nbytes
                 node.max_consumed = max(node.max_consumed, node.consumed)
+                node = node.parent
+            node = self
+            while node is not None:
                 if node.budget is not None and node.consumed > node.budget:
                     # deliberate: past the budget, spill I/O runs under
                     # the account lock (module doc); re-entrancy is why
@@ -228,6 +238,9 @@ class SpillableRuns:
         self.tracker.release(freed)
         SPILL_TOTAL["spills"] += 1
         SPILL_TOTAL["bytes"] += freed
+        from tidb_tpu_torch.utils import dispatch as _dsp
+
+        _dsp.record_spill(freed)  # the statement's profile
         return freed
 
     @property

@@ -614,6 +614,19 @@ TRACE_KEPT_TOTAL = Counter(
     "Traces retained in the tail-sampled store, by first keep reason "
     "(sampled, slow, error:*, retry, failover, trace)")
 
+# -- plan feedback --------------------------------------------------------
+
+PLAN_EST_DRIFT = Histogram(
+    "tidb_tpu_plan_est_drift",
+    "Per-statement worst-operator estimation drift: max(actual/est, "
+    "est/actual) over every operator whose actual row count the "
+    "feedback harvest knew — 1.0 means every estimate was exact, 100 a "
+    "hundredfold misestimate; carries a trace_id exemplar for the "
+    "worst recent statement so /metrics links the drift straight to "
+    "its trace",
+    buckets=(1.0, 1.5, 2.0, 4.0, 10.0, 30.0, 100.0, 1000.0),
+    exemplars=True)
+
 
 # -- serving tier: admission-controlled scheduler + micro-batching ----------
 
