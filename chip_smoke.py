@@ -85,8 +85,8 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    staged inline at prefetch depth 0, classic), and of Q3 and Q18 in a
    fifth (generic_host: tidb_device_engine_mode = 'off', the host
    groupby); one more warm run of each under torch.profiler (not Q5's and
-   Q18's in the two cache-off modes, where the profiler would add a
-   minute; device busy
+   Q18's in the two cache-off modes and the classic one, where the
+   profiler would add a minute; device busy
    time, idle share, host->device copies split pinned/pageable with their
    bytes, device->host copies, host cudaMemcpyAsync and launch counts, top
    operators by device time); Q18's IN subquery alone on the device and
@@ -108,7 +108,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    Q1, Q6, Q3, Q5 and Q18 by COM_QUERY over one connection, each against
    numpy and the session's rows, its wall time beside phase 3's median
    and its launches (the statements summary's per-thread dispatches)
-   equal to a solo in-process run's; 32,000 prepared point-selects on
+   equal to a solo in-process run's; 16,000 prepared point-selects on
    orders by o_orderkey (COM_STMT_PREPARE / COM_STMT_EXECUTE) from 16
    connections in a client process of their own (point_clients), keys
    from seed 7 with 10% absent, the default 250 us batch window, every
@@ -180,9 +180,9 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
 6. Statistics, EXPLAIN ANALYZE, windows and views, on the same session.
    phase_stats: ANALYZE TABLE of the eight tables, timed per table; Q1,
    Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
-   tables' live rows (warm median of 3, one profiled run: device busy
-   time; tidb_segagg once per aggregated chunk, tidb_probe_count once per
-   probe chunk); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared,
+   tables' live rows (warm median of 3, one profiled run of Q1, Q6 and
+   Q3: device busy time; tidb_segagg once per aggregated chunk,
+   tidb_probe_count once per probe chunk); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared,
    so it stages), Q3 and Q18: the root's actRows must equal the query's
    row count, the operators' dispatches must add up to the kernels'
    launches in the statement and the profile line's xfer_bytes to the
@@ -249,6 +249,36 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    tidb_segagg and tidb_probe_count launches, its spill bytes and its
    trackers' max_consumed; every tracker must end at consumed 0, and
    both kernels must launch in the phase.
+9. The mesh phase (phase_mesh), on the same SF1 catalog after the
+   planner phase: the mesh tier (tidb_tpu_torch/parallel) under
+   Session(mesh=...). First the single-card session's rows of Q1, Q6,
+   Q3, Q5 and Q18 and their warm medians of 3. On a mesh of the one card
+   (make_mesh(), as the reference serves one chip) each query's rows must
+   equal numpy over the tables' live rows and the single-card rows
+   exactly, its executor classes are printed, tidb_segagg must launch
+   for Q1 and Q6 (DistAggExec) and tidb_probe_count for Q3, Q5 and Q18
+   (their mesh joins), the off-path entries never; one cold run and a
+   warm median of 3, recorded beside the single-card medians with no
+   limit. With tidb_device_cache_bytes a quarter of lineitem's table
+   bytes, Q1 and Q6 stream in at least two batches and equal the
+   resident runs. The same five queries on four shards laid over the
+   one card (MESH_SHARDS: the all_to_all exchange and the merges run on
+   the card), with the same checks; then the 22 TPC-H queries at SF0.1
+   on those four shards against the grid's sqlite oracle. Then a
+   Server(mesh=...) connection's Q1 and Q3 must equal the in-process
+   rows; the point-select fleet (16 connections of MESH_POINT_STMTS)
+   against that server must equal numpy with no statement batched (a
+   mesh session offers the batcher nothing, as the reference's does);
+   MESH_MEM_CONNS connections each run Q6 against it, and the card's
+   allocated bytes after each, their peak and the bytes once they closed
+   are recorded (each connection stages its own sharding). The phase
+   prints its time, its launches, its probe_count calls by route and
+   mode, and how often the mesh fell back to one device, by reason. It
+   records the largest tidb_segagg call (Q1 on the one-card mesh: a
+   shard is all of lineitem) and the largest tidb_probe_count call of
+   every route and mode it took; after the phase each is checked
+   against its plain version and timed (mesh_kernel_rows), rows of the
+   kernels line of their own.
    The full report goes to chip_smoke.json under OUT_DIR.
 
 Plan feedback is on in every phase, as it is by default: a launch check
@@ -264,7 +294,9 @@ last is one JSON object {"kernels": [...]}: per kernel its name, route,
 source, the TPU kernel it replaces, the launches of phase 2's main path
 (`launches`) and of each later phase (`launches_refresh`,
 `launches_schema`, `launches_stats`, `launches_window`,
-`launches_server`, `launches_storage`, `launches_planner`), its largest
+`launches_server`, `launches_storage`, `launches_planner`,
+`launches_mesh`; the mesh's launches sit only on the rows at the mesh's
+own shapes, `segagg.mesh` and `probe_count.mesh_<route>_<mode>`), its largest
 error against the plain version, and its time, its plain version's, its
 bound with what bounds it, and a library call's; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -1358,7 +1390,8 @@ def chunk_lookup_work(torch, hp, args, kw):
     return torch.unique(torch.cat(visited)).numel() * 8, R * (2 * (levels + 1) * 3 + 6)
 
 
-def probe_chunk_row(torch, hp, name: str, args, kw, launches: int) -> dict:
+def probe_chunk_row(torch, hp, name: str, args, kw, launches: int, calls: int = 20,
+                    reps: int = 10) -> dict:
     """The kernels-line row of tidb_probe_count on one shape: checked
     bit-equal first, then its graph-replayed time beside the eager chain
     it replaces (the earlier eager composition: the all-true in-range mask, B3's
@@ -1367,20 +1400,23 @@ def probe_chunk_row(torch, hp, name: str, args, kw, launches: int) -> dict:
     packed, kvalid, in_range, sel, n_build, sk = args
     check_chunk(torch, hp, args, kw)
     R = packed.shape[0]
-    ms = device_ms(torch, lambda: hp.probe_chunk(*args, **kw), graph=True)
+    timing = {"calls": calls, "reps": reps}
+    ms = device_ms(torch, lambda: hp.probe_chunk(*args, **kw), graph=True, **timing)
     chain_kw = dict(kw, flags_only=False, lookup=hp.probe_table)
     chain_ms = device_ms(torch, lambda: hp.plain_probe_chunk(
         packed, kvalid, torch.ones_like(sel) if in_range is None else in_range, sel,
-        n_build, sk, **chain_kw), graph=True)
-    plain_ms = device_ms(torch, lambda: hp.plain_probe_chunk(*args, **kw), graph=False)
+        n_build, sk, **chain_kw), graph=True, **timing)
+    plain_ms = device_ms(torch, lambda: hp.plain_probe_chunk(*args, **kw), graph=False,
+                         **timing)
     library_ms = device_ms(torch, lambda: (torch.searchsorted(sk, packed),
                                            torch.searchsorted(sk, packed, right=True)),
-                           graph=True)
+                           graph=True, **timing)
     read, ops = chunk_lookup_work(torch, hp, args, kw)
     # keys, key validity, sel (and in-range) in; ok and matched out, and in
     # full mode start, count, real_count and cum and the total
-    row_bytes = 10 + (in_range is not None) + (2 if kw["flags_only"] else 34)
-    nbytes = R * row_bytes + read + (0 if kw["flags_only"] else 8)
+    flags_only = kw.get("flags_only", False)
+    row_bytes = 10 + (in_range is not None) + (2 if flags_only else 34)
+    nbytes = R * row_bytes + read + (0 if flags_only else 8)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     row = {"name": name, "route": "cuda", "source": "tidb_tpu_torch/ops/csrc/hash_probe.cu",
@@ -1391,10 +1427,10 @@ def probe_chunk_row(torch, hp, name: str, args, kw, launches: int) -> dict:
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": library_ms, "replaced_chain_ms": chain_ms}
     log(f"{name} at R={R} build={sk.shape[0]} ({kw['route']}, flags_only="
-        f"{kw['flags_only']}, left_pad={kw['left_pad']}): {ms * 1e3:.2f} us/call, bound "
+        f"{flags_only}, left_pad={kw.get('left_pad', False)}): {ms * 1e3:.2f} us/call, bound "
         f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} B, {row_bytes} B/row), the eager chain "
         f"it replaces {chain_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-        f"searchsorted x2 {library_ms * 1e3:.2f} us; {launches} main-path launches")
+        f"searchsorted x2 {library_ms * 1e3:.2f} us; {launches} launches on its path")
     return row
 
 
@@ -1529,9 +1565,16 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
 
 # queries phase 3 times but does not profile in a mode: the profiler adds
 # 20-40 s to each run of Q5 and Q18 (tens of thousands of launches), and
-# the cache-off modes' findings (staged bytes, the prefetch thread against
-# inline staging) are read from Q1, Q6 and Q3
-UNPROFILED = {"fused_nocache": ("q5", "q18"), "fused_nocache_inline": ("q5", "q18")}
+# the cache-off and classic modes' findings (staged bytes, the prefetch
+# thread against inline staging, the raw path's copies) are read from Q1,
+# Q6 and Q3 (the classic Q5 and Q18 profiles were cut when the mesh
+# phase took its share of the script's time limit)
+UNPROFILED = {"fused_nocache": ("q5", "q18"), "fused_nocache_inline": ("q5", "q18"),
+              "classic": ("q5", "q18")}
+# the stats phase's queries left unprofiled: at SF1 on an H100 (700 W)
+# Q18's profiled run took 59.9 s and Q5's 21.0 s, and phase 3 profiles
+# both already
+STATS_UNPROFILED = ("q5", "q18")
 
 
 def phase_modes(torch, s, queries, n_rows) -> tuple:
@@ -1697,7 +1740,7 @@ def rows_equal(got, want, rel_tol: float = 1e-6):
     return True, "ok"
 
 
-def phase_grid(torch, np, Session, mods) -> dict:
+def phase_grid(torch, np, Session, mods) -> tuple:
     """All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
     capacity 8,192) on the card against the sqlite oracle, ordered, with
     the oracle's SQL variants, twice: as loaded (no statistics), then
@@ -1708,7 +1751,9 @@ def phase_grid(torch, np, Session, mods) -> dict:
     whose plans group generically (GENERIC_QUERIES: ANALYZE changes the
     estimates and join orders, not which queries group generically), fused
     at least for Q15, Q17, Q18 and Q20. Plan-time subqueries may add fragments beyond the final
-    plan's (Q11's HAVING subquery groups partsupp fused at this scale)."""
+    plan's (Q11's HAVING subquery groups partsupp fused at this scale).
+    Returns (report, the SF0.1 catalog, the oracle): the mesh phase reruns
+    the grid on four shards."""
     s = Session(chunk_capacity=8192)
     t0 = time.perf_counter()
     counts = s.load_tpch(0.1)
@@ -1725,7 +1770,7 @@ def phase_grid(torch, np, Session, mods) -> dict:
                             if plan_shape(out["analyzed"][q]["plan"])
                             != plan_shape(out["unanalyzed"][q]["plan"])]
     log(f"grid: plans whose operators ANALYZE changed: {out['plans_changed']}")
-    return out
+    return out, s.catalog.base, oracle
 
 
 def grid_pass(s, mods, oracle, generic, label) -> dict:
@@ -2921,8 +2966,9 @@ def explain_analyze(s, mods, sql: str, n_rows: int, agg_chunks) -> dict:
 def phase_stats(torch, np, s, mods) -> dict:
     """ANALYZE TABLE of the eight TPC-H tables at SF1, timed per table; Q1,
     Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
-    tables' live rows (warm median of 3, one profiled run each: device
-    busy time); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared
+    tables' live rows (warm median of 3; one profiled run each of Q1, Q6
+    and Q3: device busy time; STATS_UNPROFILED are not profiled);
+    EXPLAIN ANALYZE of Q1 (the device buffer cache cleared
     first, so it stages), Q3 and Q18 with their counters checked."""
     from tidb_tpu_torch.storage.tpch_queries import Q
 
@@ -2969,26 +3015,30 @@ def phase_stats(torch, np, s, mods) -> dict:
                     raise AssertionError(f"stats {q}: a warm run differs from the first")
             for k, v in c["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-        seg_mod.reset_launches()
-        hp.reset_launches()
-        t0 = time.perf_counter()
-        prof = profile_query(torch, s, Q[q][0])
-        prof_s = time.perf_counter() - t0
-        for k, v in launches_of(mods).items():
-            launches[k] += v
+        prof, prof_s = {"device_busy_us": None, "idle_share": None}, None
+        if q not in STATS_UNPROFILED:
+            seg_mod.reset_launches()
+            hp.reset_launches()
+            t0 = time.perf_counter()
+            prof = profile_query(torch, s, Q[q][0])
+            prof_s = time.perf_counter() - t0
+            for k, v in launches_of(mods).items():
+                launches[k] += v
         c, dt = first
+        busy = None if prof["device_busy_us"] is None else prof["device_busy_us"] / 1e3
         report["queries"][q] = {"first_s": dt, "warm_median_s": statistics.median(runs),
                                 "runs_s": runs, "launches": launches,
                                 "first_run_launches": c["launches"],
                                 "routes": c["routes"], "fused": c["fused"],
                                 "generic_runs": c["generic_runs"],
-                                "segments": c["segments"],
-                                "device_busy_ms": prof["device_busy_us"] / 1e3,
+                                "segments": c["segments"], "device_busy_ms": busy,
                                 "idle_share": prof["idle_share"], "profile_s": prof_s}
-        log(f"stats {q} (+{time.perf_counter() - t_phase:.1f} s into the phase; the "
-            f"profiled run {prof_s:.1f} s): first {dt:.3f} s, warm median of 3 "
-            f"{statistics.median(runs) * 1e3:.3f} ms (runs {runs}); device busy "
-            f"{prof['device_busy_us'] / 1e3:.3f} ms, idle {prof['idle_share']:.3f}; "
+        prof_note = ("not profiled" if prof_s is None else
+                     f"the profiled run {prof_s:.1f} s; device busy {busy:.3f} ms, "
+                     f"idle {prof['idle_share']:.3f}")
+        log(f"stats {q} (+{time.perf_counter() - t_phase:.1f} s into the phase; "
+            f"{prof_note}): first {dt:.3f} s, warm median of 3 "
+            f"{statistics.median(runs) * 1e3:.3f} ms (runs {runs}); "
             f"first run's launches {c['launches']}; routes {c['routes']}; segments "
             f"{c['segments']}; fused {c['fused']}; device generic {c['generic_runs']}")
     check_five(np, res, model, "analyzed")
@@ -3670,8 +3720,9 @@ def _walk(plan):
 POINT_SQL = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_orderdate,"
              " o_orderpriority, o_clerk, o_shippriority, o_comment from orders"
              " where o_orderkey = ?")
-# the point-select fleet: connections, and statements from each
-POINT_CONNS, POINT_STMTS = 16, 2000
+# the point-select fleet: connections, and statements from each (2,000
+# each before the mesh phase took its share of the script's time limit)
+POINT_CONNS, POINT_STMTS = 16, 1000
 # the text rows of the five queries as the port's Session types them
 WIRE_TYPES = {"q1": (str, str, str, str, str, str, float, float, float, int),
               "q6": (str,), "q3": (int, str, str, int), "q5": (str, str),
@@ -3719,9 +3770,52 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else 0.0
 
 
+def point_fleet(np, cat, port: int, n_conns: int, n_stmts: int) -> dict:
+    """Prepared point-selects on `orders` (a tenth of the keys absent)
+    from `n_conns` connections of `n_stmts` each against the server on
+    `port`. The clients run in a process of their own, as a client fleet
+    would: client threads in this one would take the GIL from the server
+    they measure. Every row must equal numpy's. Returns the statement and
+    absent counts, the fleet's wall time, the per-statement latencies and
+    the client process's time."""
+    o = cat.table("test", "orders")
+    okeys = o.data["o_orderkey"][:o.n]
+    rng = np.random.default_rng(7)
+    n_all = n_conns * n_stmts
+    keys = rng.choice(okeys, n_all)
+    absent = rng.random(n_all) < 0.1
+    # an absent key: past the largest one
+    gap = int(okeys.max()) + 1 + rng.integers(0, 1 << 20, n_all)
+    keys = np.where(absent, gap, keys).astype(np.int64)
+    want = numpy_orders(np, o, set(int(k) for k in keys))
+    keys_path = os.path.join(OUT_DIR, "point_keys.json")
+    out_path = os.path.join(OUT_DIR, "point_rows.json")
+    with open(keys_path, "w") as f:
+        json.dump([int(k) for k in keys], f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.point_clients(*sys.argv[1:]))",
+         str(port), str(n_conns), keys_path, out_path],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"point-select clients failed: {r.stderr[-2000:]}")
+    with open(out_path) as f:
+        got = json.load(f)
+    os.remove(out_path)
+    os.remove(keys_path)
+    for k, rows in zip(keys, got["rows"]):
+        w = want[int(k)]
+        if [tuple(x) for x in rows] != ([] if w is None else [w]):
+            raise AssertionError(f"point-select {k}: {rows} vs numpy {w}")
+    return {"statements": n_all, "absent": int(absent.sum()), "wall_s": got["wall_s"],
+            "latency_s": got["latency_s"], "client_process_s": time.perf_counter() - t0}
+
+
 def point_clients(port, n_conns, keys_path, out_path) -> int:
     """The point-select client fleet, run in its own process by
-    phase_server: `n_conns` connections, each preparing POINT_SQL and
+    point_fleet: `n_conns` connections, each preparing POINT_SQL and
     executing its share of the keys in `keys_path` (connection i takes
     every n_conns-th key from i), all started together. Writes the rows
     in key order, the per-statement latencies and the wall time to
@@ -3869,46 +3963,13 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
         rep["five"] = five
 
         # -- prepared point-selects from 16 connections --------------------
-        # the clients run in a process of their own, as a client fleet
-        # would: 16 client threads in this one would take the GIL from
-        # the server they measure
-        o = cat.table("test", "orders")
-        okeys = o.data["o_orderkey"][:o.n]
-        rng = np.random.default_rng(7)
-        n_all = POINT_CONNS * POINT_STMTS
-        keys = rng.choice(okeys, n_all)
-        absent = rng.random(n_all) < 0.1
-        # an absent key: past the largest one
-        gap = int(okeys.max()) + 1 + rng.integers(0, 1 << 20, n_all)
-        keys = np.where(absent, gap, keys).astype(np.int64)
-        want = numpy_orders(np, o, set(int(k) for k in keys))
         c0 = M.BATCH_COALESCE_TOTAL.value()
         b0 = M.BATCH_SIZE.count()
         hist0 = {k: list(v) for k, v in M.BATCH_SIZE._counts.items()}
-        keys_path = os.path.join(OUT_DIR, "point_keys.json")
-        out_path = os.path.join(OUT_DIR, "point_rows.json")
-        with open(keys_path, "w") as f:
-            json.dump([int(k) for k in keys], f)
-        here = os.path.dirname(os.path.abspath(__file__))
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "sys.exit(chip_smoke.point_clients(*sys.argv[1:]))",
-             str(srv.port), str(POINT_CONNS), keys_path, out_path],
-            cwd=here, capture_output=True, text=True, timeout=900)
-        if r.returncode != 0:
-            raise AssertionError(f"point-select clients failed: {r.stderr[-2000:]}")
-        with open(out_path) as f:
-            got = json.load(f)
-        os.remove(out_path)
-        os.remove(keys_path)
-        for k, rows in zip(keys, got["rows"]):
-            w = want[int(k)]
-            if [tuple(x) for x in rows] != ([] if w is None else [w]):
-                raise AssertionError(f"point-select {k}: {rows} vs numpy {w}")
-        wall = got["wall_s"]
+        fleet = point_fleet(np, cat, srv.port, POINT_CONNS, POINT_STMTS)
+        n_all, absent, wall = fleet["statements"], fleet["absent"], fleet["wall_s"]
         batches = M.BATCH_SIZE.count() - b0
-        flat = got["latency_s"]
+        flat = fleet["latency_s"]
         sizes = {}
         for key, counts in M.BATCH_SIZE._counts.items():
             before = hist0.get(key, [0] * len(counts))
@@ -3919,15 +3980,15 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
         multi = sum(v for k, v in sizes.items() if k != "1")
         rep["point_select"] = {
             "connections": POINT_CONNS, "statements": n_all,
-            "absent": int(absent.sum()), "wall_s": wall, "stmts_per_s": n_all / wall,
+            "absent": absent, "wall_s": wall, "stmts_per_s": n_all / wall,
             "p50_ms": _pct(flat, 0.50) * 1e3, "p99_ms": _pct(flat, 0.99) * 1e3,
             "batches": batches, "coalesced_stmts": coalesced,
             "batch_size_histogram": sizes,
             "mean_batch_size": (n_all / batches) if batches else 0.0,
-            "client_process_s": time.perf_counter() - t0}
+            "client_process_s": fleet["client_process_s"]}
         if not multi or coalesced < 2:
             raise AssertionError(f"no batch had more than one member: {sizes}")
-        log(f"server point-selects: {n_all} ({int(absent.sum())} absent) from "
+        log(f"server point-selects: {n_all} ({absent} absent) from "
             f"{POINT_CONNS} connections in {wall:.3f} s = {n_all / wall:.1f} stmt/s, "
             f"p50 {rep['point_select']['p50_ms']:.3f} ms p99 "
             f"{rep['point_select']['p99_ms']:.3f} ms; {batches} batches, mean size "
@@ -4556,6 +4617,435 @@ def phase_planner(torch, np, s, mods) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# the mesh tier: Session(mesh=...) on one card, streamed, four shards, wire
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # shards of the mesh laid over the one card
+# the mesh server's point-select fleet (POINT_CONNS connections of this
+# many statements each) and the connections that each stage their own
+# sharding of lineitem
+MESH_POINT_STMTS, MESH_MEM_CONNS = 100, 4
+
+
+def mesh_executor_names() -> set:
+    """The class names of the executors that run on the mesh."""
+    from tidb_tpu_torch.parallel.executor import DIST_EXECUTORS
+
+    return {cls.__name__ for cls in DIST_EXECUTORS}
+
+
+def mesh_classes(s, sql: str) -> list:
+    """The executor classes (depth-first) of the tree the mesh session
+    builds for `sql`, planned as its next run plans it, with _run_select's
+    eager-aggregation re-plan."""
+    from tidb_tpu_torch.parser import parse
+    from tidb_tpu_torch.session.session import _dist_engaged, _has_eager_partial
+
+    phys = planned(s, sql)
+    root = s._build_root(phys)
+    if s._dist_expected() and _has_eager_partial(phys) and not _dist_engaged(root):
+        root = s._build_root(s._plan_select(parse(sql)[0], agg_push_down=False))
+    out, stack = [], [root]
+    while stack:
+        e = stack.pop()
+        out.append(type(e).__name__)
+        stack.extend(e.children)
+    return out
+
+
+def mesh_launches_add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def mesh_five(np, s, mods, model, single_rows, label, rep) -> dict:
+    """The five queries on the mesh session `s`: each against numpy over the
+    tables' live rows and the single-card session's rows (exactly), its
+    executor classes, its launches (tidb_segagg on Q1 and Q6, tidb_probe_count
+    on every query whose tree joins on the mesh, the off-path entries
+    never), one cold run and a warm median of 3. Returns the rows."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    res, per = {}, {}
+    for q in REFRESH_QUERIES:
+        sql = Q[q][0]
+        classes = mesh_classes(s, sql)
+        rows, c, cold = run_query(s, mods, sql)
+        lc = c["launches"]
+        mesh_launches_add(rep["launches"], lc)
+        if lc["segsum_count"] or lc["segsum_i64"] or lc["hash_probe"]:
+            raise AssertionError(f"{label} {q} launched an off-path kernel entry: {lc}")
+        dist = [k for k in classes if k in mesh_executor_names()]
+        if q in ("q1", "q6") and (not lc["segagg"] or "DistAggExec" not in dist):
+            raise AssertionError(f"{label} {q}: segagg {lc['segagg']} under {classes}")
+        joins = "DistJoinAggExec" in dist or "DistFragmentExec" in dist
+        if q in ("q3", "q5", "q18") and (not joins or not lc["probe_count"]):
+            raise AssertionError(f"{label} {q}: probe_count {lc['probe_count']} under "
+                                 f"{classes}")
+        if rows != single_rows[q]:
+            raise AssertionError(f"{label} {q}: rows differ from the single-card session's")
+        warm = []
+        for _ in range(3):
+            again, cw, dt = run_query(s, mods, sql)
+            mesh_launches_add(rep["launches"], cw["launches"])
+            warm.append(dt)
+            # a cold run may pay capacity retries that warm runs skip
+            # (the proven growths are cached), so only the rows must repeat
+            if again != rows:
+                raise AssertionError(f"{label} {q}: a warm run's rows differ")
+        res[q] = rows
+        per[q] = {"classes": classes, "cold_s": cold, "warm_s": warm,
+                  "warm_median_s": statistics.median(warm), "launches": lc}
+        log(f"{label} {q}: {len(rows)} rows equal numpy and the single-card session; "
+            f"cold {cold * 1e3:.3f} ms, warm median {statistics.median(warm) * 1e3:.3f} "
+            f"ms {[round(w * 1e3, 3) for w in warm]}; launches "
+            f"{ {k: v for k, v in lc.items() if v} }; executors {classes}")
+    check_five(np, res, model, label)
+    return {"rows": res, "per_query": per}
+
+
+def record_largest_segagg() -> dict:
+    """Wrap tidb_tpu_torch.ops.segment_accumulate: rec["args"] keeps the
+    arguments (seg, G, sel, accs) of the call over the most rows (then the
+    most accumulators). rec["restore"]() puts the real function back."""
+    from tidb_tpu_torch import ops
+
+    real = ops.segment_accumulate
+    rec = {"args": None, "size": (-1, -1)}
+
+    def recording(seg, G, sel, accs):
+        size = (seg.shape[0], len(accs))
+        if size > rec["size"]:
+            rec["size"], rec["args"] = size, (seg, G, sel, list(accs))
+        return real(seg, G, sel, accs)
+
+    def restore():
+        ops.segment_accumulate = real
+
+    ops.segment_accumulate = recording
+    rec["restore"] = restore
+    return rec
+
+
+def largest_probe_args(rec, route: str, mode: str):
+    """The recorded (args, kw) of the `route`/`mode` probe_count call over
+    the most probe rows (then the largest build); None if none was made."""
+    keys = [k for k in rec["calls"] if k[1:3] == (route, mode)]
+    if not keys:
+        return None
+    size = lambda k: (rec["args"][k][0][0].shape[0], rec["args"][k][0][5].shape[0])  # noqa: E731
+    return rec["args"][max(keys, key=size)]
+
+
+def phase_mesh(torch, np, s, mods, grid_cat, grid_oracle) -> tuple:
+    """The mesh tier (item 9 of the module docstring) on the SF1 catalog
+    of the session `s` and the grid's SF0.1 catalog and sqlite oracle.
+    Every step fails the run on a wrong answer. Returns (the report, whose
+    "probe_modes" count the mesh runs' probe_count calls alone, and the
+    mesh's kernel shapes: per "route/mode" the largest probe_count call's
+    (args, kw), and under "segagg" the largest tidb_segagg call's
+    arguments), the shapes that mesh_kernel_rows checks and times."""
+    from tidb_tpu_torch.parallel import executor as pex
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    t_phase = time.perf_counter()
+    cat = s.catalog.base
+    s.execute("use test")
+    pex.reset_fallbacks()
+    rep = {"card": card_line(), "launches": {}, "grid": {}}
+    model = ArrayModel(np, cat)
+
+    # the single-card session's rows and warm medians, the yardstick
+    single_rows, single = {}, {}
+    for q in REFRESH_QUERIES:
+        single_rows[q] = s.query(Q[q][0])
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            s.query(Q[q][0])
+            warm.append(time.perf_counter() - t0)
+        single[q] = {"warm_s": warm, "warm_median_s": statistics.median(warm)}
+    rep["single_card"] = single
+    # the mesh runs alone are recorded: probe_count by route and mode, and
+    # the largest call of each kernel for mesh_kernel_rows
+    hp = mods[1]
+    probes = record_probe_chunks(hp)
+    segs = record_largest_segagg()
+    try:
+        mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle, rep)
+    finally:
+        hp.probe_chunk = probes["real"]
+        segs["restore"]()
+    modes = {}
+    for (_q, route, mode, _b), n in probes["calls"].items():
+        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    rep["probe_modes"] = modes
+    shapes = {m: largest_probe_args(probes, *m.split("/")) for m in modes}
+    shapes["segagg"] = segs["args"]
+    rep["s"] = time.perf_counter() - t_phase
+    log(f"mesh phase passed in {rep['s']:.1f} s; fallbacks to one device "
+        f"{rep['fallbacks']}; launches {rep['launches']}; probe_count by route and "
+        f"mode {rep['probe_modes']}")
+    return rep, shapes
+
+
+def mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle,
+               rep) -> dict:
+    """phase_mesh's four steps; their launches go into rep["launches"]."""
+    from tidb_tpu_torch.parallel import executor as pex
+    from tidb_tpu_torch.parallel import make_mesh
+    from tidb_tpu_torch.parallel.partition import table_bytes
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.server.client import Client
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils.metrics import FRAGMENT_DISPATCH
+
+    # -- 1. a mesh of the one card, as the reference serves one chip --------
+    mesh1 = make_mesh()
+    label1 = f"mesh {mesh1.shape['dcn']}x{mesh1.shape['shard']}"
+    t0 = time.perf_counter()
+    s1 = Session(cat, mesh=mesh1)
+    rep["mesh1"] = mesh_five(np, s1, mods, model, single_rows, label1, rep)
+    rep["mesh1"]["s"] = time.perf_counter() - t0
+    rep["mesh1"]["mesh"] = repr(mesh1)
+
+    # -- 2. streaming: lineitem above tidb_device_cache_bytes ---------------
+    li = cat.table("test", "lineitem")
+    budget = table_bytes(li) // 4
+    s1.execute(f"set tidb_device_cache_bytes = {budget}")
+    stream = {"budget_bytes": budget, "lineitem_bytes": table_bytes(li)}
+    try:
+        for q in ("q1", "q6"):
+            before = FRAGMENT_DISPATCH.value(kind="scan_agg_stream")
+            rows, c, dt = run_query(s1, mods, Q[q][0])
+            mesh_launches_add(rep["launches"], c["launches"])
+            batches = FRAGMENT_DISPATCH.value(kind="scan_agg_stream") - before
+            if batches < 2 or not c["launches"]["segagg"]:
+                raise AssertionError(f"mesh stream {q}: {batches} streamed batches, "
+                                     f"launches {c['launches']}")
+            if rows != rep["mesh1"]["rows"][q]:
+                raise AssertionError(f"mesh stream {q}: rows differ from the resident run")
+            stream[q] = {"s": dt, "batches": batches, "launches": c["launches"]}
+            log(f"mesh stream {q}: {batches} batches in {dt * 1e3:.3f} ms equal the "
+                f"resident run; launches {c['launches']['segagg']} tidb_segagg")
+    finally:
+        s1.execute("set tidb_device_cache_bytes = 8589934592")
+    rep["stream"] = stream
+
+    # -- 3. four shards on the one card ------------------------------------
+    dev = mesh1.device_of(0)
+    mesh4 = make_mesh(n_shards=MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    t0 = time.perf_counter()
+    s4 = Session(cat, mesh=mesh4)
+    rep["mesh4"] = mesh_five(np, s4, mods, model, single_rows,
+                             f"mesh 1x{MESH_SHARDS}", rep)
+    rep["mesh4"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g4 = Session(grid_cat, chunk_capacity=8192, mesh=mesh4)
+    for name, (sql, osql) in Q.items():
+        rows, c, dt = run_query(g4, mods, sql)
+        mesh_launches_add(rep["launches"], c["launches"])
+        ok, msg = rows_equal(rows, grid_oracle.execute(osql or sql).fetchall())
+        if not ok:
+            raise AssertionError(f"mesh grid {name}: {msg}")
+        classes = [k for k in mesh_classes(g4, sql) if k in mesh_executor_names()]
+        rep["grid"][name] = {"rows": len(rows), "s": dt, "dist": classes,
+                             "launches": {k: v for k, v in c["launches"].items() if v}}
+    rep["grid_s"] = time.perf_counter() - t0
+    log(f"mesh grid: all 22 queries at SF0.1 on {MESH_SHARDS} shards equal sqlite in "
+        f"{rep['grid_s']:.1f} s; on the mesh: "
+        f"{sorted(q for q, v in rep['grid'].items() if v['dist'])}")
+
+    # -- 4. the server with the one-card mesh --------------------------------
+    srv = Server(catalog=cat, port=0, status_port=None, mesh=mesh1)
+    srv.start()
+    wire = {}
+    try:
+        cl = Client(port=srv.port, timeout=600)
+        for q in ("q1", "q3"):
+            seg_mod, hp = mods[0], mods[1]
+            seg_mod.reset_launches()
+            hp.reset_launches()
+            t0 = time.perf_counter()
+            _names, rows = cl.query(Q[q][0])
+            dt = time.perf_counter() - t0
+            mesh_launches_add(rep["launches"], {**seg_mod.LAUNCHES, **hp.LAUNCHES})
+            if _typed(q, rows) != rep["mesh1"]["rows"][q]:
+                raise AssertionError(f"mesh server {q}: wire rows differ from in-process")
+            wire[q] = {"s": dt, "launches": {**seg_mod.LAUNCHES, **hp.LAUNCHES}}
+            log(f"mesh server {q}: {len(rows)} rows over the wire equal in-process "
+                f"in {dt * 1e3:.3f} ms")
+        cl.close()
+        wire["point_select"] = mesh_server_points(np, cat, srv)
+        wire["memory"] = mesh_server_memory(torch, srv, rep["mesh1"]["rows"]["q6"])
+    finally:
+        srv.shutdown(drain=True)
+    rep["server"] = wire
+
+    rep["fallbacks"] = dict(pex.FALLBACKS)
+    if not rep["launches"].get("segagg") or not rep["launches"].get("probe_count"):
+        raise AssertionError(f"mesh phase launches: {rep['launches']}")
+    for sess in (s1, s4, g4):
+        sess._shard_cache.clear_tables()
+    del s1, s4, g4
+    torch.cuda.empty_cache()
+    return {}
+
+
+def mesh_server_points(np, cat, srv) -> dict:
+    """The point-select fleet against the mesh server: every row equal to
+    numpy's, and no statement batched (a mesh session offers the batcher no
+    probe, as the reference's does). Then the same fleet against a server
+    without a mesh with the batcher off (tidb_tpu_batch_window_us = 0),
+    which isolates the mesh's cost from the batcher's absence. Returns
+    both runs' rates and latencies."""
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.utils import metrics as M
+
+    def fleet_on(port, label):
+        b0 = M.BATCH_SIZE.count()
+        fleet = point_fleet(np, cat, port, POINT_CONNS, MESH_POINT_STMTS)
+        batches = M.BATCH_SIZE.count() - b0
+        if batches:
+            raise AssertionError(f"{label}: {batches} point-select batches")
+        flat, n_all, wall = fleet["latency_s"], fleet["statements"], fleet["wall_s"]
+        out = {"connections": POINT_CONNS, "statements": n_all,
+               "absent": fleet["absent"], "wall_s": wall, "stmts_per_s": n_all / wall,
+               "p50_ms": _pct(flat, 0.50) * 1e3, "p99_ms": _pct(flat, 0.99) * 1e3}
+        log(f"{label} point-selects: {n_all} ({fleet['absent']} absent) from "
+            f"{POINT_CONNS} connections in {wall:.3f} s = {out['stmts_per_s']:.1f} "
+            f"stmt/s, p50 {out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms; no batch")
+        return out
+
+    out = {"mesh": fleet_on(srv.port, "mesh server")}
+    had = "tidb_tpu_batch_window_us" in cat.global_vars
+    prev = cat.global_vars.get("tidb_tpu_batch_window_us")
+    cat.global_vars["tidb_tpu_batch_window_us"] = 0
+    single = Server(catalog=cat, port=0, status_port=None)
+    single.start()
+    try:
+        out["single_unbatched"] = fleet_on(single.port, "single-card server, no batcher,")
+    finally:
+        single.shutdown(drain=True)
+        if had:
+            cat.global_vars["tidb_tpu_batch_window_us"] = prev
+        else:
+            del cat.global_vars["tidb_tpu_batch_window_us"]
+    return out
+
+
+def mesh_server_memory(torch, srv, q6_rows) -> dict:
+    """MESH_MEM_CONNS connections to the mesh server each run Q6 (rows equal
+    to the in-process mesh run's): each connection's Session stages its own
+    sharding of lineitem, so the card's allocated bytes grow with the
+    connections. Returns the bytes after each connection's Q6, the peak,
+    and the bytes once the connections closed."""
+    import gc
+
+    from tidb_tpu_torch.server.client import Client
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    after, conns = [], []
+    try:
+        for _ in range(MESH_MEM_CONNS):
+            cl = Client(port=srv.port, timeout=600)
+            conns.append(cl)
+            _names, rows = cl.query(Q["q6"][0])
+            if _typed("q6", rows) != q6_rows:
+                raise AssertionError("mesh server q6: wire rows differ from in-process")
+            torch.cuda.synchronize()
+            after.append(torch.cuda.memory_allocated() - base)
+    finally:
+        for cl in conns:
+            cl.close()
+    peak = torch.cuda.max_memory_allocated() - base
+    time.sleep(0.5)  # the connection threads drop their sessions
+    gc.collect()
+    closed = torch.cuda.memory_allocated() - base
+    out = {"connections": MESH_MEM_CONNS, "base_bytes": base,
+           "allocated_after_each_bytes": after, "peak_bytes": peak,
+           "after_close_bytes": closed}
+    log(f"mesh server memory: {MESH_MEM_CONNS} connections' Q6 add {after} B over "
+        f"{base} B allocated (peak +{peak} B); +{closed} B once they closed")
+    return out
+
+
+def mesh_kernel_rows(torch, hp, seg_mod, launches: dict, probe_modes: dict,
+                     shapes: dict) -> list:
+    """The kernels-line rows at the mesh path's own shapes: tidb_segagg on
+    its largest mesh call (Q1 on the one-card mesh: one shard is all of
+    lineitem) and tidb_probe_count on the largest call of every route and
+    mode the mesh took, each checked against its plain version and timed.
+    Each row's launches are the mesh phase's for that kernel and route."""
+    rows = []
+    if shapes.get("segagg") is not None:
+        seg, G, sel, accs = shapes["segagg"]
+        rows.append(segagg_call_row(torch, seg_mod, "segagg.mesh", seg, G, sel, accs,
+                                    launches.get("segagg", 0)))
+    for mode, n in sorted(probe_modes.items()):
+        args, kw = shapes[mode]
+        rows.append(probe_chunk_row(torch, hp, f"probe_count.mesh_{mode.replace('/', '_')}",
+                                    args, kw, n, calls=4, reps=3))
+    return rows
+
+
+def segagg_call_row(torch, seg_mod, name, seg, G, sel, accs, launches: int) -> dict:
+    """The kernels-line row of tidb_segagg on one recorded call: checked
+    bit-equal to plain_segment_accumulate, then timed beside the plain
+    version and one index_add_ of every output's per-row contributions.
+    Its bound reads each distinct input tensor once and writes each
+    output once, one add per row and output."""
+    check_segagg_case(torch, seg_mod, seg, G, sel, accs)
+    R = seg.shape[0]
+    n_out = sum(2 if a.kind == "limbs" else 1 for a in accs)
+    ins = {t.data_ptr(): t.numel() * t.element_size()
+           for t in [seg, sel] + [x for a in accs for x in (a.vals, a.mask)]
+           if t is not None}
+    nbytes = sum(ins.values()) + n_out * G * 8
+    # the library yardstick's operand: each output's per-row contribution
+    base = torch.ones(R, dtype=torch.bool, device=seg.device) if sel is None else sel
+    cols = []
+    for a in accs:
+        live = base if a.mask is None else base & a.mask
+        if a.kind == "count":
+            cols.append(live.to(torch.int64))
+        elif a.kind == "sum":
+            cols.append(torch.where(live, a.vals, 0))
+        else:
+            v = torch.where(live, a.vals, 0)
+            cols += [v & 0xFFFFFFFF, v >> 32]
+    stacked = torch.stack(cols, 1).contiguous()
+    idx = seg.to(torch.int64)
+    lib = torch.zeros(G, n_out, dtype=torch.int64, device=seg.device)
+    ms = device_ms(torch, lambda: seg_mod.segment_accumulate(seg, G, sel, accs),
+                   graph=True, calls=4, reps=3)
+    plain_ms = device_ms(torch, lambda: seg_mod.plain_segment_accumulate(seg, G, sel, accs),
+                         graph=False, calls=4, reps=3)
+    library_ms = device_ms(torch, lambda: lib.index_add_(0, idx, stacked), graph=True,
+                           calls=4, reps=3)
+    del stacked, lib
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = R * n_out / SCALAR_OPS_PER_S * 1e3
+    row = {"name": name, "route": "cuda", "source": "tidb_tpu_torch/ops/csrc/segment_sum.cu",
+           "replaces": "tidb_tpu/ops/segment_sum.py:177",
+           "also_replaces": "tidb_tpu/ops/segment_sum.py:112",
+           "launches": launches, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms}
+    log(f"{name} at R={R} G={G}, {len(accs)} accumulators ({n_out} outputs): "
+        f"{ms * 1e3:.2f} us/call, bound {row['bound_ms'] * 1e3:.3f} us ({nbytes} B), "
+        f"plain {plain_ms * 1e3:.2f} us, index_add_ [R, {n_out}] {library_ms * 1e3:.2f} us; "
+        f"{launches} mesh launches")
+    return row
+
+
 def has_eager_partial(plan) -> bool:
     """Does the physical plan carry an eager-aggregation partial (an
     aggregation whose outputs carry the rule's derived `eagg.` uids, as
@@ -4630,7 +5120,7 @@ def main() -> int:
 
     # -- the grid: 22 queries at SF0.1 against sqlite ------------------------
     t0 = time.perf_counter()
-    grid = phase_grid(torch, np, Session, mods)
+    grid, grid_cat, grid_oracle = phase_grid(torch, np, Session, mods)
     pl.DEVICE_CACHE.clear()  # the grid's staged tables, off the card
     log(f"grid: all 22 queries equal sqlite in {time.perf_counter() - t0:.1f} s")
 
@@ -4720,11 +5210,11 @@ def main() -> int:
     lib_out = torch.zeros(G, dtype=torch.int64, device="cuda")
     rows = []
     specs = [
-        ("segsum_count", "tidb_tpu/ops/segment_sum.py:111", 1,
+        ("segsum_count", "tidb_tpu/ops/segment_sum.py:112", 1,
          lambda: seg_mod.segment_count(mask, seg, G),
          lambda: seg_mod.plain_segment_count(mask, seg, G),
          lambda: lib_out.index_add_(0, seg, mask_i64)),
-        ("segsum_i64", "tidb_tpu/ops/segment_sum.py:176", 8,
+        ("segsum_i64", "tidb_tpu/ops/segment_sum.py:177", 8,
          lambda: seg_mod.segment_sum_i64(vals, seg, G),
          lambda: seg_mod.plain_segment_sum_i64(vals, seg, G),
          lambda: lib_out.index_add_(0, seg, vals)),
@@ -4781,8 +5271,8 @@ def main() -> int:
     rows.append({
         "name": "segagg", "route": "cuda",
         "source": "tidb_tpu_torch/ops/csrc/segment_sum.cu",
-        "replaces": "tidb_tpu/ops/segment_sum.py:176",
-        "also_replaces": "tidb_tpu/ops/segment_sum.py:111",
+        "replaces": "tidb_tpu/ops/segment_sum.py:177",
+        "also_replaces": "tidb_tpu/ops/segment_sum.py:112",
         "launches": launches["segagg"], "max_abs_err": 0, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -4901,6 +5391,7 @@ def main() -> int:
     planner = with_probe_modes(hp, lambda: phase_planner(torch, np, s, mods))
     log(f"planner phase passed in {planner['s']:.1f} s; launches {planner['launches']}; "
         f"probe_count by route and mode {planner['probe_modes']}")
+    mesh, mesh_shapes = phase_mesh(torch, np, s, mods, grid_cat, grid_oracle)
     by_mode = refresh["probe_modes"]
     for row in rows:
         if row["name"].startswith("probe_count."):
@@ -4920,6 +5411,19 @@ def main() -> int:
             row[key] = (rep["probe_modes"].get(mode, 0)
                         if row["name"].startswith("probe_count.")
                         else rep["launches"].get(row["name"], 0))
+        # the mesh's launches sit on the rows at the mesh's own shapes
+        row["launches_mesh"] = 0
+    # the kernels at the mesh path's shapes: the mesh phase's launches
+    mesh_rows = mesh_kernel_rows(torch, hp, seg_mod, mesh["launches"], mesh["probe_modes"],
+                                 mesh_shapes)
+    del mesh_shapes
+    for row in mesh_rows:
+        for key in ("launches_refresh", "launches_schema", "launches_stats",
+                    "launches_window", "launches_server", "launches_storage",
+                    "launches_planner"):
+            row[key] = 0
+        row["launches_mesh"] = row["launches"]
+    rows += mesh_rows
 
     log(f"main-path launches: fused path {launches}, classic path {launches_classic}, "
         f"packed batches {launches_packed}, refresh phase {refresh['launches']}")
@@ -4938,7 +5442,7 @@ def main() -> int:
               "f32_max_abs_diff": errs["segsum_f32"], "profiles": profiles,
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
               "schema": schema, "stats": stats_report, "window": window,
-              "server": server, "storage": storage, "planner": planner,
+              "server": server, "storage": storage, "planner": planner, "mesh": mesh,
               "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -820,3 +820,30 @@ def test_fused_probe_under_raised_join_tiles_equals_plain_probe(card):
         assert hp.LAUNCHES["probe_count"] > 0
     assert tiles[0] == 8 and tiles[-1] > 8, tiles
     fb.STORE.on_schema_change()
+
+
+def test_four_shard_mesh_on_card_equals_cpu_mesh(card):
+    """The mesh tier with four shards on one card (the all_to_all exchange
+    and the merges on the card, tidb_segagg and tidb_probe_count launched
+    per shard) against the same mesh of four CPU shards: Q1, Q3 and Q18 at
+    SF0.01, rows exactly equal (decimals exact, AVG finalized on the host
+    from exact sums)."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.parallel import make_mesh
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = Catalog()
+    load_tpch(cat, sf=0.01)
+    on_card = Session(cat, mesh=make_mesh(n_shards=4, devices=[card] * 4))
+    on_cpu = Session(cat, mesh=make_mesh(n_shards=4, devices=[torch.device("cpu")] * 4))
+    for q in ("q1", "q3", "q18"):
+        port.reset_launches()
+        hp.reset_launches()
+        got = on_card.query(Q[q][0])
+        assert port.LAUNCHES["segagg"] + hp.LAUNCHES["probe_count"] > 0, q
+        if q != "q1":
+            assert hp.LAUNCHES["probe_count"] > 0, q
+        assert got == on_cpu.query(Q[q][0]), q

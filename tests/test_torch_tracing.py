@@ -31,12 +31,12 @@ from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
+# the mesh tier's families (parallel/), registered by the port
+_MESH_FAMILIES = ("tidb_tpu_fragment_dispatch_total", "tidb_tpu_fragment_seconds",
+                  "tidb_tpu_fragment_compile_total", "tidb_tpu_collective_merge_seconds")
+
 # reference metric families whose module the port does not have
 _UNPORTED_FAMILIES = {
-    "tidb_tpu_fragment_dispatch_total": "parallel/ (the mesh tier)",
-    "tidb_tpu_fragment_seconds": "parallel/ (the mesh tier)",
-    "tidb_tpu_fragment_compile_total": "parallel/ (the mesh tier)",
-    "tidb_tpu_collective_merge_seconds": "parallel/ (the mesh tier)",
     "tidb_tpu_dcn_bytes_total": "parallel/dcn.py",
     "tidb_tpu_dcn_rtt_seconds": "parallel/dcn.py",
     "tidb_tpu_dcn_retry_total": "parallel/dcn.py",
@@ -172,6 +172,7 @@ def test_metrics_families_match_reference():
     assert set(got) <= set(want)  # no family the reference lacks
     assert {n: k for n, k in got.items()} == {
         n: k for n, k in want.items() if n not in _UNPORTED_FAMILIES}
+    assert all(got.get(f) == want[f] for f in _MESH_FAMILIES)
     # the port's engine counters render under the reference's names
     js, ps = _pair()
     ps.execute("set tidb_enable_non_prepared_plan_cache = 1")

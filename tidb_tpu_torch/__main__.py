@@ -9,10 +9,11 @@ Ref: tidb-server/main.go (flag parsing -> config merge -> bootstrap ->
 Server.Run). Config file keys mirror the flags; explicit flags win.
 
 The server runs on the CUDA card unless `--device cpu` asks for the
-host; with no card it exits with an error. `--mesh auto` over one
-visible card is single-card execution, the path the port has; more
-than one visible card exits with an error, since the multi-device tier
-(ROADMAP Queue A, item 9) is not ported. SIGINT drains the server and
+host; with no card it exits with an error. `--mesh auto` (the default)
+builds a mesh over every visible card (with `--device cpu`, one CPU
+shard) and hands it to every connection's Session, so reads run on the
+mesh tier (parallel/), as the reference's server does; `--mesh none`
+runs each statement on the one device. SIGINT drains the server and
 exits 0.
 """
 
@@ -30,9 +31,8 @@ def parse_args(argv):
                     help="HTTP status/metrics port (default 10080; -1 disables)")
     ap.add_argument("--config", default=None, help="TOML config file")
     ap.add_argument("--mesh", choices=["auto", "none"], default=None,
-                    help="auto: every visible card (one card: single-card "
-                         "execution; more is refused until the "
-                         "multi-device tier is ported)")
+                    help="auto: a mesh over every visible card (or the "
+                         "one CPU with --device cpu); none: one device")
     ap.add_argument("--load-tpch", type=float, default=None, metavar="SF",
                     help="preload TPC-H tables at scale factor SF")
     ap.add_argument("--root-password", default=None,
@@ -80,16 +80,12 @@ def main(argv=None) -> int:
     except ExecutionError as e:
         print(f"tidb_tpu_torch: {e}", file=sys.stderr)
         return 1
-    if mesh_mode == "auto" and device.type == "cuda":
-        import torch
+    mesh = None
+    if mesh_mode == "auto":
+        from tidb_tpu_torch.parallel import make_mesh
 
-        n = torch.cuda.device_count()
-        if n > 1:
-            print(f"tidb_tpu_torch: --mesh auto sees {n} cards, but the "
-                  "multi-device tier (ROADMAP Queue A, item 9) is not "
-                  "ported; expose one card (CUDA_VISIBLE_DEVICES) or pass "
-                  "--mesh none", file=sys.stderr)
-            return 1
+        mesh = make_mesh(devices=[device]) if device.type == "cpu" else make_mesh()
+        print(f"# mesh {mesh}", file=sys.stderr)
 
     catalog = Catalog()
     # SQL-reachable plugin imports are allowlisted on the wire server
@@ -104,7 +100,7 @@ def main(argv=None) -> int:
         print(f"# loaded TPC-H sf={sf}: {counts}", file=sys.stderr)
 
     server = Server(catalog=catalog, host=host, port=port,
-                    status_port=status_port, device=device)
+                    status_port=status_port, device=device, mesh=mesh)
     server.start()
     if server.status_port is not None:
         print(f"# status port http://{server.host}:{server.status_port}"

@@ -101,7 +101,8 @@ def _segment_extreme(arr: torch.Tensor, seg: torch.Tensor, R: int, op: str) -> t
 
 def _sort_reduce(kbits: List[torch.Tensor], kvalids: List[torch.Tensor],
                  kdatas: List[torch.Tensor], live: torch.Tensor,
-                 payload: List[torch.Tensor], reduce_ops: List[str]):
+                 payload: List[torch.Tensor], reduce_ops: List[str],
+                 exact: bool = False):
     """Shared core: sort rows by (dead, key identity), find segment
     boundaries, reduce payload arrays into dense per-group slots.
 
@@ -110,7 +111,11 @@ def _sort_reduce(kbits: List[torch.Tensor], kvalids: List[torch.Tensor],
     bits and validity; multi-key inputs order by a mixed 64-bit hash with
     exact-key boundary detection, so a hash collision can only SPLIT a
     group into two slots (never merge two groups): the host finalize
-    dedups by exact key (HashAggExec._finalize_group_tables).
+    dedups by exact key (HashAggExec._finalize_group_tables). With
+    `exact`, multi-key inputs order by the hash and then every key's bits
+    and validity, so equal keys are contiguous and the table holds no
+    collision-split duplicate (the mesh tier's exchange-side reduce emits
+    its tables as they are).
 
     Returns (ngroups 0-d int64, rep_kdatas, rep_kvalids, reduced_payloads),
     every slot array with the groups dense in [0, ngroups)."""
@@ -120,6 +125,11 @@ def _sort_reduce(kbits: List[torch.Tensor], kvalids: List[torch.Tensor],
     if len(kbits) == 1:
         # exact: equal bits tie-break on validity (NULL run != live-0 run)
         perm = lex_perm([dead, kbits[0], kvalids[0].to(torch.int32)])
+    elif exact:
+        # validity joins the tie-break: NULL bits are 0, so a NULL key and
+        # a live 0 differ only there
+        perm = lex_perm([dead, _group_hash(kbits, kvalids)] + list(kbits)
+                        + [v.to(torch.int32) for v in kvalids])
     else:
         perm = lex_perm([dead, _group_hash(kbits, kvalids)])
 

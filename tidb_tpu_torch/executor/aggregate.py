@@ -47,7 +47,7 @@ from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["HashAggExec", "make_segment_kernel", "split_limbs",
            "normalize_limbs", "combine_limbs_exact", "DEVICE_GENERIC_TOTAL",
-           "reset_counters"]
+           "reset_counters", "MERGE_OPS", "merge_op_for"]
 
 # generic aggregations that ran on the device by how they were fed:
 # "classic" pulled chunks from a child executor, "fused" came from
@@ -124,6 +124,21 @@ def _var_finalize(func: str, cnt: np.ndarray, m2: np.ndarray):
 
 _LO_BITS = 32
 _LO_MASK = (1 << _LO_BITS) - 1
+
+
+# how a [G]-shaped segment state merges across shards (the mesh tier's
+# collective merge and its streamed-batch combine), by key suffix
+MERGE_OPS = {".sumhi": "sum", ".sum": "sum", ".cnt": "sum",
+             ".min": "min", ".max": "max"}
+
+
+def merge_op_for(key: str) -> str:
+    if key == "occ":
+        return "sum"
+    for suffix, op in MERGE_OPS.items():
+        if key.endswith(suffix):
+            return op
+    raise ExecutionError(f"no merge op for state key {key!r}")
 
 
 def needs_sum_limbs(a: AggSpec) -> bool:

@@ -137,6 +137,15 @@ class ExecContext:
     # byte budget of the cross-statement device buffer cache; 0 = off
     # (tidb_tpu_device_buffer_cache_bytes)
     device_buffer_cache_bytes: int = 256 << 20
+    # the mesh tier (parallel/): a table above this many device bytes
+    # streams through a fragment in fixed batches instead of staying
+    # resident (tidb_device_cache_bytes); a broadcast build side above
+    # this many rows takes the single-device path
+    # (tidb_broadcast_join_threshold_count); a streamed source stages its
+    # integer columns FoR-encoded (tidb_tpu_stage_encoded)
+    device_cache_bytes: int = 8 << 30
+    broadcast_rows_limit: int = 1 << 21
+    stage_encoded: bool = True
 
     def __post_init__(self):
         if self.mem_tracker is None:

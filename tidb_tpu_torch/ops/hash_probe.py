@@ -31,7 +31,10 @@ cannot build or launch raises ExecutionError.
 `resolve_mode` maps tidb_tpu_join_probe_mode to a route. The port has no
 XLA and an eager window scan is 32 rounds of launches, so on the card
 'auto', 'xla' and 'pallas' all take the kernel; on the CPU 'auto' keeps
-searchsorted, as the reference's CPU run does.
+searchsorted, as the reference's CPU run does. Every caller passes its
+statement's mode: there is no process-wide default to race on.
+`probe_for_join` is the mesh tier's entry (parallel/fragment.py): the
+same kernel, one launch per shard, on the table route or the sorted one.
 
 The splitmix64 tail runs in int64: logical right shifts are masked
 arithmetic shifts, constants above 2^63 are written as their negative
@@ -53,7 +56,8 @@ __all__ = ["MAX_PROBES", "MAX_CAPACITY", "LAUNCHES", "reset_launches",
            "resolve_mode", "table_capacity", "build_table", "probe_table",
            "plain_probe_table", "placed_table", "probe_ranges",
            "sorted_probe_ranges", "probe_chunk", "plain_probe_chunk",
-           "ROUTES", "srl", "i64_bits", "load_kernels", "SOURCE"]
+           "ROUTES", "srl", "i64_bits", "load_kernels", "SOURCE",
+           "probe_for_join"]
 
 SOURCE = "hash_probe.cu"
 
@@ -448,3 +452,27 @@ def probe_ranges(sorted_keys: torch.Tensor, probes: torch.Tensor):
     if table is None:
         return sorted_probe_ranges(sorted_keys, probes)
     return probe_table(*table, sorted_keys, probes)
+
+
+def probe_for_join(sorted_hashes: torch.Tensor, probes: torch.Tensor,
+                   mode: str, ok: Optional[torch.Tensor] = None):
+    """(lo, hi) int64 per probe over the sorted build hashes (searchsorted
+    left/right wherever a join reads them: hi - lo, and lo on a hit),
+    through probe_chunk: one tidb_probe_count launch on a CUDA tensor,
+    on the table route when `mode` takes the table on this device and
+    every run was placed, else on the sorted route. Rows where `ok` is
+    False get hi == lo. The counterpart of the reference's
+    `probe_for_join`; `mode` is the statement's probe mode."""
+    route, table = "sorted", None
+    if resolve_mode(mode, sorted_hashes.device) == "table":
+        table = placed_table(sorted_hashes)
+        if table is not None:
+            route = "table"
+    n = probes.shape[0]
+    dev = probes.device
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    n_build = torch.tensor(sorted_hashes.shape[0], dtype=torch.int64, device=dev)
+    start, count = probe_chunk(probes.to(torch.int64), ones, None,
+                               ones if ok is None else ok, n_build, sorted_hashes,
+                               route=route, table=table)[:2]
+    return start, start + count

@@ -20,6 +20,10 @@ these; here they run eagerly on the tensors' device. What each does:
     the route per call (the reference's JOIN_PROBE_MODE_TOTAL).
   * `tile_positions` / `expand_tiles`: map output slots to (probe row,
     build position) and gather both sides into [T, C] output tiles.
+  * `sort_build_hashes` / `probe_hash_ranges`: the mesh tier's join
+    primitives (parallel/fragment.py): a shard's build hashes sorted
+    with dead rows after the live rows of each hash, and each probe
+    row's range over them with its exact live-match count.
 
 Ranges clamp to n_build, so the sentinel tail (NULL, dead and padding
 build keys at INT64_MAX) never produces a match, on every route.
@@ -38,7 +42,7 @@ __all__ = [
     "shape_bucket", "as_int64_key", "hash_combine_device", "pack_keys",
     "build_sort", "build_direct_index", "build_hash_table",
     "probe_count", "tile_positions", "expand_tiles",
-    "PROBE_ROUTES", "reset_routes",
+    "PROBE_ROUTES", "reset_routes", "sort_build_hashes", "probe_hash_ranges",
 ]
 
 I64_MAX = (1 << 63) - 1
@@ -260,3 +264,32 @@ def expand_tiles(start, count, real_count, cum, w0: int,
     prow = shape(probe_row) if with_probe_row else None
     bpos = shape(build_pos) if with_build_pos else None
     return out_p, tuple(out_b), shape(valid_out), prow, bpos
+
+
+# -- the fragment tier's primitives (parallel/fragment.py) -------------------
+
+def sort_build_hashes(b_hash: torch.Tensor, b_live: torch.Tensor):
+    """(sorted hashes, cvi, order) of a shard's build side: rows ordered by
+    (hash, dead), so dead rows sort after the live rows of their hash, and
+    cvi[i] counts the live rows of the sorted prefix [0, i), making
+    cvi[hi] - cvi[lo] a range's exact live-match count. The reference's
+    lax.sort is not stable; this one is (two stable passes)."""
+    from tidb_tpu_torch.ops.topk import lex_perm
+
+    inval = (~b_live).to(torch.int32)
+    order = lex_perm([b_hash, inval])
+    sinv = inval[order]
+    cvi = torch.cat([torch.zeros(1, dtype=torch.int64, device=b_hash.device),
+                     torch.cumsum((sinv == 0).to(torch.int64), 0)])
+    return b_hash[order], cvi, order
+
+
+def probe_hash_ranges(sh: torch.Tensor, cvi: torch.Tensor, p_hash: torch.Tensor,
+                      p_ok: torch.Tensor, mode: str):
+    """(lo, cnt) per probe row over the sorted build hashes: the range's
+    start and its live-row count (0 where p_ok is False), through
+    hash_probe.probe_for_join (one tidb_probe_count launch on the card).
+    `mode` is the statement's tidb_tpu_join_probe_mode."""
+    lo, hi = hp.probe_for_join(sh, p_hash, mode=mode, ok=p_ok)
+    cnt = torch.where(p_ok, cvi[hi] - cvi[lo], torch.zeros_like(lo))
+    return lo, cnt

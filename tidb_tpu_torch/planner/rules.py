@@ -42,12 +42,6 @@ from tidb_tpu_torch.types import BOOL, TypeKind
 
 __all__ = ["optimize_logical", "fold_constants"]
 
-# rows above which the fragment tier refuses to broadcast a build side
-# (a copy of BROADCAST_LIMIT in tidb_tpu/parallel/fragment.py; the port's
-# fragment tier is not ported, but the join-order cost model reads it)
-BROADCAST_LIMIT = 1 << 21
-
-
 # ---------------------------------------------------------------------------
 # constant folding
 # ---------------------------------------------------------------------------
@@ -456,6 +450,8 @@ def _join_step_cost(l_rows: float, r_rows: float, out_rows: float,
     replicates it to every shard (small * n_parts) and skips the
     repartition — charge whichever the executor would pick (ref:
     planner/core's cop/mpp cost factors for exchange types)."""
+    from tidb_tpu_torch.parallel.fragment import BROADCAST_LIMIT
+
     shuffle = l_rows + r_rows
     small = min(l_rows, r_rows)
     exch = shuffle

@@ -5,7 +5,9 @@ clientConn.Run: accept, handshake, command dispatch loop).
 One Session per connection, all sharing one Catalog — the same shape as
 the reference's one-process-many-connections SQL node. Every session
 runs on the server's `device`: the CUDA card unless the caller asks for
-the CPU. `start()` brings the card up on the calling thread (CUDA
+the CPU. With a `mesh` (parallel/mesh.py), every connection's Session
+runs its reads on that mesh, and `device` defaults to the mesh's first
+device. `start()` brings the card up on the calling thread (CUDA
 context and both kernel libraries built by nvcc) before it accepts a
 connection, so the first statement never waits on a build, and raises
 when there is no card.
@@ -29,7 +31,7 @@ import os
 import socket
 import threading
 import traceback
-from typing import Optional
+from typing import Dict, Optional
 
 from tidb_tpu_torch.errors import TiDBTPUError as TidbError
 from tidb_tpu_torch.server import protocol as P
@@ -56,12 +58,14 @@ COM_STMT_RESET = 0x1A
 class Server:
     def __init__(self, catalog: Optional[Catalog] = None, host: str = "127.0.0.1",
                  port: int = 4000, status_port: Optional[int] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.catalog = catalog or Catalog()
         self.host = host
         self.port = port
-        # every connection's Session runs here (None = the CUDA card)
-        self.device = device
+        # every connection's Session runs here (None = the CUDA card, or
+        # the mesh's first device) and, with a mesh, reads on the mesh
+        self.mesh = mesh
+        self.device = mesh.device_of(0) if device is None and mesh is not None else device
         self.status_port = status_port  # None disables the HTTP status tier
         self._status_server = None
         self._sock: Optional[socket.socket] = None
@@ -76,6 +80,10 @@ class Server:
         self.scheduler = None
         self._active_conns = 0
         self._conn_lock = threading.Lock()
+        # live connection threads and their sockets: shutdown() wakes and
+        # joins them, so no connection (nor the freeing of its Session's
+        # device tensors) outlives the server into interpreter exit
+        self._conns: Dict[threading.Thread, socket.socket] = {}
 
     # ------------------------------------------------------------------
 
@@ -136,6 +144,15 @@ class Server:
             self._accept_thread = None
         if self.scheduler is not None:
             self.scheduler.shutdown(drain=drain, timeout=timeout)
+        with self._conn_lock:
+            conns = list(self._conns.items())
+        for _t, conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)  # wakes its blocked read
+            except OSError:
+                pass
+        for t, _conn in conns:
+            t.join(timeout)
         if getattr(self, "_ddl_worker", None) is not None:
             self._ddl_worker.stop()
             self._ddl_worker = None
@@ -184,8 +201,14 @@ class Server:
                 continue
             self._conn_id += 1
             t = threading.Thread(
-                target=self._serve_conn, args=(conn, self._conn_id), daemon=True
-            )
+                target=self._serve_conn, args=(conn, self._conn_id), daemon=True,
+                name=f"server-conn-{self._conn_id}")
+            with self._conn_lock:
+                # a finished connection's entry goes once its thread ended
+                # (its Session freed); shutdown() joins the rest
+                for done in [d for d in self._conns if not d.is_alive()]:
+                    del self._conns[done]
+                self._conns[t] = conn
             t.start()
 
     def _serve_conn(self, conn: socket.socket, conn_id: int) -> None:
@@ -195,7 +218,7 @@ class Server:
         sess = None
         try:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            sess = Session(catalog=self.catalog, device=self.device)
+            sess = Session(catalog=self.catalog, device=self.device, mesh=self.mesh)
             if self.scheduler is not None:
                 self.scheduler.attach_session(sess)
             salt = os.urandom(20).replace(b"\x00", b"\x01")

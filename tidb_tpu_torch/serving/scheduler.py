@@ -315,6 +315,10 @@ class StatementScheduler:
                 # already relayed through task/member results, so
                 # whatever reaches here is bookkeeping-only
                 pass
+            # drop the finished item while idle: a task holds its
+            # session, and a closed connection's session (a mesh
+            # session's shardings on the card) must not outlive it here
+            item = None
 
     def _run_single(self, task: _Task) -> None:
         with self._cv:

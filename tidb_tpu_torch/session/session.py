@@ -26,6 +26,14 @@ the auto-analyze threshold (`tidb_enable_auto_analyze`,
 Statements run on `device`: None means the CUDA card, and a Session
 without a card raises instead of carrying on on the CPU.
 
+`Session(mesh=...)` runs reads on a device mesh (parallel/): outside a
+transaction, `_build_root` routes every plan through
+`build_dist_executor`, whose fragments run one per-shard program over
+the mesh's (dcn x shard) grid; the planner sizes plans by the mesh's
+part count, and a plan that keeps an eager-aggregation partial off the
+mesh is re-planned without it. With a mesh and no `device`, the
+session's single-device executors run on the mesh's first device.
+
 Every statement runs inside `_execute_timed`, the reference's statement
 envelope: the deadline from `max_execution_time` and the KILL flags
 (`cancel_reason`, polled by every executor through `cancel_check`), the
@@ -51,7 +59,7 @@ probe's tile count, the fused top-k routing). SQL bindings
 statement; `/*+ MEMORY_QUOTA(...) */` sets the statement's budget.
 
 Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... SHARD
-BY and the DCN and mesh tiers.
+BY and the DCN tier.
 """
 
 from __future__ import annotations
@@ -177,6 +185,34 @@ def _nested_into_outfile(node, top) -> bool:
     return False
 
 
+def _has_eager_partial(phys) -> bool:
+    """Does this physical plan contain an eager-aggregation partial (a
+    HashAgg whose outputs carry the rule's derived 'eagg.' uids)?"""
+    from tidb_tpu_torch.planner.physical import PHashAgg
+
+    stack = [phys]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, PHashAgg) and any(a.uid.startswith("eagg.") for a in p.aggs):
+            return True
+        stack.extend(p.children)
+    return False
+
+
+def _dist_engaged(root) -> bool:
+    """Did the dist builder place mesh executors (not a full host
+    fallback)?"""
+    from tidb_tpu_torch.parallel.executor import DIST_EXECUTORS
+
+    stack = [root]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, DIST_EXECUTORS):
+            return True
+        stack.extend(e.children)
+    return False
+
+
 @dataclasses.dataclass
 class TxnState:
     """An open transaction (ref: session txn lifecycle over the Percolator
@@ -271,8 +307,16 @@ class TxnState:
 
 class Session:
     def __init__(self, catalog: Optional[Catalog] = None, db: str = "test",
-                 chunk_capacity: Optional[int] = None, device=None):
+                 chunk_capacity: Optional[int] = None, device=None, mesh=None):
+        if device is None and mesh is not None:
+            device = mesh.device_of(0)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._shard_cache = None
+        if mesh is not None:
+            from tidb_tpu_torch.parallel.executor import ShardCache
+
+            self._shard_cache = ShardCache(mesh)
         # per-session overlay: TEMPORARY-table namespace over the shared
         # catalog (unwraps another session's proxy to the common base)
         self.catalog = SessionCatalog(catalog if catalog is not None
@@ -560,6 +604,7 @@ class Session:
                                  parent_id=stmt_span.span_id)
             qs.notes.append(f"queued {int(q_s * 1e6)}us before execution")
         d0 = _dsp.count()
+        f0 = _dsp.fragment_count()
         seg0 = _seg_counts()
         cw0 = _cmp_counts()
         # CLUSTER BY ordered compaction: due permutes run at statement
@@ -581,7 +626,7 @@ class Session:
                 M.DEADLINE_EXCEEDED_TOTAL.inc()
             detail = self._record_stmt(stmt, sql, stype, dur, d0, None,
                                        seg0=seg0, prof0=prof0, cw0=cw0,
-                                       error=True)
+                                       f0=f0, error=True)
             self._slo_observe(dur)
             tracing.annotate(f"error:{type(exc).__name__}: {exc}")
             trace_id = self._finish_trace(tr, stmt_span, owns_trace, dur,
@@ -621,7 +666,7 @@ class Session:
         # they all see the drift it computed
         self._fb_record(dur, result, _dsp.compile_count() - c0)
         detail = self._record_stmt(stmt, sql, stype, dur, d0, result,
-                                   seg0=seg0, prof0=prof0, cw0=cw0)
+                                   seg0=seg0, prof0=prof0, cw0=cw0, f0=f0)
         self._slo_observe(dur)
         trace_id = self._finish_trace(tr, stmt_span, owns_trace, dur)
         self._maybe_log_slow(sql, dur, detail, trace_id)
@@ -762,7 +807,7 @@ class Session:
 
     def _record_stmt(self, stmt, sql: str, stype: str, dur: float,
                      d0: int, result, seg0=(0, 0), prof0=(0, 0.0, 0),
-                     cw0=(0.0, 0), error: bool = False):
+                     cw0=(0.0, 0), f0: int = 0, error: bool = False):
         """Fold one execution into the per-digest statements summary;
         returns (digest, max_mem, dispatches, segs_scanned, segs_pruned,
         xfer_bytes, compile_ms, spill_bytes, compaction_wait_ms) for the
@@ -781,6 +826,7 @@ class Session:
                     t.detach()  # idempotent; the finally path re-runs it
             self._stmt_trackers = []  # don't pin operator state while idle
             dispatches = _dsp.count() - d0
+            fragments = _dsp.fragment_count() - f0
             seg1 = _seg_counts()
             segs_scanned = seg1[0] - seg0[0]
             segs_pruned = seg1[1] - seg0[1]
@@ -799,7 +845,7 @@ class Session:
                 digest, norm, stype, self._last_plan_digest or "", dur,
                 max_mem=max_mem,
                 rows_sent=len(result.rows) if result is not None else 0,
-                dispatches=dispatches, fragments=0, error=error,
+                dispatches=dispatches, fragments=fragments, error=error,
                 plan_from_cache=self._plan_from_cache_stmt,
                 plan_latency_s=self._stmt_plan_s,
                 worst_drift=drift, worst_drift_op=drift_op,
@@ -910,6 +956,9 @@ class Session:
             pipeline_fuse=bool(sv("tidb_tpu_pipeline_fuse")),
             prefetch_depth=int(sv("tidb_tpu_pipeline_prefetch_depth")),
             device_buffer_cache_bytes=int(sv("tidb_tpu_device_buffer_cache_bytes")),
+            device_cache_bytes=int(sv("tidb_device_cache_bytes")),
+            broadcast_rows_limit=int(sv("tidb_broadcast_join_threshold_count")),
+            stage_encoded=bool(sv("tidb_tpu_stage_encoded")),
             cancel_check=self.cancel_reason,
         )
         if self._fb_enabled():
@@ -939,7 +988,41 @@ class Session:
             build = self.catalog.plugins.executor_builder(plug_name)
             if build is not None:
                 return build(phys, self)
+        if self.txn is not None:
+            # snapshot reads need per-row visibility masks; the sharded
+            # tables hold committed-latest, so a transaction reads locally
+            return build_executor(phys)
+        if self._shard_cache is not None and self.sysvars.get("tidb_enable_tpu_exec"):
+            from tidb_tpu_torch.parallel.executor import build_dist_executor
+
+            return build_dist_executor(phys, self._shard_cache,
+                                       full=self._device_engine_auto())
         return build_executor(phys)
+
+    def _device_engine_auto(self) -> bool:
+        """Engine routing of a mesh session (the planner's cop-task vs
+        root-task choice): full fragments on a card or on more than one
+        shard; one CPU shard keeps joins and generic aggregation on the
+        single-device executors. 'force' and 'off' pin it."""
+        mode = str(self.sysvars.get("tidb_device_engine_mode"))
+        if mode == "force":
+            return True
+        if mode == "off":
+            return False
+        devs = self.mesh.devices
+        return devs[0].type != "cpu" or len(devs) > 1
+
+    def _dist_expected(self) -> bool:
+        """Would this session route eligible plans to the mesh? Mirrors
+        _build_root: an executor plugin takes over before the dist branch."""
+        if str(self.sysvars.get("tidb_executor_plugin")):
+            return False
+        return (self.txn is None and self._shard_cache is not None
+                and bool(self.sysvars.get("tidb_enable_tpu_exec"))
+                and self._device_engine_auto())
+
+    def _n_parts(self) -> int:
+        return 1 if self.mesh is None else self.mesh.n_parts
 
     def _agg_push_down(self) -> bool:
         return bool(self.sysvars.get("tidb_opt_agg_push_down"))
@@ -973,7 +1056,7 @@ class Session:
                 stmt, self.catalog, db=self.db,
                 execute_subplan=execute_subplan or self._execute_subplan,
                 cascades=bool(self.sysvars.get("tidb_enable_cascades_planner")),
-                n_parts=1,
+                n_parts=self._n_parts(),
                 # columnar knobs for plan-time materialization (CTE reuse
                 # segments its result iff enabled)
                 session_info={
@@ -1113,6 +1196,10 @@ class Session:
                     entry.plan_digest = _hl.sha256(
                         explain_text(entry.phys).encode()).hexdigest()[:32]
                 self._last_plan_digest = entry.plan_digest
+                if self._n_parts() > 1:
+                    from tidb_tpu_torch.planner.optimizer import _annotate_topn
+
+                    _annotate_topn(phys)  # re-derive on the patched tree
                 return phys
         cache.note_miss()
         used = [False]
@@ -1140,14 +1227,13 @@ class Session:
         the serving tier's coalescing probe (batch_probe), so two
         statements coalesce exactly when they would share a cache entry
         (same digest, db, param-type fingerprint, structural constants,
-        hints, planner sysvars, mesh width, binding versions). The port
-        has no mesh (width 1)."""
+        hints, planner sysvars, mesh width, binding versions)."""
         hints_fp = tuple((h, tuple(str(a) for a in args))
                          for h, args in getattr(stmt, "hints", ()) or ())
         return (
             digest, self.db, info.kinds, info.struct, hints_fp,
             bool(self.sysvars.get("tidb_enable_cascades_planner")),
-            bool(eff_apd), 1,
+            bool(eff_apd), self._n_parts(),
             self._bindings.version, self.catalog.bind_handle.version,
             # TEMPORARY tables shadow names without a schema_version
             # bump: a session holding any gets private entries, re-keyed
@@ -1172,11 +1258,12 @@ class Session:
                 or getattr(stmt, "lock_mode", None) is not None
                 or getattr(stmt, "into_outfile", None) is not None):
             return None
-        # session-state gates: txn snapshots, kill flags, plugins and
-        # plan bindings all change execution
+        # session-state gates: txn snapshots, kill flags, mesh routing,
+        # plugins and plan bindings all change execution
         if (self.txn is not None or self._killed or self._kill_query
                 or self._lock_read
                 or not self.sysvars.get("autocommit")
+                or self._shard_cache is not None
                 or str(self.sysvars.get("tidb_executor_plugin"))
                 or len(self._bindings) or len(self.catalog.bind_handle)
                 or not self.sysvars.get("tidb_enable_prepared_plan_cache")):
@@ -1212,6 +1299,7 @@ class Session:
             return None
         if (self.txn is not None or self._killed or self._kill_query
                 or not self.sysvars.get("autocommit")
+                or self._shard_cache is not None
                 or str(self.sysvars.get("tidb_executor_plugin"))):
             return None
         if getattr(self.catalog, "_temp", None):
@@ -1491,6 +1579,15 @@ class Session:
             phys = self._acquire_plan(stmt)
             self._check_plan_privs(phys)
             root = self._build_root(phys)
+            if self._dist_expected() and _has_eager_partial(phys) \
+                    and not _dist_engaged(root):
+                # the eager-aggregation shape kept this plan off the mesh
+                # (the fragment tier takes scan-rooted generic partials,
+                # not every shape): losing the fragments costs more than
+                # the rewrite saves, so re-plan without it (the no-push
+                # variant caches under its own key)
+                phys = self._acquire_plan(stmt, agg_push_down=False)
+                root = self._build_root(phys)
         # plan digest: hash of the plan's shape (explain text), paired
         # with the statement digest in the summary and the slow log; a
         # cache hit already set the entry's memoized digest
@@ -2150,7 +2247,7 @@ class Session:
         if stmt.shard is not None:
             raise UnsupportedError(
                 "CREATE TABLE ... SHARD BY is not yet ported: it waits for "
-                "the multi-device tier (ROADMAP Queue A, item 6)")
+                "the sharding tier (ROADMAP Queue A, item 6b)")
         if stmt.like is not None:
             return self._run_create_like(stmt)
         if stmt.as_select is not None:

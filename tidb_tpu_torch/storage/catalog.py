@@ -150,6 +150,11 @@ class Catalog:
         cache = getattr(pipe, "DEVICE_CACHE", None)
         if cache is not None:
             cache.on_schema_change()
+        # the mesh tier's shard caches pin table objects too: same rule
+        par = sys.modules.get("tidb_tpu_torch.parallel.executor")
+        drop_shards = getattr(par, "on_schema_change", None)
+        if drop_shards is not None:
+            drop_shards()
         # plan feedback: recorded est-vs-actual truth was measured against
         # plans over the old schema; same eager rule (and the same lazy
         # lookup) as the device cache

@@ -17,6 +17,8 @@ torch meaning:
     copies and the classic scan's)
   - ``spill_bytes``: bytes a statement's operators spilled to disk
     (utils/memory.py's SpillableRuns)
+  - ``fragment_count``: mesh-fragment executions (parallel/executor.py),
+    the statements summary's fragments column; not launches
 
 As in the reference, every counter is per thread: the server runs
 statements on concurrent worker threads, and one statement's figures
@@ -36,7 +38,8 @@ from typing import Dict, Optional
 
 __all__ = ["Account", "account", "count", "by_site", "count_launch",
            "record_xfer", "xfer_bytes", "record_compile", "compile_count",
-           "compile_seconds", "record_spill", "spill_bytes"]
+           "compile_seconds", "record_spill", "spill_bytes",
+           "record_fragment", "fragment_count"]
 
 
 class Account:
@@ -44,7 +47,7 @@ class Account:
     done on its behalf, by a helper thread: hence the lock."""
 
     __slots__ = ("lock", "count", "by_site", "xfer", "compiles", "compile_s",
-                 "spill")
+                 "spill", "fragments")
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -54,6 +57,7 @@ class Account:
         self.compiles = 0
         self.compile_s = 0.0
         self.spill = 0
+        self.fragments = 0
 
 
 _tls = threading.local()
@@ -142,3 +146,15 @@ def record_spill(nbytes: int) -> None:
 
 def spill_bytes() -> int:
     return account().spill
+
+
+def record_fragment() -> None:
+    """One mesh-fragment execution on this thread."""
+    acct = account()
+    with acct.lock:
+        acct.fragments += 1
+
+
+def fragment_count() -> int:
+    """Mesh-fragment executions on this thread so far."""
+    return account().fragments

@@ -502,6 +502,24 @@ EXTERNAL_AGG = Counter("tidb_tpu_external_agg_total",
                        "Key-range external aggregation merges (group "
                        "state exceeded the memory budget)")
 
+# -- the mesh tier (parallel/): fragment executions and merges -------------
+
+FRAGMENT_DISPATCH = Counter("tidb_tpu_fragment_dispatch_total",
+                            "Distributed fragment executions, by kind")
+FRAGMENT_SECONDS = Histogram(
+    "tidb_tpu_fragment_seconds",
+    "Wall time of one mesh-fragment execution, by kind (eager dispatch: "
+    "the host's launches and collectives, not device busy time); "
+    "carries a trace_id exemplar for the worst recent execution",
+    exemplars=True)
+FRAGMENT_COMPILE = Counter(
+    "tidb_tpu_fragment_compile_total",
+    "Fragment programs compiled from plan subtrees, by output kind")
+COLLECTIVE_MERGE_SECONDS = Histogram(
+    "tidb_tpu_collective_merge_seconds",
+    "Merge of per-shard collective states across streamed fragment "
+    "batches")
+
 # -- execution telemetry (launches, planning, joins, memory) ---------------
 
 DISPATCH_TOTAL = DictCounter(
