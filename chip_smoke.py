@@ -80,18 +80,19 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    a top-N report over lineitem runs with one sort key, with three, and
    with a LIMIT above the chunk capacity, each against numpy: the first
    two through FusedScanTopNExec, the last through the classic TopNExec.
-3. Times: warm wall time (median of 3) and rows/s of each query in four
-   modes (fused with the buffer cache, fused with its budget 0, the same
-   staged inline at prefetch depth 0, classic), and of Q3 and Q18 in a
-   fifth (generic_host: tidb_device_engine_mode = 'off', the host
-   groupby); one more warm run of each under torch.profiler (not Q5's and
-   Q18's in the two cache-off modes and the classic one, where the
-   profiler would add a minute; device busy
+3. Times: warm wall time (median of 3) and rows/s of each query fused
+   with the buffer cache, of Q1, Q6, Q3 and Q5 fused with its budget 0,
+   the same staged inline at prefetch depth 0, and classic, and of Q3 in
+   a fifth mode (generic_host:
+   tidb_device_engine_mode = 'off', the host groupby); one more warm run
+   under torch.profiler of Q1, Q6, Q3 and Q5 fused with the cache, Q1,
+   Q6 and Q3 classic and Q3 on the host engine (UNPROFILED: the
+   profiler adds 10-40 s to a run; device busy
    time, idle share, host->device copies split pinned/pageable with their
    bytes, device->host copies, host cudaMemcpyAsync and launch counts, top
-   operators by device time); Q18's IN subquery alone on the device and
-   host paths (on the device it may copy device->host only in its
-   finalize: at most 2 copies), and the peak device memory of Q18, its
+   operators by device time); Q18's IN subquery alone on the device (it
+   may copy device->host only in its finalize: at most 2 copies), and
+   the peak device memory of Q18, its
    subquery and Q3; each kernel's time at its
    main-path shape beside its bound, its plain version's time and a
    library call as the yardstick (`index_add_` for B1/B2 with one
@@ -108,7 +109,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    Q1, Q6, Q3, Q5 and Q18 by COM_QUERY over one connection, each against
    numpy and the session's rows, its wall time beside phase 3's median
    and its launches (the statements summary's per-thread dispatches)
-   equal to a solo in-process run's; 16,000 prepared point-selects on
+   equal to a solo in-process run's; 8,000 prepared point-selects on
    orders by o_orderkey (COM_STMT_PREPARE / COM_STMT_EXECUTE) from 16
    connections in a client process of their own (point_clients), keys
    from seed 7 with 10% absent, the default 250 us batch window, every
@@ -180,8 +181,8 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
 6. Statistics, EXPLAIN ANALYZE, windows and views, on the same session.
    phase_stats: ANALYZE TABLE of the eight tables, timed per table; Q1,
    Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
-   tables' live rows (warm median of 3, one profiled run of Q1, Q6 and
-   Q3: device busy time; tidb_segagg once per aggregated chunk,
+   tables' live rows (warm median of 3, one profiled run of Q6: device
+   busy time; tidb_segagg once per aggregated chunk,
    tidb_probe_count once per probe chunk); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared,
    so it stages), Q3 and Q18: the root's actRows must equal the query's
    row count, the operators' dispatches must add up to the kernels'
@@ -194,10 +195,10 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    CREATE TABLE lineitem and SHOW INDEX FROM orders printed.
 7. The storage phase (phase_storage), on the same session, its tables in
    a scratch database. The delta engine: orders' columns, no key,
-   ENGINE=delta, filled by INSERT ... SELECT from orders, then 5,000
-   single-row autocommit INSERTs of fresh keys (one bulk append at 4,096
-   buffered rows, the last 904 still buffered when the next read
-   starts); an aggregation by o_orderpriority and Q3 over it against
+   ENGINE=delta, filled by INSERT ... SELECT from orders, then 1,000
+   single-row autocommit INSERTs of fresh keys (all still buffered when
+   the next read starts; 5,000 in earlier runs reached the 4,096-row
+   bulk append); an aggregation by o_orderpriority and Q3 over it against
    numpy; 500 of the same INSERTs into a columnar copy of the same rows,
    per-statement times of both engines printed. (10,000 and 1,000 until
    the planner phase was added: cut to keep the script inside its time
@@ -225,7 +226,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    equal numpy; an ORDER BY l_extendedprice DESC, l_orderkey,
    l_linenumber over lineitem's three columns under the same quota must
    spill and equal numpy's lexsort (its length, the first and last 1,000
-   rows, every row's keys in order and every 1,009th price); both again
+   rows, every row's keys in order and every 1,009th price); Q18 again
    with no quota; Q18 in the default mode under the quota (completed or
    QueryOOMError, recorded); the ORDER BY with
    tidb_enable_tmp_storage_on_oom = OFF must raise QueryOOMError; no
@@ -279,6 +280,42 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    every route and mode it took; after the phase each is checked
    against its plain version and timed (mesh_kernel_rows), rows of the
    kernels line of their own.
+10. The DCN phase (phase_dcn), last, beside the same single-card
+   session: DCN_WORKERS worker processes (python -m
+   tidb_tpu_torch.parallel.dcn --device cuda, each its own CUDA context
+   on the card, DCN_WORKER_THREADS torch threads apiece) under one
+   Cluster whose merge session is on the card. lineitem and orders
+   SHARD BY HASH(key) SHARDS 8 (co-partitioned), customer, supplier,
+   nation and region broadcast, every column of the single-card tables
+   shipped; load seconds and wire bytes per table and each worker
+   process's device memory printed. Q1, Q6, Q3 and Q5, one cold run and
+   three warm: rows equal to the single-card session's (floats within
+   1e-12 relative) and numpy, warm medians beside the single card's;
+   each worker's own tidb_segagg and tidb_probe_count launches read over
+   the metrics_snapshot RPC before and after each run, and the
+   coordinator's (this process: the merge session's final aggregate)
+   from its own counters: every worker's Q1 must launch tidb_segagg and
+   its Q3 tidb_probe_count, and Q1's final merge tidb_segagg. Q18 is
+   refused typed, as the reference's Cluster refuses it. orders
+   resharded online to SHARDS 9 (DCN_RESHARDS; 12 would stay co-located
+   with lineitem at two workers) while two readers run an orders
+   aggregate (each read equal to the expected rows) and a writer inserts
+   orders by 2PC, the fleet's bound on a statement's gate wait raised
+   from tidb_tpu_reshard_gate_wait_ms's 10 s to DCN_GATE_WAIT_S (the
+   slowest statement's wait is printed); then Q3 must shuffle orders and
+   equal the single card and numpy. TPC-H RF1's rows as one 2PC INSERT
+   a table and RF2's as one 2PC DELETE a table: Q1 then equals a numpy
+   model of the updated tables (the single-card session keeps its rows).
+   A third worker joins
+   (add_worker) and drains out (remove_worker); Q1 equal after each. Q1
+   under max_execution_time = 20 ms raises QueryTimeoutError and the
+   workers' deadline or cancel counters move. A second fleet of two
+   workers with replicas={0: 1, 1: 0} holds orders alone (mirroring
+   both tables through the reshard would re-dump each at every shard's
+   cutover): worker 1 is SIGKILLed and two orders aggregates still equal
+   their answers through the replica, tidb_tpu_dcn_failover_total
+   moving. information_schema.dcn_worker_stats and cluster_info show
+   both fleets. No worker process and no spill file may be left.
    The full report goes to chip_smoke.json under OUT_DIR.
 
 Plan feedback is on in every phase, as it is by default: a launch check
@@ -295,8 +332,11 @@ source, the TPU kernel it replaces, the launches of phase 2's main path
 (`launches`) and of each later phase (`launches_refresh`,
 `launches_schema`, `launches_stats`, `launches_window`,
 `launches_server`, `launches_storage`, `launches_planner`,
-`launches_mesh`; the mesh's launches sit only on the rows at the mesh's
-own shapes, `segagg.mesh` and `probe_count.mesh_<route>_<mode>`), its largest
+`launches_mesh`, `launches_dcn`; the mesh's launches sit only on the rows
+at the mesh's own shapes, `segagg.mesh` and
+`probe_count.mesh_<route>_<mode>`; the DCN's are the workers' and the
+coordinator's, a probe_count route's on the row of its route and mode),
+its largest
 error against the plain version, and its time, its plain version's, its
 bound with what bounds it, and a library call's; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -326,8 +366,13 @@ FP_SALT = 0x9E3779B97F4A7C15  # the hash probe's fingerprint salt
 MIX_OPS, SLOT_OPS = 18, 3
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    # seconds since the script started, so every phase's share of the
+    # time limit can be read off the output
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -1565,16 +1610,19 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
 
 # queries phase 3 times but does not profile in a mode: the profiler adds
 # 20-40 s to each run of Q5 and Q18 (tens of thousands of launches), and
-# the cache-off and classic modes' findings (staged bytes, the prefetch
-# thread against inline staging, the raw path's copies) are read from Q1,
+# the classic mode's findings (the raw path's copies) are read from Q1,
 # Q6 and Q3 (the classic Q5 and Q18 profiles were cut when the mesh
 # phase took its share of the script's time limit)
-UNPROFILED = {"fused_nocache": ("q5", "q18"), "fused_nocache_inline": ("q5", "q18"),
-              "classic": ("q5", "q18")}
+UNPROFILED = {"fused_cache": ("q18",), "fused_nocache": ("q1", "q6", "q3", "q5"),
+              "fused_nocache_inline": ("q1", "q6", "q3", "q5"), "classic": ("q5",)}
+# (to make room for the DCN phase inside the time limit:
+# fused_cache no longer profiles Q18, whose profiled run took 39 s at
+# SF1; the two cache-off modes profile nothing; Q18 runs in fused_cache
+# alone, the host engine runs Q3 alone)
 # the stats phase's queries left unprofiled: at SF1 on an H100 (700 W)
 # Q18's profiled run took 59.9 s and Q5's 21.0 s, and phase 3 profiles
 # both already
-STATS_UNPROFILED = ("q5", "q18")
+STATS_UNPROFILED = ("q1", "q3", "q5", "q18")  # Q1 and Q3 too since the DCN phase
 
 
 def phase_modes(torch, s, queries, n_rows) -> tuple:
@@ -1585,11 +1633,11 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
 
     # five modes: fused with the device buffer cache (the default), fused
     # with the cache budget 0 (every run stages through the prefetcher),
-    # the classic raw path
-    # (and the same staged inline, prefetch depth 0: what the staging
-    # thread buys or costs against the host's Python launch loop), and for
-    # the generic aggregations of Q3 and Q18 the host engine
-    # (tidb_device_engine_mode = 'off': the numpy groupby, classic joins)
+    # the same staged inline at prefetch depth 0 (what the staging thread
+    # buys or costs against the host's Python launch loop), the classic
+    # raw path, and for the generic aggregations of Q3 and Q18 the host
+    # engine (tidb_device_engine_mode = 'off': the numpy groupby, classic
+    # joins)
     modes = {"fused_cache": [],
              "fused_nocache": ["set global tidb_tpu_device_buffer_cache_bytes = 0"],
              "fused_nocache_inline": ["set global tidb_tpu_device_buffer_cache_bytes = 0",
@@ -1607,7 +1655,8 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
             s.execute(stmt)
         times[mode], profiles[mode] = {}, {}
         for qname in queries:
-            if mode == "generic_host" and qname not in ("q3", "q18"):
+            if mode == "generic_host" and qname != "q3" \
+                    or mode != "fused_cache" and qname == "q18":
                 continue
             runs = []
             for _ in range(3):
@@ -1930,6 +1979,11 @@ def peak_memory(torch, s, sql: str) -> dict:
 # -- the refresh phase: keys, index access and the write path at SF1 ----------
 
 REFRESH_QUERIES = ("q1", "q6", "q3", "q5", "q18")
+# the route and mode ("route/mode", as with_probe_modes records them) of
+# each kernels-line row of tidb_probe_count at the main path's shapes
+PROBE_ROW_MODES = {"probe_count.table_flags": "table/flags",
+                   "probe_count.table_full": "table/full",
+                   "probe_count.direct": "direct/full", "probe_count.sorted": "sorted/full"}
 
 
 class ModelTable:
@@ -2966,8 +3020,8 @@ def explain_analyze(s, mods, sql: str, n_rows: int, agg_chunks) -> dict:
 def phase_stats(torch, np, s, mods) -> dict:
     """ANALYZE TABLE of the eight TPC-H tables at SF1, timed per table; Q1,
     Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
-    tables' live rows (warm median of 3; one profiled run each of Q1, Q6
-    and Q3: device busy time; STATS_UNPROFILED are not profiled);
+    tables' live rows (warm median of 3; one profiled run of Q6: device
+    busy time; STATS_UNPROFILED are not profiled);
     EXPLAIN ANALYZE of Q1 (the device buffer cache cleared
     first, so it stages), Q3 and Q18 with their counters checked."""
     from tidb_tpu_torch.storage.tpch_queries import Q
@@ -3260,8 +3314,10 @@ def phase_window(np, s, mods) -> dict:
 
 STORAGE_DB = "stage"
 # the trickle's INSERT counts (10,000 and 1,000 before the planner phase
-# took its share of the script's time limit)
-TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 5_000, 500, 1_000
+# took its share of the script's time limit, 5,000 and 500 before the
+# DCN phase did: the memtable's 4,096-row flush is no longer reached on
+# the card)
+TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 1_000, 500, 1_000
 PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 STORAGE_AGG = ("select o_orderpriority, count(*), sum(o_totalprice) from {t} "
                "group by o_orderpriority order by o_orderpriority")
@@ -3722,7 +3778,7 @@ POINT_SQL = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_order
              " where o_orderkey = ?")
 # the point-select fleet: connections, and statements from each (2,000
 # each before the mesh phase took its share of the script's time limit)
-POINT_CONNS, POINT_STMTS = 16, 1000
+POINT_CONNS, POINT_STMTS = 16, 500  # 1,000 before the DCN phase (the time limit)
 # the text rows of the five queries as the port's Session types them
 WIRE_TYPES = {"q1": (str, str, str, str, str, str, float, float, float, int),
               "q6": (str,), "q3": (int, str, str, int), "q5": (str, str),
@@ -4363,9 +4419,7 @@ def phase_planner(torch, np, s, mods) -> dict:
                                  check=lambda rows: check_sorted(np, rows, want_sorted))
         if r_sort["spill_bytes"] <= 0:
             raise AssertionError(f"the ORDER BY under {SPILL_QUOTA} did not spill")
-        _, r_sort_free = planner_step(s, mods, SORT_SQL.format(hint=""),
-                                      "order by, no quota", steps,
-                                      check=lambda rows: check_sorted(np, rows, want_sorted))
+        # (its run with no quota, 25 s, was cut for the DCN phase's time)
         try:
             planner_step(s, mods, q18.replace("select", "select " + hinted, 1),
                          "q18 default mode under quota", steps,
@@ -4390,13 +4444,13 @@ def phase_planner(torch, np, s, mods) -> dict:
         tempfile.tempdir = saved_tmp
         s.execute("set tidb_device_engine_mode = 'auto'")
     rep["spill"] = {"q18_off_s": r_off["s"], "q18_off_free_s": r_off_free["s"],
-                    "sort_s": r_sort["s"], "sort_free_s": r_sort_free["s"],
+                    "sort_s": r_sort["s"],
                     "q18_off_spill_bytes": r_off["spill_bytes"],
                     "sort_spill_bytes": r_sort["spill_bytes"]}
     log(f"planner spill: Q18 (engine off) {r_off['s']:.3f} s under {SPILL_QUOTA} "
         f"({r_off['spill_bytes']} B spilled) against {r_off_free['s']:.3f} s without; "
-        f"ORDER BY {r_sort['s']:.3f} s ({r_sort['spill_bytes']} B spilled) against "
-        f"{r_sort_free['s']:.3f} s; Q18 in the default mode under the quota: "
+        f"ORDER BY {r_sort['s']:.3f} s ({r_sort['spill_bytes']} B spilled); Q18 in "
+        f"the default mode under the quota: "
         f"{rep['q18_default_under_quota']}; no spill file left")
 
     # -- 2. plan feedback -------------------------------------------------
@@ -5062,6 +5116,642 @@ def has_eager_partial(plan) -> bool:
     return False
 
 
+# ---------------------------------------------------------------------------
+# the DCN tier: worker processes on the card, SHARD BY, 2PC, online reshard
+# ---------------------------------------------------------------------------
+
+DCN_WORKERS = 2                # worker processes, each a CUDA context on the card
+DCN_SHARDS = 8                 # lineitem and orders: SHARD BY HASH(key) SHARDS 8
+# orders' new shard count: 9 breaks the co-location with lineitem at two
+# workers (12 would keep it: (mix(k) % 12) % 2 == mix(k) % 2), so Q3
+# afterwards has to shuffle orders
+DCN_RESHARDS = 9
+DCN_BROADCAST = ("customer", "supplier", "nation", "region")
+DCN_QUERIES = ("q1", "q6", "q3", "q5")
+DCN_WARM = 3
+DCN_KEY = {"lineitem": "l_orderkey", "orders": "o_orderkey"}
+DCN_WRITER_BASE = 10 ** 9     # the reshard writer's order keys start here
+DCN_DEADLINE_MS = 20          # max_execution_time of the deadline step's Q1
+DCN_WORKER_THREADS = 2        # torch's CPU threads in each worker process
+DCN_GATE_WAIT_S = 300.0       # the fleet's bound on a statement's gate wait
+
+
+def dcn_start_workers(n: int, device: str, env: dict, procs: list) -> list:
+    """n worker processes (python -m tidb_tpu_torch.parallel.dcn), started
+    together; each is appended to `procs` as it starts (the caller stops
+    them). Returns their ports."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    started = []
+    for _ in range(n):
+        p = subprocess.Popen([sys.executable, "-m", "tidb_tpu_torch.parallel.dcn",
+                              "--device", device], stdout=subprocess.PIPE, text=True,
+                             cwd=here, env=env)
+        procs.append(p)
+        started.append(p)
+    ports = []
+    for p in started:
+        line = p.stdout.readline()
+        m = re.search(r"DCN_WORKER_PORT=(\d+)", line)
+        if not m:
+            raise AssertionError(f"a DCN worker did not start (exit {p.poll()}): {line!r}")
+        ports.append(int(m.group(1)))
+    return ports
+
+
+def dcn_stop(procs: list) -> list:
+    """Wait for every worker process (a Cluster.shutdown ends them), kill
+    the ones still running after 30 s; returns the pids that had to be
+    killed."""
+    killed = []
+    deadline = time.monotonic() + 30
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            killed.append(p.pid)
+    return killed
+
+
+def dcn_shutdown_worker(port: int) -> None:
+    """Send one worker outside every Cluster (a removed one) its
+    shutdown."""
+    from tidb_tpu_torch.parallel import dcn
+
+    sock = dcn.dial("127.0.0.1", port, timeout=30)
+    try:
+        dcn._send(sock, {"cmd": "shutdown"})
+        dcn._recv(sock)
+    finally:
+        sock.close()
+
+
+def dcn_table_ddl(s, name: str, shard_key=None, shards: int = DCN_SHARDS) -> str:
+    """CREATE TABLE for a fleet copy of `name`: every column of the
+    single-card table as SHOW CREATE TABLE gives it (no key or index:
+    loads skip the unique checks), SHARD BY HASH(shard_key) if given."""
+    text = s.query(f"show create table {name}")[0][1]
+    cols = [ln.rstrip(",") for ln in text.splitlines()[1:] if ln.startswith("  `")]
+    ddl = f"create table {name} (\n" + ",\n".join(cols) + "\n)"
+    if shard_key:
+        ddl += f" shard by hash({shard_key}) shards {shards}"
+    return ddl
+
+
+def dcn_worker_counts(cl) -> list:
+    """Per worker {"launches": {entry: n}, "routes": {route: n}} from its
+    own counters, read over the metrics_snapshot RPC."""
+    out = []
+    for _label, snap, err in cl.metrics_snapshots():
+        if snap is None:
+            out.append(None)
+            continue
+        got = {"launches": {}, "routes": {}}
+        for m in snap["metrics"]:
+            if m["name"] == "tidb_tpu_device_dispatch_total":
+                got["launches"] = {lb.get("site"): int(v) for lb, v in m["samples"]}
+            elif m["name"] == "tidb_tpu_join_probe_mode_total":
+                got["routes"] = {lb.get("mode"): int(v) for lb, v in m["samples"]}
+        out.append(got)
+    return out
+
+
+def dcn_delta(before: list, after: list) -> list:
+    """Per worker the counts `after` minus `before` (None for a worker
+    that did not answer either time)."""
+    out = []
+    for b, a in zip(before, after):
+        if a is None or b is None:
+            out.append(None)
+            continue
+        out.append({k: {e: a[k].get(e, 0) - b[k].get(e, 0)
+                        for e in set(a[k]) | set(b[k]) if a[k].get(e, 0) - b[k].get(e, 0)}
+                    for k in ("launches", "routes")})
+    return out
+
+
+def dcn_add(total: dict, delta: list) -> None:
+    for d in delta:
+        if d is None:
+            continue
+        for k in ("launches", "routes"):
+            for e, v in d[k].items():
+                total[k][e] = total[k].get(e, 0) + v
+
+
+def dcn_same(label: str, got, want) -> None:
+    """Rows equal, floats within 1e-12 relative (decimals are exact
+    strings; AVG is finalized from exact sums on either side)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows against {len(want)}")
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            raise AssertionError(f"{label}: row width {g} vs {w}")
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                if not abs(a - b) <= 1e-12 * max(abs(a), abs(b)):
+                    raise AssertionError(f"{label}: {g} vs {w}")
+            elif a != b:
+                raise AssertionError(f"{label}: {g} vs {w}")
+
+
+def dcn_device_memory(torch, procs: list) -> dict:
+    """Device memory of each worker process as nvidia-smi lists it (used
+    memory, the CUDA context and the caching allocator's pool included:
+    torch.cuda.memory_allocated can be read only inside the process),
+    and the card's used bytes (torch.cuda.mem_get_info)."""
+    out = {"per_process_mib": {}, "card_used_bytes": None}
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True, timeout=30)
+        pids = {p.pid for p in procs}
+        for ln in r.stdout.strip().splitlines():
+            pid, mib = [x.strip() for x in ln.split(",")[:2]]
+            if pid.isdigit() and int(pid) in pids:
+                out["per_process_mib"][int(pid)] = int(mib)
+    except Exception as e:  # noqa: BLE001 — reported, not fatal
+        out["error"] = f"{type(e).__name__}: {e}"
+    if torch.cuda.is_available():
+        free, total = torch.cuda.mem_get_info()
+        out["card_used_bytes"] = int(total - free)
+    return out
+
+
+def phase_dcn(torch, np, s, sf: float = 1.0, device: str = "cuda") -> dict:
+    """The DCN tier at SF`sf` (item 10 of the module docstring) beside the
+    single-card session `s` (the last phase; `s` keeps its rows: the
+    fleet's DML is checked against a numpy model). Every step fails the
+    run on a wrong answer; every worker process is stopped before it
+    returns. Returns the report: "launches" and "routes" count the
+    workers' own launches over the phase's query runs, "coordinator"
+    this process's (the merge session's) over the same runs, and
+    "probe_modes" the route and mode of every probe_count launch."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dcn_")
+    # several workers share this host's cores: each takes a few torch
+    # threads (eight apiece oversubscribe them, and the spinning OpenMP
+    # pools slowed a CPU rehearsal's Q1 from 0.2 s to 7 s)
+    env = dict(os.environ, TMPDIR=tmp, OMP_NUM_THREADS=str(DCN_WORKER_THREADS))
+    procs: list = []
+    clusters: list = []
+    rep = {"card": card_line(), "launches": {}, "routes": {}, "sf": sf,
+           "coordinator": {"launches": {}, "routes": {}}}
+    try:
+        dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep)
+    finally:
+        for cl in clusters:
+            try:
+                cl.shutdown()
+            except Exception:  # noqa: BLE001 — a killed worker's link
+                pass
+        killed = dcn_stop(procs)
+    rep["killed_at_shutdown"] = killed
+    alive = [p.pid for p in procs if p.poll() is None]
+    left = sorted(os.listdir(tmp))
+    if alive or left:
+        raise AssertionError(f"DCN shutdown left workers {alive} or files {left}")
+    os.rmdir(tmp)
+    rep["s"] = time.perf_counter() - t_phase
+    # the route and mode of each probe_count launch: the workers' metric
+    # counts routes alone, and a flags-only probe is made only for an
+    # unfiltered semi or anti join, which dcn_steps checks no DCN query
+    # plans, so every route's launches probe in full
+    rep["probe_modes"] = {f"{r}/full": n for c in (rep, rep["coordinator"])
+                          for r, n in c["routes"].items() if n}
+    log(f"dcn phase passed in {rep['s']:.1f} s: no worker process and no spill file "
+        f"left; workers' launches {rep['launches']}, probe routes {rep['routes']}; "
+        f"the coordinator's launches {rep['coordinator']['launches']}, probe routes "
+        f"{rep['coordinator']['routes']}")
+    return rep
+
+
+def dcn_row_launches(rows: list, dcn: dict) -> None:
+    """Set each kernels-line row's launches_dcn: the DCN phase's launches
+    of the workers and the coordinator together, tidb_probe_count's on the
+    row of its route and mode at the main path's shapes (PROBE_ROW_MODES),
+    the rows at other shapes (the mesh's, a synthetic table) at 0. Fails if
+    a launch of the phase has no row to sit on."""
+    sites = {}
+    for c in (dcn, dcn["coordinator"]):
+        for site, n in c["launches"].items():
+            sites[site] = sites.get(site, 0) + n
+    modes = dcn["probe_modes"]
+    placed = {}
+    for row in rows:
+        name = row["name"]
+        if name.startswith("probe_count."):
+            row["launches_dcn"] = modes.get(PROBE_ROW_MODES.get(name), 0)
+            placed["probe_count"] = placed.get("probe_count", 0) + row["launches_dcn"]
+        elif name in sites:
+            row["launches_dcn"] = sites[name]
+            placed[name] = sites[name]
+        else:
+            row["launches_dcn"] = 0
+    lost = {k: (v, placed.get(k, 0)) for k, v in sites.items() if v != placed.get(k, 0)}
+    if lost or set(modes) - set(PROBE_ROW_MODES.values()):
+        raise AssertionError(f"dcn launches with no kernels-line row: {lost} (launched, "
+                             f"placed); probe modes {modes}")
+
+
+def dcn_coordinator_counts() -> list:
+    """This process's counters in dcn_worker_counts's form (one entry):
+    the coordinator's merge session launches here."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.ops import join_kernels as jk
+    from tidb_tpu_torch.ops import segment_sum as seg_mod
+
+    return [{"launches": {**seg_mod.LAUNCHES, **hp.LAUNCHES},
+             "routes": dict(jk.PROBE_ROUTES)}]
+
+
+def dcn_no_flags_only_probe(s, queries) -> None:
+    """Fail if a query's plan holds an unfiltered semi or anti join, the one
+    join that probes flags only: the workers' probe metric counts routes,
+    not modes, and phase_dcn puts every route's launches on its full-mode
+    row."""
+    from tidb_tpu_torch.planner.physical import PHashJoin
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    for q in queries:
+        stack = [planned(s, Q[q][0])]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, PHashJoin) and node.kind in ("semi", "anti"):
+                raise AssertionError(f"dcn {q} plans a {node.kind} join: its probes' "
+                                     "mode cannot be read off the workers' route counts")
+            stack.extend(node.children)
+
+
+def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
+    import threading
+
+    from tidb_tpu_torch.errors import QueryTimeoutError
+    from tidb_tpu_torch.parallel.dcn import Cluster
+    from tidb_tpu_torch.sharding.shuffle import extract_live_columns
+    from tidb_tpu_torch.storage import tpch_refresh as rf
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils.metrics import DCN_BYTES, DCN_FAILOVER_TOTAL
+
+    cat = s.catalog.base
+    s.execute("use test")
+    model = ArrayModel(np, cat)
+
+    # 1. two worker processes on the card, one replica-free fleet; the
+    # joiner of step 6 and the replica fleet of step 7 start with them
+    t0 = time.perf_counter()
+    started = dcn_start_workers(DCN_WORKERS + 3, device, env, procs)
+    ports, ports3, ports_b = (started[:DCN_WORKERS], started[DCN_WORKERS:DCN_WORKERS + 1],
+                              started[DCN_WORKERS + 1:])
+    proc_b1 = procs[-1]
+    cl = Cluster([("127.0.0.1", p) for p in ports], device=device,
+                 rpc_timeout_s=600.0, connect_timeout_s=60.0)
+    clusters.append(cl)
+    # a statement issued during the reshard can wait for all of it: its
+    # per-shard write windows follow one another and a waiting writer
+    # keeps new readers out, about 13 s for orders at SF1, past the
+    # default bound (tidb_tpu_reshard_gate_wait_ms's 10 s), under which
+    # the reshard's readers fail typed (ROADMAP Queue C); the reshard
+    # step prints its slowest statement beside that default
+    cl.GATE_WAIT_S = DCN_GATE_WAIT_S
+    # the workers' commits do not auto-analyze (RF1's would analyze
+    # lineitem and orders on every owner, as phase_refresh measures)
+    cl.broadcast_exec("set tidb_enable_auto_analyze = 0")
+    shard_s = {"backfill": [], "cutover": []}
+    for step in shard_s:
+        real = getattr(cl, f"_{step}_shard")
+
+        def timed_step(*a, _real=real, _acc=shard_s[step], **kw):
+            t1 = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                _acc.append(time.perf_counter() - t1)
+
+        setattr(cl, f"_{step}_shard", timed_step)
+    rep["start_s"] = time.perf_counter() - t0
+    log(f"dcn: {len(started)} worker processes (--device {device}) up in "
+        f"{rep['start_s']:.1f} s on ports {started}; the fleet is {ports}")
+
+    # 2. lineitem and orders SHARD BY HASH(key) SHARDS 8 (co-partitioned),
+    # the four dimensions broadcast; every column of the single-card tables
+    loads = rep["loads"] = {}
+    for name in ("lineitem", "orders") + DCN_BROADCAST:
+        t = cat.table("test", name)
+        t0 = time.perf_counter()
+        arrays, valids, strings, n = extract_live_columns(t)
+        t_extract = time.perf_counter() - t0
+        key = DCN_KEY.get(name)
+        cl.ddl(dcn_table_ddl(s, name, key))
+        sent0 = DCN_BYTES.value(direction="sent")
+        t0 = time.perf_counter()
+        if key:
+            got = cl.load_sharded(name, arrays=arrays, valids=valids, strings=strings)
+        else:
+            got = cl.broadcast_table(name, arrays=arrays, valids=valids, strings=strings)
+        dt = time.perf_counter() - t0
+        if got != n:
+            raise AssertionError(f"dcn load of {name}: {got} rows landed, {n} sent")
+        loads[name] = {"rows": n, "columns": len(t.schema.columns), "extract_s": t_extract,
+                       "load_s": dt, "wire_bytes": DCN_BYTES.value(direction="sent") - sent0}
+        log(f"dcn load {name}: {n} rows x {len(t.schema.columns)} columns in {dt:.3f} s "
+            f"({'sharded' if key else 'broadcast'}; extract {t_extract:.3f} s), "
+            f"{loads[name]['wire_bytes']:.0f} B on the wire")
+        del arrays, valids, strings
+    rep["memory_after_load"] = mem = dcn_device_memory(torch, procs)
+    log(f"dcn device memory after the load: per worker process (nvidia-smi MiB) "
+        f"{mem['per_process_mib']}, card used {mem['card_used_bytes']} B")
+
+    # 3. Q1, Q6, Q3, Q5: one cold run and three warm, each against the
+    # single-card session's rows and numpy; each worker's own launches
+    single = rep["single_card"] = {}
+    single_rows = {}
+    for q in DCN_QUERIES:
+        single_rows[q] = s.query(Q[q][0])
+        warm = []
+        for _ in range(DCN_WARM):
+            t0 = time.perf_counter()
+            s.query(Q[q][0])
+            warm.append(time.perf_counter() - t0)
+        single[q] = {"warm_s": warm, "warm_median_s": statistics.median(warm)}
+    dcn_no_flags_only_probe(s, DCN_QUERIES)
+    fleet = rep["queries"] = {}
+    for q in DCN_QUERIES:
+        runs, per_run, merges = [], [], []
+        for i in range(1 + DCN_WARM):
+            c0, k0 = dcn_worker_counts(cl), dcn_coordinator_counts()
+            t0 = time.perf_counter()
+            rows = cl.query(Q[q][0])
+            runs.append(time.perf_counter() - t0)
+            merge = dcn_delta(k0, dcn_coordinator_counts())
+            delta = dcn_delta(c0, dcn_worker_counts(cl))
+            dcn_add(rep, delta)
+            dcn_add(rep["coordinator"], merge)
+            per_run.append(delta)
+            merges.append(merge[0])
+            dcn_same(f"dcn {q}", rows, single_rows[q])
+        first = per_run[0]
+        # (a CPU rehearsal's workers run the plain path: no launch)
+        if device == "cuda" and q == "q1" and not all(
+                d["launches"].get("segagg") for d in first):
+            raise AssertionError(f"dcn q1: a worker's partial launched no tidb_segagg: {first}")
+        if device == "cuda" and q == "q3" and not all(
+                d["launches"].get("probe_count") for d in first):
+            raise AssertionError(f"dcn q3: a worker launched no tidb_probe_count: {first}")
+        if device == "cuda" and q == "q1" and not merges[0]["launches"].get("segagg"):
+            raise AssertionError(f"dcn q1: the coordinator's final merge launched no "
+                                 f"tidb_segagg: {merges[0]}")
+        fleet[q] = {"cold_s": runs[0], "warm_s": runs[1:],
+                    "warm_median_s": statistics.median(runs[1:]), "workers": per_run,
+                    "coordinator": merges}
+        log(f"dcn {q}: rows equal the single-card session's; cold {runs[0] * 1e3:.3f} ms, "
+            f"warm median {fleet[q]['warm_median_s'] * 1e3:.3f} ms "
+            f"{[round(r * 1e3, 3) for r in runs[1:]]} (single card "
+            f"{single[q]['warm_median_s'] * 1e3:.3f} ms); workers' first run {first}; "
+            f"the coordinator's merge {merges[0]}")
+    check_q1(np, single_rows["q1"], numpy_q1(np, model.table("test", "lineitem")))
+    if _scaled(single_rows["q6"][0][0]) != numpy_q6(np, model.table("test", "lineitem")):
+        raise AssertionError("dcn q6 differs from numpy")
+    check_join_rows("q3", single_rows["q3"], numpy_q3(np, model), {1})
+    check_join_rows("q5", single_rows["q5"], numpy_q5(np, model), {1})
+    try:
+        cl.query(Q["q18"][0])
+        raise AssertionError("dcn q18 gave rows where the reference's Cluster refuses it")
+    except Exception as e:  # noqa: BLE001 — the typed refusal is the answer
+        if type(e).__name__ != "UnsupportedError":
+            raise
+        rep["q18"] = f"{type(e).__name__}: {e}"
+    log(f"dcn: the four equal numpy too; q18 refused as by the reference ({rep['q18']})")
+
+    # 4. online reshard of orders under two readers and a 2PC writer
+    read_sql = (f"select o_orderpriority, count(*) as n, sum(o_totalprice) as s from "
+                f"orders where o_orderkey < {DCN_WRITER_BASE} group by o_orderpriority "
+                f"order by o_orderpriority")
+    want = s.query(read_sql)
+    stop, lock = threading.Event(), threading.Lock()
+    errors, reads, applied, refused = [], [0], [], [0]
+    slowest = {"read": 0.0, "write": 0.0}  # seconds, gate waits included
+
+    def took(kind, t0):
+        with lock:
+            slowest[kind] = max(slowest[kind], time.perf_counter() - t0)
+
+    def transient(e):
+        return "pending" in str(e)
+
+    def reader():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                got = cl.query(read_sql)
+            except Exception as e:  # noqa: BLE001 — recorded, fails the step
+                took("read", t0)
+                with lock:
+                    if transient(e):
+                        refused[0] += 1
+                    else:
+                        errors.append(("read", repr(e)))
+                continue
+            took("read", t0)
+            with lock:
+                if got != want:
+                    errors.append(("mismatch", got[:2]))
+                reads[0] += 1
+
+    # the writer's rows copy a live order (every column of the table as it
+    # stands) under new keys
+    o = cat.table("test", "orders")
+    live0 = int(np.nonzero(o.live_mask(0, o.n))[0][0])
+    proto = {c: o.data[c][live0:live0 + 1].copy() for c in o.schema.names()}
+
+    def writer():
+        i = 0
+        while not stop.is_set():
+            proto["o_orderkey"][0] = DCN_WRITER_BASE + i
+            sql = rf.insert_statements(o, proto)[0]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                cl.execute_dml(sql)
+            except Exception as e:  # noqa: BLE001 — recorded, fails the step
+                took("write", t0)
+                with lock:
+                    if transient(e):
+                        refused[0] += 1
+                    else:
+                        errors.append(("write", repr(e)))
+                continue
+            took("write", t0)
+            with lock:
+                applied.append(sql)
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=reader) for _ in range(2)] + [
+        threading.Thread(target=writer)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        cl.reshard(f"alter table orders shard by hash(o_orderkey) shards {DCN_RESHARDS}")
+        t_reshard = time.perf_counter() - t0
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+    log(f"dcn reshard: {t_reshard:.3f} s; per shard backfill "
+        f"{[round(x, 3) for x in shard_s['backfill']]} s, cutover "
+        f"{[round(x, 3) for x in shard_s['cutover']]} s")
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"dcn reshard under traffic: {errors[:5]}")
+    if not reads[0] or not applied:
+        raise AssertionError(f"dcn reshard: {reads[0]} reads, {len(applied)} writes served")
+    if cl.placement("orders").shards != DCN_RESHARDS:
+        raise AssertionError("dcn reshard: the new map is not installed")
+    n_orders = cl.query("select count(*) as n from orders")[0][0]
+    if n_orders != model.tables["orders"].n + len(applied):
+        raise AssertionError(f"dcn reshard: orders has {n_orders} rows, the model "
+                             f"{model.tables['orders'].n} + {len(applied)} written")
+    st0 = cl.worker_stats()
+    c0, k0 = dcn_worker_counts(cl), dcn_coordinator_counts()
+    rows = cl.query(Q["q3"][0])
+    dcn_add(rep["coordinator"], dcn_delta(k0, dcn_coordinator_counts()))
+    dcn_add(rep, dcn_delta(c0, dcn_worker_counts(cl)))
+    st1 = cl.worker_stats()
+    shuffle = {k: sum(b[k] - a[k] for a, b in zip(st0, st1))
+               for k in ("shuffle_bytes_in", "shuffle_bytes_out")}
+    dcn_same("dcn q3 after the reshard", rows, s.query(Q["q3"][0]))
+    check_join_rows("q3", rows, numpy_q3(np, model), {1})
+    if not shuffle["shuffle_bytes_in"]:
+        raise AssertionError("dcn q3 after the reshard moved no shuffle bytes")
+    rep["reshard"] = {"s": t_reshard, "reads": reads[0], "writes": len(applied),
+                      "refused_pending": refused[0], "q3_shuffle": shuffle,
+                      "slowest_statement_s": dict(slowest),
+                      "gate_wait_bound_s": cl.GATE_WAIT_S,
+                      "shards": DCN_RESHARDS, "shard_s": copy.deepcopy(shard_s)}
+    for acc in shard_s.values():
+        acc.clear()
+    log(f"dcn reshard: orders {DCN_SHARDS} -> {DCN_RESHARDS} shards online in "
+        f"{t_reshard:.3f} s under {reads[0]} reads (each equal) and {len(applied)} 2PC "
+        f"writes ({refused[0]} refused as pending and retried); slowest statement "
+        f"{slowest} s against a gate bound of {cl.GATE_WAIT_S} s (the default of "
+        f"tidb_tpu_reshard_gate_wait_ms is 10 s); Q3 through the shuffle "
+        f"equals the single card and numpy, shuffle bytes {shuffle}")
+
+    # 5. TPC-H RF1's rows (SF * 1,500 orders and their lineitems) as
+    # multi-row INSERTs and RF2's as DELETEs, each a 2PC over its owners,
+    # against the numpy model (the single-card session keeps its rows)
+    li = cat.table("test", "lineitem")
+    new = rf.rf1(cat, sf, seed=7)
+    # one INSERT a table: each statement that brings new strings rebuilds
+    # the dictionaries of the tables it writes, on every owner
+    inserts = (rf.insert_statements(o, new["orders"], batch=1 << 20)
+               + rf.insert_statements(li, new["lineitem"], batch=1 << 20))
+    keys = rf.rf2_keys(cat, sf)
+    ks = ", ".join(str(int(k)) for k in keys)
+    deletes = [f"delete from lineitem where l_orderkey in ({ks})",
+               f"delete from orders where o_orderkey in ({ks})"]
+    t0 = time.perf_counter()
+    parts = [cl.execute_dml(q)["workers"] for q in inserts]
+    t_rf1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts += [cl.execute_dml(q)["workers"] for q in deletes]
+    t_rf2 = time.perf_counter() - t0
+    model.append(new)
+    model.drop_orders(keys)
+    q1_model = numpy_q1(np, model.table("test", "lineitem"))
+    check_q1(np, cl.query(Q["q1"][0]), q1_model)
+    if cl._txn_pending or cl._txn_decided:
+        raise AssertionError("dcn: 2PC state left after the refresh")
+    rep["refresh"] = {"rf1_statements": len(inserts), "rf1_rows": sum(
+        len(v[next(iter(v))]) for v in new.values()), "rf1_s": t_rf1,
+        "rf2_statements": len(deletes), "rf2_orders": len(keys), "rf2_s": t_rf2,
+        "participants": sorted({len(p) for p in parts})}
+    log(f"dcn refresh: RF1 {rep['refresh']['rf1_rows']} rows in {len(inserts)} 2PC INSERTs "
+        f"({t_rf1:.3f} s), RF2 {len(keys)} orders in {len(deletes)} 2PC DELETEs "
+        f"({t_rf2:.3f} s); Q1 equals numpy over the updated tables")
+
+    # 6. membership: a third worker joins and drains out
+    t0 = time.perf_counter()
+    idx = cl.add_worker("127.0.0.1", ports3[0])
+    t_add = time.perf_counter() - t0
+    check_q1(np, cl.query(Q["q1"][0]), q1_model)
+    t0 = time.perf_counter()
+    cl.remove_worker(idx, graceful=True)
+    t_remove = time.perf_counter() - t0
+    check_q1(np, cl.query(Q["q1"][0]), q1_model)
+    dcn_shutdown_worker(ports3[0])
+    rep["membership"] = {"add_s": t_add, "remove_s": t_remove, "shard_s": shard_s}
+    log(f"dcn membership: add_worker {t_add:.3f} s, remove_worker(graceful) "
+        f"{t_remove:.3f} s; Q1 equals numpy after each; per moved shard backfill "
+        f"{[round(x, 3) for x in shard_s['backfill']]} s, cutover "
+        f"{[round(x, 3) for x in shard_s['cutover']]} s")
+
+    # 7. failures: a statement deadline, then a killed worker under a
+    # second fleet whose partitions each have a replica (it holds orders
+    # alone: mirroring lineitem and orders through the reshard would
+    # re-dump the whole table at every shard's cutover)
+    sess = type(s)(catalog=cat, device=s.device)
+    sess.execute(f"set max_execution_time = {DCN_DEADLINE_MS}")
+    st0 = cl.worker_stats()
+    try:
+        cl.query(Q["q1"][0], session=sess)
+        raise AssertionError(f"dcn: q1 under max_execution_time = {DCN_DEADLINE_MS} "
+                             "finished")
+    except QueryTimeoutError as e:
+        timeout_err = str(e)
+    time.sleep(0.5)
+    st1 = cl.worker_stats()
+    moved = {k: sum(b[k] - a[k] for a, b in zip(st0, st1))
+             for k in ("deadline_exceeded", "cancelled", "cancel_rpcs")}
+    if not moved["deadline_exceeded"] + moved["cancelled"]:
+        raise AssertionError(f"dcn deadline: no worker stopped its partial: {moved}")
+    clb = Cluster([("127.0.0.1", p) for p in ports_b], device=device,
+                  replicas={0: 1, 1: 0}, rpc_timeout_s=600.0, connect_timeout_s=60.0)
+    clusters.append(clb)
+    clb.ddl(dcn_table_ddl(s, "orders", "o_orderkey"))
+    arrays, valids, strings, n = extract_live_columns(cat.table("test", "orders"))
+    t0 = time.perf_counter()
+    clb.load_sharded("orders", arrays=arrays, valids=valids, strings=strings)
+    t_mirror = time.perf_counter() - t0
+    del arrays, valids, strings
+    fo_sql = ("select o_orderstatus, count(*) as n, sum(o_totalprice) as s, "
+              "min(o_orderdate) as d from orders group by o_orderstatus order by o_orderstatus")
+    fo_want = s.query(fo_sql)
+    dcn_same("dcn failover fleet", clb.query(fo_sql), fo_want)
+    proc_b1.kill()
+    proc_b1.wait()
+    f0 = DCN_FAILOVER_TOTAL.value()
+    dcn_same("dcn failover: orders through the replica", clb.query(fo_sql), fo_want)
+    dcn_same("dcn failover: read_sql through the replica", clb.query(read_sql), want)
+    failovers = DCN_FAILOVER_TOTAL.value() - f0
+    if not failovers:
+        raise AssertionError("dcn failover: tidb_tpu_dcn_failover_total did not move")
+    rep["failures"] = {"deadline_error": timeout_err, "worker_counters": moved,
+                       "mirror_load_s": t_mirror, "failovers": failovers}
+    log(f"dcn failures: q1 under {DCN_DEADLINE_MS} ms -> QueryTimeoutError, workers "
+        f"{moved}; "
+        f"orders with replicas loaded in {t_mirror:.3f} s; worker 1 SIGKILLed, two "
+        f"statements served through the replica ({failovers:.0f} failovers)")
+
+    # 8. information_schema shows the fleets
+    stats = s.query("select cluster, worker, endpoint, state, executed, shards_owned, "
+                    "shuffle_bytes_in, error from information_schema.dcn_worker_stats")
+    info = s.query("select table_name, workers from information_schema.cluster_info")
+    eps = {r[2] for r in stats}
+    if not all(f"127.0.0.1:{p}" in eps for p in ports + ports_b):
+        raise AssertionError(f"dcn_worker_stats misses a worker: {stats}")
+    if sum(1 for r in info if r[0] == "__fleet__") < 2:
+        raise AssertionError(f"cluster_info misses a fleet: {info}")
+    rep["info_schema"] = {"dcn_worker_stats": stats, "cluster_info": info}
+    rep["memory_end"] = dcn_device_memory(torch, procs)
+    log(f"dcn information_schema.dcn_worker_stats: {stats}; cluster_info: {info}")
+
+
 def main() -> int:
     import torch
 
@@ -5170,9 +5860,8 @@ def main() -> int:
     # key, fused on the device; and on the host engine): how much of Q18 is
     # not the join. Its profile's device->host copies are the finalize
     # fetch of the stack's tables alone: the slot counts, then every live slot
-    for mode in ("fused_cache", "generic_host"):
-        if mode == "generic_host":
-            s.execute("set tidb_device_engine_mode = 'off'")
+    # (the host engine's run of it was cut for the DCN phase's time)
+    for mode in ("fused_cache",):
         runs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -5395,9 +6084,7 @@ def main() -> int:
     by_mode = refresh["probe_modes"]
     for row in rows:
         if row["name"].startswith("probe_count."):
-            mode = {"table_flags": "table/flags", "table_full": "table/full",
-                    "direct": "direct/full", "sorted": "sorted/full"}.get(
-                        row["name"].split(".", 1)[1])
+            mode = PROBE_ROW_MODES.get(row["name"])
             row["launches_refresh"] = by_mode.get(mode, 0)
         else:
             row["launches_refresh"] = refresh["launches"].get(row["name"], 0)
@@ -5425,6 +6112,10 @@ def main() -> int:
         row["launches_mesh"] = row["launches"]
     rows += mesh_rows
 
+    # -- the DCN tier: worker processes on the card --------------------------
+    dcn = phase_dcn(torch, np, s)
+    dcn_row_launches(rows, dcn)
+
     log(f"main-path launches: fused path {launches}, classic path {launches_classic}, "
         f"packed batches {launches_packed}, refresh phase {refresh['launches']}")
     report = {"card": card, "device": name, "lineitem_rows": n_rows,
@@ -5443,7 +6134,7 @@ def main() -> int:
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
               "schema": schema, "stats": stats_report, "window": window,
               "server": server, "storage": storage, "planner": planner, "mesh": mesh,
-              "kernels": rows}
+              "dcn": dcn, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -847,3 +847,61 @@ def test_four_shard_mesh_on_card_equals_cpu_mesh(card):
         if q != "q1":
             assert hp.LAUNCHES["probe_count"] > 0, q
         assert got == on_cpu.query(Q[q][0]), q
+
+
+def _snapshot_launches(snap):
+    """{kernel entry: launches} from one process's metrics snapshot (the
+    `metrics_snapshot` RPC's payload)."""
+    for m in snap["metrics"]:
+        if m["name"] == "tidb_tpu_device_dispatch_total":
+            return {labels.get("site"): int(v) for labels, v in m["samples"]}
+    return {}
+
+
+def test_dcn_worker_process_on_card_runs_q1_partial_through_segagg(card):
+    """A DCN worker subprocess on cuda (`python -m
+    tidb_tpu_torch.parallel.dcn --device cuda`) holds lineitem at SF0.01
+    as its partition; the coordinator's Q1 runs the partial there, and
+    the worker's own counters (read over the metrics_snapshot RPC) show
+    tidb_segagg launches. The rows equal one CPU session's."""
+    import os
+    import re
+    import subprocess
+    import sys
+
+    from tidb_tpu_torch.parallel.dcn import Cluster
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.sharding.shuffle import extract_live_columns
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    cat = Catalog()
+    load_tpch(cat, sf=0.01)
+    cpu = Session(cat, device="cpu")
+    li = cat.table("test", "lineitem")
+    ddl = cpu.query("show create table lineitem")[0][1]
+    a, v, s, _n = extract_live_columns(li)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.Popen([sys.executable, "-m", "tidb_tpu_torch.parallel.dcn",
+                          "--device", "cuda"], stdout=subprocess.PIPE,
+                         text=True, cwd=repo)
+    try:
+        m = re.search(r"DCN_WORKER_PORT=(\d+)", p.stdout.readline())
+        assert m
+        cl = Cluster([("127.0.0.1", int(m.group(1)))], device="cpu")
+        try:
+            cl.broadcast_exec(ddl)
+            cl.load_partition(0, "lineitem", arrays=a, valids=v, strings=s)
+            before = _snapshot_launches(cl.metrics_snapshots()[0][1])
+            got = cl.query(Q["q1"][0])
+            after = _snapshot_launches(cl.metrics_snapshots()[0][1])
+            assert after.get("segagg", 0) > before.get("segagg", 0)
+            assert got == cpu.query(Q["q1"][0])
+        finally:
+            cl.shutdown()
+        assert p.wait(timeout=60) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()

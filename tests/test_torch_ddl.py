@@ -185,16 +185,20 @@ def test_write_only_index_is_no_access_path():
 
 
 def test_reshard_waits_for_the_multi_device_tier():
-    """ALTER TABLE ... SHARD BY (the reference's reshard) needs the
-    multi-device tier, which is not ported: the port refuses it the way
-    the reference refuses an unknown ALTER action."""
-    from tidb_tpu_torch.errors import UnsupportedError
-
+    """ALTER TABLE ... SHARD BY in one session is the reference's
+    metadata-only reshard: the placement and its version change and the
+    schema version bumps, as in the reference; the rows move only under
+    the DCN tier's Cluster.reshard (tests/test_torch_sharding.py)."""
     s = Session(device="cpu")
-    s.execute("create table t (id bigint primary key)")
-    with pytest.raises(UnsupportedError, match="ALTER TABLE reshard"):
-        s.execute("alter table t shard by hash(id) shards 4")
-    assert s.catalog.table("test", "t").schema.shard_by is None
+    js = JaxSession()
+    for sess in (s, js):
+        sess.execute("create table t (id bigint primary key)")
+        v0 = sess.catalog.schema_version
+        sess.execute("alter table t shard by hash(id) shards 4")
+        info = sess.catalog.table("test", "t").schema.shard_by
+        assert (info.kind, info.column, info.shards, info.version) == (
+            "hash", "id", 4, 1)
+        assert sess.catalog.schema_version == v0 + 1
 
 
 def test_schema_version_bumps_per_stage():

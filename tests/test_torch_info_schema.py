@@ -11,11 +11,11 @@ runtime tables (slow_query, statements_summary, processlist,
 cluster_trace, scheduler_stats, digest_latency) the same columns and
 the same rows where they do not carry times or ids of their own.
 
-Three tables read reference modules the port has not got (ROADMAP,
-intended divergences): dcn_worker_stats and cluster_info give the
-reference's columns and no rows, as the reference does with no live
-cluster; cluster_metrics gives this process's metrics as `coordinator`
-and the merged `fleet` rows, as the reference does with no fleet.
+dcn_worker_stats, cluster_info and cluster_metrics read the live DCN
+clusters of the process (`parallel/dcn.py`'s registry): with none, the
+first two give the reference's columns and no rows, and cluster_metrics
+this process's metrics as `coordinator` and the merged `fleet` rows, in
+both packages (tests/test_torch_dcn.py reads them over a live fleet).
 plan_feedback reads each package's plan-feedback store and gives the
 same rows after the same statements, apart from the columns that carry
 times.
@@ -406,17 +406,31 @@ def test_serving_stores_read_alike():
                       "where digest_text like '%sv%'")
 
 
-# -- the four tables of unported modules -------------------------------------
+# -- the cluster tables with no live cluster ---------------------------------
+
+
+@pytest.fixture
+def no_live_clusters(monkeypatch):
+    """Both packages' registries of live DCN clusters empty for the test
+    (a fleet another test of the process shut down stays registered
+    until it is collected)."""
+    import weakref
+
+    import tidb_tpu.parallel.dcn as jdcn
+    import tidb_tpu_torch.parallel.dcn as pdcn
+
+    for mod in (jdcn, pdcn):
+        monkeypatch.setattr(mod, "_CLUSTERS", weakref.WeakSet())
 
 
 @pytest.mark.parametrize("table", ["dcn_worker_stats", "cluster_info"])
-def test_cluster_tables_are_empty(table):
+def test_cluster_tables_are_empty(table, no_live_clusters):
     js, ps = new_pair()
     sql = f"select * from information_schema.{table}"
     assert ps.query(sql) == [] == js.query(sql)
 
 
-def test_cluster_metrics_without_a_fleet():
+def test_cluster_metrics_without_a_fleet(no_live_clusters):
     """The reference with no fleet: its own registry as `coordinator`,
     merged into `fleet`; every coordinator counter has a fleet row."""
     js, ps = new_pair()

@@ -35,21 +35,9 @@ torch.set_num_threads(1)
 _MESH_FAMILIES = ("tidb_tpu_fragment_dispatch_total", "tidb_tpu_fragment_seconds",
                   "tidb_tpu_fragment_compile_total", "tidb_tpu_collective_merge_seconds")
 
-# reference metric families whose module the port does not have
-_UNPORTED_FAMILIES = {
-    "tidb_tpu_dcn_bytes_total": "parallel/dcn.py",
-    "tidb_tpu_dcn_rtt_seconds": "parallel/dcn.py",
-    "tidb_tpu_dcn_retry_total": "parallel/dcn.py",
-    "tidb_tpu_dcn_failover_total": "parallel/dcn.py",
-    "tidb_tpu_dcn_worker_state": "parallel/dcn.py",
-    "tidb_tpu_dcn_cancel_total": "parallel/dcn.py",
-    "tidb_tpu_dcn_rpc_seconds": "parallel/dcn.py",
-    "tidb_tpu_shuffle_bytes_total": "parallel/dcn.py (the shuffle)",
-    "tidb_tpu_shard_scan_total": "sharding/",
-    "tidb_tpu_reshard_shards_total": "sharding/",
-    "tidb_tpu_reshard_active": "sharding/",
-    "tidb_tpu_membership_total": "parallel/membership.py",
-}
+# reference metric families whose module the port does not have (none
+# since the DCN tier, sharding and membership are ported)
+_UNPORTED_FAMILIES: dict = {}
 
 _SETUP = ("set tidb_slow_log_threshold = 300000",
           "set tidb_trace_sample_rate = 0",

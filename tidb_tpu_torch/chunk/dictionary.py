@@ -57,8 +57,7 @@ class Dictionary:
     translations.
     """
 
-    __slots__ = ("values", "_index", "collation", "_folded", "_canon",
-                 "_bytewise")
+    __slots__ = ("values", "_index", "collation", "_folded", "_canon")
 
     def __init__(self, values: Sequence[str],
                  collation: str = BIN_COLLATION):
@@ -81,10 +80,6 @@ class Dictionary:
             self._folded = None
             self._canon = None
         self._index = {v: i for i, v in enumerate(vals)}
-        # lazy bytewise view for encode_with; reset HERE so a
-        # RuntimeDictionary.fill() (which re-runs __init__ in place)
-        # can never serve codes computed against the old contents
-        self._bytewise = None
 
     def fold(self, s: str) -> str:
         """Collation fold key (identity for _bin)."""
@@ -142,64 +137,44 @@ class Dictionary:
         """Encode strings against this existing dictionary; unknown strings
         raise (the catalog must re-encode the column to grow a dictionary).
         Lookup is by exact raw value — a _ci dictionary still stores every
-        distinct raw string; equivalence only matters at compare time."""
+        distinct raw string; equivalence only matters at compare time.
+        One hash lookup a value: the codes a bytewise search of the
+        sorted values (or, for _ci, of its bytewise view) would find."""
         strings = list(strings)
-        valid = np.array([s is not None for s in strings], dtype=np.bool_)
+        valid = np.fromiter((s is not None for s in strings), dtype=np.bool_,
+                            count=len(strings))
         codes = np.zeros(len(strings), dtype=np.int32)
         if valid.any():
-            if self._canon is None:
-                present = np.array([s for s in strings if s is not None], dtype=str)
-                vals = np.array(self.values, dtype=str)
-                pos = np.searchsorted(vals, present)
-                in_range = pos < len(vals)
-                ok = np.zeros(len(present), dtype=np.bool_)
-                ok[in_range] = vals[pos[in_range]] == present[in_range]
-                if not ok.all():
-                    bad = present[~ok][0]
-                    raise KeyError(f"string {bad!r} not in dictionary")
-                codes[valid] = pos.astype(np.int32)
-            else:
-                # ci order is not bytewise: searchsorted against a
-                # cached bytewise-sorted VIEW, then permute back — same
-                # vectorized cost as the _bin path (bulk ingest is the
-                # per-column hot path for 1M-row chunks)
-                present = np.array([s for s in strings if s is not None], dtype=str)
-                order, sv = self._bytewise_view()
-                pos = np.searchsorted(sv, present)
-                in_range = pos < len(sv)
-                ok = np.zeros(len(present), dtype=np.bool_)
-                ok[in_range] = sv[pos[in_range]] == present[in_range]
-                if not ok.all():
-                    bad = present[~ok][0]
-                    raise KeyError(f"string {bad!r} not in dictionary")
-                codes[valid] = order[pos].astype(np.int32)
+            index = self._index
+            try:
+                codes[valid] = np.fromiter(
+                    (index[s] for s in strings if s is not None),
+                    dtype=np.int32, count=int(valid.sum()))
+            except KeyError:
+                bad = next(s for s in strings
+                           if s is not None and s not in index)
+                raise KeyError(f"string {bad!r} not in dictionary") from None
         return codes, valid
 
-    def _bytewise_view(self):
-        """(permutation, bytewise-sorted values) — lazy, cached;
-        __init__ resets the cache, so a refilled RuntimeDictionary
-        rebuilds it against its new contents."""
-        cached = self._bytewise
-        if cached is None:
-            vals = np.array(self.values, dtype=str)
-            order = np.argsort(vals).astype(np.int64)
-            cached = (order, vals[order])
-            self._bytewise = cached
-        return cached
-
     def decode(self, codes: np.ndarray, valid: Optional[np.ndarray] = None) -> list:
-        out = []
+        codes = np.asarray(codes)
         vals = self.values
-        for i, c in enumerate(np.asarray(codes)):
-            if valid is not None and not valid[i]:
-                out.append(None)
-            elif not 0 <= int(c) < len(vals):
-                # code -1 is the "absent" sentinel from translate_to; letting
-                # python's negative indexing map it to the last entry would
-                # silently return the wrong string.
-                raise IndexError(f"string code {int(c)} out of range for dictionary of {len(vals)}")
-            else:
-                out.append(vals[int(c)])
+        live = (np.ones(len(codes), dtype=np.bool_) if valid is None
+                else np.asarray(valid, dtype=np.bool_))
+        picked = codes[live].astype(np.int64, copy=False)
+        bad = (picked < 0) | (picked >= len(vals))
+        if bad.any():
+            # code -1 is the "absent" sentinel from translate_to; letting
+            # python's negative indexing map it to the last entry would
+            # silently return the wrong string.
+            raise IndexError(f"string code {int(picked[bad][0])} out of range "
+                             f"for dictionary of {len(vals)}")
+        got = [vals[c] for c in picked.tolist()]
+        if len(got) == len(codes):
+            return got
+        out = [None] * len(codes)
+        for i, v in zip(np.nonzero(live)[0].tolist(), got):
+            out[i] = v
         return out
 
     # -- predicate support -------------------------------------------------

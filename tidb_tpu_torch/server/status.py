@@ -2,10 +2,6 @@
 tidb-server status port: /metrics for Prometheus, /status for
 liveness/version, plus schema introspection).
 
-The port has no DCN tier (parallel/dcn.py). So /metrics?scope=cluster
-and /cluster answer what the reference answers with no live cluster: the
-coordinator's own registry, and an empty cluster list.
-
 Endpoints:
     /metrics     - Prometheus text exposition of tidb_tpu_* collectors;
                    ?scope=cluster scrapes every live Cluster's workers
@@ -67,13 +63,13 @@ class StatusServer:
 
                         q = parse_qs(urlparse(self.path).query)
                         if q.get("scope", [""])[0] == "cluster":
+                            from tidb_tpu_torch.parallel.dcn import \
+                                fleet_metrics_entries
                             from tidb_tpu_torch.utils.metrics import \
-                                render_cluster, snapshot
+                                render_cluster
 
-                            # no live cluster: the scrape is this
-                            # process's own registry
                             body = render_cluster(
-                                [("coordinator", snapshot(), "")]).encode()
+                                fleet_metrics_entries()).encode()
                         else:
                             from tidb_tpu_torch.utils.metrics import \
                                 render_prometheus
@@ -170,7 +166,12 @@ class StatusServer:
                             slo_store.stats_dict(top)).encode()
                         ctype = "application/json"
                     elif self.path == "/cluster":
-                        body = json.dumps({"clusters": []}).encode()
+                        from tidb_tpu_torch.parallel.dcn import clusters_alive
+
+                        body = json.dumps({
+                            "clusters": [c.health_snapshot()
+                                         for c in clusters_alive()],
+                        }).encode()
                         ctype = "application/json"
                     elif self.path == "/scheduler":
                         from tidb_tpu_torch.serving import schedulers_alive

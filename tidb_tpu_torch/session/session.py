@@ -387,6 +387,11 @@ class Session:
         # statement deadline (monotonic seconds) armed per statement
         # from max_execution_time; None = unbounded
         self._stmt_deadline: Optional[float] = None
+        # external cancellation hooks: a DCN worker serving an RPC arms
+        # these so a coordinator-sent cancel or the RPC's shipped
+        # deadline aborts the local execution at its next chunk boundary
+        self._ext_cancel = None            # callable -> truthy to cancel
+        self._ext_deadline: Optional[float] = None  # monotonic seconds
         # SHOW WARNINGS' area, reset by every other statement
         self._warnings: list = []
 
@@ -874,11 +879,17 @@ class Session:
             return QueryKilledError("connection was killed")
         if self._kill_query:
             return QueryKilledError("Query execution was interrupted (KILL)")
-        dl = self._stmt_deadline
-        if dl is not None and _time.monotonic() > dl:
-            return QueryTimeoutError(
-                "Query execution was interrupted, maximum "
-                "statement execution time exceeded")
+        now = None
+        for dl in (self._stmt_deadline, self._ext_deadline):
+            if dl is not None:
+                now = _time.monotonic() if now is None else now
+                if now > dl:
+                    return QueryTimeoutError(
+                        "Query execution was interrupted, maximum "
+                        "statement execution time exceeded")
+        ext = self._ext_cancel
+        if ext is not None and ext():
+            return QueryKilledError("Query execution was interrupted (KILL)")
         return None
 
     # ------------------------------------------------------------------
@@ -2219,8 +2230,16 @@ class Session:
                 stmt.cluster, t.schema.columns)
             base = getattr(t, "_base", t)
             base.clustered_rows = 0  # force the re-sort at the next fold
+        elif stmt.action == "reshard":
+            # new placement metadata; version bump invalidates placement
+            # snapshots, schema_version bump (below) invalidates cached
+            # plans — an in-flight statement demotes via the existing
+            # catalog-lock revalidation instead of serving a stale map
+            old = t.schema.shard_by
+            info = self._shard_by_info(stmt.shard, t.schema.columns)
+            info.version = (old.version + 1) if old is not None else 1
+            t.schema.shard_by = info
         else:
-            # reshard (SHARD BY placement) waits for the multi-device tier
             raise UnsupportedError(f"ALTER TABLE {stmt.action}")
         # every completed ALTER advances the schema version (ref: one
         # version per DDL job) — plan-cache invalidation hangs off it
@@ -2243,11 +2262,27 @@ class Session:
                 f"cluster column {name!r} must not be JSON-typed")
         return name
 
+    @staticmethod
+    def _shard_by_info(spec, cols):
+        """Validate a parsed SHARD BY spec against the column list and
+        build the persisted ShardByInfo (None passes through)."""
+        if spec is None:
+            return None
+        from tidb_tpu_torch.storage.table import ShardByInfo
+
+        kind, scol, arg = spec
+        info = next((c for c in cols if c.name == scol), None)
+        if info is None:
+            raise SchemaError(f"unknown shard column {scol!r}")
+        if info.type_.kind != TypeKind.INT:
+            raise SchemaError(
+                f"shard column {scol!r} must be integer-typed")
+        if kind == "range":
+            return ShardByInfo(kind="range", column=scol,
+                               shards=len(arg) + 1, bounds=list(arg))
+        return ShardByInfo(kind="hash", column=scol, shards=int(arg))
+
     def _run_create_table(self, stmt: A.CreateTableStmt):
-        if stmt.shard is not None:
-            raise UnsupportedError(
-                "CREATE TABLE ... SHARD BY is not yet ported: it waits for "
-                "the sharding tier (ROADMAP Queue A, item 6b)")
         if stmt.like is not None:
             return self._run_create_like(stmt)
         if stmt.as_select is not None:
@@ -2290,6 +2325,7 @@ class Session:
                                      n_parts=int(spec))
         schema = TableSchema(stmt.table.name, cols, primary_key=pk,
                              collation=stmt.collation, partition=part,
+                             shard_by=self._shard_by_info(stmt.shard, cols),
                              cluster_by=self._cluster_by_col(
                                  stmt.cluster, cols))
         if stmt.temporary:

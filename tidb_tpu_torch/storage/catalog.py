@@ -14,13 +14,10 @@ the process list KILL reads; the table engine per table
 (storage/kvapi.py: columnar or delta), DROP DATABASE, information_schema
 and the per-session TEMPORARY namespace (`SessionCatalog`).
 
-Three information_schema tables read reference modules the port has not
-got (ROADMAP, intended divergences): `dcn_worker_stats` and
-`cluster_info` list their columns and no rows, as the reference does in
-a process with no live cluster; `cluster_metrics` gives the rows the
-reference gives when it finds no fleet (this process's registry as
-``coordinator`` and the merged ``fleet`` view). `plan_feedback` reads the
-process's plan-feedback store (planner/feedback.py).
+`dcn_worker_stats`, `cluster_info` and `cluster_metrics` read every
+live DCN `Cluster` of the process (parallel/dcn.py's `clusters_alive()`
+and `fleet_metrics_entries()`); `plan_feedback` reads the process's
+plan-feedback store (planner/feedback.py).
 """
 
 from __future__ import annotations
@@ -908,10 +905,18 @@ class Catalog:
                 rows,
             )
         if name == "dcn_worker_stats":
-            # per-worker failure-domain counters of every live Cluster.
-            # The port has no cluster tier (parallel/dcn.py, ROADMAP
-            # Queue A item 6): its columns and no rows, what the
-            # reference shows with no live cluster in the process
+            # per-worker failure-domain counters of every live Cluster
+            # in this process, joinable from SQL
+            rows = []
+            if not listing:
+                from tidb_tpu_torch.parallel.dcn import clusters_alive
+
+                for ci, cl in enumerate(clusters_alive()):
+                    try:
+                        rows.extend((ci,) + r
+                                    for r in cl.worker_stats_rows())
+                    except Exception:  # noqa: BLE001 — a dying cluster
+                        continue       # must not fail the whole read
             return make(
                 [("cluster", INT64), ("worker", INT64),
                  ("endpoint", STRING), ("state", STRING),
@@ -923,7 +928,7 @@ class Catalog:
                  ("shuffle_bytes_out", INT64),
                  ("reconnects", INT64), ("replica", INT64),
                  ("error", STRING)],
-                [],
+                rows,
             )
         if name == "scheduler_stats":
             # serving-tier counters of every live statement scheduler in
@@ -993,16 +998,17 @@ class Catalog:
             )
         if name == "cluster_metrics":
             # the fleet metrics plane: the SAME scrape entries
-            # /metrics?scope=cluster renders, as SQL rows. The port has
-            # no fleet, so the entries are the reference's with no live
-            # cluster: this process's registry as the coordinator (and
-            # the merged worker='fleet' view of it). Guarded for a
-            # listing like the reference.
+            # /metrics?scope=cluster renders, as SQL rows — per-worker
+            # samples, the merged worker='fleet' view, and an error row
+            # per unreachable worker. Guarded like dcn_worker_stats: a
+            # SHOW TABLES / schema walk (listing) must not scrape a live
+            # fleet just to report existence.
             rows = []
             if not listing:
-                from tidb_tpu_torch.utils.metrics import cluster_rows, snapshot
+                from tidb_tpu_torch.parallel.dcn import fleet_metrics_entries
+                from tidb_tpu_torch.utils.metrics import cluster_rows
 
-                rows = cluster_rows([("coordinator", snapshot(), "")])
+                rows = cluster_rows(fleet_metrics_entries())
             return make(
                 [("worker", STRING), ("metric", STRING),
                  ("labels", STRING), ("value", FLOAT64),
@@ -1011,15 +1017,25 @@ class Catalog:
             )
         if name == "cluster_info":
             # topology / online-reshard progress: a fleet summary row
-            # per live coordinator plus one row per moved shard. The
-            # port has no coordinator (ROADMAP Queue A item 6): the
-            # columns and no rows, as the reference with no live cluster
+            # per live coordinator plus one row per moved shard of every
+            # in-flight reshard (a fault-fenced shard shows state
+            # "cutover"). No listing guard needed: local coordinator
+            # memory, reading it fans out nothing.
+            rows = []
+            if not listing:
+                from tidb_tpu_torch.parallel.dcn import clusters_alive
+
+                for cl in clusters_alive():
+                    try:
+                        rows.extend(cl.reshard_progress_rows())
+                    except Exception:  # noqa: BLE001 — a dying
+                        continue       # coordinator shows no rows
             return make(
                 [("table_name", STRING), ("shard", INT64),
                  ("state", STRING), ("dst_worker", INT64),
                  ("old_version", INT64), ("new_version", INT64),
                  ("workers", INT64), ("draining", INT64)],
-                [],
+                rows,
             )
         if name == "digest_latency":
             # per-digest latency SLO store: sliding-window

@@ -53,7 +53,7 @@ from tidb_tpu_torch.types import (
 
 __all__ = ["ColumnInfo", "TableSchema", "Table", "TableTxnLog", "IndexInfo",
            "FKInfo", "GeneratedInfo", "CheckInfo", "PartitionInfo",
-           "TXN_TS_BASE", "MAX_TS"]
+           "ShardByInfo", "TXN_TS_BASE", "MAX_TS"]
 
 
 @dataclass
@@ -204,6 +204,23 @@ class PartitionInfo:
 
 
 @dataclass
+class ShardByInfo:
+    """Cross-worker placement metadata (SHARD BY ... DDL; consumed by
+    tidb_tpu_torch/sharding). HASH: shard = mix(value) % shards, NULL ->
+    0. RANGE: `bounds` are k ascending exclusive uppers making k+1
+    shards (shard i holds bounds[i-1] <= value < bounds[i]; the last
+    shard is unbounded above), NULL -> 0. `version` bumps on every
+    reshard so placement snapshots and plan-cache entries keyed on it
+    invalidate; the catalog's schema_version bumps alongside."""
+
+    kind: str                 # "hash" | "range"
+    column: str
+    shards: int
+    bounds: List[int] = field(default_factory=list)  # range only
+    version: int = 0
+
+
+@dataclass
 class TableSchema:
     name: str
     columns: List[ColumnInfo]
@@ -213,7 +230,7 @@ class TableSchema:
     # PARTITION BY metadata; None = unpartitioned
     partition: Optional[PartitionInfo] = None
     # SHARD BY metadata waits for the multi-device tier: always None
-    shard_by: Optional[object] = None
+    shard_by: Optional[ShardByInfo] = None
     # CLUSTER BY column: delta->segment compaction keeps the table
     # physically sorted by this column (ASC, NULLs first) so the columnar
     # store's zone maps prune range filters; None = no ordered compaction
@@ -907,7 +924,8 @@ class Table:
 
     def _append_strings(self, name: str, vals: list, start: int, end: int):
         d = self.dicts[name]
-        new = {v for v in vals if v is not None and v not in d}
+        index = d._index
+        new = {v for v in vals if v is not None and v not in index}
         if new:
             # dictionary grows: build union dict and re-encode existing codes
             nd = Dictionary(list(d.values) + list(new), d.collation)

@@ -16,8 +16,9 @@ Fleet aggregation: ``snapshot()`` produces the wire form of every
 registered metric and ``render_cluster`` the ``/metrics?scope=cluster``
 exposition (per-worker ``worker`` labels plus a merged
 ``worker="fleet"`` view), and ``cluster_rows`` the same scrape as
-information_schema.cluster_metrics rows. The port has no DCN tier, so
-its cluster scrape holds one entry: this process's own registry."""
+information_schema.cluster_metrics rows, over the entries
+parallel/dcn.py's ``fleet_metrics_entries()`` gathers (this process as
+the coordinator plus every live Cluster's workers)."""
 
 from __future__ import annotations
 
@@ -520,6 +521,68 @@ COLLECTIVE_MERGE_SECONDS = Histogram(
     "Merge of per-shard collective states across streamed fragment "
     "batches")
 
+# -- the DCN tier (parallel/dcn.py): wire traffic, RPCs, failure domain ----
+
+DCN_BYTES = Counter(
+    "tidb_tpu_dcn_bytes_total",
+    "DCN tier wire traffic through this process, by direction")
+DCN_RTT = Histogram(
+    "tidb_tpu_dcn_rtt_seconds",
+    "Coordinator-observed round-trip time of one DCN worker call")
+DCN_RPC_SECONDS = Histogram(
+    "tidb_tpu_dcn_rpc_seconds",
+    "One coordinator->worker RPC round trip, by rpc command; carries a "
+    "trace_id exemplar for the worst recent call so /metrics links "
+    "straight to the offending trace on /trace?id=",
+    exemplars=True)
+DCN_RETRY_TOTAL = Counter(
+    "tidb_tpu_dcn_retry_total",
+    "DCN recovery actions by kind: rpc (idempotent call re-sent on a "
+    "fresh connection), reconnect (worker socket re-established by the "
+    "health machine), cancel_dial (side-channel connection opened to "
+    "deliver a cancel)")
+DCN_FAILOVER_TOTAL = Counter(
+    "tidb_tpu_dcn_failover_total",
+    "Partition partials re-run on a replica worker after the primary "
+    "(and its retry) was unreachable")
+WORKER_STATE = Gauge(
+    "tidb_tpu_dcn_worker_state",
+    "Per-worker health-machine state: 0=up, 1=suspect, 2=down")
+DCN_CANCEL_TOTAL = Counter(
+    "tidb_tpu_dcn_cancel_total",
+    "Coordinator-initiated cancels of in-flight worker partials "
+    "(KILL propagation / statement deadline expiry)")
+
+# -- sharded placement, the cross-process shuffle, membership --------------
+
+SHUFFLE_BYTES_TOTAL = Counter(
+    "tidb_tpu_shuffle_bytes_total",
+    "Cross-worker shuffle exchange payload bytes (FoR-encoded batches) "
+    "by direction: out = shipped to a peer worker, in = staged into "
+    "the local inbox from a peer")
+SHARD_SCAN_TOTAL = Counter(
+    "tidb_tpu_shard_scan_total",
+    "Distributed statements planned against SHARD BY placement, by "
+    "whether owner pruning skipped part of the fleet (pruned=yes: at "
+    "least one non-owner worker received no RPC and did no work)")
+RESHARD_SHARDS_TOTAL = Counter(
+    "tidb_tpu_reshard_shards_total",
+    "Per-shard online-reshard steps completed, by phase: backfill = "
+    "shard snapshot staged at its new owner (double-write window "
+    "opened), cutover = shard validated and flipped to the new "
+    "placement")
+RESHARD_ACTIVE = Gauge(
+    "tidb_tpu_reshard_active",
+    "1 while the labeled table has an online reshard in flight "
+    "(statements keep serving by the old map; DML double-writes moved "
+    "shards), 0 once the new placement is installed or the run "
+    "abandoned")
+MEMBERSHIP_TOTAL = Counter(
+    "tidb_tpu_membership_total",
+    "Cluster membership changes completed, by kind: join = "
+    "add_worker admitted a new worker into the serving fleet, remove "
+    "= remove_worker drained one out")
+
 # -- execution telemetry (launches, planning, joins, memory) ---------------
 
 DISPATCH_TOTAL = DictCounter(
@@ -546,13 +609,14 @@ JOIN_COMPILE_TOTAL = Counter(
     "incremented at TRACE time inside the fused join kernels, so a "
     "steady-state repeated join must not move it (the retrace guard "
     "test and EXPLAIN ANALYZE's recompiles field both read it)")
-JOIN_PROBE_MODE_TOTAL = Counter(
+JOIN_PROBE_MODE_TOTAL = DictCounter(
     "tidb_tpu_join_probe_mode_total",
-    "Probe chunks resolved per strategy, by mode: sorted (searchsorted "
-    "range lookup), xla / pallas (open-addressing hash table, window-"
-    "scan / VMEM kernel), direct (dense-domain direct-address index), "
-    "host (numpy tier), fused_* (same strategies inside a fused "
-    "scan->probe program) — captures show which path actually ran")
+    "Probe chunks resolved per route of tidb_probe_count, by mode: "
+    "direct (dense-domain direct-address index), table (open-addressing "
+    "hash table), sorted (range lookup over the sorted build) — the "
+    "join path's own calls (ops.join_kernels.PROBE_ROUTES); a DCN "
+    "coordinator reads its workers' through metrics_snapshot",
+    "tidb_tpu_torch.ops.join_kernels", "PROBE_ROUTES", label="mode")
 JOIN_PROBE_SECONDS = Histogram(
     "tidb_tpu_join_probe_seconds",
     "Wall time of one fused probe+expand pass over a probe chunk, by "

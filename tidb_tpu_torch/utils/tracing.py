@@ -1,5 +1,5 @@
-"""Always-on, tail-sampled tracing (a copy of tidb_tpu/utils/tracing.py
-without the DCN tier's cross-process span export and graft; ref: util/tracing +
+"""Always-on, tail-sampled distributed tracing (a copy of
+tidb_tpu/utils/tracing.py; ref: util/tracing +
 the Dapper span model production OLAP engines ship: every statement
 records a cheap span tree; head sampling decides whether an UNEVENTFUL
 statement keeps it, tail rules retroactively keep exactly the traces
@@ -17,6 +17,9 @@ Building blocks:
     Lock-cheap: span-id allocation and list appends ride CPython
     atomicity; the lock is only taken to graft remote spans and to
     export.
+  * ``graft`` — re-anchors spans shipped back by a DCN worker under the
+    coordinator RPC span that carried them, remapping the worker's
+    process-local span ids so one cross-process tree comes out.
   * ``TraceStore`` — capacity-bounded ring of KEPT traces, surfaced by
     the status port's ``/trace`` endpoint and
     ``information_schema.cluster_trace``.
@@ -170,6 +173,53 @@ class Trace:
     @property
     def kept(self) -> bool:
         return bool(self.keep_reasons)
+
+    # -- cross-process assembly -----------------------------------------
+
+    def export(self) -> List[Dict]:
+        """Wire form of every FINISHED span (codec-safe scalars only) —
+        a DCN worker piggybacks this on its RPC response."""
+        with self._lock:
+            spans = list(self.spans)
+        out = []
+        for s in spans:
+            out.append({"i": s.span_id, "p": s.parent_id or 0,
+                        "n": s.name,
+                        "s": s.start_us,
+                        "d": s.dur_us if s.dur_us >= 0 else
+                        self._now_us() - s.start_us,
+                        "a": list(s.notes)})
+        return out
+
+    def graft(self, remote: List[Dict], base: Span, proc: str) -> None:
+        """Attach a worker's exported spans under `base` (the RPC span
+        that carried them). Remote span ids are process-local — remap
+        them to fresh local ids; remote roots (parent unknown here)
+        hang off `base`. Remote offsets are relative to the worker's
+        request-receipt anchor, so they re-anchor at the RPC span's
+        start (the error is one network one-way — unobservable without
+        a clock sync protocol, and small on a DCN link)."""
+        if base is _DROPPED or not remote:
+            return
+        idmap: Dict[int, int] = {}
+        with self._lock:
+            for r in remote:
+                if len(self.spans) >= self.max_spans:
+                    self.dropped += len(remote) - len(idmap)
+                    return
+                try:
+                    s = Span(next(self._ids), None, str(r["n"]),
+                             base.start_us + int(r["s"]))
+                    s.dur_us = int(r["d"])
+                    s.proc = proc
+                    notes = r.get("a") or []
+                    s.notes = [str(a) for a in notes]
+                    idmap[int(r["i"])] = s.span_id
+                    parent = int(r.get("p") or 0)
+                    s.parent_id = idmap.get(parent, base.span_id)
+                except (KeyError, TypeError, ValueError):
+                    continue  # malformed remote span: skip, keep the rest
+                self.spans.append(s)
 
     # -- read side ------------------------------------------------------
 
