@@ -35,7 +35,11 @@ phases below; any failure exits non-zero.
    and a chunk below one tile; NULL keys, sel holes, absent keys and
    INT64 extremes throughout: all seven outputs bit-equal to
    plain_probe_chunk. The built library's atomic opcodes are read with
-   cuobjdump -sass.
+   cuobjdump -sass. Then ops/bench_segsum.py at R = 2^20 and G in {16,
+   256, 2048}: segment_count, segment_sum_f32 and segment_sum_i64 each
+   beside one index_add_ of the same function, CUDA events after a
+   warm-up, every exactness flag true (counts and int64 sums exact, the
+   f32 sum within 1e-4 of the largest group); its JSON under OUT_DIR.
 Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    capacity 8,192) through Session on cuda, each against an indexed sqlite
    oracle built here from the port's tables (sqlite_oracle), ordered, with
@@ -47,6 +51,21 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    exactly on Q2, Q3, Q7, Q8, Q9, Q10, Q11, Q13, Q15, Q16, Q17, Q18 and
    Q20, fused at least on Q15, Q17, Q18 and Q20. Q9 is empty at this
    scale and checks nothing.
+Workloads (phase_workloads). A fresh Session on cuda, seed 7: SSB at SF1
+   (storage/ssb.py: 1,500,000 orders, about 6M lineorder rows) and its 13
+   queries, each against a numpy evaluation over the same generated
+   arrays (numpy_ssb: the star join by key lookups, sums exact, rows
+   equal as a multiset and in the ORDER BY's order, ties in any order);
+   TPC-DS Q95 at the generator's sf 10 (storage/tpcds.py: 600,000
+   orders, about 1.5M web_sales rows) against numpy_q95 (the order
+   numbers of ws_wh's self-join and of both IN subqueries; count and
+   sums exact). Each query runs once cold and WORKLOAD_WARM times warm,
+   each run with the plan taken just before it, its fused fragments and
+   its launches, held to the plan's launch contract (check_path; Q95's
+   CTE is materialized at plan time, one more fused generic
+   aggregation). Load seconds per table, the device bytes held after the
+   load and each query's warm median are printed; the launches fill the
+   kernels line's launches_workloads.
 2. The load declares CLUSTER BY (l_shipdate) on lineitem, as the
    reference's does: a cold Q6 over the store in ingest order folds it,
    the re-sort runs at that statement's end (its host time printed), and
@@ -80,6 +99,13 @@ Grid. All 22 TPC-H queries at SF0.1 (the port's generator, seed 7, chunk
    a top-N report over lineitem runs with one sort key, with three, and
    with a LIMIT above the chunk capacity, each against numpy: the first
    two through FusedScanTopNExec, the last through the classic TopNExec.
+   The sanitized step (phase_sanitized): SET tidb_tpu_sanitize = 1, then
+   Q1, Q6, Q3, Q5 and Q18 once each, rows equal to the phase's (which
+   equal numpy) and no SanitizerError; per statement the sanctioned
+   device_get round trips, the lock-order edges witnessed, the non-fatal
+   findings and the runtime edges the static lock graph lacks; then a
+   Q6 whose scan pins are never closed must raise SanitizerError
+   (pin-leak), and the sanitizer is disabled again.
 3. Times: warm wall time (median of 3) and rows/s of each query fused
    with the buffer cache, of Q1, Q6, Q3 and Q5 fused with its budget 0,
    the same staged inline at prefetch depth 0, and classic, and of Q3 in
@@ -205,9 +231,10 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    limit.) CREATE TABLE ... AS SELECT of lineitem's
    revenue by order (one row per order), joined to orders under a date
    filter against numpy; CREATE TABLE ... LIKE orders (engine, CHECKs,
-   keys, no rows). SELECT * FROM orders INTO OUTFILE under build/, LOAD
-   DATA INFILE into a LIKE copy, rows/s both ways; Q3 over the loaded
-   copy equals Q3 and numpy. Over the wire: one connection's TEMPORARY
+   keys, no rows). SELECT * FROM orders INTO OUTFILE under build/ for
+   orders' first LOAD_ROWS keys, LOAD DATA INFILE into a LIKE copy,
+   rows/s both ways; Q3 over the loaded copy equals numpy over the same
+   keys. Over the wire: one connection's TEMPORARY
    orders of 1,000 rows read by its Q3 while a second connection's Q3
    reads the permanent table, both against numpy; the temp table gone
    after the first disconnects, torch.cuda.memory_allocated() and the
@@ -306,16 +333,21 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    equal the single card and numpy. TPC-H RF1's rows as one 2PC INSERT
    a table and RF2's as one 2PC DELETE a table: Q1 then equals a numpy
    model of the updated tables (the single-card session keeps its rows).
-   A third worker joins
-   (add_worker) and drains out (remove_worker); Q1 equal after each. Q1
-   under max_execution_time = 20 ms raises QueryTimeoutError and the
-   workers' deadline or cancel counters move. A second fleet of two
+   The wire witness: the coordinator's sanitizer on for one Q1, one Q3
+   and one 2PC INSERT (and the DELETE of its row): report() may hold no
+   wire-* finding (every request sent is in the port's committed
+   protocol model). Q1 under max_execution_time = 20 ms raises
+   QueryTimeoutError and the workers' deadline or cancel counters move.
+   A fleet of its own (two more workers) holds orders alone: a third
+   worker joins (add_worker) and drains out (remove_worker), orders'
+   count and sum equal numpy after each (moving lineitem's shards too
+   took 99-107 s of host work). A second fleet of two
    workers with replicas={0: 1, 1: 0} holds orders alone (mirroring
    both tables through the reshard would re-dump each at every shard's
    cutover): worker 1 is SIGKILLed and two orders aggregates still equal
    their answers through the replica, tidb_tpu_dcn_failover_total
    moving. information_schema.dcn_worker_stats and cluster_info show
-   both fleets. No worker process and no spill file may be left.
+   the three fleets. No worker process and no spill file may be left.
    The full report goes to chip_smoke.json under OUT_DIR.
 
 Plan feedback is on in every phase, as it is by default: a launch check
@@ -332,7 +364,7 @@ source, the TPU kernel it replaces, the launches of phase 2's main path
 (`launches`) and of each later phase (`launches_refresh`,
 `launches_schema`, `launches_stats`, `launches_window`,
 `launches_server`, `launches_storage`, `launches_planner`,
-`launches_mesh`, `launches_dcn`; the mesh's launches sit only on the rows
+`launches_mesh`, `launches_dcn`, `launches_workloads`; the mesh's launches sit only on the rows
 at the mesh's own shapes, `segagg.mesh` and
 `probe_count.mesh_<route>_<mode>`; the DCN's are the workers' and the
 coordinator's, a probe_count route's on the row of its route and mode),
@@ -1133,24 +1165,45 @@ def profile_query(torch, session, sql: str) -> dict:
                 host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]]}
 
 
+def patch_builder(mod, name: str, wrap):
+    """Replace the program builder `mod.<name>` by `wrap(real)` and empty
+    the built-program cache (utils/jitcache.py), whose entries would
+    otherwise serve programs built before the wrapper went in. Returns the
+    function that puts the real builder back and empties the cache again,
+    so that no wrapped program outlives its check."""
+    from tidb_tpu_torch.utils import jitcache
+
+    real = getattr(mod, name)
+    setattr(mod, name, wrap(real))
+    jitcache.clear()
+
+    def restore():
+        setattr(mod, name, real)
+        jitcache.clear()
+
+    return restore
+
+
 def count_segment_chunks() -> list:
     """Count the chunks the segment aggregation updates, by wrapping the
-    executor's make_segment_kernel; returns the one-element counter."""
+    executor's make_segment_kernel (patch_builder); returns the
+    one-element counter."""
     from tidb_tpu_torch.executor import aggregate as agg_mod
 
     counter = [0]
-    real = agg_mod.make_segment_kernel
 
-    def counting(*args, **kw):
-        init_state, update, G = real(*args, **kw)
+    def counting(real):
+        def build(*args, **kw):
+            init_state, update, G = real(*args, **kw)
 
-        def counted(state, chunk):
-            counter[0] += 1
-            return update(state, chunk)
+            def counted(state, chunk):
+                counter[0] += 1
+                return update(state, chunk)
 
-        return init_state, counted, G
+            return init_state, counted, G
+        return build
 
-    agg_mod.make_segment_kernel = counting
+    patch_builder(agg_mod, "make_segment_kernel", counting)
     return counter
 
 
@@ -1174,7 +1227,11 @@ def planned(s, sql: str):
 def run_query(session, mods, sql: str):
     """One run with the kernels' launch counters, the join's probe-route
     counter and the pipeline's and segment store's counters zeroed just
-    before and read just after; returns (rows, counts, seconds)."""
+    before and read just after, and the statement's sanctioned
+    device->host fetches (dispatch.device_get, "device_get"); returns
+    (rows, counts, seconds)."""
+    from tidb_tpu_torch.utils import dispatch
+
     seg_mod, hp, jk, pl, st, agg_mod = mods
     seg_mod.reset_launches()
     hp.reset_launches()
@@ -1182,9 +1239,11 @@ def run_query(session, mods, sql: str):
     pl.reset_counters()
     agg_mod.reset_counters()
     seg0 = dict(st.SCAN_SEGMENTS_TOTAL)
+    f0 = dispatch.fetch_count()
     t0 = time.perf_counter()
     rows = session.query(sql)
     dt = time.perf_counter() - t0
+    fetches = dispatch.fetch_count() - f0
     pre = dict(pl.PIPELINE_PREFETCH_TOTAL)
     counts = {"launches": {**seg_mod.LAUNCHES, **hp.LAUNCHES},
               "routes": dict(jk.PROBE_ROUTES),
@@ -1194,7 +1253,8 @@ def run_query(session, mods, sql: str):
               "stage_s": dict(pl.PIPELINE_STAGE_SECONDS),
               "cache": dict(pl.DEVICE_CACHE_TOTAL),
               "fused": dict(pl.PIPELINE_FUSED_TOTAL),
-              "generic_runs": dict(agg_mod.DEVICE_GENERIC_TOTAL)}
+              "generic_runs": dict(agg_mod.DEVICE_GENERIC_TOTAL),
+              "device_get": fetches}
     return rows, counts, dt
 
 
@@ -1519,7 +1579,7 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
             results[qname], cold[qname] = rows, dt
         elif rows != results[qname]:
             raise AssertionError(f"{run} differs from the first run")
-        log(f"{run} (fused): {dt:.3f} s; launches {cnt['launches']}; probe routes "
+        log(f"{run} (fused): {dt:.3f} s; {cnt['device_get']} device_get; launches {cnt['launches']}; probe routes "
             f"{cnt['routes']}; segments scanned/pruned {cnt['segments']}; staged "
             f"batches {cnt['staged_batches']}; prefetch {cnt['prefetch']}; host->device "
             f"{cnt['h2d']}; staging host s {cnt['stage_s']}; device buffer cache {cnt['cache']}; fused {cnt['fused']}; "
@@ -1854,8 +1914,9 @@ def grid_pass(s, mods, oracle, generic, label) -> dict:
         out[name] = {"rows": len(rows), "seconds": dt, "plan_fragments": want,
                      "fused": cnt["fused"], "generic_runs": gen, "routes": cnt["routes"],
                      "launches": lc, "checks_nothing": not rows,
-                     "plan": explain_text(plan)}
-        log(f"{label} {name}: {len(rows)} rows equal sqlite in {dt:.3f} s; fused "
+                     "device_get": cnt["device_get"], "plan": explain_text(plan)}
+        log(f"{label} {name}: {len(rows)} rows equal sqlite in {dt:.3f} s; "
+            f"{cnt['device_get']} device_get; fused "
             f"{ {k: v for k, v in cnt['fused'].items() if v} }; device generic {gen}; "
             f"probe routes {cnt['routes']}" + ("; empty: checks nothing" if not rows else ""))
     return out
@@ -1878,7 +1939,6 @@ def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
     from tidb_tpu_torch.executor import pipeline as pl
 
     calls = {}
-    real = (ad.make_partial_kernel, ad.GroupTableStack.push, pl._make_fused_generic_fn)
 
     def strict(fn, key):
         def run(*a):
@@ -1891,23 +1951,35 @@ def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
             return out
         return run
 
-    ad.make_partial_kernel = lambda *a: strict(real[0](*a), "partial")
-    ad.GroupTableStack.push = lambda self, t: strict(real[1], "push")(self, t)
-    pl._make_fused_generic_fn = lambda *a: strict(real[2](*a), "fused_batch")
+    def strict_builds(key):
+        return lambda real: (lambda *a: strict(real(*a), key))
+
+    real_push = ad.GroupTableStack.push
+    ad.GroupTableStack.push = lambda self, t: strict(real_push, "push")(self, t)
+    restores = [patch_builder(ad, "make_partial_kernel", strict_builds("partial")),
+                patch_builder(pl, "_make_fused_generic_fn", strict_builds("fused_batch"))]
     s.execute("set tidb_tpu_pipeline_prefetch_depth = 0")
     out = {}
     try:
         for name, sql in sqls.items():
             calls.clear()
             rows, cnt, _dt = run_query(s, mods, sql)
+            gen = cnt["generic_runs"]
+            # every step the statement ran went through a wrapper: a fused
+            # run built its batch function, a classic one its partial table
             if not calls.get("push"):
                 raise AssertionError(f"{name}: no device generic aggregation step ran")
-            out[name] = {"steps": dict(calls), "generic_runs": cnt["generic_runs"],
-                         "rows": len(rows)}
+            if gen["fused"] and not calls.get("fused_batch"):
+                raise AssertionError(f"{name}: {gen} ran, no fused batch was checked")
+            if gen["classic"] and not calls.get("partial"):
+                raise AssertionError(f"{name}: {gen} ran, no partial table was checked")
+            out[name] = {"steps": dict(calls), "generic_runs": gen, "rows": len(rows)}
             log(f"sync-free per-chunk loop, {name}: {dict(calls)} steps under sync debug "
-                f"mode 'error', none synchronised")
+                f"mode 'error', none synchronised; device generic runs {gen}")
     finally:
-        ad.make_partial_kernel, ad.GroupTableStack.push, pl._make_fused_generic_fn = real
+        ad.GroupTableStack.push = real_push
+        for restore in reversed(restores):
+            restore()
         s.execute("set tidb_tpu_pipeline_prefetch_depth = 2")
     return out
 
@@ -1983,7 +2055,8 @@ REFRESH_QUERIES = ("q1", "q6", "q3", "q5", "q18")
 # each kernels-line row of tidb_probe_count at the main path's shapes
 PROBE_ROW_MODES = {"probe_count.table_flags": "table/flags",
                    "probe_count.table_full": "table/full",
-                   "probe_count.direct": "direct/full", "probe_count.sorted": "sorted/full"}
+                   "probe_count.direct": "direct/full", "probe_count.sorted": "sorted/full",
+                   "probe_count.direct_flags": "direct/flags"}
 
 
 class ModelTable:
@@ -3313,6 +3386,7 @@ def phase_window(np, s, mods) -> dict:
 # DATA, TEMPORARY over the wire, information_schema, DROP DATABASE ---------
 
 STORAGE_DB = "stage"
+LOAD_ROWS = 300_000  # orders' rows through OUTFILE and LOAD DATA
 # the trickle's INSERT counts (10,000 and 1,000 before the planner phase
 # took its share of the script's time limit, 5,000 and 500 before the
 # DCN phase did: the memtable's 4,096-row flush is no longer reached on
@@ -3560,39 +3634,53 @@ def phase_storage(torch, np, s, mods) -> dict:
         f"{sorted(tl.indexes)}, no rows")
 
     # -- 3. OUTFILE and LOAD DATA --------------------------------------------
+    # orders' first LOAD_ROWS keys (a depth cut: the whole table took 51 s
+    # of host I/O at SF1); Q3 over the loaded copy against numpy over the
+    # same keys, and over orders again (unchanged by the copy)
     step, t0 = new_step(), time.perf_counter()
+    om = model.table("test", "orders")
+    n_load = min(LOAD_ROWS, len(om.data["o_orderkey"]))
+    lkmax = int(np.sort(om.data["o_orderkey"])[n_load - 1])
     out_dir = os.path.join("build", "chip_smoke_storage")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     path = os.path.abspath(os.path.join(out_dir, "orders.tsv"))
     try:
         t1 = time.perf_counter()
-        rs = s.execute(f"select * from orders into outfile '{path}'")
+        rs = s.execute(f"select * from orders where o_orderkey <= {lkmax} "
+                       f"into outfile '{path}'")
         out_s = time.perf_counter() - t1
-        if rs.rows != [(n_src,)]:
-            raise AssertionError(f"storage outfile: {rs.rows}, orders {n_src}")
+        if rs.rows != [(n_load,)]:
+            raise AssertionError(f"storage outfile: {rs.rows}, orders' head {n_load}")
         file_bytes = os.path.getsize(path)
         s.execute(f"create table {db}.orders_loaded like orders")
         t1 = time.perf_counter()
         rs = s.execute(f"load data infile '{path}' into table {db}.orders_loaded")
         load_s = time.perf_counter() - t1
-        if rs.rows != [(n_src,)]:
-            raise AssertionError(f"storage load: {rs.rows}, orders {n_src}")
+        if rs.rows != [(n_load,)]:
+            raise AssertionError(f"storage load: {rs.rows}, orders' head {n_load}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     got_loaded = step_query(step, s, mods, q3.replace(" orders,", f" {db}.orders_loaded,"),
                             "q3 loaded")
     got_orders = step_query(step, s, mods, q3, "q3")
-    check_join_rows("storage q3 over orders_loaded", got_loaded, want_q3, {1})
-    if got_loaded != got_orders:
-        raise AssertionError("storage: Q3 over orders_loaded differs from Q3")
+    # numpy_q3 indexes orders by key: lineitem cut to the same keys
+    li = model.table("test", "lineitem")
+    lhead = li.data["l_orderkey"] <= lkmax
+    load_model = StorageModel(model, orders_model(
+        np, model, rows=np.nonzero(om.data["o_orderkey"] <= lkmax)[0]),
+        ModelTable({c: a[lhead] for c, a in li.data.items()}, li.dicts))
+    check_join_rows("storage q3 over orders_loaded", got_loaded, numpy_q3(np, load_model), {1})
+    check_join_rows("storage q3 over orders", got_orders, want_q3, {1})
     step.update({"outfile_s": out_s, "load_s": load_s, "file_bytes": file_bytes,
-                 "outfile_rows_per_s": n_src / out_s, "load_rows_per_s": n_src / load_s})
+                 "rows": n_load, "outfile_rows_per_s": n_load / out_s,
+                 "load_rows_per_s": n_load / load_s})
     rep["steps"]["outfile_load"] = storage_step(
         "outfile_load", t0, step,
-        f"; OUTFILE {n_src} rows ({file_bytes} B) {out_s:.3f} s = "
-        f"{n_src / out_s:.1f} rows/s; LOAD DATA {load_s:.3f} s = {n_src / load_s:.1f} "
-        f"rows/s; Q3 over orders_loaded equals Q3 and numpy")
+        f"; OUTFILE {n_load} rows ({file_bytes} B) {out_s:.3f} s = "
+        f"{n_load / out_s:.1f} rows/s; LOAD DATA {load_s:.3f} s = {n_load / load_s:.1f} "
+        f"rows/s; Q3 over orders_loaded equals numpy over the same keys, Q3 over orders "
+        f"numpy")
 
     # -- 4. TEMPORARY over the wire ------------------------------------------
     step, t0 = new_step(), time.perf_counter()
@@ -5174,6 +5262,22 @@ def dcn_stop(procs: list) -> list:
     return killed
 
 
+def dcn_time_shards(cl, acc: dict) -> None:
+    """Time each shard's backfill and cutover step of a Cluster's online
+    reshards into acc["backfill"] and acc["cutover"] (seconds)."""
+    for step in acc:
+        real = getattr(cl, f"_{step}_shard")
+
+        def timed_step(*a, _real=real, _acc=acc[step], **kw):
+            t1 = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                _acc.append(time.perf_counter() - t1)
+
+        setattr(cl, f"_{step}_shard", timed_step)
+
+
 def dcn_shutdown_worker(port: int) -> None:
     """Send one worker outside every Cluster (a removed one) its
     shutdown."""
@@ -5401,11 +5505,13 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
     model = ArrayModel(np, cat)
 
     # 1. two worker processes on the card, one replica-free fleet; the
-    # joiner of step 6 and the replica fleet of step 7 start with them
+    # membership fleet of step 8 and its joiner, and the replica fleet of
+    # step 9, start with them
     t0 = time.perf_counter()
-    started = dcn_start_workers(DCN_WORKERS + 3, device, env, procs)
-    ports, ports3, ports_b = (started[:DCN_WORKERS], started[DCN_WORKERS:DCN_WORKERS + 1],
-                              started[DCN_WORKERS + 1:])
+    started = dcn_start_workers(3 * DCN_WORKERS + 1, device, env, procs)
+    ports, ports3, ports_m, ports_b = (
+        started[:DCN_WORKERS], started[DCN_WORKERS:DCN_WORKERS + 1],
+        started[DCN_WORKERS + 1:2 * DCN_WORKERS + 1], started[2 * DCN_WORKERS + 1:])
     proc_b1 = procs[-1]
     cl = Cluster([("127.0.0.1", p) for p in ports], device=device,
                  rpc_timeout_s=600.0, connect_timeout_s=60.0)
@@ -5421,17 +5527,7 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
     # lineitem and orders on every owner, as phase_refresh measures)
     cl.broadcast_exec("set tidb_enable_auto_analyze = 0")
     shard_s = {"backfill": [], "cutover": []}
-    for step in shard_s:
-        real = getattr(cl, f"_{step}_shard")
-
-        def timed_step(*a, _real=real, _acc=shard_s[step], **kw):
-            t1 = time.perf_counter()
-            try:
-                return _real(*a, **kw)
-            finally:
-                _acc.append(time.perf_counter() - t1)
-
-        setattr(cl, f"_{step}_shard", timed_step)
+    dcn_time_shards(cl, shard_s)
     rep["start_s"] = time.perf_counter() - t0
     log(f"dcn: {len(started)} worker processes (--device {device}) up in "
         f"{rep['start_s']:.1f} s on ports {started}; the fleet is {ports}")
@@ -5675,26 +5771,32 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
         f"({t_rf1:.3f} s), RF2 {len(keys)} orders in {len(deletes)} 2PC DELETEs "
         f"({t_rf2:.3f} s); Q1 equals numpy over the updated tables")
 
-    # 6. membership: a third worker joins and drains out
-    t0 = time.perf_counter()
-    idx = cl.add_worker("127.0.0.1", ports3[0])
-    t_add = time.perf_counter() - t0
-    check_q1(np, cl.query(Q["q1"][0]), q1_model)
-    t0 = time.perf_counter()
-    cl.remove_worker(idx, graceful=True)
-    t_remove = time.perf_counter() - t0
-    check_q1(np, cl.query(Q["q1"][0]), q1_model)
-    dcn_shutdown_worker(ports3[0])
-    rep["membership"] = {"add_s": t_add, "remove_s": t_remove, "shard_s": shard_s}
-    log(f"dcn membership: add_worker {t_add:.3f} s, remove_worker(graceful) "
-        f"{t_remove:.3f} s; Q1 equals numpy after each; per moved shard backfill "
-        f"{[round(x, 3) for x in shard_s['backfill']]} s, cutover "
-        f"{[round(x, 3) for x in shard_s['cutover']]} s")
+    # 6. the wire witness: the coordinator's sanitizer on for one Q1, one Q3
+    # and one 2PC INSERT (and its DELETE): every request those statements
+    # send is diffed against the port's committed protocol model
+    from tidb_tpu_torch.analysis import sanitizer as san
 
-    # 7. failures: a statement deadline, then a killed worker under a
-    # second fleet whose partitions each have a replica (it holds orders
-    # alone: mirroring lineitem and orders through the reshard would
-    # re-dump the whole table at every shard's cutover)
+    san.disable()
+    san.enable()
+    try:
+        check_q1(np, cl.query(Q["q1"][0]), q1_model)
+        check_join_rows("q3", cl.query(Q["q3"][0]), numpy_q3(np, model), {1})
+        proto["o_orderkey"][0] = 2 * DCN_WRITER_BASE
+        wire_parts = cl.execute_dml(rf.insert_statements(o, proto)[0])["workers"]
+        cl.execute_dml(f"delete from orders where o_orderkey = {2 * DCN_WRITER_BASE}")
+        report = san.report()
+    finally:
+        san.disable()
+    wire = [f for f in report["findings"] if f["kind"].startswith("wire-")]
+    if wire:
+        raise AssertionError(f"dcn wire witness: {wire[:5]}")
+    rep["wire_witness"] = {"findings": report["findings"], "insert_participants":
+                           len(wire_parts), "lock_edges": report["lock_edges"]}
+    log(f"dcn wire witness: Q1, Q3 and a 2PC INSERT ({len(wire_parts)} participants) and "
+        f"DELETE sent no request the protocol model lacks; findings "
+        f"{[(f['kind'], f['subject']) for f in report['findings']]}")
+
+    # 7. a statement deadline
     sess = type(s)(catalog=cat, device=s.device)
     sess.execute(f"set max_execution_time = {DCN_DEADLINE_MS}")
     st0 = cl.worker_stats()
@@ -5710,6 +5812,53 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
              for k in ("deadline_exceeded", "cancelled", "cancel_rpcs")}
     if not moved["deadline_exceeded"] + moved["cancelled"]:
         raise AssertionError(f"dcn deadline: no worker stopped its partial: {moved}")
+
+    # 8. membership over a fleet of its own holding orders alone (moving
+    # lineitem's shards too took 99-107 s: a moved 750,000-row lineitem
+    # shard 4-7 s to backfill and as long to cut over, host work): a third
+    # worker joins its two and drains out
+    clm = Cluster([("127.0.0.1", p) for p in ports_m], device=device,
+                  rpc_timeout_s=600.0, connect_timeout_s=60.0)
+    clusters.append(clm)
+    clm.GATE_WAIT_S = DCN_GATE_WAIT_S
+    clm.broadcast_exec("set tidb_enable_auto_analyze = 0")
+    mem_s = {"backfill": [], "cutover": []}
+    dcn_time_shards(clm, mem_s)
+    clm.ddl(dcn_table_ddl(s, "orders", "o_orderkey"))
+    arrays, valids, strings, n = extract_live_columns(cat.table("test", "orders"))
+    mem_want = (n, int(arrays["o_totalprice"].astype(np.int64).sum()))
+    t0 = time.perf_counter()
+    clm.load_sharded("orders", arrays=arrays, valids=valids, strings=strings)
+    t_mload = time.perf_counter() - t0
+    del arrays, valids, strings
+    mem_sql = "select count(*) as n, sum(o_totalprice) as s from orders"
+
+    def check_orders(label):
+        got = clm.query(mem_sql)
+        if len(got) != 1 or (got[0][0], _scaled(got[0][1])) != mem_want:
+            raise AssertionError(f"dcn membership {label}: {got} vs numpy {mem_want}")
+
+    check_orders("after the load")
+    t0 = time.perf_counter()
+    idx = clm.add_worker("127.0.0.1", ports3[0])
+    t_add = time.perf_counter() - t0
+    check_orders("after add_worker")
+    t0 = time.perf_counter()
+    clm.remove_worker(idx, graceful=True)
+    t_remove = time.perf_counter() - t0
+    check_orders("after remove_worker")
+    dcn_shutdown_worker(ports3[0])
+    rep["membership"] = {"add_s": t_add, "remove_s": t_remove, "shard_s": mem_s,
+                         "tables": ["orders"], "load_s": t_mload}
+    log(f"dcn membership (a fleet holding orders alone, loaded in {t_mload:.3f} s): "
+        f"add_worker {t_add:.3f} s, remove_worker(graceful) {t_remove:.3f} s; orders' "
+        f"count and sum equal numpy after each; per moved shard backfill "
+        f"{[round(x, 3) for x in mem_s['backfill']]} s, cutover "
+        f"{[round(x, 3) for x in mem_s['cutover']]} s")
+
+    # 9. a killed worker under a second fleet whose partitions each have a
+    # replica (it holds orders alone: mirroring lineitem and orders through
+    # the reshard would re-dump the whole table at every shard's cutover)
     clb = Cluster([("127.0.0.1", p) for p in ports_b], device=device,
                   replicas={0: 1, 1: 0}, rpc_timeout_s=600.0, connect_timeout_s=60.0)
     clusters.append(clb)
@@ -5738,18 +5887,425 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
         f"orders with replicas loaded in {t_mirror:.3f} s; worker 1 SIGKILLed, two "
         f"statements served through the replica ({failovers:.0f} failovers)")
 
-    # 8. information_schema shows the fleets
+    # 10. information_schema shows the fleets
     stats = s.query("select cluster, worker, endpoint, state, executed, shards_owned, "
                     "shuffle_bytes_in, error from information_schema.dcn_worker_stats")
     info = s.query("select table_name, workers from information_schema.cluster_info")
     eps = {r[2] for r in stats}
-    if not all(f"127.0.0.1:{p}" in eps for p in ports + ports_b):
+    if not all(f"127.0.0.1:{p}" in eps for p in ports + ports_m + ports_b):
         raise AssertionError(f"dcn_worker_stats misses a worker: {stats}")
-    if sum(1 for r in info if r[0] == "__fleet__") < 2:
+    if sum(1 for r in info if r[0] == "__fleet__") < 3:
         raise AssertionError(f"cluster_info misses a fleet: {info}")
     rep["info_schema"] = {"dcn_worker_stats": stats, "cluster_info": info}
     rep["memory_end"] = dcn_device_memory(torch, procs)
     log(f"dcn information_schema.dcn_worker_stats: {stats}; cluster_info: {info}")
+
+
+# -- workloads: SSB's 13 queries and TPC-DS Q95 -------------------------------
+
+WORKLOAD_SEED = 7
+SSB_SF = 1.0      # 1,500,000 orders, about 6M lineorder rows
+Q95_SF = 10.0     # the generator's sf: 600,000 orders, about 1.5M web_sales rows
+WORKLOAD_WARM = 3
+
+# per SSB query: the fact filter, each dimension's filter (by prefix: d_
+# date, c_ customer, s_ supplier, p_ part), the SELECT list ("@" is the
+# sum), the summed value (scaled int64) and the ORDER BY (name, desc)
+SSB_SPECS = {
+    "q1.1": dict(fact=lambda F: (F["lo_discount"] >= 1) & (F["lo_discount"] <= 3)
+                 & (F["lo_quantity"] < 25),
+                 dims={"d": lambda D: D["d_year"] == 1993},
+                 select=["@"], value=lambda F: F["lo_extendedprice"] * F["lo_discount"],
+                 order=[]),
+    "q1.2": dict(fact=lambda F: (F["lo_discount"] >= 4) & (F["lo_discount"] <= 6)
+                 & (F["lo_quantity"] >= 26) & (F["lo_quantity"] <= 35),
+                 dims={"d": lambda D: D["d_yearmonthnum"] == 199401},
+                 select=["@"], value=lambda F: F["lo_extendedprice"] * F["lo_discount"],
+                 order=[]),
+    "q1.3": dict(fact=lambda F: (F["lo_discount"] >= 5) & (F["lo_discount"] <= 7)
+                 & (F["lo_quantity"] >= 26) & (F["lo_quantity"] <= 35),
+                 dims={"d": lambda D: (D["d_weeknuminyear"] == 6) & (D["d_year"] == 1994)},
+                 select=["@"], value=lambda F: F["lo_extendedprice"] * F["lo_discount"],
+                 order=[]),
+    "q2.1": dict(dims={"p": lambda D: D["p_category"] == "MFGR#12",
+                       "s": lambda D: D["s_region"] == "AMERICA"},
+                 select=["@", "d_year", "p_brand1"], value=lambda F: F["lo_revenue"],
+                 order=[("d_year", False), ("p_brand1", False)]),
+    "q2.2": dict(dims={"p": lambda D: (D["p_brand1"] >= "MFGR#2221")
+                       & (D["p_brand1"] <= "MFGR#2228"),
+                       "s": lambda D: D["s_region"] == "ASIA"},
+                 select=["@", "d_year", "p_brand1"], value=lambda F: F["lo_revenue"],
+                 order=[("d_year", False), ("p_brand1", False)]),
+    "q2.3": dict(dims={"p": lambda D: D["p_brand1"] == "MFGR#2239",
+                       "s": lambda D: D["s_region"] == "EUROPE"},
+                 select=["@", "d_year", "p_brand1"], value=lambda F: F["lo_revenue"],
+                 order=[("d_year", False), ("p_brand1", False)]),
+    "q3.1": dict(dims={"c": lambda D: D["c_region"] == "ASIA",
+                       "s": lambda D: D["s_region"] == "ASIA",
+                       "d": lambda D: (D["d_year"] >= 1992) & (D["d_year"] <= 1997)},
+                 select=["c_nation", "s_nation", "d_year", "@"],
+                 value=lambda F: F["lo_revenue"], order=[("d_year", False), ("@", True)]),
+    "q3.2": dict(dims={"c": lambda D: D["c_nation"] == "UNITED STATES",
+                       "s": lambda D: D["s_nation"] == "UNITED STATES",
+                       "d": lambda D: (D["d_year"] >= 1992) & (D["d_year"] <= 1997)},
+                 select=["c_city", "s_city", "d_year", "@"],
+                 value=lambda F: F["lo_revenue"], order=[("d_year", False), ("@", True)]),
+    "q3.3": dict(dims={"c": lambda D: (D["c_city"] == "UNITED KI1")
+                       | (D["c_city"] == "UNITED KI5"),
+                       "s": lambda D: (D["s_city"] == "UNITED KI1")
+                       | (D["s_city"] == "UNITED KI5"),
+                       "d": lambda D: (D["d_year"] >= 1992) & (D["d_year"] <= 1997)},
+                 select=["c_city", "s_city", "d_year", "@"],
+                 value=lambda F: F["lo_revenue"], order=[("d_year", False), ("@", True)]),
+    "q3.4": dict(dims={"c": lambda D: (D["c_city"] == "UNITED KI1")
+                       | (D["c_city"] == "UNITED KI5"),
+                       "s": lambda D: (D["s_city"] == "UNITED KI1")
+                       | (D["s_city"] == "UNITED KI5"),
+                       "d": lambda D: D["d_yearmonth"] == "Dec1997"},
+                 select=["c_city", "s_city", "d_year", "@"],
+                 value=lambda F: F["lo_revenue"], order=[("d_year", False), ("@", True)]),
+    "q4.1": dict(dims={"c": lambda D: D["c_region"] == "AMERICA",
+                       "s": lambda D: D["s_region"] == "AMERICA",
+                       "p": lambda D: (D["p_mfgr"] == "MFGR#1") | (D["p_mfgr"] == "MFGR#2")},
+                 select=["d_year", "c_nation", "@"],
+                 value=lambda F: F["lo_revenue"] - F["lo_supplycost"],
+                 order=[("d_year", False), ("c_nation", False)]),
+    "q4.2": dict(dims={"c": lambda D: D["c_region"] == "AMERICA",
+                       "s": lambda D: D["s_region"] == "AMERICA",
+                       "d": lambda D: (D["d_year"] == 1997) | (D["d_year"] == 1998),
+                       "p": lambda D: (D["p_mfgr"] == "MFGR#1") | (D["p_mfgr"] == "MFGR#2")},
+                 select=["d_year", "s_nation", "p_category", "@"],
+                 value=lambda F: F["lo_revenue"] - F["lo_supplycost"],
+                 order=[("d_year", False), ("s_nation", False), ("p_category", False)]),
+    "q4.3": dict(dims={"s": lambda D: D["s_nation"] == "UNITED STATES",
+                       "d": lambda D: (D["d_year"] == 1997) | (D["d_year"] == 1998),
+                       "p": lambda D: D["p_category"] == "MFGR#14"},
+                 select=["d_year", "s_city", "p_brand1", "@"],
+                 value=lambda F: F["lo_revenue"] - F["lo_supplycost"],
+                 order=[("d_year", False), ("s_city", False), ("p_brand1", False)]),
+}
+SSB_DIMS = {"d": ("ssb_date", "d_datekey", "lo_orderdate"),
+            "c": ("ssb_customer", "c_custkey", "lo_custkey"),
+            "s": ("ssb_supplier", "s_suppkey", "lo_suppkey"),
+            "p": ("ssb_part", "p_partkey", "lo_partkey")}
+
+
+class _DimView:
+    """A dimension table's columns by name, strings decoded (a dimension
+    is small: at most 200,000 rows at SF1)."""
+
+    def __init__(self, np, t):
+        self.np, self.t, self.cache = np, t, {}
+
+    def __getitem__(self, name):
+        got = self.cache.get(name)
+        if got is None:
+            a = self.t.data[name][:self.t.n]
+            if name in self.t.dicts:
+                a = self.np.asarray(self.t.dicts[name].values)[a]
+            got = self.cache[name] = a
+        return got
+
+
+def numpy_ssb(np, cat) -> dict:
+    """Each SSB query's rows by numpy over the generated arrays: the sum
+    a scaled int64 (exact), the rows in the query's ORDER BY (ties in
+    generation order)."""
+    lo = cat.table("test", "lineorder")
+    n = lo.n
+    F = {c: lo.data[c][:n] for c in ("lo_orderdate", "lo_custkey", "lo_suppkey",
+                                     "lo_partkey", "lo_quantity", "lo_discount")}
+    dims, pos = {}, {}
+    for p, (tname, key, fk) in SSB_DIMS.items():
+        dims[p] = _DimView(np, cat.table("test", tname))
+        keys = dims[p][key]
+        order = np.argsort(keys, kind="stable")
+        at = np.searchsorted(keys[order], lo.data[fk][:n])
+        if not (keys[order][np.minimum(at, len(keys) - 1)] == lo.data[fk][:n]).all():
+            raise AssertionError(f"ssb: a lineorder {fk} has no {tname} row")
+        pos[p] = order[at]
+    out = {}
+    for q, spec in SSB_SPECS.items():
+        m = spec["fact"](F) if "fact" in spec else np.ones(n, dtype=bool)
+        for p, pred in spec["dims"].items():
+            m &= pred(dims[p])[pos[p]]
+        rows = np.nonzero(m)[0]
+        vals_f = {c: lo.data[c][:n][rows] for c in ("lo_extendedprice", "lo_discount",
+                                                   "lo_revenue", "lo_supplycost")}
+        vals = spec["value"](vals_f).astype(np.int64)
+        keys = [c for c in spec["select"] if c != "@"]
+        if not keys:
+            out[q] = [tuple(int(vals.sum()) if c == "@" else None for c in spec["select"])]
+            continue
+        cols = [dims[c[0]][c][pos[c[0]][rows]] for c in keys]
+        groups = {}
+        for i, k in enumerate(zip(*(a.tolist() for a in cols))):
+            groups.setdefault(k, []).append(i)
+        res = []
+        for k, idx in groups.items():
+            named = dict(zip(keys, k))
+            named["@"] = int(vals[np.asarray(idx)].sum())
+            res.append(tuple(named[c] for c in spec["select"]))
+        out[q] = ssb_sorted(res, spec)
+    return out
+
+
+def ssb_order_key(row, spec):
+    sel = spec["select"]
+    return tuple(-row[sel.index(c)] if desc else row[sel.index(c)]
+                 for c, desc in spec["order"])
+
+
+def ssb_sorted(rows, spec):
+    return sorted(rows, key=lambda r: ssb_order_key(r, spec))
+
+
+def check_ssb_rows(q, got, want, spec):
+    """The port's rows (the sum a decimal string) against numpy's: equal as
+    a multiset, and in the ORDER BY's order (rows that tie on its keys in
+    any order)."""
+    agg = spec["select"].index("@")
+    g = [tuple(_scaled(v) if i == agg else v for i, v in enumerate(r)) for r in got]
+    if len(g) != len(want) or sorted(g, key=repr) != sorted(want, key=repr):
+        raise AssertionError(f"ssb {q}: {len(g)} rows {g[:3]} vs numpy {len(want)} "
+                             f"{want[:3]}")
+    if [ssb_order_key(r, spec) for r in g] != [ssb_order_key(r, spec) for r in want]:
+        raise AssertionError(f"ssb {q}: rows out of the ORDER BY's order: {g[:5]}")
+
+
+def numpy_q95(np, cat) -> list:
+    """TPC-DS Q95 by numpy: the order numbers shipped from more than one
+    warehouse (ws_wh's self-join), those also returned (the second IN
+    subquery), the date, state and company filters; count distinct and
+    the two sums exact."""
+    ws = cat.table("test", "web_sales")
+    n = ws.n
+    on, wh, ship, addr, site, cost, profit = (ws.data[c][:n] for c in (
+        "ws_order_number", "ws_warehouse_sk", "ws_ship_date_sk", "ws_ship_addr_sk",
+        "ws_web_site_sk", "ws_ext_ship_cost", "ws_net_profit"))
+    pairs = np.unique(np.stack([on, wh]), axis=1)
+    u, cnt = np.unique(pairs[0], return_counts=True)
+    ws_wh = u[cnt > 1]
+    wr = cat.table("test", "web_returns")
+    returned = np.intersect1d(wr.data["wr_order_number"][:wr.n], ws_wh)
+    dd = _DimView(np, cat.table("test", "date_dim"))
+    days = dd["d_date"]
+    d_ok = dd["d_date_sk"][(days >= _days(np, "1999-02-01")) & (days <= _days(np, "1999-04-02"))]
+    ca = _DimView(np, cat.table("test", "customer_address"))
+    a_ok = ca["ca_address_sk"][ca["ca_state"] == "IL"]
+    wsite = _DimView(np, cat.table("test", "web_site"))
+    s_ok = wsite["web_site_sk"][wsite["web_company_name"] == "pri"]
+    m = (np.isin(ship, d_ok) & np.isin(addr, a_ok) & np.isin(site, s_ok)
+         & np.isin(on, ws_wh) & np.isin(on, returned))
+    if not m.any():
+        return [(0, None, None)]
+    return [(int(len(np.unique(on[m]))), int(cost[m].astype(np.int64).sum()),
+             int(profit[m].astype(np.int64).sum()))]
+
+
+# Q95's CTE ws_wh is materialized while the statement is planned: its
+# self-join, whose every consumer is an IN subquery, is rewritten to a
+# grouped min/max distinctness test over web_sales, one fused generic
+# aggregation that the physical plan (which scans the result) does not show
+Q95_CTE_FRAGMENTS = {"generic": 1}
+
+
+def workload_runs(s, mods, sql, agg_chunks, label, extra=None) -> dict:
+    """One cold run and WORKLOAD_WARM warm runs of `sql`, each with the
+    plan taken just before it, its fused fragments and its launches
+    (run_query), and held to the plan's launch contract (check_path) with
+    the fragments `extra` adds to the plan's."""
+    from tidb_tpu_torch.planner.physical import explain_text
+
+    runs = []
+    for i in range(1 + WORKLOAD_WARM):
+        plan = planned(s, sql)
+        want = plan_fragments(plan, s._plan_capacity(plan))
+        for k, v in (extra or {}).items():
+            want[k] += v
+        agg_chunks[0] = 0
+        rows, cnt, dt = run_query(s, mods, sql)
+        check_path(label, cnt, agg_chunks[0], want)
+        runs.append({"s": dt, "rows": rows, "plan": plan_shape(explain_text(plan)),
+                     "fragments": want, "fused": cnt["fused"],
+                     "launches": {k: v for k, v in cnt["launches"].items() if v},
+                     "routes": {k: v for k, v in cnt["routes"].items() if v},
+                     "aggregated_chunks": agg_chunks[0], "device_get": cnt["device_get"]})
+    if any(r["rows"] != runs[0]["rows"] for r in runs[1:]):
+        raise AssertionError(f"{label}: a warm run's rows differ from the cold run's")
+    warm = [r["s"] for r in runs[1:]]
+    return {"cold_s": runs[0]["s"], "warm_s": warm, "warm_median_s": statistics.median(warm),
+            "rows": runs[0]["rows"], "runs": [{k: v for k, v in r.items() if k != "rows"}
+                                              for r in runs]}
+
+
+def phase_workloads(torch, np, Session, mods, ssb_sf: float = SSB_SF,
+                    q95_sf: float = Q95_SF, device=None, rec=None) -> dict:
+    """SSB's 13 queries at `ssb_sf` and TPC-DS Q95 at the generator's
+    `q95_sf` on a fresh Session (seed WORKLOAD_SEED), each against numpy
+    over the same generated arrays: one cold run and a warm median of
+    WORKLOAD_WARM, each run held to its plan's launch contract. Returns
+    the report: each table's ingest seconds and each workload's load
+    seconds (generation included), the device bytes held after the first
+    SSB query, each query's runs and the phase's launches ("launches"). With
+    `rec` (record_probe_chunks) each query's probe calls are recorded
+    under its name."""
+    from tidb_tpu_torch.storage.ssb import SSB_QUERIES, load_ssb
+    from tidb_tpu_torch.storage.tpcds import Q95, load_tpcds_q95
+
+    t_phase = time.perf_counter()
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    s = Session(device=device)
+    cat = s.catalog.base
+    rep = {"card": card_line(), "ssb_sf": ssb_sf, "q95_sf": q95_sf, "load_s": {}}
+    from tidb_tpu_torch.storage.table import Table
+
+    real_insert = Table.insert_columns
+
+    def timed_insert(self, *a, **kw):
+        # each table's ingest (the generator makes its arrays before)
+        t1 = time.perf_counter()
+        try:
+            return real_insert(self, *a, **kw)
+        finally:
+            rep["load_s"][self.schema.name] = {"rows": self.n,
+                                               "ingest_s": time.perf_counter() - t1}
+
+    Table.insert_columns = timed_insert
+    try:
+        for name, load, sf in (("ssb", load_ssb, ssb_sf),
+                               ("tpcds_q95", load_tpcds_q95, q95_sf)):
+            t0 = time.perf_counter()
+            counts = load(cat, sf=sf, seed=WORKLOAD_SEED)
+            rep["load_s"][name] = {"s": time.perf_counter() - t0}
+            log(f"workloads: {name} at sf {sf} generated and loaded in "
+                f"{rep['load_s'][name]['s']:.1f} s: {counts}")
+    finally:
+        Table.insert_columns = real_insert
+    # the first query of each table folds it into segments; the device
+    # bytes held after the load are those of the first SSB and Q95 runs
+    agg_chunks = count_segment_chunks()
+    want_ssb = numpy_ssb(np, cat)
+    want_q95 = numpy_q95(np, cat)
+    queries = rep["queries"] = {}
+    launches = rep["launches"] = {}
+    for q, sql in list(SSB_QUERIES.items()) + [("q95", Q95)]:
+        if rec is not None:
+            rec["query"] = q
+        r = workload_runs(s, mods, sql, agg_chunks, f"workloads {q}",
+                          Q95_CTE_FRAGMENTS if q == "q95" else None)
+        if q == "q95":
+            got = [(c, None if a is None else _scaled(a), None if b is None else _scaled(b))
+                   for c, a, b in r["rows"]]
+            if got != want_q95:
+                raise AssertionError(f"q95: {r['rows']} vs numpy {want_q95}")
+        else:
+            check_ssb_rows(q, r["rows"], want_ssb[q], SSB_SPECS[q])
+        for run in r["runs"]:
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        queries[q] = {k: v for k, v in r.items() if k != "rows"}
+        queries[q]["n_rows"] = len(r["rows"])
+        first = r["runs"][0]
+        log(f"workloads {q}: {len(r['rows'])} rows equal numpy; cold {r['cold_s'] * 1e3:.3f} "
+            f"ms, warm median {r['warm_median_s'] * 1e3:.3f} ms "
+            f"{[round(x * 1e3, 3) for x in r['warm_s']]}; fused {first['fused']}, launches "
+            f"{first['launches']}, routes {first['routes']}, device_get {first['device_get']}")
+        if q == "q1.1" and device is None:
+            torch.cuda.synchronize()
+            rep["device_bytes_after_load"] = torch.cuda.memory_allocated()
+    if device is None:
+        rep["device_bytes_end"] = torch.cuda.memory_allocated()
+    if not launches.get("segagg") or not launches.get("probe_count"):
+        if device is None:
+            raise AssertionError(f"workloads: a kernel never launched: {launches}")
+    rep["s"] = time.perf_counter() - t_phase
+    log(f"workloads phase passed in {rep['s']:.1f} s; launches {launches}")
+    del s
+    pl.DEVICE_CACHE.clear()
+    return rep
+
+
+# -- the sanitized step: the runtime sanitizer on the SF1 session --------------
+
+SANITIZED_QUERIES = ("q1", "q6", "q3", "q5", "q18")
+
+
+def phase_sanitized(torch, np, s, mods, results) -> dict:
+    """SET tidb_tpu_sanitize = 1 on the SF1 session, then Q1, Q6, Q3, Q5
+    and Q18 once each: rows equal to phase 2's (which equal numpy), no
+    SanitizerError; per statement the sanctioned device_get round trips
+    (dispatch.fetch_count), the lock-order edges witnessed, the non-fatal
+    findings and the runtime edges the static lock graph lacks. Then a Q6
+    whose scan pins are never closed must raise SanitizerError (pin-leak);
+    the pins are closed afterwards and the sanitizer disabled."""
+    from tidb_tpu_torch.analysis import sanitizer as san
+    from tidb_tpu_torch.analysis.lock_discipline import static_lock_edges
+    from tidb_tpu_torch.errors import SanitizerError
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import dispatch
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
+    t_phase = time.perf_counter()
+    static = static_lock_edges(os.path.dirname(os.path.abspath(__file__)))
+    san.disable()
+    rep = {"card": card_line(), "statements": {}}
+    s.execute("set tidb_tpu_sanitize = 1")
+    try:
+        for q in SANITIZED_QUERIES:
+            e0 = san.lock_edges()
+            n0 = len(san.report()["findings"])
+            f0 = dispatch.fetch_count()
+            t0 = time.perf_counter()
+            rows = s.query(Q[q][0])  # a SanitizerError fails the phase
+            dt = time.perf_counter() - t0
+            syncs = dispatch.fetch_count() - f0
+            if rows != results[q]:
+                raise AssertionError(f"sanitized {q}: rows differ from phase 2's")
+            edges = san.lock_edges()
+            new = sorted((a, b) for a, bs in edges.items() for b in bs
+                         if b not in e0.get(a, {}))
+            notes = [f for f in san.report()["findings"][n0:]]
+            if any(f["fatal"] for f in notes):
+                raise AssertionError(f"sanitized {q}: fatal findings {notes}")
+            novel = sorted((a, b) for a, bs in edges.items() for b in bs
+                           if b not in static.get(a, {}))
+            rep["statements"][q] = {"s": dt, "device_get": syncs, "new_edges": new,
+                                    "notes": notes, "novel_edges": novel}
+            log(f"sanitized {q}: rows equal phase 2's in {dt * 1e3:.3f} ms; "
+                f"{syncs} device_get round trips; lock edges witnessed {new}; "
+                f"non-fatal findings {[(f['kind'], f['subject']) for f in notes]}; "
+                f"runtime-only edges (diff_static) {novel}")
+        # a leaked pin under a sanitized statement on the card
+        leaked = []
+        real_close = st.ScanPin.close
+
+        def leak(self):
+            leaked.append(self)
+
+        st.ScanPin.close = leak
+        pl.DEVICE_CACHE.clear()  # Q6 stages from the store: its scan pins
+        try:
+            s.query(Q["q6"][0])
+            raise AssertionError("sanitized q6 with its scan pins never closed "
+                                 "raised no SanitizerError")
+        except SanitizerError as e:
+            if "pin-leak" not in str(e):
+                raise
+            rep["leaked_pin_error"] = str(e)[:300]
+        finally:
+            st.ScanPin.close = real_close
+            for pin in leaked:
+                pin.close()
+        rep["leaked_pins"] = len(leaked)
+        log(f"sanitized q6 with {len(leaked)} scan pins never closed: SanitizerError "
+            f"({rep['leaked_pin_error'][:160]})")
+    finally:
+        s.execute("set tidb_tpu_sanitize = 0")
+        san.disable()
+    rep["s"] = time.perf_counter() - t_phase
+    log(f"sanitized step passed in {rep['s']:.1f} s")
+    return rep
 
 
 def main() -> int:
@@ -5808,11 +6364,40 @@ def main() -> int:
     probe_checks = phase_probe(torch, np, hp)
     probe_count_checks = phase_probe_count(torch, np, jk, hp)
 
+    # -- bench_segsum: the segment kernels against index_add_ ----------------
+    from tidb_tpu_torch.ops import bench_segsum
+
+    t0 = time.perf_counter()
+    segsum_bench = bench_segsum.run()
+    with open(os.path.join(OUT_DIR, "SEGSUM_BENCH.json"), "w") as f:
+        json.dump(segsum_bench, f, indent=1)
+    for c in segsum_bench["configs"]:
+        log(f"bench_segsum {json.dumps(c)}")
+    if not segsum_bench["all_exact"]:
+        raise AssertionError(f"bench_segsum: an exactness flag is false: "
+                             f"{segsum_bench['configs']}")
+    log(f"bench_segsum: R = {segsum_bench['rows']}, G in {bench_segsum.GROUPS}, every exactness "
+        f"flag true, in {time.perf_counter() - t0:.1f} s")
+
     # -- the grid: 22 queries at SF0.1 against sqlite ------------------------
     t0 = time.perf_counter()
     grid, grid_cat, grid_oracle = phase_grid(torch, np, Session, mods)
     pl.DEVICE_CACHE.clear()  # the grid's staged tables, off the card
     log(f"grid: all 22 queries equal sqlite in {time.perf_counter() - t0:.1f} s")
+
+    # -- workloads: SSB's 13 queries at SF1 and TPC-DS Q95 at sf 10 ----------
+    # (the probe calls are recorded: Q95's semi joins give the kernels
+    # line its direct flags-only row at the main path's shape)
+    wl_probes = record_probe_chunks(hp)
+    try:
+        workloads = phase_workloads(torch, np, Session, mods, rec=wl_probes)
+    finally:
+        hp.probe_chunk = wl_probes["real"]
+    workloads["probe_modes"] = {}
+    for (_q, route, mode, _b), n in wl_probes["calls"].items():
+        key = f"{route}/{mode}"
+        workloads["probe_modes"][key] = workloads["probe_modes"].get(key, 0) + n
+    log(f"workloads: probe_count by route and mode {workloads['probe_modes']}")
 
     # -- phase 2 ------------------------------------------------------------
     s = Session()  # device=None: the card
@@ -5852,6 +6437,7 @@ def main() -> int:
     sync_free = sync_free_pass(torch, s, mods, {"q3": Q["q3"][0], "q18": Q["q18"][0],
                                                 "q18_subquery": q18_sub})
     topn = phase_topn(np, s, mods)
+    sanitized = phase_sanitized(torch, np, s, mods, results)
 
     # -- phase 3 ------------------------------------------------------------
     times, profiles = phase_modes(torch, s, queries, n_rows)
@@ -6038,6 +6624,12 @@ def main() -> int:
         ("probe_count.sorted", *recorded("q5", "sorted", "full", 4003),
          probe_modes.get("sorted/full", 0)),
     ]
+    wl_direct_flags = main_path_args(wl_probes, "q95", "direct", "flags")
+    if wl_direct_flags is None:
+        raise AssertionError("no workload query probed the direct route flags-only")
+    shapes.append(("probe_count.direct_flags", *wl_direct_flags,
+                   probe_modes.get("direct/flags", 0)))
+    del wl_probes
     big = make_probe_count_case(torch, np, jk, hp, R, 1 << 17, {"route": "table"}, 4999,
                                 "cuda")
     shapes.append(("probe_count.table_cap_2e18", *chunk_args(jk, big), 0))
@@ -6094,7 +6686,7 @@ def main() -> int:
             row["launches_schema"] = schema["launches"].get(row["name"], 0)
         for key, rep in (("launches_stats", stats_report), ("launches_window", window),
                          ("launches_server", server), ("launches_storage", storage),
-                         ("launches_planner", planner)):
+                         ("launches_planner", planner), ("launches_workloads", workloads)):
             row[key] = (rep["probe_modes"].get(mode, 0)
                         if row["name"].startswith("probe_count.")
                         else rep["launches"].get(row["name"], 0))
@@ -6107,7 +6699,7 @@ def main() -> int:
     for row in mesh_rows:
         for key in ("launches_refresh", "launches_schema", "launches_stats",
                     "launches_window", "launches_server", "launches_storage",
-                    "launches_planner"):
+                    "launches_planner", "launches_workloads"):
             row[key] = 0
         row["launches_mesh"] = row["launches"]
     rows += mesh_rows
@@ -6134,7 +6726,8 @@ def main() -> int:
               "refresh": refresh, "cluster": cluster, "compaction": compaction_report,
               "schema": schema, "stats": stats_report, "window": window,
               "server": server, "storage": storage, "planner": planner, "mesh": mesh,
-              "dcn": dcn, "kernels": rows}
+              "dcn": dcn, "workloads": workloads, "sanitized": sanitized,
+              "segsum_bench": segsum_bench, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""Host-side A/B of the port (tidb_tpu_torch) on one card: the five SF1
+TPC-H queries' warm medians, the 22 SF0.1 queries' warm medians, the
+16-connection point-select rate, and what the built-program cache
+(utils/jitcache.py) costs and saves on the host.
+
+    python3 host_ab.py [--root DIR] [--label NAME] [--out PATH] [--sf SF]
+                       [--device cuda|cpu] [--no-cache-probe]
+
+`--root` is a checkout of the repository whose tidb_tpu_torch is measured
+(by default the one this file is in); the helpers (the numpy evaluations,
+the point-select client fleet) come from the chip_smoke.py beside this
+file, so two checkouts are measured by the same code. To compare two
+commits, unpack the older into a directory that .gitignore lists and run
+older, newer, newer, older in one call, each in a process of its own.
+
+Steps, on one Session each (seed 7):
+1. TPC-H at `--sf` (1.0): Q1, Q6, Q3, Q5, Q18, one cold run and three
+   warm runs each; the rows equal across runs and equal to chip_smoke's
+   numpy evaluation.
+2. The port's server over that catalog: 16 connections of 500 prepared
+   point-selects on orders (chip_smoke.point_fleet: rows equal numpy's);
+   statements/s, p50 and p99 client latency.
+3. TPC-H at SF0.1 (chunk capacity 8,192): the 22 queries, one cold and
+   three warm runs each (rows equal across runs).
+4. Where the checkout has utils/jitcache.py, unless --no-cache-probe is
+   given: steps 3 and 2 again with the cache bypassed (every cached_jit
+   call builds), then both once more with the cache on and each key and
+   build timed: the reprs that make the keys (each site module's `repr`,
+   wrapped) and the builds (`jitcache.get_or_build`, wrapped), by site.
+   The bypassed runs' rows must equal the cached runs'.
+
+Prints one JSON line last and writes the report to `--out`
+(chiprun_out/host_ab_<label>.json by default). Exits non-zero without a
+card unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import builtins
+import importlib.util
+import json
+import os
+import sys
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIVE = ("q1", "q6", "q3", "q5", "q18")
+# the modules whose cached_jit call sites build their keys with repr, and
+# the segment scan's key (its own cache's, and the fused bodies')
+KEY_MODULES = ("executor.scan", "executor.sort", "executor.aggregate",
+               "executor.agg_device", "executor.join", "executor.pipeline",
+               "ops.segment_scan")
+
+
+def load_smoke():
+    """chip_smoke.py beside this file, whatever the measured root holds."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_ab", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def timed_runs(s, sql, warm: int = 3):
+    """One cold and `warm` warm runs; (rows, cold s, warm s list)."""
+    t0 = time.perf_counter()
+    rows = s.query(sql)
+    cold = time.perf_counter() - t0
+    runs = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        again = s.query(sql)
+        runs.append(time.perf_counter() - t0)
+        if again != rows:
+            raise AssertionError(f"a warm run's rows differ: {sql[:60]}")
+    return rows, cold, runs
+
+
+def five_queries(np, cs, s) -> dict:
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    out, res = {}, {}
+    for q in FIVE:
+        res[q], cold, runs = timed_runs(s, Q[q][0])
+        out[q] = {"cold_ms": cold * 1e3, "warm_ms": [r * 1e3 for r in runs],
+                  "median_ms": median(runs) * 1e3}
+    li = s.catalog.table("test", "lineitem")
+    cs.check_q1(np, res["q1"], cs.numpy_q1(np, li))
+    if len(res["q6"]) != 1 or cs._scaled(res["q6"][0][0]) != cs.numpy_q6(np, li):
+        raise AssertionError(f"Q6 {res['q6']} vs numpy")
+    cs.check_join_rows("q3", res["q3"], cs.numpy_q3(np, s.catalog), {1})
+    cs.check_join_rows("q5", res["q5"], cs.numpy_q5(np, s.catalog), {1})
+    cs.check_join_rows("q18", res["q18"], cs.numpy_q18(np, s.catalog)[0], {4, 5})
+    return out
+
+
+def point_selects(np, cs, cat, device) -> dict:
+    from tidb_tpu_torch.server import Server
+
+    srv = Server(catalog=cat, host="127.0.0.1", port=0, status_port=0, device=device)
+    srv.start()
+    try:
+        r = cs.point_fleet(np, cat, srv.port, cs.POINT_CONNS, cs.POINT_STMTS)
+    finally:
+        srv.shutdown(drain=True)
+    lat = r["latency_s"]
+    return {"statements": r["statements"], "wall_s": r["wall_s"],
+            "stmt_per_s": r["statements"] / r["wall_s"],
+            "p50_ms": pct(lat, 0.5) * 1e3, "p99_ms": pct(lat, 0.99) * 1e3}
+
+
+def grid(s) -> tuple:
+    """The 22 queries, one cold and three warm runs: (report, rows)."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    out, rows = {}, {}
+    for name, (sql, _osql) in Q.items():
+        rows[name], cold, runs = timed_runs(s, sql)
+        out[name] = {"cold_ms": cold * 1e3, "median_ms": median(runs) * 1e3}
+    out["sum_median_ms"] = sum(v["median_ms"] for v in out.values())
+    return out, rows
+
+
+class CacheProbe:
+    """Wraps jitcache.get_or_build (bypassing the cache with `bypass`,
+    timing every build otherwise) and each KEY_MODULES module's `repr`
+    (the key's cost, by module and calling function)."""
+
+    def __init__(self, jitcache, bypass: bool, time_keys: bool):
+        import importlib
+
+        self.jc, self.real = jitcache, jitcache.get_or_build
+        self.lock = threading.Lock()
+        self.keys, self.builds = {}, {}
+        self.mods = [importlib.import_module("tidb_tpu_torch." + m) for m in KEY_MODULES]
+        if time_keys:
+            for m in self.mods:
+                m.repr = self._timed_repr(m.__name__.split(".", 1)[1])
+        jitcache.get_or_build = self._get_or_build_bypass if bypass else self._get_or_build
+
+    def _timed_repr(self, modname):
+        def timed(obj):
+            t0 = time.perf_counter()
+            r = builtins.repr(obj)
+            dt = time.perf_counter() - t0
+            f = sys._getframe(1)
+            k = f"{modname}.{f.f_code.co_name} (from {f.f_back.f_code.co_name})"
+            with self.lock:
+                e = self.keys.setdefault(k, [0, 0.0, 0])
+                e[0] += 1
+                e[1] += dt
+                e[2] = max(e[2], len(r))
+            return r
+        return timed
+
+    def _note(self, ns, built, build_s, total_s):
+        with self.lock:
+            e = self.builds.setdefault(ns, [0, 0, 0.0, 0.0])
+            e[0] += 1
+            e[1] += built
+            e[2] += build_s
+            e[3] += total_s
+
+    def _get_or_build(self, cache, key, build, n):
+        t0 = time.perf_counter()
+        spent = []
+
+        def timed_build():
+            t1 = time.perf_counter()
+            v = build()
+            spent.append(time.perf_counter() - t1)
+            return v
+
+        v = self.real(cache, key, timed_build, n)
+        self._note(key[0], len(spent), sum(spent), time.perf_counter() - t0)
+        return v
+
+    def _get_or_build_bypass(self, cache, key, build, n):
+        t0 = time.perf_counter()
+        v = build()
+        dt = time.perf_counter() - t0
+        self._note(key[0], 1, dt, dt)
+        return v
+
+    def restore(self):
+        self.jc.get_or_build = self.real
+        for m in self.mods:
+            m.__dict__.pop("repr", None)
+
+    def report(self) -> dict:
+        keys = {k: {"calls": c, "ms": s * 1e3, "us_per_call": s * 1e6 / c, "max_chars": n}
+                for k, (c, s, n) in sorted(self.keys.items())}
+        builds = {ns: {"calls": c, "builds": b, "build_ms": bs * 1e3,
+                       "us_per_build": bs * 1e6 / b if b else None,
+                       "lookup_us_per_call": (t - bs) * 1e6 / c}
+                  for ns, (c, b, bs, t) in sorted(self.builds.items())}
+        return {"keys": keys, "builds": builds}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--grid-sf", type=float, default=0.1)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-cache-probe", action="store_true")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import tidb_tpu_torch
+
+    if not os.path.abspath(tidb_tpu_torch.__file__).startswith(root + os.sep):
+        print(f"tidb_tpu_torch came from {tidb_tpu_torch.__file__}, not {root}",
+              file=sys.stderr)
+        return 1
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device: host_ab.py measures the port on a card", file=sys.stderr)
+        return 1
+    from tidb_tpu_torch.session import Session
+
+    cs = load_smoke()
+    rep = {"label": args.label, "root": root, "device": args.device,
+           "card": cs.card_line() if args.device == "cuda" else "cpu"}
+    t_all = time.perf_counter()
+    s = Session(device=args.device)
+    t0 = time.perf_counter()
+    s.load_tpch(args.sf)
+    rep["load_s"] = time.perf_counter() - t0
+    rep["five"] = five_queries(np, cs, s)
+    rep["points"] = point_selects(np, cs, s.catalog, args.device)
+    g = Session(device=args.device, chunk_capacity=8192)
+    g.load_tpch(args.grid_sf)
+    rep["grid"], grid_rows = grid(g)
+    try:
+        from tidb_tpu_torch.utils import jitcache
+    except ImportError:
+        jitcache = None
+    if args.no_cache_probe:
+        jitcache = None
+    if jitcache is not None:
+        jitcache.clear()
+        probe = CacheProbe(jitcache, bypass=True, time_keys=False)
+        try:
+            rep["grid_bypassed"], rows = grid(g)
+            rep["points_bypassed"] = point_selects(np, cs, s.catalog, args.device)
+        finally:
+            probe.restore()
+        if rows != grid_rows:
+            raise AssertionError("the grid's rows differ with the cache bypassed")
+        jitcache.clear()
+        probe = CacheProbe(jitcache, bypass=False, time_keys=True)
+        try:
+            rep["grid_probed"], rows = grid(g)
+            rep["grid_costs"] = probe.report()
+        finally:
+            probe.restore()
+        if rows != grid_rows:
+            raise AssertionError("the grid's rows differ under the probe")
+        probe = CacheProbe(jitcache, bypass=False, time_keys=True)
+        try:
+            rep["points_probed"] = point_selects(np, cs, s.catalog, args.device)
+            rep["points_costs"] = probe.report()
+        finally:
+            probe.restore()
+    rep["seconds"] = time.perf_counter() - t_all
+    out = args.out or os.path.join(HERE, "chiprun_out", f"host_ab_{args.label}.json")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(rep, f, indent=1)
+    summary = {"label": args.label, "card": rep["card"],
+               "five_median_ms": {q: round(v["median_ms"], 3) for q, v in rep["five"].items()},
+               "grid_sum_median_ms": round(rep["grid"]["sum_median_ms"], 3),
+               "point_stmt_per_s": round(rep["points"]["stmt_per_s"], 1)}
+    if jitcache is not None:
+        summary["grid_bypassed_sum_median_ms"] = round(rep["grid_bypassed"]["sum_median_ms"], 3)
+        summary["point_bypassed_stmt_per_s"] = round(rep["points_bypassed"]["stmt_per_s"], 1)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -905,3 +905,65 @@ def test_dcn_worker_process_on_card_runs_q1_partial_through_segagg(card):
         if p.poll() is None:
             p.kill()
             p.wait()
+
+
+def test_sanitized_statements_on_card_count_their_fetches(card):
+    """The sanitizer on the card's path: Q1, Q3 and Q18 sanitized give the
+    CPU session's rows; each statement's sanctioned device->host fetches
+    (dispatch.device_get, what tidb_tpu_sanitize_sync_budget limits) are
+    counted, at least one (Q3 two or more), and a budget of one fails Q3; a scan
+    whose pins are never closed raises SanitizerError."""
+    from tidb_tpu_torch.analysis import sanitizer as san
+    from tidb_tpu_torch.columnar import store as st
+    from tidb_tpu_torch.errors import SanitizerError
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import dispatch
+
+    cat = _tpch_card_catalog()
+    on_card, on_cpu = Session(cat), Session(cat, device="cpu")
+    san.disable()
+    on_card.execute("set tidb_tpu_sanitize = 1")
+    try:
+        counts = {}
+        for q in ("q1", "q3", "q18"):
+            f0 = dispatch.fetch_count()
+            assert on_card.query(Q[q][0]) == on_cpu.query(Q[q][0]), q
+            counts[q] = dispatch.fetch_count() - f0
+            assert counts[q] >= 1, q
+        assert not [f for f in san.report()["findings"] if f["fatal"]]
+        assert counts["q3"] >= 2, counts
+        # the budget's floor: a later run's count can differ from the
+        # first's (that one built the segment stores), never below 2
+        on_card.execute("set tidb_tpu_sanitize_sync_budget = 1")
+        with pytest.raises(SanitizerError, match="host-sync-budget"):
+            on_card.query(Q["q3"][0])
+        on_card.execute("set tidb_tpu_sanitize_sync_budget = 4096")
+        leaked, real = [], st.ScanPin.close
+        st.ScanPin.close = lambda self: leaked.append(self)
+        try:
+            with pytest.raises(SanitizerError, match="pin-leak"):
+                on_card.query(Q["q6"][0])
+        finally:
+            st.ScanPin.close = real
+            for pin in leaked:
+                pin.close()
+        assert leaked
+    finally:
+        on_card.execute("set tidb_tpu_sanitize = 0")
+        san.disable()
+
+
+def test_bench_segsum_on_card_is_exact(card, tmp_path):
+    """The segment kernels' microbenchmark on the card: every exactness
+    flag true and every time measured, beside index_add_."""
+    from tidb_tpu_torch.ops import bench_segsum
+
+    out = tmp_path / "bench.json"
+    assert bench_segsum.main(["--rows", str(1 << 18), "--reps", "5", "--out", str(out)]) == 0
+    import json
+
+    res = json.loads(out.read_text())
+    assert res["route"] == "cuda" and res["device"]["platform"] == "gpu"
+    assert res["all_exact"]
+    assert all(c["count_ms"] > 0 and c["i64_index_add_ms"] > 0 for c in res["configs"])

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tidb_tpu_torch.analysis import sanitizer as _san
 from tidb_tpu_torch.columnar.encoding import Encoding, encode_column
 from tidb_tpu_torch.columnar.spillfile import SegmentSpillFile, make_spill_dir
 from tidb_tpu_torch.columnar.zonemap import ZoneMap, build_zone_map, segment_pruned
@@ -218,8 +219,9 @@ class SegmentStore:
         # runs the physical re-sort, so concurrent planners skip instead
         # of double-permuting
         self._recluster_busy = False
-        # the LEAF lock (module doc)
-        self._lock = threading.Lock()
+        # the LEAF lock (module doc); registered with the sanitizer's
+        # lock-order witness
+        self._lock = _san.tracked_lock("SegmentStore._lock")
 
     # -- build / refresh ---------------------------------------------------
 
@@ -616,6 +618,8 @@ class ScanPin:
         self.planned: List[Segment] = []  # ref-counted via plan_scan
         self._current: Optional[Segment] = None
         self.closed = False
+        if _san.enabled():
+            _san.note_pin_open(self)  # balanced at statement end
 
     def touch(self, seg: Segment) -> None:
         """Pin `seg` for staging (unpins the previously staged one) and
@@ -662,6 +666,8 @@ class ScanPin:
         if self.closed:
             return
         self.closed = True
+        if _san.enabled():
+            _san.note_pin_close(self)
         if self._current is not None:
             self.store.unpin_segment(self._current)
             self._current = None
@@ -676,7 +682,7 @@ class ScanPin:
 
 # -- store lifecycle --------------------------------------------------------
 
-_CREATE_LOCK = threading.Lock()
+_CREATE_LOCK = _san.tracked_lock("columnar._CREATE_LOCK")
 
 
 def _base_of(table):

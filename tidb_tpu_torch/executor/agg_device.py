@@ -48,10 +48,11 @@ from tidb_tpu_torch.expression.compiler import eval_expr
 from tidb_tpu_torch.ops.topk import lex_perm
 from tidb_tpu_torch.planner.logical import AggSpec
 from tidb_tpu_torch.types import TypeKind
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["make_partial_kernel", "make_merge_kernel", "GroupTableStack",
-           "table_to_host_partial", "fetch_tables", "fetch_to_host"]
+           "table_to_host_partial", "fetch_tables"]
 
 _MIX_MUL = -7046029254386353131
 _MIX_ADD = 0x165667B19E3779F9
@@ -316,33 +317,14 @@ class GroupTableStack:
         return [t for t in self._levels if t is not None]
 
 
-def fetch_to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Host numpy copies of `tensors` in ONE device->host copy: the tensors
-    are packed byte-wise into one device buffer first. CPU tensors come
-    back as they are."""
-    if not tensors:
-        return []
-    if all(t.device.type == "cpu" for t in tensors):
-        return [t.numpy() for t in tensors]
-    flat = [t.contiguous().reshape(-1) for t in tensors]
-    packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
-    out, off = [], 0
-    for t in flat:
-        nb = t.numel() * t.element_size()
-        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(packed[off:off + nb].view(dt))
-        off += nb
-    return out
-
-
 def fetch_tables(tables: List[dict]) -> List[Dict[str, np.ndarray]]:
     """The finalize fetch of device group tables: every table's slot count
     in one copy, then every table's live slots [:n] in one more."""
     if not tables:
         return []
-    ns = [int(n) for n in fetch_to_host([torch.stack([t["n"] for t in tables])])[0]]
+    ns = [int(n) for n in dispatch.device_get(torch.stack([t["n"] for t in tables]))]
     names = [[k for k in t if k != "n"] for t in tables]
-    arrays = fetch_to_host([t[k][:n] for t, n, ks in zip(tables, ns, names) for k in ks])
+    arrays = dispatch.device_get([t[k][:n] for t, n, ks in zip(tables, ns, names) for k in ks])
     out, i = [], 0
     for n, ks in zip(ns, names):
         host = {"n": np.int64(n)}

@@ -43,6 +43,7 @@ from tidb_tpu_torch.executor.base import ExecContext, Executor
 from tidb_tpu_torch.expression.compiler import eval_expr
 from tidb_tpu_torch.planner.logical import AggSpec
 from tidb_tpu_torch.types import TypeKind
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["HashAggExec", "make_segment_kernel", "split_limbs",
@@ -357,7 +358,7 @@ class HashAggExec(Executor):
     def _finalize_segment_state(self, state, domains):
         """One fetch of the [G]-shaped accumulators, then a host finalize
         (shared with FusedScanAggExec)."""
-        host = {k: v.cpu().numpy() for k, v in state.items()}
+        host = dispatch.device_get(dict(state))
         if self.group_exprs:
             occupied = np.nonzero(host["occ"] > 0)[0]
         else:
@@ -459,17 +460,19 @@ class HashAggExec(Executor):
             named = {}
             for k, g in enumerate(group_exprs):
                 d, v = eval_expr(g, chunk)
-                named[f"k{k}.d"] = d[live].cpu().numpy()
-                named[f"k{k}.v"] = v[live].cpu().numpy()
+                named[f"k{k}.d"] = d[live]
+                named[f"k{k}.v"] = v[live]
             for j, a in enumerate(aggs):
                 if a.arg is not None:
                     d, v = eval_expr(a.arg, chunk)
-                    named[f"a{j}.d"] = d[live].cpu().numpy()
-                    named[f"a{j}.v"] = v[live].cpu().numpy()
+                    named[f"a{j}.d"] = d[live]
+                    named[f"a{j}.v"] = v[live]
                 else:
                     named[f"a{j}.d"] = np.ones(len(live), dtype=np.bool_)
                     named[f"a{j}.v"] = np.ones(len(live), dtype=np.bool_)
-            runs.append(named)
+            # host-sync: the host groupby's runs; one batched fetch per
+            # chunk (the device tiers are the no-per-chunk-fetch paths)
+            runs.append(dispatch.device_get(named))
 
         cap = self.ctx.chunk_capacity
         if total == 0:

@@ -54,6 +54,7 @@ from tidb_tpu_torch.expression.compiler import compile_expr, compile_predicate, 
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
 from tidb_tpu_torch.types import INT64
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["HashJoinExec", "IndexJoinExec"]
@@ -153,7 +154,7 @@ class HashJoinExec(Executor):
         # pack parameters (and the hash-mode decision) come from the VALID
         # keys only: a NULL slot's garbage value must not widen the range
         valid_keys = [k[ok] for k in key_arrays]
-        self._build_had_null = bool((~ok).any())
+        self._build_had_null = bool(dispatch.device_get((~ok).any()))
         self._n_build = int(valid_keys[0].shape[0])
         self._pack_info = self._key_pack_info(valid_keys)
         self._has_filter = self.other_cond is not None or self._hash_mode
@@ -187,7 +188,8 @@ class HashJoinExec(Executor):
             return [(modes[0], 0, 1, 0)]
         n = conv[0].shape[0]
         if n:
-            bounds = torch.stack([torch.stack([k.min(), k.max()]) for k in conv]).tolist()
+            bounds = dispatch.device_get(
+                torch.stack([torch.stack([k.min(), k.max()]) for k in conv])).tolist()
         else:
             bounds = [(0, 0)] * len(conv)
         if len(key_arrays) == 1:
@@ -284,7 +286,7 @@ class HashJoinExec(Executor):
         ones = torch.ones(self._n_build, dtype=torch.bool, device=dev)
         packed, _, _ = jk.pack_keys(valid_keys, (ones,) * len(valid_keys), self._los,
                                     self._strides, self._rngs, ones, self._modes, False)
-        packed = packed.cpu().numpy()
+        packed = dispatch.device_get(packed)
         order = np.argsort(packed, kind="stable")
         B = jk.shape_bucket(self._n_build)
         # padding keeps the array sorted: dead slots -> INT64_MAX
@@ -376,7 +378,7 @@ class HashJoinExec(Executor):
     def _probe_finish_batch(self, tokens: List[dict]) -> None:
         """Resolve a deferred window: one device-to-host read of every
         queued chunk's match total, then each chunk finishes."""
-        totals = torch.stack([t["total_dev"] for t in tokens]).tolist()
+        totals = dispatch.device_get(torch.stack([t["total_dev"] for t in tokens])).tolist()
         if self.kind == "inner" and not self._has_filter:
             # plan feedback: for the unfiltered inner join the summed
             # match totals are the output cardinality, host-known from
@@ -473,7 +475,7 @@ class HashJoinExec(Executor):
             # probe rows whose every match failed other_cond (or that had
             # none) emit one NULL-payload row each, per LEFT JOIN semantics
             unmatched = chunk.sel & ~matched
-            if bool(unmatched.any()):  # one read: is a NULL-pad chunk due?
+            if dispatch.device_get(unmatched.any()):  # one read: is a NULL-pad chunk due?
                 self._pending.append(self._null_build_chunk(chunk, unmatched))
 
     def _expand_windows(self, chunk: Chunk, start, count, real_count, cum,
@@ -618,11 +620,14 @@ class IndexJoinExec(Executor):
             probe_lo[name] = i64.min
             probe_hi[name] = i64.max
         kvalid = np.ones(n, dtype=np.bool_)
-        for i, fn in enumerate(self._key_fns):
-            # the outer keys cross to the host once per chunk
-            col = fn(ch)
-            kvalid &= col.valid[live_t].cpu().numpy()
-            keys = col.data[live_t].cpu().numpy().astype(np.int64)
+        cols = [fn(ch) for fn in self._key_fns]
+        # the outer keys and the live rows cross to the host in one fetch
+        # per chunk
+        live_h, *keys_h = dispatch.device_get(
+            [live_t] + [(c.data[live_t], c.valid[live_t]) for c in cols])
+        for i, (kd, kv) in enumerate(keys_h):
+            kvalid &= kv
+            keys = kd.astype(np.int64)
             probe_lo[f"k{i}"] = keys
             probe_hi[f"k{i}"] = keys
         # NULL keys match nothing; searchsorted over the composite tuple
@@ -640,7 +645,7 @@ class IndexJoinExec(Executor):
         vis = self.inner_table._mvcc_mask(
             cand, read_ts=self.ctx.read_ts, marker=self.ctx.txn_marker)
         cand = cand[vis]
-        outer_rows = live_t.cpu().numpy()[outer_pos[vis]]
+        outer_rows = live_h[outer_pos[vis]]
         # windowed emission: expansion is bounded to chunk_capacity per
         # output chunk (the HashJoinExec contract), so a many-match key
         # set cannot spike memory or mint giant downstream shapes

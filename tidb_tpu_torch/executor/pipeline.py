@@ -1108,7 +1108,8 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
     def _finish_fused_batch(self, tokens: List[dict]) -> None:
         """One device->host read of the window's match totals; the totals
         double as overflow flags."""
-        totals = [int(t) for t in torch.stack([t["total_dev"] for t in tokens]).tolist()]
+        totals = [int(t) for t in dispatch.device_get(
+            torch.stack([t["total_dev"] for t in tokens])).tolist()]
         self.stats.add_out_rows(sum(totals))
         for tok, total in zip(tokens, totals):
             self.stats.tile_chunks += 1
@@ -1281,7 +1282,6 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
         return k, True
 
     def _run_fused(self, ctx: ExecContext, k: int) -> None:
-        from tidb_tpu_torch.executor.agg_device import fetch_to_host
         from tidb_tpu_torch.ops import topk as tk
 
         jobs = self._plan_staging(ctx)
@@ -1300,7 +1300,7 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
             state = fused(state, *staged)
         # the one fetch of the C winners at finalize
         dead, _ranks, _pos, _next, payload = state
-        host = fetch_to_host([dead] + [t for pair in payload for t in pair])
+        host = dispatch.device_get([dead] + [t for pair in payload for t in pair])
         self._emit_winners(host[0], list(zip(host[1::2], host[2::2])))
 
     def _emit_winners(self, dead, payload) -> None:

@@ -20,6 +20,7 @@ from tidb_tpu_torch.chunk.chunk import Chunk
 from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.executor.base import ExecContext, Executor
 from tidb_tpu_torch.expression.compiler import compile_expr
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = ["SortExec", "TopNExec", "LimitExec", "UnionExec"]
 
@@ -44,13 +45,15 @@ class _Materializing(Executor):
             named = {}
             for c in self.schema:
                 col = ch.columns[c.uid]
-                named[f"c.{c.uid}.d"] = col.data[live].cpu().numpy()
-                named[f"c.{c.uid}.v"] = col.valid[live].cpu().numpy()
+                named[f"c.{c.uid}.d"] = col.data[live]
+                named[f"c.{c.uid}.v"] = col.valid[live]
             for i, f in enumerate(key_fns):
                 kc = f(ch)
-                named[f"k.{i}.d"] = kc.data[live].cpu().numpy()
-                named[f"k.{i}.v"] = kc.valid[live].cpu().numpy()
-            runs.append(named)
+                named[f"k.{i}.d"] = kc.data[live]
+                named[f"k.{i}.v"] = kc.valid[live]
+            # host-sync: the sort materializes host runs; one batched
+            # fetch per chunk (was one copy per column)
+            runs.append(dispatch.device_get(named))
         return runs
 
     def _global_keys(self, runs, n_keys: int):
@@ -198,7 +201,9 @@ class LimitExec(Executor):
             ch = self.children[0].next()
             if ch is None:
                 return None
-            sel = ch.sel.cpu().numpy()
+            # host-sync: LIMIT counts live rows on the host, one small
+            # fetch per chunk until the count is reached
+            sel = dispatch.device_get(ch.sel)
             live = np.nonzero(sel)[0]
             m = len(live)
             if m == 0:

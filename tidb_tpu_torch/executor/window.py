@@ -24,6 +24,7 @@ from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.errors import UnsupportedError
 from tidb_tpu_torch.executor.base import ExecContext, Executor
 from tidb_tpu_torch.executor.sort import _Materializing, _sort_order
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = ["WindowExec"]
 
@@ -83,7 +84,9 @@ class WindowExec(_Materializing):
         patched = []
         off = 0
         for ch in self._chunks:
-            m = int(ch.sel.sum())
+            # host-sync: each chunk's live count slices the host result,
+            # one scalar per chunk after the window's host evaluation
+            m = int(dispatch.device_get(ch.sel.sum()))
             col = Column.from_numpy(vals[off : off + m], out_col.type_,
                                     valid=valid[off : off + m], capacity=cap)
             cols = dict(ch.columns)

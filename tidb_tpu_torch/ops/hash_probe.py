@@ -440,7 +440,7 @@ def placed_table(sorted_keys: torch.Tensor):
     if cap is None:
         return None
     tkeys, tlos, this, all_placed = build_table(sorted_keys, cap)
-    return (tkeys, tlos, this) if bool(all_placed) else None
+    return (tkeys, tlos, this) if bool(dispatch.device_get(all_placed)) else None
 
 
 def probe_ranges(sorted_keys: torch.Tensor, probes: torch.Tensor):

@@ -356,8 +356,15 @@ _IO_TLS = threading.local()
 
 
 def _send(sock: socket.socket, obj) -> None:
-    # the reference's runtime wire witness (analysis.sanitizer) is not
-    # ported: analysis/ has no counterpart in this package yet
+    # runtime wire witness: while the sanitizer is enabled, every request
+    # leaving a socket is diffed against the committed static protocol
+    # model (unknown cmd/field or missing required field = typed
+    # finding). Cost when off = one flag check; analysis.sanitizer is
+    # stdlib-only, so the import is free.
+    from tidb_tpu_torch.analysis import sanitizer as _san
+
+    if _san.enabled():
+        _san.note_wire_msg(obj)
     payload = _dumps(obj)
     sock.sendall(_LEN.pack(len(payload)) + payload)
     from tidb_tpu_torch.utils.metrics import DCN_BYTES
@@ -2625,11 +2632,12 @@ class Cluster:
             if part is not None:
                 a, v, s = part
                 # encoded once for the owner and its replica (the same
-                # bytes _dumps would write twice)
-                body = {"arrays": _Wire(_dumps(a)), "valids": _Wire(_dumps(v)),
-                        "strings": _Wire(_dumps(s))}
+                # bytes _dumps would write twice); every field is written
+                # out so the static protocol model can name it
+                wa, wv, ws = _Wire(_dumps(a)), _Wire(_dumps(v)), _Wire(_dumps(s))
                 loaded[w] = self._call(w, {
-                    "cmd": "load_columns", "table": table, **body, "db": db})
+                    "cmd": "load_columns", "table": table, "arrays": wa,
+                    "valids": wv, "strings": ws, "db": db})
                 sizes[w] = sum(x.nbytes for x in a.values()) \
                     + sum(x.nbytes for x in v.values()) \
                     + sum(sum(map(len, filter(None, col))) + len(col)
@@ -2639,7 +2647,7 @@ class Cluster:
                     self._call(rep, {
                         "cmd": "load_columns",
                         "table": f"{table}__part{w}", "like": table,
-                        **body, "db": db})
+                        "arrays": wa, "valids": wv, "strings": ws, "db": db})
             self._call(w, {"cmd": "place_shards", "table": table,
                            "shards": owners.get(w, []),
                            "bytes": sizes[w]})

@@ -40,6 +40,7 @@ from tidb_tpu_torch.parallel.mesh import (
     run_spmd,
 )
 from tidb_tpu_torch.parallel.partition import ShardedTable, part_args
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = [
     "merge_state",
@@ -251,7 +252,7 @@ def make_join_agg_fragment(
         args = [part_args(p_data, p_valid, p_sel, p_refs, p)
                 + part_args(b_data, b_valid, b_sel, b_refs, p) for p in range(n_parts)]
         state, ovf = run_spmd(mesh, per_shard, args)[0]
-        return state, int(ovf)  # host-sync: the overflow count gates the retry
+        return state, int(dispatch.device_get(ovf))  # the overflow count gates the retry
 
     return run
 

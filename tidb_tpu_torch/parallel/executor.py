@@ -50,6 +50,7 @@ from tidb_tpu_torch.planner.physical import (
     PTopN,
     PhysicalPlan,
 )
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.lru import get_or_build, touch
 
 __all__ = ["ShardCache", "build_dist_executor", "DistAggExec", "DistJoinAggExec",
@@ -463,10 +464,14 @@ class DistFragmentExec(HashAggExec):
         try:
             root.open(self.ctx)
             for ch in root.chunks():
-                live = np.nonzero(ch.sel.cpu().numpy())[0]
+                # host-sync: a broadcast build side is materialized on the
+                # host; one batched fetch per chunk of the subtree
+                sel, cols = dispatch.device_get(
+                    (ch.sel, [(ch.columns[c.uid].data, ch.columns[c.uid].valid)
+                              for c in bc.schema]))
+                live = np.nonzero(sel)[0]
                 n += len(live)
-                for c in bc.schema:
-                    d, v = ch.columns[c.uid].to_numpy()
+                for c, (d, v) in zip(bc.schema, cols):
                     datas[c.uid].append(d[live])
                     valids[c.uid].append(v[live])
         finally:

@@ -59,6 +59,7 @@ from tidb_tpu_torch.parallel.mesh import psum, run_spmd
 from tidb_tpu_torch.parallel.partition import part_args
 from tidb_tpu_torch.planner.physical import PHashAgg, PHashJoin, PScan
 from tidb_tpu_torch.types import TypeKind
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["compile_fragment", "FragmentProgram", "BROADCAST_LIMIT"]
@@ -821,9 +822,9 @@ def compile_fragment(agg: PHashAgg, mesh, n_parts: int,
             slots = [s.to(dev0) if isinstance(s, torch.Tensor)
                      else torch.zeros((), dtype=torch.int64, device=dev0)
                      for s in results[0][1]]
-            # host-sync: the per-knob overflow vector (a few int64s) gates
-            # the capacity-retry loop, one fetch per dispatch
-            ovf = (torch.stack(slots).cpu().numpy() if slots
+            # the per-knob overflow vector (a few int64s) gates the
+            # capacity-retry loop, one fetch per dispatch
+            ovf = (dispatch.device_get(torch.stack(slots)) if slots
                    else np.zeros(0, dtype=np.int64))
             if out_kind == "segment":
                 return results[0][0], ovf

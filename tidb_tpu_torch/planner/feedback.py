@@ -325,9 +325,12 @@ class PlanFeedbackStore:
     harvesting outside it."""
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
-        # a plain leaf lock: the reference registers it with its lock
-        # sanitizer, which the port does not have
-        self.lock = threading.Lock()
+        from tidb_tpu_torch.analysis import sanitizer as _san
+
+        # tracked: the runtime sanitizer witnesses acquisition order,
+        # so a future callback that takes another lock under this one
+        # shows up as a runtime edge
+        self.lock = _san.tracked_lock("PlanFeedbackStore.lock")
         self.capacity = capacity
         self._by_digest: "OrderedDict[str, Dict[str, _Variant]]" = \
             OrderedDict()

@@ -744,7 +744,9 @@ class PlanCache:
     immutable after publication."""
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
-        self.lock = threading.Lock()
+        from tidb_tpu_torch.analysis import sanitizer as _san
+
+        self.lock = _san.tracked_lock("PlanCache.lock")
         self.capacity = capacity
         self._od: "OrderedDict" = OrderedDict()
         self._schema_version = -1

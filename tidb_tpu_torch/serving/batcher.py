@@ -88,7 +88,10 @@ class BatchGroup:
         self.window_s = window_s
         self.max_size = max_size
         self.created = time.monotonic()
-        self.cv = threading.Condition(threading.RLock())
+        from tidb_tpu_torch.analysis import sanitizer as _san
+
+        self.cv = threading.Condition(
+            _san.tracked_lock("BatchGroup.cv", threading.RLock))
         self.members: List[Member] = []
         self.sealed = False
         # group-commit DML window: the opening member's spec
@@ -99,8 +102,10 @@ class BatchGroup:
 
 class Batcher:
     def __init__(self, scheduler):
+        from tidb_tpu_torch.analysis import sanitizer as _san
+
         self.scheduler = scheduler
-        self._lock = threading.Lock()
+        self._lock = _san.tracked_lock("Batcher._lock")
         self._open: Dict[object, BatchGroup] = {}
         self._seq = itertools.count(1)
         # per-digest coalesce counts for information_schema.scheduler_stats

@@ -83,7 +83,12 @@ class StatementScheduler:
         # tidb_tpu_sched_mem_quota (0 = unlimited)
         self.server_tracker = MemTracker("server", budget=None)
         self.batcher = Batcher(self)
-        self._cv = threading.Condition(threading.RLock())
+        # cv over a sanitizer-tracked lock: worker-thread orders through
+        # it are witnessed
+        from tidb_tpu_torch.analysis import sanitizer as _san
+
+        self._cv = threading.Condition(
+            _san.tracked_lock("StatementScheduler._cv", threading.RLock))
         self._work = collections.deque()  # _Task | BatchGroup
         self._queued = 0                  # admitted, not yet claimed
         self._inflight_batches = 0

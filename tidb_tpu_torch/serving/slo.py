@@ -86,7 +86,9 @@ class DigestLatencyStore:
     outside it."""
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
-        self.lock = threading.Lock()
+        from tidb_tpu_torch.analysis import sanitizer as _san
+
+        self.lock = _san.tracked_lock("DigestLatencyStore.lock")
         self.capacity = capacity
         self._by_digest: "OrderedDict[str, _Entry]" = OrderedDict()
         self.evicted = 0

@@ -58,8 +58,10 @@ probe's tile count, the fused top-k routing). SQL bindings
 (CREATE / DROP [GLOBAL] BINDING) inject their hints into a matching
 statement; `/*+ MEMORY_QUOTA(...) */` sets the statement's budget.
 
-Not yet ported from tidb_tpu/session/session.py: CREATE TABLE ... SHARD
-BY and the DCN tier.
+The runtime invariant sanitizer (analysis/sanitizer.py): under
+tidb_tpu_sanitize each statement runs in a scope that checks pin and
+tracker balances, the host-sync budget and the lock-order witness at
+its end; a fatal finding raises SanitizerError on the success path.
 """
 
 from __future__ import annotations
@@ -69,11 +71,13 @@ from typing import List, Optional
 
 import numpy as np
 
+from tidb_tpu_torch.analysis import sanitizer as _san
 from tidb_tpu_torch.errors import (
     ExecutionError,
     PlanError,
     QueryKilledError,
     QueryTimeoutError,
+    SanitizerError,
     SchemaError,
     UnsupportedError,
     WriteConflictError,
@@ -612,6 +616,16 @@ class Session:
         f0 = _dsp.fragment_count()
         seg0 = _seg_counts()
         cw0 = _cmp_counts()
+        # runtime invariant sanitizer: debug-mode statement scope —
+        # pin/tracker balances, host-sync budget (dispatch.device_get
+        # round trips), lock-order witness — checked at statement end;
+        # fatal findings raise a typed SanitizerError on the success path
+        _san_scope = None
+        _san_findings: list = []
+        if bool(self.sysvars.get("tidb_tpu_sanitize")):
+            _san.enable()
+            _san_scope = _san.statement_begin(sync_budget=int(
+                self.sysvars.get("tidb_tpu_sanitize_sync_budget")))
         # CLUSTER BY ordered compaction: due permutes run at statement
         # boundaries ONLY and only while the catalog's reader registry
         # is quiescent; this statement then registers as a lock-free
@@ -652,6 +666,11 @@ class Session:
             if self._mem_parent is not None:
                 for t in self._stmt_trackers:
                     t.detach()
+            if _san_scope is not None:
+                # after the detach loop so residual witnesses attribute
+                # to this statement; fatal findings raise on the
+                # success path below (never mask an in-flight error)
+                _san_findings = _san.statement_end(_san_scope)
             # BaseException safety net (KeyboardInterrupt & co bypass
             # the except): a trace must never leak onto the thread
             import sys as _sys
@@ -678,6 +697,11 @@ class Session:
         # plugin hooks run LAST (mirroring the error path): an audit
         # plugin that raises must not skip trace finalization
         self.catalog.plugins.statement_end(self, sql, stype, dur, None)
+        fatal = [f for f in _san_findings if f.fatal]
+        if fatal:
+            raise SanitizerError(
+                "sanitizer: engine invariant broken during this "
+                "statement: " + "; ".join(f.render() for f in fatal[:4]))
         return result
 
     def _fb_enabled(self) -> bool:

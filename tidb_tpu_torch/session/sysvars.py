@@ -21,10 +21,9 @@ def _sanitizer_env_gate() -> bool:
     """TIDB_TPU_SANITIZE env seed for the sanitize sysvar default —
     ONE parser (analysis/sanitizer.env_gate) so `=0` disables here and
     in the sanitizer's own process gate identically."""
-    import os
+    from tidb_tpu_torch.analysis.sanitizer import env_gate
 
-    v = os.environ.get("TIDB_TPU_SANITIZE", "")
-    return v.strip().lower() not in ("", "0", "false", "off", "no")
+    return env_gate()
 
 GLOBAL, SESSION, BOTH = "global", "session", "both"
 

@@ -27,6 +27,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List
 
+from tidb_tpu_torch.analysis import sanitizer as _san
 from tidb_tpu_torch.errors import (
     DuplicateTableError,
     ExecutionError,
@@ -49,8 +50,9 @@ class Database:
 class Catalog:
     def __init__(self):
         # statement-granularity writer lock: the host storage layer is
-        # single-writer by design
-        self.lock = threading.RLock()
+        # single-writer by design. Registered with the runtime
+        # sanitizer's lock-order witness.
+        self.lock = _san.tracked_lock("Catalog.lock", threading.RLock)
         self.databases: Dict[str, Database] = {"test": Database("test")}
         # extension points (ref: plugin/ — per-process plugin list)
         from tidb_tpu_torch.plugin import PluginRegistry
@@ -118,7 +120,7 @@ class Catalog:
         # recluster runs ONLY while this registry is quiescent, holding
         # _readers_lock so no new reader can start mid-permute. Order:
         # Catalog.lock -> _readers_lock.
-        self._readers_lock = threading.Lock()
+        self._readers_lock = _san.tracked_lock("Catalog.readers", threading.Lock)
         self._stmt_readers: Dict[int, int] = {}  # thread ident -> depth
         self._open_scans = 0
         # SegmentStores whose CLUSTER BY permute is due; performed at

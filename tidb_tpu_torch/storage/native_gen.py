@@ -46,6 +46,8 @@ def load_native() -> Optional[ctypes.CDLL]:
                      "-o", _LIB, _SRC],
                     check=True, capture_output=True, timeout=120,
                 )
+        # lint: disable=jit-hygiene -- the host TPC-H generator (g++,
+        # no kernel): loaded once per process behind the _lib cache above
         lib = ctypes.CDLL(_LIB)
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.tpch_sizes.argtypes = [ctypes.c_double, ctypes.c_uint64, i64p, i64p]

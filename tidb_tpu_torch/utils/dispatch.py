@@ -20,6 +20,14 @@ torch meaning:
   - ``fragment_count``: mesh-fragment executions (parallel/executor.py),
     the statements summary's fragments column; not launches
 
+``device_get`` (counted per thread by ``fetch_count``) is the one
+sanctioned device->host fetch (the
+counterpart of ``jax.device_get``): it moves a tensor, or a nested
+tuple/list/dict of tensors, to host numpy in one copy, and counts one
+round trip into the runtime sanitizer's statement scope
+(``analysis/sanitizer.count_sync``), which is what
+``tidb_tpu_sanitize_sync_budget`` limits.
+
 As in the reference, every counter is per thread: the server runs
 statements on concurrent worker threads, and one statement's figures
 must not absorb another's launches. Work done on a statement's behalf
@@ -39,7 +47,7 @@ from typing import Dict, Optional
 __all__ = ["Account", "account", "count", "by_site", "count_launch",
            "record_xfer", "xfer_bytes", "record_compile", "compile_count",
            "compile_seconds", "record_spill", "spill_bytes",
-           "record_fragment", "fragment_count"]
+           "record_fragment", "fragment_count", "device_get", "fetch_count"]
 
 
 class Account:
@@ -47,7 +55,7 @@ class Account:
     done on its behalf, by a helper thread: hence the lock."""
 
     __slots__ = ("lock", "count", "by_site", "xfer", "compiles", "compile_s",
-                 "spill", "fragments")
+                 "spill", "fragments", "fetches")
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -58,6 +66,7 @@ class Account:
         self.compile_s = 0.0
         self.spill = 0
         self.fragments = 0
+        self.fetches = 0
 
 
 _tls = threading.local()
@@ -158,3 +167,66 @@ def record_fragment() -> None:
 def fragment_count() -> int:
     """Mesh-fragment executions on this thread so far."""
     return account().fragments
+
+
+def fetch_count() -> int:
+    """Sanctioned device->host fetches (``device_get`` calls) on this
+    thread so far."""
+    return account().fetches
+
+
+def device_get(x):
+    """Host numpy copies of the tensors in `x`: a tensor becomes an
+    ndarray of its shape, a tuple, list or dict of them (nested) the
+    same container of ndarrays, and anything else passes through. Device
+    tensors go over in ONE device->host copy (several are packed byte-wise
+    into one device buffer first); CPU tensors are viewed as they are. One call is
+    one counted round trip, whatever it moves."""
+    import torch
+
+    from tidb_tpu_torch.analysis import sanitizer
+
+    sanitizer.count_sync()
+    acct = account()
+    with acct.lock:
+        acct.fetches += 1
+    dev = []
+
+    def find(v):
+        if isinstance(v, torch.Tensor):
+            if v.device.type != "cpu":
+                dev.append(v)
+        elif isinstance(v, (tuple, list)):
+            for e in v:
+                find(e)
+        elif isinstance(v, dict):
+            for e in v.values():
+                find(e)
+
+    find(x)
+    host = {}
+    if len(dev) == 1:
+        host[id(dev[0])] = dev[0].detach().cpu().numpy()
+    elif dev:
+        flat = [t.detach().contiguous().reshape(-1) for t in dev]
+        packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+        off = 0
+        for t, f in zip(dev, flat):
+            nb = f.numel() * f.element_size()
+            dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+            host[id(t)] = packed[off:off + nb].view(dt).reshape(tuple(t.shape))
+            off += nb
+
+    def build(v):
+        if isinstance(v, torch.Tensor):
+            got = host.get(id(v))
+            return got if got is not None else v.detach().numpy()
+        if isinstance(v, tuple):
+            return tuple(build(e) for e in v)
+        if isinstance(v, list):
+            return [build(e) for e in v]
+        if isinstance(v, dict):
+            return {k: build(e) for k, e in v.items()}
+        return v
+
+    return build(x)

@@ -13,8 +13,9 @@ Tracked: host-side state (segment payloads a scan pins, sort runs, agg
 state) and the device bytes a statement keeps in flight (the pipeline's
 prefetch window and buffer-cache fill). The reference's metrics calls
 are plain module-level counters here (`MEM_QUOTA_ENGAGED`,
-`SPILL_TOTAL`), and its lock sanitizer is not ported: the account lock
-is a plain `threading.RLock`.
+`SPILL_TOTAL`). The account lock is registered with the runtime
+sanitizer's lock-order witness, and release()/detach() report a double
+release and a residual to it (analysis/sanitizer.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import tempfile
 import threading
 from typing import List, Optional
 
+from tidb_tpu_torch.analysis import sanitizer as _san
 from tidb_tpu_torch.errors import ExecutionError
 
 __all__ = ["MemTracker", "QueryOOMError", "SpillFile", "SpillableRuns",
@@ -42,7 +44,9 @@ SPILL_TOTAL = {"spills": 0, "bytes": 0}
 # Reentrant because _on_exceed -> spill() re-enters release()/consume()
 # on the same thread. Spill I/O under the lock is acceptable: it only
 # happens past the budget, where correctness beats concurrency.
-_ACCOUNT_LOCK = threading.RLock()
+# Registered with the sanitizer's lock witness so orders through it are
+# recorded.
+_ACCOUNT_LOCK = _san.tracked_lock("memory._ACCOUNT_LOCK", threading.RLock)
 
 
 def spill_root_of(tracker: "MemTracker") -> "MemTracker":
@@ -93,6 +97,11 @@ class MemTracker:
             if p is None or self.consumed == 0:
                 return
             n = self.consumed
+            if _san.enabled() and n > 0:
+                # leak witness: bytes the statement consumed and never
+                # released — detach reclaims them, the sanitizer makes
+                # them visible
+                _san.note_tracker_detach(self.label, n)
             node = p
             while node is not None:
                 node.consumed -= n
@@ -122,14 +131,21 @@ class MemTracker:
             node = self
             while node is not None:
                 if node.budget is not None and node.consumed > node.budget:
-                    # deliberate: past the budget, spill I/O runs under
-                    # the account lock (module doc); re-entrancy is why
-                    # the lock is an RLock
+                    # lint: disable=blocking-under-lock -- deliberate:
+                    # past the budget, spill I/O runs under the account
+                    # lock — correctness beats concurrency there (module
+                    # doc); re-entrancy is why the lock is an RLock
                     node._on_exceed()
                 node = node.parent
 
     def release(self, nbytes: int) -> None:
         with _ACCOUNT_LOCK:
+            if _san.enabled() and nbytes > 0 and \
+                    self.consumed - nbytes < 0 <= self.consumed:
+                # crossing zero on THIS release = some charge returned
+                # twice (fatal finding; reported once per crossing)
+                _san.note_tracker_release(self.label,
+                                          self.consumed - nbytes)
             node = self
             while node is not None:
                 node.consumed -= nbytes
