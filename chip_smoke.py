@@ -106,13 +106,28 @@ Workloads (phase_workloads). A fresh Session on cuda, seed 7: SSB at SF1
    findings and the runtime edges the static lock graph lacks; then a
    Q6 whose scan pins are never closed must raise SanitizerError
    (pin-leak), and the sanitizer is disabled again.
+   The graphs step (phase_graphs): every fused batch of the default path
+   goes through utils/jitcache.py, which on the card captures each input
+   signature's launches into a CUDA graph once and replays it. Q1, Q6,
+   Q3, Q5 and Q18 each run eagerly (the explicit switch,
+   jitcache.eager()) and then from an empty cache by graph replay until
+   one plan runs a third time: rows equal to phase 2's and the eager
+   run's, each run's launch contract held, and on that plan's second
+   warm run no eager call and no capture, every
+   fused batch a replay, the kernels' launches, probe routes and
+   device_get round trips equal to the eager run's; the warm median of 3
+   in each mode, the bytes the graphs hold and a profiled replayed run
+   of Q1, Q6, Q3 and Q5 (Q1 eagerly too; Q18 unprofiled, a cut for the
+   time limit). The sync-free pass empties the cache before each
+   statement, so its wrappers see a warm-up and a capture.
 3. Times: warm wall time (median of 3) and rows/s of each query fused
-   with the buffer cache, of Q1, Q6, Q3 and Q5 fused with its budget 0,
+   with the buffer cache (the graphs step's replay medians), of Q1, Q6,
+   Q3 and Q5 fused with its budget 0,
    the same staged inline at prefetch depth 0, and classic, and of Q3 in
    a fifth mode (generic_host:
    tidb_device_engine_mode = 'off', the host groupby); one more warm run
-   under torch.profiler of Q1, Q6, Q3 and Q5 fused with the cache, Q1,
-   Q6 and Q3 classic and Q3 on the host engine (UNPROFILED: the
+   under torch.profiler of Q1 classic and Q3 on the host engine (the
+   fused runs' profiles are the graphs step's; UNPROFILED: the
    profiler adds 10-40 s to a run; device busy
    time, idle share, host->device copies split pinned/pageable with their
    bytes, device->host copies, host cudaMemcpyAsync and launch counts, top
@@ -135,7 +150,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    Q1, Q6, Q3, Q5 and Q18 by COM_QUERY over one connection, each against
    numpy and the session's rows, its wall time beside phase 3's median
    and its launches (the statements summary's per-thread dispatches)
-   equal to a solo in-process run's; 8,000 prepared point-selects on
+   equal to a solo in-process run's; 1,600 prepared point-selects on
    orders by o_orderkey (COM_STMT_PREPARE / COM_STMT_EXECUTE) from 16
    connections in a client process of their own (point_clients), keys
    from seed 7 with 10% absent, the default 250 us batch window, every
@@ -143,7 +158,8 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    (statements/s, p50/p99, mean batch size printed); Q1, Q3 and Q18 from
    4 connections at once (the scheduler's workers run them one at a
    time on the catalog lock), each statement's rows and launches (its
-   slow-log row) equal to its solo run's; KILL QUERY from a second connection 0.2 s
+   slow-log row) equal to its solo run's, their fused batches replaying
+   CUDA graphs while the other connections run; KILL QUERY from a second connection 0.2 s
    into Q18 must give 1317 and Q18 under max_execution_time = 50 must
    give 3024, then Q1 and Q18 right on both connections, no prefetch
    thread alive and no device buffer cache entry added by a cut-short
@@ -221,14 +237,14 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    CREATE TABLE lineitem and SHOW INDEX FROM orders printed.
 7. The storage phase (phase_storage), on the same session, its tables in
    a scratch database. The delta engine: orders' columns, no key,
-   ENGINE=delta, filled by INSERT ... SELECT from orders, then 1,000
+   ENGINE=delta, filled by INSERT ... SELECT from orders, then 250
    single-row autocommit INSERTs of fresh keys (all still buffered when
    the next read starts; 5,000 in earlier runs reached the 4,096-row
    bulk append); an aggregation by o_orderpriority and Q3 over it against
-   numpy; 500 of the same INSERTs into a columnar copy of the same rows,
+   numpy; 125 of the same INSERTs into a columnar copy of the same rows,
    per-statement times of both engines printed. (10,000 and 1,000 until
-   the planner phase was added: cut to keep the script inside its time
-   limit.) CREATE TABLE ... AS SELECT of lineitem's
+   the planner phase was added, 1,000 and 500 until the graphs step:
+   cut to keep the script inside its time limit.) CREATE TABLE ... AS SELECT of lineitem's
    revenue by order (one row per order), joined to orders under a date
    filter against numpy; CREATE TABLE ... LIKE orders (engine, CHECKs,
    keys, no rows). SELECT * FROM orders INTO OUTFILE under build/ for
@@ -1151,7 +1167,7 @@ def profile_query(torch, session, sql: str) -> dict:
                 "cpu_us": e.self_cpu_time_total}
 
     launch_apis = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                   "cuLaunchKernelEx")
+                   "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
     copy_apis = ("cudaMemcpyAsync",)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "idle_share": 1.0 - busy_us / wall_us,
@@ -1184,27 +1200,39 @@ def patch_builder(mod, name: str, wrap):
     return restore
 
 
+def _bump(counter: list) -> None:
+    counter[0] += 1
+
+
+_SEG_CHUNKS = [0]  # count_segment_chunks' counter, its wrapper installed once
+
+
 def count_segment_chunks() -> list:
-    """Count the chunks the segment aggregation updates, by wrapping the
-    executor's make_segment_kernel (patch_builder); returns the
-    one-element counter."""
+    """Count the chunks the segment aggregation updates: the first call
+    wraps the executor's make_segment_kernel (patch_builder, which empties
+    the built-program cache, so every graph captured from then on holds
+    the wrapper, whose count runs at each replay); every call sets the one
+    counter to 0 and returns it."""
     from tidb_tpu_torch.executor import aggregate as agg_mod
+    from tidb_tpu_torch.utils import dispatch
 
-    counter = [0]
+    if not getattr(agg_mod.make_segment_kernel, "_counts_chunks", False):
+        def counting(real):
+            def build(*args, **kw):
+                init_state, update, G = real(*args, **kw)
 
-    def counting(real):
-        def build(*args, **kw):
-            init_state, update, G = real(*args, **kw)
+                def counted(state, chunk):
+                    # at each replay when a CUDA graph captures this update
+                    dispatch.on_execute(_bump, _SEG_CHUNKS)
+                    return update(state, chunk)
 
-            def counted(state, chunk):
-                counter[0] += 1
-                return update(state, chunk)
+                return init_state, counted, G
+            build._counts_chunks = True
+            return build
 
-            return init_state, counted, G
-        return build
-
-    patch_builder(agg_mod, "make_segment_kernel", counting)
-    return counter
+        patch_builder(agg_mod, "make_segment_kernel", counting)
+    _SEG_CHUNKS[0] = 0
+    return _SEG_CHUNKS
 
 
 def planned(s, sql: str):
@@ -1230,7 +1258,7 @@ def run_query(session, mods, sql: str):
     before and read just after, and the statement's sanctioned
     device->host fetches (dispatch.device_get, "device_get"); returns
     (rows, counts, seconds)."""
-    from tidb_tpu_torch.utils import dispatch
+    from tidb_tpu_torch.utils import dispatch, jitcache
 
     seg_mod, hp, jk, pl, st, agg_mod = mods
     seg_mod.reset_launches()
@@ -1238,6 +1266,7 @@ def run_query(session, mods, sql: str):
     jk.reset_routes()
     pl.reset_counters()
     agg_mod.reset_counters()
+    jitcache.reset_runs()
     seg0 = dict(st.SCAN_SEGMENTS_TOTAL)
     f0 = dispatch.fetch_count()
     t0 = time.perf_counter()
@@ -1254,7 +1283,7 @@ def run_query(session, mods, sql: str):
               "cache": dict(pl.DEVICE_CACHE_TOTAL),
               "fused": dict(pl.PIPELINE_FUSED_TOTAL),
               "generic_runs": dict(agg_mod.DEVICE_GENERIC_TOTAL),
-              "device_get": fetches}
+              "device_get": fetches, "programs": jitcache.runs()}
     return rows, counts, dt
 
 
@@ -1420,22 +1449,72 @@ def probe_slot_reads(torch, hp, tkeys, tlos, sk, probes):
                    + torch.unique(torch.cat(verified)).numel() * 8)
 
 
-def record_probe_chunks(hp) -> dict:
-    """Wrap hash_probe.probe_chunk for the main path's run: per (query,
-    route, mode, build) the kernel calls made and the first one's
-    arguments. The caller sets rec["query"] before each query and puts
-    rec["real"] back when the run is over."""
-    rec = {"query": None, "calls": {}, "args": {}, "real": hp.probe_chunk}
+_PROBE_RECS: list = []  # record_probe_chunks' open records
+
+
+def _count_probe_call(route: str, mode: str, build: int) -> None:
+    for rec in _PROBE_RECS:
+        key = (rec["query"], route, mode, build)
+        rec["calls"][key] = rec["calls"].get(key, 0) + 1
+
+
+def install_probe_wrapper(hp) -> None:
+    """Wrap hash_probe.probe_chunk once, before any CUDA graph is captured
+    (a graph replays the function it captured: the first install empties
+    the built-program cache). Each call counts into every open
+    record_probe_chunks record, at each replay when a graph captured it,
+    and an eager call's arguments go to the open records that keep them."""
+    from tidb_tpu_torch.utils import dispatch, jitcache
+
+    if getattr(hp.probe_chunk, "_records", False):
+        return
+    real = hp.probe_chunk
 
     def recording(*args, **kw):
-        key = (rec["query"], kw["route"], "flags" if kw.get("flags_only") else "full",
-               args[5].data_ptr())
-        rec["calls"][key] = rec["calls"].get(key, 0) + 1
-        rec["args"].setdefault(key, (args, kw))
-        return rec["real"](*args, **kw)
+        mode = "flags" if kw.get("flags_only") else "full"
+        build = args[5].shape[0]
+        if not dispatch.capturing():
+            for rec in _PROBE_RECS:
+                if rec["keep_args"]:
+                    rec["args"].setdefault((rec["query"], kw["route"], mode, build), (args, kw))
+        dispatch.on_execute(_count_probe_call, kw["route"], mode, build)
+        return real(*args, **kw)
 
+    recording._records = True
+    jitcache.clear()
     hp.probe_chunk = recording
+
+
+def record_probe_chunks(hp, args: bool = False) -> dict:
+    """Open a record of hash_probe.probe_chunk's calls: per (query, route,
+    mode, build rows) the kernel calls made (replays included), and with
+    `args` (a caller that reads them) an eager call's arguments; the
+    built-program cache is then emptied, so every statement warms up
+    eagerly (a capture's arguments are the graph's own buffers). The
+    caller sets rec["query"] before each query and closes the record with
+    stop_recording(rec); recorded_modes(rec) gives its calls by route and
+    mode."""
+    from tidb_tpu_torch.utils import jitcache
+
+    install_probe_wrapper(hp)
+    if args:
+        jitcache.clear()
+    rec = {"query": None, "calls": {}, "args": {}, "keep_args": args}
+    _PROBE_RECS.append(rec)
     return rec
+
+
+def stop_recording(rec: dict) -> None:
+    if rec in _PROBE_RECS:
+        _PROBE_RECS.remove(rec)
+
+
+def recorded_modes(rec: dict) -> dict:
+    """tidb_probe_count's launches by "route/mode" in the record `rec`."""
+    modes = {}
+    for (_q, route, mode, _b), n in rec["calls"].items():
+        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    return modes
 
 
 def with_probe_modes(hp, run) -> dict:
@@ -1445,11 +1524,8 @@ def with_probe_modes(hp, run) -> dict:
     try:
         report = run()
     finally:
-        hp.probe_chunk = probes["real"]
-    modes = {}
-    for (_q, route, mode, _b), n in probes["calls"].items():
-        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
-    report["probe_modes"] = modes
+        stop_recording(probes)
+    report["probe_modes"] = recorded_modes(probes)
     return report
 
 
@@ -1457,9 +1533,9 @@ def main_path_args(rec, query: str, route: str, mode: str):
     """The recorded arguments of the build `query` probed most often along
     `route` in `mode` ('full' or 'flags'); of another query's build when
     this plan sent `query` elsewhere; None when no query took the route."""
-    keys = [k for k in rec["calls"] if k[:3] == (query, route, mode)]
+    keys = [k for k in rec["calls"] if k[:3] == (query, route, mode) and k in rec["args"]]
     if not keys:
-        keys = [k for k in rec["calls"] if k[1:3] == (route, mode)]
+        keys = [k for k in rec["calls"] if k[1:3] == (route, mode) and k in rec["args"]]
     if not keys:
         return None
     return rec["args"][max(keys, key=rec["calls"].get)]
@@ -1557,7 +1633,7 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
     # pipelines. The first runs of Q1 and Q6 build the segment stores and
     # fill the device buffer cache; their second runs stage nothing
     results, per_query, cold = {}, {}, {}
-    probes = record_probe_chunks(hp)
+    probes = record_probe_chunks(hp, args=True)
     for run in ("q1", "q1_warm", "q6", "q6_warm", "q3", "q5", "q18"):
         qname = run.split("_")[0]
         # the plan this run executes: segment stores built by earlier runs
@@ -1586,7 +1662,7 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
             f"aggregated chunks {agg_chunks[0]}; device generic runs {cnt['generic_runs']}")
         check_path(run, cnt, agg_chunks[0], want)
         cnt["want"] = want
-    hp.probe_chunk = probes["real"]
+    stop_recording(probes)
     for q in ("q1", "q6"):
         cold_c, warm_c = per_query[q], per_query[q + "_warm"]
         if not (cold_c["staged_batches"] == cold_c["aggregated_chunks"]
@@ -1598,9 +1674,8 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
             raise AssertionError(f"{q}'s second run aggregated another batch count")
     if per_query["q18"]["routes"]["table"] <= 0:
         log("note: q18 made no table-route probe at SF1 under this plan")
-    probe_modes = {}  # (route, mode) -> kernel launches over the five queries
-    for (_q, route, mode, _b), n in probes["calls"].items():
-        probe_modes[f"{route}/{mode}"] = probe_modes.get(f"{route}/{mode}", 0) + n
+    # (route, mode) -> kernel launches over the five queries
+    probe_modes = recorded_modes(probes)
     log(f"probe_count launches by route and mode: {probe_modes}")
 
     def check_results(res, label):
@@ -1673,21 +1748,27 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
 # the classic mode's findings (the raw path's copies) are read from Q1,
 # Q6 and Q3 (the classic Q5 and Q18 profiles were cut when the mesh
 # phase took its share of the script's time limit)
-UNPROFILED = {"fused_cache": ("q18",), "fused_nocache": ("q1", "q6", "q3", "q5"),
-              "fused_nocache_inline": ("q1", "q6", "q3", "q5"), "classic": ("q5",)}
+UNPROFILED = {"fused_cache": ("q1", "q6", "q3", "q5", "q18"),
+              "fused_nocache": ("q1", "q6", "q3", "q5"),
+              "fused_nocache_inline": ("q1", "q6", "q3", "q5"),
+              "classic": ("q6", "q3", "q5")}
 # (to make room for the DCN phase inside the time limit:
 # fused_cache no longer profiles Q18, whose profiled run took 39 s at
 # SF1; the two cache-off modes profile nothing; Q18 runs in fused_cache
-# alone, the host engine runs Q3 alone)
+# alone, the host engine runs Q3 alone. Since the graphs step, which
+# profiles the default path by replay, fused_cache is not run here, and
+# classic profiles Q1 alone, cuts for the script's time limit)
 # the stats phase's queries left unprofiled: at SF1 on an H100 (700 W)
 # Q18's profiled run took 59.9 s and Q5's 21.0 s, and phase 3 profiles
 # both already
 STATS_UNPROFILED = ("q1", "q3", "q5", "q18")  # Q1 and Q3 too since the DCN phase
 
 
-def phase_modes(torch, s, queries, n_rows) -> tuple:
+def phase_modes(torch, s, queries, n_rows, fused_cache_s=None) -> tuple:
     """Phase 3's query times: warm medians of 3 and one profiled warm run of
-    each query in each mode. Returns (times, profiles)."""
+    each query in each mode. With `fused_cache_s` ({query: s}, the graphs
+    step's replay medians of the same default path) fused_cache is not run
+    again. Returns (times, profiles)."""
     from tidb_tpu_torch.executor import pipeline as pl
     from tidb_tpu_torch.storage.tpch_queries import Q
 
@@ -1714,6 +1795,11 @@ def phase_modes(torch, s, queries, n_rows) -> tuple:
         for stmt in sets:
             s.execute(stmt)
         times[mode], profiles[mode] = {}, {}
+        if mode == "fused_cache" and fused_cache_s is not None:
+            times[mode] = dict(fused_cache_s)
+            log(f"{mode}: the graphs step's replay medians, ms "
+                f"{ {q: round(v * 1e3, 3) for q, v in fused_cache_s.items()} }")
+            continue
         for qname in queries:
             if mode == "generic_host" and qname != "q3" \
                     or mode != "fused_cache" and qname == "q18":
@@ -1937,6 +2023,7 @@ def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
     the steps checked per statement."""
     from tidb_tpu_torch.executor import agg_device as ad
     from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.utils import jitcache
 
     calls = {}
 
@@ -1963,6 +2050,10 @@ def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
     try:
         for name, sql in sqls.items():
             calls.clear()
+            # a graph captured by an earlier statement would replay this
+            # one's batches past the wrappers: each statement warms up and
+            # captures its own (both under the sync debug mode)
+            jitcache.clear()
             rows, cnt, _dt = run_query(s, mods, sql)
             gen = cnt["generic_runs"]
             # every step the statement ran went through a wrapper: a fused
@@ -1982,6 +2073,150 @@ def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
             restore()
         s.execute("set tidb_tpu_pipeline_prefetch_depth = 2")
     return out
+
+
+# ---------------------------------------------------------------------------
+# one device program per fused batch: CUDA-graph replay against eager
+# ---------------------------------------------------------------------------
+
+GRAPH_QUERIES = ("q1", "q6", "q3", "q5", "q18")
+GRAPH_WARM = 3             # timed warm runs of each mode
+GRAPH_MAX_RUNS = 6         # graph runs until one plan's second warm run
+GRAPH_EAGER_PROFILED = ("q1",)  # eager profiles (the others: PERF.md)
+# the replayed run profiled: Q18's eager outer aggregation (27,000 launches)
+# made its profiled run 29 s at SF1, a cut for the script's time limit
+GRAPH_PROFILED = ("q1", "q6", "q3", "q5")
+
+
+def _site_calls(programs: dict) -> dict:
+    return {ns: sum(r.values()) for ns, r in programs.items()}
+
+
+def phase_graphs(torch, np, s, mods, results) -> dict:
+    """Q1, Q6, Q3, Q5 and Q18 at SF1, eagerly (utils/jitcache.py's
+    explicit switch, jitcache.eager()) and by CUDA-graph replay, in turns
+    on one session. Per query: the eager run and its per-site calls;
+    graph runs from an empty cache (captures, then replays) until one
+    plan runs a third time (plan feedback may move it), each with the
+    rows equal to phase 2's (which equal numpy) and to the eager run's,
+    the launch contract of its plan held (tidb_segagg once per
+    aggregated chunk, tidb_probe_count once per probe chunk), and on that
+    plan's second warm run no eager call and no capture, every fused
+    batch a replay, the kernels' launches, the probe routes and the sanctioned
+    device->host fetches equal to the eager run's (same plan); then the
+    warm median of GRAPH_WARM runs of each mode, the bytes the graphs
+    hold, and one profiled warm run by replay of GRAPH_PROFILED (and
+    eagerly of GRAPH_EAGER_PROFILED): device busy and idle, host launches
+    (kernels and graph launches apart)."""
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    agg_chunks = count_segment_chunks()
+    rep = {"max_bytes": jitcache.max_bytes()}
+    for q in GRAPH_QUERIES:
+        sql = Q[q][0]
+        r = rep[q] = {}
+        with jitcache.eager():
+            # a run first: the statements in between may have evicted this
+            # query's builds from the device buffer cache (a rebuild reads
+            # the host), and the counted run must find them as the replays do
+            s.query(sql)
+            plan0 = explain_text(planned(s, sql))
+            agg_chunks[0] = 0
+            rows, eager, _dt = run_query(s, mods, sql)
+            eager["aggregated_chunks"] = agg_chunks[0]
+            if rows != results[q]:
+                raise AssertionError(f"graphs {q}: the eager run's rows differ from phase 2's")
+            warm = []
+            for _ in range(GRAPH_WARM):
+                t0 = time.perf_counter()
+                again = s.query(sql)
+                warm.append(time.perf_counter() - t0)
+                if again != rows:
+                    raise AssertionError(f"graphs {q}: an eager warm run's rows differ")
+        if any(set(v) != {"eager"} for v in eager["programs"].values()):
+            raise AssertionError(f"graphs {q}: the eager switch ran a graph: "
+                                 f"{eager['programs']}")
+        r["eager"] = {"programs": eager["programs"], "launches": eager["launches"],
+                      "routes": eager["routes"], "device_get": eager["device_get"],
+                      "warm_s": warm, "median_s": statistics.median(warm)}
+        jitcache.clear()
+        runs, seen, last = [], {}, None
+        for i in range(GRAPH_MAX_RUNS):
+            # plan feedback may move the plan between runs (Q18's
+            # push-down exploration): the checked run is the first whose
+            # plan ran twice before it, cold and warm
+            plan = planned(s, sql)
+            text = explain_text(plan)
+            want = plan_fragments(plan, s._plan_capacity(plan))
+            agg_chunks[0] = 0
+            got, cnt, dt = run_query(s, mods, sql)
+            cnt["aggregated_chunks"] = agg_chunks[0]
+            if got != rows:
+                raise AssertionError(f"graphs {q} run {i + 1}: rows differ from the eager run's")
+            check_path(f"graphs {q} run {i + 1}", cnt, agg_chunks[0], want)
+            cnt["same_plan"] = text == plan0
+            cnt["plan_runs_before"] = seen.get(text, 0)
+            seen[text] = cnt["plan_runs_before"] + 1
+            runs.append(cnt)
+            log(f"graphs {q} run {i + 1}: {dt * 1e3:.3f} ms; cached programs "
+                f"{cnt['programs']}; launches {cnt['launches']}; routes {cnt['routes']}; "
+                f"device_get {cnt['device_get']}; aggregated chunks {agg_chunks[0]}; "
+                f"this plan's runs before {cnt['plan_runs_before']}")
+            if cnt["plan_runs_before"] >= 2:
+                last = cnt
+                break
+        if last is None:
+            raise AssertionError(f"graphs {q}: no plan ran a third time in {GRAPH_MAX_RUNS} runs")
+        if not last["programs"]:
+            raise AssertionError(f"graphs {q}: no fused batch went through the cache")
+        for ns, by in last["programs"].items():
+            if by.get("eager") or by.get("capture") or not by.get("replay"):
+                raise AssertionError(f"graphs {q}: the second warm run's {ns} batches ran "
+                                     f"{by}, not all by replay")
+        if last["same_plan"]:
+            if _site_calls(last["programs"]) != _site_calls(eager["programs"]):
+                raise AssertionError(f"graphs {q}: replays {last['programs']} against the "
+                                     f"eager run's batches {eager['programs']}")
+            for k in ("launches", "routes", "device_get"):
+                if last[k] != eager[k]:
+                    raise AssertionError(f"graphs {q}: {k} {last[k]} by replay, {eager[k]} "
+                                         f"eagerly")
+        else:
+            log(f"note: graphs {q}: plan feedback moved the plan between the eager run "
+                f"and the replays; counts compared with the plan's own contract only")
+        warm = []
+        for _ in range(GRAPH_WARM):
+            t0 = time.perf_counter()
+            again = s.query(sql)
+            warm.append(time.perf_counter() - t0)
+            if again != rows:
+                raise AssertionError(f"graphs {q}: a replayed warm run's rows differ")
+        r["graphs"] = {"runs": [{k: c[k] for k in ("programs", "launches", "routes",
+                                                   "device_get", "aggregated_chunks",
+                                                   "same_plan", "plan_runs_before")}
+                                for c in runs],
+                       "warm_s": warm, "median_s": statistics.median(warm),
+                       "graph_bytes": jitcache.graph_bytes(),
+                       "resident_bytes": jitcache.resident_bytes()}
+        line = (f"graphs {q}: warm median eager {r['eager']['median_s'] * 1e3:.3f} ms, "
+                f"replay {r['graphs']['median_s'] * 1e3:.3f} ms (runs eager "
+                f"{[round(x * 1e3, 3) for x in r['eager']['warm_s']]}, replay "
+                f"{[round(x * 1e3, 3) for x in warm]}); graph bytes "
+                f"{r['graphs']['graph_bytes']} ({r['graphs']['resident_bytes']} resident, "
+                f"bound {jitcache.max_bytes()})")
+        if q in GRAPH_PROFILED:
+            r["graphs"]["profile"] = prof = profile_query(torch, s, sql)
+            line += (f"; replay profile: device busy {prof['device_busy_us'] / 1e3:.3f} ms, "
+                     f"idle {prof['idle_share']:.3f}, host launches {prof['host_launches']}")
+        if q in GRAPH_EAGER_PROFILED:
+            with jitcache.eager():
+                r["eager"]["profile"] = ep = profile_query(torch, s, sql)
+            line += (f"; eager profile: device busy {ep['device_busy_us'] / 1e3:.3f} ms, "
+                     f"idle {ep['idle_share']:.3f}, host launches {ep['host_launches']}")
+        log(line)
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -2506,14 +2741,12 @@ def phase_refresh(torch, np, s, mods, load, sf: float = 1.0) -> dict:
             f"{step['segment_store']}); Q6 zero rows after TRUNCATE, the re-insert seen; "
             f"statements {[(x['sql'][:40], round(x['s'], 3)) for x in step['statements']]}")
     finally:
-        hp.probe_chunk = probes["real"]
+        stop_recording(probes)
     total = {}
     for step in report["steps"].values():
         for k, v in step["launches"].items():
             total[k] = total.get(k, 0) + v
-    modes = {}
-    for (_q, route, mode, _b), n in probes["calls"].items():
-        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    modes = recorded_modes(probes)
     report["launches"], report["probe_modes"] = total, modes
     if not total.get("segagg") or not total.get("probe_count"):
         raise AssertionError(f"the refresh phase missed a kernel of its path: {total}")
@@ -2741,10 +2974,8 @@ def phase_schema(torch, np, s, mods, sf: float = 1.0) -> dict:
     try:
         report = schema_steps(np, s, mods, sf)
     finally:
-        hp.probe_chunk = probes["real"]
-    modes = {}
-    for (_q, route, mode, _b), n in probes["calls"].items():
-        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+        stop_recording(probes)
+    modes = recorded_modes(probes)
     report["probe_modes"] = modes
     launches = {}
     for part in ("partitions", "constraints", "ddl"):
@@ -3391,7 +3622,7 @@ LOAD_ROWS = 300_000  # orders' rows through OUTFILE and LOAD DATA
 # took its share of the script's time limit, 5,000 and 500 before the
 # DCN phase did: the memtable's 4,096-row flush is no longer reached on
 # the card)
-TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 1_000, 500, 1_000
+TRICKLE, TRICKLE_COLUMNAR, TEMP_ROWS = 250, 125, 1_000
 PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
 STORAGE_AGG = ("select o_orderpriority, count(*), sum(o_totalprice) from {t} "
                "group by o_orderpriority order by o_orderpriority")
@@ -3866,7 +4097,7 @@ POINT_SQL = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_order
              " where o_orderkey = ?")
 # the point-select fleet: connections, and statements from each (2,000
 # each before the mesh phase took its share of the script's time limit)
-POINT_CONNS, POINT_STMTS = 16, 500  # 1,000 before the DCN phase (the time limit)
+POINT_CONNS, POINT_STMTS = 16, 100  # 1,000 before the DCN phase, 500 before the graphs step (the time limit)
 # the text rows of the five queries as the port's Session types them
 WIRE_TYPES = {"q1": (str, str, str, str, str, str, float, float, float, int),
               "q6": (str,), "q3": (int, str, str, int), "q5": (str, str),
@@ -4056,7 +4287,7 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
     from tidb_tpu_torch.server import Server
     from tidb_tpu_torch.server.client import Client, ServerError
     from tidb_tpu_torch.storage.tpch_queries import Q
-    from tidb_tpu_torch.utils import dispatch
+    from tidb_tpu_torch.utils import dispatch, jitcache
     from tidb_tpu_torch.utils import metrics as M
 
     seg_mod, hp, jk, pl, st, agg_mod = mods
@@ -4146,7 +4377,8 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
             s.query(Q[q][0])
             solo[q] = dispatch.count() - d0
         cat.global_vars["tidb_slow_log_threshold"] = 0  # a slow-log row each
-        n_slow0 = len(cat.slow_queries)
+        # the log keeps its last 128 rows: mark where this step's begin
+        cat.slow_queries.clear()
         acl = [connect() for _ in range(4)]
         orders_ = [("q1", "q3", "q18"), ("q3", "q18", "q1"), ("q18", "q1", "q3"),
                    ("q1", "q18", "q3")]
@@ -4160,6 +4392,7 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
                 errs.append(e)
 
         ts = [threading.Thread(target=analyst, args=(i,)) for i in range(4)]
+        jitcache.reset_runs()
         t0 = time.perf_counter()
         for t in ts:
             t.start()
@@ -4169,10 +4402,18 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
         cat.global_vars["tidb_slow_log_threshold"] = 300
         if errs or any(t.is_alive() for t in ts):
             raise AssertionError(f"concurrent analytics failed: {errs[:3]}")
+        # the connections' fused batches replayed CUDA graphs while the
+        # other connections ran theirs
+        rep["concurrent_programs"] = jitcache.runs()
+        if not sum(r.get("replay", 0) for r in rep["concurrent_programs"].values()):
+            raise AssertionError(f"the concurrent connections replayed no graph: "
+                                 f"{rep['concurrent_programs']}")
+        log(f"server concurrent analytics: cached programs by how they ran "
+            f"{rep['concurrent_programs']}")
         for (i, q), rows in got.items():
             if rows != res[q]:
                 raise AssertionError(f"concurrent {q} on connection {i} differs")
-        rows_slow = list(cat.slow_queries)[n_slow0:]
+        rows_slow = list(cat.slow_queries)
         per_stmt = {}
         for q in ("q1", "q3", "q18"):
             text = Q[q][0].strip()[:2048]
@@ -4631,7 +4872,9 @@ def phase_planner(torch, np, s, mods) -> dict:
         real_expand = jk.expand_tiles
 
         def counted_expand(*a, **kw):
-            expands[0] += 1
+            from tidb_tpu_torch.utils import dispatch
+
+            dispatch.on_execute(_bump, expands)  # at each replay too
             return real_expand(*a, **kw)
 
         jk.expand_tiles = counted_expand
@@ -4767,7 +5010,7 @@ MESH_SHARDS = 4  # shards of the mesh laid over the one card
 # the mesh server's point-select fleet (POINT_CONNS connections of this
 # many statements each) and the connections that each stage their own
 # sharding of lineitem
-MESH_POINT_STMTS, MESH_MEM_CONNS = 100, 4
+MESH_POINT_STMTS, MESH_MEM_CONNS = 25, 4
 
 
 def mesh_executor_names() -> set:
@@ -4857,8 +5100,10 @@ def record_largest_segagg() -> dict:
     rec = {"args": None, "size": (-1, -1)}
 
     def recording(seg, G, sel, accs):
+        from tidb_tpu_torch.utils import dispatch
+
         size = (seg.shape[0], len(accs))
-        if size > rec["size"]:
+        if size > rec["size"] and not dispatch.capturing():
             rec["size"], rec["args"] = size, (seg, G, sel, list(accs))
         return real(seg, G, sel, accs)
 
@@ -4873,7 +5118,7 @@ def record_largest_segagg() -> dict:
 def largest_probe_args(rec, route: str, mode: str):
     """The recorded (args, kw) of the `route`/`mode` probe_count call over
     the most probe rows (then the largest build); None if none was made."""
-    keys = [k for k in rec["calls"] if k[1:3] == (route, mode)]
+    keys = [k for k in rec["args"] if k[1:3] == (route, mode)]
     if not keys:
         return None
     size = lambda k: (rec["args"][k][0][0].shape[0], rec["args"][k][0][5].shape[0])  # noqa: E731
@@ -4912,16 +5157,14 @@ def phase_mesh(torch, np, s, mods, grid_cat, grid_oracle) -> tuple:
     # the mesh runs alone are recorded: probe_count by route and mode, and
     # the largest call of each kernel for mesh_kernel_rows
     hp = mods[1]
-    probes = record_probe_chunks(hp)
+    probes = record_probe_chunks(hp, args=True)
     segs = record_largest_segagg()
     try:
         mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle, rep)
     finally:
-        hp.probe_chunk = probes["real"]
+        stop_recording(probes)
         segs["restore"]()
-    modes = {}
-    for (_q, route, mode, _b), n in probes["calls"].items():
-        modes[f"{route}/{mode}"] = modes.get(f"{route}/{mode}", 0) + n
+    modes = recorded_modes(probes)
     rep["probe_modes"] = modes
     shapes = {m: largest_probe_args(probes, *m.split("/")) for m in modes}
     shapes["segagg"] = segs["args"]
@@ -5906,7 +6149,7 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
 WORKLOAD_SEED = 7
 SSB_SF = 1.0      # 1,500,000 orders, about 6M lineorder rows
 Q95_SF = 10.0     # the generator's sf: 600,000 orders, about 1.5M web_sales rows
-WORKLOAD_WARM = 3
+WORKLOAD_WARM = 2
 
 # per SSB query: the fact filter, each dimension's filter (by prefix: d_
 # date, c_ customer, s_ supplier, p_ part), the SELECT list ("@" is the
@@ -6345,6 +6588,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
     os.makedirs(OUT_DIR, exist_ok=True)
     mods = (seg_mod, hp, jk, pl, st, agg_mod)
+    # before any CUDA graph is captured: the graphs hold the wrapper
+    install_probe_wrapper(hp)
 
     t0 = time.perf_counter()
     nvcc_build.build_libraries([os.path.join(nvcc_build.CSRC, m.SOURCE)
@@ -6388,15 +6633,12 @@ def main() -> int:
     # -- workloads: SSB's 13 queries at SF1 and TPC-DS Q95 at sf 10 ----------
     # (the probe calls are recorded: Q95's semi joins give the kernels
     # line its direct flags-only row at the main path's shape)
-    wl_probes = record_probe_chunks(hp)
+    wl_probes = record_probe_chunks(hp, args=True)
     try:
         workloads = phase_workloads(torch, np, Session, mods, rec=wl_probes)
     finally:
-        hp.probe_chunk = wl_probes["real"]
-    workloads["probe_modes"] = {}
-    for (_q, route, mode, _b), n in wl_probes["calls"].items():
-        key = f"{route}/{mode}"
-        workloads["probe_modes"][key] = workloads["probe_modes"].get(key, 0) + n
+        stop_recording(wl_probes)
+    workloads["probe_modes"] = recorded_modes(wl_probes)
     log(f"workloads: probe_count by route and mode {workloads['probe_modes']}")
 
     # -- phase 2 ------------------------------------------------------------
@@ -6438,9 +6680,14 @@ def main() -> int:
                                                 "q18_subquery": q18_sub})
     topn = phase_topn(np, s, mods)
     sanitized = phase_sanitized(torch, np, s, mods, results)
+    t0 = time.perf_counter()
+    graphs = phase_graphs(torch, np, s, mods, results)
+    graphs["s"] = time.perf_counter() - t0
+    log(f"graphs phase passed in {graphs['s']:.1f} s")
 
     # -- phase 3 ------------------------------------------------------------
-    times, profiles = phase_modes(torch, s, queries, n_rows)
+    times, profiles = phase_modes(torch, s, queries, n_rows,
+                                  {q: graphs[q]["graphs"]["median_s"] for q in queries})
 
     # Q18's IN subquery alone (a generic aggregation of lineitem by order
     # key, fused on the device; and on the host engine): how much of Q18 is
@@ -6727,6 +6974,7 @@ def main() -> int:
               "schema": schema, "stats": stats_report, "window": window,
               "server": server, "storage": storage, "planner": planner, "mesh": mesh,
               "dcn": dcn, "workloads": workloads, "sanitized": sanitized,
+              "graphs": graphs,
               "segsum_bench": segsum_bench, "kernels": rows}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

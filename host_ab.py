@@ -2,10 +2,11 @@
 """Host-side A/B of the port (tidb_tpu_torch) on one card: the five SF1
 TPC-H queries' warm medians, the 22 SF0.1 queries' warm medians, the
 16-connection point-select rate, and what the built-program cache
-(utils/jitcache.py) costs and saves on the host.
+(utils/jitcache.py: one CUDA graph per fused batch's signature) costs and
+saves against the eager path.
 
     python3 host_ab.py [--root DIR] [--label NAME] [--out PATH] [--sf SF]
-                       [--device cuda|cpu] [--no-cache-probe]
+                       [--device cuda|cpu] [--no-cache-probe] [--host-profile]
 
 `--root` is a checkout of the repository whose tidb_tpu_torch is measured
 (by default the one this file is in); the helpers (the numpy evaluations,
@@ -23,12 +24,21 @@ Steps, on one Session each (seed 7):
    statements/s, p50 and p99 client latency.
 3. TPC-H at SF0.1 (chunk capacity 8,192): the 22 queries, one cold and
    three warm runs each (rows equal across runs).
-4. Where the checkout has utils/jitcache.py, unless --no-cache-probe is
-   given: steps 3 and 2 again with the cache bypassed (every cached_jit
-   call builds), then both once more with the cache on and each key and
-   build timed: the reprs that make the keys (each site module's `repr`,
-   wrapped) and the builds (`jitcache.get_or_build`, wrapped), by site.
-   The bypassed runs' rows must equal the cached runs'.
+4. Unless --no-cache-probe is given, where the checkout's
+   utils/jitcache.py captures CUDA graphs (it has `set_graphs`): steps 1,
+   3 and 2 again on the eager path (`jitcache.eager()`, the explicit
+   switch), against the graph replay of steps 1-3 in the same process,
+   with the bytes the graphs hold; then step 3 once more with each key's
+   repr and each build timed, by site. Where the checkout's jitcache has
+   no graphs: steps 3 and 2 with the cache bypassed (every cached_jit
+   call builds), then both with each key and build timed. The eager or
+   bypassed runs' rows must equal the others'.
+
+With `--host-profile` it runs instead: TPC-H at `--sf`, then for Q1, Q6,
+Q3 and Q5 in that order, on the eager path (`jitcache.eager()`) and by graph replay, four
+warm runs, one timed run and one run under cProfile: the wall time and
+the functions that took the most host time (tottime), in the report's
+"host_profile".
 
 Prints one JSON line last and writes the report to `--out`
 (chiprun_out/host_ab_<label>.json by default). Exits non-zero without a
@@ -210,6 +220,51 @@ class CacheProbe:
         return {"keys": keys, "builds": builds}
 
 
+def host_profile(s, device: str, top: int = 12) -> dict:
+    """Q1, Q6, Q3 and Q5 on the eager path and by replay: a timed warm run and
+    the top host functions of a profiled one (cProfile, by tottime)."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    try:
+        for q in ("q1", "q6", "q3", "q5"):
+            for mode in ("eager", "graphs"):
+                jitcache.set_graphs(mode == "graphs")
+                for _ in range(4):
+                    s.query(Q[q][0])
+                sync()
+                t0 = time.perf_counter()
+                s.query(Q[q][0])
+                sync()
+                wall = time.perf_counter() - t0
+                prof = cProfile.Profile()
+                prof.enable()
+                s.query(Q[q][0])
+                sync()
+                prof.disable()
+                stats = pstats.Stats(prof).stats
+                rows = sorted(((tt, ct, n, f"{fn[0]}:{fn[1]}({fn[2]})")
+                               for fn, (_cc, n, tt, ct, _callers) in stats.items()),
+                              reverse=True)[:top]
+                out[f"{q}_{mode}"] = {
+                    "wall_ms": wall * 1e3,
+                    "top": [{"fn": f, "calls": n, "tottime_ms": tt * 1e3, "cumtime_ms": ct * 1e3}
+                            for tt, ct, n, f in rows]}
+    finally:
+        jitcache.set_graphs(True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
@@ -219,6 +274,7 @@ def main(argv=None) -> int:
     ap.add_argument("--grid-sf", type=float, default=0.1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--no-cache-probe", action="store_true")
+    ap.add_argument("--host-profile", action="store_true")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -244,6 +300,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     s.load_tpch(args.sf)
     rep["load_s"] = time.perf_counter() - t0
+    if args.host_profile:
+        rep["host_profile"] = host_profile(s, args.device)
+        return _write(args, rep, {"label": args.label, "card": rep["card"], "host_profile": {
+            k: {"wall_ms": round(v["wall_ms"], 3), "top": v["top"][0]}
+            for k, v in rep["host_profile"].items()}})
     rep["five"] = five_queries(np, cs, s)
     rep["points"] = point_selects(np, cs, s.catalog, args.device)
     g = Session(device=args.device, chunk_capacity=8192)
@@ -255,7 +316,24 @@ def main(argv=None) -> int:
         jitcache = None
     if args.no_cache_probe:
         jitcache = None
-    if jitcache is not None:
+    if jitcache is not None and hasattr(jitcache, "set_graphs"):
+        rep["graph_bytes"] = jitcache.graph_bytes()
+        rep["graph_resident_bytes"] = jitcache.resident_bytes()
+        with jitcache.eager():
+            rep["five_eager"] = five_queries(np, cs, s)
+            rep["grid_eager"], rows = grid(g)
+            rep["points_eager"] = point_selects(np, cs, s.catalog, args.device)
+        if rows != grid_rows:
+            raise AssertionError("the grid's rows differ on the eager path")
+        probe = CacheProbe(jitcache, bypass=False, time_keys=True)
+        try:
+            rep["grid_probed"], rows = grid(g)
+            rep["grid_costs"] = probe.report()
+        finally:
+            probe.restore()
+        if rows != grid_rows:
+            raise AssertionError("the grid's rows differ under the probe")
+    elif jitcache is not None:
         jitcache.clear()
         probe = CacheProbe(jitcache, bypass=True, time_keys=False)
         try:
@@ -281,17 +359,31 @@ def main(argv=None) -> int:
         finally:
             probe.restore()
     rep["seconds"] = time.perf_counter() - t_all
+    summary = {"label": args.label, "card": rep["card"],
+               "five_median_ms": {q: round(v["median_ms"], 3) for q, v in rep["five"].items()},
+               "grid_sum_median_ms": round(rep["grid"]["sum_median_ms"], 3),
+               "point_stmt_per_s": round(rep["points"]["stmt_per_s"], 1),
+               "point_p50_p99_ms": [round(rep["points"]["p50_ms"], 3),
+                                    round(rep["points"]["p99_ms"], 3)]}
+    if "five_eager" in rep:
+        summary["five_eager_median_ms"] = {q: round(v["median_ms"], 3)
+                                           for q, v in rep["five_eager"].items()}
+        summary["grid_eager_sum_median_ms"] = round(rep["grid_eager"]["sum_median_ms"], 3)
+        summary["point_eager_stmt_per_s"] = round(rep["points_eager"]["stmt_per_s"], 1)
+        summary["graph_resident_bytes"] = rep["graph_resident_bytes"]
+    elif jitcache is not None:
+        summary["grid_bypassed_sum_median_ms"] = round(rep["grid_bypassed"]["sum_median_ms"], 3)
+        summary["point_bypassed_stmt_per_s"] = round(rep["points_bypassed"]["stmt_per_s"], 1)
+    return _write(args, rep, summary)
+
+
+def _write(args, rep: dict, summary: dict) -> int:
+    """The report to --out (chiprun_out/host_ab_<label>.json by default),
+    the summary as the last line."""
     out = args.out or os.path.join(HERE, "chiprun_out", f"host_ab_{args.label}.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump(rep, f, indent=1)
-    summary = {"label": args.label, "card": rep["card"],
-               "five_median_ms": {q: round(v["median_ms"], 3) for q, v in rep["five"].items()},
-               "grid_sum_median_ms": round(rep["grid"]["sum_median_ms"], 3),
-               "point_stmt_per_s": round(rep["points"]["stmt_per_s"], 1)}
-    if jitcache is not None:
-        summary["grid_bypassed_sum_median_ms"] = round(rep["grid_bypassed"]["sum_median_ms"], 3)
-        summary["point_bypassed_stmt_per_s"] = round(rep["points_bypassed"]["stmt_per_s"], 1)
     print(json.dumps(summary))
     return 0
 

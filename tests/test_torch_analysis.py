@@ -42,8 +42,9 @@ FIXTURES = os.path.join(ROOT, "tests", "analysis_fixtures")
 PKG = "tidb_tpu_torch"
 
 # the port's allowlist, counted (the reference's tree: 28 suppressions,
-# 6 host-sync and 2 lifecycle annotations)
-SUPPRESSIONS = 13
+# 6 host-sync and 2 lifecycle annotations); the fourteenth is the CUDA
+# graph capture in utils/jitcache.py, which its module doc sanctions
+SUPPRESSIONS = 14
 HOST_SYNC_ANNOTATIONS = 5
 LIFECYCLE_ANNOTATIONS = 2
 

@@ -323,3 +323,58 @@ def test_retried_partial_keeps_the_newer_attempts_cursor():
         assert_clean(ws, cl)
     finally:
         cl.shutdown()
+
+
+def test_retry_that_enters_the_executor_first_keeps_its_cursor():
+    """The retry's thread reaches Worker._partial_paged before the first
+    attempt's (each connection has its own thread): the first attempt's
+    thread is held in Worker._handle until the retry is inside, and the
+    retry waits there until the first attempt is done. Ranked by arrival,
+    the held-back first attempt took the newer rank, evicted nothing yet
+    open and pinned its own cursor, and the retry, overtaken, returned
+    one page with no cursor. Ranked by the coordinator's attempt number,
+    the first attempt opens nothing and the retry's cursor drains: the
+    scan equals the no-fault rows and no cursor is left. Events, not
+    sleeps, order the threads."""
+    ws = start_workers(pdcn, 1)
+    w = ws[0]
+    cl = make_cluster(pdcn, ws, rpc_timeout_s=15.0, connect_timeout_s=5.0)
+    cl.PAGE_ROWS = PAGE
+    sql = QUERIES["scan"]
+    retry_in, first_done = threading.Event(), threading.Event()
+    held = {"armed": False, "conn": None}
+    real_handle = w._handle
+
+    def handle(msg):
+        if msg.get("cmd") != "partial_paged":
+            return real_handle(msg)
+        if not held["armed"]:
+            # the no-fault run: the cluster's own connection's thread
+            held["conn"] = threading.get_ident()
+            return real_handle(msg)
+        if threading.get_ident() != held["conn"]:
+            return real_handle(msg)  # the retry, on its new connection
+        assert retry_in.wait(10), "the retry never reached the executor"
+        try:
+            return real_handle(msg)
+        finally:
+            first_done.set()
+
+    def retry_inside():
+        retry_in.set()
+        assert first_done.wait(10), "the first attempt never finished"
+
+    w._handle = handle
+    try:
+        cl.broadcast_exec("create table c (k bigint, grp bigint, v bigint)")
+        ks = np.arange(N_ROWS, dtype=np.int64)
+        cl.load_partition(0, "c", arrays={"k": ks, "grp": ks % 7, "v": ks * 3})
+        want = cl.query(sql)
+        held["armed"] = True
+        with pfp.failpoint("dcn.coord.recv", exc=ConnectionError, times=1), \
+                pfp.failpoint("dcn.worker.partial", action=retry_inside, nth=1):
+            assert cl.query(sql, timeout_s=30.0) == want
+        assert retry_in.is_set() and first_done.is_set()
+        assert_clean(ws, cl)
+    finally:
+        cl.shutdown()

@@ -967,3 +967,180 @@ def test_bench_segsum_on_card_is_exact(card, tmp_path):
     assert res["route"] == "cuda" and res["device"]["platform"] == "gpu"
     assert res["all_exact"]
     assert all(c["count_ms"] > 0 and c["i64_index_add_ms"] > 0 for c in res["configs"])
+
+
+# -- one device program per fused batch (utils/jitcache.py) -------------------
+
+GRAPH_QUERIES = ("q1", "q6", "q3", "q5", "q18", "topn")
+
+
+def _graph_sql(q):
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    if q == "topn":
+        return ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+                "where l_shipdate >= date '1995-01-01' order by l_extendedprice desc "
+                "limit 10")
+    if q == "q18":
+        return Q["q18"][0].replace("> 300", "> 200")
+    return Q[q][0]
+
+
+def _graph_session():
+    """SF0.01 on the card with 1,024-row segments, the device buffer cache
+    off (every run stages), graphs on and the cache empty."""
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.utils import jitcache
+
+    jitcache.set_graphs(True)
+    jitcache.clear()
+    return Session(_tpch_card_catalog(), chunk_capacity=1 << 12)
+
+
+def test_graph_replay_equals_eager_bit_for_bit(card):
+    """Each query's rows by CUDA-graph replay equal its eager rows (the
+    explicit switch) exactly, run after run, with the same kernel launches
+    and fetches; by the third run every fused batch replays."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.utils import dispatch, jitcache
+
+    s = _graph_session()
+    for q in GRAPH_QUERIES:
+        sql = _graph_sql(q)
+        with jitcache.eager():
+            s.query(sql)  # settle plans and stores
+            port.reset_launches()
+            hp.reset_launches()
+            f0 = dispatch.fetch_count()
+            want = s.query(sql)
+            eager = ({**port.LAUNCHES, **hp.LAUNCHES}, dispatch.fetch_count() - f0)
+        assert want, q
+        for run in range(3):
+            jitcache.reset_runs()
+            port.reset_launches()
+            hp.reset_launches()
+            f0 = dispatch.fetch_count()
+            got = s.query(sql)
+            assert got == want, (q, run)
+            assert ({**port.LAUNCHES, **hp.LAUNCHES},
+                    dispatch.fetch_count() - f0) == eager, (q, run)
+        runs = jitcache.runs()
+        assert runs and all(set(r) == {"replay"} for r in runs.values()), (q, runs)
+
+
+def test_probe_window_and_generic_stack_keep_results_across_replays(card):
+    """A fused probe over more than PROBE_SYNC_CHUNKS batches (its window's
+    tokens held across 8 replays) and a fused generic aggregation of many
+    partial tables on its stack give the CPU's rows by replay."""
+    from tidb_tpu_torch.executor import pipeline as pl
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.utils import jitcache
+
+    s = _graph_session()
+    on_cpu = Session(s.catalog.base, chunk_capacity=1 << 12, device="cpu")
+    probe = ("select l_orderkey, count(*), sum(l_quantity) from lineitem join orders "
+             "on l_orderkey = o_orderkey where o_orderdate < date '1996-01-01' "
+             "group by l_orderkey order by l_orderkey limit 50")
+    stack = ("select l_partkey, sum(l_quantity), count(*) from lineitem "
+             "group by l_partkey order by l_partkey")
+    for sql in (probe, stack):
+        want = on_cpu.query(sql)
+        for _ in range(3):
+            pl.reset_counters()
+            jitcache.reset_runs()
+            assert s.query(sql) == want
+        assert sum(r.get("replay", 0) for r in jitcache.runs().values()) > \
+            pl.FusedScanProbeExec.PROBE_SYNC_CHUNKS
+
+
+def test_capture_on_one_thread_while_another_runs_statements(card):
+    """One thread captures graphs (an empty cache, Q18's and Q5's
+    signatures) while another runs statements eagerly and by replay on
+    its own session: both get the CPU's rows."""
+    import threading
+
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.utils import jitcache
+
+    s = _graph_session()
+    other = Session(s.catalog.base, chunk_capacity=1 << 12)
+    on_cpu = Session(s.catalog.base, chunk_capacity=1 << 12, device="cpu")
+    want = {q: on_cpu.query(_graph_sql(q)) for q in ("q1", "q3", "q5", "q18")}
+    for q in ("q1", "q3"):
+        other.query(_graph_sql(q))
+    errs, stop = [], threading.Event()
+
+    def runner():
+        try:
+            while not stop.is_set():
+                for q in ("q1", "q3"):
+                    assert other.query(_graph_sql(q)) == want[q], q
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errs.append(e)
+
+    t = threading.Thread(target=runner)
+    t.start()
+    try:
+        for _ in range(3):
+            jitcache.clear()  # every run of this thread captures again
+            for q in ("q5", "q18"):
+                for _ in range(3):
+                    assert s.query(_graph_sql(q)) == want[q], q
+    finally:
+        stop.set()
+        t.join(300)
+    assert not t.is_alive() and not errs, errs
+
+
+def test_first_calls_on_two_threads_and_an_evicted_lookup_table_capture_cleanly(card):
+    """Two threads in a signature's first call at once both warm up (no
+    capture of a half-done warm-up), and a lookup table evicted from the
+    compiler's cache between the warm-up and the capture is the warm-up's
+    tensor in the graph, not an upload inside the capture: the replays
+    give the eager results."""
+    import threading
+
+    import numpy as np
+
+    from tidb_tpu_torch.expression import compiler
+    from tidb_tpu_torch.utils import dispatch, jitcache
+
+    jitcache.set_graphs(True)
+    jitcache.clear()
+    jitcache.reset_runs()
+    values = tuple(range(1000, 1512))
+    both_inside = threading.Barrier(2, timeout=60)
+    calls = []
+
+    def fn(idx):
+        calls.append(dispatch.capturing())
+        if len(calls) <= 2:
+            both_inside.wait()
+        return compiler._device_table(values, np.int64, idx.device)[idx] * 3
+
+    prog = jitcache.cached_jit("t", "card-race", lambda: fn)
+    base = torch.arange(0, 504, 7)
+    idx = base.to(card)
+    want = (base + 1000) * 3
+    out, errs = [], []
+
+    def first():
+        try:
+            out.append(prog(idx).cpu())
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errs.append(e)
+
+    ts = [threading.Thread(target=first) for _ in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    assert not errs and len(out) == 2 and all(torch.equal(o, want) for o in out)
+    assert calls == [False, False] and jitcache.runs()["t"] == {"eager": 2}
+    with compiler._TABLES_LOCK:
+        compiler._TABLES.clear()
+    for i in range(3):  # the capture, then replays on fresh inputs
+        got = prog((base + i).to(card)).cpu()
+        assert torch.equal(got, (base + i + 1000) * 3)
+    assert jitcache.runs()["t"] == {"eager": 2, "capture": 1, "replay": 2}
+    jitcache.clear()

@@ -388,22 +388,61 @@ def test_slow_log_carries_seg_counts():
     assert outs[0] == outs[1]
 
 
-def test_serving_stores_read_alike():
+@pytest.fixture
+def serving_isolated(monkeypatch):
+    """The process-global stores these reads see, made the test's own.
+    Schedulers that earlier tests of the worker left alive are shut down
+    (their workers joined, so none of them writes into a store any more)
+    and both packages' registries swapped for empty ones; then the
+    plan-feedback and digest-latency stores are cleared, before and after.
+    A scheduler collected or dying between two counts can no longer make
+    them differ, and no foreign statement lands in a store mid-test."""
+    import weakref
+
+    import tidb_tpu.serving.scheduler as jsched
+    import tidb_tpu_torch.serving.scheduler as psched
+    from tidb_tpu.planner import feedback as jfb
+    from tidb_tpu.serving import slo as jslo
+    from tidb_tpu_torch.planner import feedback as pfb
+    from tidb_tpu_torch.serving import slo as pslo
+
+    for mod in (jsched, psched):
+        for sch in list(mod._SCHEDULERS):
+            sch.shutdown(drain=True, timeout=10.0)
+        monkeypatch.setattr(mod, "_SCHEDULERS", weakref.WeakSet())
+    stores = (jfb.STORE, pfb.STORE, jslo.STORE, pslo.STORE)
+    for st in stores:
+        st.clear()
+    yield
+    for st in stores:
+        st.clear()
+
+
+def test_serving_stores_read_alike(serving_isolated):
     """scheduler_stats and digest_latency read stores the port already
-    had: one summary row per live scheduler of the package (other tests
-    in the process may have left some alive), and the same digests."""
+    had: one summary row per live scheduler of the package (here the one
+    each package starts, leftovers of other tests shut down first), and
+    the same digests."""
+    from tidb_tpu.serving import StatementScheduler as JaxScheduler
     from tidb_tpu.serving import schedulers_alive as jax_alive
-    from tidb_tpu_torch.serving import schedulers_alive
+    from tidb_tpu_torch.serving import StatementScheduler, schedulers_alive
 
     js, ps = new_pair()
-    for s in (js, ps):
-        s.execute("create table sv (a bigint)")
-        s.query("select count(*) from sv")
-    sql = "select count(*) from information_schema.scheduler_stats where digest = ''"
-    assert js.query(sql) == [(len(jax_alive()),)]
-    assert ps.query(sql) == [(len(schedulers_alive()),)]
-    same_rows(js, ps, "select digest_text, execs from information_schema.digest_latency "
-                      "where digest_text like '%sv%'")
+    scheds = [JaxScheduler(js.catalog.base, workers=1),
+              StatementScheduler(ps.catalog.base, workers=1, device="cpu")]
+    try:
+        for s in (js, ps):
+            s.execute("create table sv (a bigint)")
+            s.query("select count(*) from sv")
+        sql = "select count(*) from information_schema.scheduler_stats where digest = ''"
+        assert len(jax_alive()) == len(schedulers_alive()) == 1
+        assert js.query(sql) == [(len(jax_alive()),)]
+        assert ps.query(sql) == [(len(schedulers_alive()),)]
+        same_rows(js, ps, "select digest_text, execs from information_schema.digest_latency "
+                          "where digest_text like '%sv%'")
+    finally:
+        for sch in scheds:
+            sch.shutdown(drain=True, timeout=10.0)
 
 
 # -- the cluster tables with no live cluster ---------------------------------
@@ -449,7 +488,7 @@ def test_cluster_metrics_without_a_fleet(no_live_clusters):
     assert "tidb_tpu_query_total" in outs[0] & outs[1]
 
 
-def test_plan_feedback_read_refuses():
+def test_plan_feedback_read_refuses(serving_isolated):
     """information_schema.plan_feedback no longer refuses: after the same
     statements in both packages it gives the same rows (the store's
     digest, plan digest, variant, executions and per-operator estimates

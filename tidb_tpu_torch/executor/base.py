@@ -137,6 +137,9 @@ class ExecContext:
     # byte budget of the cross-statement device buffer cache; 0 = off
     # (tidb_tpu_device_buffer_cache_bytes)
     device_buffer_cache_bytes: int = 256 << 20
+    # byte quota of the fused batches' CUDA graphs (utils/jitcache.py;
+    # tidb_tpu_graph_cache_bytes)
+    graph_cache_bytes: int = 4 << 30
     # the mesh tier (parallel/): a table above this many device bytes
     # streams through a fragment in fixed batches instead of staying
     # resident (tidb_device_cache_bytes); a broadcast build side above

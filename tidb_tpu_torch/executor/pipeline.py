@@ -48,7 +48,11 @@ Five pieces take the per-chunk host ping-pong out of the executor tree:
     nothing.
 
 The reference runs each fragment as one jitted XLA program per batch;
-here the same steps run eagerly on the staged tensors.
+here each fused batch goes through ``utils.jitcache.cached_jit`` at the
+reference's four sites (segment and generic aggregation, scan->probe,
+top-k), which on the card captures the batch's launches once per input
+signature into a CUDA graph and replays it for every later batch: one
+replay, a copy in and a clone out a batch instead of tens of launches.
 
 The reference's metrics are plain module-level counters here, under its
 label names: ``DEVICE_CACHE_TOTAL`` (hit, miss, invalidate, evict),
@@ -79,8 +83,9 @@ from tidb_tpu_torch.executor.join import HashJoinExec, _pad
 from tidb_tpu_torch.expression.compiler import eval_expr
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
-from tidb_tpu_torch.utils import dispatch
+from tidb_tpu_torch.utils import dispatch, jitcache
 from tidb_tpu_torch.utils.device import torch_dtype
+from tidb_tpu_torch.utils.jitcache import cached_jit
 from tidb_tpu_torch.utils.memory import QueryOOMError
 
 __all__ = ["DEVICE_CACHE", "DeviceBufferCache", "ChunkPrefetcher", "HostArena",
@@ -273,6 +278,15 @@ class HostArena:
         return buf[off:off + a.nbytes].view(torch_dtype(a.dtype))
 
 
+def _on_buffer(host, arena: HostArena, buf):
+    """The host pytree `host`, carved from `arena`, as views of `buf` (the
+    arena's buffer or its device copy); a scan batch, (data, valid, refs,
+    sel), as a jitcache.PackedTuple over `buf`, so a fused batch program
+    copies it in at once."""
+    tree = _tree_map(lambda a: arena.view_of(buf, a), host)
+    return jitcache.packed_view(buf, tree) if isinstance(tree, tuple) else tree
+
+
 class ChunkPrefetcher:
     """Staging ahead of the compute loop.
 
@@ -345,7 +359,7 @@ class ChunkPrefetcher:
         nbytes = arena.used
         if not self._cuda:
             # the CPU is the device: the arena's own buffer is the batch
-            return _tree_map(lambda a: arena.view_of(arena.buf, a), host), nbytes, None, None
+            return _on_buffer(host, arena, arena.buf[:nbytes]), nbytes, None, None
         with torch.cuda.stream(self._copy_stream):
             dev_buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             dev_buf.copy_(arena.buf[:nbytes], non_blocking=True)
@@ -355,7 +369,7 @@ class ChunkPrefetcher:
         _count(PIPELINE_PREFETCH_BYTES, "h2d", nbytes)
         _count(PIPELINE_PREFETCH_BYTES, "copies")
         dispatch.record_xfer(nbytes, into=self._account)
-        return _tree_map(lambda a: arena.view_of(dev_buf, a), host), nbytes, event, dev_buf
+        return _on_buffer(host, arena, dev_buf), nbytes, event, dev_buf
 
     def _run(self) -> None:
         try:
@@ -478,12 +492,6 @@ class _StagedScanMixin:
         if getattr(self, "_staged_scan_counted", False):
             self._staged_scan_counted = False
             self.table.txn_guard.scan_exit()
-
-    def _scan_fn(self):
-        from tidb_tpu_torch.ops.segment_scan import scan_fn
-
-        return scan_fn(self.scan_stages, [(c.uid, c.type_) for c in self.scan_schema],
-                       self._seg_cap)
 
     # -- staging plan ------------------------------------------------------
 
@@ -824,48 +832,95 @@ class FusedScanAggExec(_StagedScanMixin, HashAggExec):
         return ctx.device_agg and core_generic_agg(self.group_exprs, self.aggs)
 
     def _run_segment_fused(self):
+        from tidb_tpu_torch.ops.segment_scan import segment_scan_key
+
         ctx = self.ctx
         domains = [s + 1 for s in (self.segment_sizes or [])]
         jobs = self._plan_staging(ctx)
-        scan = self._scan_fn()
+        col_types = [(c.uid, c.type_) for c in self.scan_schema]
+        stages, seg_cap = self.scan_stages, self._seg_cap
+        key = ("seg|" + segment_scan_key(stages, col_types, seg_cap)
+               + "|" + repr((self.group_exprs, self.aggs, domains)))
+        # the update works in place on the state: the counterpart of the
+        # reference's donate_argnums=0
+        fused = cached_jit(
+            "fusedagg", key,
+            lambda: _make_fused_segment_fn(stages, col_types, self.group_exprs,
+                                           self.aggs, domains, seg_cap),
+            donate_argnums=(0,), max_bytes=_graph_quota(ctx))
         # looked up on the module at call time, like HashAggExec's own call
-        init_state, update, _g = _agg.make_segment_kernel(
+        init_state, _u, _g = _agg.make_segment_kernel(
             self.group_exprs, self.aggs, domains)
-        state = init_state(ctx.device)
+        # one buffer: a batch program copies the state in at once
+        state = jitcache.packed(init_state(ctx.device))
         self._staged_iter = self._staged_chunks(jobs)
         for staged in self._staged_iter:
             # KILL/deadline polls between batches: fusion must not turn a
             # chunked fragment into an uninterruptible run
             raise_if_cancelled(ctx)
-            state = update(state, scan(*staged))
+            state = fused(state, staged)
         self._finalize_segment_state(state, domains)
 
     def _run_generic_fused(self):
         from tidb_tpu_torch.executor.agg_device import GroupTableStack
+        from tidb_tpu_torch.ops.segment_scan import segment_scan_key
 
         _agg.DEVICE_GENERIC_TOTAL["fused"] += 1
         jobs = self._plan_staging(self.ctx)
-        fused = _make_fused_generic_fn(self._scan_fn(), self.group_exprs, self.aggs)
+        col_types = [(c.uid, c.type_) for c in self.scan_schema]
+        stages, seg_cap = self.scan_stages, self._seg_cap
+        key = ("gen|" + segment_scan_key(stages, col_types, seg_cap)
+               + "|" + repr((self.group_exprs, self.aggs)))
+        fused = cached_jit(
+            "fusedagg", key,
+            lambda: _make_fused_generic_fn(stages, col_types, self.group_exprs,
+                                           self.aggs, seg_cap),
+            max_bytes=_graph_quota(self.ctx))
         stack = GroupTableStack(len(self.group_exprs), self.aggs)
         self._staged_iter = self._staged_chunks(jobs)
         for staged in self._staged_iter:
             raise_if_cancelled(self.ctx)  # see _run_segment_fused
-            stack.push(fused(*staged))
+            # a replay's table is a fresh clone: the stack may keep it
+            stack.push(fused(staged))
         self._finalize_group_tables(stack.tables())
 
 
-def _make_fused_generic_fn(scan, group_exprs, aggs):
-    """(data, valid, refs, sel) -> group table: decode + pipeline +
+def _graph_quota(ctx) -> int:
+    """The statement's quota on the bytes the fused batches' CUDA graphs
+    hold (tidb_tpu_graph_cache_bytes)."""
+    return int(getattr(ctx, "graph_cache_bytes", jitcache.MAX_BYTES))
+
+
+def _make_fused_segment_fn(stages, col_types, group_exprs, aggs, domains, seg_cap):
+    """(state, staged batch) -> state: decode + pipeline + the
+    segment update of one staged batch (one tidb_segagg launch on the
+    card), in place on the state."""
+    from tidb_tpu_torch.ops.segment_scan import scan_fn
+
+    scan = scan_fn(stages, col_types, seg_cap)
+    # looked up on the module at build time: chip_smoke wraps it
+    _init, update, _g = _agg.make_segment_kernel(group_exprs, aggs, domains)
+
+    def run(state, staged):
+        return update(state, scan(*staged))
+
+    return run
+
+
+def _make_fused_generic_fn(stages, col_types, group_exprs, aggs, seg_cap):
+    """(staged batch) -> group table: decode + pipeline +
     sort-based partial grouping of one staged batch. No blocking inside the
     batch: the partial is a whole-batch sort, and its table has the batch's
     capacity (per-block tables would redo the stack's merges here)."""
-    # looked up on the module at call time, like HashAggExec's own call
+    # looked up on the module at build time, like HashAggExec's own call
     from tidb_tpu_torch.executor import agg_device
+    from tidb_tpu_torch.ops.segment_scan import scan_fn
 
+    scan = scan_fn(stages, col_types, seg_cap)
     partial = agg_device.make_partial_kernel(group_exprs, aggs)
 
-    def run(data, valid, refs, sel):
-        return partial(scan(data, valid, refs, sel))
+    def run(staged):
+        return partial(scan(*staged))
 
     return run
 
@@ -944,7 +999,7 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
                 self._open_delegate(ctx)
                 return
             jobs = self._plan_staging(ctx)
-            self._scan = self._scan_fn()
+            self._fused = self._make_fused()
             self._staged_iter = self._staged_chunks(jobs)
             _count(PIPELINE_FUSED_TOTAL, "probe")
         except BaseException:
@@ -1061,48 +1116,41 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         if deferred:
             self._finish_fused_batch(deferred)
 
+    def _make_fused(self):
+        """The batch program of this join (cached_jit "fusedprobe"), and the
+        build side's arguments it takes, fixed once the build is done."""
+        from tidb_tpu_torch.ops.segment_scan import segment_scan_key
+
+        col_types = [(c.uid, c.type_) for c in self.scan_schema]
+        probe_uids = tuple(c.uid for c in self.probe_schema)
+        stages, seg_cap = self.scan_stages, self._seg_cap
+        self._build_args = (
+            self._sorted_keys, self._n_build_dev, self._firsts, tuple(self._los),
+            tuple(self._strides), tuple(self._rngs), self._direct_lo, self._direct_rng,
+            self._probe_table,
+            tuple(self._build_payload[u][0] for u in self._payload_uids),
+            tuple(self._build_payload[u][1] for u in self._payload_uids))
+        key = ("probe|" + segment_scan_key(stages, col_types, seg_cap)
+               + "|" + repr((self.probe_keys, self._modes, self._direct,
+                             probe_uids, self.kind)))
+        return cached_jit(
+            "fusedprobe", key,
+            lambda: _make_fused_probe_fn(stages, col_types, seg_cap,
+                                         tuple(self.probe_keys), tuple(self._modes),
+                                         self._direct, probe_uids, self.kind == "left"),
+            max_bytes=_graph_quota(self.ctx))
+
     def _probe_chunk_fused(self, staged) -> dict:
         """Decode, filter, project and probe one staged batch and expand its
-        first output tile; returns the deferral token pinning its device
-        results."""
-        ch = self._scan(*staged)
-        cap = ch.capacity
-        outs = [eval_expr(k, ch) for k in self.probe_keys]
-        key_datas = tuple(d for d, _ in outs)
-        key_valids = tuple(v for _, v in outs)
-        Rp = jk.shape_bucket(cap)
-        sel = ch.sel
-        if Rp != cap:  # shape-bucket the probe: pad keys and sel to pow2
-            key_datas = tuple(_pad(d, Rp) for d in key_datas)
-            key_valids = tuple(_pad(v, Rp, False) for v in key_valids)
-            sel = _pad(sel, Rp, False)
-        left = self.kind == "left"
-        start, count, real_count, cum, total_dev, _ok, _matched = jk.probe_count(
-            self._sorted_keys, self._n_build_dev, key_datas, key_valids,
-            sel, self._los, self._strides, self._rngs,
-            self._firsts, self._direct_lo, self._direct_rng,
-            modes=self._modes, hash_mode=False, left_pad=left,
-            direct=self._direct, table=self._probe_table)
-        p_cols = tuple((ch.columns[c.uid].data, ch.columns[c.uid].valid)
-                       for c in self.probe_schema)
-        b_datas = tuple(self._build_payload[u][0] for u in self._payload_uids)
-        b_valids = tuple(self._build_payload[u][1] for u in self._payload_uids)
-        # the first tile at the batch's capacity, expanded before the total
-        # is known: a PK-FK batch (every probe row matching at most once)
-        # completes here, with no expansion after the window's fetch
-        out_p, out_b, sel_t, _pr, _bp = jk.expand_tiles(
-            start, count, real_count, cum, 0,
-            tuple(d for d, _ in p_cols), tuple(v for _, v in p_cols),
-            b_datas, b_valids, n_tiles=1, tile_cap=cap,
-            build_cap=self._sorted_keys.shape[0], left=left)
-        tok = {"out_p": out_p, "out_b": out_b, "sel_tile": sel_t,
-               "total_dev": total_dev, "start": start, "count": count,
-               "real_count": real_count, "cum": cum, "p_cols": p_cols,
-               "cap": cap}
+        first output tile (one program, cached_jit "fusedprobe"); returns
+        the deferral token pinning its device results, which a replay
+        hands over as fresh tensors."""
+        tok = dict(self._fused(staged, self._build_args))
         # the window pins the batch's first tile AND the probe state an
         # overflow re-expansion needs
         tok["nbytes"] = _pytree_nbytes(
-            (out_p, out_b, sel_t, start, count, real_count, cum, p_cols))
+            (tok["out_p"], tok["out_b"], tok["sel_tile"], tok["start"], tok["count"],
+             tok["real_count"], tok["cum"], tok["p_cols"]))
         return tok
 
     def _finish_fused_batch(self, tokens: List[dict]) -> None:
@@ -1163,25 +1211,76 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
             w0 += T * cap
 
 
+def _make_fused_probe_fn(stages, col_types, seg_cap, probe_keys, modes, direct,
+                         probe_uids, left: bool):
+    """(staged batch, build) -> token tensors: decode + pipeline +
+    key pack + probe (one tidb_probe_count launch on the card) + the first
+    output tile's expansion at the batch's capacity. `build` is the join's
+    build side (sorted keys, n_build, direct index, pack ranges, direct
+    domain, probe table, payload datas and valids)."""
+    from tidb_tpu_torch.ops.segment_scan import scan_fn
+
+    scan = scan_fn(stages, col_types, seg_cap)
+
+    def run(staged, build):
+        (sorted_keys, n_build, firsts, los, strides, rngs, direct_lo, direct_rng,
+         table, b_datas, b_valids) = build
+        ch = scan(*staged)
+        cap = ch.capacity
+        outs = [eval_expr(k, ch) for k in probe_keys]
+        key_datas = tuple(d for d, _ in outs)
+        key_valids = tuple(v for _, v in outs)
+        Rp = jk.shape_bucket(cap)
+        csel = ch.sel
+        if Rp != cap:  # shape-bucket the probe: pad keys and sel to pow2
+            key_datas = tuple(_pad(d, Rp) for d in key_datas)
+            key_valids = tuple(_pad(v, Rp, False) for v in key_valids)
+            csel = _pad(csel, Rp, False)
+        start, count, real_count, cum, total_dev, _ok, _matched = jk.probe_count(
+            sorted_keys, n_build, key_datas, key_valids, csel, los, strides, rngs,
+            firsts, direct_lo, direct_rng, modes=modes, hash_mode=False,
+            left_pad=left, direct=direct, table=table)
+        p_cols = tuple((ch.columns[u].data, ch.columns[u].valid) for u in probe_uids)
+        # the first tile at the batch's capacity, expanded before the total
+        # is known: a PK-FK batch (every probe row matching at most once)
+        # completes here, with no expansion after the window's fetch
+        out_p, out_b, sel_t, _pr, _bp = jk.expand_tiles(
+            start, count, real_count, cum, 0,
+            tuple(d for d, _ in p_cols), tuple(v for _, v in p_cols),
+            b_datas, b_valids, n_tiles=1, tile_cap=cap,
+            build_cap=sorted_keys.shape[0], left=left)
+        return {"out_p": out_p, "out_b": out_b, "sel_tile": sel_t,
+                "total_dev": total_dev, "start": start, "count": count,
+                "real_count": real_count, "cum": cum, "p_cols": p_cols,
+                "cap": cap}
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # fused scan -> top-k
 # ---------------------------------------------------------------------------
 
 
-def _make_fused_topn_fn(scan, sort_irs, descs, out_cols):
-    """(state, staged scan inputs) -> state: decode + filter + project + the
-    batch's top-k merge. The bounded top-k state (ops/topk.py layout) is the
-    only thing carried between batches, so the scan never materializes on
-    the host and the winners are fetched once at finalize."""
+def _make_fused_topn_fn(stages, col_types, seg_cap, sort_irs, descs, out_cols):
+    """(state, staged batch) -> state: decode + filter + project + the
+    batch's top-k merge, copied back into the packed state in place. The
+    bounded top-k state (ops/topk.py layout) is the only thing carried
+    between batches, so the scan never materializes on the host and the
+    winners are fetched once at finalize."""
     from tidb_tpu_torch.ops import topk as tk
+    from tidb_tpu_torch.ops.segment_scan import scan_fn
 
-    def run(state, data, valid, refs, sel):
-        ch = scan(data, valid, refs, sel)
+    scan = scan_fn(stages, col_types, seg_cap)
+
+    def run(state, staged):
+        ch = scan(*staged)
         pairs = tuple(tk.rank_operands(*eval_expr(ir, ch), desc)
                       for ir, desc in zip(sort_irs, descs))
         payload = tuple((ch.columns[c.uid].data.to(torch_dtype(c.type_.np_dtype)),
                          ch.columns[c.uid].valid) for c in out_cols)
-        return tk.topk_merge(state, pairs, payload, ch.sel, descs)
+        return jitcache.update_packed(state, tk.topk_merge(state, pairs, payload,
+                                                           ch.sel, descs))
 
     return run
 
@@ -1283,21 +1382,34 @@ class FusedScanTopNExec(_StagedScanMixin, Executor):
 
     def _run_fused(self, ctx: ExecContext, k: int) -> None:
         from tidb_tpu_torch.ops import topk as tk
+        from tidb_tpu_torch.ops.segment_scan import segment_scan_key
 
         jobs = self._plan_staging(ctx)
+        col_types = [(c.uid, c.type_) for c in self.scan_schema]
+        stages, seg_cap = self.scan_stages, self._seg_cap
+        cap_state = jk.shape_bucket(k, floor=64)
         sort_irs = tuple(e for e, _ in self.items)
         descs = tuple(bool(d) for _, d in self.items)
-        fused = _make_fused_topn_fn(self._scan_fn(), sort_irs, descs, self.schema)
-        state = tk.topk_init(jk.shape_bucket(k, floor=64),
-                             tuple(tk.key_spec(e.type_) for e in sort_irs),
-                             tuple(torch_dtype(c.type_.np_dtype) for c in self.schema),
-                             ctx.device)
+        out_cols = tuple(self.schema)
+        key = ("topn|" + segment_scan_key(stages, col_types, seg_cap)
+               + "|" + repr((self.items, out_cols, cap_state)))
+        # the merge's new state is copied back into the state in place,
+        # the counterpart of the reference's donated state: one buffer,
+        # copied in and cloned out once a batch
+        fused = cached_jit(
+            "fusedtopk", key,
+            lambda: _make_fused_topn_fn(stages, col_types, seg_cap, sort_irs, descs,
+                                        out_cols),
+            donate_argnums=(0,), max_bytes=_graph_quota(ctx))
+        state = jitcache.packed(tk.topk_init(
+            cap_state, tuple(tk.key_spec(e.type_) for e in sort_irs),
+            tuple(torch_dtype(c.type_.np_dtype) for c in self.schema), ctx.device))
         self._staged_iter = self._staged_chunks(jobs)
         for staged in self._staged_iter:
             # KILL/deadline polls between batches: fusion must not turn a
             # chunked fragment into an uninterruptible run
             raise_if_cancelled(ctx)
-            state = fused(state, *staged)
+            state = fused(state, staged)
         # the one fetch of the C winners at finalize
         dead, _ranks, _pos, _next, payload = state
         host = dispatch.device_get([dead] + [t for pair in payload for t in pair])

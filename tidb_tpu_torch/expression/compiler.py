@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from tidb_tpu_torch.chunk.column import Column
-from tidb_tpu_torch.errors import PlanError
+from tidb_tpu_torch.errors import ExecutionError, PlanError
 from tidb_tpu_torch.expression import dates
 from tidb_tpu_torch.expression.expr import (
     AggRef,
@@ -39,6 +39,7 @@ from tidb_tpu_torch.expression.expr import (
     Lookup,
 )
 from tidb_tpu_torch.types import SQLType, TypeKind
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["compile_expr", "compile_predicate", "eval_expr"]
@@ -65,13 +66,27 @@ def _device_table(values: tuple, np_dtype, dev: torch.device) -> torch.Tensor:
         key = (hit[1], len(values), np.dtype(np_dtype).str, str(dev))
         entry = _TABLES.get(key)
         if entry is None or (entry[0] is not values and entry[0] != values):
-            entry = (values, torch.as_tensor(np.asarray(values, dtype=np_dtype), device=dev))
+            # a CUDA graph's capture cannot upload (a blocking copy): it
+            # takes the table its eager warm-up made, even when this cache
+            # has evicted it since
+            kept = dispatch.held(("lookup",) + key)
+            if kept is not None and (kept[0] is values or kept[0] == values):
+                entry = kept
+            elif dispatch.capturing():
+                raise ExecutionError("a lookup table must be on the device before a CUDA "
+                                "graph capture: its warm-up uploads it")
+            else:
+                entry = (values, torch.as_tensor(np.asarray(values, dtype=np_dtype),
+                                                 device=dev))
         # hold the caller's tuple: its next chunks match by identity
         entry = _TABLES[key] = (values, entry[1])
         _TABLES.move_to_end(key)
         while len(_TABLES) > _TABLES_MAX:
             _TABLES.popitem(last=False)
-        return entry[1]
+    # a graph being captured reads the table: it keeps it alive past an
+    # eviction from this cache (and a warm-up holds it for its capture)
+    dispatch.retain(entry, key=("lookup",) + key)
+    return entry[1]
 
 Pair = Tuple[torch.Tensor, torch.Tensor]  # (data, valid)
 

@@ -288,11 +288,17 @@ _SCANS = {}
 
 
 def _scan_scratch(device: torch.device, tiles: int):
-    """(ticket, status) device addresses for `tiles` tiles."""
+    """(ticket, status) device addresses for `tiles` tiles. A CUDA graph
+    being captured keeps the scratch it reads alive; the scratch cannot
+    grow inside a capture (the call before it, eager, grew it)."""
     buf = _SCANS.get(device)
     if buf is None or buf.shape[0] < 2 + 2 * tiles:
+        if dispatch.capturing():
+            raise ExecutionError("tidb_probe_count: the scan scratch must grow before a "
+                                 "CUDA graph capture, in an eager call of the same shape")
         buf = _SCANS[device] = torch.zeros(2 + 2 * max(tiles, 1024), dtype=torch.int64,
                                            device=device)
+    dispatch.retain(buf)
     base = buf.data_ptr()  # the allocator aligns it to 16 bytes and more
     return base, base + 16
 

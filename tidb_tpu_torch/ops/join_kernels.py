@@ -37,6 +37,7 @@ import torch
 
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops.hash_probe import srl
+from tidb_tpu_torch.utils import dispatch
 
 __all__ = [
     "shape_bucket", "as_int64_key", "hash_combine_device", "pack_keys",
@@ -59,6 +60,10 @@ PROBE_ROUTES = {"direct": 0, "table": 0, "sorted": 0}
 def reset_routes() -> None:
     for k in PROBE_ROUTES:
         PROBE_ROUTES[k] = 0
+
+
+def _count_route(route: str) -> None:
+    PROBE_ROUTES[route] += 1
 
 
 def shape_bucket(n: int, floor: int = 64) -> int:
@@ -203,7 +208,8 @@ def probe_count(sorted_keys, n_build, key_datas, key_valids, sel,
     The keys are packed here; the lookup, count, pad and prefix sum are
     hash_probe.probe_chunk, one kernel launch on the card."""
     route = "direct" if direct else ("table" if table is not None else "sorted")
-    PROBE_ROUTES[route] += 1
+    # at each replay when this runs inside a CUDA graph's capture
+    dispatch.on_execute(_count_route, route)
     packed, kvalid, in_range = _pack(
         key_datas, key_valids, los, strides, rngs, sel, modes, hash_mode)
     return hp.probe_chunk(packed, kvalid, in_range, sel, n_build, sorted_keys,

@@ -97,7 +97,11 @@ _TICKETS = {}
 def _ticket(device: torch.device) -> torch.Tensor:
     t = _TICKETS.get(device)
     if t is None:
+        if dispatch.capturing():
+            raise ExecutionError("tidb_segagg: the card's ticket must exist before a "
+                                 "CUDA graph capture (an eager call makes it)")
         t = _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    dispatch.retain(t)  # a graph being captured reads it
     return t
 
 

@@ -1296,10 +1296,17 @@ class Worker:
         on it (the reference's first attempt could evict the retry's
         cursor and pin its own, which nobody drained)."""
         token = msg.get("token")
-        attempt = next(self._attempts)
+        # the coordinator numbers a token's attempts (_call_retry): a retry
+        # can reach this point before the attempt it replaces (each
+        # connection has its own thread), so arrival order cannot rank
+        # them; a message without a number ranks by arrival
+        attempt = msg.get("attempt")
+        if attempt is None:
+            attempt = next(self._attempts)
         if token is not None:
             with self._cursor_lock:
-                self._token_attempt[token] = attempt
+                self._token_attempt[token] = max(
+                    attempt, self._token_attempt.get(token, attempt))
                 while len(self._token_attempt) > 1024:
                     self._token_attempt.pop(next(iter(self._token_attempt)))
         inject("dcn.worker.partial")
@@ -2358,6 +2365,9 @@ class Cluster:
             # a retry path is exactly what tail sampling wants to keep
             tracing.keep("retry")
             tracing.annotate(f"retry:w{i}")
+            if "attempt" in msg:
+                # the worker keeps the newest attempt's cursor only
+                msg = dict(msg, attempt=msg["attempt"] + 1)
             return self._call(i, msg)
 
     def _call_all(self, msgs: List[Dict], idempotent: bool = False) -> List:
@@ -3591,7 +3601,7 @@ class Cluster:
             sql, table_as=f"{tname}__part{i}",
             partitioned=self._partitioned, broadcast=self._broadcast)
         msg = {"cmd": "partial_paged", "sql": rep_sql,
-               "page_rows": self.PAGE_ROWS}
+               "page_rows": self.PAGE_ROWS, "attempt": 1}
         if tokens:
             # DISTINCT token: the replica may still hold its OWN
             # partition's cursor under the main token (its drain comes
@@ -4164,7 +4174,7 @@ class Cluster:
                 sp = tr.begin(f"dcn.dispatch[w{i}]", dispatch_parent)
                 tracing.push(tr, sp)
             msg = {"cmd": "partial_paged", "sql": partial_sql,
-                   "page_rows": self.PAGE_ROWS, "token": token}
+                   "page_rows": self.PAGE_ROWS, "token": token, "attempt": 1}
             if gather is not None:
                 msg["cmd"] = "shuffle_gather"
                 msg["shuffle_id"] = gather["id"]

@@ -991,6 +991,7 @@ class Session:
             pipeline_fuse=bool(sv("tidb_tpu_pipeline_fuse")),
             prefetch_depth=int(sv("tidb_tpu_pipeline_prefetch_depth")),
             device_buffer_cache_bytes=int(sv("tidb_tpu_device_buffer_cache_bytes")),
+            graph_cache_bytes=int(sv("tidb_tpu_graph_cache_bytes")),
             device_cache_bytes=int(sv("tidb_device_cache_bytes")),
             broadcast_rows_limit=int(sv("tidb_broadcast_join_threshold_count")),
             stage_encoded=bool(sv("tidb_tpu_stage_encoded")),

@@ -237,6 +237,11 @@ _reg(
     # like the plan cache); 0 disables it. GLOBAL: one cache per process
     SysVar("tidb_tpu_device_buffer_cache_bytes", 256 << 20, GLOBAL, "int",
            min_=0, max_=1 << 40),
+    # byte quota of the built-program cache's CUDA graphs (utils/jitcache.py:
+    # their private pools and static input buffers; the least recently
+    # used programs go past it). GLOBAL: one cache per process
+    SysVar("tidb_tpu_graph_cache_bytes", 4 << 30, GLOBAL, "int",
+           min_=0, max_=1 << 40),
     # stage fragment inputs as frame-of-reference-encoded narrow arrays
     # (decode fused into the fragment program) instead of raw int64
     SysVar("tidb_tpu_stage_encoded", True, BOTH, "bool"),

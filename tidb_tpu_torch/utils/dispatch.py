@@ -19,6 +19,24 @@ torch meaning:
     (utils/memory.py's SpillableRuns)
   - ``fragment_count``: mesh-fragment executions (parallel/executor.py),
     the statements summary's fragments column; not launches
+  - ``by_site`` also holds one dispatch per call of a cached program
+    (``jit:<ns>``, utils/jitcache.py, whose ``runs()`` splits the calls
+    by how they ran), as the reference's ``counted_jit`` records it, and a
+    CUDA-graph capture's wall time is charged to ``compile_seconds``, as
+    the reference charges a trace and compile. ``count`` stays the
+    kernels' launches alone.
+
+While a thread captures a CUDA graph (utils/jitcache.py) nothing runs:
+the launches are recorded. So a host-side effect of device work (a
+launch count, a route count) goes through ``on_execute``, which runs it
+now or, during a capture, records it for every replay of the graph
+(``count_launch`` does so): the counts then equal the kernels'
+executions whether a batch ran eagerly or by replay. ``retain`` hands a
+capture the long-lived device tensors its kernels read (lookup tables,
+scan scratch), which the graph keeps alive; what the eager warm-up before
+a capture (``Warmup``) retains under a key is held until that capture,
+which finds it with ``held`` (a lookup table evicted from its cache in
+between is not uploaded inside the capture).
 
 ``device_get`` (counted per thread by ``fetch_count``) is the one
 sanctioned device->host fetch (the
@@ -42,12 +60,14 @@ process-wide totals are the wrappers' ``LAUNCHES`` dicts (rendered as
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 __all__ = ["Account", "account", "count", "by_site", "count_launch",
            "record_xfer", "xfer_bytes", "record_compile", "compile_count",
-           "compile_seconds", "record_spill", "spill_bytes",
-           "record_fragment", "fragment_count", "device_get", "fetch_count"]
+           "compile_seconds", "record_compile_seconds", "record_spill",
+           "spill_bytes", "record_fragment", "fragment_count", "device_get",
+           "fetch_count", "record_jit", "on_execute",
+           "capturing", "retain", "held", "Capture", "Warmup"]
 
 
 class Account:
@@ -83,10 +103,84 @@ def account() -> Account:
 _LAUNCH_LOCK = threading.Lock()
 
 
+class Capture:
+    """What one CUDA-graph capture on this thread gathered: the host-side
+    effects to run at each replay, and the device tensors to keep alive.
+    `held` is what the warm-up before it retained by key (``Warmup``)."""
+
+    __slots__ = ("effects", "retained", "held")
+    _slot = "capture"
+
+    def __init__(self, held: Optional[dict] = None):
+        self.effects: List[tuple] = []
+        self.retained: List = []
+        self.held: dict = dict(held or {})
+
+    def __enter__(self):
+        if getattr(_tls, self._slot, None) is not None:
+            raise RuntimeError(f"a CUDA graph {self._slot} is already open on this thread")
+        setattr(_tls, self._slot, self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(_tls, self._slot, None)
+
+    def replay_effects(self) -> None:
+        for fn, args in self.effects:
+            fn(*args)
+
+
+class Warmup(Capture):
+    """The eager call of a signature before its capture: it runs and
+    counts as usual, and what it retains under a key is held for the
+    capture (``Capture(held=warmup.held)``)."""
+
+    __slots__ = ()
+    _slot = "warm"
+
+
+def capturing() -> bool:
+    """True while this thread captures a CUDA graph."""
+    return getattr(_tls, "capture", None) is not None
+
+
+def on_execute(fn: Callable, *args) -> None:
+    """Run `fn(*args)`, a host-side effect of device work, now; or, while
+    this thread captures a CUDA graph, at each replay of it instead."""
+    cap = getattr(_tls, "capture", None)
+    if cap is not None:
+        cap.effects.append((fn, args))
+    else:
+        fn(*args)
+
+
+def retain(obj, key=None) -> None:
+    """Keep `obj` (a device tensor, or a tuple holding some) alive as long
+    as the CUDA graph this thread is capturing, or, in the warm-up before
+    a capture, until that capture, where ``held(key)`` finds it again
+    (nothing outside both)."""
+    rec = getattr(_tls, "capture", None) or getattr(_tls, "warm", None)
+    if rec is not None:
+        rec.retained.append(obj)
+        if key is not None:
+            rec.held[key] = obj
+
+
+def held(key):
+    """What the warm-up before this thread's capture retained under `key`
+    (None outside a capture, or when it retained nothing there)."""
+    cap = getattr(_tls, "capture", None)
+    return None if cap is None else cap.held.get(key)
+
+
 def count_launch(launches: Dict[str, int], site: str) -> None:
     """One launch of the kernel entry `site`: into its wrapper module's
     process total `launches` (the ``LAUNCHES`` dict) and this thread's
-    account."""
+    account; during a capture, at each replay (``on_execute``)."""
+    on_execute(_count_launch, launches, site)
+
+
+def _count_launch(launches: Dict[str, int], site: str) -> None:
     with _LAUNCH_LOCK:
         launches[site] += 1
     acct = account()
@@ -135,6 +229,26 @@ def record_compile(seconds: float, builds: int) -> None:
     from tidb_tpu_torch.utils.metrics import COMPILE_SECONDS
 
     COMPILE_SECONDS.inc(float(seconds))
+
+
+def record_compile_seconds(seconds: float) -> None:
+    """Charge the wall seconds of a CUDA-graph capture to the thread whose
+    statement triggered it (the reference's ``_record_compile_seconds``
+    for a trace and compile)."""
+    acct = account()
+    with acct.lock:
+        acct.compile_s += float(seconds)
+    from tidb_tpu_torch.utils.metrics import COMPILE_SECONDS
+
+    COMPILE_SECONDS.inc(float(seconds))
+
+
+def record_jit(site: str) -> None:
+    """One call of a cached program (utils/jitcache.py) on this thread:
+    one dispatch at `site` (``jit:<ns>``) in ``by_site``."""
+    acct = account()
+    with acct.lock:
+        acct.by_site[site] = acct.by_site.get(site, 0) + 1
 
 
 def compile_count() -> int:

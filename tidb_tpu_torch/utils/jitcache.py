@@ -1,51 +1,203 @@
 """Built-program cache (the counterpart of tidb_tpu/utils/jitcache.py;
 ref: the planner's plan cache reusing compiled plans across executions).
 
-The reference keys each jitted program by the repr of its IR, because a
-trace and an XLA compile cost far more than the repr. The port's
-executors do not use this cache: in eager torch their builds are
-closures over `expression.compiler.compile_expr` (the device tables are
-cached there), and a build costs less than its key. On an H100 host
-(host_ab.py) a build took 2.5-19 us, the repr key of the same IR 10-140
-us a call and a hit's lookup 3-8 us, so every executor site lost host
-time by caching. This module stays the sanctioned place for a build that
-costs more than its key (a captured CUDA graph, a compiled kernel
-variant): the jit-hygiene and cache-key-completeness passes
-(`analysis/`) check its call sites. Keys are reprs of the compiled IR:
-binder uids are deterministic per statement, so the same SQL text gives
-the same key, while any difference in baked constants (dictionary codes
-for string literals) changes it.
+The reference compiles each fused batch of the executor's pipeline into
+one XLA program through ``cached_jit``, keyed by the repr of the IR the
+program bakes in, so a batch costs one dispatch. Here the built function
+is eager torch, and on the card each input signature of it becomes one
+captured CUDA graph:
+
+  * a signature's calls run eagerly until one has returned: that is the
+    warm-up, in which nvcc builds, the expression compiler's lookup
+    uploads, the probe's scan scratch and the allocator's growth all
+    happen, outside any capture (a call that arrives while another
+    thread's warm-up runs warms up too); what the warm-up uploaded is
+    held for the capture (``dispatch.Warmup``), so a lookup table evicted
+    from the compiler's cache in between is not uploaded inside it;
+  * the next call captures a ``torch.cuda.CUDAGraph`` of exactly the
+    launches the function makes (on a side stream, in thread-local
+    capture mode, so other threads keep launching), and every later call
+    replays it on the caller's current stream.
+
+A signature is everything that changes the launches: the tree of the
+arguments, each tensor's shape, dtype, strides and device, and every
+non-tensor leaf by value (None-ness of an optional operand, a baked
+Python int); the batch's capacity and segment stride are in the shapes
+and the key. Keys stay reprs of the compiled IR: binder uids are
+deterministic per statement, so the same SQL text gives the same key,
+while any difference in baked constants (dictionary codes for string
+literals) changes it.
+
+A graph reads fixed addresses. Each graph owns one static input buffer,
+its tensors grouped by dtype, and before a replay the arguments are
+copied in (a ``Packed`` argument, whose tensors are views of one buffer,
+is one tensor to the signature and the copy: a staged scan batch, the
+segment aggregation's and the top-k's state; a non-donated argument
+that is still the tensor last copied in, the probe's build side, is not
+copied again). Inside the graph the outputs are packed into one buffer
+of the graph's pool, and after the replay that buffer is cloned once: the
+caller gets fresh tensors that no later replay overwrites, so a probe
+window or a group-table stack may hold them as long as it likes. A
+donated argument (``donate_argnums``) may be updated in place by the
+function; the caller takes the returned state, never the argument. A
+graph holds copies, never a staged batch itself, so the device buffer
+cache's invalidations need nothing from this cache.
+
+Captures are serialized in the process and run on a stream of torch's
+high-priority pool (the default pool hands its streams out round-robin,
+and another thread's copy on the capturing stream would invalidate the
+capture). A CUDA random-number op on another thread fails while a
+capture is open (torch's generator); the engine draws none on the card.
+
+Nothing falls back: a capture or replay that fails raises. A failed
+capture puts its signature back to unseen, so the next call warms up
+again. The eager path on the card is reached only through the explicit
+switch ``set_graphs(False)`` (or ``eager()``), which chip_smoke.py,
+host_ab.py and tests use to compare; on a CPU tensor the function runs
+eagerly.
+
+Every call records one dispatch at ``jit:<ns>`` (utils/dispatch.py), a
+capture charges its wall time to the statement's compile seconds, and
+the host-side effects the function has (launch and route counts) run at
+each replay (``dispatch.on_execute``), so the kernels' launch counts
+equal their executions. The cache is bounded by entries (LRU) and by the
+device bytes its graphs hold (private pools and static input buffers):
+the GLOBAL quota ``tidb_tpu_graph_cache_bytes``, which each fused site
+passes from its statement's context as the device buffer cache's
+callers pass theirs; the least recent entries go first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
+import weakref
 from collections import OrderedDict
-from typing import Callable, Tuple
+from collections.abc import Mapping
+from typing import Callable, Dict, List, Sequence, Tuple
 
+import torch
+
+from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.lru import get_or_build
 
-__all__ = ["cached_jit", "clear", "size"]
+__all__ = ["cached_jit", "clear", "size", "resident_bytes", "set_graphs",
+           "graphs_enabled", "eager", "runs", "reset_runs", "graph_bytes",
+           "MAX_ENTRIES", "MAX_BYTES", "max_bytes", "Packed", "PackedMap", "PackedTuple",
+           "PackedLayout", "packed", "packed_view", "update_packed"]
 
 # LRU-bounded: keys bake in value-level constants (dictionary codes for
 # string literals), so mutating workloads mint new keys over time — old
 # entries must age out rather than accumulate for the process lifetime.
 MAX_ENTRIES = 512
+# and bounded by the device bytes the captured graphs hold: the least
+# recently used entries go first (a graph in use stays alive until its
+# caller drops it). The default of tidb_tpu_graph_cache_bytes; the bound
+# in force is the last one a caller passed (max_bytes())
+MAX_BYTES = 4 << 30
+_BOUND = [MAX_BYTES]
 
-_CACHE: "OrderedDict[Tuple[str, str], Callable]" = OrderedDict()
+_CACHE: "OrderedDict[Tuple[str, str], _Program]" = OrderedDict()
 # statements run on several threads (the serving tier's workers): the
 # OrderedDict's recency moves and evictions must not interleave
 _LOCK = threading.Lock()
+# one capture at a time in the process: they share a side stream per card
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: Dict[object, object] = {}
+
+_GRAPHS = [True]
+# calls of cached programs by namespace and how they ran, process-wide
+# (reset_runs)
+_RUNS: Dict[str, Dict[str, int]] = {}
+_RUNS_LOCK = threading.Lock()
+
+_ALIGN = 256  # every group of the static input buffer and every packed output
 
 
-def cached_jit(ns: str, key: str, build: Callable[[], Callable]) -> Callable:
-    """Return the callable for (ns, key), building it on first use.
+def set_graphs(on: bool) -> bool:
+    """Turn CUDA-graph capture and replay on or off for the process (off:
+    every call runs eagerly, on the card too). Returns the old setting."""
+    old = _GRAPHS[0]
+    _GRAPHS[0] = bool(on)
+    return old
 
-    `build` returns the callable; it is only called on a miss. Built
-    callables take every per-execution value (chunks, device, state) as
-    arguments, so one entry serves every chunk size and every run."""
+
+def graphs_enabled() -> bool:
+    return _GRAPHS[0]
+
+
+@contextlib.contextmanager
+def eager():
+    """The eager path on the card for the duration of the block."""
+    old = set_graphs(False)
+    try:
+        yield
+    finally:
+        set_graphs(old)
+
+
+def runs() -> Dict[str, Dict[str, int]]:
+    """{ns: {"eager"|"capture"|"replay": calls}} since ``reset_runs``."""
+    with _RUNS_LOCK:
+        return {k: dict(v) for k, v in _RUNS.items()}
+
+
+def reset_runs() -> None:
+    with _RUNS_LOCK:
+        _RUNS.clear()
+
+
+def _note_run(ns: str, how: str) -> None:
+    dispatch.record_jit(f"jit:{ns}")
+    with _RUNS_LOCK:
+        per = _RUNS.setdefault(ns, {})
+        per[how] = per.get(how, 0) + 1
+
+
+def cached_jit(ns: str, key: str, build: Callable[[], Callable],
+               donate_argnums: Sequence[int] = (), max_bytes: int = None) -> Callable:
+    """Return the counted program for (ns, key), building it on first use.
+
+    `build` returns the function; it is only called on a miss. The
+    function takes every per-execution value (staged batch, state, build
+    side) as arguments, tensors in nested tuples, lists and dicts, and
+    returns such a tree; one entry serves every signature (a graph each
+    on the card). `donate_argnums` names the arguments the function may
+    update in place (the reference's donated state). `max_bytes` (the
+    statement's tidb_tpu_graph_cache_bytes) becomes the bound on the bytes
+    the cache's graphs hold."""
+    donate = tuple(sorted(set(int(i) for i in donate_argnums)))
+    if max_bytes is not None:
+        _BOUND[0] = max(int(max_bytes), 0)
+    return _entry(ns, key, lambda: _Program(ns, build(), donate))
+
+
+def max_bytes() -> int:
+    """The bound in force on the bytes the cached graphs hold."""
+    return _BOUND[0]
+
+
+def _entry(ns: str, key: str, make: Callable[[], "_Program"]) -> "_Program":
+    # the builder arrives as a parameter: the cache-key-completeness pass
+    # then checks each cached_jit caller's key, not this lookup
     with _LOCK:
-        return get_or_build(_CACHE, (ns, key), build, MAX_ENTRIES)
+        prog = get_or_build(_CACHE, (ns, key), make, MAX_ENTRIES)
+        _trim_locked()
+    return prog
+
+
+def _trim_locked() -> None:
+    total = sum(p.nbytes for p in _CACHE.values())
+    while total > _BOUND[0] and len(_CACHE) > 1:
+        _k, p = _CACHE.popitem(last=False)
+        total -= p.nbytes
+
+
+def _grew() -> None:
+    """A program captured a graph: re-check the bytes bound."""
+    with _LOCK:
+        _trim_locked()
 
 
 def clear() -> None:
@@ -56,3 +208,477 @@ def clear() -> None:
 def size() -> int:
     with _LOCK:
         return len(_CACHE)
+
+
+def resident_bytes() -> int:
+    """Device bytes the cached graphs hold (pools and static buffers)."""
+    with _LOCK:
+        return sum(p.nbytes for p in _CACHE.values())
+
+
+def graph_bytes() -> Dict[str, List[int]]:
+    """Per namespace, the bytes of each cached graph."""
+    with _LOCK:
+        progs = list(_CACHE.values())
+    out: Dict[str, List[int]] = {}
+    for p in progs:
+        out.setdefault(p.ns, []).extend(g.nbytes for g in p.graphs())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# argument trees
+# ---------------------------------------------------------------------------
+
+class Packed:
+    """A mixin for an argument tree whose tensors are all views of one
+    byte buffer (``packed_buf``, a 1-d uint8 tensor) at the places its
+    ``packed_layout`` (a PackedLayout) describes. A program's signature
+    and copy-in see one tensor, not one per view: a staged scan batch, the
+    segment aggregation's and the top-k's state."""
+
+    __slots__ = ()
+
+    @classmethod
+    def over(cls, buf, layout: "PackedLayout", tree=None):
+        raise NotImplementedError
+
+
+class PackedLayout:
+    """The places of a packed tree's tensors: the tree's spec (as
+    ``_flatten`` gives it), (offset, nbytes, dtype, shape) per tensor in
+    its order, the buffer's size and the Packed class that rebuilds it.
+    Equal layouts hash alike (the hash is computed once)."""
+
+    __slots__ = ("spec", "places", "nbytes", "kind", "_hash")
+
+    def __init__(self, spec, places: tuple, nbytes: int, kind):
+        self.spec, self.places, self.nbytes, self.kind = spec, places, nbytes, kind
+        self._hash = hash((spec, places, nbytes, kind))
+
+    def __hash__(self):
+        return self._hash
+
+    def __eq__(self, other):
+        return self is other or (isinstance(other, PackedLayout) and self._hash == other._hash
+                                 and (self.spec, self.places, self.nbytes, self.kind)
+                                 == (other.spec, other.places, other.nbytes, other.kind))
+
+    def views(self, buf) -> list:
+        return [buf[o:o + n].view(dt).view(shape) for o, n, dt, shape in self.places]
+
+    def tree(self, buf):
+        """The tree of views of `buf` (plain dicts and tuples)."""
+        return _unflatten(self.spec, iter(self.views(buf)))
+
+    def rebuild(self, buf) -> Packed:
+        return self.kind.over(buf, self)
+
+
+class PackedMap(Mapping, Packed):
+    """A read-only mapping of names to tensors that are views of one
+    buffer; the views are made at the first access, so a replay that hands
+    the map on to the next batch makes none."""
+
+    __slots__ = ("packed_buf", "packed_layout", "_views")
+
+    def __init__(self, buf, layout: PackedLayout, views: dict = None):
+        self.packed_buf, self.packed_layout, self._views = buf, layout, views
+
+    @classmethod
+    def over(cls, buf, layout: PackedLayout, tree=None) -> "PackedMap":
+        return cls(buf, layout, tree)
+
+    def _view(self) -> dict:
+        if self._views is None:
+            self._views = self.packed_layout.tree(self.packed_buf)
+        return self._views
+
+    def __getitem__(self, key):
+        return self._view()[key]
+
+    def __iter__(self):
+        return iter(self._view())
+
+    def __len__(self):
+        return len(self.packed_layout.spec[1])
+
+
+class PackedTuple(tuple, Packed):
+    """A tuple tree of tensors that are views of one buffer."""
+
+    @classmethod
+    def over(cls, buf, layout: PackedLayout, tree=None) -> "PackedTuple":
+        t = cls(layout.tree(buf) if tree is None else tree)
+        t.packed_buf, t.packed_layout = buf, layout
+        return t
+
+
+def _kind(tree):
+    if isinstance(tree, dict):
+        return PackedMap
+    if isinstance(tree, tuple):
+        return PackedTuple
+    raise TypeError(f"a packed tree is a dict or a tuple, not {type(tree).__name__}")
+
+
+def packed_view(buf, tree) -> Packed:
+    """`tree` (a dict or a tuple tree) whose tensors are all contiguous
+    views of the 1-d uint8 tensor `buf`, as a Packed value over it."""
+    leaves: list = []
+    spec = _flatten(tree, leaves)
+    base = buf.data_ptr()
+    places = tuple((t.data_ptr() - base, t.numel() * t.element_size(), t.dtype,
+                    tuple(t.shape)) for t in leaves)
+    kind = _kind(tree)
+    return kind.over(buf, PackedLayout(spec, places, buf.numel(), kind), tree)
+
+
+def packed(tree) -> Packed:
+    """The tensors of `tree` (a dict or a tuple tree) copied into one
+    buffer on their device, each on a 256-byte boundary, as a Packed value
+    of views (updated in place, they update the buffer)."""
+    leaves: list = []
+    spec = _flatten(tree, leaves)
+    places, off = [], 0
+    for t in leaves:
+        n = t.numel() * t.element_size()
+        places.append((off, n, t.dtype, tuple(t.shape)))
+        off += _aligned(max(n, 1))
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    kind = _kind(tree)
+    layout = PackedLayout(spec, tuple(places), max(off, _ALIGN), kind)
+    buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=dev)
+    _copy_all(layout.views(buf), leaves)
+    return layout.rebuild(buf)
+
+
+def update_packed(state: Packed, tree) -> Packed:
+    """Copy the tensors of `tree`, a tree of the same form, into the
+    views of the packed `state`, in place; returns `state` (a donated
+    state's update inside a program)."""
+    leaves: list = []
+    if _flatten(tree, leaves) != state.packed_layout.spec:
+        raise ValueError("update_packed: the tree is not of the state's form")
+    _copy_all(state.packed_layout.views(state.packed_buf), leaves)
+    return state
+
+
+def _flatten(tree, leaves: list):
+    """The tree's spec (hashable; non-tensor leaves by value) and its
+    tensors appended to `leaves` in order (a Packed tree: its buffer)."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return 0
+    if isinstance(tree, Packed):
+        leaves.append(tree.packed_buf)
+        return ("p", tree.packed_layout)
+    if isinstance(tree, dict):
+        return ("d", tuple(tree.keys()), tuple(_flatten(v, leaves) for v in tree.values()))
+    if isinstance(tree, tuple):
+        return ("t", tuple(_flatten(v, leaves) for v in tree))
+    if isinstance(tree, list):
+        return ("l", tuple(_flatten(v, leaves) for v in tree))
+    hash(tree)  # a baked value must be hashable to join the signature
+    return ("v", tree)
+
+
+def _unflatten(spec, it):
+    if spec == 0:
+        return next(it)
+    kind = spec[0]
+    if kind == "d":
+        return {k: _unflatten(s, it) for k, s in zip(spec[1], spec[2])}
+    if kind == "t":
+        return tuple(_unflatten(s, it) for s in spec[1])
+    if kind == "l":
+        return [_unflatten(s, it) for s in spec[1]]
+    if kind == "p":
+        return spec[1].rebuild(next(it))
+    return spec[1]
+
+
+def _aligned(n: int) -> int:
+    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+def _on_card(dev) -> bool:
+    return dev.type == "cuda"
+
+
+def _packing(leaves: list):
+    """Where each tensor goes in one byte buffer: leaves grouped by dtype
+    (each dtype's region on a 256-byte boundary, its leaves back to back
+    in leaf order, so one split views them all), and the buffer's size.
+    Returns ([(offset, nbytes)] per leaf, [(dtype, start, [leaf], [numel])]
+    per region, size)."""
+    regions: "OrderedDict[torch.dtype, list]" = OrderedDict()
+    for i, t in enumerate(leaves):
+        regions.setdefault(t.dtype, []).append(i)
+    place: List[tuple] = [None] * len(leaves)
+    plan, off = [], 0
+    for dt, idxs in regions.items():
+        start = off
+        esz = torch.empty(0, dtype=dt).element_size()
+        numels = []
+        for i in idxs:
+            n = leaves[i].numel()
+            place[i] = (off, n * esz)
+            numels.append(n)
+            off += n * esz
+        plan.append((dt, start, idxs, numels))
+        off = _aligned(off)
+    return place, plan, max(off, _ALIGN)
+
+
+# ---------------------------------------------------------------------------
+# programs and their graphs
+# ---------------------------------------------------------------------------
+
+class _Program:
+    """One cache entry: the built function and, per signature, nothing
+    (no warm-up has returned yet), the warm-up's record (the next call
+    captures) or the captured graph."""
+
+    def __init__(self, ns: str, fn: Callable, donate: Tuple[int, ...]):
+        self.ns = ns
+        self.fn = fn
+        self.donate = donate
+        self._sigs: Dict[tuple, object] = {}
+        self._lock = threading.Lock()
+        self.nbytes = 0
+
+    def graphs(self) -> List["_Graph"]:
+        with self._lock:
+            return [g for g in self._sigs.values() if isinstance(g, _Graph)]
+
+    def __call__(self, *args):
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        dev = leaves[0].device if leaves else None
+        if dev is None or not _GRAPHS[0] or not _on_card(dev):
+            _note_run(self.ns, "eager")
+            return self.fn(*args)
+        sig = (spec, dev, tuple((t.shape, t.dtype, t.stride()) for t in leaves))
+        with self._lock:
+            g = self._sigs.get(sig)
+        if g is None:
+            return self._warm_up(sig, args, dev)
+        how = "replay"
+        if not isinstance(g, _Graph):
+            with _CAPTURE_LOCK:
+                with self._lock:
+                    g = self._sigs.get(sig)
+                if g is None:
+                    # another thread's capture of it failed: warm up again
+                    return self._warm_up(sig, args, dev)
+                if not isinstance(g, _Graph):
+                    g = self._capture(sig, g, spec, leaves, dev)
+                    how = "capture"
+            if how == "capture":
+                _grew()
+        _note_run(self.ns, how)
+        return g.run(leaves)
+
+    def _warm_up(self, sig, args, dev):
+        """An eager call of a signature not yet warmed up: builds, uploads
+        and allocator growth happen here, and the copy kernels the capture
+        will pack the outputs with load (a kernel's first load must not
+        fall inside a capture). The first to return lets the next call
+        capture, with what it retained held for that capture."""
+        _note_run(self.ns, "eager")
+        with dispatch.Warmup() as warm:
+            out = self.fn(*args)
+            out_leaves: list = []
+            _flatten(out, out_leaves)
+            place, _plan, size = _packing(out_leaves)
+            _pack(out_leaves, place, torch.empty(size, dtype=torch.uint8, device=dev))
+        with self._lock:
+            self._sigs.setdefault(sig, warm)
+        return out
+
+    def _capture(self, sig, warm, spec, leaves: list, dev) -> "_Graph":
+        """Capture the signature (under _CAPTURE_LOCK). A failure puts it
+        back to unseen, so the next call warms up again, and raises."""
+        t0 = time.perf_counter()
+        try:
+            g = _Graph.capture(self, spec, leaves, dev, warm.held)
+        except BaseException:
+            with self._lock:
+                if self._sigs.get(sig) is warm:
+                    del self._sigs[sig]
+            raise
+        dispatch.record_compile_seconds(time.perf_counter() - t0)
+        with self._lock:
+            self._sigs[sig] = g
+            self.nbytes += g.nbytes
+        return g
+
+
+class _Graph:
+    """One captured signature: the graph, its static input buffer and
+    slots, its packed output buffer and the host effects to replay."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.graph = None
+        self.device = None
+        self.in_buf = None
+        self.slots: List = []          # static view per tensor leaf
+        self.readonly: List[bool] = []
+        self.last: List = []           # (weakref, version) last copied in, per leaf
+        self.out_buf = None
+        self.out_spec = None
+        self.out_plan: List[tuple] = []  # _packing's regions of the outputs
+        self.out_shapes: List[tuple] = []
+        self.out_place: List[tuple] = []
+        self.capture_rec = None
+        self.event = None
+        self.last_stream = None
+        self.nbytes = 0
+
+    # -- capture -----------------------------------------------------------
+
+    @classmethod
+    def capture(cls, prog: _Program, spec, leaves: list, dev, held: dict) -> "_Graph":
+        self = cls()
+        self.device = dev
+        # static slots: the leaves packed by dtype, as the outputs are
+        self.readonly = _readonly_leaves(spec, prog.donate)
+        place, _plan, size = _packing(leaves)
+        self.in_buf = torch.empty(size, dtype=torch.uint8, device=dev)
+        # a contiguous slot whatever the leaf's strides: copy_ reads them
+        self.slots = [self.in_buf[o:o + nb].view(t.dtype).view(t.shape)
+                      for (o, nb), t in zip(place, leaves)]
+        self.last = [None] * len(leaves)
+        # the slots hold this call's values while the body is captured
+        self._copy_in(leaves)
+        static_args = _unflatten(spec, iter(self.slots))
+        stream = _CAPTURE_STREAMS.get(dev)
+        if stream is None:
+            # from torch's high-priority pool: the default-priority pool
+            # hands its streams out round-robin (the prefetchers' copy
+            # streams), and a copy that lands on the capturing stream from
+            # another thread invalidates the capture
+            stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(device=dev, priority=-1)
+        cur = torch.cuda.current_stream(dev)
+        stream.wait_stream(cur)
+        reserved = torch.cuda.memory_reserved(dev)
+        # lint: disable=jit-hygiene -- the sanctioned capture: one graph per
+        # (ns, key) entry and input signature, kept in this cache (module doc)
+        graph = torch.cuda.CUDAGraph()
+        rec = dispatch.Capture(held)
+
+        def body():
+            out = prog.fn(*static_args)
+            out_leaves: list = []
+            self.out_spec = _flatten(out, out_leaves)
+            if self.out_buf is None:
+                self.out_place, self.out_plan, size = _packing(out_leaves)
+                self.out_shapes = [t.shape for t in out_leaves]
+                self.out_buf = torch.empty(size, dtype=torch.uint8, device=dev)
+            _pack(out_leaves, self.out_place, self.out_buf)
+
+        with torch.cuda.device(dev), torch.cuda.stream(stream), rec:
+            self._capture_body(graph, body)
+        cur.wait_stream(stream)
+        rec.held = {}  # the graph keeps what it read (retained), no more
+        self.graph = graph
+        self.capture_rec = rec
+        self.event = torch.cuda.Event()
+        self.nbytes = _pool_bytes(dev, reserved) + self.in_buf.numel()
+        return self
+
+    @staticmethod
+    def _capture_body(graph, body: Callable[[], None]) -> None:
+        """Capture `body` into `graph` on the current (side) stream; other
+        threads' launches stay legal meanwhile (thread-local mode)."""
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            body()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except Exception:  # noqa: BLE001 — the capture's own error wins
+                pass
+            raise
+        graph.capture_end()
+
+    # -- replay ------------------------------------------------------------
+
+    def run(self, leaves: list):
+        stream = torch.cuda.current_stream(self.device)
+        with self.lock:
+            if self.last_stream is not None and self.last_stream != stream:
+                # the last user's copies and clone ran on another stream
+                stream.wait_event(self.event)
+            self._copy_in(leaves)
+            self.graph.replay()
+            out = self.out_buf.clone()
+            self.event.record(stream)
+            self.last_stream = stream
+        self.capture_rec.replay_effects()
+        # one split per dtype region views every output: fresh tensors
+        views: List = [None] * len(self.out_shapes)
+        for dt, start, idxs, numels in self.out_plan:
+            end = self.out_place[idxs[-1]][0] + self.out_place[idxs[-1]][1]
+            for i, v in zip(idxs, out[start:end].view(dt).split(numels)):
+                shape = self.out_shapes[i]
+                views[i] = v if len(shape) == 1 else v.view(shape)
+        return _unflatten(self.out_spec, iter(views))
+
+    def _copy_in(self, leaves: list) -> None:
+        """The arguments into their slots, in one grouped copy; a read-only
+        leaf that is still the tensor last copied in, unchanged, is
+        skipped (the probe's build side)."""
+        dsts, srcs = [], []
+        for i, t in enumerate(leaves):
+            if self.readonly[i]:
+                seen = self.last[i]
+                if seen is not None and seen[0]() is t and seen[1] == t._version:
+                    continue
+                self.last[i] = (weakref.ref(t), t._version)
+            dsts.append(self.slots[i])
+            srcs.append(t)
+        _copy_all(dsts, srcs)
+
+
+def _readonly_leaves(spec, donate: Tuple[int, ...]) -> List[bool]:
+    """Per tensor leaf of the argument tuple: not in a donated argument."""
+    out: List[bool] = []
+
+    def count(s) -> int:
+        if s == 0:
+            return 1
+        if s[0] == "d":
+            return sum(count(c) for c in s[2])
+        if s[0] in ("t", "l"):
+            return sum(count(c) for c in s[1])
+        return int(s[0] == "p")
+
+    for argno, s in enumerate(spec[1]):
+        out += [argno not in donate] * count(s)
+    return out
+
+
+def _pack(out_leaves: list, place: list, buf) -> None:
+    """Each output into its place in `buf` (inside a capture: graph nodes)."""
+    dsts, srcs = [], []
+    for (o, nb), t in zip(place, out_leaves):
+        if nb:
+            dsts.append(buf[o:o + nb].view(t.dtype).view(t.shape))
+            srcs.append(t)
+    _copy_all(dsts, srcs)
+
+
+def _copy_all(dsts: list, srcs: list) -> None:
+    """dst.copy_(src) for each pair, in as few kernels as torch groups them."""
+    if dsts:
+        torch._foreach_copy_(dsts, srcs)
+
+
+def _pool_bytes(dev, reserved_before: int) -> int:
+    """The device memory a capture reserved: a private pool starts empty,
+    so every block it holds is a segment reserved during the capture (a
+    concurrent allocation on another thread can add to the figure)."""
+    return max(int(torch.cuda.memory_reserved(dev) - reserved_before), 0)
