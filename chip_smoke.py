@@ -115,20 +115,21 @@ Workloads (phase_workloads). A fresh Session on cuda, seed 7: SSB at SF1
    run's, each run's launch contract held, and on that plan's second
    warm run no eager call and no capture, every
    fused batch a replay, the kernels' launches, probe routes and
-   device_get round trips equal to the eager run's; the warm median of 3
+   device_get round trips equal to the eager run's; the warm median of
+   WARM_RUNS
    in each mode, the bytes the graphs hold and a profiled replayed run
    of Q1, Q6, Q3 and Q5 (Q1 eagerly too; Q18 unprofiled, a cut for the
    time limit). The sync-free pass empties the cache before each
    statement, so its wrappers see a warm-up and a capture.
-3. Times: warm wall time (median of 3) and rows/s of each query fused
+3. Times: warm wall time (median of WARM_RUNS) and rows/s of each query fused
    with the buffer cache (the graphs step's replay medians), of Q1, Q6,
    Q3 and Q5 fused with its budget 0,
    the same staged inline at prefetch depth 0, and classic, and of Q3 in
    a fifth mode (generic_host:
-   tidb_device_engine_mode = 'off', the host groupby); one more warm run
-   under torch.profiler of Q1 classic and Q3 on the host engine (the
-   fused runs' profiles are the graphs step's; UNPROFILED: the
-   profiler adds 10-40 s to a run; device busy
+   tidb_device_engine_mode = 'off', the host groupby); no profiled run
+   of these modes since the SF10 phase (Q1 classic and Q3 on the host
+   engine until then; the fused runs' profiles are the graphs step's;
+   UNPROFILED: the profiler adds 10-40 s to a run; a profile gives device busy
    time, idle share, host->device copies split pinned/pageable with their
    bytes, device->host copies, host cudaMemcpyAsync and launch counts, top
    operators by device time); Q18's IN subquery alone on the device (it
@@ -150,12 +151,13 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    Q1, Q6, Q3, Q5 and Q18 by COM_QUERY over one connection, each against
    numpy and the session's rows, its wall time beside phase 3's median
    and its launches (the statements summary's per-thread dispatches)
-   equal to a solo in-process run's; 1,600 prepared point-selects on
+   equal to a solo in-process run's; 800 prepared point-selects on
    orders by o_orderkey (COM_STMT_PREPARE / COM_STMT_EXECUTE) from 16
    connections in a client process of their own (point_clients), keys
    from seed 7 with 10% absent, the default 250 us batch window, every
    row against numpy, at least one batch of more than one member
-   (statements/s, p50/p99, mean batch size printed); Q1, Q3 and Q18 from
+   (statements/s, p50/p99, mean batch size printed); Q1 and Q3
+   (CONCURRENT_QUERIES; Q18 too until the SF10 phase) from
    4 connections at once (the scheduler's workers run them one at a
    time on the catalog lock), each statement's rows and launches (its
    slow-log row) equal to its solo run's, their fused batches replaying
@@ -212,7 +214,8 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    (l_orderkey) REFERENCES orders, CHECKs from TPC-H's domains and a
    stored DECIMAL(15,4) generated column l_extendedprice * (1 -
    l_discount): the load's FK, CHECK and generated-column times, the sum
-   of the generated column by Q1's groups against numpy, RF1 through it,
+   of the generated column by Q1's groups against numpy, RF1 through it
+   (auto-analyze off around it since the SF10 phase),
    a violating row, an orphan key and the delete of a referenced order
    refused, RF2 in TPC-H's order. ALTER TABLE ADD, MODIFY and DROP
    COLUMN on orders with Q3 against numpy after each; a SAVEPOINT inside
@@ -223,7 +226,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
 6. Statistics, EXPLAIN ANALYZE, windows and views, on the same session.
    phase_stats: ANALYZE TABLE of the eight tables, timed per table; Q1,
    Q6, Q3, Q5 and Q18 under the analyzed plans against numpy over the
-   tables' live rows (warm median of 3, one profiled run of Q6: device
+   tables' live rows (warm median of WARM_RUNS, one profiled run of Q6: device
    busy time; tidb_segagg once per aggregated chunk,
    tidb_probe_count once per probe chunk); EXPLAIN ANALYZE of Q1 (the device buffer cache cleared,
    so it stages), Q3 and Q18: the root's actRows must equal the query's
@@ -231,13 +234,15 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    launches in the statement and the profile line's xfer_bytes to the
    bytes the fused pipeline and the classic scan staged. phase_window:
    ROW_NUMBER and RANK by customer over orders' price, a running SUM by
-   order date, LAG and an AVG over a ROWS frame, each over every live
-   order against numpy; the official TPC-H Q15 (CREATE VIEW revenue0, the
+   order date, LAG and an AVG over a ROWS frame, each over the live orders
+   up to WINDOW_SHARE of the order keys (every order until the SF10 phase)
+   against numpy; the official TPC-H Q15 (CREATE VIEW revenue0, the
    query, DROP VIEW) against numpy and the inlined Q15; SHOW TABLES, SHOW
    CREATE TABLE lineitem and SHOW INDEX FROM orders printed.
 7. The storage phase (phase_storage), on the same session, its tables in
    a scratch database. The delta engine: orders' columns, no key,
-   ENGINE=delta, filled by INSERT ... SELECT from orders, then 250
+   ENGINE=delta, filled by INSERT ... SELECT from orders (the orders up
+   to STORAGE_SHARE of the order keys since the SF10 phase), then 250
    single-row autocommit INSERTs of fresh keys (all still buffered when
    the next read starts; 5,000 in earlier runs reached the 4,096-row
    bulk append); an aggregation by o_orderpriority and Q3 over it against
@@ -245,7 +250,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    per-statement times of both engines printed. (10,000 and 1,000 until
    the planner phase was added, 1,000 and 500 until the graphs step:
    cut to keep the script inside its time limit.) CREATE TABLE ... AS SELECT of lineitem's
-   revenue by order (one row per order), joined to orders under a date
+   revenue by order (one row per order, the same orders), joined to orders under a date
    filter against numpy; CREATE TABLE ... LIKE orders (engine, CHECKs,
    keys, no rows). SELECT * FROM orders INTO OUTFILE under build/ for
    orders' first LOAD_ROWS keys, LOAD DATA INFILE into a LIKE copy,
@@ -254,7 +259,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    orders of 1,000 rows read by its Q3 while a second connection's Q3
    reads the permanent table, both against numpy; the temp table gone
    after the first disconnects, torch.cuda.memory_allocated() and the
-   device buffer cache's entries of it recorded. information_schema's
+   device buffer cache's entries of it, which must be none, recorded. information_schema's
    tables (row counts against the catalog), columns, statistics (after
    ANALYZE), processlist and statements_summary read in process and over
    the wire alike. DROP DATABASE refused while an FK points into it, then
@@ -267,7 +272,8 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    /*+ MEMORY_QUOTA(256 MB) */ (SPILL_QUOTA: at 64 MB Q18's hash-join
    builds alone, which cannot spill, pass the quota) must spill and
    equal numpy; an ORDER BY l_extendedprice DESC, l_orderkey,
-   l_linenumber over lineitem's three columns under the same quota must
+   l_linenumber over lineitem's three columns (the rows of SORT_SHARE of
+   the order keys, under SORT_QUOTA, since the SF10 phase) must
    spill and equal numpy's lexsort (its length, the first and last 1,000
    rows, every row's keys in order and every 1,009th price); Q18 again
    with no quota; Q18 in the default mode under the quota (completed or
@@ -296,13 +302,13 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
 9. The mesh phase (phase_mesh), on the same SF1 catalog after the
    planner phase: the mesh tier (tidb_tpu_torch/parallel) under
    Session(mesh=...). First the single-card session's rows of Q1, Q6,
-   Q3, Q5 and Q18 and their warm medians of 3. On a mesh of the one card
+   Q3, Q5 and Q18 and their warm medians of WARM_RUNS. On a mesh of the one card
    (make_mesh(), as the reference serves one chip) each query's rows must
    equal numpy over the tables' live rows and the single-card rows
    exactly, its executor classes are printed, tidb_segagg must launch
    for Q1 and Q6 (DistAggExec) and tidb_probe_count for Q3, Q5 and Q18
    (their mesh joins), the off-path entries never; one cold run and a
-   warm median of 3, recorded beside the single-card medians with no
+   warm median of WARM_RUNS, recorded beside the single-card medians with no
    limit. With tidb_device_cache_bytes a quarter of lineitem's table
    bytes, Q1 and Q6 stream in at least two batches and equal the
    resident runs. The same five queries on four shards laid over the
@@ -332,7 +338,7 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    nation and region broadcast, every column of the single-card tables
    shipped; load seconds and wire bytes per table and each worker
    process's device memory printed. Q1, Q6, Q3 and Q5, one cold run and
-   three warm: rows equal to the single-card session's (floats within
+   DCN_WARM warm: rows equal to the single-card session's (floats within
    1e-12 relative) and numpy, warm medians beside the single card's;
    each worker's own tidb_segagg and tidb_probe_count launches read over
    the metrics_snapshot RPC before and after each run, and the
@@ -354,7 +360,9 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    wire-* finding (every request sent is in the port's committed
    protocol model). Q1 under max_execution_time = 20 ms raises
    QueryTimeoutError and the workers' deadline or cancel counters move.
-   A fleet of its own (two more workers) holds orders alone: a third
+   A fleet of its own (two more workers) holds orders alone (its rows up
+   to DCN_SIDE_SHARE of the order keys since the SF10 phase, as the
+   failover fleet below): a third
    worker joins (add_worker) and drains out (remove_worker), orders'
    count and sum equal numpy after each (moving lineitem's shards too
    took 99-107 s of host work). A second fleet of two
@@ -364,7 +372,48 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    their answers through the replica, tidb_tpu_dcn_failover_total
    moving. information_schema.dcn_worker_stats and cluster_info show
    the three fleets. No worker process and no spill file may be left.
-   The full report goes to chip_smoke.json under OUT_DIR.
+11. SF10 (phase_sf10), last, on a fresh Session on the card after every
+   SF1 session is closed and the device buffer cache and the built
+   programs are emptied: TPC-H at SF10 from the in-repo generator
+   (60,001,162 lineitem rows, as the reference's SF10 rehearsal,
+   SF10_REHEARSAL.json), with tidb_mem_quota_query at SF10_QUOTA (the 2
+   GiB default stops Q18 at this scale). The load's generation and
+   ingest seconds per table, its primary-key checks, the host's MemTotal
+   and peak RSS and the host time of one lineitem.live_rows are printed.
+   Q1, Q6 and Q5 run as the first three statements (the order that
+   filled the card at SF1 before the join estimate and the probe's
+   expansion were repaired), then Q3 and Q18, each once cold and then
+   warm until a warm run captures no CUDA graph (at most SF10_WARM_MAX);
+   each run is held to the launch contract of the plan it ran (taken
+   from the session as it ran, plans_run: planning again would read every
+   table's live rows once more) and prints its wall time, max_memory_allocated,
+   staged bytes, tidb_segagg and tidb_probe_count launches and
+   device_get round trips; each query's rows equal numpy over the
+   generated arrays (decimals exact, averages within 1e-12 relative; numpy
+   runs on a thread of its own beside the warm runs, once no statement
+   moves a row) and its warm rows its cold rows. Lineitem must be re-sorted by l_shipdate
+   and the warm Q6 prune segments; the graphs' bytes stay within
+   tidb_tpu_graph_cache_bytes. Q18 then runs on the host engine under
+   /*+ MEMORY_QUOTA */ at a quarter of lineitem's column bytes (the
+   rehearsal's budget): rows identical to the resident run's, bytes
+   spilled, every tracker at 0 and no spill file left. Q6 on a mesh of
+   the one card, resident (lineitem's 6.8 GB are under
+   tidb_device_cache_bytes) and streamed (the sysvar at a quarter of
+   lineitem's bytes, two or more batches), equals the single card's rows.
+The full report goes to chip_smoke.json under OUT_DIR.
+
+Depth cuts for the SF10 phase's share of the 1,200 s limit (every path
+is still driven; the earlier depth in parentheses): WARM_RUNS = 1 warm
+run in the SF1 phases' medians (3: phase 3, the graphs step, stats, the
+mesh), DCN_WARM = 1 (3), WORKLOAD_WARM = 1 (2), 16 x 50 point-selects
+(16 x 100), Q1 and Q3 from the server phase's 4 analysts (and Q18), no
+profile of phase 3's classic Q1 and host-engine Q3 nor of the graphs
+step's Q6, Q3 and Q5 replays, LOAD_ROWS 100,000 (300,000), the storage phase's INSERT ...
+SELECT and CTAS, the window queries and the DCN side fleets over a
+quarter of the orders (STORAGE_SHARE, WINDOW_SHARE, DCN_SIDE_SHARE: all
+of them), the planner's spilling ORDER BY over half of lineitem under
+SORT_QUOTA (all of it under SPILL_QUOTA), auto-analyze off around the
+schema phase's RF1 into its constrained copy.
 
 Plan feedback is on in every phase, as it is by default: a launch check
 holds each run to the plan taken just before it by `planned`, which
@@ -380,10 +429,12 @@ source, the TPU kernel it replaces, the launches of phase 2's main path
 (`launches`) and of each later phase (`launches_refresh`,
 `launches_schema`, `launches_stats`, `launches_window`,
 `launches_server`, `launches_storage`, `launches_planner`,
-`launches_mesh`, `launches_dcn`, `launches_workloads`; the mesh's launches sit only on the rows
+`launches_mesh`, `launches_dcn`, `launches_workloads`, `launches_sf10`;
+the mesh's launches sit only on the rows
 at the mesh's own shapes, `segagg.mesh` and
 `probe_count.mesh_<route>_<mode>`; the DCN's are the workers' and the
-coordinator's, a probe_count route's on the row of its route and mode),
+coordinator's, a probe_count route's on the row of its route and mode;
+SF10's one-card mesh's tidb_segagg on segagg.mesh),
 its largest
 error against the plain version, and its time, its plain version's, its
 bound with what bounds it, and a library call's; the last line is
@@ -402,6 +453,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor FP32 peak, used for adds
+# timed warm runs of a query in the SF1 phases' medians (3 until the SF10
+# phase took its share of the time limit)
+WARM_RUNS = 1
 Q1_ROWS = 65536             # Q1's chunk capacity at SF1 (tidb_max_chunk_size)
 Q1_GROUPS = 12              # (3 returnflags + NULL) x (2 linestatuses + NULL)
 OUT_DIR = "chiprun_out"
@@ -1751,13 +1805,15 @@ def phase_paths(torch, np, s, mods, new_session, queries) -> dict:
 UNPROFILED = {"fused_cache": ("q1", "q6", "q3", "q5", "q18"),
               "fused_nocache": ("q1", "q6", "q3", "q5"),
               "fused_nocache_inline": ("q1", "q6", "q3", "q5"),
-              "classic": ("q6", "q3", "q5")}
+              "classic": ("q1", "q6", "q3", "q5"),
+              "generic_host": ("q3",)}
 # (to make room for the DCN phase inside the time limit:
 # fused_cache no longer profiles Q18, whose profiled run took 39 s at
 # SF1; the two cache-off modes profile nothing; Q18 runs in fused_cache
 # alone, the host engine runs Q3 alone. Since the graphs step, which
 # profiles the default path by replay, fused_cache is not run here, and
-# classic profiles Q1 alone, cuts for the script's time limit)
+# classic profiles Q1 alone, cuts for the script's time limit; since the
+# SF10 phase neither classic Q1 nor the host engine's Q3 is profiled)
 # the stats phase's queries left unprofiled: at SF1 on an H100 (700 W)
 # Q18's profiled run took 59.9 s and Q5's 21.0 s, and phase 3 profiles
 # both already
@@ -1805,14 +1861,14 @@ def phase_modes(torch, s, queries, n_rows, fused_cache_s=None) -> tuple:
                     or mode != "fused_cache" and qname == "q18":
                 continue
             runs = []
-            for _ in range(3):
+            for _ in range(WARM_RUNS):
                 t0 = time.perf_counter()
                 s.query(Q[qname][0])
                 runs.append(time.perf_counter() - t0)
             med = statistics.median(runs)
             times[mode][qname] = med
             if qname in UNPROFILED.get(mode, ()):
-                log(f"{mode} {qname}: warm wall median of 3 {med * 1e3:.3f} ms; runs {runs}")
+                log(f"{mode} {qname}: warm wall median of {WARM_RUNS} {med * 1e3:.3f} ms; runs {runs}")
                 continue
             pl.reset_counters()
             prof = profile_query(torch, s, Q[qname][0])
@@ -1820,7 +1876,7 @@ def phase_modes(torch, s, queries, n_rows, fused_cache_s=None) -> tuple:
                                 "stage_s": dict(pl.PIPELINE_STAGE_SECONDS),
                                 "cache": dict(pl.DEVICE_CACHE_TOTAL)}
             profiles[mode][qname] = prof
-            log(f"{mode} {qname}: warm wall median of 3 {med * 1e3:.3f} ms "
+            log(f"{mode} {qname}: warm wall median of {WARM_RUNS} {med * 1e3:.3f} ms "
                 f"({n_rows / med:,.0f} rows/s over {n_rows} lineitem rows); runs {runs}; "
                 f"profiled wall {prof['wall_us'] / 1e3:.3f} ms, device busy "
                 f"{prof['device_busy_us'] / 1e3:.3f} ms, idle share "
@@ -2080,12 +2136,12 @@ def sync_free_pass(torch, s, mods, sqls: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 GRAPH_QUERIES = ("q1", "q6", "q3", "q5", "q18")
-GRAPH_WARM = 3             # timed warm runs of each mode
+GRAPH_WARM = WARM_RUNS     # timed warm runs of each mode
 GRAPH_MAX_RUNS = 6         # graph runs until one plan's second warm run
 GRAPH_EAGER_PROFILED = ("q1",)  # eager profiles (the others: PERF.md)
 # the replayed run profiled: Q18's eager outer aggregation (27,000 launches)
 # made its profiled run 29 s at SF1, a cut for the script's time limit
-GRAPH_PROFILED = ("q1", "q6", "q3", "q5")
+GRAPH_PROFILED = ("q1",)  # (Q6, Q3 and Q5 too until the SF10 phase)
 
 
 def _site_calls(programs: dict) -> dict:
@@ -3095,7 +3151,10 @@ def schema_steps(np, s, mods, sf: float) -> dict:
         f"{acc.get('fk_s', 0):.3f} s, CHECK {acc.get('check_s', 0):.3f} s, generated "
         f"{acc.get('generated_s', 0):.3f} s); sum(l_disc_price) by group equals Q1's "
         f"sum_disc_price from numpy ({dt:.3f} s, launches {c['launches']})")
-    # RF1 into the copy: the new orders first, then their lineitems
+    # RF1 into the copy: the new orders first, then their lineitems (no
+    # auto-analyze: the refresh phase times it; here the copy's first
+    # commit would analyze its 6M rows, 13 s)
+    s.execute("set tidb_enable_auto_analyze = 0")
     new = rf.rf1(cat, sf, seed=11)
     cols = list(_COPY_COLS)
     lines = new["lineitem"]
@@ -3127,6 +3186,7 @@ def schema_steps(np, s, mods, sf: float) -> dict:
     if cons.live_rows != len(model.table("test", "lineitem").data["l_orderkey"]) + n_new \
             - int(np.isin(model.table("test", "lineitem").data["l_orderkey"], keys).sum()):
         raise AssertionError(f"li_cons holds {cons.live_rows} rows after RF1 and RF2")
+    s.execute("set tidb_enable_auto_analyze = 1")
     log(f"schema constraints: RF1 ({n_new} lineitems) passed the parent checks; refused "
         f"{step['refused']}; RF2 in TPC-H's order passed; statements "
         f"{[(x['sql'], round(x['s'], 3)) for x in step['statements']]}")
@@ -3357,7 +3417,7 @@ def phase_stats(torch, np, s, mods) -> dict:
         # 0 just before it and read just after (run_query), then one
         # profiled run; the launches of all five count
         runs, launches = [], {}
-        for i in range(4):
+        for i in range(1 + WARM_RUNS):
             agg_chunks[0] = 0
             rows, c, dt = run_query(s, mods, Q[q][0])
             if c["launches"]["segagg"] != agg_chunks[0] or (
@@ -3395,7 +3455,7 @@ def phase_stats(torch, np, s, mods) -> dict:
                      f"the profiled run {prof_s:.1f} s; device busy {busy:.3f} ms, "
                      f"idle {prof['idle_share']:.3f}")
         log(f"stats {q} (+{time.perf_counter() - t_phase:.1f} s into the phase; "
-            f"{prof_note}): first {dt:.3f} s, warm median of 3 "
+            f"{prof_note}): first {dt:.3f} s, warm median of {WARM_RUNS} "
             f"{statistics.median(runs) * 1e3:.3f} ms (runs {runs}); "
             f"first run's launches {c['launches']}; routes {c['routes']}; segments "
             f"{c['segments']}; fused {c['fused']}; device generic {c['generic_runs']}")
@@ -3427,6 +3487,9 @@ def phase_stats(torch, np, s, mods) -> dict:
 # the window queries of phase_window over orders: (name, SQL); each ORDER BY
 # that row_number, lag and the ROWS frame read ends in the unique
 # o_orderkey, so every value is defined by the data alone
+# the window queries read the orders up to this quantile of o_orderkey
+# (every order until the SF10 phase took its share of the time limit)
+WINDOW_SHARE = 0.25
 WINDOW_SQL = [
     ("row_number_rank",
      "select o_orderkey, row_number() over (partition by o_custkey order by "
@@ -3555,7 +3618,8 @@ def numpy_q15(np, model, cat):
 
 
 def phase_window(np, s, mods) -> dict:
-    """Window functions over orders (every live row) and the official
+    """Window functions over orders (the live rows up to WINDOW_SHARE of
+    o_orderkey) and the official
     TPC-H Q15 through a view, each against numpy; one line each of SHOW
     TABLES, SHOW CREATE TABLE lineitem and SHOW INDEX FROM orders."""
     from tidb_tpu_torch.storage.tpch_queries import Q
@@ -3563,11 +3627,14 @@ def phase_window(np, s, mods) -> dict:
     cat = s.catalog
     model = ArrayModel(np, cat)
     o = model.table("test", "orders")
-    want = numpy_windows(np, *(o.data[c].astype(np.int64) for c in (
+    okeys = o.data["o_orderkey"]
+    kmax = int(np.sort(okeys)[int(len(okeys) * WINDOW_SHARE) - 1])
+    m = okeys <= kmax
+    want = numpy_windows(np, *(o.data[c][m].astype(np.int64) for c in (
         "o_orderkey", "o_custkey", "o_totalprice", "o_orderdate")))
-    report = {"windows": {}, "launches": {}}
+    report = {"windows": {}, "launches": {}, "key_max": kmax}
     for name, sql in WINDOW_SQL:
-        rows, c, dt = run_query(s, mods, sql)
+        rows, c, dt = run_query(s, mods, f"{sql} where o_orderkey <= {kmax}")
         check_window(np, name, rows, want[name])
         for k, v in c["launches"].items():
             report["launches"][k] = report["launches"].get(k, 0) + v
@@ -3617,7 +3684,11 @@ def phase_window(np, s, mods) -> dict:
 # DATA, TEMPORARY over the wire, information_schema, DROP DATABASE ---------
 
 STORAGE_DB = "stage"
-LOAD_ROWS = 300_000  # orders' rows through OUTFILE and LOAD DATA
+LOAD_ROWS = 100_000  # orders' rows through OUTFILE and LOAD DATA (300,000 before SF10)
+# the delta engine's INSERT ... SELECT and the CTAS read the orders (and
+# their lineitems) up to this quantile of o_orderkey: all of them took 36
+# and 14 s of the SF1 script before the SF10 phase took its share
+STORAGE_SHARE = 0.25
 # the trickle's INSERT counts (10,000 and 1,000 before the planner phase
 # took its share of the script's time limit, 5,000 and 500 before the
 # DCN phase did: the memtable's 4,096-row flush is no longer reached on
@@ -3628,7 +3699,7 @@ STORAGE_AGG = ("select o_orderpriority, count(*), sum(o_totalprice) from {t} "
                "group by o_orderpriority order by o_orderpriority")
 CTAS_REV = (f"create table {STORAGE_DB}.rev as select l_orderkey, "
             "sum(l_extendedprice * (1 - l_discount)) as revenue from lineitem "
-            "group by l_orderkey")
+            "where l_orderkey <= {kmax} group by l_orderkey")
 REV_JOIN = (f"select o_orderpriority, count(*), sum(revenue) from {STORAGE_DB}.rev "
             "join orders on l_orderkey = o_orderkey where o_orderdate < '1995-03-15' "
             "group by o_orderpriority order by o_orderpriority")
@@ -3662,11 +3733,14 @@ def trickle_sql(np, table: str, k: int) -> str:
             f"'{_iso(np, day)}', '{prio}', 'Clerk#000000001', 0, 'trickle {k}')")
 
 
-def numpy_priority_agg(np, o, extra_keys=()):
-    """(priority, count, scaled price sum) over orders' live rows and the
-    trickle rows of `extra_keys`."""
+def numpy_priority_agg(np, o, extra_keys=(), key_max=None):
+    """(priority, count, scaled price sum) over orders' live rows (those
+    with o_orderkey <= `key_max`, when given) and the trickle rows of
+    `extra_keys`."""
     n = o.n
     live = o.live_mask(0, n)
+    if key_max is not None:
+        live &= o.data["o_orderkey"][:n] <= key_max
     codes = o.data["o_orderpriority"][:n][live]
     price = o.data["o_totalprice"][:n][live].astype(np.int64)
     names = o.dicts["o_orderpriority"].values
@@ -3758,10 +3832,13 @@ def phase_storage(torch, np, s, mods) -> dict:
 
     # -- 1. the delta engine: trickle ingest into a reporting table --------
     step, t0 = new_step(), time.perf_counter()
+    om_keys = model.table("test", "orders").data["o_orderkey"]
+    kmax = int(np.sort(om_keys)[int(len(om_keys) * STORAGE_SHARE) - 1])
     s.execute(no_key_ddl(s, "orders", f"{db}.orders_d", "delta"))
-    rec = timed(step, s, mods, f"insert into {db}.orders_d select * from orders",
-                "insert select")
-    n_src = int(orders.live_mask(0, orders.n).sum())
+    rec = timed(step, s, mods, f"insert into {db}.orders_d select * from orders "
+                f"where o_orderkey <= {kmax}", "insert select")
+    live_src = orders.live_mask(0, orders.n) & (orders.data["o_orderkey"][:orders.n] <= kmax)
+    n_src = int(live_src.sum())
     td = cat.table(db, "orders_d")
     if td.engine != "delta" or td.maintenance_stats()[0] != n_src:
         raise AssertionError(f"storage delta: {td.engine} holds "
@@ -3781,16 +3858,18 @@ def phase_storage(torch, np, s, mods) -> dict:
     got = step_query(step, s, mods, STORAGE_AGG.format(t=f"{db}.orders_d"), "agg")
     if td.buffered_rows:
         raise AssertionError("storage delta: the read left rows buffered")
-    check_priority_rows("delta agg", got, numpy_priority_agg(np, orders, keys))
+    check_priority_rows("delta agg", got, numpy_priority_agg(np, orders, keys, kmax))
     sql = q3.replace(" orders,", f" {db}.orders_d,")
     got = step_query(step, s, mods, sql, "q3")
+    share = np.nonzero(om_keys <= kmax)[0]
     check_join_rows("storage q3 over orders_d", got,
-                    numpy_q3(np, StorageModel(model, orders_model(np, model, keys))), {1})
+                    numpy_q3(np, StorageModel(model, orders_model(np, model, keys, share))),
+                    {1})
     # the same INSERTs into a columnar copy holding the same rows (filled
     # by the bulk path: only the per-statement time is compared)
     s.execute(no_key_ddl(s, "orders", f"{db}.orders_c", "columnar"))
     tc = cat.table(db, "orders_c")
-    live = np.nonzero(orders.live_mask(0, orders.n))[0]
+    live = np.nonzero(live_src)[0]
     arrays, strings = {}, {}
     for c in orders.schema.columns:
         col = orders.data[c.name][live]
@@ -3807,7 +3886,7 @@ def phase_storage(torch, np, s, mods) -> dict:
         s.execute(trickle_sql(np, f"{db}.orders_c", int(k)))
         per_c.append(time.perf_counter() - t1)
     got = step_query(step, s, mods, STORAGE_AGG.format(t=f"{db}.orders_c"), "agg columnar")
-    check_priority_rows("columnar agg", got, numpy_priority_agg(np, orders, ckeys))
+    check_priority_rows("columnar agg", got, numpy_priority_agg(np, orders, ckeys, kmax))
     step.update({"trickle": TRICKLE, "trickle_columnar": TRICKLE_COLUMNAR,
                  "buffered_before_read": buffered,
                  "insert_ms": {"delta_p50": _pct(per, 0.5) * 1e3,
@@ -3828,10 +3907,11 @@ def phase_storage(torch, np, s, mods) -> dict:
 
     # -- 2. CTAS and LIKE ----------------------------------------------------
     step, t0 = new_step(), time.perf_counter()
-    rec = timed(step, s, mods, CTAS_REV, "ctas rev")
+    rec = timed(step, s, mods, CTAS_REV.format(kmax=kmax), "ctas rev")
     li = model.table("test", "lineitem")
     lkey, ext, disc = (li.data[c] for c in ("l_orderkey", "l_extendedprice", "l_discount"))
-    uniq, rev = _group_sum(np, lkey, ext * (100 - disc))  # scale 4
+    m = lkey <= kmax
+    uniq, rev = _group_sum(np, lkey[m], ext[m] * (100 - disc[m]))  # scale 4
     trev = cat.table(db, "rev")
     if trev.live_rows != len(uniq):
         raise AssertionError(f"storage ctas: {trev.live_rows} rows, numpy {len(uniq)}")
@@ -3969,7 +4049,8 @@ def phase_storage(torch, np, s, mods) -> dict:
             time.sleep(0.01)
         if sess.catalog._temp:
             raise AssertionError("storage temp: the disconnect left the temp table")
-        if c2.query("select count(*) from orders")[1] != [(str(n_src),)]:
+        n_orders = int(orders.live_mask(0, orders.n).sum())
+        if c2.query("select count(*) from orders")[1] != [(str(n_orders),)]:
             raise AssertionError("storage temp: the permanent orders changed")
         torch.cuda.synchronize()
         mem2 = torch.cuda.memory_allocated()
@@ -4097,7 +4178,8 @@ POINT_SQL = ("select o_orderkey, o_custkey, o_orderstatus, o_totalprice, o_order
              " where o_orderkey = ?")
 # the point-select fleet: connections, and statements from each (2,000
 # each before the mesh phase took its share of the script's time limit)
-POINT_CONNS, POINT_STMTS = 16, 100  # 1,000 before the DCN phase, 500 before the graphs step (the time limit)
+CONCURRENT_QUERIES = ("q1", "q3")  # each of the server phase's 4 analysts runs them
+POINT_CONNS, POINT_STMTS = 16, 50  # 1,000 before the DCN phase, 500 before the graphs step, 100 before SF10 (the time limit)
 # the text rows of the five queries as the port's Session types them
 WIRE_TYPES = {"q1": (str, str, str, str, str, str, float, float, float, int),
               "q6": (str,), "q3": (int, str, str, int), "q5": (str, str),
@@ -4370,9 +4452,10 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
             f"{rep['point_select']['mean_batch_size']:.3f}, histogram {sizes}; "
             f"{coalesced:.0f} statements rode a batch of two or more")
 
-        # -- concurrent analytics: 4 connections, Q1 / Q3 / Q18 each ---------
+        # -- concurrent analytics: 4 connections, Q1 and Q3 each (Q18 too
+        # until the SF10 phase took its share of the time limit) -----------
         solo = {}
-        for q in ("q1", "q3", "q18"):
+        for q in CONCURRENT_QUERIES:
             d0 = dispatch.count()
             s.query(Q[q][0])
             solo[q] = dispatch.count() - d0
@@ -4380,8 +4463,7 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
         # the log keeps its last 128 rows: mark where this step's begin
         cat.slow_queries.clear()
         acl = [connect() for _ in range(4)]
-        orders_ = [("q1", "q3", "q18"), ("q3", "q18", "q1"), ("q18", "q1", "q3"),
-                   ("q1", "q18", "q3")]
+        orders_ = [CONCURRENT_QUERIES, CONCURRENT_QUERIES[::-1]] * 2
         got, errs = {}, []
 
         def analyst(i):
@@ -4415,14 +4497,14 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
                 raise AssertionError(f"concurrent {q} on connection {i} differs")
         rows_slow = list(cat.slow_queries)
         per_stmt = {}
-        for q in ("q1", "q3", "q18"):
+        for q in CONCURRENT_QUERIES:
             text = Q[q][0].strip()[:2048]
             ds = [r[7] for r in rows_slow if r[3] == text]
             per_stmt[q] = ds
             if len(ds) != 4 or any(d != solo[q] for d in ds):
                 raise AssertionError(f"concurrent {q}: launches {ds}, solo {solo[q]}")
         rep["concurrent"] = {"wall_s": cwall, "launches": per_stmt, "solo": solo}
-        log(f"server concurrent analytics: 12 statements on 4 connections in "
+        log(f"server concurrent analytics: {4 * len(CONCURRENT_QUERIES)} statements on 4 connections in "
             f"{cwall:.3f} s; launches per statement {per_stmt} (solo {solo})")
 
         # -- KILL and the statement deadline -------------------------------
@@ -4555,7 +4637,13 @@ def _phase_server(torch, np, s, mods, warm_s, rep, t_phase) -> dict:
 # raw runs) and the sort's runs do not
 SPILL_QUOTA = "256 MB"
 SORT_SQL = ("select {hint}l_orderkey, l_linenumber, l_extendedprice from lineitem "
+            "where l_orderkey <= {kmax} "
             "order by l_extendedprice desc, l_orderkey, l_linenumber")
+# the ORDER BY sorts the lineitems of this quantile of the order keys
+# under SORT_QUOTA (all of lineitem under SPILL_QUOTA, 22-27 s, before
+# the SF10 phase took its share of the time limit)
+SORT_SHARE = 0.5
+SORT_QUOTA = "64 MB"
 TILE_DUPS = 16  # build rows per key of the many-to-many join
 INDEX_JOIN_DATE = "1995-03-15"
 INDEX_JOIN_SQL = ("select count(*), sum(l_extendedprice) from customer join orders "
@@ -4647,10 +4735,13 @@ def modeled_cost(s, sql: str, cascades: bool) -> float:
     return total
 
 
-def numpy_sorted_lineitem(np, li):
+def numpy_sorted_lineitem(np, li, kmax):
     """ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber over the
-    model's live lineitem rows: (orderkey, linenumber, scaled price)."""
+    model's live lineitem rows with l_orderkey <= kmax: (orderkey,
+    linenumber, scaled price)."""
     ok, ln, pr = (li.data[c] for c in ("l_orderkey", "l_linenumber", "l_extendedprice"))
+    m = ok <= kmax
+    ok, ln, pr = ok[m], ln[m], pr[m]
     order = np.lexsort((ln, ok, -pr))
     return ok[order], ln[order], pr[order]
 
@@ -4742,12 +4833,15 @@ def phase_planner(torch, np, s, mods) -> dict:
             s, mods, q18, "q18 engine off, no quota", steps,
             check=lambda rows: check_join_rows("q18", rows, q18_want, {4, 5}))
         s.execute("set tidb_device_engine_mode = 'auto'")
-        want_sorted = numpy_sorted_lineitem(np, li)
-        _, r_sort = planner_step(s, mods, SORT_SQL.format(hint=hinted),
+        lkeys = li.data["l_orderkey"]
+        sort_kmax = int(np.sort(lkeys)[int(len(lkeys) * SORT_SHARE) - 1])
+        want_sorted = numpy_sorted_lineitem(np, li, sort_kmax)
+        sort_hint = f"/*+ MEMORY_QUOTA({SORT_QUOTA}) */ "
+        _, r_sort = planner_step(s, mods, SORT_SQL.format(hint=sort_hint, kmax=sort_kmax),
                                  "order by under quota", steps,
                                  check=lambda rows: check_sorted(np, rows, want_sorted))
         if r_sort["spill_bytes"] <= 0:
-            raise AssertionError(f"the ORDER BY under {SPILL_QUOTA} did not spill")
+            raise AssertionError(f"the ORDER BY under {SORT_QUOTA} did not spill")
         # (its run with no quota, 25 s, was cut for the DCN phase's time)
         try:
             planner_step(s, mods, q18.replace("select", "select " + hinted, 1),
@@ -4758,7 +4852,7 @@ def phase_planner(torch, np, s, mods) -> dict:
             rep["q18_default_under_quota"] = "QueryOOMError"
         s.execute("set tidb_enable_tmp_storage_on_oom = OFF")
         try:
-            planner_step(s, mods, SORT_SQL.format(hint=hinted),
+            planner_step(s, mods, SORT_SQL.format(hint=sort_hint, kmax=sort_kmax),
                          "order by under quota, spill off", steps)
             raise AssertionError("the ORDER BY with spilling off did not raise "
                                  "QueryOOMError")
@@ -5049,7 +5143,7 @@ def mesh_five(np, s, mods, model, single_rows, label, rep) -> dict:
     tables' live rows and the single-card session's rows (exactly), its
     executor classes, its launches (tidb_segagg on Q1 and Q6, tidb_probe_count
     on every query whose tree joins on the mesh, the off-path entries
-    never), one cold run and a warm median of 3. Returns the rows."""
+    never), one cold run and a warm median of WARM_RUNS. Returns the rows."""
     from tidb_tpu_torch.storage.tpch_queries import Q
 
     res, per = {}, {}
@@ -5071,7 +5165,7 @@ def mesh_five(np, s, mods, model, single_rows, label, rep) -> dict:
         if rows != single_rows[q]:
             raise AssertionError(f"{label} {q}: rows differ from the single-card session's")
         warm = []
-        for _ in range(3):
+        for _ in range(WARM_RUNS):
             again, cw, dt = run_query(s, mods, sql)
             mesh_launches_add(rep["launches"], cw["launches"])
             warm.append(dt)
@@ -5148,7 +5242,7 @@ def phase_mesh(torch, np, s, mods, grid_cat, grid_oracle) -> tuple:
     for q in REFRESH_QUERIES:
         single_rows[q] = s.query(Q[q][0])
         warm = []
-        for _ in range(3):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             s.query(Q[q][0])
             warm.append(time.perf_counter() - t0)
@@ -5459,7 +5553,11 @@ DCN_SHARDS = 8                 # lineitem and orders: SHARD BY HASH(key) SHARDS 
 DCN_RESHARDS = 9
 DCN_BROADCAST = ("customer", "supplier", "nation", "region")
 DCN_QUERIES = ("q1", "q6", "q3", "q5")
-DCN_WARM = 3
+DCN_WARM = 1                  # warm runs of each query (3 before the SF10 phase)
+# the membership and failover fleets hold orders up to this quantile of
+# o_orderkey (all of orders before the SF10 phase took its share of the
+# time limit: their loads and shard moves took 53 s at SF1)
+DCN_SIDE_SHARE = 0.25
 DCN_KEY = {"lineitem": "l_orderkey", "orders": "o_orderkey"}
 DCN_WRITER_BASE = 10 ** 9     # the reshard writer's order keys start here
 DCN_DEADLINE_MS = 20          # max_execution_time of the deadline step's Q1
@@ -5532,6 +5630,21 @@ def dcn_shutdown_worker(port: int) -> None:
         dcn._recv(sock)
     finally:
         sock.close()
+
+
+def dcn_orders_share(np, cat) -> tuple:
+    """orders' live rows up to DCN_SIDE_SHARE of the order keys, extracted
+    for a side fleet: (arrays, valids, strings, rows, the largest key)."""
+    from tidb_tpu_torch.sharding.shuffle import extract_rows
+
+    o = cat.table("test", "orders")
+    n = o.n
+    live = o.live_mask(0, n)
+    keys = o.data["o_orderkey"][:n]
+    kmax = int(np.sort(keys[live])[int(live.sum() * DCN_SIDE_SHARE) - 1])
+    idx = np.nonzero(live & (keys <= kmax))[0]
+    arrays, valids, strings = extract_rows(o, idx)
+    return arrays, valids, strings, len(idx), kmax
 
 
 def dcn_table_ddl(s, name: str, shard_key=None, shards: int = DCN_SHARDS) -> str:
@@ -5804,7 +5917,7 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
     log(f"dcn device memory after the load: per worker process (nvidia-smi MiB) "
         f"{mem['per_process_mib']}, card used {mem['card_used_bytes']} B")
 
-    # 3. Q1, Q6, Q3, Q5: one cold run and three warm, each against the
+    # 3. Q1, Q6, Q3, Q5: one cold run and DCN_WARM warm, each against the
     # single-card session's rows and numpy; each worker's own launches
     single = rep["single_card"] = {}
     single_rows = {}
@@ -6068,7 +6181,7 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
     mem_s = {"backfill": [], "cutover": []}
     dcn_time_shards(clm, mem_s)
     clm.ddl(dcn_table_ddl(s, "orders", "o_orderkey"))
-    arrays, valids, strings, n = extract_live_columns(cat.table("test", "orders"))
+    arrays, valids, strings, n, side_kmax = dcn_orders_share(np, cat)
     mem_want = (n, int(arrays["o_totalprice"].astype(np.int64).sum()))
     t0 = time.perf_counter()
     clm.load_sharded("orders", arrays=arrays, valids=valids, strings=strings)
@@ -6106,20 +6219,24 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
                   replicas={0: 1, 1: 0}, rpc_timeout_s=600.0, connect_timeout_s=60.0)
     clusters.append(clb)
     clb.ddl(dcn_table_ddl(s, "orders", "o_orderkey"))
-    arrays, valids, strings, n = extract_live_columns(cat.table("test", "orders"))
+    arrays, valids, strings, n, side_kmax = dcn_orders_share(np, cat)
     t0 = time.perf_counter()
     clb.load_sharded("orders", arrays=arrays, valids=valids, strings=strings)
     t_mirror = time.perf_counter() - t0
     del arrays, valids, strings
+    # the fleet holds the share alone: the single card reads the same rows
     fo_sql = ("select o_orderstatus, count(*) as n, sum(o_totalprice) as s, "
-              "min(o_orderdate) as d from orders group by o_orderstatus order by o_orderstatus")
+              f"min(o_orderdate) as d from orders where o_orderkey <= {side_kmax} "
+              "group by o_orderstatus order by o_orderstatus")
     fo_want = s.query(fo_sql)
     dcn_same("dcn failover fleet", clb.query(fo_sql), fo_want)
     proc_b1.kill()
     proc_b1.wait()
     f0 = DCN_FAILOVER_TOTAL.value()
     dcn_same("dcn failover: orders through the replica", clb.query(fo_sql), fo_want)
-    dcn_same("dcn failover: read_sql through the replica", clb.query(read_sql), want)
+    read_share = read_sql.replace("where ", f"where o_orderkey <= {side_kmax} and ", 1)
+    dcn_same("dcn failover: read_sql through the replica", clb.query(read_share),
+             s.query(read_share))
     failovers = DCN_FAILOVER_TOTAL.value() - f0
     if not failovers:
         raise AssertionError("dcn failover: tidb_tpu_dcn_failover_total did not move")
@@ -6149,7 +6266,7 @@ def dcn_steps(torch, np, s, sf, device, env, procs, clusters, rep) -> None:
 WORKLOAD_SEED = 7
 SSB_SF = 1.0      # 1,500,000 orders, about 6M lineorder rows
 Q95_SF = 10.0     # the generator's sf: 600,000 orders, about 1.5M web_sales rows
-WORKLOAD_WARM = 2
+WORKLOAD_WARM = 1
 
 # per SSB query: the fact filter, each dimension's filter (by prefix: d_
 # date, c_ customer, s_ supplier, p_ part), the SELECT list ("@" is the
@@ -6551,58 +6668,309 @@ def phase_sanitized(torch, np, s, mods, results) -> dict:
     return rep
 
 
-def main() -> int:
-    import torch
+# ---------------------------------------------------------------------------
+# SF10: the scale of the reference's SF10 rehearsal (SF10_REHEARSAL.json)
+# ---------------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
+SF10 = 10.0
+SF10_LINEITEM = 60_001_162     # the reference rehearsal's lineitem rows
+# Q1, Q6 and Q5 first on a fresh session: the order that filled the card
+# at SF1 before the join estimate and the probe's expansion were repaired
+SF10_QUERIES = ("q1", "q6", "q5", "q3", "q18")
+SF10_WARM_MAX = 3              # warm runs of a query until one captures nothing
+# the session's tidb_mem_quota_query: the 2 GiB default stops Q18 at SF10
+# (its builds and device group tables hold 2.4 GB); the quota step below
+# runs under the rehearsal's budget instead
+SF10_QUOTA = 32 << 30
+
+
+def host_memory() -> dict:
+    """The host's MemTotal and this process's peak RSS, in bytes."""
+    import resource
+
+    total = 0
     try:
-        import numpy as np
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    total = int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return {"mem_total": total,
+            "peak_rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
 
-        from tidb_tpu_torch.columnar import store as st
-        from tidb_tpu_torch.executor import aggregate as agg_mod
-        from tidb_tpu_torch.executor import pipeline as pl
-        from tidb_tpu_torch.ops import hash_probe as hp
-        from tidb_tpu_torch.ops import join_kernels as jk
-        from tidb_tpu_torch.ops import nvcc_build
-        from tidb_tpu_torch.ops import segment_sum as seg_mod
-        from tidb_tpu_torch.parser import parse
-        from tidb_tpu_torch.planner.physical import explain_text
-        from tidb_tpu_torch.session import Session
-        from tidb_tpu_torch.storage.table import Table
-        from tidb_tpu_torch.storage.tpch_queries import Q
-    except ImportError as e:
-        print(f"chip_smoke: the tidb_tpu_torch package is missing: {e}",
-              file=sys.stderr)
-        return 2
 
-    # the slow-query log's rows still land in each catalog; its stderr
-    # warning per statement over 300 ms would bury this script's output
-    import logging
+def sf10_reference(np, cat, q: str):
+    """numpy's answer to `q` over the catalog's arrays, and its check."""
+    li = cat.table("test", "lineitem")
+    if q == "q1":
+        want = numpy_q1(np, li)
+        return lambda rows: check_q1(np, rows, want)
+    if q == "q6":
+        want = numpy_q6(np, li)
 
-    logging.getLogger("tidb_tpu_torch.slowlog").setLevel(logging.ERROR)
-    card = card_line()
-    print(card, flush=True)
-    name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    mods = (seg_mod, hp, jk, pl, st, agg_mod)
-    # before any CUDA graph is captured: the graphs hold the wrapper
-    install_probe_wrapper(hp)
+        def check(rows):
+            if len(rows) != 1 or _scaled(rows[0][0]) != want:
+                raise AssertionError(f"SF10 Q6 {rows} vs numpy {want}")
+        return check
+    if q == "q18":
+        want = numpy_q18(np, cat)[0]
+        return lambda rows: check_join_rows("q18", rows, want, {4, 5})
+    want = (numpy_q3 if q == "q3" else numpy_q5)(np, cat)
+    return lambda rows: check_join_rows(q, rows, want, {1})
 
+
+def sf10_run(torch, s, mods, agg_chunks, q: str, label: str) -> dict:
+    """One run of `q` on the SF10 session, held to the launch contract of
+    the plan it ran (taken from the session as it ran: planning once more
+    reads every table's live rows again, seconds at SF10); its rows,
+    counts and card memory."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    agg_chunks[0] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with plans_run(s) as ran:
+        rows, cnt, dt = run_query(s, mods, Q[q][0])
+    plan = ran[-1]
+    want = plan_fragments(plan, s._plan_capacity(plan))
+    cnt["aggregated_chunks"] = agg_chunks[0]
+    check_path(f"sf10 {label}", cnt, agg_chunks[0], want)
+    run = {"s": dt, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "staged_bytes": cnt["h2d"].get("h2d", 0),
+           "staged_batches": cnt["staged_batches"],
+           "segagg": cnt["launches"]["segagg"],
+           "probe_count": cnt["launches"]["probe_count"],
+           "fetches": cnt["device_get"], "segments": cnt["segments"],
+           "captures": sum(v.get("capture", 0) for v in cnt["programs"].values()),
+           "programs": cnt["programs"]}
+    log(f"sf10 {label}: {dt:.3f} s; max_memory_allocated {run['max_memory_allocated']}; "
+        f"staged {run['staged_bytes']} B in {run['staged_batches']} batches; segagg "
+        f"{run['segagg']}, probe_count {run['probe_count']}; device_get {run['fetches']}; "
+        f"segments {cnt['segments']}; captures {run['captures']}; programs "
+        f"{cnt['programs']}")
+    return {"rows": rows, "run": run}
+
+
+def phase_sf10(torch, np, mods, sf: float = SF10, device=None) -> dict:
+    """TPC-H at SF10 on one card, on a fresh Session (the module
+    docstring's SF10 item). Every step fails the run on a wrong answer."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tidb_tpu_torch.parallel import executor as pex
+    from tidb_tpu_torch.parallel import make_mesh
+    from tidb_tpu_torch.parallel.partition import table_bytes
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.table import Table
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import dispatch, jitcache
+    from tidb_tpu_torch.utils.metrics import FRAGMENT_DISPATCH
+
+    t_phase = time.perf_counter()
+    rep = {"card": card_line(), "sf": sf, "queries": {},
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    s = Session(device=device)
+    s.execute(f"set tidb_mem_quota_query = {SF10_QUOTA}")
+
+    # -- the load: generation and ingest per table, the primary-key checks
+    timings, pk = {}, {"s": 0.0}
+    real_check = Table._enforce_unique_new
+
+    def timed_check(self, *args, **kw):
+        t1 = time.perf_counter()
+        try:
+            return real_check(self, *args, **kw)
+        finally:
+            pk["s"] += time.perf_counter() - t1
+            pk[self.schema.name] = pk.get(self.schema.name, 0.0) + time.perf_counter() - t1
+
+    Table._enforce_unique_new = timed_check
     t0 = time.perf_counter()
-    nvcc_build.build_libraries([os.path.join(nvcc_build.CSRC, m.SOURCE)
-                                for m in (seg_mod, hp)])
-    seg_mod.load_kernels()
-    hp.load_kernels()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    sass = {m.SOURCE: sass_atomics(nvcc_build._so_path(os.path.join(nvcc_build.CSRC, m.SOURCE)),
-                                   nvcc_build.nvcc_path()) for m in (seg_mod, hp)}
-    for src, found in sass.items():
-        for fn, ops in found.items():
-            log(f"SASS atomics {src} {str(fn)[:70]}: {ops}")
+    try:
+        counts = load_tpch(s.catalog, sf=sf, db=s.db, timings=timings)
+    finally:
+        Table._enforce_unique_new = real_check
+    rep["load"] = {"s": time.perf_counter() - t0, "counts": counts, "tables": timings,
+                   "pk_check_s": pk, **host_memory()}
+    if sf == SF10 and counts["lineitem"] != SF10_LINEITEM:
+        raise AssertionError(f"SF10 lineitem has {counts['lineitem']} rows, the "
+                             f"reference rehearsal {SF10_LINEITEM}")
+    li = s.catalog.table("test", "lineitem")
+    t0 = time.perf_counter()
+    live = li.live_rows
+    rep["live_rows_s"] = time.perf_counter() - t0
+    log(f"sf10 load: {rep['load']['s']:.1f} s for {counts}; per table (gen_s, ingest_s) "
+        f"{ {k: (round(v.get('gen_s', 0.0), 3), round(v['ingest_s'], 3)) for k, v in timings.items()} }; "
+        f"primary-key checks {pk}; MemTotal {rep['load']['mem_total']} B, peak RSS "
+        f"{rep['load']['peak_rss']} B; lineitem.live_rows ({live} rows) "
+        f"{rep['live_rows_s'] * 1e3:.1f} ms of host time a call")
 
+    agg_chunks = count_segment_chunks()
+    probes = record_probe_chunks(mods[1])
+    checks = {}
+    refs = ThreadPoolExecutor(max_workers=1)
+    try:
+        # -- cold: Q1, Q6 and Q5 first, then Q3 and Q18 ----------------------
+        for q in SF10_QUERIES:
+            got = sf10_run(torch, s, mods, agg_chunks, q, f"{q} cold")
+            rep["queries"][q] = {"cold": got["run"], "rows": got["rows"], "warm": []}
+        rep["after_cold"] = {"cluster": {"clustered_rows": li.clustered_rows, "n": li.n}}
+        # numpy's answers on a thread of their own while the warm runs go:
+        # no statement moves a row from here on (the CLUSTER BY re-sort
+        # ran at the end of the first cold run)
+        t_refs = time.perf_counter()
+        futures = {q: refs.submit(sf10_reference, np, s.catalog, q) for q in SF10_QUERIES}
+        # -- warm: until a run captures no graph ------------------------------
+        for q in SF10_QUERIES:
+            for i in range(SF10_WARM_MAX):
+                got = sf10_run(torch, s, mods, agg_chunks, q, f"{q} warm {i + 1}")
+                if got["rows"] != rep["queries"][q]["rows"]:
+                    raise AssertionError(f"sf10 {q}: a warm run's rows differ from the cold run's")
+                rep["queries"][q]["warm"].append(got["run"])
+                if not got["run"]["captures"]:
+                    break
+            else:
+                raise AssertionError(f"sf10 {q}: every warm run captured a graph")
+        for q in SF10_QUERIES:
+            checks[q] = futures[q].result()
+            checks[q](rep["queries"][q]["rows"])
+        rep["numpy_s"] = time.perf_counter() - t_refs
+        log(f"sf10: Q1, Q6, Q5, Q3 and Q18 equal numpy (numpy's answers {rep['numpy_s']:.1f} s "
+            f"after the cold runs, beside the warm runs)")
+        rep["graph_bytes"] = jitcache.graph_bytes()
+        rep["graph_resident_bytes"] = jitcache.resident_bytes()
+        rep["graph_quota"] = jitcache.max_bytes()
+        if rep["graph_resident_bytes"] > rep["graph_quota"]:
+            raise AssertionError(f"sf10 graphs hold {rep['graph_resident_bytes']} B past "
+                                 f"the quota {rep['graph_quota']}")
+        log(f"sf10 graphs: {rep['graph_resident_bytes']} B held (quota "
+            f"{rep['graph_quota']}), per namespace {rep['graph_bytes']}")
+        if not li.clustered_rows == li.n:
+            raise AssertionError("sf10: lineitem was not re-sorted by its CLUSTER BY column")
+        q6_seg = rep["queries"]["q6"]["warm"][-1]["segments"]
+        if not q6_seg.get("pruned"):
+            raise AssertionError(f"sf10 Q6 pruned no segment: {q6_seg}")
+
+        # -- Q18 under a quarter of lineitem's column bytes ---------------------
+        quota = table_bytes(li) // 4
+        rep["q18_quota"] = {"quota_bytes": quota, "lineitem_bytes": table_bytes(li)}
+        spill_dir = os.path.abspath(os.path.join("build", "sf10_spill"))
+        os.makedirs(spill_dir, exist_ok=True)
+        saved_tmp = tempfile.tempdir
+        tempfile.tempdir = spill_dir
+        s.execute("set tidb_device_engine_mode = 'off'")
+        try:
+            step = []
+            sql = Q["q18"][0].replace(
+                "select", f"select /*+ MEMORY_QUOTA({quota // (1 << 20)} MB) */", 1)
+            rows, rec = planner_step(s, mods, sql, "sf10 q18 engine off under quota", step,
+                                     check=checks["q18"])
+            if rows != rep["queries"]["q18"]["rows"]:
+                raise AssertionError("sf10 Q18 under the quota: rows differ from the resident run")
+            if rec["spill_bytes"] <= 0:
+                raise AssertionError(f"sf10 Q18 under {quota} B spilled nothing: {rec}")
+            left = [n for n in os.listdir(spill_dir) if n.startswith("tidb_tpu_spill_")]
+            if left:
+                raise AssertionError(f"sf10: spill files left behind: {left}")
+            rep["q18_quota"].update(rec)
+        finally:
+            tempfile.tempdir = saved_tmp
+            s.execute("set tidb_device_engine_mode = 'auto'")
+        log(f"sf10 q18 under {quota} B (a quarter of lineitem's {table_bytes(li)} B): "
+            f"{rep['q18_quota']['s']:.1f} s, {rep['q18_quota']['spill_bytes']} B spilled, "
+            f"rows identical to the resident run, every tracker at 0, no spill file left")
+    finally:
+        stop_recording(probes)
+        refs.shutdown(wait=True, cancel_futures=True)
+    rep["probe_modes"] = recorded_modes(probes)
+
+    # -- Q6 on a mesh of the one card: resident, then streamed ---------------
+    seg_mod = mods[0]
+    mesh_segagg = 0
+    mesh = make_mesh(devices=None if device is None else [device])
+    sm = Session(s.catalog.base, mesh=mesh)
+    want6 = rep["queries"]["q6"]["rows"]
+    rep["mesh_q6"] = {}
+    try:
+        for label, budget in (("resident", None), ("streamed", table_bytes(li) // 4)):
+            if budget is not None:
+                sm.execute(f"set tidb_device_cache_bytes = {budget}")
+            before = FRAGMENT_DISPATCH.value(kind="scan_agg_stream")
+            seg_mod.reset_launches()
+            t0 = time.perf_counter()
+            rows = sm.query(Q["q6"][0])
+            dt = time.perf_counter() - t0
+            batches = FRAGMENT_DISPATCH.value(kind="scan_agg_stream") - before
+            mesh_segagg += seg_mod.LAUNCHES["segagg"]
+            if rows != want6:
+                raise AssertionError(f"sf10 mesh Q6 ({label}): {rows} vs the single card's {want6}")
+            if (budget is None) != (batches == 0) or (budget is not None and batches < 2):
+                raise AssertionError(f"sf10 mesh Q6 ({label}): {batches} streamed batches")
+            if not seg_mod.LAUNCHES["segagg"]:
+                raise AssertionError(f"sf10 mesh Q6 ({label}) launched no tidb_segagg")
+            rep["mesh_q6"][label] = {"s": dt, "batches": batches, "budget": budget,
+                                     "segagg": seg_mod.LAUNCHES["segagg"],
+                                     "classes": mesh_classes(sm, Q["q6"][0])}
+            log(f"sf10 mesh q6 {label}: {dt:.3f} s, {batches} streamed batches, "
+                f"tidb_segagg {seg_mod.LAUNCHES['segagg']}, rows equal the single card's")
+    finally:
+        sm._shard_cache.clear_tables()
+    rep["mesh_segagg"] = mesh_segagg
+    rep["fallbacks"] = dict(pex.FALLBACKS)
+    rep["launches"] = {
+        "segagg": sum(r["segagg"] for v in rep["queries"].values()
+                      for r in [v["cold"], *v["warm"]]) + rep["q18_quota"]["launches"]["segagg"],
+        "probe_count": sum(rep["probe_modes"].values())}
+    for v in rep["queries"].values():
+        v["rows"] = len(v["rows"])
+    del s, sm, li
+    pl = mods[3]
+    pl.DEVICE_CACHE.clear()
+    jitcache.clear()
+    torch.cuda.empty_cache()
+    rep["s"] = time.perf_counter() - t_phase
+    log(f"sf10 phase passed in {rep['s']:.1f} s; launches {rep['launches']}, mesh tidb_segagg "
+        f"{mesh_segagg}; probe_count by route and mode {rep['probe_modes']}; device_get by "
+        f"query {[(q, v['warm'][-1]['fetches']) for q, v in rep['queries'].items()]}")
+    return rep
+
+
+def sf10_row_launches(rows: list, sf10: dict) -> None:
+    """Set each kernels-line row's launches_sf10: the SF10 phase's
+    single-card launches on the rows at the main path's shapes
+    (tidb_probe_count's on the row of its route and mode), its one-card
+    mesh's tidb_segagg on segagg.mesh, the other rows at 0. Fails if a
+    launch of the phase has no row to sit on."""
+    modes = sf10["probe_modes"]
+    placed = {"segagg": 0, "probe_count": 0, "mesh": 0}
+    for row in rows:
+        name = row["name"]
+        if name.startswith("probe_count."):
+            row["launches_sf10"] = modes.get(PROBE_ROW_MODES.get(name), 0)
+            placed["probe_count"] += row["launches_sf10"]
+        elif name == "segagg":
+            row["launches_sf10"] = placed["segagg"] = sf10["launches"]["segagg"]
+        elif name == "segagg.mesh":
+            row["launches_sf10"] = placed["mesh"] = sf10["mesh_segagg"]
+        else:
+            row["launches_sf10"] = 0
+    want = {"segagg": sf10["launches"]["segagg"], "probe_count": sum(modes.values()),
+            "mesh": sf10["mesh_segagg"]}
+    if placed != want:
+        raise AssertionError(f"sf10 launches with no kernels-line row: placed {placed}, "
+                             f"launched {want}; probe modes {modes}")
+
+
+def sf1_phases(torch, np, mods, card: str, name: str, sass: dict) -> tuple:
+    """Every phase before SF10 (phase 1 through the DCN tier, items 1-10
+    of the module docstring); returns (the kernels line's rows, the
+    report). Its sessions and tensors are gone when it returns."""
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.table import Table
+    from tidb_tpu_torch.storage.tpch_queries import Q
+
+    seg_mod, hp, jk, pl, st, agg_mod = mods
     # -- phase 1 ------------------------------------------------------------
     errs = phase_kernels(torch, np, seg_mod)
     segagg_checks = phase_segagg(torch, np, seg_mod)
@@ -6696,14 +7064,14 @@ def main() -> int:
     # (the host engine's run of it was cut for the DCN phase's time)
     for mode in ("fused_cache",):
         runs = []
-        for _ in range(3):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             s.query(q18_sub)
             runs.append(time.perf_counter() - t0)
         times[mode]["q18_subquery"] = statistics.median(runs)
         profiles[mode]["q18_subquery"] = prof = profile_query(torch, s, q18_sub)
         s.execute("set tidb_device_engine_mode = 'auto'")
-        log(f"{mode} q18's IN subquery alone, warm wall median of 3: "
+        log(f"{mode} q18's IN subquery alone, warm wall median of {WARM_RUNS}: "
             f"{times[mode]['q18_subquery'] * 1e3:.3f} ms; runs {runs}; device->host "
             f"{prof['d2h']}; host->device {prof['h2d']}")
     if profiles["fused_cache"]["q18_subquery"]["d2h"]["count"] > 2:
@@ -6976,6 +7344,73 @@ def main() -> int:
               "dcn": dcn, "workloads": workloads, "sanitized": sanitized,
               "graphs": graphs,
               "segsum_bench": segsum_bench, "kernels": rows}
+    return rows, report
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        import numpy as np
+
+        from tidb_tpu_torch.columnar import store as st
+        from tidb_tpu_torch.executor import aggregate as agg_mod
+        from tidb_tpu_torch.executor import pipeline as pl
+        from tidb_tpu_torch.ops import hash_probe as hp
+        from tidb_tpu_torch.ops import join_kernels as jk
+        from tidb_tpu_torch.ops import nvcc_build
+        from tidb_tpu_torch.ops import segment_sum as seg_mod
+        from tidb_tpu_torch.session import Session  # noqa: F401 (the package is whole)
+    except ImportError as e:
+        print(f"chip_smoke: the tidb_tpu_torch package is missing: {e}",
+              file=sys.stderr)
+        return 2
+
+    # the slow-query log's rows still land in each catalog; its stderr
+    # warning per statement over 300 ms would bury this script's output
+    import logging
+
+    logging.getLogger("tidb_tpu_torch.slowlog").setLevel(logging.ERROR)
+    card = card_line()
+    print(card, flush=True)
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    mods = (seg_mod, hp, jk, pl, st, agg_mod)
+    # before any CUDA graph is captured: the graphs hold the wrapper
+    install_probe_wrapper(hp)
+
+    t0 = time.perf_counter()
+    nvcc_build.build_libraries([os.path.join(nvcc_build.CSRC, m.SOURCE)
+                                for m in (seg_mod, hp)])
+    seg_mod.load_kernels()
+    hp.load_kernels()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    sass = {m.SOURCE: sass_atomics(nvcc_build._so_path(os.path.join(nvcc_build.CSRC, m.SOURCE)),
+                                   nvcc_build.nvcc_path()) for m in (seg_mod, hp)}
+    for src, found in sass.items():
+        for fn, ops in found.items():
+            log(f"SASS atomics {src} {str(fn)[:70]}: {ops}")
+
+    rows, report = sf1_phases(torch, np, mods, card, name, sass)
+
+    # -- SF10 on a fresh session, the SF1 sessions and their memory gone ------
+    import gc
+
+    gc.collect()
+    pl.DEVICE_CACHE.clear()
+    from tidb_tpu_torch.utils import jitcache
+
+    jitcache.clear()
+    torch.cuda.empty_cache()
+    log(f"SF1 sessions closed: {torch.cuda.memory_allocated()} B allocated on the card")
+    sf10 = phase_sf10(torch, np, mods)
+    sf10_row_launches(rows, sf10)
+    report["sf10"] = sf10
+    report["kernels"] = rows
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -8,6 +8,8 @@ counterpart that is (ROADMAP, known divergences: engine routing); under
 'auto' the reference takes its host engine on the CPU and its fused
 operators render `[classic]`.
 
+- The reference plans with the port's key-domain join estimate
+  (test_torch_scale.reference_key_domain; ROADMAP, known divergences).
 - EXPLAIN: the text of all 22 queries equal, line for line.
 - EXPLAIN ANALYZE: the operator column (tree and names, `[classic]`
   marks included), `estRows` and `actRows` equal to the reference's on the
@@ -29,12 +31,22 @@ from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.storage.tpch_queries import Q
 
 from test_torch_keys import both, new_pair
+from test_torch_scale import reference_key_domain
 from test_torch_session import _export_into, reference_witness_paused  # noqa: F401
 
 TABLES = ("nation", "region", "part", "supplier", "partsupp", "customer",
           "orders", "lineitem")
 _PROFILE = re.compile(r"^profile: mem_max=\d+ xfer_bytes=0 compile_ms=0\.0 "
                       r"spill_bytes=0 compaction_wait_ms=\d+\.\d$")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_under_key_domain():
+    """The reference plans with the port's key-domain join estimate (ROADMAP,
+    known divergences): the plans are held to the rule, not to the
+    reference's fallback."""
+    with reference_key_domain():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -382,6 +382,30 @@ def test_signature_separates_shapes_and_baked_values(cpu_graphs):
     assert jitcache.runs()["t"] == {"eager": 4, "capture": 4, "replay": 4}
 
 
+def test_signatures_of_a_program_share_its_read_only_slots(cpu_graphs):
+    """A read-only argument (a probe's build side) is held once per
+    program: the graphs of two batch shapes read one slot, whose bytes
+    count once; a new build tensor of the same shapes is copied into it."""
+    def probe(batch, build):
+        return batch + build[:batch.shape[0]]
+
+    prog = jitcache.cached_jit("t", "shared", lambda: probe)
+    jitcache.reset_runs()
+    build = torch.arange(1 << 12)
+    for _ in range(3):
+        for n in (8, 16):
+            assert torch.equal(prog(torch.ones(n, dtype=torch.int64), build), build[:n] + 1)
+    gs = prog.graphs()
+    assert len(gs) == 2
+    assert gs[0].slots[1].data_ptr() == gs[1].slots[1].data_ptr()
+    assert gs[0].slots[0].data_ptr() != gs[1].slots[0].data_ptr()
+    assert sum(g.nbytes for g in gs) < 2 * build.nbytes
+    other = build * 3
+    assert torch.equal(prog(torch.ones(8, dtype=torch.int64), other), other[:8] + 1)
+    assert torch.equal(prog(torch.ones(16, dtype=torch.int64), build), build[:16] + 1)
+    assert jitcache.runs()["t"] == {"eager": 2, "capture": 2, "replay": 4}
+
+
 def test_bytes_bound_evicts_the_least_recent(cpu_graphs, monkeypatch):
     monkeypatch.setattr(jitcache, "_BOUND", [jitcache.MAX_BYTES])
     progs = []

@@ -3,16 +3,28 @@ held to the reference's: the sequences of tests/test_plan_cache.py run
 through a tidb_tpu Session and a tidb_tpu_torch Session (plain PyTorch on
 the CPU), step by step. After every step both must return the same rows
 and the same @@last_plan_from_cache, so hits and misses match statement
-by statement, through invalidation by DDL, ANALYZE and DML."""
+by statement, through invalidation by DDL, ANALYZE and DML. The reference
+plans with the port's key-domain join estimate
+(test_torch_scale.reference_key_domain)."""
 
 import pytest
 import torch
 
 from tidb_tpu.session import Session as JaxSession
 from tidb_tpu_torch.session import Session
+from test_torch_scale import reference_key_domain
 from test_torch_session import reference_witness_paused  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_under_key_domain():
+    """The reference plans with the port's key-domain join estimate (ROADMAP,
+    known divergences): a join's plan, and so whether a cached plan is
+    reused for new parameters, follows the rule."""
+    with reference_key_domain():
+        yield
 
 _PC = ("CREATE TABLE pc (id bigint primary key, v bigint, name varchar(20))",
        "INSERT INTO pc VALUES " + ",".join(

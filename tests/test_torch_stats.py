@@ -8,7 +8,9 @@ commit, and the plans they give.
   three states, in this order: (a) unanalyzed; (c) after one committed
   `DELETE FROM lineitem WHERE l_orderkey = 1`, whose commit auto-analyzes
   lineitem in both; (b) after `ANALYZE TABLE` of all eight tables. The
-  plan text must be equal, the rows equal by `rows_equal` (numbers within
+  reference plans with the port's key-domain join estimate
+  (test_torch_scale.reference_key_domain; ROADMAP, known divergences).
+  The plan text must be equal, the rows equal by `rows_equal` (numbers within
   1e-6 relative) and then exactly as Python values (Q17 within 1e-6 only:
   the float division divergence ROADMAP lists).
 - After (b) every table's `TableStats` equals the reference's field by
@@ -39,6 +41,7 @@ from tidb_tpu_torch.storage.tpch_queries import Q
 from tidb_tpu_torch.utils import failpoint as fp
 
 from test_torch_keys import both
+from test_torch_scale import reference_key_domain
 from test_torch_session import _export_into, _same, reference_witness_paused  # noqa: F401
 
 TABLES = ("nation", "region", "part", "supplier", "partsupp", "customer",
@@ -57,6 +60,15 @@ def _snapshot(js, ps) -> dict:
     for name, (sql, _osql) in Q.items():
         out[name] += [js.query(sql), ps.query(sql)]
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_under_key_domain():
+    """The reference plans with the port's key-domain join estimate (ROADMAP,
+    known divergences): the plans are held to the rule, not to the
+    reference's fallback."""
+    with reference_key_domain():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -51,23 +51,35 @@ class Encoding:
 
 
 def encode_column(data: np.ndarray, valid: np.ndarray,
-                  type_: SQLType) -> Tuple[Encoding, np.ndarray]:
+                  type_: SQLType, zone=None) -> Tuple[Encoding, np.ndarray]:
     """(encoding, stored array) for one column slice. The stored array
     is always a fresh buffer (segments must not alias table storage —
-    the table may grow/rewrite its buffers later)."""
+    the table may grow/rewrite its buffers later). `zone`, the slice's
+    ZoneMap when the caller built it, gives the valid slots' count and
+    bounds without a second pass."""
     if type_.kind not in INT_BACKED_KINDS or len(data) == 0:
         return Encoding("raw", str(data.dtype)), np.array(data, copy=True)
-    vals = data[valid]
-    if len(vals) == 0:
-        # all-NULL: nothing to reference; one byte per row of zeros
-        return (Encoding("for", "int8", 0),
-                np.zeros(len(data), dtype=np.int8))
-    mn = int(vals.min())
-    mx = int(vals.max())
+    if zone is not None:
+        every = zone.null_count == 0
+        if zone.min is None:
+            return (Encoding("for", "int8", 0),
+                    np.zeros(len(data), dtype=np.int8))
+        mn, mx = int(zone.min), int(zone.max)
+    else:
+        every = bool(valid.all())
+        vals = data if every else data[valid]
+        if len(vals) == 0:
+            # all-NULL: nothing to reference; one byte per row of zeros
+            return (Encoding("for", "int8", 0),
+                    np.zeros(len(data), dtype=np.int8))
+        mn = int(vals.min())
+        mx = int(vals.max())
     span = mx - mn  # python ints: immune to int64 overflow
     for dt, lim in _NARROW:
         if span < lim:
-            shifted = np.where(valid, data, mn).astype(np.int64) - np.int64(mn)
+            # NULL slots store the reference (0 after the shift)
+            full = data if every else np.where(valid, data, mn)
+            shifted = np.subtract(full, np.int64(mn), dtype=np.int64)
             return Encoding("for", np.dtype(dt).name, mn), shifted.astype(dt)
     return Encoding("raw", str(data.dtype)), np.array(data, copy=True)
 

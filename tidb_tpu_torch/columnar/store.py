@@ -183,12 +183,12 @@ def _build_segment(table, start: int, end: int) -> Segment:
     for c in table.schema.columns:
         d = table.data[c.name][start:end]
         v = table.valid[c.name][start:end]
-        enc, stored = encode_column(d, v, c.type_)
+        zmaps[c.name] = build_zone_map(d, v)
+        enc, stored = encode_column(d, v, c.type_, zmaps[c.name])
         names.append(c.name)
         encs.append(enc)
         data.append(stored)
         valid.append(np.array(v, copy=True))
-        zmaps[c.name] = build_zone_map(d, v)
     return Segment(start, end, names, encs, data, valid, zmaps)
 
 

@@ -68,6 +68,12 @@ def _pad(a: torch.Tensor, cap: int, fill=0) -> torch.Tensor:
     return torch.cat([a, torch.full((cap - n,), fill, dtype=a.dtype, device=a.device)])
 
 
+def tile_row_bytes(p_datas, b_datas) -> int:
+    """Device bytes of one expanded output row: each probe and build
+    column's value and validity, and the row's selection flag."""
+    return 1 + sum(d.element_size() + 1 for d in (*p_datas, *b_datas))
+
+
 def _to_device(chunk: Chunk, dev: torch.device) -> Chunk:
     """A chunk of a host-side operator (an aggregate's few groups, a sort's
     output) moved to the join's device."""
@@ -95,9 +101,11 @@ class HashJoinExec(Executor):
     def open(self, ctx: ExecContext) -> None:
         super().open(ctx)
         self.ctx = ctx
-        self._pending: List[Chunk] = []
+        self._pending: list = []
         self._drained = False
         self._filter_fn = None
+        self._held = 0
+        self._probe_tracker = None
         self._build()
 
     def _build(self):
@@ -114,6 +122,11 @@ class HashJoinExec(Executor):
         key_cols = [[] for _ in (keys_ir or [None])]
         key_ok = []
         payload: dict = {c.uid: ([], []) for c in (self.build_schema or [])}
+        # the drained rows are charged as they arrive: a build that
+        # outgrows the statement's quota fails typed before it fills the
+        # card (_stage_build trades this charge for the staged bytes)
+        self._drain_tracker = self.ctx.mem_tracker.child("hashjoin.drain")
+        self._drain_bytes = 0
         for chunk in child.chunks():
             # KILL/deadline interrupts the build drain chunk by chunk
             raise_if_cancelled(self.ctx)
@@ -133,6 +146,11 @@ class HashJoinExec(Executor):
                 col = chunk.columns[uid]
                 payload[uid][0].append(col.data[live])
                 payload[uid][1].append(col.valid[live])
+            n = live.shape[0] * (1 + sum(k[-1].element_size() for k in key_cols)
+                                 + sum(d[-1].element_size() + 1
+                                       for d, _v in payload.values()))
+            self._drain_bytes += n
+            self._drain_tracker.consume(n)
 
         def cat(parts, dtype):
             return (torch.cat(parts) if parts
@@ -169,13 +187,45 @@ class HashJoinExec(Executor):
         # (ref: HashJoinExec's build RowContainer under the memory tracker)
         self._mem_tracker = self.ctx.mem_tracker.child("hashjoin.build")
         self._build_bytes = int(nbytes)
+        self._release_drain()
         self._mem_tracker.consume(self._build_bytes)
 
+    def _release_drain(self) -> None:
+        if getattr(self, "_drain_bytes", 0):
+            self._drain_tracker.release(self._drain_bytes)
+            self._drain_bytes = 0
+
     def close(self) -> None:
+        for item in getattr(self, "_pending", ()):
+            if not isinstance(item, Chunk):
+                item.close()  # an expansion's finally returns its bytes
+        self._pending = []
+        self._release_drain()
+        if getattr(self, "_held", 0):
+            self._probe_tracker.release(self._held)
+            self._held = 0
         if getattr(self, "_build_bytes", 0):
             self._mem_tracker.release(self._build_bytes)
             self._build_bytes = 0
         super().close()
+
+    def _hold(self, nbytes: int) -> None:
+        """Charge device bytes the probe holds (the tiles of a
+        many-to-many expand call) to the statement's tracker; counted
+        before the charge, so close() returns them on a QueryOOMError
+        too."""
+        if not nbytes:
+            return
+        if self._probe_tracker is None:
+            self._probe_tracker = self.ctx.mem_tracker.child("hashjoin.probe")
+        self._held += nbytes
+        self._probe_tracker.consume(nbytes)
+
+    def _unhold(self, nbytes: int) -> None:
+        nbytes = min(nbytes, self._held)
+        if nbytes > 0:
+            self._held -= nbytes
+            self._probe_tracker.release(nbytes)
 
     def _key_pack_info(self, key_arrays: List[torch.Tensor]):
         """Pack parameters per key. Sets self._hash_mode; returns
@@ -338,11 +388,28 @@ class HashJoinExec(Executor):
 
     def next(self) -> Optional[Chunk]:
         while True:
-            if self._pending:
-                return self._pending.pop(0)
+            out = self._pop_pending()
+            if out is not None:
+                return out
             if self._drained:
                 return None
             self._fill_pending()
+
+    def _pop_pending(self) -> Optional[Chunk]:
+        """The next output chunk. A many-to-many chunk's expansion waits in
+        _pending as a generator and runs one expand call (at most
+        ctx.join_tiles tiles) at a time as the consumer drains it, so the
+        probe holds O(join_tiles x capacity) output, not a window's whole
+        expansion."""
+        while self._pending:
+            head = self._pending[0]
+            if isinstance(head, Chunk):
+                return self._pending.pop(0)
+            out = next(head, None)
+            if out is not None:
+                return out
+            self._pending.pop(0)
+        return None
 
     def _fill_pending(self) -> None:
         """Pull probe chunks until output lands in _pending or the child
@@ -385,7 +452,9 @@ class HashJoinExec(Executor):
             # the read this window already pays
             self.stats.add_out_rows(int(sum(int(t) for t in totals)))
         for tok, total in zip(tokens, totals):
-            self._probe_finish(tok, int(total))
+            out = self._probe_finish(tok, int(total))
+            if out is not None:
+                self._pending.append(out)
 
     def _probe_start(self, chunk: Chunk) -> Optional[dict]:
         """Probe one chunk. Unfiltered semi/anti joins finish here (their
@@ -430,10 +499,11 @@ class HashJoinExec(Executor):
                 "real_count": real_count, "cum": cum,
                 "total_dev": total_dev, "ok": ok, "cap": cap, "Rp": Rp}
 
-    def _probe_finish(self, tok: dict, total: int) -> None:
+    def _probe_finish(self, tok: dict, total: int):
         """Complete one deferred probe chunk with its host-known match
-        total: qualification for filtered semi/anti, tile expansion for
-        inner/left."""
+        total: qualification for filtered semi/anti (done here), tile
+        expansion for inner/left (returned as a generator of output
+        chunks)."""
         chunk = tok["chunk"]
         start, count, real_count = tok["start"], tok["count"], tok["real_count"]
         cum, cap = tok["cum"], tok["cap"]
@@ -457,11 +527,18 @@ class HashJoinExec(Executor):
 
         left_other = self.kind == "left" and has_filter
         if total == 0 and not left_other:
-            return
+            return None
+        return self._expanded(tok, total, left_other)
+
+    def _expanded(self, tok: dict, total: int, left_other: bool):
+        """The output chunks of one inner/left probe chunk, expanded as
+        they are pulled."""
+        chunk, cap, has_filter = tok["chunk"], tok["cap"], self._has_filter
         matched = (torch.zeros(cap, dtype=torch.bool, device=chunk.device)
                    if left_other else None)
-        for out in self._expand_windows(chunk, start, count, real_count,
-                                        cum, total, bookkeeping=has_filter):
+        for out in self._expand_windows(chunk, tok["start"], tok["count"],
+                                        tok["real_count"], tok["cum"], total,
+                                        bookkeeping=has_filter):
             if has_filter:
                 out = self._match_filter(out)
                 if left_other:
@@ -470,13 +547,13 @@ class HashJoinExec(Executor):
                 out = Chunk({u: c for u, c in out.columns.items()
                              if u not in ("__probe_row__", "__build_pos__")},
                             out.sel)
-            self._pending.append(out)
+            yield out
         if left_other:
             # probe rows whose every match failed other_cond (or that had
             # none) emit one NULL-payload row each, per LEFT JOIN semantics
             unmatched = chunk.sel & ~matched
             if dispatch.device_get(unmatched.any()):  # one read: is a NULL-pad chunk due?
-                self._pending.append(self._null_build_chunk(chunk, unmatched))
+                yield self._null_build_chunk(chunk, unmatched)
 
     def _expand_windows(self, chunk: Chunk, start, count, real_count, cum,
                         total: int, bookkeeping: bool):
@@ -490,28 +567,36 @@ class HashJoinExec(Executor):
         b_uids = self._payload_uids
         b_datas = tuple(self._build_payload[u][0] for u in b_uids)
         b_valids = tuple(self._build_payload[u][1] for u in b_uids)
+        # a many-to-many chunk's tiles are charged while they are out
+        row_bytes = 0 if total <= C else tile_row_bytes(p_datas, b_datas) + 8 * (
+            bookkeeping + (bookkeeping and self._hash_mode))
         w0 = 0
         while w0 < total:
             rem = -(-(total - w0) // C)  # ceil-div: tiles still needed
             T = min(jk.shape_bucket(rem, floor=1), max_tiles)
-            out_p, out_b, sel_t, prow, bpos = jk.expand_tiles(
-                start, count, real_count, cum, w0, p_datas, p_valids,
-                b_datas, b_valids, n_tiles=T, tile_cap=C,
-                build_cap=self._sorted_keys.shape[0],
-                left=self.kind == "left",
-                with_probe_row=bookkeeping,
-                with_build_pos=bookkeeping and self._hash_mode)
-            for i in range(min(T, rem)):
-                cols = {}
-                for u, (d2, v2) in zip(p_uids, out_p):
-                    cols[u] = Column(d2[i], v2[i], chunk.columns[u].type_)
-                for u, (d2, v2) in zip(b_uids, out_b):
-                    cols[u] = Column(d2[i], v2[i], self._build_schema_by_uid[u].type_)
-                if prow is not None:
-                    cols["__probe_row__"] = Column(prow[i], sel_t[i], INT64)
-                if bpos is not None:
-                    cols["__build_pos__"] = Column(bpos[i], sel_t[i], INT64)
-                yield Chunk(cols, sel_t[i])
+            held = T * C * row_bytes
+            self._hold(held)  # before the call: over the quota, nothing is made
+            try:
+                out_p, out_b, sel_t, prow, bpos = jk.expand_tiles(
+                    start, count, real_count, cum, w0, p_datas, p_valids,
+                    b_datas, b_valids, n_tiles=T, tile_cap=C,
+                    build_cap=self._sorted_keys.shape[0],
+                    left=self.kind == "left",
+                    with_probe_row=bookkeeping,
+                    with_build_pos=bookkeeping and self._hash_mode)
+                for i in range(min(T, rem)):
+                    cols = {}
+                    for u, (d2, v2) in zip(p_uids, out_p):
+                        cols[u] = Column(d2[i], v2[i], chunk.columns[u].type_)
+                    for u, (d2, v2) in zip(b_uids, out_b):
+                        cols[u] = Column(d2[i], v2[i], self._build_schema_by_uid[u].type_)
+                    if prow is not None:
+                        cols["__probe_row__"] = Column(prow[i], sel_t[i], INT64)
+                    if bpos is not None:
+                        cols["__build_pos__"] = Column(bpos[i], sel_t[i], INT64)
+                    yield Chunk(cols, sel_t[i])
+            finally:
+                self._unhold(held)
             w0 += T * C
 
     def _qualified_matches(self, chunk: Chunk, start, count, cum, total: int):

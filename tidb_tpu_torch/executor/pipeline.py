@@ -79,7 +79,7 @@ from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.executor import aggregate as _agg
 from tidb_tpu_torch.executor.aggregate import HashAggExec
 from tidb_tpu_torch.executor.base import ExecContext, Executor, raise_if_cancelled
-from tidb_tpu_torch.executor.join import HashJoinExec, _pad
+from tidb_tpu_torch.executor.join import HashJoinExec, _pad, tile_row_bytes
 from tidb_tpu_torch.expression.compiler import eval_expr
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
@@ -225,6 +225,15 @@ class DeviceBufferCache:
         with self._lock:
             self._entries.clear()
             self._bytes = 0
+
+    def drop_table(self, table) -> int:
+        """Drop every entry staged from `table`: a dropped temporary table,
+        whose DDL bumps no schema_version. Returns the entries dropped."""
+        with self._lock:
+            keys = [k for k, e in self._entries.items() if e["table"] is table]
+            for k in keys:
+                self._bytes -= self._entries.pop(k)["nbytes"]
+        return len(keys)
 
     def resident_bytes(self) -> int:
         with self._lock:
@@ -983,9 +992,11 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
     def open(self, ctx: ExecContext) -> None:
         self.ctx = ctx
         self._delegate = None
-        self._pending: List[Chunk] = []
+        self._pending: list = []
         self._drained = False
         self._filter_fn = None
+        self._held = 0
+        self._probe_tracker = None
         if not self._fuse_eligible(ctx):
             self._open_delegate(ctx)
             return
@@ -1018,8 +1029,9 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         if self._delegate is not None:
             return self._delegate.next()
         while True:
-            if self._pending:
-                return self._pending.pop(0)
+            out = self._pop_pending()
+            if out is not None:
+                return out
             if self._drained:
                 return None
             self._fill_pending_fused()
@@ -1166,14 +1178,15 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
                 need = -(-(total - tok["cap"]) // tok["cap"])
                 self.stats.tile_max_need = max(self.stats.tile_max_need, need)
         for tok, total in zip(tokens, totals):
-            self._emit_fused(tok, total)
+            if total:
+                self._pending.append(self._emit_fused(tok, total))
 
-    def _emit_fused(self, tok: dict, total: int) -> None:
-        """Complete one batch with its host-known total: emit the first
-        tile, then expand any overflow past it through the classic
-        fixed-capacity tile calls."""
-        if total == 0:
-            return
+    def _emit_fused(self, tok: dict, total: int):
+        """Complete one batch with its host-known total, as the consumer
+        pulls (a generator in _pending, see HashJoinExec._pop_pending):
+        the first tile, then any overflow past it through the classic
+        fixed-capacity tile calls, at most ctx.join_tiles tiles at a
+        time, charged to the statement's tracker while they are out."""
         cap = tok["cap"]
         by_uid = self._build_schema_by_uid
         cols = {}
@@ -1181,8 +1194,8 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
             cols[c.uid] = Column(d[0], v[0], c.type_)
         for uid, (d, v) in zip(self._payload_uids, tok["out_b"]):
             cols[uid] = Column(d[0], v[0], by_uid[uid].type_)
-        self._pending.append(Chunk(cols, tok["sel_tile"][0]))
         self.stats.chunks += 1
+        yield Chunk(cols, tok["sel_tile"][0])
         if total <= cap:
             return
         # dup-heavy overflow: slots [cap, total) expand through
@@ -1192,22 +1205,28 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         b_datas = tuple(self._build_payload[u][0] for u in self._payload_uids)
         b_valids = tuple(self._build_payload[u][1] for u in self._payload_uids)
         max_tiles = max(1, self.ctx.join_tiles)
+        row_bytes = tile_row_bytes(p_datas, b_datas)
         w0 = cap
         while w0 < total:
             rem = -(-(total - w0) // cap)  # ceil-div: tiles still needed
             T = min(jk.shape_bucket(rem, floor=1), max_tiles)
-            out_p, out_b, sel_t, _pr, _bp = jk.expand_tiles(
-                tok["start"], tok["count"], tok["real_count"], tok["cum"], w0,
-                p_datas, p_valids, b_datas, b_valids, n_tiles=T, tile_cap=cap,
-                build_cap=self._sorted_keys.shape[0], left=self.kind == "left")
-            for i in range(min(T, rem)):
-                cols = {}
-                for c, (d2, v2) in zip(self.probe_schema, out_p):
-                    cols[c.uid] = Column(d2[i], v2[i], c.type_)
-                for uid, (d2, v2) in zip(self._payload_uids, out_b):
-                    cols[uid] = Column(d2[i], v2[i], by_uid[uid].type_)
-                self._pending.append(Chunk(cols, sel_t[i]))
-                self.stats.chunks += 1
+            held = T * cap * row_bytes
+            self._hold(held)  # before the call: over the quota, nothing is made
+            try:
+                out_p, out_b, sel_t, _pr, _bp = jk.expand_tiles(
+                    tok["start"], tok["count"], tok["real_count"], tok["cum"], w0,
+                    p_datas, p_valids, b_datas, b_valids, n_tiles=T, tile_cap=cap,
+                    build_cap=self._sorted_keys.shape[0], left=self.kind == "left")
+                for i in range(min(T, rem)):
+                    cols = {}
+                    for c, (d2, v2) in zip(self.probe_schema, out_p):
+                        cols[c.uid] = Column(d2[i], v2[i], c.type_)
+                    for uid, (d2, v2) in zip(self._payload_uids, out_b):
+                        cols[uid] = Column(d2[i], v2[i], by_uid[uid].type_)
+                    self.stats.chunks += 1
+                    yield Chunk(cols, sel_t[i])
+            finally:
+                self._unhold(held)
             w0 += T * cap
 
 

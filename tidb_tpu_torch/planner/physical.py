@@ -646,6 +646,63 @@ def _eq_ndv(child: LogicalPlan, expr, child_rows: float) -> Optional[float]:
     return max(min(ndv, child_rows), 1.0)
 
 
+def _equated_uids(plan: LogicalPlan, uid: str) -> set:
+    """`uid` and every column an inner join inside `plan` equates with it."""
+    from tidb_tpu_torch.expression.expr import ColumnRef, Lookup
+
+    pairs = []
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, LJoin) and p.kind == "inner":
+            for a, b in p.eq_conds:
+                while isinstance(a, Lookup):
+                    a = a.arg
+                while isinstance(b, Lookup):
+                    b = b.arg
+                if isinstance(a, ColumnRef) and isinstance(b, ColumnRef):
+                    pairs.append((a.name, b.name))
+        stack.extend(p.children)
+    out = {uid}
+    grew = True
+    while grew:
+        grew = False
+        for a, b in pairs:
+            if (a in out) != (b in out):
+                out |= {a, b}
+                grew = True
+    return out
+
+
+def _key_domain(child: LogicalPlan, expr) -> Optional[float]:
+    """Distinct values a join key can take where no statistic counts them:
+    a single-column PRIMARY or UNIQUE key holds each value of its table
+    once, so its domain is that table's live rows, and a column an inner
+    join inside `child` equates with such a key shares the domain (TPC-H
+    Q5's s_nationkey, joined to nation, ranges over nation's 25 keys).
+    Not clamped to `child`'s estimated rows: a filter drops key values
+    but not the domain the other side's values are drawn from."""
+    from tidb_tpu_torch.expression.expr import ColumnRef, Lookup
+
+    while isinstance(expr, Lookup):
+        expr = expr.arg
+    if not isinstance(expr, ColumnRef):
+        return None
+    best = None
+    for uid in _equated_uids(child, expr.name):
+        r = resolve_scan_col(child, uid)
+        if r is None:
+            continue
+        table, col = r
+        indexes = getattr(table, "indexes", None) or {}
+        if any(ix.unique and list(ix.columns) == [col]
+               and getattr(ix, "state", "public") == "public"
+               for ix in indexes.values()):
+            n = float(table.live_rows)
+            best = n if best is None else min(best, n)
+    return None if best is None else max(best, 1.0)
+
+
 def _key_col_stats(child: LogicalPlan, expr):
     """(TableStats, ColumnStats) for a join-key column with FRESH stats,
     else None. Fresh matters: MCV values are only meaningful against the
@@ -675,8 +732,12 @@ def eq_join_rows(left: LogicalPlan, right: LogicalPlan, eq_conds,
     sides have fresh analyzed stats (statistics.eq_join_selectivity —
     catches skewed keys the uniformity rule misestimates by orders of
     magnitude), else |L|*|R| / max(ndv_l, ndv_r) from whichever side has
-    an NDV (sketch-maintained under churn), else skipped. With no usable
-    key the estimate falls back to max(|L|,|R|). A LEFT join emits every
+    an NDV (sketch-maintained under churn), a side without one counting
+    its key's unique-key domain (_key_domain), else skipped. With no
+    usable key the estimate falls back to max(|L|,|R|), which holds only
+    where one side's key is unique there: a key that both sides repeat
+    (Q5's nation keys) must reach the NDV rule through its domain, or
+    its SF^2-sized product is estimated at one side's rows. A LEFT join emits every
     left row at least once, so its estimate floors at |L|.
 
     Plan feedback (ISSUE 15): when a previous execution RECORDED this
@@ -708,6 +769,10 @@ def eq_join_rows(left: LogicalPlan, right: LogicalPlan, eq_conds,
             continue
         nl = _eq_ndv(left, le, l)
         nr = _eq_ndv(right, re_, r)
+        if nl is None:
+            nl = _key_domain(left, le)
+        if nr is None:
+            nr = _key_domain(right, re_)
         if nl is None and nr is None:
             continue
         d = max(nl or 1.0, nr or 1.0)

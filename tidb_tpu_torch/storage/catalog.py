@@ -1088,6 +1088,20 @@ _INFO_TABLES = ("schemata", "tables", "columns", "statistics", "slow_query",
                 "cluster_info")
 
 
+def _drop_staged(table) -> None:
+    """A dropped temporary table's staged batches leave the device buffer
+    cache at once: temp DDL bumps no schema_version, whose setter clears
+    the cache for permanent tables. Looked up lazily, as that setter
+    does; a delta table's batches are staged from its base table."""
+    pipe = sys.modules.get("tidb_tpu_torch.executor.pipeline")
+    cache = getattr(pipe, "DEVICE_CACHE", None)
+    if cache is None:
+        return
+    for t in (table, getattr(table, "_base", None)):
+        if t is not None:
+            cache.drop_table(t)
+
+
 class SessionCatalog:
     """Per-session overlay adding a TEMPORARY-table namespace over the
     shared catalog (ref: MySQL temporary tables — session-local, shadow
@@ -1160,12 +1174,14 @@ class SessionCatalog:
 
     def drop_table(self, db: str, name: str, if_exists: bool = False):
         if (db, name) in self._temp:
-            del self._temp[(db, name)]
+            _drop_staged(self._temp.pop((db, name)))
             object.__setattr__(self, "_temp_epoch", self._temp_epoch + 1)
             return
         return self._base.drop_table(db, name, if_exists=if_exists)
 
     def drop_temp_tables(self) -> None:
         """Connection end: the whole temp namespace vanishes."""
+        for t in self._temp.values():
+            _drop_staged(t)
         self._temp.clear()
         object.__setattr__(self, "_temp_epoch", self._temp_epoch + 1)

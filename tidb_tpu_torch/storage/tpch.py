@@ -14,6 +14,7 @@ already in device representation for bulk ingest.
 from __future__ import annotations
 
 import datetime
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -155,8 +156,10 @@ def _pool_pick(rng, pool, n):
 
 
 def _load_orders_lineitem_native(make_table, counts, sf, seed,
-                                 npart, nsupp, ncust) -> bool:
-    """Fill orders+lineitem via the C++ generator; False if unavailable."""
+                                 npart, nsupp, ncust, clock) -> bool:
+    """Fill orders+lineitem via the C++ generator; False if unavailable.
+    Each generated column is handed to its table and dropped once copied
+    (Table.ingest_encoded), so the two never hold a whole table twice."""
     from tidb_tpu_torch.storage.native_gen import native_orders_lineitem
 
     nclerk = max(1, int(1000 * sf))
@@ -164,23 +167,26 @@ def _load_orders_lineitem_native(make_table, counts, sf, seed,
     if out is None:
         return False
     o, l = out
+    del out
+    # one generator call makes both tables: its seconds are lineitem's
+    clock("lineitem", "gen_s")
 
+    def take(cols: dict, names: dict) -> dict:
+        return {name: cols.pop(src) for name, src in names.items()}
+
+    li = take(l, {
+        "l_orderkey": "l_orderkey", "l_partkey": "l_partkey",
+        "l_suppkey": "l_suppkey", "l_linenumber": "l_linenumber",
+        "l_quantity": "l_quantity", "l_extendedprice": "l_extendedprice",
+        "l_discount": "l_discount", "l_tax": "l_tax",
+        "l_returnflag": "l_returnflag_code", "l_linestatus": "l_linestatus_code",
+        "l_shipdate": "l_shipdate", "l_commitdate": "l_commitdate",
+        "l_receiptdate": "l_receiptdate", "l_shipinstruct": "l_instruct_code",
+        "l_shipmode": "l_shipmode_code", "l_comment": "l_comment_code"})
+    del l
     t = make_table("lineitem")
     counts["lineitem"] = t.ingest_encoded(
-        {
-            "l_orderkey": l["l_orderkey"], "l_partkey": l["l_partkey"],
-            "l_suppkey": l["l_suppkey"], "l_linenumber": l["l_linenumber"],
-            "l_quantity": l["l_quantity"],
-            "l_extendedprice": l["l_extendedprice"],
-            "l_discount": l["l_discount"], "l_tax": l["l_tax"],
-            "l_returnflag": l["l_returnflag_code"],
-            "l_linestatus": l["l_linestatus_code"],
-            "l_shipdate": l["l_shipdate"], "l_commitdate": l["l_commitdate"],
-            "l_receiptdate": l["l_receiptdate"],
-            "l_shipinstruct": l["l_instruct_code"],
-            "l_shipmode": l["l_shipmode_code"],
-            "l_comment": l["l_comment_code"],
-        },
+        li,
         pools={
             "l_returnflag": ["A", "N", "R"],
             "l_linestatus": ["F", "O"],
@@ -189,16 +195,17 @@ def _load_orders_lineitem_native(make_table, counts, sf, seed,
             "l_comment": sorted(_COMMENT_POOL),
         },
     )
+    clock("lineitem", "ingest_s")
+    od = take(o, {
+        "o_orderkey": "o_orderkey", "o_custkey": "o_custkey",
+        "o_totalprice": "o_totalprice", "o_orderdate": "o_orderdate",
+        "o_shippriority": "o_shippriority", "o_orderstatus": "o_status_code",
+        "o_orderpriority": "o_priority_code", "o_clerk": "o_clerk_code",
+        "o_comment": "o_comment_code"})
+    del o
     t = make_table("orders")
     counts["orders"] = t.ingest_encoded(
-        {
-            "o_orderkey": o["o_orderkey"], "o_custkey": o["o_custkey"],
-            "o_totalprice": o["o_totalprice"], "o_orderdate": o["o_orderdate"],
-            "o_shippriority": o["o_shippriority"],
-            "o_orderstatus": o["o_status_code"],
-            "o_orderpriority": o["o_priority_code"],
-            "o_clerk": o["o_clerk_code"], "o_comment": o["o_comment_code"],
-        },
+        od,
         pools={
             "o_orderstatus": ["F", "O", "P"],
             "o_orderpriority": sorted(_PRIORITIES),
@@ -206,15 +213,19 @@ def _load_orders_lineitem_native(make_table, counts, sf, seed,
             "o_comment": sorted(_COMMENT_POOL),
         },
     )
+    clock("orders", "ingest_s")
     return True
 
 
 def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 7,
               native: Optional[bool] = None,
               cluster_lineitem: bool = False,
-              cluster: bool = True) -> Dict[str, int]:
+              cluster: bool = True,
+              timings: Optional[dict] = None) -> Dict[str, int]:
     """Generate and ingest all eight TPC-H tables at scale factor `sf`.
-    Returns table -> row count.
+    Returns table -> row count; `timings`, when given, receives each
+    table's {"gen_s", "ingest_s"} (the native generator makes orders and
+    lineitem in one call, counted as lineitem's).
 
     `native` selects the C++ generator (native/tpch_gen.cpp) for the two
     big tables — orders and lineitem fill as int64 columns + dictionary
@@ -242,6 +253,13 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
             stacklevel=2)
     rng = np.random.default_rng(seed)
     counts = {}
+    last = [time.perf_counter()]
+
+    def clock(name: str, phase: str) -> None:
+        now = time.perf_counter()
+        if timings is not None:
+            timings.setdefault(name, {})[phase] = now - last[0]
+        last[0] = now
 
     def make_table(name):
         cols = [ColumnInfo(n, t, not_null=nn) for n, t, nn in TPCH_SCHEMAS[name]]
@@ -255,29 +273,29 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
         return catalog.create_table(
             db, TableSchema(name, cols, primary_key=pk, cluster_by=cb))
 
+    def ingest(name: str, columns: dict, strings: dict) -> None:
+        clock(name, "gen_s")
+        counts[name] = make_table(name).insert_columns(columns, strings=strings)
+        clock(name, "ingest_s")
+
     # region / nation -------------------------------------------------------
-    t = make_table("region")
-    counts["region"] = t.insert_columns(
-        {"r_regionkey": np.arange(5)},
-        strings={"r_name": _REGIONS, "r_comment": _COMMENT_POOL[:5]},
-    )
-    t = make_table("nation")
-    counts["nation"] = t.insert_columns(
-        {"n_nationkey": np.arange(25), "n_regionkey": np.array([r for _, r in _NATIONS])},
-        strings={"n_name": [n for n, _ in _NATIONS], "n_comment": _COMMENT_POOL[:25]},
-    )
+    ingest("region", {"r_regionkey": np.arange(5)},
+           {"r_name": _REGIONS, "r_comment": _COMMENT_POOL[:5]})
+    ingest("nation",
+           {"n_nationkey": np.arange(25), "n_regionkey": np.array([r for _, r in _NATIONS])},
+           {"n_name": [n for n, _ in _NATIONS], "n_comment": _COMMENT_POOL[:25]})
 
     # supplier ---------------------------------------------------------------
     ns = max(1, int(10_000 * sf))
     keys = np.arange(1, ns + 1)
-    t = make_table("supplier")
-    counts["supplier"] = t.insert_columns(
+    ingest(
+        "supplier",
         {
             "s_suppkey": keys,
             "s_nationkey": rng.integers(0, 25, ns),
             "s_acctbal": _money(rng.uniform(-999.99, 9999.99, ns)),
         },
-        strings={
+        {
             "s_name": [f"Supplier#{k:09d}" for k in keys],
             "s_address": _pool_pick(rng, _COMMENT_POOL, ns),
             "s_phone": [f"{10+k%25}-{k%1000:03d}-{(k*7)%1000:03d}-{(k*13)%10000:04d}" for k in keys],
@@ -288,14 +306,14 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
     # customer ---------------------------------------------------------------
     nc = max(1, int(150_000 * sf))
     keys = np.arange(1, nc + 1)
-    t = make_table("customer")
-    counts["customer"] = t.insert_columns(
+    ingest(
+        "customer",
         {
             "c_custkey": keys,
             "c_nationkey": rng.integers(0, 25, nc),
             "c_acctbal": _money(rng.uniform(-999.99, 9999.99, nc)),
         },
-        strings={
+        {
             "c_name": [f"Customer#{k:09d}" for k in keys],
             "c_address": _pool_pick(rng, _COMMENT_POOL, nc),
             "c_phone": [f"{10+k%25}-{k%1000:03d}-{(k*7)%1000:03d}-{(k*13)%10000:04d}" for k in keys],
@@ -309,14 +327,14 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
     keys = np.arange(1, npart + 1)
     # spec retailprice formula: ties part price to key so lineitem prices join up
     retail = (90000 + (keys // 10) % 20001 + 100 * (keys % 1000))  # cents
-    t = make_table("part")
-    counts["part"] = t.insert_columns(
+    ingest(
+        "part",
         {
             "p_partkey": keys,
             "p_size": rng.integers(1, 51, npart),
             "p_retailprice": retail,
         },
-        strings={
+        {
             "p_name": [
                 f"{_P_NAME_WORDS[k % 13]} {_P_NAME_WORDS[(k // 13) % 13]}" for k in keys
             ],
@@ -329,24 +347,24 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
     )
 
     # partsupp ---------------------------------------------------------------
-    t = make_table("partsupp")
     ps_part = np.repeat(keys, 4)
     nps = len(ps_part)
     ps_supp = ((ps_part + (np.tile(np.arange(4), npart) * (ns // 4 + 1))) % ns) + 1
-    counts["partsupp"] = t.insert_columns(
+    ingest(
+        "partsupp",
         {
             "ps_partkey": ps_part,
             "ps_suppkey": ps_supp,
             "ps_availqty": rng.integers(1, 10_000, nps),
             "ps_supplycost": _money(rng.uniform(1.0, 1000.0, nps)),
         },
-        strings={"ps_comment": _pool_pick(rng, _COMMENT_POOL, nps)},
+        {"ps_comment": _pool_pick(rng, _COMMENT_POOL, nps)},
     )
 
     # orders + lineitem ------------------------------------------------------
     if native is not False and not cluster_lineitem:
         done = _load_orders_lineitem_native(
-            make_table, counts, sf, seed, npart, ns, nc)
+            make_table, counts, sf, seed, npart, ns, nc, clock)
         if done:
             return counts
         if native is True:
@@ -395,6 +413,7 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
         l_shipmode = [l_shipmode[i] for i in order]
         l_comment = [l_comment[i] for i in order]
 
+    clock("lineitem", "gen_s")
     t = make_table("lineitem")
     counts["lineitem"] = t.insert_columns(
         {
@@ -419,6 +438,7 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
         },
     )
 
+    clock("lineitem", "ingest_s")
     # o_totalprice = sum(l_extendedprice*(1+tax)*(1-discount)) per order;
     # o_orderstatus from line statuses (F/O/P)
     disc_price = l_extended * (100 - l_discount) * (100 + l_tax)  # scale 6
@@ -430,6 +450,7 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
     np.add.at(n_lines, l_orderkey, 1)
     status = np.where(n_f[1:] == n_lines[1:], "F", np.where(n_f[1:] == 0, "O", "P"))
 
+    clock("orders", "gen_s")
     t = make_table("orders")
     counts["orders"] = t.insert_columns(
         {
@@ -446,6 +467,7 @@ def load_tpch(catalog: Catalog, sf: float = 0.01, db: str = "test", seed: int = 
             "o_comment": _pool_pick(rng, _COMMENT_POOL, no),
         },
     )
+    clock("orders", "ingest_s")
     return counts
 
 

@@ -28,13 +28,17 @@ deterministic per statement, so the same SQL text gives the same key,
 while any difference in baked constants (dictionary codes for string
 literals) changes it.
 
-A graph reads fixed addresses. Each graph owns one static input buffer,
-its tensors grouped by dtype, and before a replay the arguments are
-copied in (a ``Packed`` argument, whose tensors are views of one buffer,
-is one tensor to the signature and the copy: a staged scan batch, the
-segment aggregation's and the top-k's state; a non-donated argument
-that is still the tensor last copied in, the probe's build side, is not
-copied again). Inside the graph the outputs are packed into one buffer
+A graph reads fixed addresses, and before a replay the arguments are
+copied into them (a ``Packed`` argument, whose tensors are views of one
+buffer, is one tensor to the signature and the copy: a staged scan
+batch, the segment aggregation's and the top-k's state). A donated
+argument's slots are the graph's own. A read-only argument's slots
+belong to the program, one set per argument and shapes, shared by every
+graph of it: the probe's build side, the same for the full batches and
+the tail batch of a scan, is held once per program, not once per
+signature; a read-only tensor that is still the one last copied into
+its slot, unchanged, is not copied again. A program's replays run one at
+a time, since its graphs share those slots. Inside the graph the outputs are packed into one buffer
 of the graph's pool, and after the replay that buffer is cloned once: the
 caller gets fresh tensors that no later replay overwrites, so a probe
 window or a group-table stack may hold them as long as it likes. A
@@ -435,6 +439,31 @@ def _packing(leaves: list):
 # programs and their graphs
 # ---------------------------------------------------------------------------
 
+class _Shared:
+    """What a program's graphs share: the read-only arguments' slots (per
+    argument number and shapes), and the lock and stream of the replays
+    that copy into them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.slots: Dict[tuple, "_Slots"] = {}
+        self.event = None
+        self.last_stream = None
+
+
+class _Slots:
+    """One read-only argument's static slots: its tensors packed by dtype
+    into one buffer, and per tensor the (weakref, version) last copied
+    in."""
+
+    def __init__(self, leaves: list, dev):
+        place, _plan, size = _packing(leaves)
+        self.buf = torch.empty(size, dtype=torch.uint8, device=dev)
+        self.views = [self.buf[o:o + nb].view(t.dtype).view(t.shape)
+                      for (o, nb), t in zip(place, leaves)]
+        self.last: List = [None] * len(leaves)
+
+
 class _Program:
     """One cache entry: the built function and, per signature, nothing
     (no warm-up has returned yet), the warm-up's record (the next call
@@ -446,6 +475,7 @@ class _Program:
         self.donate = donate
         self._sigs: Dict[tuple, object] = {}
         self._lock = threading.Lock()
+        self.shared = _Shared()
         self.nbytes = 0
 
     def graphs(self) -> List["_Graph"]:
@@ -516,25 +546,23 @@ class _Program:
 
 
 class _Graph:
-    """One captured signature: the graph, its static input buffer and
-    slots, its packed output buffer and the host effects to replay."""
+    """One captured signature: the graph, its static input slots (its own
+    for donated arguments, the program's for read-only ones), its packed
+    output buffer and the host effects to replay."""
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.shared = None
         self.graph = None
         self.device = None
         self.in_buf = None
         self.slots: List = []          # static view per tensor leaf
-        self.readonly: List[bool] = []
-        self.last: List = []           # (weakref, version) last copied in, per leaf
+        self.ro_slots: List = []       # per leaf: (program's _Slots, index) or None
         self.out_buf = None
         self.out_spec = None
         self.out_plan: List[tuple] = []  # _packing's regions of the outputs
         self.out_shapes: List[tuple] = []
         self.out_place: List[tuple] = []
         self.capture_rec = None
-        self.event = None
-        self.last_stream = None
         self.nbytes = 0
 
     # -- capture -----------------------------------------------------------
@@ -543,16 +571,8 @@ class _Graph:
     def capture(cls, prog: _Program, spec, leaves: list, dev, held: dict) -> "_Graph":
         self = cls()
         self.device = dev
-        # static slots: the leaves packed by dtype, as the outputs are
-        self.readonly = _readonly_leaves(spec, prog.donate)
-        place, _plan, size = _packing(leaves)
-        self.in_buf = torch.empty(size, dtype=torch.uint8, device=dev)
-        # a contiguous slot whatever the leaf's strides: copy_ reads them
-        self.slots = [self.in_buf[o:o + nb].view(t.dtype).view(t.shape)
-                      for (o, nb), t in zip(place, leaves)]
-        self.last = [None] * len(leaves)
-        # the slots hold this call's values while the body is captured
-        self._copy_in(leaves)
+        self.shared = prog.shared
+        self._place_slots(spec, leaves, prog, dev)
         static_args = _unflatten(spec, iter(self.slots))
         stream = _CAPTURE_STREAMS.get(dev)
         if stream is None:
@@ -585,9 +605,44 @@ class _Graph:
         rec.held = {}  # the graph keeps what it read (retained), no more
         self.graph = graph
         self.capture_rec = rec
-        self.event = torch.cuda.Event()
-        self.nbytes = _pool_bytes(dev, reserved) + self.in_buf.numel()
+        self.nbytes += _pool_bytes(dev, reserved) + self.in_buf.numel()
         return self
+
+    def _place_slots(self, spec, leaves: list, prog: _Program, dev) -> None:
+        """Static slots, contiguous whatever a leaf's strides (copy_ reads
+        them): the donated leaves packed by dtype into this graph's
+        buffer, each read-only argument's leaves in the program's slots
+        for its shapes (made here if new: their bytes count as this
+        graph's)."""
+        readonly = _readonly_leaves(spec, prog.donate)
+        argnos = _leaf_argnos(spec)
+        own = [i for i, ro in enumerate(readonly) if not ro]
+        place, _plan, size = _packing([leaves[i] for i in own])
+        self.in_buf = torch.empty(size if own else 0, dtype=torch.uint8, device=dev)
+        self.slots = [None] * len(leaves)
+        self.ro_slots = [None] * len(leaves)
+        for i, (o, nb) in zip(own, place):
+            t = leaves[i]
+            self.slots[i] = self.in_buf[o:o + nb].view(t.dtype).view(t.shape)
+        by_arg: Dict[int, List[int]] = {}
+        for i, ro in enumerate(readonly):
+            if ro:
+                by_arg.setdefault(argnos[i], []).append(i)
+        for argno, idxs in by_arg.items():
+            key = (argno, tuple((leaves[i].shape, leaves[i].dtype) for i in idxs))
+            with self.shared.lock:
+                slots = self.shared.slots.get(key)
+                if slots is None:
+                    slots = self.shared.slots[key] = _Slots([leaves[i] for i in idxs], dev)
+                    self.nbytes += slots.buf.numel()
+            for k, i in enumerate(idxs):
+                self.slots[i] = slots.views[k]
+                self.ro_slots[i] = (slots, k)
+        # the slots hold this call's values while the body is captured
+        stream = torch.cuda.current_stream(dev)
+        with self.shared.lock:
+            self._copy_in(leaves, stream)
+            self._done_on(stream)
 
     @staticmethod
     def _capture_body(graph, body: Callable[[], None]) -> None:
@@ -608,15 +663,11 @@ class _Graph:
 
     def run(self, leaves: list):
         stream = torch.cuda.current_stream(self.device)
-        with self.lock:
-            if self.last_stream is not None and self.last_stream != stream:
-                # the last user's copies and clone ran on another stream
-                stream.wait_event(self.event)
-            self._copy_in(leaves)
+        with self.shared.lock:
+            self._copy_in(leaves, stream)
             self.graph.replay()
             out = self.out_buf.clone()
-            self.event.record(stream)
-            self.last_stream = stream
+            self._done_on(stream)
         self.capture_rec.replay_effects()
         # one split per dtype region views every output: fresh tensors
         views: List = [None] * len(self.out_shapes)
@@ -627,38 +678,58 @@ class _Graph:
                 views[i] = v if len(shape) == 1 else v.view(shape)
         return _unflatten(self.out_spec, iter(views))
 
-    def _copy_in(self, leaves: list) -> None:
-        """The arguments into their slots, in one grouped copy; a read-only
-        leaf that is still the tensor last copied in, unchanged, is
-        skipped (the probe's build side)."""
+    def _copy_in(self, leaves: list, stream) -> None:
+        """The arguments into their slots on `stream`, in one grouped copy
+        (under the program's lock); a read-only leaf that is still the
+        tensor last copied into its shared slot, unchanged, is skipped
+        (the probe's build side)."""
+        sh = self.shared
+        if sh.last_stream is not None and sh.last_stream != stream:
+            # the last user's copies and clone ran on another stream
+            stream.wait_event(sh.event)
         dsts, srcs = [], []
         for i, t in enumerate(leaves):
-            if self.readonly[i]:
-                seen = self.last[i]
+            ro = self.ro_slots[i]
+            if ro is not None:
+                slots, k = ro
+                seen = slots.last[k]
                 if seen is not None and seen[0]() is t and seen[1] == t._version:
                     continue
-                self.last[i] = (weakref.ref(t), t._version)
+                slots.last[k] = (weakref.ref(t), t._version)
             dsts.append(self.slots[i])
             srcs.append(t)
         _copy_all(dsts, srcs)
 
+    def _done_on(self, stream) -> None:
+        """The slots' last use was on `stream` (under the program's lock)."""
+        sh = self.shared
+        if sh.event is None:
+            sh.event = torch.cuda.Event()
+        sh.event.record(stream)
+        sh.last_stream = stream
+
+
+def _leaf_count(s) -> int:
+    if s == 0:
+        return 1
+    if s[0] == "d":
+        return sum(_leaf_count(c) for c in s[2])
+    if s[0] in ("t", "l"):
+        return sum(_leaf_count(c) for c in s[1])
+    return int(s[0] == "p")
+
+
+def _leaf_argnos(spec) -> List[int]:
+    """Per tensor leaf of the argument tuple: its argument's number."""
+    out: List[int] = []
+    for argno, s in enumerate(spec[1]):
+        out += [argno] * _leaf_count(s)
+    return out
+
 
 def _readonly_leaves(spec, donate: Tuple[int, ...]) -> List[bool]:
     """Per tensor leaf of the argument tuple: not in a donated argument."""
-    out: List[bool] = []
-
-    def count(s) -> int:
-        if s == 0:
-            return 1
-        if s[0] == "d":
-            return sum(count(c) for c in s[2])
-        if s[0] in ("t", "l"):
-            return sum(count(c) for c in s[1])
-        return int(s[0] == "p")
-
-    for argno, s in enumerate(spec[1]):
-        out += [argno not in donate] * count(s)
-    return out
+    return [argno not in donate for argno in _leaf_argnos(spec)]
 
 
 def _pack(out_leaves: list, place: list, buf) -> None:
