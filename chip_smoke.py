@@ -301,27 +301,51 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    both kernels must launch in the phase.
 9. The mesh phase (phase_mesh), on the same SF1 catalog after the
    planner phase: the mesh tier (tidb_tpu_torch/parallel) under
-   Session(mesh=...). First the single-card session's rows of Q1, Q6,
+   Session(mesh=...), each mesh fragment one program of
+   utils/jitcache.py (namespaces distagg, distjoinagg, fragment and
+   aggcombine: a CUDA graph per signature after its warm-up, reading a
+   resident sharding in place). First the single-card session's rows of Q1, Q6,
    Q3, Q5 and Q18 and their warm medians of WARM_RUNS. On a mesh of the one card
    (make_mesh(), as the reference serves one chip) each query's rows must
    equal numpy over the tables' live rows and the single-card rows
    exactly, its executor classes are printed, tidb_segagg must launch
    for Q1 and Q6 (DistAggExec) and tidb_probe_count for Q3, Q5 and Q18
-   (their mesh joins), the off-path entries never; one cold run and a
-   warm median of WARM_RUNS, recorded beside the single-card medians with no
-   limit. With tidb_device_cache_bytes a quarter of lineitem's table
-   bytes, Q1 and Q6 stream in at least two batches and equal the
-   resident runs. The same five queries on four shards laid over the
+   (their mesh joins), the off-path entries never; one cold run on the
+   eager path (jitcache.eager()), then graph runs until one plan runs a
+   third time (mesh_graph_runs): the rows equal the eager rows every
+   run, the plan's first warm run captures a mesh program and its second
+   captures nothing (every program a replay), whose tidb_segagg and
+   tidb_probe_count launches and device_get round trips equal an eager
+   run of the same plan right after it (the two warm times recorded
+   beside the single-card medians with no limit), and the graphs hold at
+   most tidb_tpu_graph_cache_bytes (each statement's memory pool well
+   within it: a one-part mesh's exchange is the identity). Then
+   rounds of Q1, Q5 and Q18 in turn (mesh_mix, as a mixed client would
+   send them; at most MESH_MIX_ROUNDS), the graphs within the bound after
+   every run: in the first round whose plans equal the two rounds'
+   before (plan feedback may still move Q18's) after a round with no
+   warm-up, every program must replay where the three statements' pools
+   fit the bound together; where they do not, its captures are printed. With tidb_device_cache_bytes a
+   quarter of lineitem's table bytes, Q1 and Q6 stream in at least two
+   batches and equal the resident runs, with the same graph checks
+   (every batch's fragment and every merge after the first a replay).
+   An UPDATE of lineitem (the last order's quantities up by one and back)
+   retires its resident sharding: its programs leave the cache, the
+   card's allocated bytes after Q1 on the new sharding stay within half a
+   sharding of those before (mesh_retire). The same five queries on four shards laid over the
    one card (MESH_SHARDS: the all_to_all exchange and the merges run on
    the card), with the same checks; then the 22 TPC-H queries at SF0.1
-   on those four shards against the grid's sqlite oracle. Then a
+   on those four shards against the grid's sqlite oracle (the programs'
+   warm-ups; MESH_GRID_RECHECK's four twice more: their captures, then
+   replays equal to sqlite, the third run replaying). Then a
    Server(mesh=...) connection's Q1 and Q3 must equal the in-process
    rows; the point-select fleet (16 connections of MESH_POINT_STMTS)
    against that server must equal numpy with no statement batched (a
    mesh session offers the batcher nothing, as the reference's does);
-   MESH_MEM_CONNS connections each run Q6 against it, and the card's
-   allocated bytes after each, their peak and the bytes once they closed
-   are recorded (each connection stages its own sharding). The phase
+   MESH_MEM_CONNS connections each run Q6 three times against it, and
+   the card's allocated bytes, the captures and the graphs' bytes after
+   each, their peak and the bytes once they closed are recorded (each
+   connection stages its own sharding and captures its own graphs). The phase
    prints its time, its launches, its probe_count calls by route and
    mode, and how often the mesh fell back to one device, by reason. It
    records the largest tidb_segagg call (Q1 on the one-card mesh: a
@@ -399,7 +423,12 @@ Server. The MySQL-protocol server over the SF1 catalog after phase 3
    spilled, every tracker at 0 and no spill file left. Q6 on a mesh of
    the one card, resident (lineitem's 6.8 GB are under
    tidb_device_cache_bytes) and streamed (the sysvar at a quarter of
-   lineitem's bytes, two or more batches), equals the single card's rows.
+   lineitem's bytes, two or more batches), equals the single card's rows,
+   resident three runs (the programs' warm-up, capture and replay) and
+   streamed two (the first run's second batch captures): the last run
+   all replays; the mesh graphs' bytes must stay under half of
+   lineitem's bytes (the resident sharding is read in place, not copied)
+   and the cache within its quota.
 The full report goes to chip_smoke.json under OUT_DIR.
 
 Depth cuts for the SF10 phase's share of the 1,200 s limit (every path
@@ -413,7 +442,11 @@ SELECT and CTAS, the window queries and the DCN side fleets over a
 quarter of the orders (STORAGE_SHARE, WINDOW_SHARE, DCN_SIDE_SHARE: all
 of them), the planner's spilling ORDER BY over half of lineitem under
 SORT_QUOTA (all of it under SPILL_QUOTA), auto-analyze off around the
-schema phase's RF1 into its constrained copy.
+schema phase's RF1 into its constrained copy. For the mesh's graph
+checks: the mesh phase's warm times are its graph checks' own runs (no
+extra timed runs), the four-shard grid's second and third runs only
+MESH_GRID_RECHECK's four queries (all 22), the SF10 streamed mesh Q6 two
+runs (three).
 
 Plan feedback is on in every phase, as it is by default: a launch check
 holds each run to the plan taken just before it by `planned`, which
@@ -5138,50 +5171,190 @@ def mesh_launches_add(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
+# the mesh's programs (utils/jitcache.py namespaces, parallel/executor.py)
+MESH_NS = ("distagg", "distjoinagg", "fragment", "aggcombine")
+MESH_GRAPH_MAX_RUNS = 6  # graph runs until one plan's third (plan feedback may move it)
+# the four-shard grid queries run a second time (their programs' captures):
+# a semi join, an outer join with a count, an anti join with an EXISTS,
+# and a scalar subquery's broadcast (all 22, 16 s, until the time limit)
+MESH_GRID_RECHECK = ("q4", "q13", "q21", "q22")
+# at most this many rounds of Q1, Q5 and Q18 in turn on the one-card mesh
+# (mesh_mix): the first warm up and capture what the five queries' pools
+# pushed out, and plan feedback may still move a plan
+MESH_MIX_ROUNDS = 12
+
+
+def _mesh_progs(programs: dict) -> dict:
+    return {ns: r for ns, r in programs.items() if ns in MESH_NS}
+
+
+def mesh_graph_runs(s, mods, sql: str, label: str, rows) -> dict:
+    """Graph runs of `sql` on the mesh session `s` from an eager state
+    (utils/jitcache.py's warm-ups first), until one plan runs a third time
+    (plan feedback may move the plan between runs): its first warm run
+    at the latest (a streamed statement's first run, whose second batch
+    captures) must capture a mesh program and its second warm run capture
+    nothing, every program a replay. Then one run of the same plan on the
+    eager path (jitcache.eager(): the plan's capacities and probe routes
+    are settled by then, as the replays'): its kernel launches and
+    device_get round trips must equal the second warm run's. Every run's
+    rows must equal `rows`, and the graphs must hold at most the cache's
+    bound. Returns the runs' counts, the eager run's and the graphs'
+    bytes."""
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.utils import jitcache
+
+    runs, seen, by_plan, last = [], {}, {}, None
+    for i in range(MESH_GRAPH_MAX_RUNS):
+        text = explain_text(planned(s, sql))
+        got, cnt, dt = run_query(s, mods, sql)
+        if got != rows:
+            raise AssertionError(f"{label} graph run {i + 1}: rows differ from the eager run's")
+        before = seen.get(text, 0)
+        seen[text] = before + 1
+        runs.append({"s": dt, "plan_runs_before": before,
+                     **{k: cnt[k] for k in ("programs", "launches", "device_get")}})
+        by_plan.setdefault(text, []).append(runs[-1])
+        if before >= 2:
+            last = runs[-1]
+            break
+    if last is None:
+        raise AssertionError(f"{label}: no plan ran a third time in {MESH_GRAPH_MAX_RUNS} runs")
+    first_two = by_plan[text][:2]
+    if not any(r.get("capture") for run in first_two
+               for r in _mesh_progs(run["programs"]).values()):
+        raise AssertionError(f"{label}: the plan's first runs captured no mesh program: "
+                             f"{[run['programs'] for run in first_two]}")
+    if not _mesh_progs(last["programs"]) or any(
+            set(r) != {"replay"} for r in last["programs"].values()):
+        raise AssertionError(f"{label}: the second warm run's programs ran "
+                             f"{last['programs']}, not all by replay")
+    units = jitcache.held_units()
+    with jitcache.eager():
+        same = explain_text(planned(s, sql)) == text
+        again, eager, eager_s = run_query(s, mods, sql)
+    if again != rows:
+        raise AssertionError(f"{label}: the eager run's rows differ")
+    if any(set(r) != {"eager"} for r in eager["programs"].values()):
+        raise AssertionError(f"{label}: the eager switch ran a graph: {eager['programs']}")
+    if same:
+        for k in ("launches", "device_get"):
+            if last[k] != eager[k]:
+                raise AssertionError(f"{label}: {k} {last[k]} by replay, {eager[k]} eagerly "
+                                     f"(replayed {last['programs']}, eager {eager['programs']})")
+    else:
+        log(f"note: {label}: plan feedback moved the plan after the replays; the "
+            f"replayed run's counts are its own plan's")
+    if sum(units) > jitcache.max_bytes():
+        raise AssertionError(f"{label}: the graphs hold {units} B past the quota "
+                             f"{jitcache.max_bytes()}")
+    return {"runs": runs, "same_plan": same, "replay_s": last["s"], "eager_s": eager_s,
+            "eager": {k: eager[k] for k in ("programs", "launches", "device_get")},
+            "graph_bytes": {ns: sum(v) for ns, v in jitcache.graph_bytes().items()},
+            "graph_units_bytes": units, "graph_resident_bytes": sum(units)}
+
+
 def mesh_five(np, s, mods, model, single_rows, label, rep) -> dict:
     """The five queries on the mesh session `s`: each against numpy over the
     tables' live rows and the single-card session's rows (exactly), its
     executor classes, its launches (tidb_segagg on Q1 and Q6, tidb_probe_count
     on every query whose tree joins on the mesh, the off-path entries
-    never), one cold run and a warm median of WARM_RUNS. Returns the rows."""
+    never), one cold run on the eager path and the graph runs
+    (mesh_graph_runs: the warm time of each path is its run there).
+    Returns the rows."""
     from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
 
     res, per = {}, {}
     for q in REFRESH_QUERIES:
         sql = Q[q][0]
         classes = mesh_classes(s, sql)
-        rows, c, cold = run_query(s, mods, sql)
-        lc = c["launches"]
-        mesh_launches_add(rep["launches"], lc)
-        if lc["segsum_count"] or lc["segsum_i64"] or lc["hash_probe"]:
-            raise AssertionError(f"{label} {q} launched an off-path kernel entry: {lc}")
-        dist = [k for k in classes if k in mesh_executor_names()]
-        if q in ("q1", "q6") and (not lc["segagg"] or "DistAggExec" not in dist):
-            raise AssertionError(f"{label} {q}: segagg {lc['segagg']} under {classes}")
-        joins = "DistJoinAggExec" in dist or "DistFragmentExec" in dist
-        if q in ("q3", "q5", "q18") and (not joins or not lc["probe_count"]):
-            raise AssertionError(f"{label} {q}: probe_count {lc['probe_count']} under "
-                                 f"{classes}")
-        if rows != single_rows[q]:
-            raise AssertionError(f"{label} {q}: rows differ from the single-card session's")
-        warm = []
-        for _ in range(WARM_RUNS):
-            again, cw, dt = run_query(s, mods, sql)
-            mesh_launches_add(rep["launches"], cw["launches"])
-            warm.append(dt)
-            # a cold run may pay capacity retries that warm runs skip
-            # (the proven growths are cached), so only the rows must repeat
-            if again != rows:
-                raise AssertionError(f"{label} {q}: a warm run's rows differ")
+        with jitcache.eager():
+            rows, c, cold = run_query(s, mods, sql)
+            lc = c["launches"]
+            mesh_launches_add(rep["launches"], lc)
+            if lc["segsum_count"] or lc["segsum_i64"] or lc["hash_probe"]:
+                raise AssertionError(f"{label} {q} launched an off-path kernel entry: {lc}")
+            dist = [k for k in classes if k in mesh_executor_names()]
+            if q in ("q1", "q6") and (not lc["segagg"] or "DistAggExec" not in dist):
+                raise AssertionError(f"{label} {q}: segagg {lc['segagg']} under {classes}")
+            joins = "DistJoinAggExec" in dist or "DistFragmentExec" in dist
+            if q in ("q3", "q5", "q18") and (not joins or not lc["probe_count"]):
+                raise AssertionError(f"{label} {q}: probe_count {lc['probe_count']} under "
+                                     f"{classes}")
+            if rows != single_rows[q]:
+                raise AssertionError(f"{label} {q}: rows differ from the single-card session's")
+        graphs = mesh_graph_runs(s, mods, sql, f"{label} {q}", rows)
+        eager = graphs["eager"]
+        for r in graphs["runs"] + [eager]:
+            mesh_launches_add(rep["launches"], r["launches"])
+        mesh_launches_add(rep["launches_replayed"], graphs["runs"][-1]["launches"])
         res[q] = rows
-        per[q] = {"classes": classes, "cold_s": cold, "warm_s": warm,
-                  "warm_median_s": statistics.median(warm), "launches": lc}
-        log(f"{label} {q}: {len(rows)} rows equal numpy and the single-card session; "
-            f"cold {cold * 1e3:.3f} ms, warm median {statistics.median(warm) * 1e3:.3f} "
-            f"ms {[round(w * 1e3, 3) for w in warm]}; launches "
-            f"{ {k: v for k, v in lc.items() if v} }; executors {classes}")
+        per[q] = {"classes": classes, "cold_s": cold, "launches": lc, "graphs": graphs}
+        log(f"{label} {q}: {len(rows)} rows equal numpy and the single-card session, "
+            f"eagerly and by replay; cold {cold * 1e3:.3f} ms; warm eager "
+            f"{graphs['eager_s'] * 1e3:.3f} ms, replay {graphs['replay_s'] * 1e3:.3f} "
+            f"ms; graph runs {[r['programs'] for r in graphs['runs']]}; replayed launches "
+            f"{ {k: v for k, v in graphs['runs'][-1]['launches'].items() if v} }, device_get "
+            f"{graphs['runs'][-1]['device_get']} (eager {eager['device_get']}); graph bytes "
+            f"{graphs['graph_bytes']} ({graphs['graph_resident_bytes']} B held); executors "
+            f"{classes}")
     check_five(np, res, model, label)
     return {"rows": res, "per_query": per}
+
+
+def mesh_mix(s, mods, rows, rep) -> dict:
+    """Rounds of Q1, Q5 and Q18 in turn on the one-card mesh session `s`,
+    with graphs on, as a client mixing them sends them (at most
+    MESH_MIX_ROUNDS): every run's rows equal the mesh's eager rows and
+    the graphs held stay within the quota after every run. Plan feedback
+    may still move a plan (Q18's push-down variants are explored run by
+    run), and a new plan warms up and captures programs of its own. The
+    first round whose three plans are those of the two rounds before it,
+    after a round with no program warming up, decides: where the three
+    statements' memory pools (each the most recent unit after its run in
+    the round before) fit the quota together, every program of that
+    round must replay (the cache pushed none of them out, and no
+    signature changed under a settled plan); where they do not, the cache
+    had to evict, and its captures are printed."""
+    from tidb_tpu_torch.planner.physical import explain_text
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    runs, plans, verdict = [], [], "no round decided (plans moving or programs warming up)"
+    for r in range(MESH_MIX_ROUNDS):
+        texts = {}
+        for q in ("q1", "q5", "q18"):
+            texts[q] = explain_text(planned(s, Q[q][0]))
+            got, c, dt = run_query(s, mods, Q[q][0])
+            mesh_launches_add(rep["launches"], c["launches"])
+            if got != rows[q]:
+                raise AssertionError(f"mesh mix round {r + 1} {q}: rows differ")
+            units = jitcache.held_units()
+            if sum(units) > jitcache.max_bytes():
+                raise AssertionError(f"mesh mix {q}: the graphs hold {units} B past the "
+                                     f"quota {jitcache.max_bytes()}")
+            runs.append({"round": r + 1, "q": q, "s": dt, "pool": units[-1] if units else 0,
+                         "programs": _mesh_progs(c["programs"]), "units": units})
+        plans.append(texts)
+        if r < 2 or not plans[-1] == plans[-2] == plans[-3] or any(
+                "eager" in v for run in runs[-6:-3] for v in run["programs"].values()):
+            continue  # a plan moved, or a program was still warming up
+        pools = {run["q"]: run["pool"] for run in runs[-6:-3]}
+        fits = sum(pools.values()) <= jitcache.max_bytes()
+        replayed = all(set(v) == {"replay"} for run in runs[-3:]
+                       for v in run["programs"].values())
+        if fits and not replayed:
+            raise AssertionError(f"mesh mix round {r + 1}: settled plans whose pools {pools} "
+                                 f"fit the quota did not all replay: "
+                                 f"{[run['programs'] for run in runs[-3:]]}")
+        verdict = (f"round {r + 1}: pools {pools} B "
+                   f"{'within' if fits else 'together over'} the quota, "
+                   f"{'every program replayed' if replayed else 'captures after evictions'}")
+        break
+    log(f"mesh mix on {s.mesh!r}: {verdict} (quota {jitcache.max_bytes()}): "
+        f"{[(run['round'], run['q'], run['programs'], round(run['s'] * 1e3, 3)) for run in runs]}")
+    return {"runs": runs, "verdict": verdict}
 
 
 def record_largest_segagg() -> dict:
@@ -5234,7 +5407,7 @@ def phase_mesh(torch, np, s, mods, grid_cat, grid_oracle) -> tuple:
     cat = s.catalog.base
     s.execute("use test")
     pex.reset_fallbacks()
-    rep = {"card": card_line(), "launches": {}, "grid": {}}
+    rep = {"card": card_line(), "launches": {}, "launches_replayed": {}, "grid": {}}
     model = ArrayModel(np, cat)
 
     # the single-card session's rows and warm medians, the yardstick
@@ -5264,8 +5437,9 @@ def phase_mesh(torch, np, s, mods, grid_cat, grid_oracle) -> tuple:
     shapes["segagg"] = segs["args"]
     rep["s"] = time.perf_counter() - t_phase
     log(f"mesh phase passed in {rep['s']:.1f} s; fallbacks to one device "
-        f"{rep['fallbacks']}; launches {rep['launches']}; probe_count by route and "
-        f"mode {rep['probe_modes']}")
+        f"{rep['fallbacks']}; launches {rep['launches']} (the five queries' replayed "
+        f"second warm runs on both meshes: {rep['launches_replayed']}); probe_count by "
+        f"route and mode {rep['probe_modes']}")
     return rep, shapes
 
 
@@ -5279,6 +5453,7 @@ def mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle,
     from tidb_tpu_torch.server.client import Client
     from tidb_tpu_torch.session import Session
     from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
     from tidb_tpu_torch.utils.metrics import FRAGMENT_DISPATCH
 
     # -- 1. a mesh of the one card, as the reference serves one chip --------
@@ -5289,6 +5464,7 @@ def mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle,
     rep["mesh1"] = mesh_five(np, s1, mods, model, single_rows, label1, rep)
     rep["mesh1"]["s"] = time.perf_counter() - t0
     rep["mesh1"]["mesh"] = repr(mesh1)
+    rep["mix"] = mesh_mix(s1, mods, rep["mesh1"]["rows"], rep)
 
     # -- 2. streaming: lineitem above tidb_device_cache_bytes ---------------
     li = cat.table("test", "lineitem")
@@ -5297,21 +5473,36 @@ def mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle,
     stream = {"budget_bytes": budget, "lineitem_bytes": table_bytes(li)}
     try:
         for q in ("q1", "q6"):
-            before = FRAGMENT_DISPATCH.value(kind="scan_agg_stream")
-            rows, c, dt = run_query(s1, mods, Q[q][0])
-            mesh_launches_add(rep["launches"], c["launches"])
-            batches = FRAGMENT_DISPATCH.value(kind="scan_agg_stream") - before
-            if batches < 2 or not c["launches"]["segagg"]:
-                raise AssertionError(f"mesh stream {q}: {batches} streamed batches, "
-                                     f"launches {c['launches']}")
-            if rows != rep["mesh1"]["rows"][q]:
-                raise AssertionError(f"mesh stream {q}: rows differ from the resident run")
-            stream[q] = {"s": dt, "batches": batches, "launches": c["launches"]}
+            sql = Q[q][0]
+            with jitcache.eager():
+                before = FRAGMENT_DISPATCH.value(kind="scan_agg_stream")
+                rows, c, dt = run_query(s1, mods, sql)
+                mesh_launches_add(rep["launches"], c["launches"])
+                batches = FRAGMENT_DISPATCH.value(kind="scan_agg_stream") - before
+                if batches < 2 or not c["launches"]["segagg"]:
+                    raise AssertionError(f"mesh stream {q}: {batches} streamed batches, "
+                                         f"launches {c['launches']}")
+                if rows != rep["mesh1"]["rows"][q]:
+                    raise AssertionError(f"mesh stream {q}: rows differ from the resident run")
+            graphs = mesh_graph_runs(s1, mods, sql, f"mesh stream {q}", rows)
+            for r in graphs["runs"] + [graphs["eager"]]:
+                mesh_launches_add(rep["launches"], r["launches"])
+            last = graphs["runs"][-1]["programs"]
+            # every batch replays its fragment, every merge after the first
+            # batch's the aggcombine program
+            if (last.get("distagg", {}).get("replay") != batches
+                    or last.get("aggcombine", {}).get("replay") != batches - 1):
+                raise AssertionError(f"mesh stream {q}: {batches} batches, replayed {last}")
+            stream[q] = {"s": dt, "batches": batches, "launches": c["launches"],
+                         "graphs": graphs}
             log(f"mesh stream {q}: {batches} batches in {dt * 1e3:.3f} ms equal the "
-                f"resident run; launches {c['launches']['segagg']} tidb_segagg")
+                f"resident run, eagerly and by replay; launches {c['launches']['segagg']} "
+                f"tidb_segagg; graph runs {[r['programs'] for r in graphs['runs']]}; graph "
+                f"bytes {graphs['graph_bytes']}")
     finally:
         s1.execute("set tidb_device_cache_bytes = 8589934592")
     rep["stream"] = stream
+    rep["retire"] = mesh_retire(torch, s1, mods, rep["mesh1"]["rows"]["q1"])
 
     # -- 3. four shards on the one card ------------------------------------
     dev = mesh1.device_of(0)
@@ -5324,18 +5515,29 @@ def mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle,
     t0 = time.perf_counter()
     g4 = Session(grid_cat, chunk_capacity=8192, mesh=mesh4)
     for name, (sql, osql) in Q.items():
-        rows, c, dt = run_query(g4, mods, sql)
-        mesh_launches_add(rep["launches"], c["launches"])
-        ok, msg = rows_equal(rows, grid_oracle.execute(osql or sql).fetchall())
-        if not ok:
-            raise AssertionError(f"mesh grid {name}: {msg}")
+        want = grid_oracle.execute(osql or sql).fetchall()
+        # the programs' warm-ups, then (MESH_GRID_RECHECK) their captures
+        # and replays
+        for run in ((1, 2, 3) if name in MESH_GRID_RECHECK else (1,)):
+            rows, c, dt = run_query(g4, mods, sql)
+            mesh_launches_add(rep["launches"], c["launches"])
+            ok, msg = rows_equal(rows, want)
+            if not ok:
+                raise AssertionError(f"mesh grid {name} run {run}: {msg}")
+        if name in MESH_GRID_RECHECK and not any(
+                r.get("replay") for r in _mesh_progs(c["programs"]).values()):
+            raise AssertionError(f"mesh grid {name}: the third run replayed no program: "
+                                 f"{c['programs']}")
         classes = [k for k in mesh_classes(g4, sql) if k in mesh_executor_names()]
         rep["grid"][name] = {"rows": len(rows), "s": dt, "dist": classes,
-                             "launches": {k: v for k, v in c["launches"].items() if v}}
+                             "launches": {k: v for k, v in c["launches"].items() if v},
+                             "programs": _mesh_progs(c["programs"])}
     rep["grid_s"] = time.perf_counter() - t0
-    log(f"mesh grid: all 22 queries at SF0.1 on {MESH_SHARDS} shards equal sqlite in "
+    log(f"mesh grid: all 22 queries at SF0.1 on {MESH_SHARDS} shards equal sqlite "
+        f"(warm-ups; {MESH_GRID_RECHECK} twice more: captures, replays) in "
         f"{rep['grid_s']:.1f} s; on the mesh: "
-        f"{sorted(q for q, v in rep['grid'].items() if v['dist'])}")
+        f"{sorted(q for q, v in rep['grid'].items() if v['dist'])}; the last runs' mesh "
+        f"programs { {q: v['programs'] for q, v in rep['grid'].items() if v['programs']} }")
 
     # -- 4. the server with the one-card mesh --------------------------------
     srv = Server(catalog=cat, port=0, status_port=None, mesh=mesh1)
@@ -5371,6 +5573,72 @@ def mesh_steps(torch, np, cat, mods, model, single_rows, grid_cat, grid_oracle,
     del s1, s4, g4
     torch.cuda.empty_cache()
     return {}
+
+
+def sharding_bytes(st) -> int:
+    """Device bytes of a ShardedTable's tensors (data, validity, live mask)."""
+    ts = [t for d in (st.data, st.valid) for parts in d.values() for t in parts] + list(st.sel)
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mesh_retire(torch, s, mods, q1_rows) -> dict:
+    """An UPDATE of lineitem (the last order's quantities up by one, then
+    back) retires the mesh session's resident sharding of it: its programs
+    must leave the built-program cache and its device memory must be
+    returned (the card's allocated bytes after Q1 on the new sharding
+    within half a sharding of the bytes before the UPDATE), and Q1 by
+    replay on the new sharding equals the resident run's rows."""
+    import gc
+
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    li = s.catalog.table("test", "lineitem")
+    sql = Q["q1"][0]
+    # a live order (the refresh phase's RF2 deleted the oldest)
+    key = int(s.query("select max(l_orderkey) from lineitem")[0][0])
+    for _ in range(3):  # resident again after the streaming step evicted it
+        if s.query(sql) != q1_rows:
+            raise AssertionError("mesh retire: resident Q1 differs before the UPDATE")
+    st = s._shard_cache.get(li)
+    old, nbytes = st.serial, sharding_bytes(st)
+    held = len(jitcache.programs(owner=old))
+    if not held:
+        raise AssertionError("mesh retire: no program reads lineitem's resident sharding")
+    del st
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s.execute(f"update lineitem set l_quantity = l_quantity + 1 where l_orderkey = {key}")
+    s.execute(f"update lineitem set l_quantity = l_quantity - 1 where l_orderkey = {key}")
+    update_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(3):  # the new sharding's warm-up, capture and replay
+        rows, c, _dt = run_query(s, mods, sql)
+        runs.append(_mesh_progs(c["programs"]))
+        if rows != q1_rows:
+            raise AssertionError("mesh retire: Q1 after the UPDATE differs from before it")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    left = len(jitcache.programs(owner=old))
+    new = s._shard_cache.get(li).serial
+    if left or new == old:
+        raise AssertionError(f"mesh retire: {left} programs of the retired sharding left "
+                             f"(serial {old} -> {new})")
+    if set(runs[-1].get("distagg", {})) != {"replay"}:
+        raise AssertionError(f"mesh retire: Q1 on the new sharding ran {runs}")
+    if after - before > nbytes // 2:
+        raise AssertionError(f"mesh retire: {after - before} B more allocated after the "
+                             f"UPDATE; the sharding is {nbytes} B: the retired one is pinned")
+    out = {"sharding_bytes": nbytes, "programs_before": held, "programs_left": left,
+           "allocated_before": before, "allocated_after": after, "update_s": update_s,
+           "runs": runs}
+    log(f"mesh retire: the UPDATE retired lineitem's sharding ({nbytes} B) and its "
+        f"{held} programs (0 left); allocated {before} -> {after} B; Q1 on the new "
+        f"sharding {runs}")
+    return out
 
 
 def mesh_server_points(np, cat, srv) -> dict:
@@ -5416,30 +5684,39 @@ def mesh_server_points(np, cat, srv) -> dict:
 
 
 def mesh_server_memory(torch, srv, q6_rows) -> dict:
-    """MESH_MEM_CONNS connections to the mesh server each run Q6 (rows equal
-    to the in-process mesh run's): each connection's Session stages its own
-    sharding of lineitem, so the card's allocated bytes grow with the
-    connections. Returns the bytes after each connection's Q6, the peak,
-    and the bytes once the connections closed."""
+    """MESH_MEM_CONNS connections to the mesh server each run Q6 three
+    times (rows equal to the in-process mesh run's; the third by replay):
+    each connection's Session stages its own sharding of lineitem and its
+    own graphs, so the card's allocated bytes and the graphs' grow with
+    the connections. Returns per connection the bytes after its Q6s, its
+    captures and the graphs' bytes, the peak, and the bytes once the
+    connections closed."""
     import gc
 
     from tidb_tpu_torch.server.client import Client
     from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
 
     torch.cuda.synchronize()
     gc.collect()
     base = torch.cuda.memory_allocated()
+    graphs0 = jitcache.resident_bytes()
     torch.cuda.reset_peak_memory_stats()
-    after, conns = [], []
+    after, captures, graph_bytes, conns = [], [], [], []
     try:
         for _ in range(MESH_MEM_CONNS):
             cl = Client(port=srv.port, timeout=600)
             conns.append(cl)
-            _names, rows = cl.query(Q["q6"][0])
-            if _typed("q6", rows) != q6_rows:
-                raise AssertionError("mesh server q6: wire rows differ from in-process")
+            jitcache.reset_runs()
+            for _run in range(3):
+                _names, rows = cl.query(Q["q6"][0])
+                if _typed("q6", rows) != q6_rows:
+                    raise AssertionError("mesh server q6: wire rows differ from in-process")
+            captures.append(sum(r.get("capture", 0) for r in
+                                _mesh_progs(jitcache.runs()).values()))
             torch.cuda.synchronize()
             after.append(torch.cuda.memory_allocated() - base)
+            graph_bytes.append(jitcache.resident_bytes() - graphs0)
     finally:
         for cl in conns:
             cl.close()
@@ -5449,9 +5726,16 @@ def mesh_server_memory(torch, srv, q6_rows) -> dict:
     closed = torch.cuda.memory_allocated() - base
     out = {"connections": MESH_MEM_CONNS, "base_bytes": base,
            "allocated_after_each_bytes": after, "peak_bytes": peak,
-           "after_close_bytes": closed}
-    log(f"mesh server memory: {MESH_MEM_CONNS} connections' Q6 add {after} B over "
-        f"{base} B allocated (peak +{peak} B); +{closed} B once they closed")
+           "after_close_bytes": closed, "captures_each": captures,
+           "graph_bytes_after_each": graph_bytes,
+           "graph_bytes_after_close": jitcache.resident_bytes() - graphs0}
+    if any(c < 1 for c in captures):
+        raise AssertionError(f"mesh server memory: a connection's Q6 captured no graph: "
+                             f"{captures}")
+    log(f"mesh server memory: {MESH_MEM_CONNS} connections' Q6 (three runs each) add "
+        f"{after} B over {base} B allocated (peak +{peak} B); +{closed} B once they "
+        f"closed; captures per connection {captures}; graph bytes after each {graph_bytes}, "
+        f"{out['graph_bytes_after_close']} once they closed")
     return out
 
 
@@ -6892,28 +7176,53 @@ def phase_sf10(torch, np, mods, sf: float = SF10, device=None) -> dict:
     sm = Session(s.catalog.base, mesh=mesh)
     want6 = rep["queries"]["q6"]["rows"]
     rep["mesh_q6"] = {}
+    li_bytes = table_bytes(li)
     try:
-        for label, budget in (("resident", None), ("streamed", table_bytes(li) // 4)):
+        for label, budget in (("resident", None), ("streamed", li_bytes // 4)):
             if budget is not None:
                 sm.execute(f"set tidb_device_cache_bytes = {budget}")
-            before = FRAGMENT_DISPATCH.value(kind="scan_agg_stream")
-            seg_mod.reset_launches()
-            t0 = time.perf_counter()
-            rows = sm.query(Q["q6"][0])
-            dt = time.perf_counter() - t0
-            batches = FRAGMENT_DISPATCH.value(kind="scan_agg_stream") - before
-            mesh_segagg += seg_mod.LAUNCHES["segagg"]
-            if rows != want6:
-                raise AssertionError(f"sf10 mesh Q6 ({label}): {rows} vs the single card's {want6}")
-            if (budget is None) != (batches == 0) or (budget is not None and batches < 2):
-                raise AssertionError(f"sf10 mesh Q6 ({label}): {batches} streamed batches")
-            if not seg_mod.LAUNCHES["segagg"]:
-                raise AssertionError(f"sf10 mesh Q6 ({label}) launched no tidb_segagg")
-            rep["mesh_q6"][label] = {"s": dt, "batches": batches, "budget": budget,
-                                     "segagg": seg_mod.LAUNCHES["segagg"],
+            # the programs' warm-up, capture and replay: a streamed run's
+            # batches warm up, capture and replay within the first run
+            runs = []
+            for _ in range(3 if budget is None else 2):
+                before = FRAGMENT_DISPATCH.value(kind="scan_agg_stream")
+                seg_mod.reset_launches()
+                jitcache.reset_runs()
+                t0 = time.perf_counter()
+                rows = sm.query(Q["q6"][0])
+                dt = time.perf_counter() - t0
+                batches = FRAGMENT_DISPATCH.value(kind="scan_agg_stream") - before
+                mesh_segagg += seg_mod.LAUNCHES["segagg"]
+                if rows != want6:
+                    raise AssertionError(f"sf10 mesh Q6 ({label}): {rows} vs the single "
+                                         f"card's {want6}")
+                if (budget is None) != (batches == 0) or (budget is not None and batches < 2):
+                    raise AssertionError(f"sf10 mesh Q6 ({label}): {batches} streamed batches")
+                if not seg_mod.LAUNCHES["segagg"]:
+                    raise AssertionError(f"sf10 mesh Q6 ({label}) launched no tidb_segagg")
+                runs.append({"s": dt, "segagg": seg_mod.LAUNCHES["segagg"],
+                             "programs": jitcache.runs()})
+            last = runs[-1]["programs"]
+            if not last.get("distagg") or any(set(r) != {"replay"} for r in last.values()):
+                raise AssertionError(f"sf10 mesh Q6 ({label}): the last run ran {last}")
+            held = jitcache.resident_bytes()
+            mesh_bytes = {ns: sum(v) for ns, v in jitcache.graph_bytes().items()
+                          if ns in MESH_NS}
+            # the resident sharding is read in place: no second copy of it
+            if held > jitcache.max_bytes() or sum(mesh_bytes.values()) >= li_bytes // 2:
+                raise AssertionError(f"sf10 mesh Q6 ({label}): graphs hold {held} B (mesh "
+                                     f"{mesh_bytes}), lineitem {li_bytes} B, quota "
+                                     f"{jitcache.max_bytes()}")
+            rep["mesh_q6"][label] = {"s": runs[0]["s"], "runs": runs, "batches": batches,
+                                     "budget": budget, "segagg": runs[0]["segagg"],
+                                     "graph_bytes": mesh_bytes, "graph_resident_bytes": held,
                                      "classes": mesh_classes(sm, Q["q6"][0])}
-            log(f"sf10 mesh q6 {label}: {dt:.3f} s, {batches} streamed batches, "
-                f"tidb_segagg {seg_mod.LAUNCHES['segagg']}, rows equal the single card's")
+            log(f"sf10 mesh q6 {label}: {[round(r['s'], 4) for r in runs]} s (warm-up, "
+                f"capture, replay; streamed: within the first), {batches} streamed batches, "
+                f"tidb_segagg "
+                f"{runs[0]['segagg']} a run, rows equal the single card's; programs "
+                f"{[r['programs'] for r in runs]}; mesh graph bytes {mesh_bytes} of "
+                f"{held} B held (lineitem {li_bytes} B, quota {jitcache.max_bytes()})")
     finally:
         sm._shard_cache.clear_tables()
     rep["mesh_segagg"] = mesh_segagg

@@ -7,6 +7,7 @@ saves against the eager path.
 
     python3 host_ab.py [--root DIR] [--label NAME] [--out PATH] [--sf SF]
                        [--device cuda|cpu] [--no-cache-probe] [--host-profile]
+                       [--mesh SHARDS[,SHARDS...]] [--pairs N] [--mix ROUNDS]
 
 `--root` is a checkout of the repository whose tidb_tpu_torch is measured
 (by default the one this file is in); the helpers (the numpy evaluations,
@@ -39,6 +40,28 @@ Q3 and Q5 in that order, on the eager path (`jitcache.eager()`) and by graph rep
 warm runs, one timed run and one run under cProfile: the wall time and
 the functions that took the most host time (tottime), in the report's
 "host_profile".
+
+With `--mesh SHARDS[,SHARDS...]` it runs instead the mesh tier: TPC-H at
+`--sf`, the five queries' warm medians on the single-card session, then
+on each mesh over the one card (1: `make_mesh()`, the one-card mesh; n:
+n shards on it) one cold run of each query, graph runs until one captures
+nothing (at most four), and `--pairs` rounds of (eager, replay, replay,
+eager) in that process, the rows equal across
+runs and to numpy's. Per query and mode it reports the warm median, the
+programs' runs by namespace (`jitcache.runs()`), the fragments
+dispatched, the device->host fetches and the kernels' launches of the
+last run, one profiled replayed run (chip_smoke.profile_query: device
+busy and idle), the bytes the graphs hold after it (its statement's
+memory pool the most recent unit), and per mesh the bytes the graphs
+hold. With `--host-profile` as well, the cProfile step above runs on
+each mesh session instead of the single card's. With `--mix ROUNDS` as
+well, a mixed client on the one-card mesh follows, from an empty
+program cache: Q1, Q5 and Q18 in turn, two rounds to warm up and
+capture, then `--pairs` groups of (graphs, eager, eager, graphs) rounds
+of ROUNDS rounds each (a round is the three queries once), rows equal
+to the mesh's; per query and mode the warm median, and per graphs round
+the programs' runs (replays, or captures when one statement's graphs
+pushed out another's) and the units the cache holds.
 
 Prints one JSON line last and writes the report to `--out`
 (chiprun_out/host_ab_<label>.json by default). Exits non-zero without a
@@ -265,6 +288,143 @@ def host_profile(s, device: str, top: int = 12) -> dict:
     return out
 
 
+def mesh_counts(cs, s, sql: str) -> tuple:
+    """One run of `sql` with its counts: (rows, seconds, counts), the
+    counts the programs' runs by namespace, the fragments dispatched, the
+    device->host fetches and the kernels' launches."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.ops import segment_sum as seg_mod
+    from tidb_tpu_torch.utils import dispatch, jitcache
+
+    seg_mod.reset_launches()
+    hp.reset_launches()
+    jitcache.reset_runs()
+    f0, d0 = dispatch.fetch_count(), dispatch.fragment_count()
+    t0 = time.perf_counter()
+    rows = s.query(sql)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in {**seg_mod.LAUNCHES, **hp.LAUNCHES}.items() if v}
+    return rows, dt, {"programs": jitcache.runs(), "fragments": dispatch.fragment_count() - d0,
+                      "device_get": dispatch.fetch_count() - f0, "launches": launches}
+
+
+def mesh_ab(np, cs, s, shards: list, pairs: int, device: str, profile: bool,
+            mix: int = 0) -> dict:
+    """The mesh step (the module docstring's --mesh) over the catalog of the
+    single-card session `s`."""
+    import torch
+
+    from tidb_tpu_torch.parallel import make_mesh
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    out = {"single_card": five_queries(np, cs, s)}
+    cat = s.catalog.base
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    for n in shards:
+        mesh = make_mesh() if n == 1 and device == "cuda" else \
+            make_mesh(n_shards=n, devices=[dev] * n)
+        sm = Session(cat, mesh=mesh)
+        per = out[f"mesh{n}"] = {"mesh": repr(mesh)}
+        rows = {}
+        for q in FIVE:
+            sql = Q[q][0]
+            rows[q] = sm.query(sql)  # cold: shards the tables, proves capacities
+            settle = []
+            for _ in range(4):  # warm-ups and captures, until a run captures nothing
+                got, _dt, cnt = mesh_counts(cs, sm, sql)
+                if got != rows[q]:
+                    raise AssertionError(f"mesh{n} {q}: a graph run's rows differ")
+                settle.append(cnt["programs"])
+                if not any(r.get("capture") or r.get("eager") for r in cnt["programs"].values()):
+                    break
+            times = {"eager": [], "graphs": []}
+            last = {}
+            for _ in range(pairs):
+                for mode in ("eager", "graphs", "graphs", "eager"):
+                    jitcache.set_graphs(mode == "graphs")
+                    got, dt, cnt = mesh_counts(cs, sm, sql)
+                    if got != rows[q]:
+                        raise AssertionError(f"mesh{n} {q} {mode}: rows differ")
+                    times[mode].append(dt * 1e3)
+                    last[mode] = cnt
+            jitcache.set_graphs(True)
+            per[q] = {m: {"warm_ms": t, "median_ms": median(t), "last_run": last[m]}
+                      for m, t in times.items()}
+            per[q]["settle"] = settle
+            if device == "cuda":
+                # right after its pairs, while its graphs are cached
+                jitcache.reset_runs()
+                per[q]["profile"] = cs.profile_query(torch, sm, sql)
+                per[q]["profile"]["programs"] = jitcache.runs()
+            per[q]["graph_units"] = jitcache.held_units()
+        # numpy's answers, as the single-card step checks them
+        li = cat.table("test", "lineitem")
+        cs.check_q1(np, rows["q1"], cs.numpy_q1(np, li))
+        if len(rows["q6"]) != 1 or cs._scaled(rows["q6"][0][0]) != cs.numpy_q6(np, li):
+            raise AssertionError(f"mesh{n} Q6 {rows['q6']} vs numpy")
+        cs.check_join_rows("q3", rows["q3"], cs.numpy_q3(np, s.catalog), {1})
+        cs.check_join_rows("q5", rows["q5"], cs.numpy_q5(np, s.catalog), {1})
+        cs.check_join_rows("q18", rows["q18"], cs.numpy_q18(np, s.catalog)[0], {4, 5})
+        per["graph_bytes"] = {ns: sum(v) for ns, v in jitcache.graph_bytes().items()}
+        per["graph_resident_bytes"] = jitcache.resident_bytes()
+        if profile:
+            per["host_profile"] = host_profile(sm, device)
+        jitcache.clear()
+        if mix and n == 1:
+            per["mix"] = mesh_mix(cs, sm, rows, mix, pairs)
+        sm._shard_cache.clear_tables()
+        del sm
+        jitcache.clear()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+MIX = ("q1", "q5", "q18")
+
+
+def mesh_mix(cs, sm, rows: dict, rounds: int, pairs: int) -> dict:
+    """The --mix step on the mesh session `sm`, from an empty program
+    cache: two rounds of MIX to warm up and capture, then `pairs` groups
+    of (graphs, eager, eager, graphs) blocks of `rounds` rounds."""
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    def one_round(mode: str, out: list) -> None:
+        jitcache.set_graphs(mode == "graphs")
+        try:
+            for q in MIX:
+                got, dt, cnt = mesh_counts(cs, sm, Q[q][0])
+                if got != rows[q]:
+                    raise AssertionError(f"mix {q} {mode}: rows differ")
+                out.append({"q": q, "mode": mode, "ms": dt * 1e3,
+                            "programs": cnt["programs"], "units": jitcache.held_units()})
+        finally:
+            jitcache.set_graphs(True)
+
+    settle: list = []
+    for _ in range(2):
+        one_round("graphs", settle)
+    timed: list = []
+    for _ in range(pairs):
+        for mode in ("graphs", "eager", "eager", "graphs"):
+            for _ in range(rounds):
+                one_round(mode, timed)
+    per = {q: {m: median([r["ms"] for r in timed if r["q"] == q and r["mode"] == m])
+               for m in ("eager", "graphs")} for q in MIX}
+    graph_runs = [r for r in timed if r["mode"] == "graphs"]
+    hows: dict = {}
+    for r in graph_runs:
+        for ns, v in r["programs"].items():
+            for how, k in v.items():
+                hows[how] = hows.get(how, 0) + k
+    return {"median_ms": per, "settle": settle, "timed": timed,
+            "graph_runs_by_outcome": hows,
+            "units_last": graph_runs[-1]["units"] if graph_runs else []}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
@@ -275,6 +435,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--no-cache-probe", action="store_true")
     ap.add_argument("--host-profile", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="comma-separated shard counts of meshes over the one card")
+    ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--mix", type=int, default=0,
+                    help="rounds per block of the mixed Q1/Q5/Q18 step on the one-card mesh")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -300,6 +465,27 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     s.load_tpch(args.sf)
     rep["load_s"] = time.perf_counter() - t0
+    if args.mesh:
+        shards = [int(x) for x in args.mesh.split(",")]
+        rep["mesh"] = mesh_ab(np, cs, s, shards, args.pairs, args.device, args.host_profile,
+                              args.mix)
+        summary = {"label": args.label, "card": rep["card"],
+                   "single_card_median_ms": {q: round(v["median_ms"], 3) for q, v in
+                                             rep["mesh"]["single_card"].items()}}
+        for n in shards:
+            m = rep["mesh"][f"mesh{n}"]
+            summary[f"mesh{n}_median_ms"] = {
+                q: {mode: round(m[q][mode]["median_ms"], 3) for mode in ("eager", "graphs")}
+                for q in FIVE}
+            summary[f"mesh{n}_graph_resident_bytes"] = m["graph_resident_bytes"]
+            summary[f"mesh{n}_pool_bytes"] = {q: m[q]["graph_units"][-1:] for q in FIVE}
+            if "mix" in m:
+                summary[f"mesh{n}_mix"] = {
+                    "median_ms": {q: {k: round(v, 3) for k, v in d.items()}
+                                  for q, d in m["mix"]["median_ms"].items()},
+                    "graph_runs_by_outcome": m["mix"]["graph_runs_by_outcome"],
+                    "units_last": m["mix"]["units_last"]}
+        return _write(args, rep, summary)
     if args.host_profile:
         rep["host_profile"] = host_profile(s, args.device)
         return _write(args, rep, {"label": args.label, "card": rep["card"], "host_profile": {

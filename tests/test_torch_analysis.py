@@ -43,9 +43,11 @@ PKG = "tidb_tpu_torch"
 
 # the port's allowlist, counted (the reference's tree: 28 suppressions,
 # 6 host-sync and 2 lifecycle annotations); the fourteenth is the CUDA
-# graph capture in utils/jitcache.py, which its module doc sanctions
+# graph capture in utils/jitcache.py, which its module doc sanctions; the
+# sixth and seventh host-sync annotations are the mesh executors' gate
+# fetches, moved out of the fragments' programs into their retry loops
 SUPPRESSIONS = 14
-HOST_SYNC_ANNOTATIONS = 5
+HOST_SYNC_ANNOTATIONS = 7
 LIFECYCLE_ANNOTATIONS = 2
 
 

@@ -849,6 +849,62 @@ def test_four_shard_mesh_on_card_equals_cpu_mesh(card):
         assert got == on_cpu.query(Q[q][0]), q
 
 
+def test_four_shard_mesh_replays_its_fragments_as_eagerly(card, monkeypatch):
+    """The mesh's fragments as CUDA graphs (utils/jitcache.py) on four
+    shards over the card at SF0.1: Q1's, Q3's and Q18's rows and kernel
+    launches by replay (the third graph run: every mesh program a replay)
+    equal the eager path's (jitcache.eager()). A capture that fails (a
+    host read inside a collective) raises, and the signature warms up
+    again afterwards."""
+    from tidb_tpu_torch.ops import hash_probe as hp
+    from tidb_tpu_torch.parallel import make_mesh
+    from tidb_tpu_torch.parallel import mesh as mesh_mod
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage.catalog import Catalog
+    from tidb_tpu_torch.storage.tpch import load_tpch
+    from tidb_tpu_torch.storage.tpch_queries import Q
+    from tidb_tpu_torch.utils import jitcache
+
+    cat = Catalog()
+    load_tpch(cat, sf=0.1)
+    s = Session(cat, mesh=make_mesh(n_shards=4, devices=[card] * 4))
+    jitcache.set_graphs(True)
+    jitcache.clear()
+    mesh_ns = ("distagg", "distjoinagg", "fragment")
+    for q in ("q1", "q3", "q18"):
+        with jitcache.eager():
+            s.query(Q[q][0])  # cold: shards the tables, proves the capacities
+            port.reset_launches()
+            hp.reset_launches()
+            want = s.query(Q[q][0])
+            eager = {**port.LAUNCHES, **hp.LAUNCHES}
+        for run in range(3):
+            port.reset_launches()
+            hp.reset_launches()
+            jitcache.reset_runs()
+            assert s.query(Q[q][0]) == want, (q, run)
+        assert {**port.LAUNCHES, **hp.LAUNCHES} == eager, q
+        runs = {ns: r for ns, r in jitcache.runs().items() if ns in mesh_ns}
+        assert runs and all(set(r) == {"replay"} for r in runs.values()), (q, runs)
+
+    jitcache.clear()
+    real = mesh_mod._reduce
+
+    def host_read(op, parts, mesh):
+        float(parts[0].sum())  # a device->host read: illegal inside a capture
+        return real(op, parts, mesh)
+
+    monkeypatch.setattr(mesh_mod, "_reduce", host_read)
+    sql = Q["q1"][0]
+    want = s.query(sql)  # the warm-up (eager)
+    with pytest.raises(Exception):
+        s.query(sql)  # the capture
+    monkeypatch.setattr(mesh_mod, "_reduce", real)
+    jitcache.reset_runs()
+    assert s.query(sql) == want
+    assert jitcache.runs()["distagg"] == {"eager": 1}
+
+
 def _snapshot_launches(snap):
     """{kernel entry: launches} from one process's metrics snapshot (the
     `metrics_snapshot` RPC's payload)."""

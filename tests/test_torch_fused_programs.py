@@ -191,8 +191,9 @@ def cpu_graphs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(jitcache, "_pool_bytes", lambda dev, before: 4096)
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 0)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 0))
 
-    def capture_body(graph, body):
+    def capture_body(graph, body, pool=None):
         graph.body = body
         body()
 

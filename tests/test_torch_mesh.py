@@ -221,12 +221,13 @@ def test_probe_primitives_equal_reference(mode, nb, npr):
     # the pallas mode runs the reference's kernel in interpret mode on the CPU
     jmode = "xla" if mode == "pallas" else mode
     jlo, jhi = (np.asarray(a) for a in jhp.probe_for_join(jsh, jnp.asarray(probes), mode=jmode))
-    lo, hi = hp.probe_for_join(sh, torch.from_numpy(probes), mode=mode)
+    lo, hi, unplaced = hp.probe_for_join(sh, torch.from_numpy(probes), mode=mode)
+    assert unplaced is None or int(unplaced) == 0  # every run placed: the ranges hold
     assert np.array_equal(lo.numpy(), jlo) and np.array_equal(hi.numpy(), jhi)
     jlo2, jcnt = (np.asarray(a) for a in jax_ranges(jsh, jcvi, jnp.asarray(probes),
                                                     jnp.asarray(ok), mode=jmode))
-    lo2, cnt = probe_hash_ranges(sh, cvi, torch.from_numpy(probes), torch.from_numpy(ok),
-                                 mode=mode)
+    lo2, cnt, _unplaced = probe_hash_ranges(sh, cvi, torch.from_numpy(probes),
+                                            torch.from_numpy(ok), mode=mode)
     assert np.array_equal(cnt.numpy(), jcnt)
     hit = jcnt > 0
     assert np.array_equal(lo2.numpy()[hit], jlo2[hit])

@@ -25,9 +25,9 @@ Device-ness is a forward dataflow within each function (no fixpoint):
               ``tidb_tpu_torch.expression.compiler`` (the device-kernel
               modules), and calls of locals bound from those programs'
               builders (``compile_expr`` / ``compile_predicate`` /
-              ``cached_jit``). A mesh fragment (``get_fragment``) is a
-              host-driven program whose gates come back already fetched
-              through ``device_get``, so its results seed nothing
+              ``cached_jit`` / ``get_fragment``: a mesh fragment is one
+              program whose overflow gates come back on the device, for
+              its caller to fetch after it)
   propagates  through attributes, subscripts, arithmetic, tuples,
               method calls on a device value, and (tuple-)assignment
   launders    through the sync calls themselves (their result is host)
@@ -58,7 +58,7 @@ _SYNC_BUILTINS = {"int", "float", "bool"}
 _SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 _DEVICE_MODULE_PREFIXES = ("tidb_tpu_torch.ops",
                            "tidb_tpu_torch.expression.compiler")
-_JIT_BUILDER_NAMES = {"cached_jit", "compile_expr", "compile_predicate"}
+_JIT_BUILDER_NAMES = {"cached_jit", "compile_expr", "compile_predicate", "get_fragment"}
 # torch.* calls whose result lives on the host (or is no tensor at all)
 _TORCH_HOST = {"device", "dtype", "iinfo", "finfo", "is_tensor",
                "is_floating_point", "from_numpy", "get_num_threads",

@@ -35,6 +35,11 @@ searchsorted, as the reference's CPU run does. Every caller passes its
 statement's mode: there is no process-wide default to race on.
 `probe_for_join` is the mesh tier's entry (parallel/fragment.py): the
 same kernel, one launch per shard, on the table route or the sorted one.
+It reads nothing of the host, since it runs inside a mesh fragment's
+program: the table route is taken whenever the mode and the build's
+size allow it, and whether every run was placed comes back as a device
+flag for the fragment's one overflow fetch (a run left unplaced voids
+the ranges, and the caller re-runs on the sorted route).
 
 The splitmix64 tail runs in int64: logical right shifts are masked
 arithmetic shifts, constants above 2^63 are written as their negative
@@ -462,23 +467,30 @@ def probe_ranges(sorted_keys: torch.Tensor, probes: torch.Tensor):
 
 def probe_for_join(sorted_hashes: torch.Tensor, probes: torch.Tensor,
                    mode: str, ok: Optional[torch.Tensor] = None):
-    """(lo, hi) int64 per probe over the sorted build hashes (searchsorted
-    left/right wherever a join reads them: hi - lo, and lo on a hit),
-    through probe_chunk: one tidb_probe_count launch on a CUDA tensor,
-    on the table route when `mode` takes the table on this device and
-    every run was placed, else on the sorted route. Rows where `ok` is
-    False get hi == lo. The counterpart of the reference's
-    `probe_for_join`; `mode` is the statement's probe mode."""
-    route, table = "sorted", None
+    """(lo, hi, unplaced): lo and hi int64 per probe over the sorted build
+    hashes (searchsorted left/right wherever a join reads them: hi - lo,
+    and lo on a hit), through probe_chunk: one tidb_probe_count launch on
+    a CUDA tensor, on the table route when `mode` takes the table on this
+    device and the build's size allows it, else on the sorted route. Rows
+    where `ok` is False get hi == lo. Nothing is read on the host:
+    `unplaced` is an int64 0-d tensor, 1 when the table left a run
+    unplaced (lo and hi are then void, and the caller re-runs on the
+    sorted route), or None on the sorted route. The counterpart of the
+    reference's `probe_for_join`, which makes that choice inside its
+    program; `mode` is the statement's probe mode."""
+    route, table, unplaced = "sorted", None, None
     if resolve_mode(mode, sorted_hashes.device) == "table":
-        table = placed_table(sorted_hashes)
-        if table is not None:
+        cap = table_capacity(sorted_hashes.shape[0])
+        if cap is not None:
+            tkeys, tlos, this, all_placed = build_table(sorted_hashes, cap)
+            table, unplaced = (tkeys, tlos, this), (~all_placed).to(torch.int64)
             route = "table"
     n = probes.shape[0]
     dev = probes.device
     ones = torch.ones(n, dtype=torch.bool, device=dev)
-    n_build = torch.tensor(sorted_hashes.shape[0], dtype=torch.int64, device=dev)
+    # a fill, not a copy from the host (a fragment's program may be captured)
+    n_build = torch.full((), sorted_hashes.shape[0], dtype=torch.int64, device=dev)
     start, count = probe_chunk(probes.to(torch.int64), ones, None,
                                ones if ok is None else ok, n_build, sorted_hashes,
                                route=route, table=table)[:2]
-    return start, start + count
+    return start, start + count, unplaced

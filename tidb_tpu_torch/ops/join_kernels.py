@@ -292,10 +292,11 @@ def sort_build_hashes(b_hash: torch.Tensor, b_live: torch.Tensor):
 
 def probe_hash_ranges(sh: torch.Tensor, cvi: torch.Tensor, p_hash: torch.Tensor,
                       p_ok: torch.Tensor, mode: str):
-    """(lo, cnt) per probe row over the sorted build hashes: the range's
-    start and its live-row count (0 where p_ok is False), through
-    hash_probe.probe_for_join (one tidb_probe_count launch on the card).
-    `mode` is the statement's tidb_tpu_join_probe_mode."""
-    lo, hi = hp.probe_for_join(sh, p_hash, mode=mode, ok=p_ok)
+    """(lo, cnt, unplaced) per probe row over the sorted build hashes: the
+    range's start and its live-row count (0 where p_ok is False), through
+    hash_probe.probe_for_join (one tidb_probe_count launch on the card),
+    and its `unplaced` flag. `mode` is the statement's
+    tidb_tpu_join_probe_mode."""
+    lo, hi, unplaced = hp.probe_for_join(sh, p_hash, mode=mode, ok=p_ok)
     cnt = torch.where(p_ok, cvi[hi] - cvi[lo], torch.zeros_like(lo))
-    return lo, cnt
+    return lo, cnt, unplaced

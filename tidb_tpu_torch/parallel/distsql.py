@@ -17,7 +17,11 @@ mesh.run_spmd:
     take the general fragment tier (fragment.py).
 
 A per-shard program is a generator: ``v = yield psum(v)`` is the
-reference's ``v = jax.lax.psum(v, axes)``.
+reference's ``v = jax.lax.psum(v, axes)``. A fragment function takes each
+sharding as one argument (``ShardedTable.args()``) and reads nothing of
+the host: it returns its overflow counts as device tensors, which the
+caller fetches after the program (one round trip a dispatch), so the
+executor can run it as one CUDA graph (parallel/executor.py).
 """
 
 from __future__ import annotations
@@ -85,10 +89,11 @@ def make_agg_fragment(st: ShardedTable, stages: List, group_exprs, aggs,
                       domains: List[int], uid_map: Optional[Dict[str, str]] = None):
     """scan -> filter -> partial aggregation -> merge over the mesh.
 
-    Returns fn(data, valid, sel, refs) -> the merged [G]-state dict (on
-    the first part's device), over a sharding's per-part lists. The
-    closure captures only the sharding's metadata, never its tensors, so
-    a cached fragment cannot pin a retired sharding."""
+    Returns fn(src) -> the merged [G]-state dict (on the first part's
+    device), over a sharding's (data, valid, sel, refs) per-part lists
+    (ShardedTable.args()). The closure captures only the sharding's
+    metadata, never its tensors, so a cached fragment cannot pin a
+    retired sharding."""
     pipeline = make_pipeline_fn(stages) if stages else (lambda c: c)
     init_state, update, _ = make_segment_kernel(group_exprs, aggs, domains)
     types, mesh = dict(st.types), st.mesh
@@ -97,8 +102,8 @@ def make_agg_fragment(st: ShardedTable, stages: List, group_exprs, aggs,
         chunk = pipeline(_shard_chunk(types, data, valid, sel, uid_map, refs))
         return (yield from merge_state(update(init_state(sel.device), chunk)))
 
-    def run(data, valid, sel, refs):
-        args = [part_args(data, valid, sel, refs, p) for p in range(mesh.n_parts)]
+    def run(src):
+        args = [part_args(*src, p) for p in range(mesh.n_parts)]
         return run_spmd(mesh, per_shard, args)[0]
 
     return run
@@ -108,7 +113,7 @@ def dist_agg_fragment(st: ShardedTable, stages: List, group_exprs, aggs,
                       domains: List[int], uid_map: Optional[Dict[str, str]] = None):
     """Build and run (see make_agg_fragment for the cached path)."""
     fn = make_agg_fragment(st, stages, group_exprs, aggs, domains, uid_map)
-    return fn(st.data, st.valid, st.sel, st.refs)
+    return fn(st.args())
 
 
 # ---------------------------------------------------------------------------
@@ -131,11 +136,18 @@ def repartition_by_key(arrays: Dict[str, torch.Tensor], sel: torch.Tensor,
 
     arrays: name -> [R]; returns (arrays', sel', key', overflow_count) with
     [n_parts * cap] shapes where cap = ceil(growth * R / n_parts). NULL
-    keys never join, so such rows are dropped here (sel' False)."""
+    keys never join, so such rows are dropped here (sel' False).
+
+    On a one-part mesh every row stays where it is: the exchange is the
+    identity, so it moves nothing and returns the [R] inputs (a captured
+    fragment's pool then holds no [2, 2R] send and [1, 2R] receive
+    buffers per column, nor a join downstream sized 2R)."""
     R = sel.shape[0]
     dev = sel.device
-    cap = int(np.ceil(growth * R / n_parts))
     live = sel & key_valid
+    if n_parts == 1:
+        return dict(arrays), live, key, torch.zeros((), dtype=torch.int64, device=dev)
+    cap = int(np.ceil(growth * R / n_parts))
     dest = torch.where(live, _hash_dest(key, n_parts),
                        torch.full_like(key, n_parts, dtype=torch.int64))  # P = drop lane
 
@@ -169,13 +181,17 @@ def repartition_by_key(arrays: Dict[str, torch.Tensor], sel: torch.Tensor,
 
 
 def _local_join(build_key, build_sel, probe_key, probe_sel, mode: str):
-    """Sort the build keys and probe them. Returns (build_idx, hit).
+    """Sort the build keys and probe them. Returns (build_idx, hit,
+    unplaced).
 
     Validity is a secondary sort key (valid rows first among equal keys),
     not an in-band sentinel, so a legitimate INT64_MAX key still joins.
     The probe is hash_probe.probe_for_join over the sorted keys (the
     reference's searchsorted, here one tidb_probe_count launch on the
-    card): lo is the first row of a probe key's run, valid if any is."""
+    card): lo is the first row of a probe key's run, valid if any is.
+    `unplaced` (None off the table route) is 1 where the table left a run
+    unplaced: the ranges are then void and the caller re-runs on the
+    sorted route."""
     from tidb_tpu_torch.ops import hash_probe as hp
     from tidb_tpu_torch.ops.topk import lex_perm
 
@@ -183,10 +199,10 @@ def _local_join(build_key, build_sel, probe_key, probe_sel, mode: str):
     invalid = (~build_sel).to(torch.int32)
     order = lex_perm([build_key, invalid])
     skeys, sinv = build_key[order], invalid[order]
-    lo, hi = hp.probe_for_join(skeys, probe_key, mode=mode, ok=probe_sel)
+    lo, hi, unplaced = hp.probe_for_join(skeys, probe_key, mode=mode, ok=probe_sel)
     pos = lo.clamp(0, n - 1)
     hit = (hi > lo) & (sinv[pos] == 0) & probe_sel
-    return order[pos], hit
+    return order[pos], hit, unplaced
 
 
 def make_join_agg_fragment(
@@ -203,10 +219,13 @@ def make_join_agg_fragment(
     keys -> exchange both sides -> local unique-build-key join ->
     post-join filter/project -> partial segment aggregation -> merge.
 
-    Returns fn(p_data, p_valid, p_sel, p_refs, b_data, b_valid, b_sel,
-    b_refs) -> (state, overflow): the merged [G] dict, and the total row
-    count the exchange capacity dropped (an int; the caller re-runs with
-    a larger growth unless it is 0)."""
+    Returns fn(probe_src, build_src) -> (state, overflow, unplaced) over
+    the two shardings' ShardedTable.args(): the merged [G] dict, the
+    total row count the exchange capacity dropped (an int64 device
+    scalar; the caller re-runs with a larger growth unless it is 0), and
+    whether the probe's table left a run unplaced on some shard (an
+    int64 device scalar, or None off the table route; the caller then
+    re-runs on the sorted route, probe_mode "off")."""
     p_pipe = make_pipeline_fn(probe_stages) if probe_stages else (lambda c: c)
     b_pipe = make_pipeline_fn(build_stages) if build_stages else (lambda c: c)
     post_pipe = make_pipeline_fn(post_stages) if post_stages else (lambda c: c)
@@ -236,7 +255,7 @@ def make_join_agg_fragment(
         br, br_sel, br_key, b_ovf = yield from repartition_by_key(
             flat(bch), bch.sel, bk, bkv, n_parts, growth)
 
-        bidx, hit = _local_join(br_key, br_sel, pr_key, pr_sel, probe_mode)
+        bidx, hit, unplaced = _local_join(br_key, br_sel, pr_key, pr_sel, probe_mode)
         cols = {}
         for uid, col in pch.columns.items():
             cols[uid] = Column(pr[uid + ".d"], pr[uid + ".v"], col.type_)
@@ -246,19 +265,27 @@ def make_join_agg_fragment(
         joined = post_pipe(Chunk(cols, hit))
         state = yield from merge_state(update(init_state(p_sel.device), joined))
         ovf = yield psum(p_ovf + b_ovf)
-        return state, ovf
+        if unplaced is not None:
+            unplaced = yield pmax(unplaced)
+        return state, ovf, unplaced
 
-    def run(p_data, p_valid, p_sel, p_refs, b_data, b_valid, b_sel, b_refs):
-        args = [part_args(p_data, p_valid, p_sel, p_refs, p)
-                + part_args(b_data, b_valid, b_sel, b_refs, p) for p in range(n_parts)]
-        state, ovf = run_spmd(mesh, per_shard, args)[0]
-        return state, int(dispatch.device_get(ovf))  # the overflow count gates the retry
+    def run(probe_src, build_src):
+        args = [part_args(*probe_src, p) + part_args(*build_src, p)
+                for p in range(n_parts)]
+        return run_spmd(mesh, per_shard, args)[0]
 
     return run
 
 
 def dist_join_agg_fragment(probe: ShardedTable, build: ShardedTable, *args, **kwargs):
-    """Build and run (see make_join_agg_fragment)."""
+    """Build and run (see make_join_agg_fragment): (state, overflow), the
+    overflow a host int; a table route that left a run unplaced runs
+    again on the sorted route."""
     fn = make_join_agg_fragment(probe, build, *args, **kwargs)
-    return fn(probe.data, probe.valid, probe.sel, probe.refs,
-              build.data, build.valid, build.sel, build.refs)
+    state, ovf, unplaced = fn(probe.args(), build.args())
+    # the gates, in one fetch after the program
+    ovf, unplaced = dispatch.device_get((ovf, unplaced))
+    if unplaced:
+        return dist_join_agg_fragment(probe, build, *args,
+                                      **{**kwargs, "probe_mode": "off"})
+    return state, int(ovf)

@@ -18,10 +18,25 @@ Anything else falls back to the single-device executors, where the
 reference falls back: a plan of point gets, shapes compile_fragment
 refuses, a broadcast side above the limit, capacity retries past their
 ceilings, and (full=False) joins and generic aggregation on one CPU.
+
+Each fragment is one program of utils/jitcache.py (``cached_jit``), the
+counterpart of the reference's ``jax.jit(shard_map(...))``: on the card
+each execution after its warm-up is the replay of one captured CUDA
+graph, collectives included (namespaces ``distagg``, ``distjoinagg``,
+``fragment``, and ``aggcombine`` for the streaming paths' state merge,
+whose state is donated). A resident sharding is a resident argument of
+its programs, read where it lies: its serial is in their keys and their
+owners, and when the ShardCache lets the sharding go (evict, a new
+table version, its LRU, clear_tables, the cache's own end) a finalizer
+drops them (``jitcache.drop_owner``). Streamed batches and broadcast
+inputs are packed and copied in. Overflow counts come back as device
+tensors that the executor fetches after the program, one round trip a
+dispatch. A mesh over several cards runs its fragments eagerly.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 import weakref
 from collections import OrderedDict
@@ -34,10 +49,11 @@ from tidb_tpu_torch.errors import ExecutionError
 from tidb_tpu_torch.executor.aggregate import HashAggExec
 from tidb_tpu_torch.executor.base import Executor, raise_if_cancelled
 from tidb_tpu_torch.executor.builder import build_executor, peel_stages, scan_stages_for
+from tidb_tpu_torch.executor.pipeline import _graph_quota
 from tidb_tpu_torch.executor.scan import ProjectionExec, SelectionExec
 from tidb_tpu_torch.executor.sort import LimitExec, SortExec, TopNExec
 from tidb_tpu_torch.parallel.distsql import make_agg_fragment, make_join_agg_fragment
-from tidb_tpu_torch.parallel.fragment import compile_fragment
+from tidb_tpu_torch.parallel.fragment import compile_fragment, upload_broadcast
 from tidb_tpu_torch.parallel.partition import ShardedTable, shard_table
 from tidb_tpu_torch.planner.physical import (
     PHashAgg,
@@ -50,8 +66,8 @@ from tidb_tpu_torch.planner.physical import (
     PTopN,
     PhysicalPlan,
 )
-from tidb_tpu_torch.utils import dispatch
-from tidb_tpu_torch.utils.lru import get_or_build, touch
+from tidb_tpu_torch.utils import dispatch, jitcache
+from tidb_tpu_torch.utils.lru import touch
 
 __all__ = ["ShardCache", "build_dist_executor", "DistAggExec", "DistJoinAggExec",
            "DistFragmentExec", "DIST_EXECUTORS", "FALLBACKS", "reset_fallbacks",
@@ -89,9 +105,32 @@ def _note_fragment(exec_, kind: str, n_parts: int, t0: float) -> None:
     FRAGMENT_SECONDS.observe(dt, kind=kind)
 
 
+_POOL_IDS = itertools.count()
+_CACHE_IDS = itertools.count()
+
+
+def _statement_pool(ctx, cache: "ShardCache") -> str:
+    """The memory pool (utils/jitcache.py) of the mesh programs a statement
+    builds on `cache`'s mesh: a fragment's graph holds its whole working
+    memory, a statement's fragments replay one after another and may
+    share it, and the graph quota then takes a statement's graphs as one
+    unit. The pool is the statement's digest's on this cache, so the
+    programs a later execution builds (a plan that plan feedback moved, a
+    grown capacity) capture into the memory of the earlier ones instead
+    of a pool beside them; a statement without a digest has its own."""
+    pool = getattr(ctx, "mesh_pool", None)
+    if pool is None:
+        digest = getattr(ctx, "stmt_digest", "")
+        pool = ctx.mesh_pool = (f"mesh{cache.serial}:{digest}" if digest
+                                else f"mesh{cache.serial}#{next(_POOL_IDS)}")
+    return pool
+
+
 def _segment_state_combine(state, part):
-    """Elementwise merge of two segment-state dicts (sum/min/max per key by
-    merge_op_for): the streaming paths' batch merge."""
+    """Elementwise merge of a batch's segment state `part` into the packed
+    `state` (sum/min/max per key by merge_op_for), in place: the
+    streaming paths' batch merge, the "aggcombine" program (its state
+    donated). Returns the state."""
     from tidb_tpu_torch.executor.aggregate import merge_op_for
 
     out = {}
@@ -104,15 +143,24 @@ def _segment_state_combine(state, part):
             out[k] = torch.minimum(v, w)
         else:
             out[k] = torch.maximum(v, w)
-    return out
+    return jitcache.update_packed(state, out)
 
 
-def _timed_combine(state, part):
-    """_segment_state_combine, timed into COLLECTIVE_MERGE_SECONDS."""
+def _timed_combine(state, part, ctx, cache):
+    """The running streamed state with a batch's `part` merged in (the
+    first part, packed, when `state` is None), timed into
+    COLLECTIVE_MERGE_SECONDS."""
     from tidb_tpu_torch.utils.metrics import COLLECTIVE_MERGE_SECONDS
 
     t0 = time.perf_counter()
-    out = _segment_state_combine(state, part)
+    if state is None:
+        out = jitcache.packed(dict(part))
+    else:
+        combine = jitcache.cached_jit("aggcombine", repr(tuple(state)),
+                                      lambda: _segment_state_combine,
+                                      donate_argnums=(0,), max_bytes=_graph_quota(ctx),
+                                      pool=_statement_pool(ctx, cache))
+        out = combine(state, part)
     COLLECTIVE_MERGE_SECONDS.observe(time.perf_counter() - t0)
     return out
 
@@ -133,18 +181,19 @@ class ShardCache:
     analogue, invalidated by table mutation (version bump) and by any
     schema change. The entry pins the host table object so a recycled
     id() can never alias a different table; a small LRU bounds how many
-    dead tables' device copies stay resident. Also caches fragment
-    programs by plan signature and the proven exchange growth per join
-    signature, so a skewed join does not replay known-overflowing
-    capacities."""
+    dead tables' device copies stay resident. Fragment programs live in
+    utils/jitcache.py under keys that name this cache's mesh (get_fragment);
+    the programs that read a sharding go when the sharding does. Also
+    keeps the proven exchange growth per join signature, so a skewed join
+    does not replay known-overflowing capacities."""
 
     MAX_TABLES = 16
     MAX_FRAGMENTS = 128
 
     def __init__(self, mesh):
         self.mesh = mesh
+        self.serial = next(_CACHE_IDS)  # names its statements' memory pools
         self._cache: "OrderedDict[int, tuple]" = OrderedDict()
-        self.fragments: "OrderedDict[object, object]" = OrderedDict()
         self.growth: "OrderedDict[object, object]" = OrderedDict()
         _CACHES.add(self)
 
@@ -156,6 +205,9 @@ class ShardCache:
                 self._cache.move_to_end(id(table))
                 return st
         st = shard_table(table, self.mesh, encode=encode)
+        # whichever way this cache lets the sharding go, the programs that
+        # read it in place go with it (their graphs hold none of it)
+        weakref.finalize(st, jitcache.drop_owner, st.serial)
         self._cache[id(table)] = (table, table.version, encode, st)
         self._cache.move_to_end(id(table))
         while len(self._cache) > self.MAX_TABLES:
@@ -173,26 +225,33 @@ class ShardCache:
     def __len__(self) -> int:
         return len(self._cache)
 
-    def get_fragment(self, key, build):
-        fn = get_or_build(self.fragments, key, build, self.MAX_FRAGMENTS)
+    def get_fragment(self, key, build, ctx, ns: str, resident=(), owners=()):
+        """The fragment program for `key` (a tuple naming all the program
+        bakes in, `owners` too): a jitcache.cached_jit program in namespace
+        `ns` over this cache's mesh whose `resident` arguments are the
+        shardings whose serials are `owners`, read in place; it goes with
+        any of them. Built under the statement `ctx`, it joins that
+        statement's memory pool. Each call counts one fragment dispatch."""
+        fn = jitcache.cached_jit(ns, repr((key, repr(self.mesh))), build,
+                                 resident_argnums=resident, owners=owners,
+                                 max_bytes=_graph_quota(ctx), pool=_statement_pool(ctx, self))
 
         def dispatch_fn(*args):
-            from tidb_tpu_torch.utils import dispatch as dsp
-
-            dsp.record_fragment()
+            dispatch.record_fragment()
             return fn(*args)
 
         return dispatch_fn
 
-    def get_growth(self, gkey) -> float:
+    def get_growth(self, gkey) -> tuple:
+        """(growth, probe mode override or None) last proven for `gkey`."""
         g = self.growth.get(gkey)
         if g is None:
-            return 2.0
+            return 2.0, None
         self.growth.move_to_end(gkey)
         return g
 
-    def put_growth(self, gkey, growth: float) -> None:
-        touch(self.growth, gkey, growth, self.MAX_FRAGMENTS)
+    def put_growth(self, gkey, growth: float, mode=None) -> None:
+        touch(self.growth, gkey, (growth, mode), self.MAX_FRAGMENTS)
 
 
 def _types_sig(st: ShardedTable) -> str:
@@ -257,14 +316,17 @@ class DistAggExec(HashAggExec):
         # stages raw: encoding pays on the streaming paths, whose bytes
         # move on every batch
         st = self._cache.get(table)
+        uid_map = _uid_map(self._scan)
         key = ("agg", repr((self._stages, self.group_exprs, self.aggs, domains)),
-               st.n_parts, st.rows_per_part, _types_sig(st))
+               st.n_parts, st.rows_per_part, _types_sig(st), repr(uid_map),
+               (st.serial,))
         fn = self._cache.get_fragment(
             key,
             lambda: make_agg_fragment(st, self._stages, self.group_exprs,
-                                      self.aggs, domains, uid_map=_uid_map(self._scan)))
+                                      self.aggs, domains, uid_map=uid_map),
+            self.ctx, ns="distagg", resident=(0,), owners=(st.serial,))
         t0 = time.perf_counter()
-        state = fn(st.data, st.valid, st.sel, st.refs)
+        state = fn(st.args())
         _note_fragment(self, "scan_agg", st.n_parts, t0)
         self._finalize_segment_state(state, domains)
 
@@ -277,6 +339,7 @@ class DistAggExec(HashAggExec):
         table = self._scan.table
         mesh = self._cache.mesh
         sig = repr((self._stages, self.group_exprs, self.aggs, domains))
+        uid_map = _uid_map(self._scan)
         state = None
         fn = None
         enc = self.ctx.stage_encoded
@@ -284,16 +347,18 @@ class DistAggExec(HashAggExec):
                                  self.STREAM_ROWS_PER_PART, encode=enc):
             raise_if_cancelled(self.ctx)
             if fn is None:
-                key = ("agg", sig, st.n_parts, st.rows_per_part, _types_sig(st), "stream")
+                key = ("agg", sig, st.n_parts, st.rows_per_part, _types_sig(st),
+                       repr(uid_map), "stream")
                 fn = self._cache.get_fragment(
                     key,
                     lambda st=st: make_agg_fragment(
                         st, self._stages, self.group_exprs, self.aggs,
-                        domains, uid_map=_uid_map(self._scan)))
+                        domains, uid_map=uid_map),
+                    self.ctx, ns="distagg")
             t0 = time.perf_counter()
-            part = fn(st.data, st.valid, st.sel, st.refs)
+            part = fn(st.args())
             _note_fragment(self, "scan_agg_stream", st.n_parts, t0)
-            state = part if state is None else _timed_combine(state, part)
+            state = _timed_combine(state, part, self.ctx, self._cache)
         self._finalize_segment_state(state, domains)
 
 
@@ -352,33 +417,43 @@ class DistJoinAggExec(HashAggExec):
         build_keys = join.eq_right if join.build_side == 1 else join.eq_left
         probe_st = self._cache.get(self._probe_scan.table)
         build_st = self._cache.get(self._build_scan.table)
-        probe_mode = self.ctx.join_probe_mode
         sig = repr((self._probe_stages, self._build_stages, probe_keys[0],
                     build_keys[0], self._post_stages, self.group_exprs,
                     self.aggs, domains))
-        # start from the growth that last worked for this signature on this
-        # data version; keyed on serials, so it resets when the data changes
-        gkey = (sig, probe_st.serial, build_st.serial)
-        growth = self._cache.get_growth(gkey)
+        probe_uids, build_uids = _uid_map(self._probe_scan), _uid_map(self._build_scan)
+        serials = (probe_st.serial, build_st.serial)
+        # start from the growth (and the probe route) that last worked for
+        # this signature on this data version; keyed on serials, so it
+        # resets when the data changes
+        gkey = (sig,) + serials
+        growth, mode = self._cache.get_growth(gkey)
+        probe_mode = mode or self.ctx.join_probe_mode
         while growth <= 16.0:
             key = ("joinagg", sig, growth, probe_st.n_parts,
                    probe_st.rows_per_part, build_st.rows_per_part,
-                   _types_sig(probe_st), _types_sig(build_st), probe_mode)
+                   _types_sig(probe_st), _types_sig(build_st), probe_mode,
+                   repr((probe_uids, build_uids)), serials)
             fn = self._cache.get_fragment(
                 key,
                 lambda: make_join_agg_fragment(
                     probe_st, build_st,
                     self._probe_stages, self._build_stages,
-                    probe_keys[0], build_keys[0],
-                    _uid_map(self._probe_scan), _uid_map(self._build_scan),
+                    probe_keys[0], build_keys[0], probe_uids, build_uids,
                     self._post_stages, self.group_exprs, self.aggs, domains,
-                    growth=growth, probe_mode=probe_mode))
+                    growth=growth, probe_mode=probe_mode),
+                self.ctx, ns="distjoinagg", resident=(0, 1), owners=serials)
             t0 = time.perf_counter()
-            state, ovf = fn(probe_st.data, probe_st.valid, probe_st.sel, probe_st.refs,
-                            build_st.data, build_st.valid, build_st.sel, build_st.refs)
+            state, ovf, unplaced = fn(probe_st.args(), build_st.args())
+            # host-sync: the exchange's overflow and the table's placement
+            # gate the retry; one fetch per dispatch, after the program
+            ovf, unplaced = dispatch.device_get((ovf, unplaced))
+            if unplaced:
+                probe_mode = "off"  # a run the table left unplaced: sorted route
+                continue
             if ovf == 0:
                 _note_fragment(self, "join_agg", probe_st.n_parts, t0)
-                self._cache.put_growth(gkey, growth)
+                self._cache.put_growth(gkey, growth,
+                                       probe_mode if probe_mode == "off" else None)
                 break
             growth *= 2  # a skewed exchange: retry with bigger buckets
         else:
@@ -400,7 +475,8 @@ class DistFragmentExec(HashAggExec):
     # static capacity, so growth converges in O(log) retries); "expand"
     # jumps to the reported factor; the ceilings guard against absurd
     # buffers for pathological skew
-    MAX_GROWTH = {"exch": 64.0, "expand": 65536.0, "compact": float("inf")}
+    MAX_GROWTH = {"exch": 64.0, "expand": 65536.0, "compact": float("inf"),
+                  "route": 2.0}
 
     def __init__(self, plan: PHashAgg, prog, cache: ShardCache):
         super().__init__(plan.schema, None, plan.group_exprs, plan.group_uids,
@@ -440,16 +516,17 @@ class DistFragmentExec(HashAggExec):
     # ------------------------------------------------------------------
 
     def _gather_broadcasts(self, prog):
-        """Materialize every broadcast subtree: (args, shapes). A subtree
-        above the limit raises _BroadcastTooLarge, which the runners turn
-        into a single-device fallback."""
+        """Materialize every broadcast subtree and put it on the mesh's
+        devices ahead of the program: (args, shapes). A subtree above the
+        limit raises _BroadcastTooLarge, which the runners turn into a
+        single-device fallback."""
         args, shapes = [], []
         limit = self.ctx.broadcast_rows_limit
         for bc in prog.broadcasts:
             data, valid, sel, n = self._materialize_broadcast(bc)
             if n > limit:
                 raise _BroadcastTooLarge(n)
-            args += [data, valid, sel]
+            args.append(upload_broadcast(data, valid, sel, self._cache.mesh))
             shapes.append(len(sel))
         return args, shapes
 
@@ -523,7 +600,7 @@ class DistFragmentExec(HashAggExec):
         args, sts = [], []
         for src in prog.sources:
             st = self._cache.get(src.scan.table)  # resident shardings stage raw
-            args += [st.data, st.valid, st.sel, st.refs]
+            args.append(st.args())
             sts.append(st)
         try:
             bcast_args, bcast_shapes = self._gather_broadcasts(prog)
@@ -532,13 +609,15 @@ class DistFragmentExec(HashAggExec):
             return
         args += bcast_args
 
-        gkey = (prog.sig,) + tuple(st.serial for st in sts)
+        serials = tuple(st.serial for st in sts)
+        gkey = (prog.sig,) + serials
         growths = self._cache.growth.get(gkey) or prog.growth_defaults
         shapes_sig = (tuple((st.n_parts, st.rows_per_part) for st in sts),
                       tuple(bcast_shapes))
         types_sig = tuple(_types_sig(st) for st in sts)
         t0 = time.perf_counter()
-        out, growths = self._dispatch_retry(prog, args, shapes_sig, types_sig, growths)
+        out, growths = self._dispatch_retry(prog, args, shapes_sig, types_sig, growths,
+                                            tuple(range(len(sts))), serials)
         if out is None:
             self._fall_back_single_chip("growth_ceiling")
             return
@@ -551,19 +630,30 @@ class DistFragmentExec(HashAggExec):
         else:
             self._finalize_generic_tables(out)
 
-    def _dispatch_retry(self, prog, args, shapes_sig, types_sig, growths):
+    def _dispatch_retry(self, prog, args, shapes_sig, types_sig, growths,
+                        resident, serials):
         """Run the fragment, growing only blown capacity knobs: "exch" knobs
         double; "expand" and "compact" jump to the reported factor in one
-        step. Returns (out, growths), or (None, growths) past a ceiling."""
+        step; a "route" knob moves its join to the sorted route. The
+        sources at `resident` are resident shardings (their `serials`),
+        read in place. Returns (out, growths), or (None, growths) past a
+        ceiling."""
         # the statement's probe mode is a static of the program: part of
         # the cache key, so a sysvar flip never serves the other route
         probe_mode = self.ctx.join_probe_mode
         while True:
             raise_if_cancelled(self.ctx)
-            key = ("frag", prog.sig, growths, shapes_sig, types_sig, probe_mode)
+            key = ("frag", prog.sig, growths, shapes_sig, types_sig, probe_mode,
+                   resident, serials)
             fn = self._cache.get_fragment(
-                key, lambda: prog.build_fn(growths, probe_mode=probe_mode))
+                key, lambda: prog.build_fn(growths, probe_mode=probe_mode),
+                self.ctx, ns="fragment", resident=resident, owners=serials)
             out, ovf = fn(*args)
+            if ovf is None:
+                return out, growths
+            # host-sync: the per-knob overflow vector gates the capacity
+            # retry; one fetch per dispatch, after the program
+            ovf = dispatch.device_get(ovf)
             if not (ovf > 0).any():
                 return out, growths
             new = []
@@ -621,10 +711,11 @@ class DistFragmentExec(HashAggExec):
             self._fall_back_single_chip("broadcast_too_large")
             return
 
-        gkey = ((prog.sig, "stream", rows_per_part)
-                + tuple(sts[i].serial for i in sorted(sts)))
+        resident = tuple(sorted(sts))
+        serials = tuple(sts[i].serial for i in resident)
+        gkey = (prog.sig, "stream", rows_per_part) + serials
         growths = self._cache.growth.get(gkey) or prog.growth_defaults
-        types_fixed = tuple(_types_sig(sts[i]) for i in sorted(sts))
+        types_fixed = tuple(_types_sig(sts[i]) for i in resident)
 
         seg_state = None
         gen_parts = None  # part index -> [host partials]
@@ -635,19 +726,20 @@ class DistFragmentExec(HashAggExec):
             args, shapes = [], []
             for i in range(len(prog.sources)):
                 st = batch if i == stream_idx else sts[i]
-                args += [st.data, st.valid, st.sel, st.refs]
+                args.append(st.args())
                 shapes.append((st.n_parts, st.rows_per_part))
             args += bcast_args
             shapes_sig = (tuple(shapes), tuple(bcast_shapes))
             types_sig = types_fixed + (_types_sig(batch), "stream")
             t0 = time.perf_counter()
-            out, growths = self._dispatch_retry(prog, args, shapes_sig, types_sig, growths)
+            out, growths = self._dispatch_retry(prog, args, shapes_sig, types_sig, growths,
+                                                resident, serials)
             if out is None:
                 self._fall_back_single_chip("growth_ceiling")
                 return
             _note_fragment(self, f"general_{prog.out_kind}_stream", batch.n_parts, t0)
             if prog.out_kind == "segment":
-                seg_state = out if seg_state is None else _timed_combine(seg_state, out)
+                seg_state = _timed_combine(seg_state, out, self.ctx, self._cache)
             else:
                 # per-part group tables merge on the host across batches,
                 # one batched fetch per batch

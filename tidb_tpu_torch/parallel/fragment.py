@@ -28,6 +28,15 @@ The per-shard program is a generator (mesh.run_spmd): every producer's
 ``emit(env, growths)`` is one, and ``yield from`` threads the collectives
 of a join tree's exchanges through it. Its outputs are named (column
 uids, state keys), so nothing depends on a container's key order.
+
+The program reads nothing of the host, so that the executor can run it
+as one CUDA graph (parallel/executor.py): the broadcast inputs arrive
+already on the device (``upload_broadcast``), the per-knob overflow
+vector leaves as a device tensor that the caller fetches after the
+program, and a join whose probe takes the table route reports a run the
+table left unplaced through a "route" knob (the reference decides this
+per probe inside its program with lax.cond): the retry re-runs that join
+on the sorted route.
 """
 
 from __future__ import annotations
@@ -59,10 +68,10 @@ from tidb_tpu_torch.parallel.mesh import psum, run_spmd
 from tidb_tpu_torch.parallel.partition import part_args
 from tidb_tpu_torch.planner.physical import PHashAgg, PHashJoin, PScan
 from tidb_tpu_torch.types import TypeKind
-from tidb_tpu_torch.utils import dispatch
 from tidb_tpu_torch.utils.device import torch_dtype
 
-__all__ = ["compile_fragment", "FragmentProgram", "BROADCAST_LIMIT"]
+__all__ = ["compile_fragment", "FragmentProgram", "BROADCAST_LIMIT",
+           "upload_broadcast"]
 
 # rows above this don't broadcast: the subtree is too big to replicate
 BROADCAST_LIMIT = 1 << 21
@@ -178,6 +187,17 @@ class FragmentProgram:
     topn: object = None
 
 
+# An exchange's first capacity per destination, as a factor of a part's
+# rows over the parts (the reference starts at 2x). Its receive buffers and
+# everything downstream of them (the join's ranges, expansion and gathers)
+# scale with it, and a captured fragment's memory pool holds all of that
+# under the graph quota (PERF.md, the mesh tier). The estimate-sized
+# compaction before an exchange keeps 2x the estimate's rows a part, so
+# 1.5x still leaves skew headroom, and an overflow doubles the knob and
+# is remembered per join signature.
+EXCHANGE_GROWTH = 1.5
+
+
 class _Unsupported(Exception):
     pass
 
@@ -189,10 +209,12 @@ class _Compiler:
         self.broadcasts: List[_Broadcast] = []
         self.n_growth = 0
         # default capacity factor per knob, in assignment order: exchanges
-        # start at 2x (skew headroom), join expansion at 1x (<= 1 match per
-        # probe row). "exch" knobs report an overflow row count (the
+        # start at EXCHANGE_GROWTH (skew headroom), join expansion at 1x (<=
+        # 1 match per probe row). "exch" knobs report an overflow row count (the
         # executor doubles); "expand" and "compact" knobs report the
-        # required factor minus one (the executor jumps in one step)
+        # required factor minus one (the executor jumps in one step); a
+        # "route" knob (1: the statement's probe mode, 2: the sorted
+        # route) reports a table run left unplaced
         self.growth_defaults: List[float] = []
         self.growth_kinds: List[str] = []
         self.sig: List[str] = []
@@ -310,7 +332,7 @@ class _Compiler:
         uid_of = {c.name: c.uid for c in scan.schema}
         type_of = {c.name: c.type_ for c in scan.schema}
         pipe = make_pipeline_fn(stages) if stages else (lambda c: c)
-        self.sig.append(f"scan{idx}:{scan.table_name}:{stages!r}")
+        self.sig.append(f"scan{idx}:{scan.table_name}:{stages!r}:{sorted(uid_of.items())!r}")
 
         @_no_collectives
         def emit(env, growths):
@@ -383,7 +405,7 @@ class _Compiler:
             self.stream_unsafe.update(range(n_before_build, len(self.sources)))
 
         exchange = not build_is_bcast
-        g_exch = self._add_growth(2.0, "exch") if exchange else None
+        g_exch = self._add_growth(EXCHANGE_GROWTH, "exch") if exchange else None
         g_expand = self._add_growth(1.0, "expand")
         # estimate-sized compaction targets: selective filters and joins
         # collapse live counts, and every sort and exchange downstream pays
@@ -391,6 +413,7 @@ class _Compiler:
         g_pcomp, p_base = self._compact_knob(probe_plan.est_rows)
         g_bcomp, b_base = self._compact_knob(build_plan.est_rows)
         g_ocomp, o_base = self._compact_knob(join.est_rows)
+        g_route = self._add_growth(1.0, "route")
 
         kind = join.kind
         exists_sem = join.exists_sem
@@ -472,6 +495,11 @@ class _Compiler:
             else:
                 pch2, p_bits2, p_kvalid2, p_hash2 = pch, p_bits, p_kvalid, p_hash
                 bch2, b_bits2, b_kvalid2, b_hash2 = bch, b_bits, b_kvalid, b_hash
+            # what a frame still names at a collective stays allocated while
+            # every other shard runs up to it (and a captured program's pool
+            # holds it): drop the names of what is dead, here the sides as
+            # they were before the exchange
+            del pch, bch, p_outs, b_outs, p_bits, b_bits, p_kvalid, b_kvalid, p_hash, b_hash
 
             Rp = pch2.capacity
             Rb = bch2.capacity
@@ -483,7 +511,10 @@ class _Compiler:
             b_live = bch2.sel & b_kvalid2
             sh, cvi, order = sort_build_hashes(b_hash2, b_live)
             p_ok = pch2.sel & p_kvalid2
-            lo, cnt = probe_hash_ranges(sh, cvi, p_hash2, p_ok, mode=env["probe_mode"])
+            mode = env["probe_mode"] if growths[g_route] <= 1 else "off"
+            lo, cnt, unplaced = probe_hash_ranges(sh, cvi, p_hash2, p_ok, mode=mode)
+            if unplaced is not None:
+                ovfs.append((g_route, (yield from pmax_compat(unplaced))))
 
             cum = torch.cumsum(cnt, 0)
             total = cum[-1]
@@ -546,6 +577,10 @@ class _Compiler:
                                                              device=jc.data.device)]),
                             col.type_)
                     result = Chunk(out_cols, torch.cat([joined.sel, pad_sel]))
+            # only the result lives on (see above)
+            del (joined, cols, pch2, bch2, p_bits2, b_bits2, p_kvalid2, b_kvalid2, p_hash2,
+                 b_hash2, sh, cvi, order, lo, cnt, cum, valid_out, p_row, b_sorted_pos, b_row,
+                 sel_out, p_ok, b_live)
 
             capO = int(np.ceil(growths[g_ocomp] * o_base))
             if capO < result.capacity:
@@ -675,7 +710,7 @@ class _Compiler:
         nk = len(agg.group_exprs)
         topn_fn = (self._topn_select(topn[0], nk, layout, topn[1], agg.aggs)
                    if topn is not None else None)
-        g_agg = self._add_growth(2.0, "exch")
+        g_agg = self._add_growth(EXCHANGE_GROWTH, "exch")
         n_parts = self.n_parts
         # estimate-sized shrink targets: the partial sort pays for input
         # capacity and the exchange for table slots
@@ -690,6 +725,8 @@ class _Compiler:
                 chunk, o = _compact_chunk(chunk, capI)
                 ovfs.append((g_in, (yield from pmax_compat(o))))
             table = partial(chunk)  # local dedup before the exchange
+            dev = chunk.device
+            del chunk  # dead from here (the join's note on frames at a collective)
             S = table["k0.d"].shape[0]
             capT = int(np.ceil(growths[g_tab] * tab_base))
             if capT < S:
@@ -699,7 +736,7 @@ class _Compiler:
                 ovfs.append((g_tab, (yield from pmax_compat(torch.clamp(factor - 1, min=0)))))
                 table = {k: (v if k == "n" else v[:capT]) for k, v in table.items()}
                 S = capT
-            live = torch.arange(S, device=chunk.device) < table["n"]
+            live = torch.arange(S, device=dev) < table["n"]
             kd = [table[f"k{i}.d"] for i in range(nk)]
             kv = [table[f"k{i}.v"] for i in range(nk)]
             khash = _mix_hash([_key_bits(d, v) for d, v in zip(kd, kv)])
@@ -712,6 +749,7 @@ class _Compiler:
                 arrays[name] = table[name]
             recv, recv_sel, _, ovf = yield from repartition_by_key(
                 arrays, live, khash, torch.ones_like(live), n_parts, growths[g_agg])
+            del arrays, table, kd, kv, khash, live
             ovfs.append((g_agg, (yield psum(ovf))))
 
             rkd = [recv[f"k{i}.d"] for i in range(nk)]
@@ -737,21 +775,24 @@ class _Compiler:
         return emit, "generic", []
 
 
-def _replicated(host: Dict[str, np.ndarray], dev: torch.device, cache: dict, tag):
-    """Per-device tensors of a broadcast input's host arrays, one copy per
-    device per fragment call."""
-    key = (tag, dev)
-    if key not in cache:
-        from tidb_tpu_torch.utils import dispatch
+def upload_broadcast(data: Dict[str, np.ndarray], valid: Dict[str, np.ndarray],
+                     sel: np.ndarray, mesh) -> tuple:
+    """A broadcast input's host arrays on every device of the mesh, ahead
+    of the fragment's program (a pageable copy cannot sit inside a CUDA
+    graph): per distinct device in part order, its (data, valid, sel) as
+    a jitcache.PackedTuple staged by one copy."""
+    from tidb_tpu_torch.parallel.partition import upload_packed
+    from tidb_tpu_torch.utils.jitcache import packed_view
 
-        out = {}
-        for name, a in host.items():
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            if t.is_cuda:
-                dispatch.record_xfer(a.nbytes)
-            out[name] = t
-        cache[key] = out
-    return cache[key]
+    names = list(data)
+    out = []
+    for dev in mesh.distinct_devices:
+        buf, views = upload_packed([data[k] for k in names] + [valid[k] for k in names]
+                                   + [sel], dev)
+        k = len(names)
+        out.append(packed_view(buf, (dict(zip(names, views[:k])),
+                                     dict(zip(names, views[k:2 * k])), views[2 * k])))
+    return tuple(out)
 
 
 def compile_fragment(agg: PHashAgg, mesh, n_parts: int,
@@ -778,15 +819,18 @@ def compile_fragment(agg: PHashAgg, mesh, n_parts: int,
     tracing.annotate(f"compile:fragment:{out_kind}")
 
     n_src = len(c.sources)
-    n_bc = len(c.broadcasts)
     n_knobs = c.n_growth
 
     def build_fn(growths: Tuple[float, ...], probe_mode: str):
-        """The program at these capacities: fn(*args) -> (out, ovf) over
-        the sources' per-part (data, valid, sel, refs) lists and the
-        broadcasts' host (data, valid, sel) arrays. `out` is the merged
-        segment state (on the first part's device) or the per-part group
-        tables; `ovf` the per-knob overflow vector (host int64)."""
+        """The program at these capacities: fn(*sources, *broadcasts) ->
+        (out, ovf) over each source's (data, valid, sel, refs) per-part
+        lists (ShardedTable.args()) and each broadcast's upload_broadcast
+        tuple. `out` is the merged segment state (on the first part's
+        device) or the per-part group tables; `ovf` the per-knob overflow
+        vector (an int64 device tensor, None without knobs), which the
+        caller fetches after the program."""
+        dev_index = [mesh.distinct_devices.index(d) for d in mesh.devices]
+
         def per_shard(p, scans, bcasts):
             env = {"scan": scans, "bcast": bcasts, "probe_mode": probe_mode}
             out, reports = yield from emit(env, growths)
@@ -798,34 +842,19 @@ def compile_fragment(agg: PHashAgg, mesh, n_parts: int,
             return out, slots
 
         def frag(*args):
-            i = 0
-            srcs = []
-            for _ in range(n_src):
-                srcs.append(args[i:i + 4])
-                i += 4
-            hosts = [args[i + 3 * b:i + 3 * b + 3] for b in range(n_bc)]
-            cache: dict = {}
+            srcs, bcs = args[:n_src], args[n_src:]
             per_part = []
             for p in range(mesh.n_parts):
-                dev = mesh.device_of(p)
                 scans = [part_args(*src, p) for src in srcs]
-                bcasts = []
-                for b, (data, valid, sel) in enumerate(hosts):
-                    t = _replicated({**{"d." + k: a for k, a in data.items()},
-                                     **{"v." + k: a for k, a in valid.items()},
-                                     "sel": sel}, dev, cache, b)
-                    bcasts.append(({k: t["d." + k] for k in data},
-                                   {k: t["v." + k] for k in valid}, t["sel"]))
-                per_part.append((scans, bcasts))
+                per_part.append((scans, [bc[dev_index[p]] for bc in bcs]))
             results = run_spmd(mesh, per_shard, per_part)
             dev0 = mesh.device_of(0)
             slots = [s.to(dev0) if isinstance(s, torch.Tensor)
                      else torch.zeros((), dtype=torch.int64, device=dev0)
                      for s in results[0][1]]
             # the per-knob overflow vector (a few int64s) gates the
-            # capacity-retry loop, one fetch per dispatch
-            ovf = (dispatch.device_get(torch.stack(slots)) if slots
-                   else np.zeros(0, dtype=np.int64))
+            # capacity-retry loop: the caller's one fetch per dispatch
+            ovf = torch.stack(slots) if slots else None
             if out_kind == "segment":
                 return results[0][0], ovf
             return [r[0] for r in results], ovf

@@ -66,6 +66,18 @@ class Mesh:
     def device_of(self, p: int) -> torch.device:
         return self.devices[p]
 
+    @property
+    def distinct_devices(self) -> List[torch.device]:
+        """The mesh's devices, each once, in part order."""
+        return list(dict.fromkeys(self.devices))
+
+    @property
+    def single_device(self) -> Optional[torch.device]:
+        """The device every part lies on, or None for a mesh over several
+        devices."""
+        devs = self.distinct_devices
+        return devs[0] if len(devs) == 1 else None
+
     def __repr__(self) -> str:
         return (f"Mesh(dcn={self.shape[dcn_axis]}, shard={self.shape[shard_axis]}, "
                 f"devices={[str(d) for d in self.devices]})")

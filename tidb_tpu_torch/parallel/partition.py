@@ -5,9 +5,15 @@ A host Table is split row-wise into P equal fixed-capacity partitions,
 one per mesh part, padded to a static per-part row capacity R: part p
 holds rows [p*R, (p+1)*R) with R = ceil(n / P), as in the reference.
 Where the reference keeps one [P, R] array sharded over the mesh, the
-port keeps one [R] tensor per part on that part's device; parts that
-share a device are views of one [k, R] staging copy, so each device gets
-one host->device copy per column.
+port keeps one [R] tensor per part on that part's device. On a mesh of
+one device (the one-card mesh, or shards over one card) a sharding is
+packed: every column, validity, live mask and FoR base of every part is
+a view of one buffer, staged by one host->device copy, and the sharding
+is one argument of a fragment program (``ShardedTable.args()``, a
+``jitcache.PackedTuple``): read in place when resident, copied in at
+once when it is a streamed batch. On a mesh over several devices, parts
+that share a device are views of one [k, R] staging copy, so each device
+gets one host->device copy per column.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from tidb_tpu_torch.parallel.mesh import Mesh
 from tidb_tpu_torch.types import SQLType
 
 __all__ = ["ShardedTable", "shard_table", "stream_batches", "table_bytes",
-           "part_args"]
+           "part_args", "upload_packed"]
 
 
 @dataclass
@@ -51,6 +57,16 @@ class ShardedTable:
     # process-unique, never-recycled id: cache keys built from it can never
     # alias a different sharding the way id()-based keys can after GC
     serial: int = field(default_factory=itertools.count().__next__)
+    # on a mesh of one device, the sharding's (data, valid, sel, refs)
+    # packed over one buffer (refs as int64 [1] tensors), else None
+    packed: object = None
+
+    def args(self) -> tuple:
+        """The sharding as one argument of a fragment program: (data,
+        valid, sel, refs), packed into one buffer on a mesh of one device."""
+        if self.packed is not None:
+            return self.packed
+        return (self.data, self.valid, self.sel, self.refs)
 
 
 def part_args(data, valid, sel, refs, p: int) -> tuple:
@@ -101,6 +117,51 @@ def stream_batches(table, mesh: Mesh, columns: Optional[List[str]],
                           encode=encode)
 
 
+def upload_packed(arrays: List[np.ndarray], dev) -> tuple:
+    """The host arrays on `dev` by ONE host->device copy: (buf, views),
+    the 1-d uint8 device buffer and, in order, a view of it per array,
+    each starting on a 256-byte boundary (jitcache.packed_view takes
+    them as one packed tree)."""
+    from tidb_tpu_torch.utils import dispatch
+
+    offs, off = [], 0
+    for a in arrays:
+        offs.append(off)
+        off += (max(a.nbytes, 1) + 255) // 256 * 256
+    host = np.zeros(max(off, 256), dtype=np.uint8)
+    for a, o in zip(arrays, offs):
+        host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    buf = torch.from_numpy(host).to(dev)
+    if buf.is_cuda:
+        dispatch.record_xfer(host.nbytes)
+    views = [buf[o:o + a.nbytes].view(torch.from_numpy(a[:0].reshape(-1)).dtype)
+             .view(a.shape) for a, o in zip(arrays, offs)]
+    return buf, views
+
+
+def _place_packed(host_cols, live: np.ndarray, refs: Dict[str, int],
+                  names: List[str], dev):
+    """A one-device sharding's (data, valid, sel, refs), every part's
+    tensors views of one device buffer staged by one copy, as a
+    jitcache.PackedTuple (refs as int64 [1] tensors)."""
+    from tidb_tpu_torch.utils.jitcache import packed_view
+
+    ref_names = [n for n in names if n in refs]
+    arrays = ([host_cols[n][0] for n in names] + [host_cols[n][1] for n in names]
+              + [live] + [np.array([refs[n]], dtype=np.int64) for n in ref_names])
+    buf, views = upload_packed(arrays, dev)
+    k, n_parts = len(names), live.shape[0]
+
+    def parts(v):
+        return [v[p] for p in range(n_parts)]
+
+    tree = ({n: parts(views[i]) for i, n in enumerate(names)},
+            {n: parts(views[k + i]) for i, n in enumerate(names)},
+            parts(views[2 * k]),
+            {n: views[2 * k + 1 + i] for i, n in enumerate(ref_names)})
+    return packed_view(buf, tree)
+
+
 def _place(buf: np.ndarray, mesh: Mesh) -> List[torch.Tensor]:
     """Per-part tensors of a host [P, R] buffer: one copy per device,
     each part a row view of its device's copy."""
@@ -126,7 +187,9 @@ def shard_table(table, mesh: Mesh, columns: Optional[List[str]] = None,
                 encode: bool = False) -> ShardedTable:
     """Partition a host Table (or a row range of it) across the mesh's
     (dcn x shard) grid. ``encode=True`` stages integer-backed columns
-    FoR-encoded in narrow dtypes (see ShardedTable.refs)."""
+    FoR-encoded in narrow dtypes (see ShardedTable.refs). On a mesh of
+    one device the whole sharding is staged by one copy into one buffer
+    (ShardedTable.packed)."""
     n_parts = mesh.n_parts
     lo, hi = row_range if row_range is not None else (0, table.n)
     n = hi - lo
@@ -168,6 +231,14 @@ def shard_table(table, mesh: Mesh, columns: Optional[List[str]] = None,
             buf[p, :m] = d[s:e]
             vbuf[p, :m] = v[s:e]
 
+    one = mesh.single_device
+    if one is not None:
+        packed = _place_packed(host_cols, live, refs, names, one)
+        data, valid, sel, dev_refs = packed
+        return ShardedTable(
+            mesh=mesh, n_parts=n_parts, rows_per_part=R, total_rows=n,
+            data=data, valid=valid, sel=sel, types=types, dicts=dicts,
+            refs=dev_refs, packed=packed)
     data = {name: _place(host_cols[name][0], mesh) for name in names}
     valid = {name: _place(host_cols[name][1], mesh) for name in names}
     return ShardedTable(

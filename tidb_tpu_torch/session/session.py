@@ -997,6 +997,11 @@ class Session:
             stage_encoded=bool(sv("tidb_tpu_stage_encoded")),
             cancel_check=self.cancel_reason,
         )
+        memo = self._stmt_digest_memo
+        if memo is not None and memo[2]:
+            # the mesh programs of one statement share a memory pool across
+            # its executions (parallel/executor._statement_pool)
+            ctx.stmt_digest = memo[2]
         if self._fb_enabled():
             # plan feedback consumer: a digest whose fused probes overflowed
             # their first tiles gets its tile batch sized to the observed

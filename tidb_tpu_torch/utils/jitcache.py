@@ -47,6 +47,30 @@ function; the caller takes the returned state, never the argument. A
 graph holds copies, never a staged batch itself, so the device buffer
 cache's invalidations need nothing from this cache.
 
+A resident argument (``resident_argnums``: a mesh fragment's resident
+sharding, parallel/executor.py) is read where it lies, as the
+reference's jitted program reads the sharded arrays it is passed: it has
+no slot and is never copied, and each of its tensors' addresses is part
+of the signature beside its shape, dtype and strides. A replay therefore
+reads only the memory of tensors its caller passes, alive for the call,
+and a graph keeps no reference to them: it cannot pin a retired sharding
+nor read freed memory. A program names the shardings it reads
+(``owners``); ``drop_owner`` removes every program an owner has, which
+the sharding cache runs when it lets a sharding go.
+
+A call whose tensors lie on more than one device (a mesh over several
+cards: its collectives copy between cards, which one graph cannot
+capture) runs eagerly, counted apart in ``runs()`` as
+``eager_multi_device``.
+
+Programs of one ``pool`` (a statement's mesh fragments: each graph's
+pool would hold a whole fragment's intermediates, gigabytes at SF1)
+capture into one memory pool on each device and share one set of static
+slots and one replay lock there: their replays run one at a time, in
+stream order, and each is cloned out before the next, so their
+intermediates may overlap and the pool holds about the largest
+capture's, not their sum.
+
 Captures are serialized in the process and run on a stream of torch's
 high-priority pool (the default pool hands its streams out round-robin,
 and another thread's copy on the capturing stream would invalidate the
@@ -68,7 +92,9 @@ equal their executions. The cache is bounded by entries (LRU) and by the
 device bytes its graphs hold (private pools and static input buffers):
 the GLOBAL quota ``tidb_tpu_graph_cache_bytes``, which each fused site
 passes from its statement's context as the device buffer cache's
-callers pass theirs; the least recent entries go first.
+callers pass theirs; the least recent entries go first. A shared pool
+counts as a whole (what its captures reserved and its slots) and goes
+with its last program.
 """
 
 from __future__ import annotations
@@ -88,6 +114,7 @@ from tidb_tpu_torch.utils.lru import get_or_build
 
 __all__ = ["cached_jit", "clear", "size", "resident_bytes", "set_graphs",
            "graphs_enabled", "eager", "runs", "reset_runs", "graph_bytes",
+           "drop_owner", "programs", "held_units",
            "MAX_ENTRIES", "MAX_BYTES", "max_bytes", "Packed", "PackedMap", "PackedTuple",
            "PackedLayout", "packed", "packed_view", "update_packed"]
 
@@ -142,7 +169,8 @@ def eager():
 
 
 def runs() -> Dict[str, Dict[str, int]]:
-    """{ns: {"eager"|"capture"|"replay": calls}} since ``reset_runs``."""
+    """{ns: {"eager"|"capture"|"replay"|"eager_multi_device": calls}} since
+    ``reset_runs``."""
     with _RUNS_LOCK:
         return {k: dict(v) for k, v in _RUNS.items()}
 
@@ -160,7 +188,9 @@ def _note_run(ns: str, how: str) -> None:
 
 
 def cached_jit(ns: str, key: str, build: Callable[[], Callable],
-               donate_argnums: Sequence[int] = (), max_bytes: int = None) -> Callable:
+               donate_argnums: Sequence[int] = (), max_bytes: int = None,
+               resident_argnums: Sequence[int] = (), owners: Sequence = (),
+               pool: str = None) -> Callable:
     """Return the counted program for (ns, key), building it on first use.
 
     `build` returns the function; it is only called on a miss. The
@@ -170,11 +200,19 @@ def cached_jit(ns: str, key: str, build: Callable[[], Callable],
     on the card). `donate_argnums` names the arguments the function may
     update in place (the reference's donated state). `max_bytes` (the
     statement's tidb_tpu_graph_cache_bytes) becomes the bound on the bytes
-    the cache's graphs hold."""
+    the cache's graphs hold. `resident_argnums` names the arguments read in
+    place (no slot, no copy; their tensors' addresses join the signature)
+    and `owners` the tags whose ``drop_owner`` removes this program; both
+    belong in `key`. Programs of one `pool` share a memory pool, static
+    slots and a replay lock on each device."""
     donate = tuple(sorted(set(int(i) for i in donate_argnums)))
+    resident = tuple(sorted(set(int(i) for i in resident_argnums)))
+    if set(donate) & set(resident):
+        raise ValueError("an argument cannot be both donated and resident")
     if max_bytes is not None:
         _BOUND[0] = max(int(max_bytes), 0)
-    return _entry(ns, key, lambda: _Program(ns, build(), donate))
+    return _entry(ns, key, lambda: _Program(ns, build(), donate, resident,
+                                            frozenset(owners), pool))
 
 
 def max_bytes() -> int:
@@ -186,16 +224,100 @@ def _entry(ns: str, key: str, make: Callable[[], "_Program"]) -> "_Program":
     # the builder arrives as a parameter: the cache-key-completeness pass
     # then checks each cached_jit caller's key, not this lookup
     with _LOCK:
+        _drop_pending_locked()
+        n, miss = len(_CACHE), (ns, key) not in _CACHE
         prog = get_or_build(_CACHE, (ns, key), make, MAX_ENTRIES)
+        if miss and len(_CACHE) <= n:  # past MAX_ENTRIES: an entry went
+            _release_pools_locked()
         _trim_locked()
     return prog
 
 
+# owners whose programs are to go: drop_owner may run from a finalizer,
+# at any allocation of any thread, the one holding _LOCK included; what it
+# cannot drop at once waits here for the next access under the lock
+_PENDING: List = []
+
+
+def drop_owner(tag) -> None:
+    """Remove every program whose owners include `tag` (a sharding the
+    sharding cache let go), with its graphs and their pools. Safe from a
+    finalizer, which may run inside any allocation of any thread: it
+    takes no lock but tries the cache's one, and when that is busy the
+    drop happens at the cache's next access."""
+    _PENDING.append(tag)
+    if _LOCK.acquire(blocking=False):
+        try:
+            _drop_pending_locked()
+        finally:
+            _LOCK.release()
+
+
+def _drop_pending_locked() -> None:
+    dropped = False
+    while _PENDING:
+        tag = _PENDING.pop()
+        for k in [k for k, p in _CACHE.items() if tag in p.owners]:
+            del _CACHE[k]
+            dropped = True
+    if dropped:
+        _release_pools_locked()
+
+
+def _release_pools_locked() -> None:
+    """Let go of each pool no cached program uses any more: its memory
+    returns once the last of its graphs is gone."""
+    used = {p.pool for p in _CACHE.values()}
+    for k in [k for k in _POOLS if k[0] not in used]:
+        del _POOLS[k]
+
+
+def programs(owner=None) -> List["_Program"]:
+    """The cached programs (those `owner` has, when given)."""
+    with _LOCK:
+        _drop_pending_locked()
+        return [p for p in _CACHE.values() if owner is None or owner in p.owners]
+
+
+def _units_locked() -> List[tuple]:
+    """The cache's units of device memory, least recently used first:
+    (bytes, keys) of each unpooled program and of each pool (its programs'
+    keys; its recency its most recent program's)."""
+    pool_bytes: Dict[str, int] = {}
+    for (pool, _dev), sh in _POOLS.items():
+        pool_bytes[pool] = pool_bytes.get(pool, 0) + sh.nbytes
+    order: "OrderedDict[tuple, list]" = OrderedDict()
+    for k, p in _CACHE.items():
+        unit = (False, k) if p.pool is None else (True, p.pool)
+        order.setdefault(unit, []).append(k)
+        order.move_to_end(unit)
+    return [(pool_bytes.get(name, 0) if pooled else _CACHE[name].nbytes, keys)
+            for (pooled, name), keys in order.items()]
+
+
 def _trim_locked() -> None:
-    total = sum(p.nbytes for p in _CACHE.values())
-    while total > _BOUND[0] and len(_CACHE) > 1:
-        _k, p = _CACHE.popitem(last=False)
-        total -= p.nbytes
+    """Evict the least recently used units (an unpooled program, or a pool
+    with all its programs) while the graphs hold more than the bound; the
+    most recent unit stays, whatever it holds."""
+    units = _units_locked()
+    total = sum(b for b, _keys in units)
+    released = False
+    while total > _BOUND[0] and len(units) > 1:
+        nbytes, keys = units.pop(0)
+        for k in keys:
+            del _CACHE[k]
+        total -= nbytes
+        released = True
+    if released:
+        _release_pools_locked()
+
+
+def held_units() -> List[int]:
+    """Device bytes of each unit the cache holds (an unpooled program's
+    graphs, or a pool), least recently used first."""
+    with _LOCK:
+        _drop_pending_locked()
+        return [b for b, _keys in _units_locked()]
 
 
 def _grew() -> None:
@@ -206,23 +328,26 @@ def _grew() -> None:
 
 def clear() -> None:
     with _LOCK:
+        _PENDING.clear()
         _CACHE.clear()
+        _POOLS.clear()  # the pools' slots (a graph still in use keeps its own)
 
 
 def size() -> int:
     with _LOCK:
+        _drop_pending_locked()
         return len(_CACHE)
 
 
 def resident_bytes() -> int:
     """Device bytes the cached graphs hold (pools and static buffers)."""
-    with _LOCK:
-        return sum(p.nbytes for p in _CACHE.values())
+    return sum(held_units())
 
 
 def graph_bytes() -> Dict[str, List[int]]:
     """Per namespace, the bytes of each cached graph."""
     with _LOCK:
+        _drop_pending_locked()
         progs = list(_CACHE.values())
     out: Dict[str, List[int]] = {}
     for p in progs:
@@ -440,15 +565,35 @@ def _packing(leaves: list):
 # ---------------------------------------------------------------------------
 
 class _Shared:
-    """What a program's graphs share: the read-only arguments' slots (per
-    argument number and shapes), and the lock and stream of the replays
-    that copy into them."""
+    """What a program's graphs share (or a pool's, on one device): the
+    read-only arguments' slots (per argument number and shapes), the lock
+    and stream of the replays that copy into them, and for a pool its
+    memory pool's handle."""
 
-    def __init__(self):
+    def __init__(self, handle=None):
         self.lock = threading.Lock()
         self.slots: Dict[tuple, "_Slots"] = {}
         self.event = None
         self.last_stream = None
+        self.handle = handle
+        # a pool's first capture: a one-fill graph that keeps the pool
+        # alive while this object lives (the allocator refuses a capture
+        # into a pool id whose every graph has gone)
+        self.anchor = None
+        self.nbytes = 0  # a pool's: what its captures reserved, its slots
+
+
+# (pool, device) -> the pool's _Shared, under _LOCK (the one lock a
+# finalizer's drop_owner meets, and it never waits on it)
+_POOLS: Dict[tuple, _Shared] = {}
+
+
+def _pool_shared(pool: str, dev) -> _Shared:
+    with _LOCK:
+        sh = _POOLS.get((pool, dev))
+        if sh is None:
+            sh = _POOLS[(pool, dev)] = _Shared(torch.cuda.graph_pool_handle())
+        return sh
 
 
 class _Slots:
@@ -469,18 +614,37 @@ class _Program:
     (no warm-up has returned yet), the warm-up's record (the next call
     captures) or the captured graph."""
 
-    def __init__(self, ns: str, fn: Callable, donate: Tuple[int, ...]):
+    def __init__(self, ns: str, fn: Callable, donate: Tuple[int, ...],
+                 resident: Tuple[int, ...] = (), owners: frozenset = frozenset(),
+                 pool: str = None):
         self.ns = ns
         self.fn = fn
         self.donate = donate
+        self.resident = resident
+        self.owners = owners
+        self.pool = pool
         self._sigs: Dict[tuple, object] = {}
         self._lock = threading.Lock()
-        self.shared = _Shared()
+        self._shared = _Shared() if pool is None else None
         self.nbytes = 0
+
+    def shared(self, dev) -> _Shared:
+        """The slots and replay lock this program's graphs use on `dev`."""
+        return self._shared if self.pool is None else _pool_shared(self.pool, dev)
 
     def graphs(self) -> List["_Graph"]:
         with self._lock:
             return [g for g in self._sigs.values() if isinstance(g, _Graph)]
+
+    def slot_bytes(self) -> int:
+        """Device bytes of the static input slots of this program's graphs
+        (a resident argument has none; a pool's slots count whole)."""
+        shared = {id(g.shared): g.shared for g in self.graphs()}
+        ro = 0
+        for sh in shared.values():
+            with sh.lock:
+                ro += sum(sl.buf.numel() for sl in sh.slots.values())
+        return ro + sum(g.in_buf.numel() for g in self.graphs())
 
     def __call__(self, *args):
         leaves: list = []
@@ -489,7 +653,14 @@ class _Program:
         if dev is None or not _GRAPHS[0] or not _on_card(dev):
             _note_run(self.ns, "eager")
             return self.fn(*args)
-        sig = (spec, dev, tuple((t.shape, t.dtype, t.stride()) for t in leaves))
+        if len(_devices(leaves)) > 1:
+            # the collectives of a mesh over several cards copy between
+            # them: no one graph captures that, so it stays eager
+            _note_run(self.ns, "eager_multi_device")
+            return self.fn(*args)
+        kinds = _leaf_kinds(spec, self.donate, self.resident)
+        sig = (spec, dev, tuple((t.shape, t.dtype, t.stride()) for t in leaves),
+               tuple(t.data_ptr() for t, k in zip(leaves, kinds) if k == _RESIDENT))
         with self._lock:
             g = self._sigs.get(sig)
         if g is None:
@@ -541,7 +712,10 @@ class _Program:
         dispatch.record_compile_seconds(time.perf_counter() - t0)
         with self._lock:
             self._sigs[sig] = g
-            self.nbytes += g.nbytes
+            if self.pool is None:
+                self.nbytes += g.nbytes
+            else:
+                g.shared.nbytes += g.nbytes  # the pool's, shared by its graphs
         return g
 
 
@@ -555,8 +729,9 @@ class _Graph:
         self.graph = None
         self.device = None
         self.in_buf = None
-        self.slots: List = []          # static view per tensor leaf
+        self.slots: List = []          # static view per tensor leaf (None: resident)
         self.ro_slots: List = []       # per leaf: (program's _Slots, index) or None
+        self.resident: List[bool] = []  # per leaf: read in place, never copied
         self.out_buf = None
         self.out_spec = None
         self.out_plan: List[tuple] = []  # _packing's regions of the outputs
@@ -571,7 +746,7 @@ class _Graph:
     def capture(cls, prog: _Program, spec, leaves: list, dev, held: dict) -> "_Graph":
         self = cls()
         self.device = dev
-        self.shared = prog.shared
+        self.shared = prog.shared(dev)
         self._place_slots(spec, leaves, prog, dev)
         static_args = _unflatten(spec, iter(self.slots))
         stream = _CAPTURE_STREAMS.get(dev)
@@ -584,9 +759,7 @@ class _Graph:
         cur = torch.cuda.current_stream(dev)
         stream.wait_stream(cur)
         reserved = torch.cuda.memory_reserved(dev)
-        # lint: disable=jit-hygiene -- the sanctioned capture: one graph per
-        # (ns, key) entry and input signature, kept in this cache (module doc)
-        graph = torch.cuda.CUDAGraph()
+        graph = _new_graph()
         rec = dispatch.Capture(held)
 
         def body():
@@ -600,8 +773,15 @@ class _Graph:
             _pack(out_leaves, self.out_place, self.out_buf)
 
         with torch.cuda.device(dev), torch.cuda.stream(stream), rec:
-            self._capture_body(graph, body)
+            sh = self.shared
+            if sh.handle is not None and sh.anchor is None:
+                anchor = _new_graph()
+                self._capture_body(anchor, lambda: torch.zeros(1, device=dev), sh.handle)
+                sh.anchor = anchor
+            self._capture_body(graph, body, sh.handle)
         cur.wait_stream(stream)
+        # the graph reads resident tensors where they lie; it holds none
+        self.slots = [None if r else v for v, r in zip(self.slots, self.resident)]
         rec.held = {}  # the graph keeps what it read (retained), no more
         self.graph = graph
         self.capture_rec = rec
@@ -613,20 +793,25 @@ class _Graph:
         them): the donated leaves packed by dtype into this graph's
         buffer, each read-only argument's leaves in the program's slots
         for its shapes (made here if new: their bytes count as this
-        graph's)."""
-        readonly = _readonly_leaves(spec, prog.donate)
+        graph's); a resident leaf is its own slot while the body is
+        captured, and none after."""
+        kinds = _leaf_kinds(spec, prog.donate, prog.resident)
         argnos = _leaf_argnos(spec)
-        own = [i for i, ro in enumerate(readonly) if not ro]
+        own = [i for i, k in enumerate(kinds) if k == _DONATED]
         place, _plan, size = _packing([leaves[i] for i in own])
         self.in_buf = torch.empty(size if own else 0, dtype=torch.uint8, device=dev)
         self.slots = [None] * len(leaves)
         self.ro_slots = [None] * len(leaves)
+        self.resident = [k == _RESIDENT for k in kinds]
         for i, (o, nb) in zip(own, place):
             t = leaves[i]
             self.slots[i] = self.in_buf[o:o + nb].view(t.dtype).view(t.shape)
+        for i, r in enumerate(self.resident):
+            if r:
+                self.slots[i] = leaves[i]
         by_arg: Dict[int, List[int]] = {}
-        for i, ro in enumerate(readonly):
-            if ro:
+        for i, k in enumerate(kinds):
+            if k == _READONLY:
                 by_arg.setdefault(argnos[i], []).append(i)
         for argno, idxs in by_arg.items():
             key = (argno, tuple((leaves[i].shape, leaves[i].dtype) for i in idxs))
@@ -645,10 +830,11 @@ class _Graph:
             self._done_on(stream)
 
     @staticmethod
-    def _capture_body(graph, body: Callable[[], None]) -> None:
-        """Capture `body` into `graph` on the current (side) stream; other
-        threads' launches stay legal meanwhile (thread-local mode)."""
-        graph.capture_begin(capture_error_mode="thread_local")
+    def _capture_body(graph, body: Callable[[], None], pool=None) -> None:
+        """Capture `body` into `graph` on the current (side) stream, into
+        the memory pool `pool` (a graph_pool_handle) or a private one;
+        other threads' launches stay legal meanwhile (thread-local mode)."""
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             body()
         except BaseException:
@@ -689,6 +875,8 @@ class _Graph:
             stream.wait_event(sh.event)
         dsts, srcs = [], []
         for i, t in enumerate(leaves):
+            if self.resident[i]:
+                continue  # read where it lies (its address is in the signature)
             ro = self.ro_slots[i]
             if ro is not None:
                 slots, k = ro
@@ -709,6 +897,13 @@ class _Graph:
         sh.last_stream = stream
 
 
+def _new_graph():
+    # lint: disable=jit-hygiene -- the sanctioned captures: one graph per
+    # (ns, key) entry and input signature, and one anchor per shared pool,
+    # kept in this cache (module doc)
+    return torch.cuda.CUDAGraph()
+
+
 def _leaf_count(s) -> int:
     if s == 0:
         return 1
@@ -727,9 +922,19 @@ def _leaf_argnos(spec) -> List[int]:
     return out
 
 
-def _readonly_leaves(spec, donate: Tuple[int, ...]) -> List[bool]:
-    """Per tensor leaf of the argument tuple: not in a donated argument."""
-    return [argno not in donate for argno in _leaf_argnos(spec)]
+_DONATED, _READONLY, _RESIDENT = 0, 1, 2
+
+
+def _leaf_kinds(spec, donate: Tuple[int, ...], resident: Tuple[int, ...]) -> List[int]:
+    """Per tensor leaf of the argument tuple: in a donated argument, a
+    resident one, or a read-only one (copied into the program's slots)."""
+    return [_DONATED if a in donate else _RESIDENT if a in resident else _READONLY
+            for a in _leaf_argnos(spec)]
+
+
+def _devices(leaves: list) -> set:
+    """The devices the tensor leaves of a call lie on."""
+    return {t.device for t in leaves}
 
 
 def _pack(out_leaves: list, place: list, buf) -> None:
