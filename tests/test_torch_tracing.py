@@ -65,6 +65,12 @@ def _shape(rows):
     return [(len(r[0]) - len(r[0].lstrip(" ")), r[0].strip()) for r in rows]
 
 
+def _reference_spans(shape):
+    """The port's rows without the leaf spans the reference lacks
+    (tracing.PORT_SPANS)."""
+    return [(d, n) for d, n in shape if not n.startswith(ptracing.PORT_SPANS)]
+
+
 @pytest.mark.parametrize("sql", [
     "select count(*) from tt",
     "select b, count(*), sum(c) from tt group by b order by b",
@@ -78,10 +84,17 @@ def test_trace_span_tree_matches_reference(sql):
     want = js.execute("TRACE " + sql)
     got = ps.execute("TRACE " + sql)
     assert got.names == want.names == ["span", "start_ms", "duration_ms"]
-    assert _shape(got.rows) == _shape(want.rows)
+    assert _reference_spans(_shape(got.rows)) == _shape(want.rows)
     assert any(n.startswith("executor.") for _d, n in _shape(got.rows))
     # TRACE always keeps its trace, regardless of sampling
-    assert "trace" in ptracing.STORE.traces()[-1].keep_reasons
+    tr = ptracing.STORE.traces()[-1]
+    assert "trace" in tr.keep_reasons
+    # the port's own spans are there: the parse and the statement's end
+    # beside the rendered subtree, a built program's call inside it
+    names = {s.name for s in tr.spans}
+    assert {"session.parse", "session.finish"} <= names
+    if "where a = 7" not in sql:  # the point select runs no built program
+        assert any(n.startswith("jit.") for _d, n in _shape(got.rows))
 
 
 def _kept(store, before):
@@ -111,7 +124,7 @@ def _statement_traces(s, store, timeout_cls):
     s.execute("set max_execution_time = 0")
     s.execute("set tidb_slow_log_threshold = 300000")
     for tr in _kept(store, before):
-        out.append((tuple(tr.keep_reasons), tr.spans[0].name))
+        out.append((tuple(tr.keep_reasons), tr.summary()["root"]))
     slow = [(r[3], r[11]) for r in s.catalog.slow_queries]
     return out, slow, store.get(s.catalog.slow_queries[-1][10]) is not None
 
@@ -201,4 +214,7 @@ def test_profile_dir_writes_a_torch_profiler_trace(tmp_path):
     ps.execute("set tidb_profile_dir = ''")
     traces = sorted(tmp_path.glob("stmt-*.json"))
     assert len(traces) == 2  # the SELECT, and the SET that ends it
-    assert "traceEvents" in json.loads(traces[0].read_text())
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    # the statement's live spans are ranges in its trace
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"session.plan", "session.execute"} <= names

@@ -42,6 +42,7 @@ polled where the reference polls it (between build and probe chunks).
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -54,7 +55,7 @@ from tidb_tpu_torch.expression.compiler import compile_expr, compile_predicate, 
 from tidb_tpu_torch.ops import hash_probe as hp
 from tidb_tpu_torch.ops import join_kernels as jk
 from tidb_tpu_torch.types import INT64
-from tidb_tpu_torch.utils import dispatch
+from tidb_tpu_torch.utils import dispatch, tracing
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["HashJoinExec", "IndexJoinExec"]
@@ -79,8 +80,9 @@ def _to_device(chunk: Chunk, dev: torch.device) -> Chunk:
     output) moved to the join's device."""
     if chunk.device.type == dev.type:
         return chunk
-    return Chunk({u: Column(c.data.to(dev), c.valid.to(dev), c.type_)
-                  for u, c in chunk.columns.items()}, chunk.sel.to(dev))
+    with tracing.sync(dev.type == "cuda"):  # copies from pageable memory
+        return Chunk({u: Column(c.data.to(dev), c.valid.to(dev), c.type_)
+                      for u, c in chunk.columns.items()}, chunk.sel.to(dev))
 
 
 class HashJoinExec(Executor):
@@ -110,9 +112,19 @@ class HashJoinExec(Executor):
 
     def _build(self):
         """Drain the build child, then stage the build side (the fused
-        scan->probe executor runs the same two halves over a build child
-        of its own, executor/pipeline.py)."""
-        self._stage_build(*self._drain_build(self.children[1]))
+        scan->probe executor builds from a build child of its own,
+        executor/pipeline.py)."""
+        self._build_from(self.children[1])
+
+    def _build_from(self, child: Executor) -> None:
+        """Drain `child` and stage it as the build side: one
+        JOIN_BUILD_SECONDS observation (host wall time, by tier)."""
+        from tidb_tpu_torch.utils.metrics import JOIN_BUILD_SECONDS
+
+        t0 = time.perf_counter()
+        self._stage_build(*self._drain_build(child))
+        tier = "device" if self.ctx.join_device_build or self._hash_mode else "host_sorted"
+        JOIN_BUILD_SECONDS.observe(time.perf_counter() - t0, tier=tier)
 
     def _drain_build(self, child: Executor):
         """Drain `child` on the device, compacting key and payload columns
@@ -136,7 +148,8 @@ class HashJoinExec(Executor):
             else:  # keyless (cross) join: a constant key matches everything
                 outs = [(torch.zeros(chunk.capacity, dtype=torch.int64, device=dev),
                          torch.ones(chunk.capacity, dtype=torch.bool, device=dev))]
-            live = torch.nonzero(chunk.sel).squeeze(1)
+            with tracing.sync(dev.type == "cuda"):  # the host learns the count
+                live = torch.nonzero(chunk.sel).squeeze(1)
             ok = torch.ones(live.shape[0], dtype=torch.bool, device=dev)
             for i, (d, v) in enumerate(outs):
                 key_cols[i].append(d[live])
@@ -171,7 +184,8 @@ class HashJoinExec(Executor):
         the host (the join_device_build = 0 hatch), and index it."""
         # pack parameters (and the hash-mode decision) come from the VALID
         # keys only: a NULL slot's garbage value must not widen the range
-        valid_keys = [k[ok] for k in key_arrays]
+        with tracing.sync(ok.is_cuda):  # the host learns the count
+            valid_keys = [k[ok] for k in key_arrays]
         self._build_had_null = bool(dispatch.device_get((~ok).any()))
         self._n_build = int(valid_keys[0].shape[0])
         self._pack_info = self._key_pack_info(valid_keys)
@@ -455,11 +469,21 @@ class HashJoinExec(Executor):
             out = self._probe_finish(tok, int(total))
             if out is not None:
                 self._pending.append(out)
+            self._observe_probe(tok["t0"])
+
+    def _observe_probe(self, t0: float) -> None:
+        """One probe pass, from its launch to its result on the host (a
+        deferred chunk's wait for its window's read included): one
+        JOIN_PROBE_SECONDS observation (host wall time, by join kind)."""
+        from tidb_tpu_torch.utils.metrics import JOIN_PROBE_SECONDS
+
+        JOIN_PROBE_SECONDS.observe(time.perf_counter() - t0, kind=self.kind)
 
     def _probe_start(self, chunk: Chunk) -> Optional[dict]:
         """Probe one chunk. Unfiltered semi/anti joins finish here (their
         keep mask needs no total); everything else returns a token that
         _probe_finish_batch resolves."""
+        t0 = time.perf_counter()
         has_filter = self._has_filter
         chunk = _to_device(chunk, self.ctx.device)
         outs = [eval_expr(k, chunk) for k in self.probe_keys]
@@ -494,10 +518,11 @@ class HashJoinExec(Executor):
                 self._pending.append(chunk.with_sel(chunk.sel & ~(okc & matched)))
             else:
                 self._pending.append(chunk.with_sel(chunk.sel & okc & ~matched))
+            self._observe_probe(t0)
             return None
         return {"chunk": chunk, "start": start, "count": count,
                 "real_count": real_count, "cum": cum,
-                "total_dev": total_dev, "ok": ok, "cap": cap, "Rp": Rp}
+                "total_dev": total_dev, "ok": ok, "cap": cap, "Rp": Rp, "t0": t0}
 
     def _probe_finish(self, tok: dict, total: int):
         """Complete one deferred probe chunk with its host-known match

@@ -1079,7 +1079,7 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         child = self._build_child_build()
         child.open(ctx)
         try:
-            self._stage_build(*self._drain_build(child))
+            self._build_from(child)
         finally:
             child.close()
             # the transient build subtree is gone after this open(): park
@@ -1145,19 +1145,24 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         key = ("probe|" + segment_scan_key(stages, col_types, seg_cap)
                + "|" + repr((self.probe_keys, self._modes, self._direct,
                              probe_uids, self.kind)))
-        return cached_jit(
-            "fusedprobe", key,
-            lambda: _make_fused_probe_fn(stages, col_types, seg_cap,
-                                         tuple(self.probe_keys), tuple(self._modes),
-                                         self._direct, probe_uids, self.kind == "left"),
-            max_bytes=_graph_quota(self.ctx))
+        def build():
+            from tidb_tpu_torch.utils.metrics import JOIN_COMPILE_TOTAL
+
+            JOIN_COMPILE_TOTAL.inc(kernel="fusedprobe")
+            return _make_fused_probe_fn(stages, col_types, seg_cap,
+                                        tuple(self.probe_keys), tuple(self._modes),
+                                        self._direct, probe_uids, self.kind == "left")
+
+        return cached_jit("fusedprobe", key, build, max_bytes=_graph_quota(self.ctx))
 
     def _probe_chunk_fused(self, staged) -> dict:
         """Decode, filter, project and probe one staged batch and expand its
         first output tile (one program, cached_jit "fusedprobe"); returns
         the deferral token pinning its device results, which a replay
         hands over as fresh tensors."""
+        t0 = time.perf_counter()
         tok = dict(self._fused(staged, self._build_args))
+        tok["t0"] = t0
         # the window pins the batch's first tile AND the probe state an
         # overflow re-expansion needs
         tok["nbytes"] = _pytree_nbytes(
@@ -1180,6 +1185,7 @@ class FusedScanProbeExec(_StagedScanMixin, HashJoinExec):
         for tok, total in zip(tokens, totals):
             if total:
                 self._pending.append(self._emit_fused(tok, total))
+            self._observe_probe(tok["t0"])
 
     def _emit_fused(self, tok: dict, total: int):
         """Complete one batch with its host-known total, as the consumer

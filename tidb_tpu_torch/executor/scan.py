@@ -29,7 +29,7 @@ from tidb_tpu_torch.chunk.column import Column
 from tidb_tpu_torch.executor.base import ExecContext, Executor
 from tidb_tpu_torch.expression.compiler import compile_expr, compile_predicate
 from tidb_tpu_torch.planner.binder import PlanCol
-from tidb_tpu_torch.utils import dispatch
+from tidb_tpu_torch.utils import dispatch, tracing
 from tidb_tpu_torch.utils.device import torch_dtype
 
 __all__ = ["TableScanExec", "make_pipeline_fn", "SelectionExec",
@@ -67,7 +67,9 @@ def stage(host: np.ndarray, cap: int, dtype: torch.dtype, device) -> torch.Tenso
     n = len(host)
     if n:
         src = np.ascontiguousarray(host)
-        out[:n].copy_(torch.from_numpy(src))
+        # from pageable memory: the host waits for the copy
+        with tracing.sync(out.is_cuda):
+            out[:n].copy_(torch.from_numpy(src))
         if out.is_cuda:
             dispatch.record_xfer(src.nbytes)
     return out

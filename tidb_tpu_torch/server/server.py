@@ -38,6 +38,7 @@ from tidb_tpu_torch.server import protocol as P
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.session.sysvars import SysVarStore
 from tidb_tpu_torch.storage.catalog import Catalog
+from tidb_tpu_torch.utils import tracing
 from tidb_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Server"]
@@ -332,24 +333,35 @@ class Server:
             # parks on the result)
             rs = self.scheduler.submit_prepared(sess, stmt_id, params)
         except TidbError as e:
-            P.write_packet(conn, 1, P.err_packet(getattr(e, "code", 1105), str(e)))
+            with self._writing(sess):
+                P.write_packet(conn, 1, P.err_packet(getattr(e, "code", 1105), str(e)))
             return
         except Exception as e:  # engine bug — surface, don't kill the conn
             traceback.print_exc()
-            P.write_packet(conn, 1, P.err_packet(1105, f"internal error: {e}"))
+            with self._writing(sess):
+                P.write_packet(conn, 1, P.err_packet(1105, f"internal error: {e}"))
             return
-        status = self._status(sess)
-        if rs is None:
-            P.write_packet(conn, 1, P.ok_packet(status=status))
-            return
-        types = rs.types or [None] * len(rs.names)
-        seq = P.write_packet(conn, 1, P.lenc_int(len(rs.names)))
-        for name, kind in zip(rs.names, types):
-            seq = P.write_packet(conn, seq, P.column_def41(name, P.binary_kind(kind)))
-        seq = P.write_packet(conn, seq, P.eof_packet(status=status))
-        for row in rs.rows:
-            seq = P.write_packet(conn, seq, P.binary_row(list(row), types))
-        P.write_packet(conn, seq, P.eof_packet(status=status))
+        with self._writing(sess):
+            status = self._status(sess)
+            if rs is None:
+                P.write_packet(conn, 1, P.ok_packet(status=status))
+                return
+            types = rs.types or [None] * len(rs.names)
+            seq = P.write_packet(conn, 1, P.lenc_int(len(rs.names)))
+            for name, kind in zip(rs.names, types):
+                seq = P.write_packet(conn, seq, P.column_def41(name, P.binary_kind(kind)))
+            seq = P.write_packet(conn, seq, P.eof_packet(status=status))
+            for row in rs.rows:
+                seq = P.write_packet(conn, seq, P.binary_row(list(row), types))
+            P.write_packet(conn, seq, P.eof_packet(status=status))
+
+    @staticmethod
+    def _writing(sess: Session):
+        """Writing a statement's response: the server.write span of the
+        trace the scheduler opened for it (none for a statement the
+        connection thread ran itself)."""
+        tr, sess._served_trace = sess._served_trace, None
+        return tracing.resume(tr, "server.write")
 
     @staticmethod
     def _status(sess: Session) -> int:
@@ -374,24 +386,27 @@ class Server:
                 # I/O only
                 rs = self.scheduler.submit_query(sess, sql)
         except TidbError as e:
-            P.write_packet(conn, 1, P.err_packet(getattr(e, "code", 1105), str(e)))
+            with self._writing(sess):
+                P.write_packet(conn, 1, P.err_packet(getattr(e, "code", 1105), str(e)))
             return
         except Exception as e:  # engine bug — surface, don't kill the conn
             traceback.print_exc()
-            P.write_packet(conn, 1, P.err_packet(1105, f"internal error: {e}"))
+            with self._writing(sess):
+                P.write_packet(conn, 1, P.err_packet(1105, f"internal error: {e}"))
             return
-        status = self._status(sess)
-        if rs is None:
-            P.write_packet(conn, 1, P.ok_packet(status=status))
-            return
-        types = rs.types or [None] * len(rs.names)
-        seq = P.write_packet(conn, 1, P.lenc_int(len(rs.names)))
-        for name, kind in zip(rs.names, types):
-            seq = P.write_packet(conn, seq, P.column_def41(name, P.mysql_type_of(kind)))
-        seq = P.write_packet(conn, seq, P.eof_packet(status=status))
-        for row in rs.rows:
-            seq = P.write_packet(conn, seq, P.text_row(list(row)))
-        P.write_packet(conn, seq, P.eof_packet(status=status))
+        with self._writing(sess):
+            status = self._status(sess)
+            if rs is None:
+                P.write_packet(conn, 1, P.ok_packet(status=status))
+                return
+            types = rs.types or [None] * len(rs.names)
+            seq = P.write_packet(conn, 1, P.lenc_int(len(rs.names)))
+            for name, kind in zip(rs.names, types):
+                seq = P.write_packet(conn, seq, P.column_def41(name, P.mysql_type_of(kind)))
+            seq = P.write_packet(conn, seq, P.eof_packet(status=status))
+            for row in rs.rows:
+                seq = P.write_packet(conn, seq, P.text_row(list(row)))
+            P.write_packet(conn, seq, P.eof_packet(status=status))
 
 
 def _kill_stmt(sql: str):

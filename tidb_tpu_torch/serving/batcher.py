@@ -440,6 +440,7 @@ class Batcher:
         import time as _time
 
         from tidb_tpu_torch.errors import QueryKilledError, QueryTimeoutError
+        from tidb_tpu_torch.utils import tracing
 
         sess = member.session
         # kill/deadline observed during the gather: the member leaves
@@ -457,7 +458,8 @@ class Batcher:
             def runner(_stmt):  # noqa: F811 — fallback member, same drop
                 raise member.drop
         sess._stmt_runner = runner
-        sess._sched_queue_s = _time.perf_counter() - member.t0
+        tr = tracing.queued(member.t0)
+        sess._served_trace = tr
         try:
             if member.sql is not None:
                 res = sess.execute(member.sql)
@@ -469,7 +471,7 @@ class Batcher:
             member.finish(result=res)
         finally:
             sess._stmt_runner = None
-            sess._sched_queue_s = 0.0
+            tracing.settle(tr)
 
     # -- group-commit DML ------------------------------------
 

@@ -38,6 +38,7 @@ from tidb_tpu_torch.errors import (
 )
 from tidb_tpu_torch.serving.batcher import Batcher, BatchGroup
 from tidb_tpu_torch.session.sysvars import SysVarStore
+from tidb_tpu_torch.utils import tracing
 from tidb_tpu_torch.utils.memory import MemTracker
 
 __all__ = ["StatementScheduler", "schedulers_alive"]
@@ -331,17 +332,22 @@ class StatementScheduler:
                 return  # evicted by a queue timeout
             task.state = _RUNNING
         self._unqueue()
-        task.session._sched_queue_s = time.perf_counter() - task.t0
+        # the statement's trace starts at its enqueue (sched.queue); the
+        # connection thread resumes it to write the result
+        tr = tracing.queued(task.t0)
+        task.session._served_trace = tr
         try:
             # the storage layer is single-writer: statements across
             # sessions serialize on the catalog statement lock, exactly
             # as the thread-per-connection server did
+            wait = tracing.begin("sched.lock_wait")
             with self.catalog.lock:
+                tracing.finish(wait)
                 task.result = task.fn()
         except BaseException as e:  # noqa: BLE001 — relayed verbatim to
             task.exc = e            # the submitting connection thread
         finally:
-            task.session._sched_queue_s = 0.0
+            tracing.settle(tr)
             task.state = _DONE
             task.done.set()
 

@@ -385,9 +385,9 @@ class Session:
         # parent for per-statement MemTrackers (the scheduler's
         # session-level tracker, itself a child of the server tracker)
         self._mem_parent = None
-        # scheduler queue wait of the statement about to execute
-        # (seconds); _execute_timed records it as a sched.queue span
-        self._sched_queue_s = 0.0
+        # the trace the scheduler opened for this session's statement,
+        # which the connection thread resumes to write the result
+        self._served_trace = None
         # statement deadline (monotonic seconds) armed per statement
         # from max_execution_time; None = unbounded
         self._stmt_deadline: Optional[float] = None
@@ -526,14 +526,30 @@ class Session:
         import time as _time
 
         from tidb_tpu_torch.utils import metrics as M
+        from tidb_tpu_torch.utils import tracing
 
-        t0 = _time.perf_counter()
-        stmts = parse(sql)
-        M.PARSE_SECONDS.observe(_time.perf_counter() - t0)
-        result = None
-        for stmt in stmts:
-            result = self._execute_timed(stmt, sql)
-        return result
+        # the statement's trace opens before its parse: the scheduler's
+        # (queued), else one here that the statement claims
+        tr = tracing.current()
+        fresh = tr is None
+        if fresh:
+            tr = tracing.Trace("")
+            tracing.push(tr)
+        try:
+            t0 = _time.perf_counter()
+            if tr.claimed:  # a statement run inside another's
+                stmts = parse(sql)
+            else:
+                with tracing.span("session.parse"):
+                    stmts = parse(sql)
+            M.PARSE_SECONDS.observe(_time.perf_counter() - t0)
+            result = None
+            for stmt in stmts:
+                result = self._execute_timed(stmt, sql)
+            return result
+        finally:
+            if fresh:
+                tracing.settle(tr)
 
     def _execute_timed(self, stmt, sql: str) -> Optional[ResultSet]:
         """Metrics, the statements summary, the slow log, the trace and
@@ -598,20 +614,19 @@ class Session:
         except Exception:  # noqa: BLE001 — diagnostics never fail a stmt
             digest_now = ""
         tr = tracing.current()
-        owns_trace = tr is None
+        owns_trace = tr is None or not tr.claimed
         if owns_trace:
+            # a trace opened ahead of the statement (its queue, lock wait
+            # and parse) becomes this statement's
             rate = float(self.sysvars.get("tidb_trace_sample_rate"))
-            tr = tracing.Trace(tracing.make_trace_id(digest_now),
-                               sampled=tracing.head_sampled(rate))
-            tracing.push(tr)
+            trace_id = tracing.make_trace_id(digest_now)
+            sampled = tracing.head_sampled(rate)
+            if tr is None:
+                tr = tracing.Trace(trace_id, sampled=sampled)
+                tracing.push(tr)
+            else:
+                tr.claim(trace_id, sampled)
         stmt_span = tracing.begin(f"stmt.{stype}")
-        q_s, self._sched_queue_s = self._sched_queue_s, 0.0
-        if q_s > 0 and tr is not None and stmt_span is not None:
-            # the scheduler queue wait happened BEFORE this trace
-            # existed; anchor the span at the trace start
-            qs = tr.add_complete("sched.queue", tr.t0_perf, q_s,
-                                 parent_id=stmt_span.span_id)
-            qs.notes.append(f"queued {int(q_s * 1e6)}us before execution")
         d0 = _dsp.count()
         f0 = _dsp.fragment_count()
         seg0 = _seg_counts()
@@ -643,10 +658,11 @@ class Session:
             M.QUERY_TOTAL.inc(type=stype, status="error")
             if isinstance(exc, QueryTimeoutError):
                 M.DEADLINE_EXCEEDED_TOTAL.inc()
-            detail = self._record_stmt(stmt, sql, stype, dur, d0, None,
-                                       seg0=seg0, prof0=prof0, cw0=cw0,
-                                       f0=f0, error=True)
-            self._slo_observe(dur)
+            with tracing.span("session.finish"):
+                detail = self._record_stmt(stmt, sql, stype, dur, d0, None,
+                                           seg0=seg0, prof0=prof0, cw0=cw0,
+                                           f0=f0, error=True)
+                self._slo_observe(dur)
             tracing.annotate(f"error:{type(exc).__name__}: {exc}")
             trace_id = self._finish_trace(tr, stmt_span, owns_trace, dur,
                                           error=exc)
@@ -685,13 +701,14 @@ class Session:
         dur = _time.perf_counter() - t0
         M.QUERY_TOTAL.inc(type=stype, status="ok")
         M.QUERY_DURATION.observe(dur, type=stype)
-        # plan feedback: fold this execution's est-vs-actual truth into the
-        # per-digest store before the summary, slow log and trace run, so
-        # they all see the drift it computed
-        self._fb_record(dur, result, _dsp.compile_count() - c0)
-        detail = self._record_stmt(stmt, sql, stype, dur, d0, result,
-                                   seg0=seg0, prof0=prof0, cw0=cw0, f0=f0)
-        self._slo_observe(dur)
+        with tracing.span("session.finish"):
+            # plan feedback: fold this execution's est-vs-actual truth into
+            # the per-digest store before the summary, slow log and trace
+            # run, so they all see the drift it computed
+            self._fb_record(dur, result, _dsp.compile_count() - c0)
+            detail = self._record_stmt(stmt, sql, stype, dur, d0, result,
+                                       seg0=seg0, prof0=prof0, cw0=cw0, f0=f0)
+            self._slo_observe(dur)
         trace_id = self._finish_trace(tr, stmt_span, owns_trace, dur)
         self._maybe_log_slow(sql, dur, detail, trace_id)
         # plugin hooks run LAST (mirroring the error path): an audit
@@ -1613,6 +1630,7 @@ class Session:
 
     def _run_select(self, stmt) -> ResultSet:
         from tidb_tpu_torch.utils import tracing
+        from tidb_tpu_torch.utils.execdetails import time_operators
 
         if self.txn is None and not self.sysvars.get("autocommit"):
             self._begin()  # consistent-snapshot reads without autocommit
@@ -1645,11 +1663,15 @@ class Session:
                 c = c.children[0]
             if isinstance(c, PProjection) and c.n_visible is not None and c.n_visible < len(phys.schema):
                 n_vis = c.n_visible
-        with tracing.span("session.execute"):
+        with tracing.span("session.execute") as exec_span:
+            if exec_span is not None:
+                time_operators(root)
             rs = run_plan(root,
                           self._exec_ctx(hints=getattr(stmt, "hints", ()),
                                          plan=phys),
                           n_visible=n_vis)
+        if exec_span is not None:
+            self._graft_operator_spans(tracing.current(), exec_span, root)
         if self._fb_enabled():
             # park the executed tree for the statement-end feedback
             # harvest; _execute_timed drops the reference either way
@@ -3211,20 +3233,24 @@ class Session:
 
     @staticmethod
     def _graft_operator_spans(tr, exec_span, root) -> None:
-        """Per-operator spans from the EXPLAIN ANALYZE instrumentation:
+        """Per-operator spans from the EXPLAIN ANALYZE instrumentation
+        (TRACE) or the plain timing wrapper (execdetails.time_operators):
         start = the operator's first open/next activity, duration = its
         cumulative open+next wall (a coverage envelope: operators
-        interleave per chunk)."""
+        interleave per chunk), self = that less its children's."""
         def visit(e, parent_id):
             st = e.stats
             t0 = (st.first_ts if st.first_ts is not None
                   else tr.t0_perf + exec_span.start_us / 1e6)
-            notes = [f"rows={st.rows}", f"loops={st.chunks}",
-                     f"dispatches={st.dispatches}"]
+            total = st.open_wall + st.next_wall
+            own = total - sum(c.stats.open_wall + c.stats.next_wall
+                              for c in e.children)
+            notes = [f"rows={st.rows}"] if st.measured else []
+            notes += [f"loops={st.chunks}", f"dispatches={st.dispatches}",
+                      f"self_ms={max(own, 0.0) * 1e3:.3f}"]
             if st.recompiles:
                 notes.append(f"recompiles={st.recompiles}")
-            s = tr.add_complete("executor." + type(e).__name__, t0,
-                                st.open_wall + st.next_wall,
+            s = tr.add_complete("executor." + type(e).__name__, t0, total,
                                 parent_id=parent_id, notes=notes)
             pid = s.span_id if s.span_id > 0 else parent_id
             for c in e.children:

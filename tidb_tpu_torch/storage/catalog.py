@@ -430,6 +430,7 @@ class Catalog:
                 r = t.gc(sp)
                 if r:
                     out[f"{db.name}.{name}"] = r
+        _count_reclaimed(out)
         return out
 
     def auto_gc(self, tables=None, min_dead: int = 4096,
@@ -452,6 +453,7 @@ class Catalog:
                 r = t.gc(sp)
                 if r:
                     out[t.schema.name] = r
+        _count_reclaimed(out)
         return out
 
     def maybe_auto_analyze(self, tables, ratio: float = 0.5,
@@ -1072,6 +1074,14 @@ class Catalog:
                 rows,
             )
         return None
+
+
+def _count_reclaimed(out: Dict[str, int]) -> None:
+    """MVCC versions a GC pass reclaimed, into tidb_tpu_gc_reclaimed_rows_total."""
+    if out:
+        from tidb_tpu_torch.utils.metrics import GC_RECLAIMED
+
+        GC_RECLAIMED.inc(sum(out.values()))
 
 
 def _time_strftime(ts: float) -> str:

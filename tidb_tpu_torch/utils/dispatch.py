@@ -44,7 +44,9 @@ counterpart of ``jax.device_get``): it moves a tensor, or a nested
 tuple/list/dict of tensors, to host numpy in one copy, and counts one
 round trip into the runtime sanitizer's statement scope
 (``analysis/sanitizer.count_sync``), which is what
-``tidb_tpu_sanitize_sync_budget`` limits.
+``tidb_tpu_sanitize_sync_budget`` limits. The copy is timed under the
+statement's ``device.sync`` counter (utils/tracing.py), as are the other
+places the host waits on the card.
 
 As in the reference, every counter is per thread: the server runs
 statements on concurrent worker threads, and one statement's figures
@@ -299,6 +301,7 @@ def device_get(x):
     import torch
 
     from tidb_tpu_torch.analysis import sanitizer
+    from tidb_tpu_torch.utils import tracing
 
     sanitizer.count_sync()
     acct = account()
@@ -320,10 +323,12 @@ def device_get(x):
     find(x)
     host = {}
     if len(dev) == 1:
-        host[id(dev[0])] = dev[0].detach().cpu().numpy()
+        with tracing.sync():
+            host[id(dev[0])] = dev[0].detach().cpu().numpy()
     elif dev:
         flat = [t.detach().contiguous().reshape(-1) for t in dev]
-        packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+        with tracing.sync():
+            packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
         off = 0
         for t, f in zip(dev, flat):
             nb = f.numel() * f.element_size()

@@ -13,9 +13,10 @@ the port's kernel launches and `recompiles` its nvcc builds
 from __future__ import annotations
 
 import time
+import weakref
 from typing import List, Tuple
 
-__all__ = ["instrument", "analyze_text"]
+__all__ = ["instrument", "time_operators", "analyze_text"]
 
 
 def instrument(root) -> List:
@@ -70,6 +71,57 @@ def _wrap(e) -> None:
             st.chunks += 1
             st.rows += int(ch.sel.sum())
         return ch
+
+    e.open, e.next = open_, next_
+
+
+def time_operators(root) -> None:
+    """The plain timing wrapper every traced statement's tree gets: each
+    executor's open/next wall and first activity, with no row count and
+    so no device sync (the session grafts them as executor.* spans).
+    While a torch.profiler is active each call is a range of the span's
+    name. The wrappers hold their executor weakly: the tree, and the
+    device memory it holds, is freed when the statement drops it, as an
+    unwrapped tree is."""
+    stack = [root]
+    while stack:
+        e = stack.pop()
+        _wrap_timed(e)
+        stack.extend(e.children)
+
+
+def _wrap_timed(e) -> None:
+    from torch.autograd import profiler
+
+    from tidb_tpu_torch.utils import tracing
+
+    cls, ref = type(e), weakref.ref(e)
+    st = e.stats
+    name = "executor." + cls.__name__
+
+    def open_(ctx):
+        rf = tracing.open_range(name) if profiler._is_profiler_enabled else None
+        t0 = time.perf_counter()
+        if st.first_ts is None:
+            st.first_ts = t0
+        try:
+            return cls.open(ref(), ctx)
+        finally:
+            st.open_wall += time.perf_counter() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
+
+    def next_():
+        rf = tracing.open_range(name) if profiler._is_profiler_enabled else None
+        t0 = time.perf_counter()
+        if st.first_ts is None:
+            st.first_ts = t0
+        try:
+            return cls.next(ref())
+        finally:
+            st.next_wall += time.perf_counter() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     e.open, e.next = open_, next_
 

@@ -109,7 +109,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
-from tidb_tpu_torch.utils import dispatch
+from tidb_tpu_torch.utils import dispatch, tracing
 from tidb_tpu_torch.utils.lru import get_or_build
 
 __all__ = ["cached_jit", "clear", "size", "resident_bytes", "set_graphs",
@@ -647,24 +647,40 @@ class _Program:
         return ro + sum(g.in_buf.numel() for g in self.graphs())
 
     def __call__(self, *args):
+        """Run the program; the call is a ``jit.<ns>`` range while a
+        profiler is active, and its host seconds and how it ran go into
+        the statement's ``jit.<ns>`` span."""
+        name = "jit." + self.ns
+        rf = tracing.open_range(name) if tracing.profiling() else None
+        t0 = time.perf_counter()
+        try:
+            how, out = self._run(args)
+        finally:
+            if rf is not None:
+                rf.__exit__(None, None, None)
+        tracing.tally(name, t0, time.perf_counter() - t0, how)
+        return out
+
+    def _run(self, args):
+        """(how it ran, the outputs)."""
         leaves: list = []
         spec = _flatten(args, leaves)
         dev = leaves[0].device if leaves else None
         if dev is None or not _GRAPHS[0] or not _on_card(dev):
             _note_run(self.ns, "eager")
-            return self.fn(*args)
+            return "eager", self.fn(*args)
         if len(_devices(leaves)) > 1:
             # the collectives of a mesh over several cards copy between
             # them: no one graph captures that, so it stays eager
             _note_run(self.ns, "eager_multi_device")
-            return self.fn(*args)
+            return "eager_multi_device", self.fn(*args)
         kinds = _leaf_kinds(spec, self.donate, self.resident)
         sig = (spec, dev, tuple((t.shape, t.dtype, t.stride()) for t in leaves),
                tuple(t.data_ptr() for t, k in zip(leaves, kinds) if k == _RESIDENT))
         with self._lock:
             g = self._sigs.get(sig)
         if g is None:
-            return self._warm_up(sig, args, dev)
+            return "eager", self._warm_up(sig, args, dev)
         how = "replay"
         if not isinstance(g, _Graph):
             with _CAPTURE_LOCK:
@@ -672,14 +688,14 @@ class _Program:
                     g = self._sigs.get(sig)
                 if g is None:
                     # another thread's capture of it failed: warm up again
-                    return self._warm_up(sig, args, dev)
+                    return "eager", self._warm_up(sig, args, dev)
                 if not isinstance(g, _Graph):
                     g = self._capture(sig, g, spec, leaves, dev)
                     how = "capture"
             if how == "capture":
                 _grew()
         _note_run(self.ns, how)
-        return g.run(leaves)
+        return how, g.run(leaves)
 
     def _warm_up(self, sig, args, dev):
         """An eager call of a signature not yet warmed up: builds, uploads

@@ -605,10 +605,9 @@ PLAN_SECONDS = Histogram(
     "plan_statement call (cache hits skip this entirely)")
 JOIN_COMPILE_TOTAL = Counter(
     "tidb_tpu_join_compile_total",
-    "Join kernel (re)traces by kernel (build_sort/probe/expand) — "
-    "incremented at TRACE time inside the fused join kernels, so a "
-    "steady-state repeated join must not move it (the retrace guard "
-    "test and EXPLAIN ANALYZE's recompiles field both read it)")
+    "Join programs built, by kernel: fusedprobe (the fused scan->probe "
+    "batch program, built once per plan shape by utils/jitcache.py); a "
+    "steady-state repeated join must not move it")
 JOIN_PROBE_MODE_TOTAL = DictCounter(
     "tidb_tpu_join_probe_mode_total",
     "Probe chunks resolved per route of tidb_probe_count, by mode: "
@@ -619,14 +618,17 @@ JOIN_PROBE_MODE_TOTAL = DictCounter(
     "tidb_tpu_torch.ops.join_kernels", "PROBE_ROUTES", label="mode")
 JOIN_PROBE_SECONDS = Histogram(
     "tidb_tpu_join_probe_seconds",
-    "Wall time of one fused probe+expand pass over a probe chunk, by "
-    "join kind; carries a trace_id exemplar for the worst recent pass",
+    "Host wall time of one probe pass over a probe chunk, from its launch "
+    "to its match total on the host (a deferred chunk's wait for its "
+    "window's one read included), by join kind; carries a trace_id "
+    "exemplar for the worst recent pass",
     exemplars=True)
 JOIN_BUILD_SECONDS = Histogram(
     "tidb_tpu_join_build_seconds",
-    "Wall time of one hash-join build phase (drain + pack + sort), by "
-    "tier: host (numpy probe path), device (fused on-device sort), "
-    "host_sorted (tidb_tpu_join_device_build=0 escape hatch)")
+    "Host wall time of one hash-join build phase (drain + pack + sort, "
+    "the device work it waits on included), by tier: device (packed and "
+    "sorted on the card), host_sorted (tidb_tpu_join_device_build=0 "
+    "escape hatch)")
 DEADLINE_EXCEEDED_TOTAL = Counter(
     "tidb_tpu_deadline_exceeded_total",
     "Statements aborted because max_execution_time expired")

@@ -30,6 +30,29 @@ parent span) on the calling thread; ``span()``/``annotate()``/
 fan-out) records spans directly on the Trace object with explicit
 parent ids instead.
 
+A served statement's trace runs from the connection thread to the card:
+the scheduler opens it at the task's enqueue time (``queued``:
+``sched.queue``, then ``sched.lock_wait``), the session claims it
+(``session.parse``, the ``stmt.*`` span and its phases, down to the
+executor's per-operator spans and the built programs' ``jit.<ns>``
+spans), and the connection thread adds ``server.write`` (``resume``).
+Per-trace counters (``count``, ``sync``) hold what is too frequent for a
+span: ``storage.live_rows`` and ``device.sync`` (calls, seconds). Every
+time is ``time.perf_counter()``, on Linux ``clock_gettime
+(CLOCK_MONOTONIC)``, the clock of ``time.monotonic()``.
+
+While a ``torch.profiler`` is active, every live span (``begin``/
+``span``) and each call under ``tally``/``sync`` also opens a
+``record_function`` range of the same name, so the spans sit in the
+profiler's trace beside the kernels they launch; intervals recorded after
+the fact (``add_complete``: ``sched.queue``, the executor envelopes)
+cannot. With no profiler the check is one module attribute read. A
+profiler sees the ranges of the thread that started it only, unless it
+profiles all threads (``_ExperimentalConfig(profile_all_threads=True)``).
+
+When a statement ends (``apply_tail_rules``) its tree is folded into one
+small record (``RECORDS``, read by ``statements()``), kept or not.
+
 The off path must stay near-free: with no trace installed every hook is
 one thread-local read and a None check — the bench.py warm join
 microbench gates tracing overhead with sampling off at <= 2%.
@@ -45,10 +68,14 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+from torch.autograd import profiler as _profiler
+
 __all__ = ["Span", "Trace", "TraceStore", "STORE", "current", "push",
            "pop", "span", "begin", "finish", "annotate",
            "current_span_id", "head_sampled", "make_trace_id", "keep",
-           "current_trace_id"]
+           "current_trace_id", "PORT_SPANS", "LIVE_ROWS", "DEVICE_SYNC",
+           "profiling", "open_range", "count", "sync", "tally", "queued", "settle",
+           "resume", "RECORDS", "statements"]
 
 _SEQ = itertools.count(1)
 
@@ -57,6 +84,31 @@ _SEQ = itertools.count(1)
 DEFAULT_MAX_SPANS = 512
 
 _tls = threading.local()
+
+# names the port records that the reference's tracer lacks, each a leaf
+# (a prefix ends in "."): the reference's tree is the port's with these
+# left out
+PORT_SPANS = ("sched.lock_wait", "session.parse", "session.finish",
+              "server.write", "jit.")
+
+# the per-trace counters (calls, seconds)
+LIVE_ROWS = "storage.live_rows"
+DEVICE_SYNC = "device.sync"
+
+
+def profiling() -> bool:
+    """True while a torch.profiler is active in this process (torch's own
+    flag, set and cleared as a profiler starts and stops)."""
+    return _profiler._is_profiler_enabled
+
+
+def open_range(name: str):
+    """An open record_function range of `name`, for a caller that found
+    profiling() true (the off path is that one check); close it with
+    ``rf.__exit__(None, None, None)``."""
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 def make_trace_id(digest: str) -> str:
@@ -75,7 +127,7 @@ def head_sampled(rate: float) -> bool:
 
 class Span:
     __slots__ = ("span_id", "parent_id", "name", "start_us", "dur_us",
-                 "proc", "notes")
+                 "proc", "notes", "rf")
 
     def __init__(self, span_id: int, parent_id: Optional[int], name: str,
                  start_us: int):
@@ -86,6 +138,7 @@ class Span:
         self.dur_us = -1  # -1: still open
         self.proc = ""    # "" = this process; set on graft to the endpoint
         self.notes: List[str] = []
+        self.rf = None    # the profiler range a live span holds open
 
 
 class _NullNotes(list):
@@ -110,17 +163,36 @@ class Trace:
     """One statement's span tree (see module docstring)."""
 
     def __init__(self, trace_id: str, sampled: bool = False,
-                 max_spans: int = DEFAULT_MAX_SPANS):
+                 max_spans: int = DEFAULT_MAX_SPANS,
+                 t0_perf: Optional[float] = None):
+        """`trace_id` "" opens the trace ahead of its statement, which
+        claims it (``claim``); `t0_perf` anchors it at an earlier
+        perf_counter() reading (a task's enqueue)."""
         self.trace_id = trace_id
+        self.claimed = bool(trace_id)
         self.sampled = sampled
         self.max_spans = max_spans
-        self.t0_perf = time.perf_counter()
-        self.start_ts = time.time()
+        now = time.perf_counter()
+        self.t0_perf = now if t0_perf is None else t0_perf
+        self.start_ts = time.time() - (now - self.t0_perf)
         self.spans: List[Span] = []
         self.dropped = 0
         self.keep_reasons: List[str] = []
+        # per-trace counters: name -> [calls, seconds]
+        self.counters: Dict[str, list] = {}
+        # aggregated leaf spans: name -> [span, seconds, {kind: calls}]
+        self._tallies: Dict[str, list] = {}
+        # this statement's record in RECORDS, once folded
+        self.record: Optional[Dict] = None
         self._ids = itertools.count(1)
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
+
+    def claim(self, trace_id: str, sampled: bool) -> None:
+        """The statement's identity, for a trace opened ahead of it."""
+        self.trace_id = trace_id
+        self.sampled = sampled
+        self.claimed = True
 
     # -- recording ------------------------------------------------------
 
@@ -138,12 +210,57 @@ class Trace:
         # lint: disable=lock-discipline -- CPython-atomic append; the
         # hot record path must not pay a lock per span (module doc)
         self.spans.append(s)
+        if _profiler._is_profiler_enabled:
+            s.rf = open_range(name)
         return s
 
     def end(self, s: Span) -> None:
         if s is _DROPPED:
             return
         s.dur_us = self._now_us() - s.start_us
+        if s.rf is not None:
+            s.rf.__exit__(None, None, None)
+            s.rf = None
+
+    def count(self, name: str, seconds: float) -> None:
+        """One call of a per-trace counter."""
+        with self._count_lock:
+            c = self.counters.get(name)
+            if c is None:
+                self.counters[name] = [1, seconds]
+            else:
+                c[0] += 1
+                c[1] += seconds
+
+    def tally(self, name: str, t0_perf: float, seconds: float, kind: str,
+              parent_id: Optional[int]) -> None:
+        """One call folded into the aggregated leaf span `name`: it starts
+        at the first call, lasts the calls' summed seconds and counts
+        them by `kind` (``settle_tallies`` writes the counts as notes)."""
+        with self._count_lock:
+            t = self._tallies.get(name)
+            if t is None:
+                s = self.add_complete(name, t0_perf, 0.0, parent_id=parent_id)
+                t = self._tallies[name] = [s, 0.0, {}]
+            t[1] += seconds
+            k = t[2].get(kind)
+            if k is None:
+                t[2][kind] = [1, seconds]
+            else:
+                k[0] += 1
+                k[1] += seconds
+            if t[0] is not _DROPPED:
+                t[0].dur_us = int(t[1] * 1e6)
+
+    def settle_tallies(self) -> None:
+        """Write each aggregated span's calls by kind as its note and as
+        counters ``<name>.<kind>`` (calls, seconds)."""
+        with self._count_lock:
+            for name, (s, _secs, kinds) in self._tallies.items():
+                if s is not _DROPPED:
+                    s.notes[:] = [" ".join(f"{k}={c[0]}" for k, c in sorted(kinds.items()))]
+                for k, c in kinds.items():
+                    self.counters[f"{name}.{k}"] = list(c)
 
     def add_complete(self, name: str, t0_perf: float, dur_s: float,
                      parent_id: Optional[int] = None,
@@ -232,7 +349,11 @@ class Trace:
         return round((end - start) / 1e3, 3)
 
     def summary(self) -> Dict:
-        root = next((s for s in self.spans if s.parent_id is None), None)
+        # the statement's root: the first root the reference records (a
+        # served statement's queue, lock wait and parse come before it)
+        root = next((s for s in self.spans if s.parent_id is None
+                     and not s.name.startswith(PORT_SPANS)
+                     and s.name != "sched.queue"), None)
         return {
             "trace_id": self.trace_id,
             "start": time.strftime("%Y-%m-%d %H:%M:%S",
@@ -263,7 +384,26 @@ class Trace:
             (roots if parent is None else parent["children"]).append(node)
         out = self.summary()
         out["tree"] = roots
+        with self._count_lock:
+            out["counters"] = {k: list(v) for k, v in self.counters.items()}
         return out
+
+    def fold(self, t_end: float) -> Dict:
+        """This trace as one small record: its id, its start and end on
+        perf_counter(), seconds and count per span name, its counters."""
+        with self._lock:
+            spans = list(self.spans)
+        per: Dict[str, list] = {}
+        for s in spans:
+            p = per.get(s.name)
+            if p is None:
+                p = per[s.name] = [0, 0.0]
+            p[0] += 1
+            p[1] += max(s.dur_us, 0) / 1e6
+        with self._count_lock:
+            counters = {k: list(v) for k, v in self.counters.items()}
+        return {"trace_id": self.trace_id, "t_start": self.t0_perf,
+                "t_end": t_end, "spans": per, "counters": counters}
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +491,59 @@ def span(name: str):
         trace.end(s)
 
 
+def count(name: str, seconds: float) -> None:
+    """One call of the per-trace counter `name` under the thread's trace;
+    no-op without one."""
+    stack = getattr(_tls, "stack", None)
+    if stack:
+        stack[-1][0].count(name, seconds)
+
+
+class _Timed:
+    """``with sync():`` — the block's seconds into a counter, and a
+    profiler range of the counter's name while one is active."""
+
+    __slots__ = ("name", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = open_range(self.name) if _profiler._is_profiler_enabled else None
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        count(self.name, time.perf_counter() - self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+
+
+_NO_SYNC = contextlib.nullcontext()
+
+
+def sync(on_card: bool = True):
+    """Time a block in which the host waits on the card (a device->host
+    copy, a host->device copy from pageable memory, an operation whose
+    output size the host must learn) under the ``device.sync`` counter;
+    with `on_card` false (the same code on the CPU) a no-op."""
+    return _Timed(DEVICE_SYNC) if on_card else _NO_SYNC
+
+
+def tally(name: str, t0_perf: float, seconds: float, kind: str) -> None:
+    """One call of `name` (``jit.<ns>``, run as `kind`) into its
+    aggregated leaf span, one per name per trace, under the phase of the
+    statement the call runs in (the span right under the ``stmt.*``
+    span). No-op without a trace."""
+    stack = getattr(_tls, "stack", None)
+    if not stack:
+        return
+    trace, spans = stack[-1]
+    parent = spans[1] if len(spans) > 1 else (spans[0] if spans else None)
+    trace.tally(name, t0_perf, seconds, kind,
+                parent.span_id if parent is not None else None)
+
+
 def annotate(note: str) -> None:
     """Attach a note to the thread's current span (or the trace root
     when no span is open). No-op without a trace."""
@@ -427,12 +620,101 @@ class TraceStore:
 STORE = TraceStore()
 
 
+class StatementRecords:
+    """Fixed-size ring of the folded records of the statements that
+    ended (``Trace.fold``), oldest dropped first."""
+
+    CAPACITY = 4096
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self._ring: deque = deque(maxlen=self.CAPACITY)
+
+    def add(self, record: Dict) -> None:
+        with self.lock:
+            self._ring.append(record)
+
+    def window(self, t_from: float, t_to: float) -> List[Dict]:
+        with self.lock:
+            return [r for r in self._ring if t_from <= r["t_start"] <= t_to]
+
+    def clear(self) -> None:
+        with self.lock:
+            self._ring.clear()
+
+    def __len__(self) -> int:
+        with self.lock:
+            return len(self._ring)
+
+
+RECORDS = StatementRecords()
+
+
+def statements(t_from: float, t_to: float) -> List[Dict]:
+    """The records of the statements that began (the scheduler's enqueue,
+    or the session's parse outside the server) from `t_from` to `t_to`,
+    both on time.monotonic()/perf_counter(), oldest first. A record:
+    trace_id, t_start, t_end, spans {name: [count, seconds]}, counters
+    {name: [calls, seconds]}."""
+    return RECORDS.window(t_from, t_to)
+
+
+def _end(tr: Trace) -> None:
+    tr.settle_tallies()
+    tr.record = tr.fold(time.perf_counter())
+    RECORDS.add(tr.record)
+
+
+def queued(t_enqueue: float) -> Trace:
+    """Open, on this thread, the trace of a statement about to run: it
+    starts at `t_enqueue` (perf_counter() when its task was queued) with
+    the span ``sched.queue`` up to now, and the statement claims it."""
+    tr = Trace("", t0_perf=t_enqueue)
+    tr.add_complete("sched.queue", t_enqueue, time.perf_counter() - t_enqueue)
+    push(tr)
+    return tr
+
+
+def settle(tr: Trace) -> None:
+    """After the statement a trace was opened for: pop it off the thread
+    if it is still there. A trace no statement claimed (the statement
+    failed before it began) ends here, with what it holds."""
+    if current() is tr:
+        pop()
+    if not tr.claimed and tr.record is None:
+        _end(tr)
+
+
+@contextlib.contextmanager
+def resume(tr: Optional[Trace], name: str):
+    """A live span `name` of an ended statement's trace on this thread
+    (the connection thread's ``server.write``); the statement's record
+    takes its seconds and ends where it ends."""
+    if tr is None:
+        yield None
+        return
+    push(tr)
+    s = tr.begin(name)
+    try:
+        yield s
+    finally:
+        tr.end(s)
+        pop()
+        rec = tr.record
+        if rec is not None and s is not _DROPPED:
+            p = rec["spans"].setdefault(name, [0, 0.0])
+            p[0] += 1
+            p[1] += s.dur_us / 1e6
+            rec["t_end"] = time.perf_counter()
+
+
 def apply_tail_rules(tr: Trace, dur_s: float, threshold_ms: int,
                      error=None, capacity: Optional[int] = None) -> str:
     """The ONE end-of-statement keep sequence, shared by
     Session._execute_timed and standalone Cluster.query (two copies
     would drift): error keep -> slow keep -> pop off the thread ->
-    head-sample keep -> store if kept. Returns the trace_id."""
+    head-sample keep -> store if kept; the trace folded into its record
+    (RECORDS) either way. Returns the trace_id."""
     if error is not None:
         tr.keep(f"error:{type(error).__name__}")
     if dur_s * 1e3 >= threshold_ms:
@@ -441,6 +723,7 @@ def apply_tail_rules(tr: Trace, dur_s: float, threshold_ms: int,
         pop()
     if tr.sampled:
         tr.keep("sampled")
+    _end(tr)
     if tr.kept:
         STORE.add(tr, capacity=capacity)
     return tr.trace_id
